@@ -1,0 +1,71 @@
+"""Carry parameters over from the JAX package (no reference module).
+
+The JAX package draws its weights with ``jax.random``, which PyTorch cannot
+reproduce, so parity runs export the JAX parameter tree as nested dicts of
+numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``) and load it
+here.  The tree is the reference's, dense or frozen: layers stacked on axis
+0 (``repro/models/transformer.py:134-150``) and packed leaves as
+``{"packed", "scale"}`` dicts.  This module never imports JAX; the caller
+does the ``jax -> numpy`` step.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.models.config import ModelConfig
+
+
+def _leaf_to_torch(a: Any, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes; numpy has no bf16
+        return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+    # copy: arrays exported from JAX are read-only views
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def params_from_numpy(tree: Any, cfg: ModelConfig,
+                      device: DeviceLike = None) -> Any:
+    """Nested dicts of numpy arrays -> the same tree of tensors on ``device``
+    (default ``cuda``).  Checks the stacked layer axis against ``cfg``."""
+    dev = resolve_device(device)
+
+    def walk(t: Any) -> Any:
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        return _leaf_to_torch(t, dev)
+
+    out = walk(tree)
+    embed = out.get("embed") if isinstance(out, dict) else None
+    if embed is not None and tuple(embed.shape) != (cfg.vocab_size,
+                                                    cfg.d_model):
+        raise ValueError(f"embed {tuple(embed.shape)} does not match "
+                         f"{cfg.name} ({cfg.vocab_size}, {cfg.d_model})")
+    for t in _leaves(out.get("layers", {}) if isinstance(out, dict) else {}):
+        if t.shape[0] != cfg.n_layers:
+            raise ValueError(f"stacked layer axis {t.shape[0]} != "
+                             f"{cfg.name} n_layers {cfg.n_layers}")
+    return out
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """Inverse of :func:`params_from_numpy`: tensors -> numpy arrays on the
+    host (bf16 leaves come back as float32)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()
+
+
+def _leaves(tree: Any):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

@@ -1,0 +1,80 @@
+"""Fused dequant matmul — the At-MRAM weight path, as a Hopper kernel.
+
+Ports ``repro/kernels/qmatmul.py::qmatmul_f32`` (``_qmatmul_f32_kernel``,
+``_unpack_block``).  Packed 2/4/8-bit weights stay packed in device memory;
+the kernel (``csrc/qmatmul_f32.cu``) unpacks them in registers next to the
+multiply-adds and applies the per-channel scale once after the K reduction,
+as the reference does.
+
+The wrapper launches the kernel for CUDA tensors and raises on anything it
+does not take.  For CPU tensors it computes the plain PyTorch version
+(``kernels/ref.py``).  ``qmatmul_f32.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+_c_ptr = ctypes.c_void_p
+_c_int = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    fn = build.library("qmatmul_f32").qmatmul_f32_launch
+    fn.argtypes = [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr,
+                   _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr]
+    fn.restype = _c_int
+    return fn
+
+
+def qmatmul_f32(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                *, bits: int, k_orig: int) -> torch.Tensor:
+    """x (M, K) f32/bf16 @ packed (N, ceil(K/f)) uint8 with scale (N,) f32
+    -> (M, N) f32, where f = 8 // bits."""
+    devices = {x.device.type, packed.device.type, scale.device.type}
+    if devices == {"cpu"}:
+        return ref.qmatmul_f32(x, packed, scale, bits=bits, k_orig=k_orig)
+    if devices != {"cuda"} or len({x.device, packed.device,
+                                   scale.device}) != 1:
+        raise ValueError("qmatmul_f32 needs x, packed and scale on one CUDA "
+                         f"device (or all on the CPU), got {x.device}, "
+                         f"{packed.device}, {scale.device}")
+    if bits not in (2, 4, 8):
+        raise ValueError(f"bits must be 2, 4 or 8, got {bits}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if packed.dtype != torch.uint8 or scale.dtype != torch.float32:
+        raise TypeError(f"packed must be uint8 and scale float32, got "
+                        f"{packed.dtype} and {scale.dtype}")
+    if x.ndim != 2 or packed.ndim != 2 or scale.ndim != 1:
+        raise ValueError("x must be (M, K), packed (N, Kp) and scale (N,)")
+    m, k = x.shape
+    n, kp = packed.shape
+    f = 8 // bits
+    if k != k_orig or kp != -(-k // f) or scale.shape[0] != n:
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, packed "
+                         f"{tuple(packed.shape)}, scale {tuple(scale.shape)}, "
+                         f"bits={bits}, k_orig={k_orig}")
+    if not (x.is_contiguous() and packed.is_contiguous()
+            and scale.is_contiguous()):
+        raise ValueError("qmatmul_f32 needs contiguous x, packed and scale")
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    rc = _launcher()(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                     packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                     m, n, k, kp, bits,
+                     torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"qmatmul_f32 launch failed: CUDA error {rc}")
+    qmatmul_f32.launches += 1
+    return out
+
+
+qmatmul_f32.launches = 0

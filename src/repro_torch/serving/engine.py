@@ -1,0 +1,393 @@
+"""Batched serving engine over the packed At-MRAM weight store
+(reference: ``repro/serving/engine.py:55-296`` and ``:808-1164``).
+
+A continuous-batching loop, as in the reference:
+
+  * requests join a waiting queue and are admitted into free batch slots;
+  * prompts prefill in power-of-two **buckets** (left-aligned, right-padded;
+    the causal mask keeps the pads invisible to real tokens), and all fresh
+    slots of a bucket prefill in ONE batched call: gather the slots' cache
+    rows, slice them to the ``kv_span`` the chunk can reach, run a batch
+    step padded to the slot count, scatter the rows back;
+  * one batched decode step serves every decode-ready slot each tick, with
+    per-slot sampling at each request's own temperature; slots that are
+    empty or still prefilling park their write at the scratch row
+    ``max_len - 1``;
+  * finished sequences free their slot at once; ``preempt`` / ``restore``
+    hand a slot over mid-request, bit-exactly.
+
+The reference compiles one program per (bucket, kv span); PyTorch runs
+eagerly, so there is nothing to cache beyond the per-layer parameter views.
+Sampling draws from an explicit ``torch.Generator`` on the engine's device
+(the reference splits ``jax.random`` keys; the two agree at temperature 0).
+
+Not ported yet: weight and KV paging (``attach_paging``,
+``attach_kv_paging``: ROADMAP A7), tracing and the scheduler hooks (A5), and
+the non-dense families' prefill rules (A9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.device import DeviceLike, device_of, resolve_device
+from repro_torch.core.placement import PlacementPlan, as_plan
+from repro_torch.models import transformer as tfm
+from repro_torch.models.config import ModelConfig
+from repro_torch.serving.trace import now as _now
+
+
+def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
+                 temperature: float = 1.0) -> torch.Tensor:
+    """logits (..., V) -> token ids (...,)."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
+    flat = probs.reshape(-1, probs.shape[-1])
+    return torch.multinomial(flat, 1, generator=generator).reshape(
+        probs.shape[:-1])
+
+
+def sample_token_batch(logits: torch.Tensor,
+                       generator: Optional[torch.Generator],
+                       temperatures: Sequence[float]) -> torch.Tensor:
+    """Per-row sampling: logits (B, V) with host temperatures (B,).  Row b is
+    greedy when ``temperatures[b] <= 0`` and otherwise sampled at its own
+    temperature."""
+    greedy = torch.argmax(logits, dim=-1)
+    temps_np = np.asarray(temperatures, np.float32)
+    if not (temps_np > 0).any():
+        return greedy
+    temps = torch.as_tensor(temps_np, device=logits.device)
+    safe = torch.clamp(temps, min=1e-6)[:, None]
+    probs = torch.softmax(logits.to(torch.float32) / safe, dim=-1)
+    sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return torch.where(temps <= 0.0, greedy, sampled)
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length() if n > 1 else 1
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << (int(n).bit_length() - 1)
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray                 # (S,) int32
+    max_new_tokens: int = 16
+    temperature: float = 0.0
+    generated: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    # retired because the KV cache ran out before max_new_tokens
+    truncated: bool = False
+    prefill_pos: int = 0               # prompt tokens already prefilled
+    arrival_s: Optional[float] = None
+    first_token_s: Optional[float] = None
+    finish_s: Optional[float] = None
+    preemptions: int = 0
+
+
+@dataclasses.dataclass
+class SlotCheckpoint:
+    """Bit-exact resumable snapshot of one preempted batch slot: the slot's
+    valid cache rows ``[0, valid)`` as host (CPU) tensor copies, plus the
+    request, which carries its chunk frontier and the tokens so far."""
+    req: Request
+    slot_pos: int
+    valid: int
+    kv: Optional[Dict[str, torch.Tensor]] = None
+
+
+class ServingEngine:
+    """``plan`` is the per-parameter weight placement
+    (:class:`~repro_torch.core.placement.PlacementPlan`); the legacy
+    ``engine`` dict ({"scenario", "mode", "bits"}) is accepted too.
+    ``device`` defaults to ``cuda`` and must be where ``params`` lie."""
+
+    def __init__(self, cfg: ModelConfig, params: Any, *, batch_slots: int = 4,
+                 max_len: int = 512, engine: Optional[Dict] = None,
+                 plan: Optional[PlacementPlan] = None, seed: int = 0,
+                 prefill_chunk: int = 64, device: DeviceLike = None):
+        tfm.check_family(cfg)
+        self.device = resolve_device(device)
+        p_dev = device_of(params)
+        if p_dev is not None and p_dev.type != self.device.type:
+            raise ValueError(f"params lie on {p_dev}, the engine runs on "
+                             f"{self.device}")
+        self.cfg = cfg
+        self.params = params
+        self._layers = tfm.layer_params(params, cfg)
+        self.slots = batch_slots
+        self.max_len = max_len
+        if plan is not None and engine is not None:
+            raise ValueError("pass either plan= or the legacy engine=, "
+                             "not both")
+        self.plan = plan if plan is not None else as_plan(engine)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        if prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got "
+                             f"{prefill_chunk}")
+        self.prefill_chunk = _next_pow2(prefill_chunk)
+
+        self.cache = tfm.init_serve_cache(cfg, batch_slots, max_len,
+                                          device=self.device)
+        self.slot_req: List[Optional[Request]] = [None] * batch_slots
+        self.slot_pos = np.zeros(batch_slots, np.int32)
+        self.waiting: List[Request] = []
+        self.finished: List[Request] = []
+        self.preempt_count = 0
+        self.restore_count = 0
+
+    # -- not ported yet ---------------------------------------------------------
+    def attach_paging(self, *args, **kwargs):
+        raise NotImplementedError("weight paging is not ported yet "
+                                  "(ROADMAP A7)")
+
+    def attach_kv_paging(self, *args, **kwargs):
+        raise NotImplementedError("KV paging is not ported yet (ROADMAP A7)")
+
+    def tick_params(self) -> Any:
+        """The parameters this tick computes with: the resident tree (there
+        is no paging to stream yet)."""
+        return self.params
+
+    def _step(self, params: Any, tokens: torch.Tensor, cache: Dict[str, Any],
+              pos: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        layers = self._layers if params is self.params else None
+        return tfm.step(params, tokens, cache, pos, self.cfg,
+                        engine=self.plan, layers=layers)
+
+    def _to_device(self, a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+        return torch.from_numpy(a).to(device=self.device, dtype=dtype)
+
+    # -- slot management --------------------------------------------------------
+    def submit(self, req: Request) -> None:
+        self._check_fits(req)
+        if req.arrival_s is None:
+            req.arrival_s = _now()
+        self.waiting.append(req)
+
+    def _check_fits(self, req: Request) -> None:
+        if len(req.prompt) == 0:
+            raise ValueError("empty prompt: nothing to condition on (and "
+                             "no first token to decode from)")
+        if len(req.prompt) + 1 > self.max_len:
+            raise ValueError(f"prompt of {len(req.prompt)} tokens does not "
+                             f"fit max_len={self.max_len}")
+
+    def free_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.slot_req) if r is None]
+
+    def assign(self, req: Request, slot: int) -> None:
+        """Bind a request to a batch slot (prefill starts next tick pass)."""
+        if self.slot_req[slot] is not None:
+            raise ValueError(f"slot {slot} is occupied")
+        self._check_fits(req)
+        if req.arrival_s is None:
+            req.arrival_s = _now()
+        req.prefill_pos = 0
+        self.slot_req[slot] = req
+
+    def _kv_valid(self, i: int) -> int:
+        """Valid KV rows of slot ``i``: the prompt prefix absorbed so far,
+        then ``slot_pos`` once decoding."""
+        r = self.slot_req[i]
+        if r is None or r.prefill_pos == 0:
+            return 0
+        if r.prefill_pos < len(r.prompt):
+            return r.prefill_pos
+        return int(self.slot_pos[i])
+
+    def preempt(self, slot: int) -> SlotCheckpoint:
+        """Evict the request occupying ``slot`` mid-service and return a
+        bit-exact resumable :class:`SlotCheckpoint`."""
+        req = self.slot_req[slot]
+        if req is None:
+            raise ValueError(f"slot {slot} is empty; nothing to preempt")
+        valid = self._kv_valid(slot)
+        kv = None
+        if valid > 0:
+            kv = {n: c[:, slot, :, :valid].to("cpu", copy=True)
+                  for n, c in self.cache["kv"].items()}
+        ckpt = SlotCheckpoint(req=req, slot_pos=int(self.slot_pos[slot]),
+                              valid=int(valid), kv=kv)
+        req.preemptions += 1
+        self.slot_req[slot] = None
+        self.preempt_count += 1
+        return ckpt
+
+    def restore(self, ckpt: SlotCheckpoint, slot: int) -> None:
+        """Rebind a preempted request to a free slot and scatter its
+        checkpointed cache rows back; decode resumes from
+        ``generated[-1]``, chunked prefill from its chunk frontier."""
+        if self.slot_req[slot] is not None:
+            raise ValueError(f"slot {slot} is occupied")
+        self.slot_req[slot] = ckpt.req
+        self.slot_pos[slot] = ckpt.slot_pos
+        self.restore_count += 1
+        if ckpt.kv is not None:
+            for n, c in self.cache["kv"].items():
+                c[:, slot, :, :ckpt.valid] = ckpt.kv[n].to(c.device, c.dtype)
+
+    @property
+    def pending(self) -> bool:
+        return bool(self.waiting
+                    or any(r is not None for r in self.slot_req))
+
+    # -- tick primitives ----------------------------------------------------------
+    def _chunk_shape(self, req: Request) -> Tuple[int, int, int]:
+        """(n_tokens, bucket, insert_pos) of the next prefill chunk."""
+        remaining = len(req.prompt) - req.prefill_pos
+        n = min(self.prefill_chunk, remaining)
+        bucket = _next_pow2(n)
+        # never let the padded window spill past the cache: near the end
+        # shrink to the largest power of two that still fits
+        avail = self.max_len - req.prefill_pos
+        if bucket > avail:
+            bucket = _pow2_floor(avail)
+            n = min(bucket, remaining)
+        return n, bucket, req.prefill_pos
+
+    def prefill_tick(self, params: Any, complete: bool = False
+                     ) -> List[Request]:
+        """Advance every prefilling slot by one chunk (``complete=True``
+        loops until all prompts are absorbed).  Slots whose prompt completes
+        sample their first token.  Returns the requests that got their
+        first token this call."""
+        started: List[Request] = []
+        while True:
+            pending = [(i, r) for i, r in enumerate(self.slot_req)
+                       if r is not None and r.prefill_pos < len(r.prompt)]
+            if not pending:
+                break
+            groups: Dict[int, List[Tuple[int, Request, int, int]]] = {}
+            for i, r in pending:
+                n, bucket, pos = self._chunk_shape(r)
+                groups.setdefault(bucket, []).append((i, r, n, pos))
+            for bucket, rows in groups.items():
+                self._run_prefill_rows(params, bucket, rows, started)
+            if not complete:
+                break
+        return started
+
+    def _kv_span_for(self, bucket: int,
+                     rows: List[Tuple[int, Request, int, int]]) -> int:
+        """KV span one prefill group attends: the next power of two covering
+        every row's ``insert_pos + bucket``, clamped to ``max_len``."""
+        need = max(pos + bucket for _i, _r, _n, pos in rows)
+        return min(self.max_len, _next_pow2(need))
+
+    def _run_prefill_rows(self, params: Any, bucket: int,
+                          rows: List[Tuple[int, Request, int, int]],
+                          started: List[Request]) -> None:
+        k = self.slots
+        kv_span = self._kv_span_for(bucket, rows)
+        tokens = np.zeros((k, bucket), np.int64)
+        slot_idx = np.zeros((k,), np.int64)
+        pos_vec = np.zeros((k,), np.int32)
+        for j in range(k):
+            # rows beyond the group repeat the last row: the duplicate
+            # scatter writes identical values
+            i, r, n, pos = rows[min(j, len(rows) - 1)]
+            tokens[j, :n] = r.prompt[r.prefill_pos:r.prefill_pos + n]
+            slot_idx[j] = i
+            pos_vec[j] = pos
+        sidx = self._to_device(slot_idx, torch.long)
+        kv = self.cache["kv"]
+        sub = dict(kv={n: c[:, sidx, :, :kv_span] for n, c in kv.items()})
+        logits, sub = self._step(params, self._to_device(tokens, torch.long),
+                                 sub, self._to_device(pos_vec, torch.int32))
+        for n, c in kv.items():
+            c[:, sidx, :, :kv_span] = sub["kv"][n]
+        for j, (i, r, n, _pos) in enumerate(rows):
+            r.prefill_pos += n
+            if r.prefill_pos < len(r.prompt):
+                continue                      # more chunks next tick
+            tok = int(sample_token(logits[j, n - 1], self.generator,
+                                   r.temperature))
+            r.generated.append(tok)
+            r.first_token_s = _now()
+            self.slot_pos[i] = len(r.prompt)
+            started.append(r)
+            if len(r.generated) >= r.max_new_tokens:
+                self._retire(i)
+
+    def decode_tick(self, params: Any) -> List[Request]:
+        """One batched decode step over the decode-ready slots.  Slots that
+        are empty or still prefilling park their write at the scratch row
+        (max_len - 1), which real decoding never reaches and the cache-length
+        mask never attends.  Returns the requests finished this tick."""
+        active = [i for i, r in enumerate(self.slot_req)
+                  if r is not None and r.prefill_pos >= len(r.prompt)]
+        if not active:
+            return []
+        tokens = np.zeros((self.slots, 1), np.int64)
+        temps = np.zeros((self.slots,), np.float32)
+        pos = np.full((self.slots,), self.max_len - 1, np.int32)
+        for i in active:
+            req = self.slot_req[i]
+            tokens[i, 0] = req.generated[-1]
+            temps[i] = req.temperature
+            pos[i] = self.slot_pos[i]
+        logits, self.cache = self._step(params,
+                                        self._to_device(tokens, torch.long),
+                                        self.cache,
+                                        self._to_device(pos, torch.int32))
+        toks = sample_token_batch(logits[:, -1], self.generator,
+                                  temps).tolist()
+        finished: List[Request] = []
+        for i in active:
+            req = self.slot_req[i]
+            req.generated.append(int(toks[i]))
+            self.slot_pos[i] += 1
+            if len(req.generated) >= req.max_new_tokens:
+                finished.append(self._retire(i))
+            elif self.slot_pos[i] >= self.max_len - 1:
+                # cache exhausted mid-request: partial service
+                req.truncated = True
+                finished.append(self._retire(i))
+        return finished
+
+    def _retire(self, slot: int) -> Request:
+        req = self.slot_req[slot]
+        req.done = True
+        req.finish_s = _now()
+        self.finished.append(req)
+        self.slot_req[slot] = None
+        return req
+
+    # -- FIFO loop ----------------------------------------------------------------
+    def _admit(self) -> None:
+        for i in self.free_slots():
+            if not self.waiting:
+                break
+            self.assign(self.waiting.pop(0), i)
+
+    def step(self) -> List[Request]:
+        """One engine tick: admit FIFO, full prefill for the fresh slots,
+        batched decode, retire.  Returns the requests finished this tick."""
+        before = len(self.finished)
+        params = self.tick_params()
+        self._admit()
+        self.prefill_tick(params, complete=True)
+        self.decode_tick(params)
+        return self.finished[before:]
+
+    def run_until_done(self, max_ticks: int = 10_000) -> List[Request]:
+        """Serve until the queue drains; returns the requests completed by
+        THIS call (``self.finished`` keeps the all-time list)."""
+        done: List[Request] = []
+        ticks = 0
+        while self.pending:
+            done += self.step()
+            ticks += 1
+            if ticks > max_ticks:
+                raise RuntimeError("serving loop did not converge")
+        return done
