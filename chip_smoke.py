@@ -3,28 +3,43 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-It drives the port's main path once at the full width of qwen3-0.6b and
+It drives the port's two paths once, each at full width -- serving
+qwen3-0.6b, and int8 MobileNet-V2 1.0-224 on the N-EUREKA operators -- and
 fails (non-zero exit, no result line) if any phase fails:
 
 1. set-up: requires a CUDA device, turns TF32 off, prints the card's name
-   and power limit, builds every ``csrc/*.cu`` with nvcc for sm_90a and
-   prints what ptxas reports for each kernel;
+   and power limit, builds every ``csrc/*.cu`` with nvcc for sm_90a (one
+   nvcc each, in parallel) and prints what ptxas reports for each kernel;
 2. each Hopper kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it, within the stated tolerances; then
-   each timed with CUDA events (L2-cold: inputs rotate over more than the
-   50 MB L2) beside its plain version, one PyTorch library call for the
-   same function, and its bound (bytes over 3.35 TB/s or f32 flops over
-   67 TFLOP/s, whichever is larger).  Device times replay a CUDA graph of
-   the calls, so the host's launch gaps drop out; the same calls enqueued
-   eagerly from Python are printed beside them;
+   shapes its path gives it: ``qmatmul_f32`` and ``flash_attention`` within
+   the stated tolerances; ``qmatmul_int8``, ``conv3x3_dense`` and
+   ``conv3x3_dw`` bit for bit (``torch.equal``) at every distinct
+   MobileNet-V2 job shape at 224, at 8, 4 and 2 bits, at the ragged shapes
+   of the reference's kernel tests and at requant ties.  Then each is timed
+   with CUDA events (L2-cold: inputs rotate over more than the 50 MB L2)
+   beside its plain version, one PyTorch library call for the same
+   accumulation, and its bound: bytes over 3.35 TB/s, or operations over
+   67 TFLOP/s (f32) or 1,979 TOP/s (int8 tensor cores), whichever is
+   larger.  Device times replay a CUDA graph of the calls, so the host's
+   launch gaps drop out; the same calls enqueued eagerly from Python are
+   printed beside them;
 3. serving: full-width qwen3-0.6b (28 layers, d_model 1024, vocab 151936)
    with random weights from a seeded ``torch.Generator``, frozen at 8 bits,
    ``ServingEngine(batch_slots=4, max_len=512)`` on the card answering 8
    greedy requests (prompts of 16-256 tokens, 16 new tokens each); both
-   kernels' launch counters must grow during it;
+   LM kernels' launch counters must grow during it;
 4. card vs CPU: ``forward`` logits of one 64-token sequence with the same
    packed weights on the card (kernels) and on the CPU (plain versions);
-5. the ``{"kernels": [...]}`` line, the card line, and as the last line
+5. frames: MobileNet-V2 1.0-224 with random weights from a seeded
+   ``torch.Generator``, frozen at 8 bits on the card, runs 16 random uint8
+   frames through ``apply``; the N-EUREKA launch counters must grow by
+   exactly 1 / 17 / 35 a frame; the tree frozen on the card must equal
+   the CPU's; two frames must equal the plain path on the CPU bit for
+   bit, and one frame each frozen at 4 and 2 bits too.  It prints the
+   eager and CUDA-graph frame times, peak memory, and from
+   ``torch.profiler`` the device time by kernel and by job and the
+   device's idle share of the eager frames;
+6. the ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -44,10 +59,17 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core rate
 
 QMM_TOL = dict(rtol=1e-4, atol=1e-4)      # f32 accumulate, reordered sums
 FLASH_TOL = dict(rtol=3e-5, atol=3e-5)    # the reference kernel test's
 LOGITS_TOL = dict(rtol=1e-3, atol=1e-3)   # 28 f32 layers, card vs CPU order
+
+MNV2_IMG = 224
+MNV2_FRAMES = 16
+NEUREKA_KERNELS = ("conv3x3_dense", "conv3x3_dw", "qmatmul_int8")
+NEUREKA_PER_FRAME = {"conv3x3_dense": 1, "conv3x3_dw": 17, "qmatmul_int8": 35}
+L2_COLD_BYTES = 64e6             # rotate timing inputs over more than L2
 
 # (K, N) of each packed linear of a qwen3-0.6b layer
 LAYER_LINEARS = {"wq": (1024, 2048), "wk": (1024, 1024), "wv": (1024, 1024),
@@ -125,9 +147,9 @@ def time_versions(torch, kernel, plain, library, n_sets: int,
                 eager_library_ms=eager[2])
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, ops: float, rate: float = F32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = ops / rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -294,6 +316,318 @@ def print_times(what: str, library: str, res, nbytes: int, flops: int):
           f"({res['bound_by']}; {nbytes} B, {flops} flop)")
 
 
+def job_key(j):
+    """(op, shape) of one N-EUREKA job: pw1x1 (M, K, N), dense3x3 (H, W,
+    Cin, Cout, stride), dw3x3 (H, W, C, stride).  Every pw1x1 job of the
+    network has stride 1."""
+    if j.op_kind == "pw1x1":
+        return "pw1x1", (j.h * j.w, j.cin, j.cout)
+    if j.op_kind == "dense3x3":
+        return "dense3x3", (j.h, j.w, j.cin, j.cout, j.stride)
+    return "dw3x3", (j.h, j.w, j.cin, j.stride)
+
+
+def neureka_case(torch, packing, ops, gen, dev, op, shape, bits,
+                 tie=False):
+    """(x, packed, mult, bias) of one N-EUREKA job.  ``mult`` spreads the
+    int32 sums over ~40 LSB as ``freeze_packed`` does and the bias sits
+    near 128; with ``tie`` the activations are small and ``mult`` is 0.5 or
+    0.25, so many outputs land on an exact .5 before rounding."""
+    hi = 4 if tie else 256
+    if op == "pw1x1":
+        m, k, n = shape
+        x = torch.randint(0, hi, (m, k), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        packed = ops.prep_linear(torch.randn((n, k), generator=gen,
+                                             device=dev), bits)[0]
+        levels, k_red = packing.unpack(packed, bits, k), k
+    elif op == "dense3x3":
+        h, w, cin, n, _ = shape
+        x = torch.randint(0, hi, (h, w, cin), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        packed = ops.prep_conv3x3(torch.randn((n, 3, 3, cin), generator=gen,
+                                              device=dev), bits)[0]
+        levels, k_red = packing.unpack(packed, bits, cin), 9 * cin
+    else:
+        h, w, n, _ = shape
+        x = torch.randint(0, hi, (h, w, n), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        packed = ops.prep_dw3x3(torch.randn((n, 3, 3), generator=gen,
+                                            device=dev), bits)[0]
+        levels, k_red = packing.unpack(packed, bits, 9), 9
+    if tie:
+        mult = torch.where(torch.arange(n, device=dev) % 2 == 0, 0.5, 0.25)
+        bias = torch.full((n,), 100, dtype=torch.int32, device=dev)
+    else:
+        rms = levels.reshape(n, -1).float().pow(2).mean(1).sqrt()
+        mult = 40.0 / (128.0 * rms.clamp(min=1e-3) * k_red ** 0.5)
+        bias = torch.randint(96, 160, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    return x, packed, mult.float().contiguous(), bias
+
+
+def neureka_pair(nkc, qmm, ref, op, shape, bits):
+    """(kernel name, kernel call, plain call) for one job shape."""
+    if op == "pw1x1":
+        k = shape[1]
+        return ("qmatmul_int8",
+                lambda *a: qmm.qmatmul_int8(*a, bits=bits, k_orig=k),
+                lambda *a: ref.qmatmul_int8(*a, bits=bits, k_orig=k))
+    if op == "dense3x3":
+        cin, st = shape[2], shape[4]
+        return ("conv3x3_dense",
+                lambda *a: nkc.conv3x3_dense(*a, bits=bits, cin=cin,
+                                             stride=st),
+                lambda *a: ref.conv3x3_dense(*a, bits=bits, cin=cin,
+                                             stride=st))
+    st = shape[3]
+    return ("conv3x3_dw",
+            lambda *a: nkc.conv3x3_dw(*a, bits=bits, stride=st),
+            lambda *a: ref.conv3x3_dw(*a, bits=bits, stride=st))
+
+
+# the ragged shapes of the reference's kernel tests (test_kernels.py:45-100)
+RAGGED_CASES = (
+    [("pw1x1", (40, 130, 50)), ("pw1x1", (1, 33, 7)), ("pw1x1", (63, 130, 17))]
+    + [("dense3x3", (12, 10, 24, 16, s)) for s in (1, 2)]
+    + [("dense3x3", (7, 7, 3, 32, s)) for s in (1, 2)]
+    + [("dw3x3", (9, 11, 40, s)) for s in (1, 2)])
+TIE_CASES = [("pw1x1", (37, 4, 9)), ("pw1x1", (50, 24, 40)),
+             ("dense3x3", (7, 7, 3, 32, 1)), ("dw3x3", (9, 11, 40, 2))]
+
+
+def check_neureka(torch, packing, ops, ref, nkc, qmm, dev, jobs):
+    """Every N-EUREKA kernel equals its plain version bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    shapes = list(dict.fromkeys(job_key(j) for j in jobs))
+    cases = [(op, shape, bits, False) for op, shape in shapes
+             for bits in (8, 4, 2)]
+    cases += [(op, shape, bits, False) for op, shape in RAGGED_CASES
+              for bits in (8, 4, 2)]
+    cases += [(op, shape, bits, True) for op, shape in TIE_CASES
+              for bits in (4, 2)]
+    counts = dict.fromkeys(NEUREKA_KERNELS, 0)
+    worst = dict.fromkeys(NEUREKA_KERNELS, 0)
+    for op, shape, bits, tie in cases:
+        args = neureka_case(torch, packing, ops, gen, dev, op, shape, bits,
+                            tie)
+        name, kernel, plain = neureka_pair(nkc, qmm, ref, op, shape, bits)
+        got, expect = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        diff = (got.int() - expect.int()).abs()
+        worst[name] = max(worst[name], int(diff.max().item()))
+        if got.shape != expect.shape or not torch.equal(got, expect):
+            raise AssertionError(
+                f"{name} {op} {shape} bits={bits} tie={tie}: "
+                f"{int((diff > 0).sum().item())} of {got.numel()} outputs "
+                f"differ from the plain version (max {worst[name]})")
+        counts[name] += 1
+    print(f"[check] N-EUREKA kernels bit-equal to their plain versions: "
+          f"{counts} cases ({len(shapes)} distinct MobileNet-V2 job shapes "
+          f"at {MNV2_IMG} x bits 8/4/2, {len(RAGGED_CASES)} ragged shapes "
+          f"x bits 8/4/2, {len(TIE_CASES)} requant-tie shapes x bits 4/2)")
+    return worst
+
+
+def time_neureka(torch, F, packing, ops, ref, nkc, qmm, dev, op, shape,
+                 job):
+    """One N-EUREKA job at 8 bits, inputs rotated over > 50 MB.  The
+    library call is the same accumulation in f32 on pre-unpacked levels,
+    without the requant: ``torch.matmul`` for pw1x1, ``F.conv2d`` (NCHW,
+    ``groups=C`` for dw3x3) for the 3x3 operators."""
+    bits = 8
+    gen = torch.Generator(device=dev).manual_seed(7)
+    name, kernel, plain = neureka_pair(nkc, qmm, ref, op, shape, bits)
+    probe = neureka_case(torch, packing, ops, gen, dev, op, shape, bits)
+    out_numel = plain(*probe).numel()
+    set_bytes = probe[0].numel() + probe[1].numel() + out_numel
+    copies = int(min(64, max(2, -(-L2_COLD_BYTES // set_bytes))))
+    sets = []
+    for _ in range(copies):
+        x, packed, mult, bias = neureka_case(torch, packing, ops, gen, dev,
+                                             op, shape, bits)
+        if op == "pw1x1":
+            lib_args = (x.float(), packing.unpack(packed, bits,
+                                                  shape[1]).float().T)
+        elif op == "dense3x3":
+            lib_args = (x.permute(2, 0, 1)[None].float(),
+                        packing.unpack(packed, bits, shape[2]).float()
+                        .permute(0, 3, 1, 2).contiguous())
+        else:
+            lib_args = (x.permute(2, 0, 1)[None].float(),
+                        packing.unpack(packed, bits, 9).float()
+                        .reshape(-1, 1, 3, 3))
+        sets.append(((x, packed, mult, bias), lib_args))
+
+    def library(i):
+        a, w = sets[i % copies][1]
+        if op == "pw1x1":
+            torch.matmul(a, w)
+        elif op == "dense3x3":
+            F.conv2d(a, w, stride=shape[4], padding=1)
+        else:
+            F.conv2d(a, w, stride=shape[3], padding=1, groups=shape[2])
+
+    res = time_versions(torch, lambda i: kernel(*sets[i % copies][0]),
+                        lambda i: plain(*sets[i % copies][0]), library,
+                        copies, 50)
+    x, packed, mult, _ = probe
+    if op == "pw1x1":
+        macs = shape[0] * shape[1] * shape[2]
+    elif op == "dense3x3":
+        macs = out_numel * 9 * shape[2]
+    else:
+        macs = out_numel * 9
+    nbytes = x.numel() + packed.numel() + 8 * mult.numel() + out_numel
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 2 * macs,
+                                                INT8_OPS_PER_S)
+    res["work"] = f"{job} {op} {shape} bits={bits}"
+    library_name = ("torch.matmul f32 on unpacked levels" if op == "pw1x1"
+                    else "F.conv2d f32 on unpacked levels")
+    print_times(f"{name} {res['work']}",
+                f"{library_name}, no requant", res, nbytes, 2 * macs)
+    return res
+
+
+# kernel-name fragments of the N-EUREKA kernels, as the profiler names them
+PROFILE_KERNELS = (("qmm_int8_tiled", "qmatmul_int8 tiled"),
+                   ("qmm_int8_stream", "qmatmul_int8 streaming"),
+                   ("dense3x3", "conv3x3_dense"), ("dw3x3", "conv3x3_dw"))
+
+
+def profile_frames(torch, mnv2, frozen, frames, jobs, n: int = 4):
+    """Device time of ``n`` eager frames by kernel and by job, and the
+    device's idle share of the host window, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            mnv2.apply(frozen, frames[i], weight_bits=8, img=MNV2_IMG)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    if not kernels:
+        print("[frames] profiler: no device events recorded; device time "
+              "by kernel not measured")
+        return None
+    by_kernel, by_job = {}, {}
+    busy, end = 0.0, -1.0
+    nk = 0
+    for e in kernels:
+        t0_, t1_ = e.time_range.start, e.time_range.end
+        busy += max(0.0, t1_ - max(t0_, end))
+        end = max(end, t1_)
+        label = next((lab for frag, lab in PROFILE_KERNELS if frag in e.name),
+                     "other torch ops")
+        by_kernel[label] = by_kernel.get(label, 0.0) + (t1_ - t0_) / n
+        if label != "other torch ops":
+            job = jobs[nk % len(jobs)]
+            by_job[job.name] = by_job.get(job.name, 0.0) + (t1_ - t0_) / n
+            nk += 1
+    span = kernels[-1].time_range.end - kernels[0].time_range.start
+    res = dict(busy_us_per_frame=busy / n, wall_us_per_frame=wall_us / n,
+               idle_share=1.0 - busy / wall_us, kernel_span_us=span / n,
+               by_kernel_us=by_kernel, n_kernel_launches=nk)
+    print(f"[frames] profiler over {n} eager frames: device busy "
+          f"{busy / n:.1f} us a frame of {wall_us / n:.1f} us on the host "
+          f"clock (idle share {res['idle_share']:.3f}); by kernel (us a "
+          f"frame) {json.dumps({k: round(v, 2) for k, v in by_kernel.items()})}")
+    print(f"[frames] device time by job (us a frame, job order): "
+          f"{json.dumps({k: round(v, 2) for k, v in by_job.items()})}")
+    return res
+
+
+def run_frames(torch, mnv2, nkc, qmm, dev):
+    """Full-width MobileNet-V2 1.0-224 on the card: 16 frames at 8 bits
+    with the launch counts checked, card vs CPU at 8, 4 and 2 bits."""
+    t0 = time.perf_counter()
+    params = mnv2.init_params(torch.Generator().manual_seed(0),
+                              weight_bits=8, img=MNV2_IMG)
+    frozen = mnv2.freeze_packed(params, weight_bits=8, img=MNV2_IMG)
+    torch.cuda.synchronize()
+    n_bytes = sum(leaf["packed"].numel() for leaf in frozen.values())
+    print(f"[frames] MobileNet-V2 1.0-{MNV2_IMG}: {len(frozen)} N-EUREKA jobs,"
+          f" init + freeze (8-bit, {n_bytes} packed weight bytes) "
+          f"{time.perf_counter() - t0:.2f} s")
+    # freezing on the card gives the CPU's packed bytes and biases; mult
+    # is an f32 rms, summed in another order
+    on_cpu = mnv2.freeze_packed(to_device(torch, params, "cpu"),
+                                weight_bits=8, img=MNV2_IMG)
+    mult_rel = 0.0
+    for name, leaf in frozen.items():
+        want = on_cpu[name]
+        if not (torch.equal(leaf["packed"].cpu(), want["packed"])
+                and torch.equal(leaf["bias"].cpu(), want["bias"])):
+            raise AssertionError(f"{name}: packed weights frozen on the card"
+                                 " differ from the CPU's")
+        rel = ((leaf["mult"].cpu() - want["mult"]).abs()
+               / want["mult"].abs()).max().item()
+        mult_rel = max(mult_rel, rel)
+    if mult_rel > 1e-6:
+        raise AssertionError(f"mult frozen on the card: rel diff {mult_rel}")
+    print(f"[frames] frozen on the card vs on the CPU: packed and bias equal, "
+          f"mult max rel diff {mult_rel:.3e} (tolerance 1e-6)")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    frames = torch.randint(0, 256, (MNV2_FRAMES, MNV2_IMG, MNV2_IMG, 3),
+                           generator=gen, device=dev, dtype=torch.uint8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    counters = {"conv3x3_dense": nkc.conv3x3_dense,
+                "conv3x3_dw": nkc.conv3x3_dw, "qmatmul_int8": qmm.qmatmul_int8}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    logits = [mnv2.apply(frozen, frames[i], weight_bits=8, img=MNV2_IMG)
+              for i in range(MNV2_FRAMES)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for name, n in launches.items():
+        if n != NEUREKA_PER_FRAME[name] * MNV2_FRAMES:
+            raise AssertionError(f"{name} launched {n} times in "
+                                 f"{MNV2_FRAMES} frames, want "
+                                 f"{NEUREKA_PER_FRAME[name]} a frame")
+    out = torch.stack(logits)
+    if out.shape != (MNV2_FRAMES, 1000) or out.dtype != torch.uint8:
+        raise AssertionError(f"logits {tuple(out.shape)} {out.dtype}")
+    if not bool((out.max(1).values > out.min(1).values).all()):
+        raise AssertionError("a frame's logits collapsed to one value")
+    graph = graph_ms(torch, lambda i: mnv2.apply(
+        frozen, frames[i], weight_bits=8, img=MNV2_IMG), 4)
+    profile_frames(torch, mnv2, frozen, frames,
+                   mnv2.job_list(8, MNV2_IMG))
+    print(f"[frames] {MNV2_FRAMES} frames at 8 bits: eager wall {wall:.4f} s "
+          f"after synchronize ({wall / MNV2_FRAMES * 1e3:.3f} ms a frame), "
+          f"CUDA-graph replay {graph:.4f} ms a frame, peak memory "
+          f"{peak / 2**20:.1f} MiB ({base / 2**20:.1f} MiB allocated at the "
+          f"start), launches {launches}")
+
+    # card vs CPU, same frozen weights: two frames at 8 bits, one each at
+    # 4 and 2 bits
+    checked = []
+    for bits, idx in ((8, 0), (8, MNV2_FRAMES - 1), (4, 1), (2, 2)):
+        tree = frozen if bits == 8 else mnv2.freeze_packed(
+            params, weight_bits=bits, img=MNV2_IMG)
+        card = (logits[idx] if bits == 8 else mnv2.apply(
+            tree, frames[idx], weight_bits=bits, img=MNV2_IMG)).cpu()
+        cpu = mnv2.apply(to_device(torch, tree, "cpu"), frames[idx].cpu(),
+                         weight_bits=bits, img=MNV2_IMG)
+        if not torch.equal(card, cpu):
+            raise AssertionError(
+                f"frame {idx} at {bits} bits: card and CPU logits differ in "
+                f"{int((card != cpu).sum())} of 1000")
+        checked.append(f"frame {idx} @ {bits} bits")
+    print(f"[frames] card vs CPU plain path bit-equal: {', '.join(checked)}")
+    return launches
+
+
 def to_device(torch, tree, dev):
     if isinstance(tree, dict):
         return {k: to_device(torch, v, dev) for k, v in tree.items()}
@@ -316,9 +650,12 @@ def main() -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.core import packing
+    from repro_torch.core.perf_model import mobilenet_v2_jobs
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import neureka_conv as nkc
     from repro_torch.kernels import qmatmul as qmm
+    from repro_torch.models import mobilenet_v2 as mnv2
     from repro_torch.models import transformer as tfm
     from repro_torch.parallel.sharding import freeze_for_serving
     from repro_torch.serving.engine import Request, ServingEngine
@@ -338,6 +675,12 @@ def main() -> int:
     t_dec = time_qmatmul(torch, packing, ops, ref, qmm, dev, m=4)
     t_pre = time_qmatmul(torch, packing, ops, ref, qmm, dev, m=256)
     t_fa = time_flash(torch, F, ref, fa, dev)
+    jobs = {j.name: j for j in mobilenet_v2_jobs(8, MNV2_IMG)}
+    nk_err = check_neureka(torch, packing, ops, ref, nkc, qmm, dev,
+                           list(jobs.values()))
+    t_nk = {name: time_neureka(torch, F, packing, ops, ref, nkc, qmm, dev,
+                               *job_key(jobs[name]), name)
+            for name in ("b1.pw_exp", "conv_last", "conv0", "b1.dw")}
     gc.collect()                  # drop the timing graphs and their pools
     torch.cuda.empty_cache()
 
@@ -403,7 +746,12 @@ def main() -> int:
           f"(tolerance {LOGITS_TOL}), top-1 agreement {top1.item():.4f}, "
           f"max |logit| {cpu_logits.abs().max().item():.3f}")
 
-    # 5. result lines
+    # 5. MobileNet-V2 1.0-224 frames on the N-EUREKA kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    nk_launches = run_frames(torch, mnv2, nkc, qmm, dev)
+
+    # 6. result lines
     kernels = [
         dict(name="qmatmul_f32", route="cuda",
              source="src/repro_torch/csrc/qmatmul_f32.cu",
@@ -423,6 +771,26 @@ def main() -> int:
              library_ms=t_fa["library_ms"], eager_ms=t_fa["eager_ms"],
              work="prefill chunk B=4 Hq=16 Hkv=8 Sq=64 Sk=512 D=128"),
     ]
+    for name, source, replaces, timed in (
+            ("qmatmul_int8", "qmatmul_int8.cu", "qmatmul.py:218",
+             "b1.pw_exp"),
+            ("conv3x3_dense", "neureka_conv.cu", "neureka_conv.py:80",
+             "conv0"),
+            ("conv3x3_dw", "neureka_conv.cu", "neureka_conv.py:153",
+             "b1.dw")):
+        t = t_nk[timed]
+        entry = dict(name=name, route="cuda",
+                     source=f"src/repro_torch/csrc/{source}",
+                     replaces=f"src/repro/kernels/{replaces}",
+                     launches=nk_launches[name],
+                     launches_per_frame=nk_launches[name] / MNV2_FRAMES,
+                     max_abs_err=nk_err[name], ms=t["ms"],
+                     plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                     bound_by=t["bound_by"], library_ms=t["library_ms"],
+                     eager_ms=t["eager_ms"], work=t["work"])
+        if name == "qmatmul_int8":
+            entry["conv_last"] = t_nk["conv_last"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,25 @@
 """Symmetric per-channel weight quantization (NEMO style).
 
 Ports ``repro/core/quantize.py:57-76`` (``weight_qrange``,
-``quantize_weights``).  ``torch.round`` rounds half to even, as
-``jnp.round`` does, and the divisions are the same f32 divisions, so the
-levels and scales are bit-identical to the reference's.  The activation,
-requant and blockwise page-codec parts of the reference module arrive with
-the slices that use them.
+``quantize_weights``) and ``:98-148`` (``RequantParams``, ``fold_requant``,
+``requantize``).  ``torch.round`` rounds half to even, as ``jnp.round``
+does, and the divisions are the same f32 divisions on either device, so
+the levels, scales and folded requant parameters are bit-identical to the
+(eager) reference's.  The
+activation and blockwise page-codec parts of the reference module arrive
+with the slices that use them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
 import torch
+
+# Fractional bits of the folded integer requant multiplier (the reference's
+# REQUANT_SHIFT_BITS): 24 bits keep the requant error < 2^-16 relative.
+REQUANT_SHIFT_BITS = 24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +47,56 @@ def quantize_weights(w: torch.Tensor, bits: int,
     w = torch.movedim(w.to(torch.float32), channel_axis, 0)
     flat = w.reshape(w.shape[0], -1)
     absmax = flat.abs().amax(dim=1)
-    scale = torch.where(absmax > 0, absmax / qmax, torch.ones_like(absmax))
+    # divide by a tensor: PyTorch's CUDA division by a Python number
+    # multiplies by its rounded reciprocal, which is not the reference's
+    # f32 division (nor the CPU's)
+    scale = torch.where(absmax > 0, absmax / torch.full_like(absmax, qmax),
+                        torch.ones_like(absmax))
     q = torch.clamp(torch.round(flat / scale[:, None]), qmin, qmax)
     return QuantizedTensor(values=q.to(torch.int8).reshape(w.shape),
                            scale=scale, bits=bits)
+
+
+@dataclasses.dataclass(frozen=True)
+class RequantParams:
+    """Integer-domain requantization parameters (per output channel):
+    ``y = clip(((acc * mult) >> shift) + bias, 0, 255)`` with an int32
+    fixed-point ``mult``, a global right ``shift`` and an int32 ``bias``
+    that folds the float bias and the output zero-point."""
+
+    mult: torch.Tensor    # (C,) int32
+    bias: torch.Tensor    # (C,) int32
+    shift: int
+
+
+def fold_requant(w_scale: torch.Tensor,
+                 in_scale: Union[torch.Tensor, float],
+                 out_scale: Union[torch.Tensor, float],
+                 bias_fp: Optional[torch.Tensor],
+                 out_zero_point: int = 0) -> RequantParams:
+    """Fold float scales into the NEMO integer (mult, shift, bias) triple:
+    ``acc * (w_scale*in_scale/out_scale) + bias_fp/out_scale + zp``."""
+    # a tensor divisor, for a true f32 division on the card too
+    out_scale = torch.as_tensor(out_scale, dtype=torch.float32,
+                                device=w_scale.device)
+    rescale = w_scale * in_scale / out_scale                     # (C,) f32
+    mult = torch.round(rescale * (1 << REQUANT_SHIFT_BITS)).to(torch.int32)
+    if bias_fp is None:
+        bias_fp = torch.zeros_like(w_scale)
+    bias = torch.round(bias_fp / out_scale).to(torch.int32) + out_zero_point
+    return RequantParams(mult=mult, bias=bias, shift=REQUANT_SHIFT_BITS)
+
+
+def requantize(acc: torch.Tensor, rq: RequantParams) -> torch.Tensor:
+    """int32 accumulators -> uint8 through N-EUREKA's NORMQUANT projection.
+
+    As the reference, the 48-bit intermediate of the silicon is emulated in
+    f32 and rounds half up, ``floor(x + 0.5)`` (not half to even).  The
+    multiply and the add stay two separate torch ops, so no fused
+    multiply-add changes the rounding.
+    """
+    rescale = rq.mult.to(torch.float32) / float(1 << rq.shift)
+    y = acc.to(torch.float32) * rescale
+    y = torch.floor(y + 0.5)
+    y = y + rq.bias.to(torch.float32)
+    return torch.clamp(y, 0, 255).to(torch.uint8)

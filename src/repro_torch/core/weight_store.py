@@ -3,7 +3,8 @@
 Ports ``PackedParam`` of ``repro/core/weight_store.py``: one packed weight
 matrix (a uint8 carrier of 2/4/8-bit fields) with its per-channel f32
 scales.  The store-level ``WeightStore`` / ``freeze`` and the capacity
-accounting arrive with the paging slice.
+accounting arrive with the paging slice; the MRAM capacity constant is here
+already, for ``placement.plan_for_budget``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,9 @@ from typing import Tuple
 import torch
 
 from repro_torch.core import packing
+
+# Siracusa's weight MRAM (paper §II-B; ``repro/core/weight_store.py:34``)
+SIRACUSA_MRAM_BYTES = 4 * 1024 * 1024
 
 
 @dataclasses.dataclass

@@ -3,10 +3,16 @@
 The JAX package draws its weights with ``jax.random``, which PyTorch cannot
 reproduce, so parity runs export the JAX parameter tree as nested dicts of
 numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``) and load it
-here.  The tree is the reference's, dense or frozen: layers stacked on axis
-0 (``repro/models/transformer.py:134-150``) and packed leaves as
-``{"packed", "scale"}`` dicts.  This module never imports JAX; the caller
-does the ``jax -> numpy`` step.
+here.  Two kinds of tree come across:
+
+- the LM's, dense or frozen: layers stacked on axis 0
+  (``repro/models/transformer.py:134-150``) and packed leaves as
+  ``{"packed", "scale"}`` dicts (:func:`params_from_numpy`);
+- MobileNet-V2's, one entry per N-EUREKA job: the float ``{"w", "bias"}``
+  tree of ``init_params`` or the frozen ``{"packed", "mult", "bias"}`` tree
+  of ``freeze_packed`` (:func:`mobilenet_from_numpy`).
+
+This module never imports JAX; the caller does the ``jax -> numpy`` step.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.core.perf_model import mobilenet_v2_jobs
 from repro_torch.models.config import ModelConfig
 
 
@@ -50,6 +57,27 @@ def params_from_numpy(tree: Any, cfg: ModelConfig,
             raise ValueError(f"stacked layer axis {t.shape[0]} != "
                              f"{cfg.name} n_layers {cfg.n_layers}")
     return out
+
+
+_MNV2_LEAVES = ({"w", "bias"}, {"packed", "mult", "bias"})
+
+
+def mobilenet_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
+    """A MobileNet-V2 tree of numpy arrays, float or frozen, -> the same tree
+    of tensors on ``device`` (default ``cuda``).  Checks that it has one
+    entry per job of ``mobilenet_v2_jobs`` and one kind of leaf set."""
+    dev = resolve_device(device)
+    jobs = [j.name for j in mobilenet_v2_jobs()]
+    if not isinstance(tree, dict) or set(tree) != set(jobs):
+        got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+        raise ValueError(f"not a MobileNet-V2 tree: want the {len(jobs)} "
+                         f"jobs {jobs[:2]}..., got {got}")
+    kinds = {frozenset(leaf) for leaf in tree.values()}
+    if len(kinds) != 1 or set(next(iter(kinds))) not in _MNV2_LEAVES:
+        raise ValueError("MobileNet-V2 job entries must all be {w, bias} or "
+                         f"all {{packed, mult, bias}}, got {kinds}")
+    return {name: {k: _leaf_to_torch(v, dev) for k, v in leaf.items()}
+            for name, leaf in tree.items()}
 
 
 def params_to_numpy(tree: Any) -> Any:

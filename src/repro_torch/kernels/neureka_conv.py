@@ -1,0 +1,147 @@
+"""N-EUREKA's convolution operators, as Hopper kernels.
+
+Ports ``repro/kernels/neureka_conv.py``: the three operators the silicon
+supports (paper §II-C) over HWC uint8 maps with packed 2/4/8-bit weights
+and the per-channel NORMQUANT requant to uint8.
+
+- ``conv3x3_dense`` (``_dense3x3_kernel``) and ``conv3x3_dw``
+  (``_dw3x3_kernel``) launch ``csrc/neureka_conv.cu``;
+- ``conv1x1`` is the strided slice plus ``qmatmul_int8``
+  (``csrc/qmatmul_int8.cu``), as in the reference.
+
+Stride is 1 or 2; the output is ceil(H/s) x ceil(W/s), with the input read
+as zero outside the map (the reference's halo padding,
+``neureka_conv.py:97-99``).  Each wrapper launches its kernel for CUDA
+tensors and raises on anything it does not take.  For CPU tensors it
+computes the plain PyTorch version (``kernels/ref.py``).
+``conv3x3_dense.launches`` and ``conv3x3_dw.launches`` count kernel
+launches (``conv1x1``'s are ``qmatmul_int8.launches``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.qmatmul import qmatmul_int8
+
+_c_ptr = ctypes.c_void_p
+_c_int = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher(name: str, n_ints: int):
+    """``<name>_launch(x, packed, mult, bias, out, <n_ints ints>, stream)``."""
+    fn = getattr(build.library("neureka_conv"), f"{name}_launch")
+    fn.argtypes = [_c_ptr] * 5 + [_c_int] * n_ints + [_c_ptr]
+    fn.restype = _c_int
+    return fn
+
+
+def _check(name: str, x, packed, mult, bias, bits: int, stride: int,
+           channels: int, packed_shape):
+    """Device, type, shape and contiguity checks shared by the 3x3 ops."""
+    tensors = (x, packed, mult, bias)
+    if ({t.device.type for t in tensors} != {"cuda"}
+            or len({t.device for t in tensors}) != 1):
+        raise ValueError(f"{name} needs x, packed, mult and bias on one CUDA "
+                         "device (or all on the CPU), got "
+                         f"{[str(t.device) for t in tensors]}")
+    if bits not in (2, 4, 8):
+        raise ValueError(f"bits must be 2, 4 or 8, got {bits}")
+    if stride not in (1, 2):
+        raise ValueError(f"stride must be 1 or 2, got {stride}")
+    if (x.dtype, packed.dtype, mult.dtype, bias.dtype) != (
+            torch.uint8, torch.uint8, torch.float32, torch.int32):
+        raise TypeError(f"{name} takes uint8 x and packed, float32 mult and "
+                        f"int32 bias, got {x.dtype}, {packed.dtype}, "
+                        f"{mult.dtype}, {bias.dtype}")
+    n_out = packed.shape[0] if packed.ndim else -1
+    if (x.ndim != 3 or x.shape[2] != channels
+            or tuple(packed.shape) != tuple(packed_shape)
+            or tuple(mult.shape) != (n_out,) or tuple(bias.shape) != (n_out,)):
+        raise ValueError(f"{name}: shape mismatch: x {tuple(x.shape)}, packed "
+                         f"{tuple(packed.shape)} (want {tuple(packed_shape)}),"
+                         f" mult {tuple(mult.shape)}, bias "
+                         f"{tuple(bias.shape)}, bits={bits}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous x, packed, mult and bias")
+
+
+def _out(x: torch.Tensor, stride: int, channels: int) -> torch.Tensor:
+    h, w, _ = x.shape
+    return torch.empty((-(-h // stride), -(-w // stride), channels),
+                       dtype=torch.uint8, device=x.device)
+
+
+def conv3x3_dense(x: torch.Tensor, packed: torch.Tensor, mult: torch.Tensor,
+                  bias: torch.Tensor, *, bits: int, cin: int,
+                  stride: int = 1) -> torch.Tensor:
+    """x (H, W, Cin) uint8, packed (Cout, 3, 3, ceil(Cin/f)) -> (ceil(H/s),
+    ceil(W/s), Cout) uint8."""
+    if {t.device.type for t in (x, packed, mult, bias)} == {"cpu"}:
+        return ref.conv3x3_dense(x, packed, mult, bias, bits=bits, cin=cin,
+                                 stride=stride)
+    cout = packed.shape[0] if packed.ndim == 4 else -1
+    cinp = -(-cin // (8 // bits)) if bits in (2, 4, 8) else -1
+    _check("conv3x3_dense", x, packed, mult, bias, bits, stride, cin,
+           (cout, 3, 3, cinp))
+    out = _out(x, stride, cout)
+    if out.numel() == 0:
+        return out
+    h, w, _ = x.shape
+    rc = _launcher("conv3x3_dense", 7)(
+        x.data_ptr(), packed.data_ptr(), mult.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), h, w, cin, cout, cinp, stride, bits,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"conv3x3_dense launch failed: CUDA error {rc}")
+    conv3x3_dense.launches += 1
+    return out
+
+
+conv3x3_dense.launches = 0
+
+
+def conv3x3_dw(x: torch.Tensor, packed: torch.Tensor, mult: torch.Tensor,
+               bias: torch.Tensor, *, bits: int,
+               stride: int = 1) -> torch.Tensor:
+    """Depthwise 3x3: x (H, W, C) uint8, packed (C, ceil(9/f)) along the
+    nine taps (t = 3i + j) -> (ceil(H/s), ceil(W/s), C) uint8."""
+    if {t.device.type for t in (x, packed, mult, bias)} == {"cpu"}:
+        return ref.conv3x3_dw(x, packed, mult, bias, bits=bits, stride=stride)
+    c = x.shape[-1] if x.ndim == 3 else -1
+    kp = -(-9 // (8 // bits)) if bits in (2, 4, 8) else -1
+    _check("conv3x3_dw", x, packed, mult, bias, bits, stride, c, (c, kp))
+    out = _out(x, stride, c)
+    if out.numel() == 0:
+        return out
+    h, w, _ = x.shape
+    rc = _launcher("conv3x3_dw", 6)(
+        x.data_ptr(), packed.data_ptr(), mult.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), h, w, c, kp, stride, bits,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"conv3x3_dw launch failed: CUDA error {rc}")
+    conv3x3_dw.launches += 1
+    return out
+
+
+conv3x3_dw.launches = 0
+
+
+def conv1x1(x: torch.Tensor, packed: torch.Tensor, mult: torch.Tensor,
+            bias: torch.Tensor, *, bits: int, cin: int,
+            stride: int = 1) -> torch.Tensor:
+    """Pointwise conv: x (H, W, Cin) uint8 -> (ceil(H/s), ceil(W/s), Cout)
+    through ``qmatmul_int8``.  A strided ``x[::s, ::s]`` is copied to a
+    contiguous map first (the kernel takes rows of K bytes)."""
+    if stride != 1:
+        x = x[::stride, ::stride, :]
+    h, w, c = x.shape
+    out = qmatmul_int8(x.contiguous().reshape(h * w, c), packed, mult, bias,
+                       bits=bits, k_orig=cin)
+    return out.reshape(h, w, -1)

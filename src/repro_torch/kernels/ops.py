@@ -1,5 +1,6 @@
-"""Public wrappers over the kernels (reference: ``repro/kernels/ops.py:42-75``
-and ``:147-158``).
+"""Public wrappers over the kernels (reference: ``repro/kernels/ops.py``:
+the ``prep_*`` layouts, ``quant_matmul``, ``quant_matmul_int8``,
+``neureka_conv2d`` and ``attention``).
 
 The reference picks a path by ``mode`` (pallas | interpret | xla).  The port
 has one rule instead, applied by each kernel wrapper: a CUDA tensor launches
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.core import packing, quantize
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import neureka_conv as _nkc
 from repro_torch.kernels import qmatmul as _qmm
 from repro_torch.kernels.ref import QOffset
 
@@ -26,6 +28,21 @@ def prep_linear(w: torch.Tensor, bits: int
     return packing.pack(qt.values, bits), qt.scale
 
 
+def prep_conv3x3(w: torch.Tensor, bits: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, 3, 3, in) float -> (packed (out, 3, 3, ceil(in/f)), scale (out,))."""
+    qt = quantize.quantize_weights(w, bits, channel_axis=0)
+    return packing.pack(qt.values, bits), qt.scale
+
+
+def prep_dw3x3(w: torch.Tensor, bits: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(c, 3, 3) float -> (packed (c, ceil(9/f)), scale (c,))."""
+    qt = quantize.quantize_weights(w.reshape(w.shape[0], 9), bits,
+                                   channel_axis=0)
+    return packing.pack(qt.values, bits), qt.scale
+
+
 def quant_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                  *, bits: int, k_orig: int) -> torch.Tensor:
     """Float activations x packed weights -> f32.  x may have leading dims."""
@@ -33,6 +50,35 @@ def quant_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     out = _qmm.qmatmul_f32(x2, packed, scale, bits=bits, k_orig=k_orig)
     return out.reshape(*lead, -1)
+
+
+def quant_matmul_int8(x_q: torch.Tensor, packed: torch.Tensor,
+                      mult: torch.Tensor, bias: torch.Tensor, *, bits: int,
+                      k_orig: int) -> torch.Tensor:
+    """uint8 activations x packed weights -> requantized uint8.  x_q may have
+    leading dims."""
+    lead = x_q.shape[:-1]
+    x2 = x_q.reshape(-1, x_q.shape[-1]).contiguous()
+    out = _qmm.qmatmul_int8(x2, packed, mult, bias, bits=bits, k_orig=k_orig)
+    return out.reshape(*lead, -1)
+
+
+def neureka_conv2d(x: torch.Tensor, packed: torch.Tensor, mult: torch.Tensor,
+                   bias: torch.Tensor, *, op: str, bits: int, cin: int,
+                   stride: int = 1) -> torch.Tensor:
+    """One N-EUREKA job: ``op`` in {dense3x3, dw3x3, pw1x1}; x (H, W, C)
+    uint8 -> (ceil(H/s), ceil(W/s), Cout) uint8."""
+    if op == "dense3x3":
+        return _nkc.conv3x3_dense(x, packed, mult, bias, bits=bits, cin=cin,
+                                  stride=stride)
+    if op == "dw3x3":
+        return _nkc.conv3x3_dw(x, packed, mult, bias, bits=bits,
+                               stride=stride)
+    if op == "pw1x1":
+        return _nkc.conv1x1(x, packed, mult, bias, bits=bits, cin=cin,
+                            stride=stride)
+    raise ValueError(f"unknown N-EUREKA op {op!r}; expected dense3x3, "
+                     "dw3x3 or pw1x1")
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,14 +1,19 @@
-"""Fused dequant matmul — the At-MRAM weight path, as a Hopper kernel.
+"""Fused dequant matmuls — the At-MRAM weight path, as Hopper kernels.
 
-Ports ``repro/kernels/qmatmul.py::qmatmul_f32`` (``_qmatmul_f32_kernel``,
-``_unpack_block``).  Packed 2/4/8-bit weights stay packed in device memory;
-the kernel (``csrc/qmatmul_f32.cu``) unpacks them in registers next to the
-multiply-adds and applies the per-channel scale once after the K reduction,
-as the reference does.
+Ports the two datapaths of ``repro/kernels/qmatmul.py``:
 
-The wrapper launches the kernel for CUDA tensors and raises on anything it
-does not take.  For CPU tensors it computes the plain PyTorch version
-(``kernels/ref.py``).  ``qmatmul_f32.launches`` counts kernel launches.
+- ``qmatmul_f32`` (``_qmatmul_f32_kernel``): float activations, f32 out,
+  the LM serving path (``csrc/qmatmul_f32.cu``);
+- ``qmatmul_int8`` (``_qmatmul_int8_kernel``): uint8 activations, int32
+  accumulators and the NORMQUANT requant to uint8, N-EUREKA's pointwise
+  path (``csrc/qmatmul_int8.cu``).
+
+Packed 2/4/8-bit weights stay packed in device memory; the kernels unpack
+them in registers next to the multiply-adds.  Each wrapper launches its
+kernel for CUDA tensors and raises on anything it does not take.  For CPU
+tensors it computes the plain PyTorch version (``kernels/ref.py``).
+``qmatmul_f32.launches`` and ``qmatmul_int8.launches`` count kernel
+launches.
 """
 
 from __future__ import annotations
@@ -29,6 +34,15 @@ def _launcher():
     fn = build.library("qmatmul_f32").qmatmul_f32_launch
     fn.argtypes = [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr,
                    _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr]
+    fn.restype = _c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher_int8():
+    fn = build.library("qmatmul_int8").qmatmul_int8_launch
+    fn.argtypes = [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
+                   _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr]
     fn.restype = _c_int
     return fn
 
@@ -78,3 +92,56 @@ def qmatmul_f32(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
 
 
 qmatmul_f32.launches = 0
+
+
+def qmatmul_int8(x_q: torch.Tensor, packed: torch.Tensor, mult: torch.Tensor,
+                 bias: torch.Tensor, *, bits: int, k_orig: int
+                 ) -> torch.Tensor:
+    """uint8 x (M, K) @ packed (N, ceil(K/f)) uint8 -> int32 sums ->
+    ``clip(round(acc * mult) + bias, 0, 255)`` uint8 (M, N); ``mult`` (N,)
+    f32, ``bias`` (N,) int32, f = 8 // bits."""
+    tensors = (x_q, packed, mult, bias)
+    if {t.device.type for t in tensors} == {"cpu"}:
+        return ref.qmatmul_int8(x_q, packed, mult, bias, bits=bits,
+                                k_orig=k_orig)
+    if ({t.device.type for t in tensors} != {"cuda"}
+            or len({t.device for t in tensors}) != 1):
+        raise ValueError("qmatmul_int8 needs x_q, packed, mult and bias on "
+                         "one CUDA device (or all on the CPU), got "
+                         f"{[str(t.device) for t in tensors]}")
+    if bits not in (2, 4, 8):
+        raise ValueError(f"bits must be 2, 4 or 8, got {bits}")
+    if (x_q.dtype, packed.dtype, mult.dtype, bias.dtype) != (
+            torch.uint8, torch.uint8, torch.float32, torch.int32):
+        raise TypeError("qmatmul_int8 takes uint8 x_q and packed, float32 "
+                        f"mult and int32 bias, got {x_q.dtype}, "
+                        f"{packed.dtype}, {mult.dtype}, {bias.dtype}")
+    if x_q.ndim != 2 or packed.ndim != 2 or mult.ndim != 1 or bias.ndim != 1:
+        raise ValueError("x_q must be (M, K), packed (N, Kp), mult and bias "
+                         "(N,)")
+    m, k = x_q.shape
+    n, kp = packed.shape
+    if (k != k_orig or kp != -(-k // (8 // bits)) or mult.shape[0] != n
+            or bias.shape[0] != n):
+        raise ValueError(f"shape mismatch: x_q {tuple(x_q.shape)}, packed "
+                         f"{tuple(packed.shape)}, mult {tuple(mult.shape)}, "
+                         f"bias {tuple(bias.shape)}, bits={bits}, "
+                         f"k_orig={k_orig}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("qmatmul_int8 needs contiguous x_q, packed, mult "
+                         "and bias")
+    out = torch.empty((m, n), dtype=torch.uint8, device=x_q.device)
+    if m == 0 or n == 0:
+        return out
+    aligned = k % 4 == 0 and (x_q.data_ptr() | packed.data_ptr()) % 4 == 0
+    rc = _launcher_int8()(x_q.data_ptr(), packed.data_ptr(), mult.data_ptr(),
+                          bias.data_ptr(), out.data_ptr(), m, n, k, kp, bits,
+                          int(aligned),
+                          torch.cuda.current_stream(x_q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"qmatmul_int8 launch failed: CUDA error {rc}")
+    qmatmul_int8.launches += 1
+    return out
+
+
+qmatmul_int8.launches = 0

@@ -1,10 +1,15 @@
 """Plain PyTorch versions of the port's kernels (reference:
-``repro/kernels/ref.py:21-25`` and ``:106-123``).
+``repro/kernels/ref.py``).
 
 Each computes the same function as its Hopper kernel.  The kernel wrappers
 take them for CPU tensors, and ``chip_smoke.py`` holds each kernel against
-them on the card.  Nothing on the serving path calls them when its tensors
-lie on a card.
+them on the card.  Nothing on the serving or N-EUREKA path calls them when
+its tensors lie on a card.
+
+The integer versions (``qmatmul_int8``, ``conv3x3_dense``) accumulate their
+products in float64 and cast the sum to int32: PyTorch has no int32 matmul
+on CUDA, and float64 is exact here (|acc| <= 255 * 128 * K, about 4.2e7 at
+K = 1280, far below 2^53).  One code path serves both devices.
 """
 
 from __future__ import annotations
@@ -28,6 +33,88 @@ def qmatmul_f32(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     w = packing.unpack(packed, bits, k_orig).to(torch.float32)
     w = w * scale[:, None].to(torch.float32)
     return torch.matmul(x.to(torch.float32), w.T)
+
+
+def requant_f32(acc: torch.Tensor, mult: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    """NORMQUANT projection, float-rescale form (``ref.py:16-18``): int32 acc
+    -> ``clip(round(acc * mult) + bias, 0, 255)`` uint8, rounding half to
+    even as ``jnp.round`` does."""
+    y = torch.round(acc.to(torch.float32) * mult.to(torch.float32))
+    y = y + bias.to(torch.float32)
+    return torch.clamp(y, 0.0, 255.0).to(torch.uint8)
+
+
+def qmatmul_int8(x_q: torch.Tensor, packed: torch.Tensor, mult: torch.Tensor,
+                 bias: torch.Tensor, *, bits: int, k_orig: int
+                 ) -> torch.Tensor:
+    """uint8 x (M, K) @ unpack(packed (N, ceil(K/f)))^T -> requant uint8."""
+    w = packing.unpack(packed, bits, k_orig).to(torch.float64)
+    acc = torch.matmul(x_q.to(torch.float64), w.T).to(torch.int32)
+    return requant_f32(acc, mult[None, :], bias[None, :])
+
+
+def _halo(h: int, w: int, stride: int):
+    """Output size and the bottom/right zero padding of the reference
+    (``neureka_conv.py:97-99``): one row and column above and left, enough
+    below and right for ceil(H/s) x ceil(W/s) outputs (at least one)."""
+    ho, wo = -(-h // stride), -(-w // stride)
+    hpad = max((ho - 1) * stride + 3 - h - 1, 1)
+    wpad = max((wo - 1) * stride + 3 - w - 1, 1)
+    return ho, wo, hpad, wpad
+
+
+def _taps(xp: torch.Tensor, ho: int, wo: int, stride: int):
+    """The nine strided (ho, wo, C) views of a padded map, tap t = 3i + j."""
+    for i in range(3):
+        for j in range(3):
+            yield i, j, xp[i:i + (ho - 1) * stride + 1:stride,
+                           j:j + (wo - 1) * stride + 1:stride]
+
+
+def conv3x3_dense(x: torch.Tensor, packed: torch.Tensor, mult: torch.Tensor,
+                  bias: torch.Tensor, *, bits: int, cin: int,
+                  stride: int = 1) -> torch.Tensor:
+    """x (H, W, Cin) uint8, packed (Cout, 3, 3, ceil(Cin/f)) -> (Ho, Wo,
+    Cout) uint8; weights are packed per tap along Cin."""
+    w = packing.unpack(packed, bits, cin).to(torch.float64)  # (Cout,3,3,Cin)
+    h, w_, _ = x.shape
+    ho, wo, hpad, wpad = _halo(h, w_, stride)
+    xp = torch.nn.functional.pad(x.to(torch.float64),
+                                 (0, 0, 1, wpad, 1, hpad))
+    acc = torch.zeros((ho, wo, packed.shape[0]), dtype=torch.float64,
+                      device=x.device)
+    for i, j, patch in _taps(xp, ho, wo, stride):
+        acc = acc + torch.einsum("hwc,oc->hwo", patch, w[:, i, j, :])
+    return requant_f32(acc.to(torch.int32), mult[None, None, :],
+                       bias[None, None, :])
+
+
+def conv3x3_dw(x: torch.Tensor, packed: torch.Tensor, mult: torch.Tensor,
+               bias: torch.Tensor, *, bits: int, stride: int = 1
+               ) -> torch.Tensor:
+    """Depthwise 3x3: x (H, W, C) uint8, packed (C, ceil(9/f)) along the
+    nine taps -> (Ho, Wo, C) uint8.  Elementwise, so int32 throughout."""
+    w = packing.unpack(packed, bits, 9).to(torch.int32)      # (C, 9)
+    h, w_, c = x.shape
+    ho, wo, hpad, wpad = _halo(h, w_, stride)
+    xp = torch.nn.functional.pad(x.to(torch.int32), (0, 0, 1, wpad, 1, hpad))
+    acc = torch.zeros((ho, wo, c), dtype=torch.int32, device=x.device)
+    for i, j, patch in _taps(xp, ho, wo, stride):
+        acc = acc + patch * w[:, i * 3 + j][None, None, :]
+    return requant_f32(acc, mult[None, None, :], bias[None, None, :])
+
+
+def conv1x1(x: torch.Tensor, packed: torch.Tensor, mult: torch.Tensor,
+            bias: torch.Tensor, *, bits: int, cin: int,
+            stride: int = 1) -> torch.Tensor:
+    """Pointwise conv: the strided slice, then ``qmatmul_int8``."""
+    if stride != 1:
+        x = x[::stride, ::stride, :]
+    h, w_, c = x.shape
+    out = qmatmul_int8(x.reshape(h * w_, c), packed, mult, bias, bits=bits,
+                       k_orig=cin)
+    return out.reshape(h, w_, -1)
 
 
 def query_offsets(q_offset: QOffset, batch: int, sq: int, sk: int,

@@ -14,8 +14,10 @@ import numpy as np  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import neureka_conv as nkc  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.qmatmul import qmatmul_f32  # noqa: E402
+from repro_torch.kernels.qmatmul import qmatmul_f32, qmatmul_int8  # noqa: E402
+from repro_torch.models import mobilenet_v2 as mnv2  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.parallel.sharding import freeze_for_serving  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
@@ -112,3 +114,114 @@ def test_serving_on_the_card_matches_the_cpu(cuda):
             eng.submit(Request(uid=uid, prompt=p, max_new_tokens=6))
         out[dev] = {r.uid: r.generated for r in eng.run_until_done()}
     assert out["cuda"] == out["cpu"]
+
+
+def _requant(rng, n, dev):
+    mult = torch.from_numpy(rng.uniform(1e-4, 1e-3, (n,)).astype(np.float32))
+    bias = torch.from_numpy(rng.integers(-8, 8, (n,)).astype(np.int32))
+    return mult.to(dev), bias.to(dev)
+
+
+def _u8(rng, shape, dev):
+    return torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8)
+                            ).to(dev)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("m,k,n", [(40, 130, 50), (1, 1280, 1000),
+                                   (49, 320, 1280), (12544, 16, 96),
+                                   (3136, 24, 144), (17, 33, 7)])
+def test_qmatmul_int8_kernel_matches_plain(cuda, rng, bits, m, k, n):
+    x = _u8(rng, (m, k), cuda)
+    w = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32))
+    packed = ops.prep_linear(w, bits)[0].to(cuda)
+    mult, bias = _requant(rng, n, cuda)
+    before = qmatmul_int8.launches
+    got = qmatmul_int8(x, packed, mult, bias, bits=bits, k_orig=k)
+    torch.cuda.synchronize()
+    assert qmatmul_int8.launches == before + 1
+    assert torch.equal(got, ref.qmatmul_int8(x, packed, mult, bias,
+                                             bits=bits, k_orig=k))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("h,w,cin,cout", [(12, 10, 24, 16), (7, 7, 3, 32),
+                                          (224, 224, 3, 32)])
+def test_conv3x3_dense_kernel_matches_plain(cuda, rng, bits, stride, h, w,
+                                            cin, cout):
+    x = _u8(rng, (h, w, cin), cuda)
+    wf = torch.from_numpy(rng.normal(size=(cout, 3, 3, cin)).astype(
+        np.float32))
+    packed = ops.prep_conv3x3(wf, bits)[0].to(cuda)
+    mult, bias = _requant(rng, cout, cuda)
+    before = nkc.conv3x3_dense.launches
+    got = nkc.conv3x3_dense(x, packed, mult, bias, bits=bits, cin=cin,
+                            stride=stride)
+    torch.cuda.synchronize()
+    assert nkc.conv3x3_dense.launches == before + 1
+    assert torch.equal(got, ref.conv3x3_dense(x, packed, mult, bias,
+                                              bits=bits, cin=cin,
+                                              stride=stride))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("h,w,c", [(9, 11, 40), (112, 112, 96),
+                                   (7, 7, 960)])
+def test_conv3x3_dw_kernel_matches_plain(cuda, rng, bits, stride, h, w, c):
+    x = _u8(rng, (h, w, c), cuda)
+    wf = torch.from_numpy(rng.normal(size=(c, 3, 3)).astype(np.float32))
+    packed = ops.prep_dw3x3(wf, bits)[0].to(cuda)
+    mult, bias = _requant(rng, c, cuda)
+    before = nkc.conv3x3_dw.launches
+    got = nkc.conv3x3_dw(x, packed, mult, bias, bits=bits, stride=stride)
+    torch.cuda.synchronize()
+    assert nkc.conv3x3_dw.launches == before + 1
+    assert torch.equal(got, ref.conv3x3_dw(x, packed, mult, bias, bits=bits,
+                                           stride=stride))
+
+
+def test_conv1x1_strided_on_the_card(cuda, rng):
+    x = _u8(rng, (7, 9, 33), cuda)
+    wf = torch.from_numpy(rng.normal(size=(17, 33)).astype(np.float32))
+    packed = ops.prep_linear(wf, 4)[0].to(cuda)
+    mult, bias = _requant(rng, 17, cuda)
+    got = nkc.conv1x1(x, packed, mult, bias, bits=4, cin=33, stride=2)
+    assert torch.equal(got, ref.conv1x1(x, packed, mult, bias, bits=4,
+                                        cin=33, stride=2))
+
+
+@pytest.mark.parametrize("bits", [8, 2])
+def test_mobilenet_on_the_card_matches_the_cpu(cuda, bits):
+    params = mnv2.init_params(torch.Generator().manual_seed(0),
+                              weight_bits=bits, img=96, device="cpu")
+    frozen = mnv2.freeze_packed(params, weight_bits=bits, img=96)
+    on_card = {n: {k: v.to(cuda) for k, v in leaf.items()}
+               for n, leaf in frozen.items()}
+    image = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (96, 96, 3)).astype(np.uint8))
+    counts = (nkc.conv3x3_dense.launches, nkc.conv3x3_dw.launches,
+              qmatmul_int8.launches)
+    got = mnv2.apply(on_card, image.to(cuda), weight_bits=bits, img=96)
+    torch.cuda.synchronize()
+    assert (nkc.conv3x3_dense.launches - counts[0],
+            nkc.conv3x3_dw.launches - counts[1],
+            qmatmul_int8.launches - counts[2]) == (1, 17, 35)
+    assert torch.equal(got.cpu(), mnv2.apply(frozen, image, weight_bits=bits,
+                                             img=96))
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_mobilenet_freeze_on_the_card_matches_the_cpu(cuda, bits):
+    params = mnv2.init_params(torch.Generator().manual_seed(1),
+                              weight_bits=bits, img=32, device="cpu")
+    on_cpu = mnv2.freeze_packed(params, weight_bits=bits, img=32)
+    on_card = mnv2.freeze_packed(
+        {n: {k: v.to(cuda) for k, v in leaf.items()}
+         for n, leaf in params.items()}, weight_bits=bits, img=32)
+    for name, leaf in on_card.items():
+        assert torch.equal(leaf["packed"].cpu(), on_cpu[name]["packed"])
+        assert torch.equal(leaf["bias"].cpu(), on_cpu[name]["bias"])
+        torch.testing.assert_close(leaf["mult"].cpu(), on_cpu[name]["mult"],
+                                   rtol=1e-6, atol=0)

@@ -35,5 +35,8 @@ def test_port_imports_no_jax_and_no_reference():
     assert report["bad"] == []
     for mod in ("repro_torch.serving.engine", "repro_torch.kernels.build",
                 "repro_torch.kernels.qmatmul", "repro_torch.interop",
-                "repro_torch.kernels.flash_attention"):
+                "repro_torch.kernels.flash_attention",
+                "repro_torch.kernels.neureka_conv",
+                "repro_torch.models.mobilenet_v2", "repro_torch.core.memsys",
+                "repro_torch.core.perf_model"):
         assert mod in report["modules"]

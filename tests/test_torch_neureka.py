@@ -1,0 +1,241 @@
+"""Port parity: N-EUREKA's integer operators (``qmatmul_int8``,
+``conv3x3_dense``, ``conv3x3_dw``, ``conv1x1``) and the requant helpers
+against the reference Pallas kernels (interpret mode) and their jnp
+oracles, over the sweep of ``test_kernels.py``.
+
+Every comparison is exact: the whole path is integer up to one f32 rescale
+whose rounding both sides share.  On CPU tensors the wrappers compute the
+plain versions; the Hopper kernels are held against those on the card by
+``test_torch_gpu.py`` and ``chip_smoke.py``."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+# smoke shapes: one intra-op thread is quicker than many, and leaves
+# the other cores to the other test workers
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.core import quantize as jquant  # noqa: E402
+from repro.kernels import neureka_conv as jnkc  # noqa: E402
+from repro.kernels import ops as jops, ref as jref  # noqa: E402
+from repro.kernels.qmatmul import qmatmul_int8 as jqmatmul_int8  # noqa: E402
+
+from repro_torch.core import quantize  # noqa: E402
+from repro_torch.kernels import neureka_conv as nkc  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.qmatmul import qmatmul_int8  # noqa: E402
+
+BITS = (2, 4, 8)
+
+
+def _t(a):
+    # copies: arrays exported from JAX are read-only
+    return torch.from_numpy(np.array(a))
+
+
+def _requant_operands(rng, n):
+    mult = rng.uniform(1e-4, 1e-3, (n,)).astype(np.float32)
+    bias = rng.integers(-8, 8, (n,)).astype(np.int32)
+    return mult, bias
+
+
+def _assert_equal(got, *expected):
+    got = got.numpy()
+    for e in expected:
+        np.testing.assert_array_equal(got, np.asarray(e))
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("m,k,n", [(40, 130, 50), (1, 33, 7), (16, 64, 32)])
+def test_qmatmul_int8_exact(rng, bits, m, k, n):
+    xq = rng.integers(0, 255, (m, k)).astype(np.uint8)
+    w = rng.normal(size=(n, k)).astype(np.float32)
+    packed, _ = jops.prep_linear(jnp.asarray(w), bits)
+    mult, bias = _requant_operands(rng, n)
+    args = (jnp.asarray(xq), packed, jnp.asarray(mult), jnp.asarray(bias))
+    pallas = jqmatmul_int8(*args, bits=bits, k_orig=k, bm=16, bn=32, bk=32,
+                           interpret=True)
+    oracle = jref.qmatmul_int8(*args, bits=bits, k_orig=k)
+    got = qmatmul_int8(_t(xq), _t(packed), _t(mult), _t(bias), bits=bits,
+                       k_orig=k)
+    assert got.dtype == torch.uint8 and got.shape == (m, n)
+    _assert_equal(got, pallas, oracle)
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("hwc", [(12, 10, 24, 16), (7, 7, 3, 32)])
+def test_conv3x3_dense_exact(rng, bits, stride, hwc):
+    h, w_, cin, cout = hwc
+    x = rng.integers(0, 255, (h, w_, cin)).astype(np.uint8)
+    wf = rng.normal(size=(cout, 3, 3, cin)).astype(np.float32)
+    packed, _ = jops.prep_conv3x3(jnp.asarray(wf), bits)
+    tpacked, _ = ops.prep_conv3x3(torch.from_numpy(wf), bits)
+    np.testing.assert_array_equal(tpacked.numpy(), np.asarray(packed))
+    mult, bias = _requant_operands(rng, cout)
+    args = (jnp.asarray(x), packed, jnp.asarray(mult), jnp.asarray(bias))
+    pallas = jnkc.conv3x3_dense(*args, bits=bits, cin=cin, stride=stride,
+                                bco=16, bci=8, interpret=True)
+    oracle = jref.conv3x3_dense(*args, bits=bits, cin=cin, stride=stride)
+    got = nkc.conv3x3_dense(_t(x), tpacked, _t(mult), _t(bias), bits=bits,
+                            cin=cin, stride=stride)
+    assert got.shape == (-(-h // stride), -(-w_ // stride), cout)
+    _assert_equal(got, pallas, oracle)
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv3x3_dw_exact(rng, bits, stride):
+    h, w_, c = 9, 11, 40
+    x = rng.integers(0, 255, (h, w_, c)).astype(np.uint8)
+    wf = rng.normal(size=(c, 3, 3)).astype(np.float32)
+    packed, _ = jops.prep_dw3x3(jnp.asarray(wf), bits)
+    tpacked, _ = ops.prep_dw3x3(torch.from_numpy(wf), bits)
+    np.testing.assert_array_equal(tpacked.numpy(), np.asarray(packed))
+    mult, bias = _requant_operands(rng, c)
+    args = (jnp.asarray(x), packed, jnp.asarray(mult), jnp.asarray(bias))
+    pallas = jnkc.conv3x3_dw(*args, bits=bits, stride=stride, bc=16,
+                             interpret=True)
+    oracle = jref.conv3x3_dw(*args, bits=bits, stride=stride)
+    got = nkc.conv3x3_dw(_t(x), tpacked, _t(mult), _t(bias), bits=bits,
+                         stride=stride)
+    _assert_equal(got, pallas, oracle)
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv1x1_exact(rng, bits, stride):
+    x = rng.integers(0, 255, (7, 9, 33)).astype(np.uint8)
+    wf = rng.normal(size=(17, 33)).astype(np.float32)
+    packed, _ = jops.prep_linear(jnp.asarray(wf), bits)
+    mult, bias = _requant_operands(rng, 17)
+    args = (jnp.asarray(x), packed, jnp.asarray(mult), jnp.asarray(bias))
+    pallas = jnkc.conv1x1(*args, bits=bits, cin=33, stride=stride,
+                          interpret=True)
+    oracle = jref.conv1x1(*args, bits=bits, cin=33, stride=stride)
+    got = nkc.conv1x1(_t(x), _t(packed), _t(mult), _t(bias), bits=bits,
+                      cin=33, stride=stride)
+    assert got.shape == (-(-7 // stride), -(-9 // stride), 17)
+    _assert_equal(got, pallas, oracle)
+
+
+@pytest.mark.parametrize("op,shape,stride", [
+    ("dense3x3", (16, 3, 3, 8), 2), ("dw3x3", (8, 3, 3), 1),
+    ("dw3x3", (8, 3, 3), 2), ("pw1x1", (12, 8), 1)])
+def test_neureka_conv2d_matches_reference_ops(rng, op, shape, stride):
+    x = rng.integers(0, 255, (10, 6, 8)).astype(np.uint8)
+    wf = rng.normal(size=shape).astype(np.float32)
+    prep = {"dense3x3": "prep_conv3x3", "dw3x3": "prep_dw3x3",
+            "pw1x1": "prep_linear"}[op]
+    packed, _ = getattr(jops, prep)(jnp.asarray(wf), 4)
+    mult, bias = _requant_operands(rng, shape[0])
+    expect = jops.neureka_conv2d(jnp.asarray(x), packed, jnp.asarray(mult),
+                                 jnp.asarray(bias), op=op, bits=4, cin=8,
+                                 stride=stride, mode="xla")
+    got = ops.neureka_conv2d(_t(x), _t(packed), _t(mult), _t(bias), op=op,
+                             bits=4, cin=8, stride=stride)
+    _assert_equal(got, expect)
+    with pytest.raises(ValueError, match="unknown N-EUREKA op"):
+        ops.neureka_conv2d(_t(x), _t(packed), _t(mult), _t(bias), op="pw3x3",
+                           bits=4, cin=8)
+
+
+def test_quant_matmul_int8_leading_dims(rng):
+    xq = rng.integers(0, 255, (3, 5, 24)).astype(np.uint8)
+    packed, _ = jops.prep_linear(jnp.asarray(rng.normal(size=(10, 24)),
+                                             jnp.float32), 2)
+    mult, bias = _requant_operands(rng, 10)
+    expect = jops.quant_matmul_int8(jnp.asarray(xq), packed,
+                                    jnp.asarray(mult), jnp.asarray(bias),
+                                    bits=2, k_orig=24, mode="xla")
+    got = ops.quant_matmul_int8(_t(xq), _t(packed), _t(mult), _t(bias),
+                                bits=2, k_orig=24)
+    assert got.shape == (3, 5, 10)
+    _assert_equal(got, expect)
+
+
+def test_requant_rounds_half_to_even_at_ties():
+    # acc * 0.5 lands exactly on .5 for odd acc: jnp.round (and the kernels'
+    # rintf) round those to the even neighbour
+    acc = np.arange(-7, 12, dtype=np.int32)
+    mult = np.full(acc.shape, 0.5, np.float32)
+    bias = np.full(acc.shape, 4, np.int32)
+    expect = jref._requant_f32(jnp.asarray(acc), jnp.asarray(mult),
+                               jnp.asarray(bias))
+    got = ref.requant_f32(_t(acc), _t(mult), _t(bias))
+    _assert_equal(got, expect)
+    # 1.5 -> 2, 2.5 -> 2, 3.5 -> 4, -0.5 -> 0 (clipped at 0 below)
+    by_acc = dict(zip(acc.tolist(), got.numpy().tolist()))
+    assert [by_acc[a] for a in (3, 5, 7, -1)] == [6, 6, 8, 4]
+
+
+def test_requantize_rounds_half_up_at_ties():
+    # rescale 0.5 exactly (mult 2^23, shift 24): floor(x + 0.5) sends every
+    # .5 up, unlike the kernels' half-to-even
+    rq_j = jquant.RequantParams(mult=jnp.full((1,), 1 << 23, jnp.int32),
+                                bias=jnp.zeros((1,), jnp.int32), shift=24)
+    rq_t = quantize.RequantParams(mult=torch.full((1,), 1 << 23,
+                                                  dtype=torch.int32),
+                                  bias=torch.zeros((1,), dtype=torch.int32),
+                                  shift=24)
+    acc = np.arange(0, 12, dtype=np.int32)[:, None]
+    expect = jquant.requantize(jnp.asarray(acc), rq_j)
+    got = quantize.requantize(_t(acc), rq_t)
+    _assert_equal(got, expect)
+    assert got[:, 0].tolist() == [0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6]
+
+
+@pytest.mark.parametrize("zp", [0, 3])
+def test_fold_requant_and_requantize_match_reference(rng, zp):
+    c = 64
+    w_scale = rng.uniform(1e-3, 5e-2, (c,)).astype(np.float32)
+    bias_fp = rng.normal(scale=2.0, size=(c,)).astype(np.float32)
+    in_scale, out_scale = 0.05, 0.11
+    rq_j = jquant.fold_requant(jnp.asarray(w_scale), in_scale, out_scale,
+                               jnp.asarray(bias_fp), out_zero_point=zp)
+    rq_t = quantize.fold_requant(torch.from_numpy(w_scale), in_scale,
+                                 out_scale, torch.from_numpy(bias_fp),
+                                 out_zero_point=zp)
+    assert rq_t.shift == rq_j.shift == quantize.REQUANT_SHIFT_BITS
+    _assert_equal(rq_t.mult, rq_j.mult)
+    _assert_equal(rq_t.bias, rq_j.bias)
+    assert rq_t.mult.dtype == rq_t.bias.dtype == torch.int32
+    acc = rng.integers(-20000, 20000, (33, c)).astype(np.int32)
+    _assert_equal(quantize.requantize(_t(acc), rq_t),
+                  jquant.requantize(jnp.asarray(acc), rq_j))
+    no_bias = quantize.fold_requant(torch.from_numpy(w_scale), in_scale,
+                                    out_scale, None)
+    _assert_equal(no_bias.bias, jquant.fold_requant(
+        jnp.asarray(w_scale), in_scale, out_scale, None).bias)
+
+
+@pytest.mark.parametrize("name", ["qmatmul_int8", "conv3x3_dense",
+                                  "conv3x3_dw"])
+def test_wrappers_take_cpu_or_cuda_only(name):
+    # a tensor that is neither on the CPU nor on a card is refused, not
+    # sent to the plain version
+    meta = torch.device("meta")
+    if name == "qmatmul_int8":
+        args = (torch.empty((4, 8), dtype=torch.uint8, device=meta),
+                torch.empty((3, 8), dtype=torch.uint8, device=meta))
+        kw = dict(bits=8, k_orig=8)
+        fn = qmatmul_int8
+    elif name == "conv3x3_dense":
+        args = (torch.empty((5, 5, 8), dtype=torch.uint8, device=meta),
+                torch.empty((3, 3, 3, 8), dtype=torch.uint8, device=meta))
+        kw = dict(bits=8, cin=8)
+        fn = nkc.conv3x3_dense
+    else:
+        args = (torch.empty((5, 5, 3), dtype=torch.uint8, device=meta),
+                torch.empty((3, 9), dtype=torch.uint8, device=meta))
+        kw = dict(bits=8)
+        fn = nkc.conv3x3_dw
+    mult = torch.empty((3,), dtype=torch.float32, device=meta)
+    bias = torch.empty((3,), dtype=torch.int32, device=meta)
+    before = fn.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        fn(*args, mult, bias, **kw)
+    assert fn.launches == before
