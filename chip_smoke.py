@@ -3,33 +3,47 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-It drives the port's two paths once, each at full width -- serving
-qwen3-0.6b, and int8 MobileNet-V2 1.0-224 on the N-EUREKA operators -- and
-fails (non-zero exit, no result line) if any phase fails:
+It drives the port's paths once, each at full width -- serving qwen3-0.6b,
+falcon-mamba-7b and hymba-1.5b, and int8 MobileNet-V2 1.0-224 on the
+N-EUREKA operators -- and fails (non-zero exit, no result line) if any phase
+fails:
 
 1. set-up: requires a CUDA device, turns TF32 off, prints the card's name
    and power limit, builds every ``csrc/*.cu`` with nvcc for sm_90a (one
    nvcc each, in parallel) and prints what ptxas reports for each kernel;
 2. each Hopper kernel against its plain PyTorch version on the card, at the
-   shapes its path gives it: ``qmatmul_f32`` and ``flash_attention`` within
-   the stated tolerances; ``qmatmul_int8``, ``conv3x3_dense`` and
-   ``conv3x3_dw`` bit for bit (``torch.equal``) at every distinct
-   MobileNet-V2 job shape at 224, at 8, 4 and 2 bits, at the ragged shapes
-   of the reference's kernel tests and at requant ties.  Then each is timed
-   with CUDA events (L2-cold: inputs rotate over more than the 50 MB L2)
-   beside its plain version, one PyTorch library call for the same
-   accumulation, and its bound: bytes over 3.35 TB/s, or operations over
-   67 TFLOP/s (f32) or 1,979 TOP/s (int8 tensor cores), whichever is
+   shapes its path gives it: ``qmatmul_f32``, ``flash_attention`` and
+   ``selective_scan`` within the stated tolerances (the scan also at a
+   ragged S, with and without h0, and its dt = 0 pads bit-exact no-ops);
+   ``qmatmul_int8``, ``conv3x3_dense`` and ``conv3x3_dw`` bit for bit
+   (``torch.equal``) at every distinct MobileNet-V2 job shape at 224, at 8,
+   4 and 2 bits, at the ragged shapes of the reference's kernel tests and
+   at requant ties.  Then each is timed with CUDA events (L2-cold: inputs
+   rotate over more than the 50 MB L2) beside its plain version, one
+   PyTorch library call for the same function where there is one, and its
+   bound: bytes over 3.35 TB/s, or operations over 67 TFLOP/s (f32), 1,979
+   TOP/s (int8 tensor cores) or the SFUs' exponential rate, whichever is
    larger.  Device times replay a CUDA graph of the calls, so the host's
    launch gaps drop out; the same calls enqueued eagerly from Python are
    printed beside them;
-3. serving: full-width qwen3-0.6b (28 layers, d_model 1024, vocab 151936)
-   with random weights from a seeded ``torch.Generator``, frozen at 8 bits,
-   ``ServingEngine(batch_slots=4, max_len=512)`` on the card answering 8
-   greedy requests (prompts of 16-256 tokens, 16 new tokens each); both
-   LM kernels' launch counters must grow during it;
-4. card vs CPU: ``forward`` logits of one 64-token sequence with the same
-   packed weights on the card (kernels) and on the CPU (plain versions);
+3. serving, three times: full-width qwen3-0.6b (28 layers, d_model 1024),
+   falcon-mamba-7b (64 layers, d_model 4096, d_inner 8192) and hymba-1.5b
+   (32 layers, d_model 1600, 128 meta tokens, window 1024 with 3 global
+   layers), each with random weights from a seeded CUDA ``torch.Generator``,
+   frozen at 8 bits, ``ServingEngine(batch_slots=4)`` on the card answering
+   8 greedy requests (prompts of 16-256 tokens, and one of 1,000-1,200 for
+   hymba so that its window binds; 16 new tokens each); the launch counters
+   of the family's kernels are set to 0 before and must have grown after;
+4. after each serve: the same requests again on a fresh engine under
+   ``torch.profiler``, with every call the model code makes to
+   ``qmatmul_f32``, ``flash_attention`` and ``selective_scan`` noted; each
+   kernel is then held against its plain version at every distinct call
+   shape (and window, offsets, h0 use) of that serve, on random inputs.
+   Then card vs CPU: ``forward`` logits of one 64-token sequence with the
+   same packed weights on the card (kernels) and on the CPU (plain
+   versions); all layers of qwen3-0.6b, the first 2 of falcon-mamba-7b and
+   the first 4 of hymba-1.5b, and for hymba also its longest served prompt,
+   where the window binds;
 5. frames: MobileNet-V2 1.0-224 with random weights from a seeded
    ``torch.Generator``, frozen at 8 bits on the card, runs 16 random uint8
    frames through ``apply``; the N-EUREKA launch counters must grow by
@@ -39,14 +53,15 @@ fails (non-zero exit, no result line) if any phase fails:
    eager and CUDA-graph frame times, peak memory, and from
    ``torch.profiler`` the device time by kernel and by job and the
    device's idle share of the eager frames;
-6. the ``{"kernels": [...]}`` line, the card line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+6. the ``{"serve": ...}`` and ``{"kernels": [...]}`` lines, the card line,
+   and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -63,13 +78,29 @@ INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core rate
 
 QMM_TOL = dict(rtol=1e-4, atol=1e-4)      # f32 accumulate, reordered sums
 FLASH_TOL = dict(rtol=3e-5, atol=3e-5)    # the reference kernel test's
+SCAN_TOL = dict(rtol=5e-4, atol=5e-4)     # the reference kernel test's
 LOGITS_TOL = dict(rtol=1e-3, atol=1e-3)   # 28 f32 layers, card vs CPU order
+# falcon-mamba (2 layers) and hymba (4 layers) cut copies: f32 sums in
+# another order and the N-state recurrence over 64 (192 with hymba's meta
+# tokens) steps, through full-width layers
+CUT_LOGITS_TOL = dict(rtol=2e-3, atol=2e-3)
+MUFU_PER_S = 16 * 132 * 1.98e9   # H100 SXM exponentials: 16 a clock per SM
 
 MNV2_IMG = 224
 MNV2_FRAMES = 16
 NEUREKA_KERNELS = ("conv3x3_dense", "conv3x3_dw", "qmatmul_int8")
 NEUREKA_PER_FRAME = {"conv3x3_dense": 1, "conv3x3_dw": 17, "qmatmul_int8": 35}
 L2_COLD_BYTES = 64e6             # rotate timing inputs over more than L2
+
+# the serving paths: (arch, max_len, one prompt of 1,000-1,200 tokens so that
+# hymba's window of 1,024 binds, depth of the card-vs-CPU copy: None = all)
+SERVE_PATHS = (("qwen3-0.6b", 512, False, None),
+               ("falcon-mamba-7b", 512, False, 2),
+               ("hymba-1.5b", 2048, True, 4))
+SERVE_KERNELS = {"dense": ("qmatmul_f32", "flash_attention"),
+                 "ssm": ("qmatmul_f32", "selective_scan"),
+                 "hybrid": ("qmatmul_f32", "flash_attention",
+                            "selective_scan")}
 
 # (K, N) of each packed linear of a qwen3-0.6b layer
 LAYER_LINEARS = {"wq": (1024, 2048), "wk": (1024, 1024), "wv": (1024, 1024),
@@ -138,8 +169,9 @@ def time_versions(torch, kernel, plain, library, n_sets: int,
     device times come from graph replay; ``eager_*`` are the same calls
     enqueued one by one from Python, launch gaps included."""
     fns = (kernel, plain, library, kernel)
-    dev = [graph_ms(torch, f, n_sets) for f in fns]
-    eager = [cuda_ms(torch, f, eager_iters) for f in fns]
+    dev = [None if f is None else graph_ms(torch, f, n_sets) for f in fns]
+    eager = [None if f is None else cuda_ms(torch, f, eager_iters)
+             for f in fns]
     torch.cuda.empty_cache()
     return dict(ms=min(dev[0], dev[3]), ms_runs=[dev[0], dev[3]],
                 plain_ms=dev[1], library_ms=dev[2],
@@ -306,14 +338,398 @@ def time_flash(torch, F, ref, fa, dev, copies: int = 4):
     return res
 
 
-def print_times(what: str, library: str, res, nbytes: int, flops: int):
+def print_times(what: str, library: str, res, nbytes: int, flops: int,
+                ops: str = "flop"):
+    def ms(key):
+        return "none" if res[key] is None else f"{res[key]:.4f}"
     print(f"[time] {what}: device (graph replay) kernel_ms "
           f"{res['ms_runs'][0]:.4f}/{res['ms_runs'][1]:.4f} plain_ms "
           f"{res['plain_ms']:.4f} library_ms ({library}) "
-          f"{res['library_ms']:.4f}; eager kernel_ms {res['eager_ms']:.4f} "
+          f"{ms('library_ms')}; eager kernel_ms {res['eager_ms']:.4f} "
           f"plain_ms {res['eager_plain_ms']:.4f} library_ms "
-          f"{res['eager_library_ms']:.4f}; bound_ms {res['bound_ms']:.4f} "
-          f"({res['bound_by']}; {nbytes} B, {flops} flop)")
+          f"{ms('eager_library_ms')}; bound_ms {res['bound_ms']:.4f} "
+          f"({res['bound_by']}; {nbytes} B, {flops} {ops})")
+
+
+# bsz, S, Di, N, with h0: the falcon-mamba prefill chunk and decode step at
+# 4 slots, a ragged S, a hymba prefill and decode
+SCAN_CASES = [(4, 64, 8192, 16, True), (4, 64, 8192, 16, False),
+              (4, 1, 8192, 16, True), (4, 1, 8192, 16, False),
+              (4, 37, 8192, 16, True), (4, 157, 3200, 16, True),
+              (4, 1, 3200, 16, True)]
+
+
+def scan_inputs(torch, gen, dev, bsz, s, di, n, h0):
+    """The reference kernel test's distributions (test_ssm_kernel.py)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+    return (randn(bsz, s, di), uniform(0.001, 0.1, bsz, s, di),
+            -uniform(0.5, 2.0, di, n), randn(bsz, s, n), randn(bsz, s, n),
+            randn(di), randn(bsz, di, n) if h0 else None)
+
+
+def check_scan(torch, ref, ssm, dev) -> float:
+    gen = torch.Generator(device=dev).manual_seed(8)
+    worst = 0.0
+    for case in SCAN_CASES:
+        args = scan_inputs(torch, gen, dev, *case)
+        (y, h), (y_ref, h_ref) = ssm.selective_scan(*args), \
+            ref.selective_scan(*args)
+        torch.cuda.synchronize()
+        err = max((y - y_ref).abs().max().item(),
+                  (h - h_ref).abs().max().item())
+        worst = max(worst, err)
+        if not (torch.allclose(y, y_ref, **SCAN_TOL)
+                and torch.allclose(h, h_ref, **SCAN_TOL)):
+            raise AssertionError(f"selective_scan {case}: max abs err {err}")
+    # pads (dt = 0) are exact no-ops: h_last after [real, pads] equals
+    # h_last after the real tokens alone
+    x, dt, A, B, C, D, h0 = scan_inputs(torch, gen, dev, 4, 64, 8192, 16,
+                                        True)
+    real = 37
+    dt_pad = dt.clone()
+    dt_pad[:, real:] = 0
+    _, h_pad = ssm.selective_scan(x, dt_pad, A, B, C, D, h0)
+    _, h_real = ssm.selective_scan(x[:, :real].contiguous(),
+                                   dt[:, :real].contiguous(), A,
+                                   B[:, :real], C[:, :real], D, h0)
+    torch.cuda.synchronize()
+    if not torch.equal(h_pad, h_real):
+        raise AssertionError("selective_scan: dt = 0 pads changed h_last")
+    print(f"[check] selective_scan: {len(SCAN_CASES)} cases (falcon-mamba "
+          f"prefill 4x64x8192 and decode 4x1x8192 with and without h0, "
+          f"ragged S=37, hymba 4x157x3200 and 4x1x3200), max abs err "
+          f"{worst:.3e}, tolerance {SCAN_TOL}; {64 - real} dt=0 pads leave h_last "
+          f"equal (torch.equal)")
+    return worst
+
+
+def time_scan(torch, ref, ssm, dev, s: int, bsz: int = 4, di: int = 8192,
+              n: int = 16):
+    """One falcon-mamba layer's scan at 4 slots (S = 64: a prefill chunk;
+    S = 1: a decode step), from h0, inputs rotated over more than 50 MB.
+    No PyTorch call computes a selective scan, so there is no library time."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    nbytes = 4 * (3 * bsz * s * di + 2 * bsz * s * n + di * n + di
+                  + 2 * bsz * di * n)
+    copies = int(max(2, -(-L2_COLD_BYTES // nbytes)))
+    sets = [scan_inputs(torch, gen, dev, bsz, s, di, n, True)
+            for _ in range(copies)]
+    res = time_versions(torch, lambda i: ssm.selective_scan(*sets[i % copies]),
+                        lambda i: ref.selective_scan(*sets[i % copies]),
+                        None, copies, 50)
+    exps = bsz * s * di * n
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, exps, MUFU_PER_S)
+    res["work"] = f"Bz={bsz} S={s} Di={di} N={n}, from h0"
+    print_times(f"selective_scan {res['work']}",
+                "none: no single PyTorch call computes a selective scan",
+                res, nbytes, exps, "exp")
+    return res
+
+
+class _Recorder:
+    """Stands in for one kernel module as ``kernels/ops.py`` sees it: the
+    wrapper ``name`` is ``fn``, every other attribute the module's own."""
+
+    def __init__(self, module, name, fn):
+        self._module, self._name, self._fn = module, name, fn
+
+    def __getattr__(self, attr):
+        return self._fn if attr == self._name else getattr(self._module, attr)
+
+
+@contextlib.contextmanager
+def recording(torch, ops):
+    """Notes each call that the model code makes to the LM kernel wrappers
+    while the block runs.  The model code reaches every kernel through
+    ``kernels/ops.py``, which calls each wrapper through its kernel module;
+    those module references are put behind recorders that call the wrapper
+    unchanged (so its launch count moves as usual) and are restored after.
+    Yields {kernel name: [call key, ...]}; per-row query offsets are kept
+    as device tensors until the block ends, so nothing syncs."""
+    calls = {"qmatmul_f32": [], "flash_attention": [], "selective_scan": []}
+    qmm, fa, ssm = ops._qmm, ops._fa, ops._ssm
+
+    def rec_qmm(x, packed, scale, *, bits, k_orig):
+        calls["qmatmul_f32"].append((x.shape[0], k_orig, packed.shape[0],
+                                     bits, x.dtype))
+        return qmm.qmatmul_f32(x, packed, scale, bits=bits, k_orig=k_orig)
+
+    def rec_fa(q, k, v, **kw):
+        off = kw.get("q_offset")
+        calls["flash_attention"].append((
+            tuple(q.shape), tuple(k.shape), kw.get("causal", True),
+            kw.get("scale"), kw.get("window"),
+            off.clone() if isinstance(off, torch.Tensor) else off))
+        return fa.flash_attention(q, k, v, **kw)
+
+    def rec_scan(x, dt, A, B, C, D, h0=None, *, h_out=None):
+        calls["selective_scan"].append((
+            tuple(x.shape), A.shape[1], h0 is not None,
+            h_out is not None and h_out is h0))
+        return ssm.selective_scan(x, dt, A, B, C, D, h0, h_out=h_out)
+
+    ops._qmm = _Recorder(qmm, "qmatmul_f32", rec_qmm)
+    ops._fa = _Recorder(fa, "flash_attention", rec_fa)
+    ops._ssm = _Recorder(ssm, "selective_scan", rec_scan)
+    try:
+        yield calls
+    finally:
+        ops._qmm, ops._fa, ops._ssm = qmm, fa, ssm
+    calls["flash_attention"] = [
+        key[:5] + (tuple(key[5].reshape(-1).tolist())
+                   if isinstance(key[5], torch.Tensor) else key[5],)
+        for key in calls["flash_attention"]]
+    for name in calls:
+        calls[name] = list(dict.fromkeys(calls[name]))
+
+
+def check_path(torch, ops, ref, qmm, fa, ssm, dev, arch: str, calls):
+    """Each LM kernel against its plain version at every distinct call of
+    one serve (``recording``), on random inputs with the distributions the
+    other checks use; the tolerances are theirs.  A scan call that wrote
+    h_last over h0 is also repeated so, and must equal the fresh output."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    worst = dict.fromkeys(calls, 0.0)
+
+    def hold(name, got, expect, tol, what):
+        torch.cuda.synchronize()
+        err = (got - expect).abs().max().item() if got.numel() else 0.0
+        worst[name] = max(worst[name], err)
+        if not torch.allclose(got, expect, **tol):
+            raise AssertionError(f"{arch} {name} {what}: max abs err {err}")
+
+    weights = {}
+    for m, k, n, bits, dtype in calls["qmatmul_f32"]:
+        if (k, n, bits) not in weights:
+            w = torch.randn((n, k), generator=gen, device=dev) * k ** -0.5
+            weights[k, n, bits] = ops.prep_linear(w, bits)
+            del w
+        packed, scale = weights[k, n, bits]
+        x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+        hold("qmatmul_f32",
+             qmm.qmatmul_f32(x, packed, scale, bits=bits, k_orig=k),
+             ref.qmatmul_f32(x, packed, scale, bits=bits, k_orig=k),
+             QMM_TOL, f"M={m} K={k} N={n} bits={bits}")
+    del weights
+    for qs, ks, causal, scale, window, offs in calls["flash_attention"]:
+        q = torch.randn(qs, generator=gen, device=dev)
+        k = torch.randn(ks, generator=gen, device=dev)
+        v = torch.randn(ks, generator=gen, device=dev)
+        off = (torch.tensor(offs, dtype=torch.int32, device=dev)
+               if isinstance(offs, tuple) else offs)
+        kw = dict(causal=causal, scale=scale, window=window, q_offset=off)
+        hold("flash_attention", fa.flash_attention(q, k, v, **kw),
+             ref.flash_attention(q, k, v, **kw), FLASH_TOL,
+             f"q {qs} k {ks} window {window} q_offset {offs}")
+    for (bsz, s, di), n, has_h0, in_place in calls["selective_scan"]:
+        args = scan_inputs(torch, gen, dev, bsz, s, di, n, has_h0)
+        y, h = ssm.selective_scan(*args)
+        y_ref, h_ref = ref.selective_scan(*args)
+        what = f"({bsz}, {s}, {di}) N={n} h0={has_h0}"
+        hold("selective_scan", y, y_ref, SCAN_TOL, what + " y")
+        hold("selective_scan", h, h_ref, SCAN_TOL, what + " h_last")
+        if in_place:
+            cache = args[-1].clone()
+            y_ip, h_ip = ssm.selective_scan(*args[:-1], cache, h_out=cache)
+            torch.cuda.synchronize()
+            if not (torch.equal(y_ip, y) and torch.equal(h_ip, h)):
+                raise AssertionError(f"{arch} selective_scan {what}: h_last "
+                                     "written over h0 differs")
+    torch.cuda.empty_cache()
+
+    def span(vals):
+        return f"{min(vals)}-{max(vals)}" if vals else "-"
+    qc, fc, sc = (calls[k] for k in ("qmatmul_f32", "flash_attention",
+                                     "selective_scan"))
+    print(f"[check] {arch} path, kernels vs plain at each distinct call of "
+          f"the serve: qmatmul_f32 {len(qc)} (M {span([c[0] for c in qc])}, "
+          f"(K, N) {sorted({c[1:3] for c in qc})}), flash_attention "
+          f"{len(fc)} (q {sorted({c[0] for c in fc})}, k "
+          f"{sorted({c[1] for c in fc})}, windows "
+          f"{sorted({c[4] for c in fc if c[4] is not None})}), "
+          f"selective_scan {len(sc)} ((Bz, S, Di) "
+          f"{sorted({c[0] for c in sc})}, {sum(c[3] for c in sc)} written "
+          f"over h0); max abs err {json.dumps(worst)}")
+    return dict(cases={k: len(v) for k, v in calls.items()},
+                max_abs_err=worst)
+
+
+def serve_lm(torch, m, cfg, max_len: int, long_prompt: bool, counters,
+             depth, dev):
+    """Serve 8 greedy requests (prompts of 16-256 tokens, one of 1,000-1,200
+    with ``long_prompt``; 16 new tokens each) on full-width ``cfg`` with
+    random weights from a CUDA generator seeded 0, frozen at 8 bits; the
+    family's kernels must launch.  Then ``forward`` logits of 64 tokens on
+    the card against the CPU's plain path, on the first ``depth`` layers
+    (all with None)."""
+    np, tfm = m["np"], m["tfm"]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = tfm.init_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    packed = m["freeze"](params, bits=8)
+    del params
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    n_packed = sum(t.numel() * t.element_size() for t in leaves(packed))
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model},"
+          f" vocab {cfg.vocab_size}; init + freeze (8-bit) "
+          f"{time.perf_counter() - t0:.2f} s, {n_packed / 2**30:.3f} GiB "
+          f"frozen, peak {init_peak / 2**30:.3f} GiB")
+    eng = m["ServingEngine"](cfg, packed, batch_slots=4, max_len=max_len)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 257, 8)
+    if long_prompt:
+        lens[-1] = rng.integers(1000, 1201)
+    if cfg.family == "ssm" and lens.max() <= eng.prefill_chunk:
+        raise AssertionError("no prompt spans two prefill chunks")
+    reqs = [m["Request"](uid=i, prompt=rng.integers(0, cfg.vocab_size, int(n))
+                         .astype(np.int32), max_new_tokens=16)
+            for i, n in enumerate(lens)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    ttft = [r.first_token_s - r.arrival_s for r in done]
+    if len(done) != 8 or any(len(r.generated) != 16 for r in done):
+        raise AssertionError("not every request got its 16 tokens")
+    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.generated):
+        raise AssertionError("token id out of the vocabulary")
+    for name in SERVE_KERNELS[cfg.family]:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched while serving "
+                                 f"{cfg.name}")
+    print(f"[serve] {cfg.name}: {len(done)} requests, prompts "
+          f"{lens.tolist()} ({int(lens.sum())} prompt tokens), "
+          f"{sum(len(r.generated) for r in done)} new tokens, wall "
+          f"{wall:.3f} s after synchronize, TTFT mean {np.mean(ttft):.3f} s "
+          f"max {np.max(ttft):.3f} s, peak memory {peak / 2**30:.3f} GiB "
+          f"({base / 2**30:.3f} GiB allocated at the start), "
+          f"launches {launches}")
+    del eng
+    # the same requests again on a fresh engine, under the profiler, with
+    # the kernel calls noted; then each kernel at each of those calls
+    with recording(torch, m["ops"]) as calls:
+        profile = profile_serve(torch, cfg, lambda: m["ServingEngine"](
+            cfg, packed, batch_slots=4, max_len=max_len), [
+                m["Request"](uid=r.uid, prompt=r.prompt, max_new_tokens=16)
+                for r in reqs])
+    path_check = check_path(torch, m["ops"], m["ref"], m["qmm"], m["fa"],
+                            m["ssm"], dev, cfg.name, calls)
+
+    # card vs CPU logits with the same packed weights: 64 tokens, and with
+    # a long prompt that prompt too (hymba's window binds there)
+    fcfg, tree = cfg, packed
+    if depth is not None:
+        fcfg = cfg.replace(n_layers=depth)
+        tree = dict(packed, layers=first_layers(packed["layers"], depth))
+    tree_cpu = to_device(torch, tree, "cpu")
+    seqs = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64)))]
+    if long_prompt:
+        seqs.append(torch.from_numpy(reqs[-1].prompt[None].astype(np.int64)))
+    tol = LOGITS_TOL if depth is None else CUT_LOGITS_TOL
+    errs = []
+    for toks in seqs:
+        gpu_logits = tfm.forward(tree, toks.to(dev), fcfg).cpu()
+        cpu_logits = tfm.forward(tree_cpu, toks, fcfg)
+        err = (gpu_logits - cpu_logits).abs().max().item()
+        top1 = (gpu_logits.argmax(-1) == cpu_logits.argmax(-1)).float().mean()
+        positions = cfg.n_meta_tokens + toks.shape[1]
+        if not (torch.isfinite(gpu_logits).all() and gpu_logits.shape
+                == (1, positions, cfg.vocab_size)):
+            raise AssertionError(f"{cfg.name}: card logits are not finite or "
+                                 "misshapen")
+        if not torch.allclose(gpu_logits, cpu_logits, **tol):
+            raise AssertionError(f"{cfg.name} card vs CPU logits, "
+                                 f"{toks.shape[1]} tokens: max abs err {err}")
+        windows = tfm.layer_windows(fcfg)
+        print(f"[forward] {cfg.name} ({fcfg.n_layers} of {cfg.n_layers} "
+              f"layers, windows {windows}) {toks.shape[1]} tokens "
+              f"({positions} positions) card vs CPU: max abs err {err:.3e} "
+              f"(tolerance {tol}), top-1 agreement {top1.item():.4f}, max "
+              f"|logit| {cpu_logits.abs().max().item():.3f}")
+        errs.append(err)
+        del gpu_logits, cpu_logits
+    return dict(launches=launches, wall_s=wall, ttft_mean_s=float(
+        np.mean(ttft)), ttft_max_s=float(np.max(ttft)), peak_gib=peak / 2**30,
+        prompt_tokens=int(lens.sum()), logits_max_abs_err=max(errs),
+        path_check=path_check, profile=profile)
+
+
+# kernel-name fragments of the LM paths' device time, as the profiler names
+# them; cuBLAS / CUTLASS GEMMs are the unembedding's f32 matmul
+PROFILE_LM_KERNELS = (("qmm_tiled", "qmatmul_f32 tiled (prefill)"),
+                      ("qmm_gemv", "qmatmul_f32 gemv (decode)"),
+                      ("flash_fwd", "flash_attention"),
+                      ("ssm_scan_fwd", "selective_scan"),
+                      ("gemm", "torch.matmul (unembed)"))
+
+
+def profile_serve(torch, cfg, make_engine, reqs):
+    """Device time by kernel and the device's idle share of one serve, from
+    ``torch.profiler`` (device activity only, to keep its cost low)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = make_engine()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    if not kernels:
+        print(f"[serve] {cfg.name} profiler: no device events recorded; "
+              "device time by kernel not measured")
+        return None
+    by_kernel, busy, end = {}, 0.0, -1.0
+    for e in kernels:
+        t0_, t1_ = e.time_range.start, e.time_range.end
+        busy += max(0.0, t1_ - max(t0_, end))
+        end = max(end, t1_)
+        label = next((lab for frag, lab in PROFILE_LM_KERNELS
+                      if frag in e.name.lower()), "other torch ops")
+        by_kernel[label] = by_kernel.get(label, 0.0) + (t1_ - t0_) / 1e3
+    res = dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
+               idle_share=1.0 - busy / wall_us, n_kernels=len(kernels),
+               by_kernel_ms={k: round(v, 3) for k, v in by_kernel.items()})
+    print(f"[serve] {cfg.name} profiler over the same requests: device busy "
+          f"{busy / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms on the host clock "
+          f"(idle share {res['idle_share']:.3f}), {len(kernels)} kernels; "
+          f"by kernel (ms) {json.dumps(res['by_kernel_ms'])}")
+    return res
+
+
+def first_layers(tree, depth: int):
+    if isinstance(tree, dict):
+        return {k: first_layers(v, depth) for k, v in tree.items()}
+    return tree[:depth]
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
 
 
 def job_key(j):
@@ -655,6 +1071,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import neureka_conv as nkc
     from repro_torch.kernels import qmatmul as qmm
+    from repro_torch.kernels import ssm_scan as ssm
     from repro_torch.models import mobilenet_v2 as mnv2
     from repro_torch.models import transformer as tfm
     from repro_torch.parallel.sharding import freeze_for_serving
@@ -681,70 +1098,34 @@ def main() -> int:
     t_nk = {name: time_neureka(torch, F, packing, ops, ref, nkc, qmm, dev,
                                *job_key(jobs[name]), name)
             for name in ("b1.pw_exp", "conv_last", "conv0", "b1.dw")}
+    scan_err = check_scan(torch, ref, ssm, dev)
+    t_scan = {"prefill": time_scan(torch, ref, ssm, dev, 64),
+              "decode": time_scan(torch, ref, ssm, dev, 1)}
     gc.collect()                  # drop the timing graphs and their pools
     torch.cuda.empty_cache()
 
-    # 3. serve full-width qwen3-0.6b
-    cfg = get_config("qwen3-0.6b")
-    t0 = time.perf_counter()
-    params = tfm.init_params(cfg, generator=torch.Generator().manual_seed(0))
-    packed = freeze_for_serving(params, bits=8)
-    del params
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model},"
-          f" vocab {cfg.vocab_size}; init + freeze (8-bit) "
-          f"{time.perf_counter() - t0:.2f} s")
-    eng = ServingEngine(cfg, packed, batch_slots=4, max_len=512)
-    rng = np.random.default_rng(0)
-    lens = rng.integers(16, 257, 8)
-    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, int(n))
-                    .astype(np.int32), max_new_tokens=16)
-            for i, n in enumerate(lens)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    qmm.qmatmul_f32.launches = 0
-    fa.flash_attention.launches = 0
-    t0 = time.perf_counter()
-    for r in reqs:
-        eng.submit(r)
-    done = eng.run_until_done()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"qmatmul_f32": qmm.qmatmul_f32.launches,
-                "flash_attention": fa.flash_attention.launches}
-    peak = torch.cuda.max_memory_allocated()
-    new_tokens = sum(len(r.generated) for r in done)
-    ttft = [r.first_token_s - r.arrival_s for r in done]
-    if len(done) != 8 or any(len(r.generated) != 16 for r in done):
-        raise AssertionError("not every request got its 16 tokens")
-    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.generated):
-        raise AssertionError("token id out of the vocabulary")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} never launched while serving")
-    print(f"[serve] {len(done)} requests, prompts {lens.tolist()} "
-          f"({int(lens.sum())} prompt tokens), {new_tokens} new tokens, wall "
-          f"{wall:.3f} s after synchronize, TTFT mean {np.mean(ttft):.3f} s "
-          f"max {np.max(ttft):.3f} s, peak memory {peak / 2**30:.3f} GiB "
-          f"({base / 2**30:.3f} GiB allocated at the start), "
-          f"launches {launches}")
-
-    # 4. card vs CPU logits with the same packed weights
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64)))
-    gpu_logits = tfm.forward(packed, toks.to(dev), cfg).cpu()
-    cpu_logits = tfm.forward(to_device(torch, packed, "cpu"), toks, cfg)
-    logit_err = (gpu_logits - cpu_logits).abs().max().item()
-    top1 = (gpu_logits.argmax(-1) == cpu_logits.argmax(-1)).float().mean()
-    if not (torch.isfinite(gpu_logits).all()
-            and gpu_logits.shape == (1, 64, cfg.vocab_size)):
-        raise AssertionError("card logits are not finite or misshapen")
-    if not torch.allclose(gpu_logits, cpu_logits, **LOGITS_TOL):
-        raise AssertionError(f"card vs CPU logits: max abs err {logit_err}")
-    print(f"[forward] 64 tokens card vs CPU: max abs err {logit_err:.3e} "
-          f"(tolerance {LOGITS_TOL}), top-1 agreement {top1.item():.4f}, "
-          f"max |logit| {cpu_logits.abs().max().item():.3f}")
+    # 3-4. serve full-width qwen3-0.6b, falcon-mamba-7b and hymba-1.5b,
+    # each with its card-vs-CPU logits check
+    mods = dict(np=np, tfm=tfm, freeze=freeze_for_serving, Request=Request,
+                ServingEngine=ServingEngine, ops=ops, ref=ref, qmm=qmm, fa=fa,
+                ssm=ssm)
+    counters = {"qmatmul_f32": qmm.qmatmul_f32,
+                "flash_attention": fa.flash_attention,
+                "selective_scan": ssm.selective_scan}
+    served = {}
+    for arch, max_len, long_prompt, depth in SERVE_PATHS:
+        served[arch] = serve_lm(torch, mods, get_config(arch), max_len,
+                                long_prompt, counters, depth, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {name: sum(s["launches"][name] for s in served.values())
+                for name in counters}
+    qmm_err, fa_err, scan_err = (
+        max([err] + [s["path_check"]["max_abs_err"][name]
+                     for s in served.values()])
+        for err, name in ((qmm_err, "qmatmul_f32"),
+                          (fa_err, "flash_attention"),
+                          (scan_err, "selective_scan")))
 
     # 5. MobileNet-V2 1.0-224 frames on the N-EUREKA kernels
     gc.collect()
@@ -752,11 +1133,14 @@ def main() -> int:
     nk_launches = run_frames(torch, mnv2, nkc, qmm, dev)
 
     # 6. result lines
+    by_path = {name: {arch: s["launches"][name] for arch, s in served.items()}
+               for name in counters}
     kernels = [
         dict(name="qmatmul_f32", route="cuda",
              source="src/repro_torch/csrc/qmatmul_f32.cu",
              replaces="src/repro/kernels/qmatmul.py:132",
-             launches=launches["qmatmul_f32"], max_abs_err=qmm_err,
+             launches=launches["qmatmul_f32"],
+             launches_by_path=by_path["qmatmul_f32"], max_abs_err=qmm_err,
              ms=t_dec["ms"], plain_ms=t_dec["plain_ms"],
              bound_ms=t_dec["bound_ms"], bound_by=t_dec["bound_by"],
              library_ms=t_dec["library_ms"], eager_ms=t_dec["eager_ms"],
@@ -765,7 +1149,8 @@ def main() -> int:
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:71",
-             launches=launches["flash_attention"], max_abs_err=fa_err,
+             launches=launches["flash_attention"],
+             launches_by_path=by_path["flash_attention"], max_abs_err=fa_err,
              ms=t_fa["ms"], plain_ms=t_fa["plain_ms"],
              bound_ms=t_fa["bound_ms"], bound_by=t_fa["bound_by"],
              library_ms=t_fa["library_ms"], eager_ms=t_fa["eager_ms"],
@@ -791,6 +1176,19 @@ def main() -> int:
         if name == "qmatmul_int8":
             entry["conv_last"] = t_nk["conv_last"]
         kernels.append(entry)
+    t = t_scan["prefill"]
+    kernels.append(dict(
+        name="selective_scan", route="cuda",
+        source="src/repro_torch/csrc/ssm_scan.cu",
+        replaces="src/repro/kernels/ssm_scan.py:64",
+        launches=launches["selective_scan"],
+        launches_by_path=by_path["selective_scan"], max_abs_err=scan_err,
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=None,
+        library_note="no single PyTorch call computes a selective scan",
+        eager_ms=t["eager_ms"], work="falcon-mamba prefill chunk, "
+        + t["work"], decode=t_scan["decode"]))
+    print(json.dumps({"serve": served}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

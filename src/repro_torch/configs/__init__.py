@@ -1,8 +1,9 @@
 """Architecture registry (reference: ``repro/configs/__init__.py``).
 
 ``get_config(name)`` / ``ARCHS`` are the public API.  The ten arch configs
-are plain values copied from the reference; the port runs the dense family
-only so far (``models/transformer.py`` raises for the others).
+are plain values copied from the reference; the port runs the dense, SSM
+and hybrid families so far (``models/transformer.py`` raises for the
+others).
 """
 
 from repro_torch.configs.qwen3_0_6b import CONFIG as _qwen3

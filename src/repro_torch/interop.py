@@ -5,9 +5,10 @@ reproduce, so parity runs export the JAX parameter tree as nested dicts of
 numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``) and load it
 here.  Two kinds of tree come across:
 
-- the LM's, dense or frozen: layers stacked on axis 0
-  (``repro/models/transformer.py:134-150``) and packed leaves as
-  ``{"packed", "scale"}`` dicts (:func:`params_from_numpy`);
+- the LM's, dense or frozen, of any ported family (dense, SSM, hybrid):
+  layers stacked on axis 0 (``repro/models/transformer.py:134-150``),
+  packed leaves as ``{"packed", "scale"}`` dicts, and the SSM leaves and
+  hymba's ``meta_tokens`` as they are (:func:`params_from_numpy`);
 - MobileNet-V2's, one entry per N-EUREKA job: the float ``{"w", "bias"}``
   tree of ``init_params`` or the frozen ``{"packed", "mult", "bias"}`` tree
   of ``freeze_packed`` (:func:`mobilenet_from_numpy`).

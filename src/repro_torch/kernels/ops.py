@@ -1,6 +1,7 @@
 """Public wrappers over the kernels (reference: ``repro/kernels/ops.py``:
 the ``prep_*`` layouts, ``quant_matmul``, ``quant_matmul_int8``,
-``neureka_conv2d`` and ``attention``).
+``neureka_conv2d`` and ``attention``; ``selective_scan`` has no counterpart
+there, since the reference models call the jnp scan directly).
 
 The reference picks a path by ``mode`` (pallas | interpret | xla).  The port
 has one rule instead, applied by each kernel wrapper: a CUDA tensor launches
@@ -18,6 +19,7 @@ from repro_torch.core import packing, quantize
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import neureka_conv as _nkc
 from repro_torch.kernels import qmatmul as _qmm
+from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels.ref import QOffset
 
 
@@ -79,6 +81,17 @@ def neureka_conv2d(x: torch.Tensor, packed: torch.Tensor, mult: torch.Tensor,
                             stride=stride)
     raise ValueError(f"unknown N-EUREKA op {op!r}; expected dense3x3, "
                      "dw3x3 or pw1x1")
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None, *,
+                   h_out: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-1 selective scan -> (y f32, h_last), h_last written into
+    ``h_out`` when given; see
+    :func:`repro_torch.kernels.ssm_scan.selective_scan`."""
+    return _ssm.selective_scan(x, dt, A, B, C, D, h0, h_out=h_out)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

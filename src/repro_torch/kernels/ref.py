@@ -14,7 +14,7 @@ K = 1280, far below 2^53).  One code path serves both devices.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -115,6 +115,43 @@ def conv1x1(x: torch.Tensor, packed: torch.Tensor, mult: torch.Tensor,
     out = qmatmul_int8(x.reshape(h * w_, c), packed, mult, bias, bits=bits,
                        k_orig=cin)
     return out.reshape(h, w_, -1)
+
+
+def ssm_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                    h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-token recurrence (``repro/models/ssm.py::ssm_decode_step``).
+    x, dt: (Bz, Di); A: (Di, N); B, C: (Bz, N); D: (Di,); h: (Bz, Di, N).
+    Returns (y (Bz, Di) f32, h f32)."""
+    xf, dtf = x.to(torch.float32), dt.to(torch.float32)
+    dA = torch.exp(dtf[..., None] * A.to(torch.float32)[None])  # (Bz, Di, N)
+    dBx = dtf[..., None] * B[:, None, :].to(torch.float32) * xf[..., None]
+    h = dA * h + dBx
+    y = torch.einsum("bdn,bn->bd", h, C.to(torch.float32))
+    return y + xf * D.to(torch.float32)[None], h
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None):
+    """Mamba-1 selective scan, one :func:`ssm_decode_step` after another (the
+    semantics of ``repro/models/ssm.py::selective_scan``), so the serving
+    decode (S = 1) is exactly one decode step.
+
+    x, dt: (Bz, S, Di); A: (Di, N); B, C: (Bz, S, N); D: (Di,); h0: (Bz, Di,
+    N) or None for a zero state.  Returns (y (Bz, S, Di) f32, h_last (Bz,
+    Di, N) f32).  A step with dt = 0 multiplies h by exp(0) = 1 and adds 0,
+    so it leaves h unchanged.
+    """
+    bsz, s, di = x.shape
+    n = A.shape[1]
+    h = (torch.zeros((bsz, di, n), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.to(torch.float32))
+    y = torch.empty((bsz, s, di), dtype=torch.float32, device=x.device)
+    for t in range(s):
+        y[:, t], h = ssm_decode_step(x[:, t], dt[:, t], A, B[:, t], C[:, t],
+                                     D, h)
+    return y, h
 
 
 def query_offsets(q_offset: QOffset, batch: int, sq: int, sk: int,

@@ -1,0 +1,119 @@
+"""Fused selective scan (Mamba-1), as a Hopper kernel.
+
+Ports ``repro/kernels/ssm_scan.py::selective_scan_fused`` (``_scan_kernel``)
+and extends it to what serving needs: an optional initial state ``h0`` in
+and the final state ``h_last`` out, since the serving engine carries the
+state across prefill chunks and into decode.  The TPU kernel starts from
+zero and returns y only; the reference models never call it and run the
+jnp chunked scan of ``repro/models/ssm.py`` instead.  The port wires the
+kernel into the SSM mixer's prefill, ``forward`` and decode (at S = 1).
+
+The wrapper launches ``csrc/ssm_scan.cu`` for CUDA tensors and raises on
+anything it does not take: the inputs must be float32 (the TPU kernel's
+bf16 input is later work, ROADMAP A9).  For CPU tensors it computes the
+plain PyTorch version (``kernels/ref.py::selective_scan``).
+``selective_scan.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+# state sizes the kernel is instantiated for (4 lanes share a channel's N)
+N_STATES = (4, 8, 16, 32)
+
+_c_ptr = ctypes.c_void_p
+_c_int = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    fn = build.library("ssm_scan").ssm_scan_launch
+    fn.argtypes = [_c_ptr] * 9 + [_c_int] * 4 + [_c_ptr]
+    fn.restype = _c_int
+    return fn
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None, *,
+                   h_out: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x, dt (Bz, S, Di); A (Di, N); B, C (Bz, S, N); D (Di,); h0 (Bz, Di, N)
+    or None -> (y (Bz, S, Di) f32, h_last (Bz, Di, N) f32).
+
+    B and C may be strided views (slices of the ``x_proj`` output); they are
+    made contiguous here.  The other inputs must be contiguous.  ``h_out``
+    (contiguous f32 (Bz, Di, N), and may be ``h0`` itself) receives h_last
+    and is returned as it; without it h_last is a new tensor.
+    """
+    tensors = [x, dt, A, B, C, D] + [t for t in (h0, h_out) if t is not None]
+    if {t.device.type for t in tensors} == {"cpu"}:
+        y, h_last = ref.selective_scan(x, dt, A, B, C, D, h0)
+        return y, (h_last if h_out is None else h_out.copy_(h_last))
+    if ({t.device.type for t in tensors} != {"cuda"}
+            or len({t.device for t in tensors}) != 1):
+        raise ValueError("selective_scan needs every input on one CUDA "
+                         "device (or all on the CPU), got "
+                         f"{[str(t.device) for t in tensors]}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("selective_scan takes float32 inputs (bf16 input is "
+                        "not ported yet, ROADMAP A9), got "
+                        f"{[str(t.dtype) for t in tensors]}")
+    if x.ndim != 3 or dt.shape != x.shape or A.ndim != 2:
+        raise ValueError(f"need x and dt (Bz, S, Di) and A (Di, N), got "
+                         f"{tuple(x.shape)}, {tuple(dt.shape)}, "
+                         f"{tuple(A.shape)}")
+    bsz, s, di = x.shape
+    n = A.shape[1]
+    if (A.shape[0] != di or B.shape != (bsz, s, n) or C.shape != (bsz, s, n)
+            or D.shape != (di,)
+            or any(h is not None and h.shape != (bsz, di, n)
+                   for h in (h0, h_out))):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, A "
+                         f"{tuple(A.shape)}, B {tuple(B.shape)}, C "
+                         f"{tuple(C.shape)}, D {tuple(D.shape)}, h0 "
+                         f"{None if h0 is None else tuple(h0.shape)}")
+    if n not in N_STATES:
+        raise ValueError(f"state size {n} not in {N_STATES}")
+    if not all(t.is_contiguous() for t in [x, dt, A, D] + tensors[6:]):
+        raise ValueError("selective_scan needs contiguous x, dt, A, D, h0 "
+                         "and h_out")
+    B, C = B.contiguous(), C.contiguous()
+    y = torch.empty((bsz, s, di), dtype=torch.float32, device=x.device)
+    h_last = (torch.empty((bsz, di, n), dtype=torch.float32, device=x.device)
+              if h_out is None else h_out)
+    if bsz == 0 or di == 0:
+        return y, h_last
+    rc = _launcher()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                     C.data_ptr(), D.data_ptr(),
+                     None if h0 is None else h0.data_ptr(),
+                     y.data_ptr(), h_last.data_ptr(), bsz, s, di, n,
+                     torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"selective_scan launch failed: CUDA error {rc}")
+    selective_scan.launches += 1
+    return y, h_last
+
+
+selective_scan.launches = 0
+
+
+def hbm_bytes_per_token(di: int, n: int, itemsize: int = 2) -> Tuple[int, int]:
+    """(fused, unfused) device-memory bytes per token per layer, the
+    reference's estimate (``repro/kernels/ssm_scan.py:109-119``).
+
+    Unfused (the chunked scan of plain ops): the (di, N) expansion crosses
+    device memory ~2x per associative-scan pass (log2(chunk) = 8 passes)
+    plus x/dt/B/C/y.  Fused: x, dt, y (3·di) + B, C (2·N) only.
+    """
+    fused = (3 * di + 2 * n) * itemsize
+    passes = 8
+    unfused = (3 * di + 2 * n) * itemsize + 2 * passes * di * n * 4
+    return fused, unfused

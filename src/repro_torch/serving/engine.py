@@ -4,17 +4,23 @@
 A continuous-batching loop, as in the reference:
 
   * requests join a waiting queue and are admitted into free batch slots;
-  * prompts prefill in power-of-two **buckets** (left-aligned, right-padded;
-    the causal mask keeps the pads invisible to real tokens), and all fresh
-    slots of a bucket prefill in ONE batched call: gather the slots' cache
-    rows, slice them to the ``kv_span`` the chunk can reach, run a batch
-    step padded to the slot count, scatter the rows back;
+  * prompts prefill in power-of-two **buckets** (left-aligned, right-padded)
+    for the dense and SSM families: the causal mask keeps the pads invisible
+    to real tokens, and the SSM mixer turns them into exact state no-ops
+    given each row's real length.  The hybrid family (hymba) prefills each
+    prompt exact-length in one shot, with its meta-token prefix.  All fresh
+    slots of a (bucket, prefix) group prefill in ONE batched call: gather the
+    slots' cache rows (the KV rows sliced to the ``kv_span`` the chunk can
+    reach, and the SSM state), run a batch step padded to the slot count,
+    scatter the rows back;
   * one batched decode step serves every decode-ready slot each tick, with
     per-slot sampling at each request's own temperature; slots that are
-    empty or still prefilling park their write at the scratch row
-    ``max_len - 1``;
-  * finished sequences free their slot at once; ``preempt`` / ``restore``
-    hand a slot over mid-request, bit-exactly.
+    empty or still prefilling park their KV write at the scratch row
+    ``max_len - 1``, and a still-prefilling slot's SSM state is saved
+    around the step and put back;
+  * finished sequences free their slot at once, and a reused slot's SSM
+    state starts cold; ``preempt`` / ``restore`` hand a slot over
+    mid-request, bit-exactly, KV rows and SSM state alike.
 
 The reference compiles one program per (bucket, kv span); PyTorch runs
 eagerly, so there is nothing to cache beyond the per-layer parameter views.
@@ -23,7 +29,7 @@ Sampling draws from an explicit ``torch.Generator`` on the engine's device
 
 Not ported yet: weight and KV paging (``attach_paging``,
 ``attach_kv_paging``: ROADMAP A7), tracing and the scheduler hooks (A5), and
-the non-dense families' prefill rules (A9).
+the MoE family's one-slot-at-a-time prefill (A9).
 """
 
 from __future__ import annotations
@@ -97,12 +103,14 @@ class Request:
 @dataclasses.dataclass
 class SlotCheckpoint:
     """Bit-exact resumable snapshot of one preempted batch slot: the slot's
-    valid cache rows ``[0, valid)`` as host (CPU) tensor copies, plus the
-    request, which carries its chunk frontier and the tokens so far."""
+    valid KV rows ``[0, valid)`` and its SSM state as host (CPU) tensor
+    copies, plus the request, which carries its chunk frontier and the
+    tokens so far."""
     req: Request
     slot_pos: int
     valid: int
     kv: Optional[Dict[str, torch.Tensor]] = None
+    ssm: Optional[Dict[str, torch.Tensor]] = None
 
 
 class ServingEngine:
@@ -131,6 +139,10 @@ class ServingEngine:
                              "not both")
         self.plan = plan if plan is not None else as_plan(engine)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # pad-safe bucketing: attention hides pads behind the causal mask and
+        # the pure-SSM mixer masks them into exact state no-ops; hybrid keeps
+        # exact-length single-shot prefill, as in the reference
+        self._bucketed = cfg.family in ("dense", "ssm")
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got "
                              f"{prefill_chunk}")
@@ -159,10 +171,10 @@ class ServingEngine:
         return self.params
 
     def _step(self, params: Any, tokens: torch.Tensor, cache: Dict[str, Any],
-              pos: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
+              pos: torch.Tensor, **kw) -> Tuple[torch.Tensor, Dict[str, Any]]:
         layers = self._layers if params is self.params else None
         return tfm.step(params, tokens, cache, pos, self.cfg,
-                        engine=self.plan, layers=layers)
+                        engine=self.plan, layers=layers, **kw)
 
     def _to_device(self, a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
         return torch.from_numpy(a).to(device=self.device, dtype=dtype)
@@ -178,9 +190,17 @@ class ServingEngine:
         if len(req.prompt) == 0:
             raise ValueError("empty prompt: nothing to condition on (and "
                              "no first token to decode from)")
-        if len(req.prompt) + 1 > self.max_len:
-            raise ValueError(f"prompt of {len(req.prompt)} tokens does not "
-                             f"fit max_len={self.max_len}")
+        if self.cfg.n_meta_tokens and len(req.prompt) < 2:
+            # a 1-token prompt takes the decode path (S == 1), which cannot
+            # build the meta-token prefix the positions assume
+            raise ValueError("meta-token models need prompts of >= 2 "
+                             "tokens (single-token prefill cannot build "
+                             "the prefix)")
+        prefix = self.cfg.n_meta_tokens
+        if prefix + len(req.prompt) + 1 > self.max_len:
+            raise ValueError(
+                f"prompt of {len(req.prompt)} tokens (+{prefix} prefix) "
+                f"does not fit max_len={self.max_len}")
 
     def free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.slot_req) if r is None]
@@ -193,6 +213,11 @@ class ServingEngine:
         if req.arrival_s is None:
             req.arrival_s = _now()
         req.prefill_pos = 0
+        if "ssm" in self.cache:
+            # recurrent state is live across the whole row (no position mask
+            # hides a predecessor's leftovers), so a reused slot starts cold
+            for c in self.cache["ssm"].values():
+                c[:, slot] = 0
         self.slot_req[slot] = req
 
     def _kv_valid(self, i: int) -> int:
@@ -202,7 +227,7 @@ class ServingEngine:
         if r is None or r.prefill_pos == 0:
             return 0
         if r.prefill_pos < len(r.prompt):
-            return r.prefill_pos
+            return self.cfg.n_meta_tokens + r.prefill_pos
         return int(self.slot_pos[i])
 
     def preempt(self, slot: int) -> SlotCheckpoint:
@@ -212,12 +237,15 @@ class ServingEngine:
         if req is None:
             raise ValueError(f"slot {slot} is empty; nothing to preempt")
         valid = self._kv_valid(slot)
-        kv = None
-        if valid > 0:
+        kv = ssm = None
+        if "kv" in self.cache and valid > 0:
             kv = {n: c[:, slot, :, :valid].to("cpu", copy=True)
                   for n, c in self.cache["kv"].items()}
+        if "ssm" in self.cache:
+            ssm = {n: c[:, slot].to("cpu", copy=True)
+                   for n, c in self.cache["ssm"].items()}
         ckpt = SlotCheckpoint(req=req, slot_pos=int(self.slot_pos[slot]),
-                              valid=int(valid), kv=kv)
+                              valid=int(valid), kv=kv, ssm=ssm)
         req.preemptions += 1
         self.slot_req[slot] = None
         self.preempt_count += 1
@@ -235,6 +263,9 @@ class ServingEngine:
         if ckpt.kv is not None:
             for n, c in self.cache["kv"].items():
                 c[:, slot, :, :ckpt.valid] = ckpt.kv[n].to(c.device, c.dtype)
+        if ckpt.ssm is not None:
+            for n, c in self.cache["ssm"].items():
+                c[:, slot] = ckpt.ssm[n].to(c.device, c.dtype)
 
     @property
     def pending(self) -> bool:
@@ -242,18 +273,27 @@ class ServingEngine:
                     or any(r is not None for r in self.slot_req))
 
     # -- tick primitives ----------------------------------------------------------
-    def _chunk_shape(self, req: Request) -> Tuple[int, int, int]:
-        """(n_tokens, bucket, insert_pos) of the next prefill chunk."""
+    def _chunk_shape(self, req: Request) -> Tuple[int, int, bool, int]:
+        """(n_tokens, bucket, add_prefix, insert_pos) of the next chunk."""
+        prefix = self.cfg.n_meta_tokens
         remaining = len(req.prompt) - req.prefill_pos
-        n = min(self.prefill_chunk, remaining)
-        bucket = _next_pow2(n)
-        # never let the padded window spill past the cache: near the end
-        # shrink to the largest power of two that still fits
-        avail = self.max_len - req.prefill_pos
-        if bucket > avail:
-            bucket = _pow2_floor(avail)
-            n = min(bucket, remaining)
-        return n, bucket, req.prefill_pos
+        if self._bucketed:
+            n = min(self.prefill_chunk, remaining)
+            bucket = _next_pow2(n)
+            # never let the padded window spill past the cache: near the end
+            # shrink to the largest power of two that still fits
+            avail = self.max_len - prefix - req.prefill_pos
+            if bucket > avail:
+                bucket = _pow2_floor(avail)
+                n = min(bucket, remaining)
+        else:
+            n = bucket = remaining      # exact-length single shot (hybrid)
+        first = req.prefill_pos == 0
+        # the prefix is prepended on the first chunk only; the flag stays
+        # True for prefix-free models so that it never splits a group
+        add_prefix = first if prefix else True
+        insert_pos = 0 if first else prefix + req.prefill_pos
+        return n, bucket, add_prefix, insert_pos
 
     def prefill_tick(self, params: Any, complete: bool = False
                      ) -> List[Request]:
@@ -267,24 +307,33 @@ class ServingEngine:
                        if r is not None and r.prefill_pos < len(r.prompt)]
             if not pending:
                 break
-            groups: Dict[int, List[Tuple[int, Request, int, int]]] = {}
+            groups: Dict[Tuple[int, bool],
+                         List[Tuple[int, Request, int, int]]] = {}
             for i, r in pending:
-                n, bucket, pos = self._chunk_shape(r)
-                groups.setdefault(bucket, []).append((i, r, n, pos))
-            for bucket, rows in groups.items():
-                self._run_prefill_rows(params, bucket, rows, started)
+                n, bucket, add_prefix, pos = self._chunk_shape(r)
+                groups.setdefault((bucket, add_prefix),
+                                  []).append((i, r, n, pos))
+            for (bucket, add_prefix), rows in groups.items():
+                self._run_prefill_rows(params, bucket, add_prefix, rows,
+                                       started)
             if not complete:
                 break
         return started
 
     def _kv_span_for(self, bucket: int,
-                     rows: List[Tuple[int, Request, int, int]]) -> int:
+                     rows: List[Tuple[int, Request, int, int]]
+                     ) -> Optional[int]:
         """KV span one prefill group attends: the next power of two covering
-        every row's ``insert_pos + bucket``, clamped to ``max_len``."""
-        need = max(pos + bucket for _i, _r, _n, pos in rows)
+        every row's ``insert_pos + bucket`` (plus the meta-token prefix on
+        first chunks), clamped to ``max_len``; None without a KV cache."""
+        if "kv" not in self.cache:
+            return None
+        prefix = self.cfg.n_meta_tokens
+        need = max((prefix if r.prefill_pos == 0 else 0) + pos + bucket
+                   for _i, r, _n, pos in rows)
         return min(self.max_len, _next_pow2(need))
 
-    def _run_prefill_rows(self, params: Any, bucket: int,
+    def _run_prefill_rows(self, params: Any, bucket: int, add_prefix: bool,
                           rows: List[Tuple[int, Request, int, int]],
                           started: List[Request]) -> None:
         k = self.slots
@@ -292,6 +341,7 @@ class ServingEngine:
         tokens = np.zeros((k, bucket), np.int64)
         slot_idx = np.zeros((k,), np.int64)
         pos_vec = np.zeros((k,), np.int32)
+        lengths = np.zeros((k,), np.int32)
         for j in range(k):
             # rows beyond the group repeat the last row: the duplicate
             # scatter writes identical values
@@ -299,13 +349,27 @@ class ServingEngine:
             tokens[j, :n] = r.prompt[r.prefill_pos:r.prefill_pos + n]
             slot_idx[j] = i
             pos_vec[j] = pos
+            lengths[j] = n
         sidx = self._to_device(slot_idx, torch.long)
-        kv = self.cache["kv"]
-        sub = dict(kv={n: c[:, sidx, :, :kv_span] for n, c in kv.items()})
+        sub: Dict[str, Any] = {}
+        if "kv" in self.cache:
+            sub["kv"] = {n: c[:, sidx, :, :kv_span]
+                         for n, c in self.cache["kv"].items()}
+        if "ssm" in self.cache:
+            sub["ssm"] = {n: c[:, sidx] for n, c in self.cache["ssm"].items()}
+        # the SSM rows need each row's real-token count so that the bucket's
+        # pads are state no-ops; attention hides them by the causal mask
+        lens = (self._to_device(lengths, torch.int32)
+                if self._bucketed and "ssm" in self.cache else None)
         logits, sub = self._step(params, self._to_device(tokens, torch.long),
-                                 sub, self._to_device(pos_vec, torch.int32))
-        for n, c in kv.items():
-            c[:, sidx, :, :kv_span] = sub["kv"][n]
+                                 sub, self._to_device(pos_vec, torch.int32),
+                                 add_prefix=add_prefix, lengths=lens)
+        if "kv" in self.cache:
+            for n, c in self.cache["kv"].items():
+                c[:, sidx, :, :kv_span] = sub["kv"][n]
+        if "ssm" in self.cache:
+            for n, c in self.cache["ssm"].items():
+                c[:, sidx] = sub["ssm"][n]
         for j, (i, r, n, _pos) in enumerate(rows):
             r.prefill_pos += n
             if r.prefill_pos < len(r.prompt):
@@ -314,7 +378,7 @@ class ServingEngine:
                                    r.temperature))
             r.generated.append(tok)
             r.first_token_s = _now()
-            self.slot_pos[i] = len(r.prompt)
+            self.slot_pos[i] = len(r.prompt) + self.cfg.n_meta_tokens
             started.append(r)
             if len(r.generated) >= r.max_new_tokens:
                 self._retire(i)
@@ -336,10 +400,23 @@ class ServingEngine:
             tokens[i, 0] = req.generated[-1]
             temps[i] = req.temperature
             pos[i] = self.slot_pos[i]
+        # a KV slot mid-prefill parks its write at the scratch row, but the
+        # recurrent state has no position to park at: the batched decode
+        # would advance a chunk-prefilling slot's state with a garbage
+        # token, so those slots' state is saved and put back after
+        parked = [i for i, r in enumerate(self.slot_req)
+                  if r is not None and r.prefill_pos < len(r.prompt)]
+        saved = None
+        if parked and "ssm" in self.cache:
+            p_idx = self._to_device(np.asarray(parked, np.int64), torch.long)
+            saved = {n: c[:, p_idx] for n, c in self.cache["ssm"].items()}
         logits, self.cache = self._step(params,
                                         self._to_device(tokens, torch.long),
                                         self.cache,
                                         self._to_device(pos, torch.int32))
+        if saved is not None:
+            for n, c in self.cache["ssm"].items():
+                c[:, p_idx] = saved[n]
         toks = sample_token_batch(logits[:, -1], self.generator,
                                   temps).tolist()
         finished: List[Request] = []

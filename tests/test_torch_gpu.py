@@ -17,6 +17,7 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import neureka_conv as nkc  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.qmatmul import qmatmul_f32, qmatmul_int8  # noqa: E402
+from repro_torch.kernels.ssm_scan import selective_scan  # noqa: E402
 from repro_torch.models import mobilenet_v2 as mnv2  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.parallel.sharding import freeze_for_serving  # noqa: E402
@@ -98,8 +99,10 @@ def test_flash_kernel_not_causal_folded(cuda, rng):
     torch.testing.assert_close(got, expect, rtol=3e-5, atol=3e-5)
 
 
-def test_serving_on_the_card_matches_the_cpu(cuda):
-    cfg = get_config("qwen3-0.6b").smoke()
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "falcon-mamba-7b",
+                                  "hymba-1.5b"])
+def test_serving_on_the_card_matches_the_cpu(cuda, arch):
+    cfg = get_config(arch).smoke()
     params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
                              device="cpu")
     rng = np.random.default_rng(0)
@@ -225,3 +228,75 @@ def test_mobilenet_freeze_on_the_card_matches_the_cpu(cuda, bits):
         assert torch.equal(leaf["bias"].cpu(), on_cpu[name]["bias"])
         torch.testing.assert_close(leaf["mult"].cpu(), on_cpu[name]["mult"],
                                    rtol=1e-6, atol=0)
+
+
+def _scan_inputs(rng, bsz, s, di, n, dev, h0=True):
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    x = t(rng.normal(size=(bsz, s, di)))
+    dt = t(rng.uniform(0.001, 0.1, (bsz, s, di)))
+    A = t(-rng.uniform(0.5, 2.0, (di, n)))
+    B = t(rng.normal(size=(bsz, s, n)))
+    C = t(rng.normal(size=(bsz, s, n)))
+    D = t(rng.normal(size=(di,)))
+    return x, dt, A, B, C, D, (t(rng.normal(size=(bsz, di, n))) if h0
+                               else None)
+
+
+# the falcon-mamba prefill and decode shapes, a hymba prefill, ragged S and
+# Di, the sweep of the reference's kernel test (test_ssm_kernel.py:11-16),
+# and an empty sequence (h_last = h0)
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("bsz,s,di,n", [
+    (4, 64, 8192, 16), (4, 1, 8192, 16), (4, 200, 3200, 16),
+    (2, 37, 200, 16), (2, 20, 12, 4), (1, 64, 32, 16), (2, 33, 24, 8),
+    (1, 7, 8, 4), (3, 45, 70, 32), (2, 0, 64, 16)])
+def test_selective_scan_kernel_matches_plain(cuda, rng, bsz, s, di, n, h0):
+    args = _scan_inputs(rng, bsz, s, di, n, cuda, h0)
+    before = selective_scan.launches
+    y, h = selective_scan(*args)
+    torch.cuda.synchronize()
+    assert selective_scan.launches == before + 1
+    y_ref, h_ref = ref.selective_scan(*args)
+    torch.testing.assert_close(y, y_ref, rtol=5e-4, atol=5e-4)
+    torch.testing.assert_close(h, h_ref, rtol=5e-4, atol=5e-4)
+
+
+def test_selective_scan_kernel_pads_are_state_no_ops(cuda, rng):
+    """dt = 0 at the pads: h_last equals the real tokens' h_last exactly."""
+    x, dt, A, B, C, D, h0 = _scan_inputs(rng, 4, 64, 8192, 16, cuda)
+    real = 37
+    dt_pad = dt.clone()
+    dt_pad[:, real:] = 0
+    _, h_pad = selective_scan(x, dt_pad, A, B, C, D, h0)
+    _, h_real = selective_scan(x[:, :real].contiguous(),
+                               dt[:, :real].contiguous(), A,
+                               B[:, :real], C[:, :real], D, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(h_pad, h_real)
+
+
+def test_selective_scan_kernel_strided_b_c_and_types(cuda, rng):
+    x, dt, A, _, _, D, h0 = _scan_inputs(rng, 2, 40, 64, 16, cuda)
+    dbc = torch.from_numpy(rng.normal(size=(2, 40, 8 + 32)).astype(
+        np.float32)).to(cuda)
+    B, C = dbc[..., 8:24], dbc[..., 24:]
+    y, h = selective_scan(x, dt, A, B, C, D, h0)
+    y_ref, h_ref = ref.selective_scan(x, dt, A, B, C, D, h0)
+    torch.testing.assert_close(y, y_ref, rtol=5e-4, atol=5e-4)
+    torch.testing.assert_close(h, h_ref, rtol=5e-4, atol=5e-4)
+    with pytest.raises(TypeError, match="float32"):
+        selective_scan(x.bfloat16(), dt, A, B, C, D, h0)
+
+
+@pytest.mark.parametrize("s", [64, 1])
+def test_selective_scan_kernel_writes_the_state_over_h0(cuda, rng, s):
+    """h_out = h0 (the serve cache's in-place update) gives the same y and
+    h_last as a fresh output, bit for bit."""
+    x, dt, A, B, C, D, h0 = _scan_inputs(rng, 4, s, 8192, 16, cuda)
+    y, h = selective_scan(x, dt, A, B, C, D, h0)
+    cache = h0.clone()
+    y_ip, h_ip = selective_scan(x, dt, A, B, C, D, cache, h_out=cache)
+    torch.cuda.synchronize()
+    assert h_ip is cache
+    assert torch.equal(y_ip, y) and torch.equal(h_ip, h)
