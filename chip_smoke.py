@@ -4,8 +4,9 @@
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
 It drives the port's paths once, each at full width -- serving qwen3-0.6b,
-falcon-mamba-7b and hymba-1.5b, and int8 MobileNet-V2 1.0-224 on the
-N-EUREKA operators -- and fails (non-zero exit, no result line) if any phase
+falcon-mamba-7b and hymba-1.5b, int8 MobileNet-V2 1.0-224 on the N-EUREKA
+operators, and qwen3-0.6b again from a paged 4-bit store whose cold half is
+wire-served -- and fails (non-zero exit, no result line) if any phase
 fails:
 
 1. set-up: requires a CUDA device, turns TF32 off, prints the card's name
@@ -53,7 +54,32 @@ fails:
    eager and CUDA-graph frame times, peak memory, and from
    ``torch.profiler`` the device time by kernel and by job and the
    device's idle share of the eager frames;
-6. the ``{"serve": ...}`` and ``{"kernels": [...]}`` lines, the card line,
+6. paged serving (§II-B2 virtual paging with wire-serve): full-width
+   qwen3-0.6b with random weights from a seeded CUDA ``torch.Generator``,
+   frozen at 4 bits; ``plan_for_budget`` pins half the store's bytes on the
+   card and int8-pages the rest; ``attach_paging(wire_serve=True)`` keeps
+   the cold groups on the host, pinned, and every tick streams them to the
+   card as int8 pages with per-32 scales, CRC-checked, which
+   ``qmatmul_f32_blockscale`` multiplies from that wire form; once the
+   caller's own cold leaves go to the host too, the card's memory must
+   have fallen by the cold groups' bytes.  First
+   ``qmatmul_f32_blockscale`` is held against its plain version (the
+   reference test's shapes, bits 2, ragged K, the cold linears) and timed
+   like the others, at decode M = 4 and prefill M = 256.  Then the 8
+   requests of phase 3 are served: the launch counters of
+   ``qmatmul_f32``, ``qmatmul_f32_blockscale`` and ``flash_attention`` are
+   set to 0 before and must have grown after; swaps and misses must equal
+   the ticks times ``pass_counters``, nothing may be decoded on the host,
+   and each tick is split into its page wait (the worker's CRC and copy)
+   and compute.  The tokens must equal, per uid and bit for bit, those of
+   a resident engine holding the same wire-form bytes on the card, and
+   those of the same serve under ``FaultPlan(seed=3, fail_rate=0.2,
+   bitflip_rate=0.2)`` (with faults injected, and every checksum failure
+   refetched); one pass begun before a forward and fenced after must give
+   the pages of a sync pass; the kernels are checked at every call of a
+   profiled serve; and the wire tree's logits (4 layers) on the card must
+   match the CPU's;
+7. the ``{"serve": ...}`` and ``{"kernels": [...]}`` lines, the card line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -293,6 +319,76 @@ def time_qmatmul(torch, packing, ops, ref, qmm, dev, m: int,
     return res
 
 
+def check_blockscale(torch, ref, qmm, dev, linears) -> float:
+    """qmatmul_f32_blockscale against its plain version: the reference
+    kernel test's shapes (bits 8 at K = 70, bits 4 at K = 69), bits 2, a
+    ragged K = 1,001, and the paged serve's cold linears at decode and
+    prefill M."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cases = [(8, 4, 70, 9), (4, 4, 69, 9), (2, 4, 70, 9), (2, 4, 69, 9)]
+    cases += [(bits, m, 1001, 515) for bits in (8, 4, 2) for m in (7, 37)]
+    cases += [(8, m, k, n) for m in (4, 256) for k, n in linears]
+    worst = 0.0
+    for bits, m, k, n in cases:
+        packed, scales = wire_weight(torch, gen, dev, n, k, bits)
+        x = torch.randn((m, k), generator=gen, device=dev)
+        got = qmm.qmatmul_f32_blockscale(x, packed, scales, bits=bits,
+                                         k_orig=k)
+        expect = ref.qmatmul_f32_blockscale(x, packed, scales, bits=bits,
+                                            k_orig=k)
+        torch.cuda.synchronize()
+        err = (got - expect).abs().max().item()
+        worst = max(worst, err)
+        if not torch.allclose(got, expect, **QMM_TOL):
+            raise AssertionError(f"qmatmul_f32_blockscale bits={bits} M={m} "
+                                 f"K={k} N={n}: max abs err {err}")
+    print(f"[check] qmatmul_f32_blockscale: {len(cases)} cases (the "
+          f"reference test's bits 8 / K 70 and bits 4 / K 69, bits 2, ragged "
+          f"K=1001 at bits 8/4/2, the cold linears {linears} at M 4/256), "
+          f"max abs err {worst:.3e}, tolerance {QMM_TOL}")
+    return worst
+
+
+def time_blockscale(torch, packing, ref, qmm, dev, m: int, linears,
+                    copies: int = 8):
+    """One layer's cold linears in wire form (int8 levels, per-32 scales) at
+    M rows, over ``copies`` layer copies (8 x 9.4 MB > the 50 MB L2)."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    layers = []
+    for _ in range(copies):
+        layer = []
+        for k, n in linears:
+            packed, scales = wire_weight(torch, gen, dev, n, k, 8)
+            x = torch.randn((m, k), generator=gen, device=dev)
+            deq = (packing.unpack(packed, 8, k).float().reshape(n, -1, 32)
+                   * scales[:, :, None]).reshape(n, k)
+            layer.append((x, packed, scales, k, deq))
+        layers.append(layer)
+
+    def kernel(i):
+        for x, p, s, k, _ in layers[i % copies]:
+            qmm.qmatmul_f32_blockscale(x, p, s, bits=8, k_orig=k)
+
+    def plain(i):
+        for x, p, s, k, _ in layers[i % copies]:
+            ref.qmatmul_f32_blockscale(x, p, s, bits=8, k_orig=k)
+
+    def library(i):
+        for x, _, _, _, deq in layers[i % copies]:
+            torch.matmul(x, deq.T)
+
+    res = time_versions(torch, kernel, plain, library, copies, 40)
+    nbytes = sum(m * k * 4 + p.numel() + s.numel() * 4 + m * n * 4
+                 for (x, p, s, k, _), (_, n) in zip(layers[0], linears))
+    flops = sum(2 * m * n * k for k, n in linears)
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
+    res["work"] = (f"one layer's {len(linears)} cold linears {linears}, "
+                   f"M={m}, int8 wire form")
+    print_times(f"qmatmul_f32_blockscale {res['work']}",
+                "torch.matmul on pre-dequantised f32", res, nbytes, flops)
+    return res
+
+
 def time_flash(torch, F, ref, fa, dev, copies: int = 4):
     """The main prefill shape: 4 rows x 16/8 heads, a 64-query chunk over a
     512-row kv span at per-row offsets; k/v rotate over 4 x 16.8 MB."""
@@ -431,14 +527,15 @@ def time_scan(torch, ref, ssm, dev, s: int, bsz: int = 4, di: int = 8192,
 
 
 class _Recorder:
-    """Stands in for one kernel module as ``kernels/ops.py`` sees it: the
-    wrapper ``name`` is ``fn``, every other attribute the module's own."""
+    """Stands in for one kernel module as ``kernels/ops.py`` sees it: each
+    wrapper named in ``fns`` is the recording function given for it, every
+    other attribute the module's own."""
 
-    def __init__(self, module, name, fn):
-        self._module, self._name, self._fn = module, name, fn
+    def __init__(self, module, fns):
+        self._module, self._fns = module, fns
 
     def __getattr__(self, attr):
-        return self._fn if attr == self._name else getattr(self._module, attr)
+        return self._fns.get(attr) or getattr(self._module, attr)
 
 
 @contextlib.contextmanager
@@ -450,13 +547,20 @@ def recording(torch, ops):
     unchanged (so its launch count moves as usual) and are restored after.
     Yields {kernel name: [call key, ...]}; per-row query offsets are kept
     as device tensors until the block ends, so nothing syncs."""
-    calls = {"qmatmul_f32": [], "flash_attention": [], "selective_scan": []}
+    calls = {"qmatmul_f32": [], "qmatmul_f32_blockscale": [],
+             "flash_attention": [], "selective_scan": []}
     qmm, fa, ssm = ops._qmm, ops._fa, ops._ssm
 
     def rec_qmm(x, packed, scale, *, bits, k_orig):
         calls["qmatmul_f32"].append((x.shape[0], k_orig, packed.shape[0],
                                      bits, x.dtype))
         return qmm.qmatmul_f32(x, packed, scale, bits=bits, k_orig=k_orig)
+
+    def rec_bs(x, packed, scales, *, bits, k_orig, block=32):
+        calls["qmatmul_f32_blockscale"].append((x.shape[0], k_orig,
+                                                packed.shape[0], bits))
+        return qmm.qmatmul_f32_blockscale(x, packed, scales, bits=bits,
+                                          k_orig=k_orig, block=block)
 
     def rec_fa(q, k, v, **kw):
         off = kw.get("q_offset")
@@ -472,9 +576,10 @@ def recording(torch, ops):
             h_out is not None and h_out is h0))
         return ssm.selective_scan(x, dt, A, B, C, D, h0, h_out=h_out)
 
-    ops._qmm = _Recorder(qmm, "qmatmul_f32", rec_qmm)
-    ops._fa = _Recorder(fa, "flash_attention", rec_fa)
-    ops._ssm = _Recorder(ssm, "selective_scan", rec_scan)
+    ops._qmm = _Recorder(qmm, {"qmatmul_f32": rec_qmm,
+                               "qmatmul_f32_blockscale": rec_bs})
+    ops._fa = _Recorder(fa, {"flash_attention": rec_fa})
+    ops._ssm = _Recorder(ssm, {"selective_scan": rec_scan})
     try:
         yield calls
     finally:
@@ -485,6 +590,18 @@ def recording(torch, ops):
         for key in calls["flash_attention"]]
     for name in calls:
         calls[name] = list(dict.fromkeys(calls[name]))
+
+
+def wire_weight(torch, gen, dev, n: int, k: int, bits: int):
+    """(packed, scales) of a random (n, k) weight at the model's init scale
+    in the page codec's wire form: levels packed at ``bits`` and one f32
+    scale per 32 weights of a row (the codec runs on the host)."""
+    from repro_torch.core import packing, quantize
+
+    w = torch.randn((n, k), generator=gen, device=dev) * k ** -0.5
+    levels, scales = quantize.quantize_blockwise(w.cpu().numpy(), bits)
+    packed = packing.pack(torch.from_numpy(levels), bits)
+    return packed.to(dev), torch.from_numpy(scales).to(dev)
 
 
 def check_path(torch, ops, ref, qmm, fa, ssm, dev, arch: str, calls):
@@ -515,6 +632,19 @@ def check_path(torch, ops, ref, qmm, fa, ssm, dev, arch: str, calls):
              ref.qmatmul_f32(x, packed, scale, bits=bits, k_orig=k),
              QMM_TOL, f"M={m} K={k} N={n} bits={bits}")
     del weights
+    wires = {}
+    for m, k, n, bits in calls["qmatmul_f32_blockscale"]:
+        if (k, n, bits) not in wires:
+            wires[k, n, bits] = wire_weight(torch, gen, dev, n, k, bits)
+        packed, scales = wires[k, n, bits]
+        x = torch.randn((m, k), generator=gen, device=dev)
+        hold("qmatmul_f32_blockscale",
+             qmm.qmatmul_f32_blockscale(x, packed, scales, bits=bits,
+                                        k_orig=k),
+             ref.qmatmul_f32_blockscale(x, packed, scales, bits=bits,
+                                        k_orig=k),
+             QMM_TOL, f"M={m} K={k} N={n} bits={bits}")
+    del wires
     for qs, ks, causal, scale, window, offs in calls["flash_attention"]:
         q = torch.randn(qs, generator=gen, device=dev)
         k = torch.randn(ks, generator=gen, device=dev)
@@ -543,11 +673,14 @@ def check_path(torch, ops, ref, qmm, fa, ssm, dev, arch: str, calls):
 
     def span(vals):
         return f"{min(vals)}-{max(vals)}" if vals else "-"
-    qc, fc, sc = (calls[k] for k in ("qmatmul_f32", "flash_attention",
-                                     "selective_scan"))
+    qc, bc, fc, sc = (calls[k] for k in (
+        "qmatmul_f32", "qmatmul_f32_blockscale", "flash_attention",
+        "selective_scan"))
     print(f"[check] {arch} path, kernels vs plain at each distinct call of "
           f"the serve: qmatmul_f32 {len(qc)} (M {span([c[0] for c in qc])}, "
-          f"(K, N) {sorted({c[1:3] for c in qc})}), flash_attention "
+          f"(K, N) {sorted({c[1:3] for c in qc})}), qmatmul_f32_blockscale "
+          f"{len(bc)} (M {span([c[0] for c in bc])}, (K, N) "
+          f"{sorted({c[1:3] for c in bc})}), flash_attention "
           f"{len(fc)} (q {sorted({c[0] for c in fc})}, k "
           f"{sorted({c[1] for c in fc})}, windows "
           f"{sorted({c[4] for c in fc if c[4] is not None})}), "
@@ -670,10 +803,287 @@ def serve_lm(torch, m, cfg, max_len: int, long_prompt: bool, counters,
         path_check=path_check, profile=profile)
 
 
+# the paged path: qwen3-0.6b frozen at 4 bits, half the store's bytes pinned
+# on the card, the cold half int8-paged and served from its wire form
+# (benchmarks/serving_load.py --wire-serve at budget_frac 0.5)
+PAGED_ARCH = "qwen3-0.6b"
+PAGED_KERNELS = ("qmatmul_f32", "qmatmul_f32_blockscale", "flash_attention")
+PAGED_FAULTS = dict(seed=3, fail_rate=0.2, bitflip_rate=0.2)
+
+
+def serve_paged(torch, m, cfg, dev):
+    """Serve the 8 greedy requests of ``serve_lm`` from a paged 4-bit store
+    with wire-serve on; check the counters, the tokens against a resident
+    engine on the same wire-form bytes, the same serve under faults, an
+    overlapped pass against a sync one, and card vs CPU logits of the wire
+    tree; time B3 and split the paged tick into CRC, copy and compute."""
+    np, tfm, pl, pg = m["np"], m["tfm"], m["placement"], m["paging"]
+    qmm, fa = m["qmm"], m["fa"]
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    packed = m["freeze"](params, bits=4)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sizes = pl.packed_sizes(packed)
+    plan = pl.plan_for_budget(
+        sizes, sum(sizes.values()) // 2, sizes_bits=4,
+        hot=pl.Placement("l1mram", 4, "resident"),
+        cold=pl.Placement("l1mram", 4, "paged", 8))
+    hot, cold = plan.split_names(sorted(sizes))
+    linears = [LAYER_LINEARS[n.split("/")[-1]] for n in cold]
+    print(f"[paged] {cfg.name}: init + freeze (4-bit) "
+          f"{time.perf_counter() - t0:.2f} s; store {sum(sizes.values())} B, "
+          f"budget {sum(sizes.values()) // 2} B; pinned {hot} "
+          f"({plan.resident_bytes(sizes)} B), cold int8-paged {cold} "
+          f"({plan.paged_bytes(sizes)} B at 4 bits)")
+    bs_err = check_blockscale(torch, m["ref"], qmm, dev, linears)
+    t_bs = {"decode": time_blockscale(torch, m["packing"], m["ref"], qmm,
+                                      dev, 4, linears),
+            "prefill": time_blockscale(torch, m["packing"], m["ref"], qmm,
+                                       dev, 256, linears)}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(0)          # serve_lm's requests
+    lens = rng.integers(16, 257, 8)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+
+    def requests():
+        return [m["Request"](uid=i, prompt=p, max_new_tokens=16)
+                for i, p in enumerate(prompts)]
+
+    def engine(faults=None):
+        eng = m["ServingEngine"](cfg, packed, batch_slots=4, max_len=512,
+                                 plan=plan)
+        eng.attach_paging(wire_serve=True, faults=faults)
+        return eng
+
+    def serve(eng):
+        for r in requests():
+            eng.submit(r)
+        ticks = []
+        while eng.pending:
+            t = time.perf_counter()
+            eng.step()
+            ticks.append((time.perf_counter() - t, eng.last_stall_s))
+        torch.cuda.synchronize()
+        done = eng.finished
+        if len(done) != 8 or any(len(r.generated) != 16 for r in done):
+            raise AssertionError("not every request got its 16 tokens")
+        if any(not 0 <= t < cfg.vocab_size for r in done
+               for t in r.generated):
+            raise AssertionError("token id out of the vocabulary")
+        return {r.uid: r.generated for r in done}, ticks, done
+
+    t0 = time.perf_counter()
+    eng = m["ServingEngine"](cfg, packed, batch_slots=4, max_len=512,
+                             plan=plan)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    eng.attach_paging(wire_serve=True)
+    attach_s = time.perf_counter() - t0
+    pager = eng.pager
+    # the caller's cold leaves go to the host too: from here on the card
+    # holds the pinned half of the store and nothing of the cold half, so
+    # the device memory falls by the cold groups' bytes
+    on_card = pg.packed_tree_store(packed, plan).params
+    cold_tensors = [t for n in cold
+                    for t in (on_card[n].packed, on_card[n].scale)]
+    want = sum(t.numel() * t.element_size() for t in cold_tensors)
+    packed = pg.thread_packed(packed, {
+        n: m["PackedParam"](packed=on_card[n].packed.cpu(),
+                            scale=on_card[n].scale.cpu(), bits=4,
+                            orig_shape=on_card[n].orig_shape)
+        for n in cold})
+    del on_card, cold_tensors
+    gc.collect()
+    torch.cuda.synchronize()
+    freed = before - torch.cuda.memory_allocated()
+    # the allocator rounds a block up by less than 1 MiB + 512 B
+    if not want <= freed <= want + len(cold) * 2 * (2**20 + 512):
+        raise AssertionError(f"attach_paging and the release of the cold "
+                             f"leaves freed {freed} B of device memory, "
+                             f"want {want} B (the cold groups' packed "
+                             f"and scale bytes)")
+    print(f"[paged] device memory fell by {freed} B after attach_paging and "
+          f"the release of the caller's cold leaves (cold packed + scale "
+          f"{want} B; plan.paged_bytes {plan.paged_bytes(sizes)} B)")
+    n_pages = len(pager.pages)
+    wire_pass = sum(p.wire_nbytes for p in pager.pages)
+    print(f"[paged] attach_paging(wire_serve=True) {attach_s:.2f} s (host "
+          f"encode, pin, CRC); {n_pages} pages "
+          f"{[list(p.param_names) for p in pager.pages]}, {wire_pass} wire B "
+          f"a pass ({sum(p.nbytes for p in pager.pages)} B on the card at "
+          f"4 bits), wire-served {sorted(pager.wire_served)}")
+    counters = {"qmatmul_f32": qmm.qmatmul_f32,
+                "qmatmul_f32_blockscale": qmm.qmatmul_f32_blockscale,
+                "flash_attention": fa.flash_attention}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    tokens, ticks, done = serve(eng)
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    ttft = [r.first_token_s - r.arrival_s for r in done]
+    summary, fsum = eng.paging_summary(), eng.faults_summary()
+    for name in PAGED_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched in the paged serve")
+    per_pass = pg.pass_counters(n_pages, 2)
+    if (summary["swap_count"], summary["miss_count"]) != (
+            len(ticks) * per_pass["swaps"], len(ticks) * per_pass["misses"]):
+        raise AssertionError(f"swap / miss {summary['swap_count']} / "
+                             f"{summary['miss_count']} over {len(ticks)} "
+                             f"ticks, want {per_pass} a tick")
+    if summary["decode_s"] != 0.0 or summary["decode_skipped_bytes"] <= 0:
+        raise AssertionError(f"wire-serve decoded on the host: {summary}")
+    if any(fsum.values()):
+        raise AssertionError(f"fault counters moved without faults: {fsum}")
+    nt = len(ticks)
+    tick_mean = sum(t for t, _ in ticks) / nt
+    exposed = sum(s for _, s in ticks) / nt
+    split = dict(ticks=nt, tick_ms=tick_mean * 1e3,
+                 exposed_ms=exposed * 1e3,
+                 crc_ms=summary["crc_s"] / nt * 1e3,
+                 copy_ms=summary["copy_s"] / nt * 1e3,
+                 compute_ms=(tick_mean - exposed) * 1e3)
+    print(f"[paged] {cfg.name} paged serve: {len(done)} requests, prompts "
+          f"{lens.tolist()}, wall {wall:.3f} s after synchronize, TTFT mean "
+          f"{np.mean(ttft):.3f} s max {np.max(ttft):.3f} s, peak memory "
+          f"{peak / 2**30:.3f} GiB ({base / 2**30:.3f} GiB at the start), "
+          f"launches {launches}; {nt} ticks x {per_pass} = swaps "
+          f"{summary['swap_count']} misses {summary['miss_count']}, "
+          f"{summary['bytes_streamed_wire']} wire B streamed, decode_s "
+          f"{summary['decode_s']}, decode_skipped_bytes "
+          f"{summary['decode_skipped_bytes']}")
+    print(f"[paged] tick split (host clock, mean of {nt}): tick "
+          f"{split['tick_ms']:.2f} ms = exposed page wait "
+          f"{split['exposed_ms']:.2f} ms (worker: CRC {split['crc_ms']:.2f} "
+          f"ms, copy {split['copy_ms']:.2f} ms) + compute "
+          f"{split['compute_ms']:.2f} ms")
+
+    # a resident engine on the same bytes: the cold groups already in wire
+    # form on the card, the same plan, no pager
+    wire_plan = plan.replace(wire_serve=True)
+    view = {n: m["PackedParam"](packed=p.packed.to(dev),
+                                scale=p.scale.to(dev), bits=p.bits,
+                                orig_shape=p.orig_shape)
+            for n, p in pager.template_view().items()}
+    wire_tree = pg.thread_packed(packed, {**pager.resident, **view})
+    resident = m["ServingEngine"](cfg, wire_tree, batch_slots=4,
+                                  max_len=512, plan=wire_plan)
+    r_tokens, _, _ = serve(resident)
+    del resident
+    if r_tokens != tokens:
+        bad = [u for u in tokens if tokens[u] != r_tokens[u]]
+        raise AssertionError(f"paged tokens differ from the resident "
+                             f"wire-form engine's for uids {bad}")
+    print("[paged] tokens equal per uid, bit for bit, to a resident engine "
+          "holding the same wire-form bytes on the card (no pager)")
+
+    # one pass overlapped with a forward, against a sync pass
+    toks64 = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64))).to(
+        dev)
+    ps = pager.begin_pass()
+    tfm.forward(wire_tree, toks64, cfg, engine=wire_plan)
+    torch.cuda.synchronize()
+    fenced = ps.fence()
+    synced = {}
+    for _page, got in pager.stream():
+        synced.update(got)
+    if set(fenced) != set(cold) or any(
+            not (torch.equal(fenced[n].packed, synced[n].packed)
+                 and torch.equal(fenced[n].scale, synced[n].scale)
+                 and torch.equal(fenced[n].packed, view[n].packed))
+            for n in cold):
+        raise AssertionError("an overlapped pass's pages differ from a "
+                             "sync pass's")
+    overlap = dict(swap_s=ps.swap_s, window_s=ps.window_s,
+                   hidden_s=ps.hidden_s, exposed_s=ps.exposed_s)
+    print(f"[paged] begin_pass() overlapped with a 64-token forward, then "
+          f"fence(): pages torch.equal to a sync stream() pass; swap_s "
+          f"{ps.swap_s:.4f} hidden_s {ps.hidden_s:.4f} exposed_s "
+          f"{ps.exposed_s:.4f} (window_s {ps.window_s:.4f})")
+    del fenced, synced
+    pager.close()
+    del eng, pager
+
+    # the same requests again under the profiler, the kernel calls noted
+    engines = []
+
+    def profiled_engine():
+        engines.append(engine())
+        return engines[-1]
+
+    with recording(torch, m["ops"]) as calls:
+        profile = profile_serve(torch, cfg, profiled_engine, requests())
+    engines.pop().pager.close()
+    path_check = check_path(torch, m["ops"], m["ref"], qmm, fa, m["ssm"],
+                            dev, f"{cfg.name} paged", calls)
+
+    # the same serve under faults
+    chaos = engine(m["FaultPlan"](**PAGED_FAULTS))
+    f_tokens, _, _ = serve(chaos)
+    fsum = chaos.faults_summary()
+    chaos.pager.close()
+    del chaos
+    if f_tokens != tokens:
+        raise AssertionError("tokens changed under faults")
+    if fsum["injected"] <= 0 or fsum["checksum_failures"] != \
+            fsum["refetches"]:
+        raise AssertionError(f"fault counters {fsum}")
+    print(f"[paged] under FaultPlan({PAGED_FAULTS}): tokens equal per uid; "
+          f"faults {fsum}")
+
+    # card vs CPU logits of the wire tree, first 4 layers
+    depth = min(4, cfg.n_layers)
+    fcfg = cfg.replace(n_layers=depth)
+    tree = dict(wire_tree, layers=first_layers(wire_tree["layers"], depth))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64)))
+    gpu_logits = tfm.forward(tree, toks.to(dev), fcfg,
+                             engine=wire_plan).cpu()
+    cpu_logits = tfm.forward(to_device(torch, tree, "cpu"), toks, fcfg,
+                             engine=wire_plan)
+    err = (gpu_logits - cpu_logits).abs().max().item()
+    if not (torch.isfinite(gpu_logits).all()
+            and gpu_logits.shape == (1, 64, cfg.vocab_size)):
+        raise AssertionError("paged wire tree: card logits are not finite "
+                             "or misshapen")
+    if not torch.allclose(gpu_logits, cpu_logits, **CUT_LOGITS_TOL):
+        raise AssertionError(f"wire tree card vs CPU logits: max abs err "
+                             f"{err}")
+    print(f"[forward] {cfg.name} wire tree ({depth} of {cfg.n_layers} "
+          f"layers, cold groups in wire form) 64 tokens card vs CPU: max "
+          f"abs err {err:.3e} (tolerance {CUT_LOGITS_TOL})")
+    bs_err = max(bs_err, path_check["max_abs_err"]["qmatmul_f32_blockscale"])
+    return dict(
+        launches=launches, wall_s=wall, ttft_mean_s=float(np.mean(ttft)),
+        ttft_max_s=float(np.max(ttft)), peak_gib=peak / 2**30,
+        prompt_tokens=int(lens.sum()), attach_s=attach_s,
+        cold_freed_bytes=freed,
+        plan=dict(pinned=hot, cold=cold,
+                  resident_bytes=plan.resident_bytes(sizes),
+                  paged_bytes=plan.paged_bytes(sizes)),
+        n_pages=n_pages, wire_bytes_per_pass=wire_pass,
+        paging={k: v for k, v in summary.items()}, tick_split=split,
+        overlap=overlap, faults=fsum, logits_max_abs_err=err,
+        path_check=path_check, profile=profile), bs_err, t_bs
+
+
 # kernel-name fragments of the LM paths' device time, as the profiler names
 # them; cuBLAS / CUTLASS GEMMs are the unembedding's f32 matmul
 PROFILE_LM_KERNELS = (("qmm_tiled", "qmatmul_f32 tiled (prefill)"),
                       ("qmm_gemv", "qmatmul_f32 gemv (decode)"),
+                      ("bs_tiled", "qmatmul_f32_blockscale tiled (prefill)"),
+                      ("bs_gemv", "qmatmul_f32_blockscale gemv (decode)"),
+                      ("memcpy", "memcpy (host <-> device)"),
                       ("flash_fwd", "flash_attention"),
                       ("ssm_scan_fwd", "selective_scan"),
                       ("gemm", "torch.matmul (unembed)"))
@@ -700,20 +1110,34 @@ def profile_serve(torch, cfg, make_engine, reqs):
         print(f"[serve] {cfg.name} profiler: no device events recorded; "
               "device time by kernel not measured")
         return None
-    by_kernel, busy, end = {}, 0.0, -1.0
+    def busy_us(events):
+        busy, end = 0.0, -1.0
+        for e in events:
+            t0_, t1_ = e.time_range.start, e.time_range.end
+            busy += max(0.0, t1_ - max(t0_, end))
+            end = max(end, t1_)
+        return busy
+
+    by_kernel = {}
     for e in kernels:
-        t0_, t1_ = e.time_range.start, e.time_range.end
-        busy += max(0.0, t1_ - max(t0_, end))
-        end = max(end, t1_)
         label = next((lab for frag, lab in PROFILE_LM_KERNELS
                       if frag in e.name.lower()), "other torch ops")
-        by_kernel[label] = by_kernel.get(label, 0.0) + (t1_ - t0_) / 1e3
+        by_kernel[label] = (by_kernel.get(label, 0.0)
+                            + (e.time_range.end - e.time_range.start) / 1e3)
+    busy = busy_us(kernels)
+    # the copy engine's memcpys left out: how idle the compute engine is
+    compute = busy_us([e for e in kernels if "memcpy" not in e.name.lower()])
     res = dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
-               idle_share=1.0 - busy / wall_us, n_kernels=len(kernels),
+               idle_share=1.0 - busy / wall_us,
+               compute_busy_ms=compute / 1e3,
+               compute_idle_share=1.0 - compute / wall_us,
+               n_kernels=len(kernels),
                by_kernel_ms={k: round(v, 3) for k, v in by_kernel.items()})
     print(f"[serve] {cfg.name} profiler over the same requests: device busy "
           f"{busy / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms on the host clock "
-          f"(idle share {res['idle_share']:.3f}), {len(kernels)} kernels; "
+          f"(idle share {res['idle_share']:.3f}; without memcpy "
+          f"{compute / 1e3:.1f} ms, idle share "
+          f"{res['compute_idle_share']:.3f}), {len(kernels)} kernels; "
           f"by kernel (ms) {json.dumps(res['by_kernel_ms'])}")
     return res
 
@@ -1065,7 +1489,9 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
-    from repro_torch.core import packing
+    from repro_torch.core import packing, paging, placement
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.weight_store import PackedParam
     from repro_torch.core.perf_model import mobilenet_v2_jobs
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as fa
@@ -1132,8 +1558,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     nk_launches = run_frames(torch, mnv2, nkc, qmm, dev)
 
-    # 6. result lines
-    by_path = {name: {arch: s["launches"][name] for arch, s in served.items()}
+    # 6. paged serving: qwen3-0.6b at 4 bits, the cold half wire-served
+    gc.collect()
+    torch.cuda.empty_cache()
+    mods.update(placement=placement, paging=paging, packing=packing,
+                PackedParam=PackedParam, FaultPlan=FaultPlan)
+    paged, bs_err, t_bs = serve_paged(torch, mods, get_config(PAGED_ARCH),
+                                      dev)
+    served[f"{PAGED_ARCH} paged"] = paged
+    for name in ("qmatmul_f32", "flash_attention"):
+        launches[name] += paged["launches"][name]
+    qmm_err = max(qmm_err, paged["path_check"]["max_abs_err"]["qmatmul_f32"])
+    fa_err = max(fa_err,
+                 paged["path_check"]["max_abs_err"]["flash_attention"])
+
+    # 7. result lines
+    by_path = {name: {arch: s["launches"][name] for arch, s in served.items()
+                      if name in s["launches"]}
                for name in counters}
     kernels = [
         dict(name="qmatmul_f32", route="cuda",
@@ -1188,6 +1629,18 @@ def main() -> int:
         library_note="no single PyTorch call computes a selective scan",
         eager_ms=t["eager_ms"], work="falcon-mamba prefill chunk, "
         + t["work"], decode=t_scan["decode"]))
+    t = t_bs["decode"]
+    kernels.append(dict(
+        name="qmatmul_f32_blockscale", route="cuda",
+        source="src/repro_torch/csrc/qmatmul_blockscale.cu",
+        replaces="src/repro/kernels/qmatmul.py:170",
+        launches=paged["launches"]["qmatmul_f32_blockscale"],
+        launches_by_path={f"{PAGED_ARCH} paged":
+                          paged["launches"]["qmatmul_f32_blockscale"]},
+        max_abs_err=bs_err, ms=t["ms"], plain_ms=t["plain_ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=t["library_ms"], eager_ms=t["eager_ms"], work=t["work"],
+        prefill_M256=t_bs["prefill"]))
     print(json.dumps({"serve": served}))
     print(json.dumps({"kernels": kernels}))
     print(card)

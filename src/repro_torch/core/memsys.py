@@ -5,8 +5,9 @@ array code): the operating points (paper Table I), the interface
 bandwidths, the calibrated energy constants, the N-EUREKA throughput model
 (``neureka_gops``), the per-scenario weight-path costs, ``LayerShape``, the
 double-buffered ``layer_timing`` and ``network_walk``, and the proactive-
-swap ``overlap_stall`` identity the scheduler uses.  The paging byte forms
-(``kv_stream_bytes``, ``encoded_wire_bytes``) arrive with the paging slice.
+swap ``overlap_stall`` identity the scheduler uses, and the wire bytes of an
+encoded weight page (``encoded_wire_bytes``).  ``kv_stream_bytes`` arrives
+with KV paging (ROADMAP A7).
 The constants are the paper's silicon, not the H100's.
 
 All bandwidths in bytes/s, energies in J, times in s.
@@ -295,6 +296,22 @@ def overlap_stall(swap_s: float, compute_s: float) -> Dict[str, float]:
     return dict(swap_s=swap_s, compute_s=compute_s, hidden_s=hidden,
                 exposed_s=exposed,
                 overlap_frac=(hidden / swap_s) if swap_s > 0 else 0.0)
+
+
+def encoded_wire_bytes(rows: int, k: int, page_bits: int,
+                       block: int = 32) -> int:
+    """Wire bytes of one (rows, k) weight tensor crossing the host->device
+    link under the intN page encoding of :mod:`repro_torch.core.paging`:
+    packed levels at ``page_bits`` per weight (byte-aligned per row) plus
+    one float32 scale per (row, block) group, which travel inside the page
+    payload."""
+    if rows < 0 or k < 0:
+        raise ValueError("rows and k must be >= 0")
+    if block < 1:
+        raise ValueError(f"block must be >= 1, got {block}")
+    payload = rows * (-(-k * page_bits // 8))
+    scales = rows * (-(-k // block)) * 4
+    return payload + scales
 
 
 Scenarios = Union[str, Sequence[str], PlacementPlan]

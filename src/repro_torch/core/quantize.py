@@ -5,8 +5,13 @@ Ports ``repro/core/quantize.py:57-76`` (``weight_qrange``,
 ``requantize``).  ``torch.round`` rounds half to even, as ``jnp.round``
 does, and the divisions are the same f32 divisions on either device, so
 the levels, scales and folded requant parameters are bit-identical to the
-(eager) reference's.  The
-activation and blockwise page-codec parts of the reference module arrive
+(eager) reference's.
+
+The page wire codec (``PAGE_SCALE_BLOCK``, ``quantize_blockwise``,
+``dequantize_blockwise``; ``repro/core/quantize.py:195-243``) is a copy of
+the reference's host-side numpy code, so its levels and scales are
+byte-identical: it runs on the host when a paged store is built and at
+every decoding fetch, never on the card.  The activation quantizers arrive
 with the slices that use them.
 """
 
@@ -15,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 # Fractional bits of the folded integer requant multiplier (the reference's
@@ -100,3 +106,51 @@ def requantize(acc: torch.Tensor, rq: RequantParams) -> torch.Tensor:
     y = torch.floor(y + 0.5)
     y = y + rq.bias.to(torch.float32)
     return torch.clamp(y, 0, 255).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Per-block wire codec: the page encoding of ``core/paging.py``.  Cold pages
+# cross the host->device link re-encoded at ``page_bits`` with one scale per
+# (row, block) group instead of one per output channel.
+# ---------------------------------------------------------------------------
+
+# Weights per scale of the page codec: 4/32 = 12.5 % scale bytes on an int8
+# payload, matching the N-EUREKA 32-weight fetch granule.
+PAGE_SCALE_BLOCK = 32
+
+
+def quantize_blockwise(w: np.ndarray, bits: int,
+                       block: int = PAGE_SCALE_BLOCK
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-(row, block) quantization along the last axis.
+
+    Returns ``(levels, scales)``: ``levels`` int8 of ``w.shape``, ``scales``
+    float32 ``(rows, ceil(k / block))``.  A trailing block shorter than
+    ``block`` gets its own scale over just the tail elements.
+    """
+    if block < 1:
+        raise ValueError(f"block must be >= 1, got {block}")
+    qmin, qmax = weight_qrange(bits)
+    w = np.asarray(w, np.float32)
+    if w.ndim != 2:
+        raise ValueError(f"expected a 2-D (rows, k) tensor, got {w.shape}")
+    rows, k = w.shape
+    nblk = -(-k // block)
+    wp = np.pad(w, ((0, 0), (0, nblk * block - k)))
+    groups = wp.reshape(rows, nblk, block)
+    absmax = np.abs(groups).max(axis=2)
+    scales = np.where(absmax > 0, absmax / qmax, 1.0).astype(np.float32)
+    q = np.clip(np.round(groups / scales[:, :, None]), qmin, qmax)
+    levels = q.astype(np.int8).reshape(rows, nblk * block)[:, :k]
+    return levels, scales
+
+
+def dequantize_blockwise(levels: np.ndarray, scales: np.ndarray,
+                         block: int = PAGE_SCALE_BLOCK) -> np.ndarray:
+    """Inverse of :func:`quantize_blockwise`: levels x per-block scales."""
+    levels = np.asarray(levels)
+    rows, k = levels.shape
+    nblk = scales.shape[1]
+    lp = np.pad(levels.astype(np.float32), ((0, 0), (0, nblk * block - k)))
+    out = lp.reshape(rows, nblk, block) * scales[:, :, None].astype(np.float32)
+    return out.reshape(rows, nblk * block)[:, :k]

@@ -1,5 +1,6 @@
 """Public wrappers over the kernels (reference: ``repro/kernels/ops.py``:
-the ``prep_*`` layouts, ``quant_matmul``, ``quant_matmul_int8``,
+the ``prep_*`` layouts, ``quant_matmul``, ``quant_matmul_blockscale``,
+``quant_matmul_int8``,
 ``neureka_conv2d`` and ``attention``; ``selective_scan`` has no counterpart
 there, since the reference models call the jnp scan directly).
 
@@ -51,6 +52,20 @@ def quant_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     out = _qmm.qmatmul_f32(x2, packed, scale, bits=bits, k_orig=k_orig)
+    return out.reshape(*lead, -1)
+
+
+def quant_matmul_blockscale(x: torch.Tensor, packed: torch.Tensor,
+                            scales: torch.Tensor, *, bits: int, k_orig: int,
+                            block: int = 32) -> torch.Tensor:
+    """Float activations x *wire-form* packed weights (packed levels +
+    per-(row, ``block``) scales) -> f32: the serving path of wire-served
+    cold pages (``placement.wire_served_bits``).  x may have leading
+    dims."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    out = _qmm.qmatmul_f32_blockscale(x2, packed, scales, bits=bits,
+                                      k_orig=k_orig, block=block)
     return out.reshape(*lead, -1)
 
 

@@ -1,9 +1,13 @@
 """Fused dequant matmuls — the At-MRAM weight path, as Hopper kernels.
 
-Ports the two datapaths of ``repro/kernels/qmatmul.py``:
+Ports the three kernels of ``repro/kernels/qmatmul.py``:
 
 - ``qmatmul_f32`` (``_qmatmul_f32_kernel``): float activations, f32 out,
   the LM serving path (``csrc/qmatmul_f32.cu``);
+- ``qmatmul_f32_blockscale`` (``_qmatmul_f32_blockscale_kernel``): the same
+  with one scale per (row, 32-wide K block), the page codec's wire form,
+  which wire-served cold pages are multiplied from
+  (``csrc/qmatmul_blockscale.cu``);
 - ``qmatmul_int8`` (``_qmatmul_int8_kernel``): uint8 activations, int32
   accumulators and the NORMQUANT requant to uint8, N-EUREKA's pointwise
   path (``csrc/qmatmul_int8.cu``).
@@ -12,8 +16,7 @@ Packed 2/4/8-bit weights stay packed in device memory; the kernels unpack
 them in registers next to the multiply-adds.  Each wrapper launches its
 kernel for CUDA tensors and raises on anything it does not take.  For CPU
 tensors it computes the plain PyTorch version (``kernels/ref.py``).
-``qmatmul_f32.launches`` and ``qmatmul_int8.launches`` count kernel
-launches.
+Each wrapper's ``launches`` attribute counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -34,6 +37,15 @@ def _launcher():
     fn = build.library("qmatmul_f32").qmatmul_f32_launch
     fn.argtypes = [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr,
                    _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr]
+    fn.restype = _c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher_blockscale():
+    fn = build.library("qmatmul_blockscale").qmatmul_blockscale_launch
+    fn.argtypes = [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int,
+                   _c_int, _c_int, _c_int, _c_ptr]
     fn.restype = _c_int
     return fn
 
@@ -92,6 +104,62 @@ def qmatmul_f32(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
 
 
 qmatmul_f32.launches = 0
+
+
+def qmatmul_f32_blockscale(x: torch.Tensor, packed: torch.Tensor,
+                           scales: torch.Tensor, *, bits: int, k_orig: int,
+                           block: int = 32) -> torch.Tensor:
+    """x (M, K) f32 @ packed (N, ceil(K/f)) uint8 with per-(row, block)
+    scales (N, ceil(K/block)) f32 -> (M, N) f32, f = 8 // bits.  The kernel
+    takes ``block == 32`` (``quantize.PAGE_SCALE_BLOCK``) only."""
+    tensors = (x, packed, scales)
+    if {t.device.type for t in tensors} == {"cpu"}:
+        return ref.qmatmul_f32_blockscale(x, packed, scales, bits=bits,
+                                          k_orig=k_orig, block=block)
+    if ({t.device.type for t in tensors} != {"cuda"}
+            or len({t.device for t in tensors}) != 1):
+        raise ValueError("qmatmul_f32_blockscale needs x, packed and scales "
+                         "on one CUDA device (or all on the CPU), got "
+                         f"{[str(t.device) for t in tensors]}")
+    if bits not in (2, 4, 8):
+        raise ValueError(f"bits must be 2, 4 or 8, got {bits}")
+    if block != 32:
+        raise ValueError(f"the blockscale kernel takes block=32, got {block}")
+    if (x.dtype, packed.dtype, scales.dtype) != (
+            torch.float32, torch.uint8, torch.float32):
+        raise TypeError("qmatmul_f32_blockscale takes float32 x, uint8 "
+                        f"packed and float32 scales, got {x.dtype}, "
+                        f"{packed.dtype}, {scales.dtype}")
+    if x.ndim != 2 or packed.ndim != 2 or scales.ndim != 2:
+        raise ValueError("x must be (M, K), packed (N, Kp) and scales "
+                         "(N, nblk)")
+    m, k = x.shape
+    n, kp = packed.shape
+    nblk = -(-k // block)
+    if (k != k_orig or kp != -(-k // (8 // bits))
+            or tuple(scales.shape) != (n, nblk)):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, packed "
+                         f"{tuple(packed.shape)}, scales "
+                         f"{tuple(scales.shape)}, bits={bits}, "
+                         f"k_orig={k_orig}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("qmatmul_f32_blockscale needs contiguous x, packed "
+                         "and scales")
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    rc = _launcher_blockscale()(
+        x.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        m, n, k, kp, nblk, bits, torch.cuda.current_stream(x.device)
+        .cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"qmatmul_f32_blockscale launch failed: CUDA "
+                           f"error {rc}")
+    qmatmul_f32_blockscale.launches += 1
+    return out
+
+
+qmatmul_f32_blockscale.launches = 0
 
 
 def qmatmul_int8(x_q: torch.Tensor, packed: torch.Tensor, mult: torch.Tensor,

@@ -35,6 +35,22 @@ def qmatmul_f32(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     return torch.matmul(x.to(torch.float32), w.T)
 
 
+def qmatmul_f32_blockscale(x: torch.Tensor, packed: torch.Tensor,
+                           scales: torch.Tensor, *, bits: int, k_orig: int,
+                           block: int = 32) -> torch.Tensor:
+    """Wire-form matmul: x (M, K) @ (unpack(packed (N, ceil(K/f))) x per-
+    (row, ``block``) scales (N, ceil(K/block)))^T -> f32, the levels
+    expanded with their block scales before the reduction
+    (``repro/kernels/ref.py:28-44``)."""
+    levels = packing.unpack(packed, bits, k_orig).to(torch.float32)
+    n, k = levels.shape
+    nblk = scales.shape[1]
+    lp = torch.nn.functional.pad(levels, (0, nblk * block - k))
+    w = (lp.reshape(n, nblk, block)
+         * scales[:, :, None].to(torch.float32)).reshape(n, nblk * block)
+    return torch.matmul(x.to(torch.float32), w[:, :k].T)
+
+
 def requant_f32(acc: torch.Tensor, mult: torch.Tensor,
                 bias: torch.Tensor) -> torch.Tensor:
     """NORMQUANT projection, float-rescale form (``ref.py:16-18``): int32 acc

@@ -2,8 +2,9 @@
 
 Weights are dense (N, K) tensors or packed dicts {"packed": uint8,
 "scale": f32} made by ``parallel/sharding.freeze_for_serving`` (the At-MRAM
-serving path).  Every matmul goes through :func:`linear`, which dispatches
-between them.
+serving path), or, for the cold pages a ``wire_serve`` plan serves straight
+from their wire form, packed levels with per-block scales.  Every matmul
+goes through :func:`linear`, which dispatches between them.
 """
 
 from __future__ import annotations
@@ -33,11 +34,13 @@ def linear(x: torch.Tensor, w, *, engine: Optional[Any] = None,
     if isinstance(w, dict) and "packed" in w:
         scenario, _mode, bits = placement.linear_dispatch(engine, path)
         k_orig = x.shape[-1]
-        if placement.wire_served_bits(engine, path) is not None:
-            raise NotImplementedError(
-                "wire-served pages need the blockscale kernel "
-                "(ROADMAP B3, with paging in A7)")
-        if scenario == "l1mram":
+        wire_bits = placement.wire_served_bits(engine, path)
+        if wire_bits is not None:
+            # a wire-served cold page: "packed" / "scale" hold the page
+            # codec's blockwise form, expanded next to the multiply-adds
+            out = kops.quant_matmul_blockscale(x, w["packed"], w["scale"],
+                                               bits=wire_bits, k_orig=k_orig)
+        elif scenario == "l1mram":
             out = kops.quant_matmul(x, w["packed"], w["scale"], bits=bits,
                                     k_orig=k_orig)
         else:

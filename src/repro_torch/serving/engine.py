@@ -1,5 +1,6 @@
 """Batched serving engine over the packed At-MRAM weight store
-(reference: ``repro/serving/engine.py:55-296`` and ``:808-1164``).
+(reference: ``repro/serving/engine.py:55-430``, ``:576-806`` and
+``:808-1164``).
 
 A continuous-batching loop, as in the reference:
 
@@ -20,16 +21,27 @@ A continuous-batching loop, as in the reference:
     around the step and put back;
   * finished sequences free their slot at once, and a reused slot's SSM
     state starts cold; ``preempt`` / ``restore`` hand a slot over
-    mid-request, bit-exactly, KV rows and SSM state alike.
+    mid-request, bit-exactly, KV rows and SSM state alike;
+  * with :meth:`attach_paging`, the plan's cold parameters live on the host
+    and stream device-ward every tick through ``core/paging``'s
+    ``HostPagedStore`` (§II-B2 virtual paging, swap / miss / stall counters
+    kept); with ``wire_serve=True`` its re-encoded int8 cold pages are
+    multiplied straight from their wire form by the blockscale kernel.
+    :meth:`begin_tick_params` kicks a tick's pass while the caller computes
+    and :meth:`fence_tick_params` joins it at first use;
+    :meth:`tick_params` is the blocking begin + fence that ``step`` uses.
 
 The reference compiles one program per (bucket, kv span); PyTorch runs
 eagerly, so there is nothing to cache beyond the per-layer parameter views.
 Sampling draws from an explicit ``torch.Generator`` on the engine's device
 (the reference splits ``jax.random`` keys; the two agree at temperature 0).
 
-Not ported yet: weight and KV paging (``attach_paging``,
-``attach_kv_paging``: ROADMAP A7), tracing and the scheduler hooks (A5), and
-the MoE family's one-slot-at-a-time prefill (A9).
+Not ported yet: KV paging (``attach_kv_paging``: ROADMAP A7), paging on a
+page pool shared by tenants (``pool=``: A8) or across a mesh (``mesh=``:
+A11), tracing and the scheduler hooks (A5: ``has_tick_after``,
+``cancel_tick_params``, the fence deadline and chunk-paced prefill, which
+only the scheduler calls), and the MoE family's one-slot-at-a-time prefill
+(A9).
 """
 
 from __future__ import annotations
@@ -41,6 +53,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import DeviceLike, device_of, resolve_device
+from repro_torch.core.faults import merge_fault_counters
+from repro_torch.core.paging import (HostPagedStore, packed_tree_store,
+                                     thread_packed)
 from repro_torch.core.placement import PlacementPlan, as_plan
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
@@ -157,18 +172,166 @@ class ServingEngine:
         self.preempt_count = 0
         self.restore_count = 0
 
-    # -- not ported yet ---------------------------------------------------------
-    def attach_paging(self, *args, **kwargs):
-        raise NotImplementedError("weight paging is not ported yet "
-                                  "(ROADMAP A7)")
+        # §II-B2 weight paging (attach_paging).  paging_stall_s holds the
+        # EXPOSED wait (what blocked a tick), paging_hidden_s the stream
+        # time hidden behind the caller's compute
+        self.pager: Optional[HostPagedStore] = None
+        self.page_resident_slots = 2
+        self.paging_stall_s = 0.0
+        self.paging_hidden_s = 0.0
+        self.last_stall_s = 0.0
+        self.last_hidden_s = 0.0
+        # split of the last fenced pass: swap_s, window_s, exposed_s,
+        # hidden_s (the memsys.overlap_stall identity)
+        self.last_overlap: Optional[Dict[str, float]] = None
+        self._inflight_pass = None        # AsyncPageStream begun, unfenced
+
+    # -- §II-B2: weight paging -----------------------------------------------
+    def attach_paging(self, page_bytes: Optional[int] = None,
+                      resident_slots: int = 2, *, pool: Optional[Any] = None,
+                      name: Optional[str] = None,
+                      faults: Optional[Any] = None, wire_serve: bool = False,
+                      mesh: Optional[Any] = None,
+                      shard_budget_bytes: Optional[int] = None
+                      ) -> "ServingEngine":
+        """Put the plan's paged parameters behind a
+        :class:`~repro_torch.core.paging.HostPagedStore`
+        (``repro/serving/engine.py:299-398``).
+
+        The plan's resident set is put on the device once; every cold
+        parameter group is evacuated to its host image and streamed to the
+        device each tick (:meth:`tick_params`).  ``page_bytes`` defaults to
+        the largest cold group (one page per group).  ``faults`` (a
+        FaultPlan or FaultInjector) puts every fetch under seeded fault
+        injection with CRC-verified retry.  ``wire_serve=True`` serves
+        int8-re-encoded cold pages straight from their wire form: the fetch
+        skips the host decode and ``linear`` sends those params to the
+        blockscale kernel.
+
+        After this call ``self.params`` holds the resident groups on the
+        device and the cold groups' HOST (CPU tensor) view: on a card, a
+        step that computed with it instead of the streamed pages would make
+        the kernel wrappers raise.  ``pool=`` (tenancy, ROADMAP A8) and
+        ``mesh=`` (sharded paging, A11) are not ported."""
+        if pool is not None:
+            raise NotImplementedError("paging into a pool shared by "
+                                      "tenants arrives with ROADMAP A8")
+        if mesh is not None or shard_budget_bytes is not None:
+            raise NotImplementedError("mesh-sharded paging arrives with "
+                                      "ROADMAP A11")
+        if resident_slots < 1:
+            raise ValueError(f"resident_slots must be >= 1, got "
+                             f"{resident_slots}")
+        if self.pager is not None:
+            raise ValueError("paging is already attached")
+        if wire_serve:
+            # before the store is built, so that the fetch path and the
+            # model's linear dispatch read the same plan
+            self.plan = self.plan.replace(wire_serve=True)
+        store = packed_tree_store(self.params, self.plan)
+        paged = [n for n in store.params
+                 if self.plan.placement_for(n).paged]
+        if not paged:
+            raise ValueError("plan has no paged parameters; nothing to "
+                             "stream: use the engine without paging")
+        if page_bytes is None:
+            page_bytes = max(store.params[n].nbytes_packed for n in paged)
+        self.pager = HostPagedStore(store, page_bytes, device=self.device,
+                                    plan=self.plan,
+                                    name=name if name is not None
+                                    else "default", faults=faults)
+        self.page_resident_slots = resident_slots
+        host_view = self.pager.template_view()
+        self.params = thread_packed(self.params,
+                                    {**self.pager.resident, **host_view})
+        self._layers = tfm.layer_params(self.params, self.cfg)
+        return self
 
     def attach_kv_paging(self, *args, **kwargs):
         raise NotImplementedError("KV paging is not ported yet (ROADMAP A7)")
 
+    def begin_tick_params(self) -> None:
+        """Kick the overlapped host->device page stream for the next fence
+        and return at once (a no-op without paging, or with a pass in
+        flight): the fetch loop runs on the pager's worker while the
+        caller computes."""
+        if self.pager is not None and self._inflight_pass is None:
+            self._inflight_pass = self.pager.begin_pass(
+                self.page_resident_slots)
+
+    def fence_tick_params(self) -> Any:
+        """The params tree for this tick, fencing at first use.  Without
+        paging it is the resident tree.  With paging the in-flight pass
+        (demand-begun here if none is) is joined, its pages threaded into
+        the template, and its wait split into the exposed part (this call
+        blocked) and the hidden part."""
+        self.last_stall_s = 0.0
+        self.last_hidden_s = 0.0
+        if self.pager is None:
+            return self.params
+        demand = self._inflight_pass is None
+        if demand:
+            self.begin_tick_params()
+        ps = self._inflight_pass
+        dev = ps.fence()
+        self._inflight_pass = None
+        self.last_overlap = self._account_fence(ps, demand)
+        # the reference caches a flattened template (engine.py:399-430) to
+        # spare a pytree walk a tick; threading the port's nested dicts
+        # rebuilds a few dozen dicts and copies no tensor
+        return thread_packed(self.params, dev)
+
+    def _account_fence(self, ps, demand: bool) -> Dict[str, float]:
+        """Book one fenced pass's stall split.  A pass demand-begun inside
+        this fence spent its whole wall blocked here: all of it lands
+        exposed, none hidden."""
+        exposed, hidden, window = ps.exposed_s, ps.hidden_s, ps.window_s
+        if demand:
+            exposed, hidden, window = exposed + hidden, 0.0, 0.0
+        self.last_stall_s += exposed
+        self.last_hidden_s += hidden
+        self.paging_stall_s += exposed
+        self.paging_hidden_s += hidden
+        return dict(swap_s=ps.swap_s, window_s=window, exposed_s=exposed,
+                    hidden_s=hidden)
+
     def tick_params(self) -> Any:
-        """The parameters this tick computes with: the resident tree (there
-        is no paging to stream yet)."""
-        return self.params
+        """Blocking begin + fence: the stream's whole wall lands exposed."""
+        self.begin_tick_params()
+        return self.fence_tick_params()
+
+    @property
+    def swap_count(self) -> int:
+        return 0 if self.pager is None else self.pager.swap_count
+
+    @property
+    def miss_count(self) -> int:
+        return 0 if self.pager is None else self.pager.miss_count
+
+    def paging_summary(self) -> Dict[str, Any]:
+        """The weight stream's counters (the reference's keys for weights;
+        the KV keys wait for KV paging), plus the fetch worker's host
+        seconds: ``decode_s``, ``crc_s`` and ``copy_s``."""
+        total = self.paging_stall_s + self.paging_hidden_s
+        pg = self.pager
+        return dict(
+            swap_count=self.swap_count, miss_count=self.miss_count,
+            exposed_s=self.paging_stall_s, hidden_s=self.paging_hidden_s,
+            overlap_frac=(self.paging_hidden_s / total) if total > 0 else 0.0,
+            stall_s=self.paging_stall_s,
+            n_pages=0 if pg is None else len(pg.pages),
+            bytes_streamed_wire=0 if pg is None else pg.bytes_streamed_wire,
+            bytes_streamed_raw=0 if pg is None else pg.bytes_streamed_raw,
+            decode_skipped_bytes=(0 if pg is None
+                                  else pg.decode_skipped_bytes),
+            decode_s=0.0 if pg is None else pg.decode_s,
+            crc_s=0.0 if pg is None else pg.crc_s,
+            copy_s=0.0 if pg is None else pg.copy_s)
+
+    def faults_summary(self) -> Dict[str, int]:
+        """Fault-path counters of the engine's paging components."""
+        return merge_fault_counters(
+            [self.pager.fault_counters] if self.pager is not None else [])
 
     def _step(self, params: Any, tokens: torch.Tensor, cache: Dict[str, Any],
               pos: torch.Tensor, **kw) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -448,8 +611,9 @@ class ServingEngine:
             self.assign(self.waiting.pop(0), i)
 
     def step(self) -> List[Request]:
-        """One engine tick: admit FIFO, full prefill for the fresh slots,
-        batched decode, retire.  Returns the requests finished this tick."""
+        """One engine tick: stream pages, admit FIFO, full prefill for the
+        fresh slots, batched decode, retire.  Returns the requests finished
+        this tick."""
         before = len(self.finished)
         params = self.tick_params()
         self._admit()

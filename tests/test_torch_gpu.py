@@ -13,10 +13,14 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import packing, paging, placement, quantize  # noqa: E402
+from repro_torch.core import weight_store as ws  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import neureka_conv as nkc  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.qmatmul import qmatmul_f32, qmatmul_int8  # noqa: E402
+from repro_torch.kernels.qmatmul import (qmatmul_f32,  # noqa: E402
+                                         qmatmul_f32_blockscale,
+                                         qmatmul_int8)
 from repro_torch.kernels.ssm_scan import selective_scan  # noqa: E402
 from repro_torch.models import mobilenet_v2 as mnv2  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -300,3 +304,98 @@ def test_selective_scan_kernel_writes_the_state_over_h0(cuda, rng, s):
     torch.cuda.synchronize()
     assert h_ip is cache
     assert torch.equal(y_ip, y) and torch.equal(h_ip, h)
+
+
+def _wire(rng, n, k, bits, dev):
+    """The page codec's wire form of an (n, k) weight at the model's init
+    scale: packed levels and per-32 scales."""
+    w = (rng.normal(size=(n, k)) * k ** -0.5).astype(np.float32)
+    levels, scales = quantize.quantize_blockwise(w, bits)
+    packed = packing.pack(torch.from_numpy(levels), bits)
+    return packed.to(dev), torch.from_numpy(scales).to(dev)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 256])
+@pytest.mark.parametrize("k,n", [(1024, 2048), (2048, 1024), (69, 9),
+                                 (70, 130), (1001, 65)])
+def test_blockscale_kernel_matches_plain(cuda, rng, bits, m, k, n):
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda)
+    packed, scales = _wire(rng, n, k, bits, cuda)
+    before = qmatmul_f32_blockscale.launches
+    got = qmatmul_f32_blockscale(x, packed, scales, bits=bits, k_orig=k)
+    torch.cuda.synchronize()
+    assert qmatmul_f32_blockscale.launches == before + 1
+    expect = ref.qmatmul_f32_blockscale(x, packed, scales, bits=bits,
+                                        k_orig=k)
+    torch.testing.assert_close(got, expect, rtol=1e-4, atol=1e-4)
+
+
+def test_blockscale_kernel_refuses_what_it_does_not_take(cuda, rng):
+    x = torch.zeros((4, 64), device=cuda)
+    packed, scales = _wire(rng, 8, 64, 8, cuda)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        qmatmul_f32_blockscale(x, packed.cpu(), scales, bits=8, k_orig=64)
+    with pytest.raises(ValueError, match="block=32"):
+        qmatmul_f32_blockscale(x, packed, scales, bits=8, k_orig=64,
+                               block=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        qmatmul_f32_blockscale(x, torch.cat([packed, packed], 1)[:, ::2],
+                               scales, bits=8, k_orig=64)
+
+
+def test_pinned_page_stream_matches_the_sync_pass(cuda, rng):
+    """The side-stream copies of an overlapped pass give the pages a sync
+    pass gives, on the card, at every encoding the store serves."""
+    w = {f"layer{i:02d}": dict(w=rng.normal(size=(96, 70)).astype(
+        np.float32)) for i in range(6)}
+    store = ws.freeze(w, ws.uniform_policy(4, min_size=16))
+    plan = placement.PlacementPlan(
+        default=placement.Placement("l1mram", 4, "paged", 8),
+        rules=(("layer00/w", placement.Placement("l1mram", 4, "paged")),
+               ("layer01/w", placement.Placement("l1mram", 4, "paged", 2))),
+        wire_serve=True)
+    sync = paging.HostPagedStore(store, 96 * 35 * 2, device=cuda, plan=plan)
+    want = {}
+    for _page, dev in sync.stream():
+        want.update(dev)
+    pager = paging.HostPagedStore(store, 96 * 35 * 2, device=cuda, plan=plan)
+    got = pager.begin_pass().fence()
+    assert set(got) == set(want) == set(store.params)
+    for name, p in got.items():
+        assert p.packed.device.type == "cuda"
+        assert torch.equal(p.packed, want[name].packed)
+        assert torch.equal(p.scale, want[name].scale)
+    assert pager.wire_served == {f"layer{i:02d}/w" for i in range(2, 6)}
+    wired = got["layer02/w"]
+    assert wired.scale.shape == (96, 3)         # per-32 scales of K = 70
+    sync.close()
+    pager.close()
+
+
+def test_paged_wire_serve_on_the_card_matches_the_cpu(cuda):
+    cfg = get_config("qwen3-0.6b").smoke()
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, int(rng.integers(5, 40))).astype(np.int32)
+               for _ in range(6)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        packed = freeze_for_serving(params, bits=4, device=dev)
+        sizes = placement.packed_sizes(packed)
+        plan = placement.plan_for_budget(
+            sizes, sum(sizes.values()) // 2, sizes_bits=4,
+            hot=placement.Placement("l1mram", 4, "resident"),
+            cold=placement.Placement("l1mram", 4, "paged", 8))
+        eng = ServingEngine(cfg, packed, batch_slots=4, max_len=128,
+                            plan=plan, device=dev, prefill_chunk=16)
+        eng.attach_paging(wire_serve=True)
+        before = qmatmul_f32_blockscale.launches
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=p, max_new_tokens=6))
+        out[dev] = {r.uid: r.generated for r in eng.run_until_done()}
+        if dev == "cuda":
+            assert qmatmul_f32_blockscale.launches > before
+        eng.pager.close()
+    assert out["cuda"] == out["cpu"]

@@ -39,5 +39,6 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.kernels.neureka_conv",
                 "repro_torch.models.mobilenet_v2", "repro_torch.core.memsys",
                 "repro_torch.core.perf_model", "repro_torch.models.ssm",
-                "repro_torch.kernels.ssm_scan"):
+                "repro_torch.kernels.ssm_scan", "repro_torch.core.paging",
+                "repro_torch.core.faults", "repro_torch.core.weight_store"):
         assert mod in report["modules"]

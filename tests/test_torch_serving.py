@@ -107,7 +107,7 @@ def test_engine_without_a_card_raises(served, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(tcfg, tpacked)
     with pytest.raises(NotImplementedError, match="A7"):
-        ServingEngine(tcfg, tpacked, device="cpu").attach_paging()
+        ServingEngine(tcfg, tpacked, device="cpu").attach_kv_paging()
 
 
 def test_sampling_uses_the_explicit_generator(served):
