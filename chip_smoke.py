@@ -11,7 +11,9 @@ fails:
 
 1. set-up: requires a CUDA device, turns TF32 off, prints the card's name
    and power limit, builds every ``csrc/*.cu`` with nvcc for sm_90a (one
-   nvcc each, in parallel) and prints what ptxas reports for each kernel;
+   nvcc each, in parallel), prints what ptxas reports for each kernel and
+   fails if the tensor-core kernels of the f32 matmuls (``qmm_tc``,
+   ``bs_tc``) spill;
 2. each Hopper kernel against its plain PyTorch version on the card, at the
    shapes its path gives it: ``qmatmul_f32``, ``flash_attention`` and
    ``selective_scan`` within the stated tolerances (the scan also at a
@@ -19,12 +21,16 @@ fails:
    ``qmatmul_int8``, ``conv3x3_dense`` and ``conv3x3_dw`` bit for bit
    (``torch.equal``) at every distinct MobileNet-V2 job shape at 224, at 8,
    4 and 2 bits, at the ragged shapes of the reference's kernel tests and
-   at requant ties.  Then each is timed with CUDA events (L2-cold: inputs
-   rotate over more than the 50 MB L2) beside its plain version, one
-   PyTorch library call for the same function where there is one, and its
-   bound: bytes over 3.35 TB/s, or operations over 67 TFLOP/s (f32), 1,979
-   TOP/s (int8 tensor cores) or the SFUs' exponential rate, whichever is
-   larger.  Device times replay a CUDA graph of the calls, so the host's
+   at requant ties; ``qmatmul_f32`` and ``qmatmul_f32_blockscale`` must
+   also give the same bits on two calls.  Then each is timed with CUDA
+   events (L2-cold: inputs rotate over more than the 50 MB L2) beside its
+   plain version, one PyTorch library call for the same function where
+   there is one, and its bound: bytes over 3.35 TB/s, or operations over
+   67 TFLOP/s (f32), 1,979 TOP/s (int8 tensor cores) or the SFUs'
+   exponential rate, whichever is larger; the f32 matmuls' M > 16 rows
+   also at their own route, two TF32 passes at 495 TFLOP/s.  Besides
+   qwen3-0.6b's layer, falcon-mamba-7b's four linears of a layer are timed
+   at M = 256.  Device times replay a CUDA graph of the calls, so the host's
    launch gaps drop out; the same calls enqueued eagerly from Python are
    printed beside them;
 3. serving, three times: full-width qwen3-0.6b (28 layers, d_model 1024),
@@ -91,6 +97,7 @@ import contextlib
 import functools
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -101,6 +108,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core rate
+TF32_FLOPS_PER_S = 495e12        # H100 SXM dense TF32 tensor-core rate
 
 QMM_TOL = dict(rtol=1e-4, atol=1e-4)      # f32 accumulate, reordered sums
 FLASH_TOL = dict(rtol=3e-5, atol=3e-5)    # the reference kernel test's
@@ -132,6 +140,12 @@ SERVE_KERNELS = {"dense": ("qmatmul_f32", "flash_attention"),
 LAYER_LINEARS = {"wq": (1024, 2048), "wk": (1024, 1024), "wv": (1024, 1024),
                  "wo": (2048, 1024), "w_gate": (1024, 3072),
                  "w_up": (1024, 3072), "w_down": (3072, 1024)}
+# (K, N) of each packed linear of a falcon-mamba-7b layer: d_model 4,096,
+# d_inner 8,192, dt_rank 256, N 16 (x_proj gives dt_rank + 2N)
+FALCON_LINEARS = {"in_proj": (4096, 16384), "x_proj": (8192, 288),
+                  "dt_proj": (256, 8192), "out_proj": (8192, 4096)}
+# the tensor-core kernels of the f32 matmuls' M > 16 path (csrc/qmm_tc.cuh)
+TC_KERNELS = ("qmm_tc", "bs_tc")
 
 
 def card_line() -> str:
@@ -212,14 +226,27 @@ def bound_ms(nbytes: float, ops: float, rate: float = F32_FLOPS_PER_S):
 
 
 def phase_build(build):
+    """Build every kernel, print what ptxas reports, and fail if a
+    tensor-core kernel of the f32 matmuls spills."""
     t0 = time.perf_counter()
     build.build_all()
     print(f"[build] nvcc sm_90a, {time.perf_counter() - t0:.2f} s")
+    spills = []
     for name, report in build.ptxas_reports().items():
+        func = None
         for line in report.splitlines():
+            if "Compiling entry function" in line:
+                func = line.split("'")[1] if "'" in line else line
             if "Compiling entry function" in line or "Used" in line \
                     or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}")
+            spilled = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            if (func is not None and any(k in func for k in TC_KERNELS)
+                    and any(int(b) for b in spilled)):
+                spills.append(f"{func}: {line.strip()}")
+    if spills:
+        raise AssertionError("the tensor-core kernels spill:\n"
+                             + "\n".join(spills))
 
 
 def check_qmatmul(torch, ops, ref, qmm, dev) -> float:
@@ -234,15 +261,19 @@ def check_qmatmul(torch, ops, ref, qmm, dev) -> float:
         packed, scale = ops.prep_linear(w, bits)
         got = qmm.qmatmul_f32(x, packed, scale, bits=bits, k_orig=k)
         expect = ref.qmatmul_f32(x, packed, scale, bits=bits, k_orig=k)
+        again = qmm.qmatmul_f32(x, packed, scale, bits=bits, k_orig=k)
         torch.cuda.synchronize()
         err = (got - expect).abs().max().item()
         worst = max(worst, err)
         if not torch.allclose(got, expect, **QMM_TOL):
             raise AssertionError(f"qmatmul_f32 bits={bits} M={m} K={k} N={n}:"
                                  f" max abs err {err}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"qmatmul_f32 bits={bits} M={m} K={k} N={n}:"
+                                 " two calls on one input differ")
     print(f"[check] qmatmul_f32: {len(cases)} cases (bits 8/4/2, M 4/256 at "
           f"the layer shapes, ragged K=1001), max abs err {worst:.3e}, "
-          f"tolerance {QMM_TOL}")
+          f"tolerance {QMM_TOL}; each case called twice, bit-equal")
     return worst
 
 
@@ -280,15 +311,31 @@ def check_flash(torch, ref, fa, dev) -> float:
     return worst
 
 
+def route_bound(res, m: int, gemv_max_m: int, nbytes: float, flops: float,
+                passes: int):
+    """Above the GEMV (M > ``gemv_max_m``) the f32 matmuls run on the tensor
+    cores, ``passes`` TF32 MMAs for each f32 multiply-add: ``bound_ms`` is
+    then that route's bound and the f32 CUDA-core bound moves to
+    ``bound_f32_ms``.  The GEMV runs on the CUDA cores and keeps the f32
+    bound."""
+    if m > gemv_max_m:
+        res["bound_f32_ms"], res["bound_f32_by"] = (res["bound_ms"],
+                                                    res["bound_by"])
+        res["bound_ms"], res["bound_by"] = bound_ms(
+            nbytes, passes * flops, TF32_FLOPS_PER_S)
+
+
 def time_qmatmul(torch, packing, ops, ref, qmm, dev, m: int,
-                 bits: int = 8, copies: int = 8):
-    """One layer's seven packed linears at M rows, over ``copies`` layer
-    copies (8 x 15.7 MB of 8-bit weights > the 50 MB L2)."""
+                 bits: int = 8, copies: int = 8, linears=LAYER_LINEARS,
+                 what: str = "qmatmul_f32 layer x7"):
+    """One layer's packed linears (qwen3-0.6b's seven by default) at M rows,
+    over ``copies`` layer copies (8 x 15.7 MB of 8-bit qwen3 weights, or
+    2 x 105 MB of falcon-mamba's, > the 50 MB L2)."""
     gen = torch.Generator(device=dev).manual_seed(3)
     layers = []
     for _ in range(copies):
         layer = []
-        for k, n in LAYER_LINEARS.values():
+        for k, n in linears.values():
             w = torch.randn((n, k), generator=gen, device=dev) * k ** -0.5
             packed, scale = ops.prep_linear(w, bits)
             x = torch.randn((m, k), generator=gen, device=dev)
@@ -311,10 +358,13 @@ def time_qmatmul(torch, packing, ops, ref, qmm, dev, m: int,
     res = time_versions(torch, kernel, plain, library, copies, 40)
     nbytes = sum(m * k * 4 + p.numel() + s.numel() * 4 + m * n * 4
                  for (x, p, s, k, _), (_, n) in zip(layers[0],
-                                                    LAYER_LINEARS.values()))
-    flops = sum(2 * m * n * k for k, n in LAYER_LINEARS.values())
+                                                    linears.values()))
+    flops = sum(2 * m * n * k for k, n in linears.values())
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
-    print_times(f"qmatmul_f32 layer x7 M={m} bits={bits}",
+    route_bound(res, m, qmm.tc_geometry("qmatmul_f32").gemv_max_m, nbytes,
+                flops, 2)
+    res["work"] = f"{what} {list(linears)}, M={m}, {bits}-bit"
+    print_times(f"{what} M={m} bits={bits}",
                 "torch.matmul on pre-dequantised f32", res, nbytes, flops)
     return res
 
@@ -336,16 +386,22 @@ def check_blockscale(torch, ref, qmm, dev, linears) -> float:
                                          k_orig=k)
         expect = ref.qmatmul_f32_blockscale(x, packed, scales, bits=bits,
                                             k_orig=k)
+        again = qmm.qmatmul_f32_blockscale(x, packed, scales, bits=bits,
+                                           k_orig=k)
         torch.cuda.synchronize()
         err = (got - expect).abs().max().item()
         worst = max(worst, err)
         if not torch.allclose(got, expect, **QMM_TOL):
             raise AssertionError(f"qmatmul_f32_blockscale bits={bits} M={m} "
                                  f"K={k} N={n}: max abs err {err}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"qmatmul_f32_blockscale bits={bits} M={m} "
+                                 f"K={k} N={n}: two calls on one input differ")
     print(f"[check] qmatmul_f32_blockscale: {len(cases)} cases (the "
           f"reference test's bits 8 / K 70 and bits 4 / K 69, bits 2, ragged "
           f"K=1001 at bits 8/4/2, the cold linears {linears} at M 4/256), "
-          f"max abs err {worst:.3e}, tolerance {QMM_TOL}")
+          f"max abs err {worst:.3e}, tolerance {QMM_TOL}; each case called "
+          "twice, bit-equal")
     return worst
 
 
@@ -382,6 +438,8 @@ def time_blockscale(torch, packing, ref, qmm, dev, m: int, linears,
                  for (x, p, s, k, _), (_, n) in zip(layers[0], linears))
     flops = sum(2 * m * n * k for k, n in linears)
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
+    route_bound(res, m, qmm.tc_geometry("qmatmul_blockscale").gemv_max_m,
+                nbytes, flops, 2)
     res["work"] = (f"one layer's {len(linears)} cold linears {linears}, "
                    f"M={m}, int8 wire form")
     print_times(f"qmatmul_f32_blockscale {res['work']}",
@@ -438,13 +496,17 @@ def print_times(what: str, library: str, res, nbytes: int, flops: int,
                 ops: str = "flop"):
     def ms(key):
         return "none" if res[key] is None else f"{res[key]:.4f}"
+    f32 = (f"; f32 CUDA-core bound {res['bound_f32_ms']:.4f} "
+           f"({res['bound_f32_by']})" if "bound_f32_ms" in res else "")
+    route = " at the 2 x TF32 route" if f32 else ""
     print(f"[time] {what}: device (graph replay) kernel_ms "
           f"{res['ms_runs'][0]:.4f}/{res['ms_runs'][1]:.4f} plain_ms "
           f"{res['plain_ms']:.4f} library_ms ({library}) "
           f"{ms('library_ms')}; eager kernel_ms {res['eager_ms']:.4f} "
           f"plain_ms {res['eager_plain_ms']:.4f} library_ms "
-          f"{ms('eager_library_ms')}; bound_ms {res['bound_ms']:.4f} "
-          f"({res['bound_by']}; {nbytes} B, {flops} {ops})")
+          f"{ms('eager_library_ms')}; bound_ms{route} "
+          f"{res['bound_ms']:.4f} ({res['bound_by']}; {nbytes} B, {flops} "
+          f"{ops}){f32}")
 
 
 # bsz, S, Di, N, with h0: the falcon-mamba prefill chunk and decode step at
@@ -1079,9 +1141,10 @@ def serve_paged(torch, m, cfg, dev):
 
 # kernel-name fragments of the LM paths' device time, as the profiler names
 # them; cuBLAS / CUTLASS GEMMs are the unembedding's f32 matmul
-PROFILE_LM_KERNELS = (("qmm_tiled", "qmatmul_f32 tiled (prefill)"),
+PROFILE_LM_KERNELS = (("qmm_tc", "qmatmul_f32 tensor cores (prefill)"),
                       ("qmm_gemv", "qmatmul_f32 gemv (decode)"),
-                      ("bs_tiled", "qmatmul_f32_blockscale tiled (prefill)"),
+                      ("bs_tc", "qmatmul_f32_blockscale tensor cores "
+                       "(prefill)"),
                       ("bs_gemv", "qmatmul_f32_blockscale gemv (decode)"),
                       ("memcpy", "memcpy (host <-> device)"),
                       ("flash_fwd", "flash_attention"),
@@ -1517,6 +1580,9 @@ def main() -> int:
     fa_err = check_flash(torch, ref, fa, dev)
     t_dec = time_qmatmul(torch, packing, ops, ref, qmm, dev, m=4)
     t_pre = time_qmatmul(torch, packing, ops, ref, qmm, dev, m=256)
+    t_falcon = time_qmatmul(torch, packing, ops, ref, qmm, dev, m=256,
+                            copies=2, linears=FALCON_LINEARS,
+                            what="qmatmul_f32 falcon-mamba-7b layer x4")
     t_fa = time_flash(torch, F, ref, fa, dev)
     jobs = {j.name: j for j in mobilenet_v2_jobs(8, MNV2_IMG)}
     nk_err = check_neureka(torch, packing, ops, ref, nkc, qmm, dev,
@@ -1586,7 +1652,7 @@ def main() -> int:
              bound_ms=t_dec["bound_ms"], bound_by=t_dec["bound_by"],
              library_ms=t_dec["library_ms"], eager_ms=t_dec["eager_ms"],
              work="one layer's 7 packed linears, decode M=4, 8-bit",
-             prefill_M256=t_pre),
+             prefill_M256=t_pre, prefill_falcon_M256=t_falcon),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:71",

@@ -15,31 +15,31 @@
 // What bounds it on this card: the serve's cold linears at decode (M = batch
 //   slots, 4) are GEMVs whose time is the wire bytes over the 3.35 TB/s of
 //   device memory: the int8 levels plus 4 / 32 B of scale per weight, 12.5 %
-//   more than the payload.  Prefill (M = slots x bucket <= 256) comes close
-//   to the f32 multiply-adds on the CUDA cores (67 TFLOP/s).
+//   more than the payload.  Prefill (M = slots x bucket, 256) is bound by the
+//   multiply-adds: 67 TFLOP/s in f32 on the CUDA cores, 495 TFLOP/s in TF32
+//   on the tensor cores.
 //
 // What the design does about it: the two shapes of csrc/qmatmul_f32.cu.
-//   Small M takes a weight-streaming kernel: one warp per output channel
+//   M <= 16 takes a weight-streaming kernel: one warp per output channel
 //   reads the packed row as 32-bit words, coalesced along K; a word holds at
 //   most 16 levels, all of one 32-wide scale group, so each word's partial
 //   sums for all M rows are scaled once by the one scale it reads.  Larger M
-//   takes a 64 x 64 output tile per block whose K step of 32 is exactly one
-//   scale group: the scale is folded into each level as it is unpacked into
-//   shared memory.  Both mask k >= K.  Accumulation is f32 on the CUDA cores
-//   (no TF32), so the kernel matches the f32 plain version to reordering
-//   error.
+//   takes the tensor-core main loop of csrc/qmm_tc.cuh, whose K stage of 32
+//   is exactly one scale group: each group's two-pass TF32 partial sums are
+//   promoted into f32 with one FMA by that group's scale, read once a tile.
+//   Both mask k >= K.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "qmm_tc.cuh"
 
 namespace {
 
 constexpr int BLOCK = 32;        // weights per scale (PAGE_SCALE_BLOCK)
 constexpr int GEMV_ROWS = 8;     // x rows one weight-streaming block carries
 constexpr int GEMV_WARPS = 8;    // output channels per block, one per warp
-constexpr int GEMV_MAX_M = 16;   // largest M sent to the weight-streaming kernel
-constexpr int TM = 64, TN = 64, TK = 32, TPB = 256;   // tiled kernel
-static_assert(TK == BLOCK, "a tiled K step must be one scale group");
+static_assert(tcmm::BK == BLOCK, "a tensor-core K stage must be one scale group");
 
 template <int BITS>
 __device__ __forceinline__ float level(uint32_t byte, int t) {
@@ -123,100 +123,57 @@ bs_gemv(const float* __restrict__ x, const uint8_t* __restrict__ packed,
   }
 }
 
-template <int BITS>
-__global__ void __launch_bounds__(TPB)
-bs_tiled(const float* __restrict__ x, const uint8_t* __restrict__ packed,
-         const float* __restrict__ scales, float* __restrict__ out,
-         int M, int N, int K, int Kp, int nblk) {
-  constexpr int F = 8 / BITS;
-  // K-major tiles, one float of padding so the transposing stores of
-  // consecutive k land in different banks
-  __shared__ float xs[TK][TM + 1];
-  __shared__ float ws[TK][TN + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+template <int BITS, bool ALIGNED>
+__global__ void __launch_bounds__(tcmm::THREADS, tcmm::MIN_BLOCKS)
+bs_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
+      const float* __restrict__ scales, float* __restrict__ out, int M, int N, int K,
+      int Kp, int nblk, int gps) {
+  tcmm::gemm<BITS, float, true, ALIGNED>(x, packed, scales, out, M, N, K, Kp, nblk, gps);
+}
 
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    const int g = k0 / BLOCK;               // this step's scale group
-#pragma unroll
-    for (int i = 0; i < (TM * TK) / TPB; ++i) {
-      const int idx = tid + i * TPB;
-      const int ml = idx / TK, kl = idx % TK;
-      const int m = m0 + ml, k = k0 + kl;
-      xs[kl][ml] = (m < M && k < K) ? x[static_cast<size_t>(m) * K + k] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < (TN * TK) / TPB; ++i) {
-      const int idx = tid + i * TPB;
-      const int nl = idx / TK, kl = idx % TK;
-      const int n = n0 + nl, k = k0 + kl;
-      float w = 0.f;
-      if (n < N && k < K)
-        w = level<BITS>(__ldg(packed + static_cast<size_t>(n) * Kp + k / F), k % F)
-            * __ldg(scales + static_cast<size_t>(n) * nblk + g);
-      ws[kl][nl] = w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (m < M && n < N) out[static_cast<size_t>(m) * N + n] = acc[i][j];
-    }
-  }
+__global__ void bs_tc_reduce(const float* __restrict__ part, const float* __restrict__ scales,
+                             float* __restrict__ out, int M, int N, int splits) {
+  tcmm::reduce<true>(part, scales, out, M, N, splits);
 }
 
 template <int BITS>
-void launch(const float* x, const uint8_t* packed, const float* scales, float* out,
-            int M, int N, int K, int Kp, int nblk, cudaStream_t stream) {
-  if (M <= GEMV_MAX_M) {
+int launch(const float* x, const uint8_t* packed, const float* scales, float* out,
+           float* part, int M, int N, int K, int Kp, int nblk, int aligned, int splits,
+           cudaStream_t stream) {
+  if (M <= tcmm::GEMV_MAX_M) {
     dim3 grid((N + GEMV_WARPS - 1) / GEMV_WARPS, (M + GEMV_ROWS - 1) / GEMV_ROWS);
     bs_gemv<BITS><<<grid, GEMV_WARPS * 32, 0, stream>>>(x, packed, scales, out, M, N, K,
                                                          Kp, nblk);
-  } else {
-    dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
-    bs_tiled<BITS><<<grid, TPB, 0, stream>>>(x, packed, scales, out, M, N, K, Kp, nblk);
+    return static_cast<int>(cudaGetLastError());
   }
+  if (aligned)
+    return static_cast<int>(tcmm::launch<bs_tc<BITS, true>, bs_tc_reduce, BITS, float, true>(
+        x, packed, scales, out, part, M, N, K, Kp, nblk, splits, stream));
+  return static_cast<int>(tcmm::launch<bs_tc<BITS, false>, bs_tc_reduce, BITS, float, true>(
+      x, packed, scales, out, part, M, N, K, Kp, nblk, splits, stream));
 }
 
 }  // namespace
 
+// part: (splits, M, N) f32 scratch when splits > 1 (M > 16 only), else null;
+// aligned: as for qmatmul_f32_launch
 extern "C" int qmatmul_blockscale_launch(const void* x, const void* packed,
-                                         const void* scales, void* out, int M, int N,
-                                         int K, int Kp, int nblk, int bits,
-                                         void* stream) {
+                                         const void* scales, void* out, void* part, int M,
+                                         int N, int K, int Kp, int nblk, int bits,
+                                         int aligned, int splits, void* stream) {
   const float* xp = static_cast<const float*>(x);
   const uint8_t* wp = static_cast<const uint8_t*>(packed);
   const float* sp = static_cast<const float*>(scales);
   float* op = static_cast<float*>(out);
+  float* pp = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bits) {
-    case 2: launch<2>(xp, wp, sp, op, M, N, K, Kp, nblk, s); break;
-    case 4: launch<4>(xp, wp, sp, op, M, N, K, Kp, nblk, s); break;
-    case 8: launch<8>(xp, wp, sp, op, M, N, K, Kp, nblk, s); break;
+    case 2: return launch<2>(xp, wp, sp, op, pp, M, N, K, Kp, nblk, aligned, splits, s);
+    case 4: return launch<4>(xp, wp, sp, op, pp, M, N, K, Kp, nblk, aligned, splits, s);
+    case 8: return launch<8>(xp, wp, sp, op, pp, M, N, K, Kp, nblk, aligned, splits, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
+
+// the tensor-core path's geometry (tcmm::geometry), six ints
+extern "C" void qmatmul_blockscale_tc_geometry(int* g) { tcmm::geometry(g); }

@@ -5,37 +5,38 @@
 //
 // Computes out[m, n] = scale[n] * sum_k x[m, k] * (field(packed[n, k / f], k % f)
 //   - 2^(bits-1)), with f = 8 / bits fields per byte, little-endian within the
-//   byte.  x is (M, K) f32 or bf16 (read as f32), packed is (N, ceil(K / f))
-//   uint8, scale is (N,) f32, out is (M, N) f32.  The scale is applied once,
-//   after the K reduction, as the reference does.
+//   byte.  x is (M, K) f32 or bf16, packed is (N, ceil(K / f)) uint8, scale is
+//   (N,) f32, out is (M, N) f32.  The scale is applied once, after the K
+//   reduction, as the reference does.
 //
 // What bounds it on this card: decode calls it with M = batch slots (4), a
 //   GEMV whose time is the packed weight bytes over the 3.35 TB/s of device
-//   memory; prefill calls it with M <= 256, where the f32 multiply-adds on the
-//   CUDA cores (67 TFLOP/s) come close to the weight bytes.
+//   memory; prefill calls it with M = slots x bucket (256 and up), where the
+//   multiply-adds bind: 67 TFLOP/s in f32 on the CUDA cores, 495 TFLOP/s in
+//   TF32 on the tensor cores.
 //
 // What the design does about it: the packed weight is read from device memory
-//   once per output tile and never expanded there; fields are unpacked in
-//   registers next to the multiply-adds (the At-MRAM point of qmatmul.py).
-//   Small M takes a weight-streaming kernel: one warp per output channel reads
-//   the packed row as 32-bit words, coalesced along K, and carries all M rows'
-//   sums at once, so each weight byte is loaded once.  Larger M takes a
-//   64 x 64 output tile per block: x and the unpacked levels are staged in
-//   shared memory 32 K-steps at a time and each thread accumulates a 4 x 4
-//   strided sub-tile.  Both mask k >= K, so ragged K (not a multiple of f or of
-//   the tile) is exact.  Accumulation is f32 on the CUDA cores (no TF32), so
-//   the kernel matches the f32 plain version to reordering error.
+//   as it is stored and never expanded there; fields are unpacked in registers
+//   next to the multiply-adds (the At-MRAM point of qmatmul.py).  M <= 16 takes
+//   a weight-streaming kernel: one warp per output channel reads the packed row
+//   as 32-bit words, coalesced along K, and carries all M rows' sums at once on
+//   the CUDA cores, so each weight byte is loaded once.  Larger M takes the
+//   tensor-core main loop of csrc/qmm_tc.cuh (two TF32 passes for f32 x, one
+//   for bf16 x, per-32 groups promoted into f32, a cp.async ring of x and
+//   packed bytes, K split over blocks when the output tiles alone would leave
+//   SMs idle); its note says why that keeps f32 accuracy.  Both mask k >= K,
+//   so ragged K (not a multiple of f or of a group) is exact.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "qmm_tc.cuh"
+
 namespace {
 
 constexpr int GEMV_ROWS = 8;     // x rows one weight-streaming block carries
 constexpr int GEMV_WARPS = 8;    // output channels per block, one per warp
-constexpr int GEMV_MAX_M = 16;   // largest M sent to the weight-streaming kernel
-constexpr int TM = 64, TN = 64, TK = 32, TPB = 256;   // tiled kernel
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -104,104 +105,66 @@ qmm_gemv(const T* __restrict__ x, const uint8_t* __restrict__ packed,
   }
 }
 
-template <int BITS, typename T>
-__global__ void __launch_bounds__(TPB)
-qmm_tiled(const T* __restrict__ x, const uint8_t* __restrict__ packed,
-          const float* __restrict__ scale, float* __restrict__ out,
-          int M, int N, int K, int Kp) {
-  constexpr int F = 8 / BITS;
-  // K-major tiles, one float of padding so the transposing stores of
-  // consecutive k land in different banks
-  __shared__ float xs[TK][TM + 1];
-  __shared__ float ws[TK][TN + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+template <int BITS, typename T, bool ALIGNED>
+__global__ void __launch_bounds__(tcmm::THREADS, tcmm::MIN_BLOCKS)
+qmm_tc(const T* __restrict__ x, const uint8_t* __restrict__ packed,
+       const float* __restrict__ scale, float* __restrict__ out, int M, int N, int K,
+       int Kp, int nblk, int gps) {
+  tcmm::gemm<BITS, T, false, ALIGNED>(x, packed, scale, out, M, N, K, Kp, nblk, gps);
+}
 
-  for (int k0 = 0; k0 < K; k0 += TK) {
-#pragma unroll
-    for (int i = 0; i < (TM * TK) / TPB; ++i) {
-      const int idx = tid + i * TPB;
-      const int ml = idx / TK, kl = idx % TK;
-      const int m = m0 + ml, k = k0 + kl;
-      xs[kl][ml] = (m < M && k < K) ? to_f32(x[static_cast<size_t>(m) * K + k]) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < (TN * TK) / TPB; ++i) {
-      const int idx = tid + i * TPB;
-      const int nl = idx / TK, kl = idx % TK;
-      const int n = n0 + nl, k = k0 + kl;
-      float w = 0.f;
-      if (n < N && k < K)
-        w = level<BITS>(__ldg(packed + static_cast<size_t>(n) * Kp + k / F), k % F);
-      ws[kl][nl] = w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (m < M && n < N) out[static_cast<size_t>(m) * N + n] = acc[i][j] * scale[n];
-    }
-  }
+__global__ void qmm_tc_reduce(const float* __restrict__ part, const float* __restrict__ scale,
+                              float* __restrict__ out, int M, int N, int splits) {
+  tcmm::reduce<false>(part, scale, out, M, N, splits);
 }
 
 template <int BITS, typename T>
-void launch(const void* x, const void* packed, const void* scale, void* out,
-            int M, int N, int K, int Kp, cudaStream_t stream) {
+int launch(const void* x, const void* packed, const void* scale, void* out, void* part,
+           int M, int N, int K, int Kp, int aligned, int splits, cudaStream_t stream) {
   const T* xp = static_cast<const T*>(x);
   const uint8_t* wp = static_cast<const uint8_t*>(packed);
   const float* sp = static_cast<const float*>(scale);
   float* op = static_cast<float*>(out);
-  if (M <= GEMV_MAX_M) {
+  float* pp = static_cast<float*>(part);
+  if (M <= tcmm::GEMV_MAX_M) {
     dim3 grid((N + GEMV_WARPS - 1) / GEMV_WARPS, (M + GEMV_ROWS - 1) / GEMV_ROWS);
     qmm_gemv<BITS, T><<<grid, GEMV_WARPS * 32, 0, stream>>>(xp, wp, sp, op, M, N, K, Kp);
-  } else {
-    dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
-    qmm_tiled<BITS, T><<<grid, TPB, 0, stream>>>(xp, wp, sp, op, M, N, K, Kp);
+    return static_cast<int>(cudaGetLastError());
   }
+  if (aligned)
+    return static_cast<int>(tcmm::launch<qmm_tc<BITS, T, true>, qmm_tc_reduce, BITS, T, false>(
+        xp, wp, sp, op, pp, M, N, K, Kp, 0, splits, stream));
+  return static_cast<int>(tcmm::launch<qmm_tc<BITS, T, false>, qmm_tc_reduce, BITS, T, false>(
+      xp, wp, sp, op, pp, M, N, K, Kp, 0, splits, stream));
 }
 
 template <typename T>
-int launch_bits(const void* x, const void* packed, const void* scale, void* out,
-                int M, int N, int K, int Kp, int bits, cudaStream_t stream) {
+int launch_bits(const void* x, const void* packed, const void* scale, void* out, void* part,
+                int M, int N, int K, int Kp, int bits, int aligned, int splits,
+                cudaStream_t stream) {
   switch (bits) {
-    case 2: launch<2, T>(x, packed, scale, out, M, N, K, Kp, stream); break;
-    case 4: launch<4, T>(x, packed, scale, out, M, N, K, Kp, stream); break;
-    case 8: launch<8, T>(x, packed, scale, out, M, N, K, Kp, stream); break;
+    case 2: return launch<2, T>(x, packed, scale, out, part, M, N, K, Kp, aligned, splits, stream);
+    case 4: return launch<4, T>(x, packed, scale, out, part, M, N, K, Kp, aligned, splits, stream);
+    case 8: return launch<8, T>(x, packed, scale, out, part, M, N, K, Kp, aligned, splits, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// part: (splits, M, N) f32 scratch when splits > 1 (M > 16 only), else null;
+// aligned: x and packed rows are 16 B aligned and K, Kp multiples of a copy
+// chunk (kernels/qmatmul.py decides both)
 extern "C" int qmatmul_f32_launch(const void* x, int x_is_bf16, const void* packed,
-                                  const void* scale, void* out, int M, int N, int K,
-                                  int Kp, int bits, void* stream) {
+                                  const void* scale, void* out, void* part, int M, int N,
+                                  int K, int Kp, int bits, int aligned, int splits,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_is_bf16)
-    return launch_bits<__nv_bfloat16>(x, packed, scale, out, M, N, K, Kp, bits, s);
-  return launch_bits<float>(x, packed, scale, out, M, N, K, Kp, bits, s);
+    return launch_bits<__nv_bfloat16>(x, packed, scale, out, part, M, N, K, Kp, bits, aligned,
+                                      splits, s);
+  return launch_bits<float>(x, packed, scale, out, part, M, N, K, Kp, bits, aligned, splits, s);
 }
+
+// the tensor-core path's geometry (tcmm::geometry), six ints
+extern "C" void qmatmul_f32_tc_geometry(int* g) { tcmm::geometry(g); }

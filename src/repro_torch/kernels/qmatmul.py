@@ -13,9 +13,14 @@ Ports the three kernels of ``repro/kernels/qmatmul.py``:
   path (``csrc/qmatmul_int8.cu``).
 
 Packed 2/4/8-bit weights stay packed in device memory; the kernels unpack
-them in registers next to the multiply-adds.  Each wrapper launches its
-kernel for CUDA tensors and raises on anything it does not take.  For CPU
-tensors it computes the plain PyTorch version (``kernels/ref.py``).
+them in registers next to the multiply-adds.  The two f32 kernels take a
+weight-streaming GEMV for M <= 16 and, for larger M, one tensor-core main
+loop (``csrc/qmm_tc.cuh``, two TF32 passes at f32 accuracy); the shape
+decisions around it (how far to split K, which copy width the rows allow)
+are made here, by ``tc_splits`` and ``tc_aligned``, from the geometry the
+built library reports (``tc_geometry``).  Each wrapper launches
+its kernel for CUDA tensors and raises on anything it does not take.  For
+CPU tensors it computes the plain PyTorch version (``kernels/ref.py``).
 Each wrapper's ``launches`` attribute counts its kernel launches.
 """
 
@@ -23,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -32,11 +38,91 @@ _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
 
 
+class TcGeometry(NamedTuple):
+    """csrc/qmm_tc.cuh's launch geometry, as its library reports it: the
+    block tile bm x bn, the K stage bk (one 32-wide scale group), the M up to
+    which both f32 kernels take their GEMV instead, the blocks resident on
+    one SM (the launch bounds) and the copy ring's depth, which is also the
+    fewest groups a K split keeps, so that the ring still overlaps loads
+    with MMAs."""
+    bm: int
+    bn: int
+    bk: int
+    gemv_max_m: int
+    blocks_per_sm: int
+    stages: int
+
+
+@functools.lru_cache(maxsize=None)
+def tc_geometry(library: str = "qmatmul_f32") -> TcGeometry:
+    """The geometry compiled into ``library`` (``qmatmul_f32`` or
+    ``qmatmul_blockscale``); builds it if needed."""
+    fn = getattr(build.library(library), f"{library}_tc_geometry")
+    fn.argtypes = [_c_ptr]
+    fn.restype = None
+    g = (_c_int * len(TcGeometry._fields))()
+    fn(g)
+    return TcGeometry(*g)
+
+
+def tc_splits(m: int, n: int, k: int, sms: int, geo: TcGeometry) -> int:
+    """How many K splits the tensor-core path runs for an (m, k) x (k, n)
+    product (k > 0) on a card with ``sms`` SMs: 1 when the output tiles
+    alone give every SM a block (or for the GEMV, m <= geo.gemv_max_m); else
+    as many splits as fit the card's resident block slots in one wave, each
+    split at least ``geo.stages`` groups, normalised so that every split
+    owns at least one group.  The splits' partial sums are added in a fixed
+    order, so the result does not depend on this choice beyond rounding, and
+    one shape always gets the same bits."""
+    if m <= geo.gemv_max_m:
+        return 1
+    tiles = -(-m // geo.bm) * -(-n // geo.bn)
+    if tiles >= sms:
+        return 1
+    groups = -(-k // geo.bk)
+    splits = min(geo.blocks_per_sm * sms // tiles,
+                 max(1, groups // geo.stages))
+    per = -(-groups // splits)
+    return -(-groups // per)
+
+
+def tc_aligned(x: torch.Tensor, packed: torch.Tensor, bits: int,
+               geo: TcGeometry) -> bool:
+    """Whether the tensor-core path may copy x and packed rows with cp.async:
+    16 B x chunks and packed chunks of min(16, bk * bits / 8) bytes (one
+    group's bytes), every row starting on a chunk.  Else it takes plain
+    loads in the same kernel."""
+    chunk = min(16, geo.bk * bits // 8)
+    return ((x.shape[1] * x.element_size()) % 16 == 0
+            and x.data_ptr() % 16 == 0
+            and packed.shape[1] % chunk == 0 and packed.data_ptr() % 16 == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _tc_scratch(library: str, x: torch.Tensor, packed: torch.Tensor,
+                bits: int, n: int):
+    """(aligned, splits, scratch) of one launch: the (splits, M, N) f32
+    partial sums when K is split, else None."""
+    m, k = x.shape
+    geo = tc_geometry(library)
+    index = x.device.index
+    splits = tc_splits(m, n, k, _sm_count(
+        torch.cuda.current_device() if index is None else index), geo)
+    part = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+            if splits > 1 else None)
+    return int(tc_aligned(x, packed, bits, geo)), splits, part
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = build.library("qmatmul_f32").qmatmul_f32_launch
-    fn.argtypes = [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr,
-                   _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr]
+    fn.argtypes = [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
+                   _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
+                   _c_ptr]
     fn.restype = _c_int
     return fn
 
@@ -44,8 +130,8 @@ def _launcher():
 @functools.lru_cache(maxsize=None)
 def _launcher_blockscale():
     fn = build.library("qmatmul_blockscale").qmatmul_blockscale_launch
-    fn.argtypes = [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int,
-                   _c_int, _c_int, _c_int, _c_ptr]
+    fn.argtypes = [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
+                   _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr]
     fn.restype = _c_int
     return fn
 
@@ -91,11 +177,13 @@ def qmatmul_f32(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
             and scale.is_contiguous()):
         raise ValueError("qmatmul_f32 needs contiguous x, packed and scale")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m == 0 or n == 0:
-        return out
+    if m == 0 or n == 0 or k == 0:
+        return out.zero_()
+    aligned, splits, part = _tc_scratch("qmatmul_f32", x, packed, bits, n)
     rc = _launcher()(x.data_ptr(), int(x.dtype == torch.bfloat16),
                      packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                     m, n, k, kp, bits,
+                     None if part is None else part.data_ptr(),
+                     m, n, k, kp, bits, aligned, splits,
                      torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"qmatmul_f32 launch failed: CUDA error {rc}")
@@ -146,12 +234,14 @@ def qmatmul_f32_blockscale(x: torch.Tensor, packed: torch.Tensor,
         raise ValueError("qmatmul_f32_blockscale needs contiguous x, packed "
                          "and scales")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m == 0 or n == 0:
-        return out
+    if m == 0 or n == 0 or k == 0:
+        return out.zero_()
+    aligned, splits, part = _tc_scratch("qmatmul_blockscale", x, packed,
+                                        bits, n)
     rc = _launcher_blockscale()(
         x.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        m, n, k, kp, nblk, bits, torch.cuda.current_stream(x.device)
-        .cuda_stream)
+        None if part is None else part.data_ptr(), m, n, k, kp, nblk, bits,
+        aligned, splits, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"qmatmul_f32_blockscale launch failed: CUDA "
                            f"error {rc}")

@@ -62,12 +62,15 @@ def test_qmatmul_kernel_matches_plain(cuda, rng, bits, m, k, n):
     torch.testing.assert_close(got, expect, rtol=1e-4, atol=1e-4)
 
 
-def test_qmatmul_kernel_bf16_input(cuda, rng):
-    x = torch.from_numpy(rng.normal(size=(24, 80)).astype(np.float32))
-    packed, scale = _packed(rng, 40, 80, 4, cuda)
+@pytest.mark.parametrize("bits,m,k,n", [(4, 24, 80, 40), (2, 256, 1024, 1024),
+                                        (4, 256, 1024, 1024),
+                                        (8, 256, 1024, 1024)])
+def test_qmatmul_kernel_bf16_input(cuda, rng, bits, m, k, n):
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
+    packed, scale = _packed(rng, n, k, bits, cuda)
     xb = x.to(cuda, torch.bfloat16)
-    got = qmatmul_f32(xb, packed, scale, bits=4, k_orig=80)
-    expect = ref.qmatmul_f32(xb, packed, scale, bits=4, k_orig=80)
+    got = qmatmul_f32(xb, packed, scale, bits=bits, k_orig=k)
+    expect = ref.qmatmul_f32(xb, packed, scale, bits=bits, k_orig=k)
     torch.testing.assert_close(got, expect, rtol=1e-4, atol=1e-4)
 
 
@@ -399,3 +402,85 @@ def test_paged_wire_serve_on_the_card_matches_the_cpu(cuda):
             assert qmatmul_f32_blockscale.launches > before
         eng.pager.close()
     assert out["cuda"] == out["cpu"]
+
+
+# The tensor-core path (M > 16) of both f32 kernels, csrc/qmm_tc.cuh: the
+# serves' prefill shapes, both sides of the GEMV threshold, K = 0, and the
+# same bits on every call (bf16 x at M = 256 is in
+# test_qmatmul_kernel_bf16_input).  Tolerance 1e-4, as everywhere for these
+# kernels.
+
+def _f32_inputs(kernel, rng, m, k, n, bits, dev):
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev)
+    if kernel == "qmatmul_f32":
+        packed, scale = _packed(rng, n, k, bits, dev)
+        return (lambda xx: qmatmul_f32(xx, packed, scale, bits=bits,
+                                       k_orig=k),
+                lambda xx: ref.qmatmul_f32(xx, packed, scale, bits=bits,
+                                           k_orig=k), x)
+    packed, scales = _wire(rng, n, k, bits, dev)
+    return (lambda xx: qmatmul_f32_blockscale(xx, packed, scales, bits=bits,
+                                              k_orig=k),
+            lambda xx: ref.qmatmul_f32_blockscale(xx, packed, scales,
+                                                  bits=bits, k_orig=k), x)
+
+
+F32_KERNELS = ["qmatmul_f32", "qmatmul_f32_blockscale"]
+COUNTERS = {"qmatmul_f32": qmatmul_f32,
+            "qmatmul_f32_blockscale": qmatmul_f32_blockscale}
+
+
+@pytest.mark.parametrize("kernel", F32_KERNELS)
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("k,n", [(8192, 288),     # falcon-mamba x_proj
+                                 (256, 8192),     # falcon-mamba dt_proj
+                                 (100, 3200)])    # hymba dt_proj
+def test_tc_path_at_the_serve_shapes(cuda, rng, kernel, bits, k, n):
+    fn, plain, x = _f32_inputs(kernel, rng, 256, k, n, bits, cuda)
+    before = COUNTERS[kernel].launches
+    got = fn(x)
+    torch.cuda.synchronize()
+    assert COUNTERS[kernel].launches == before + 1
+    torch.testing.assert_close(got, plain(x), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kernel", F32_KERNELS)
+@pytest.mark.parametrize("m", [16, 17, 64, 1157])
+@pytest.mark.parametrize("k,n", [(1024, 1024), (1001, 515)])
+def test_tc_path_around_the_gemv_threshold(cuda, rng, kernel, m, k, n):
+    fn, plain, x = _f32_inputs(kernel, rng, m, k, n, 4, cuda)
+    got = fn(x)
+    torch.testing.assert_close(got, plain(x), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kernel", F32_KERNELS)
+@pytest.mark.parametrize("m", [4, 17])
+def test_f32_kernels_take_an_empty_k(cuda, rng, kernel, m):
+    # K = 0: packed (N, 0) and, for the blockscale kernel, scales (N, 0);
+    # both sides of the GEMV threshold give zeros, as the plain versions do
+    x = torch.zeros((m, 0), device=cuda)
+    packed = torch.zeros((64, 0), dtype=torch.uint8, device=cuda)
+    if kernel == "qmatmul_f32":
+        scale = torch.from_numpy(rng.random(64).astype(np.float32)).to(cuda)
+        got = qmatmul_f32(x, packed, scale, bits=8, k_orig=0)
+        expect = ref.qmatmul_f32(x, packed, scale, bits=8, k_orig=0)
+    else:
+        scales = torch.zeros((64, 0), device=cuda)
+        got = qmatmul_f32_blockscale(x, packed, scales, bits=8, k_orig=0)
+        expect = ref.qmatmul_f32_blockscale(x, packed, scales, bits=8,
+                                            k_orig=0)
+    assert got.shape == (m, 64)
+    assert torch.equal(got, expect)
+    assert not got.any()
+
+
+@pytest.mark.parametrize("kernel", F32_KERNELS)
+@pytest.mark.parametrize("m,k,n", [(256, 8192, 288),    # K split 22 ways
+                                   (256, 1024, 2048),   # split 4 ways
+                                   (256, 256, 8192),    # not split
+                                   (4, 1024, 1024)])    # the GEMV
+def test_f32_kernels_give_the_same_bits_every_call(cuda, rng, kernel, m, k,
+                                                   n):
+    fn, _, x = _f32_inputs(kernel, rng, m, k, n, 8, cuda)
+    first = fn(x)
+    assert torch.equal(fn(x), first)

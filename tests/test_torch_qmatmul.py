@@ -4,7 +4,8 @@
 Tolerances are the reference test's: 1e-4 for f32 x, 2e-2 for bf16 x.  On
 CPU tensors the wrapper computes the plain version; the Hopper kernel
 itself is held against it on the card by ``test_torch_gpu.py`` and
-``chip_smoke.py``."""
+``chip_smoke.py``.  The numeric design of its tensor-core path and the shape
+rules around it (K splits, copy widths) are checked here too."""
 
 import pytest
 
@@ -19,10 +20,16 @@ import numpy as np  # noqa: E402
 from repro.kernels import ops as jops, ref as jref  # noqa: E402
 from repro.kernels.qmatmul import qmatmul_f32 as jqmatmul  # noqa: E402
 
+from repro_torch.core import packing, quantize  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.qmatmul import qmatmul_f32  # noqa: E402
+from repro_torch.kernels.qmatmul import (  # noqa: E402
+    TcGeometry, qmatmul_f32, tc_aligned, tc_splits)
 
 BITS = (2, 4, 8)
+# csrc/qmm_tc.cuh's geometry (the card reports it through tc_geometry; the
+# split and alignment rules are checked here against these numbers)
+GEO = TcGeometry(bm=64, bn=128, bk=32, gemv_max_m=16, blocks_per_sm=2,
+                 stages=4)
 
 
 def _operands(rng, m, k, n, bits):
@@ -95,3 +102,122 @@ def test_other_devices_raise_instead_of_falling_back(rng):
     with pytest.raises(ValueError, match="CUDA"):
         qmatmul_f32(meta_x, torch.from_numpy(packed),
                     torch.from_numpy(scale), bits=8, k_orig=16)
+
+
+# ---------------------------------------------------------------------------
+# The numeric design of the tensor-core path (csrc/qmm_tc.cuh), emulated in
+# numpy: x split into TF32 hi / lo, times the exact levels, summed per 32-wide
+# K group in f32 and promoted with the per-channel scale (qmatmul_f32) or the
+# block scales (qmatmul_f32_blockscale).  It pins the design on the CPU; the
+# kernel itself is held against the plain version on the card.
+
+EMU_SHAPES = [(3072, 1024), (8192, 288), (100, 130)]
+
+
+def _tf32_rna(a):
+    """f32 -> f32 with 10 mantissa bits, round to nearest, ties away from
+    zero (``cvt.rna.tf32.f32``)."""
+    u = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _emulate_tc(x, levels, pre, passes):
+    """sum_kb pre[:, kb] * (sum of the ``passes`` TF32 parts of x times the
+    levels over group kb, in f32), promoted in f32 group by group."""
+    m, k = x.shape
+    n = levels.shape[0]
+    groups = -(-k // 32)
+    pad = groups * 32 - k
+    xp = np.pad(x, ((0, 0), (0, pad)))
+    lp = np.pad(levels, ((0, 0), (0, pad))).astype(np.float32)
+    hi = _tf32_rna(xp)
+    parts = [hi, _tf32_rna(xp - hi)][:passes]
+    lg = lp.reshape(n, groups, 32).transpose(1, 2, 0)            # (G, 32, N)
+    part = np.zeros((groups, m, n), np.float32)
+    for p in parts:
+        part += np.matmul(p.reshape(m, groups, 32).transpose(1, 0, 2), lg)
+    acc = np.zeros((m, n), np.float32)
+    for g in range(groups):
+        acc += pre[None, :, g] * part[g]
+    return acc
+
+
+def _emu_b1(rng, bits, k, n, passes, m=32):
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = torch.from_numpy((rng.normal(size=(n, k)) * k ** -0.5)
+                         .astype(np.float32))
+    packed, scale = ops.prep_linear(w, bits)
+    levels = packing.unpack(packed, bits, k).numpy()
+    pre = np.ones((n, -(-k // 32)), np.float32)
+    got = _emulate_tc(x, levels, pre, passes) * scale.numpy()[None]
+    expect = ref.qmatmul_f32(torch.from_numpy(x), packed, scale, bits=bits,
+                             k_orig=k)
+    return got, expect.numpy()
+
+
+def _emu_b3(rng, bits, k, n, passes, m=32):
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = (rng.normal(size=(n, k)) * k ** -0.5).astype(np.float32)
+    levels, scales = quantize.quantize_blockwise(w, bits)
+    packed = packing.pack(torch.from_numpy(levels), bits)
+    got = _emulate_tc(x, levels, scales, passes)
+    expect = ref.qmatmul_f32_blockscale(torch.from_numpy(x), packed,
+                                        torch.from_numpy(scales), bits=bits,
+                                        k_orig=k)
+    return got, expect.numpy()
+
+
+EMULATED = {"qmatmul_f32": _emu_b1, "qmatmul_f32_blockscale": _emu_b3}
+
+
+@pytest.mark.parametrize("kernel", sorted(EMULATED))
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("k,n", EMU_SHAPES)
+def test_two_tf32_passes_keep_f32_accuracy(rng, kernel, bits, k, n):
+    got, expect = EMULATED[kernel](rng, bits, k, n, passes=2)
+    np.testing.assert_allclose(got, expect, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kernel", sorted(EMULATED))
+def test_one_tf32_pass_misses_the_tolerance(rng, kernel):
+    """Why the kernel takes two passes: x rounded once to TF32 misses the
+    1e-4 tolerance at K = 3,072."""
+    got, expect = EMULATED[kernel](rng, 8, 3072, 1024, passes=1)
+    assert not np.allclose(got, expect, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("m,k,n,splits", [
+    (4, 1024, 1024, 1),          # the GEMV: no split
+    (256, 4096, 16384, 1),       # 512 output tiles fill the card
+    (256, 1024, 2048, 4),        # 64 tiles: 4 splits of 8 groups
+    (256, 1024, 1024, 8),        # 32 tiles: 8 splits of 4 groups
+    (256, 8192, 288, 22),        # falcon x_proj: 12 tiles, 22 x 12 groups
+    (256, 8192, 4096, 2),        # falcon out_proj: 128 tiles
+    (64, 100, 130, 1),           # 4 groups: no split below 4 a split
+    (17, 3072, 1024, 24),        # 8 tiles, capped at 96 / 4 groups
+])
+def test_tc_splits_fill_the_card_in_one_wave(m, k, n, splits):
+    got = tc_splits(m, n, k, 132, GEO)
+    assert got == splits
+    tiles = -(-m // GEO.bm) * -(-n // GEO.bn)
+    groups = -(-k // GEO.bk)
+    per = -(-groups // got)
+    assert (got - 1) * per < groups              # every split owns a group
+    assert got == 1 or tiles * got <= GEO.blocks_per_sm * 132   # one wave
+
+
+def test_tc_aligned_takes_cp_async_only_on_chunk_rows():
+    def case(m, k, bits, dtype=torch.float32):
+        x = torch.zeros((m, k), dtype=dtype)
+        packed = torch.zeros((3, -(-k // (8 // bits))), dtype=torch.uint8)
+        return tc_aligned(x, packed, bits, GEO)
+    assert case(17, 1024, 8) and case(17, 1024, 4) and case(17, 1024, 2)
+    assert not case(17, 1001, 8)             # K = 1,001: ragged rows
+    assert not case(17, 100, 8)              # hymba dt_proj: Kp = 100 bytes
+    assert not case(17, 100, 2)              # Kp = 25, not a multiple of 8
+    assert case(17, 64, 2)                   # Kp = 16: 8 B chunks
+    assert case(17, 1024, 8, torch.bfloat16)
+    assert not case(17, 1020, 8, torch.bfloat16)   # rows of 2,040 B
+    x = torch.zeros(17 * 1024 + 1)[1:].view(17, 1024)   # 4 B off a chunk
+    assert not tc_aligned(x, torch.zeros((3, 1024), dtype=torch.uint8), 8,
+                          GEO)
