@@ -12,8 +12,8 @@ fails:
 1. set-up: requires a CUDA device, turns TF32 off, prints the card's name
    and power limit, builds every ``csrc/*.cu`` with nvcc for sm_90a (one
    nvcc each, in parallel), prints what ptxas reports for each kernel and
-   fails if the tensor-core kernels of the f32 matmuls (``qmm_tc``,
-   ``bs_tc``) spill;
+   fails if the tensor-core kernels of the f32 matmuls (``qmm_dec``,
+   ``bs_dec`` for M <= 16, ``qmm_tc``, ``bs_tc`` above) spill;
 2. each Hopper kernel against its plain PyTorch version on the card, at the
    shapes its path gives it: ``qmatmul_f32``, ``flash_attention`` and
    ``selective_scan`` within the stated tolerances (the scan also at a
@@ -27,10 +27,11 @@ fails:
    plain version, one PyTorch library call for the same function where
    there is one, and its bound: bytes over 3.35 TB/s, or operations over
    67 TFLOP/s (f32), 1,979 TOP/s (int8 tensor cores) or the SFUs'
-   exponential rate, whichever is larger; the f32 matmuls' M > 16 rows
-   also at their own route, two TF32 passes at 495 TFLOP/s.  Besides
-   qwen3-0.6b's layer, falcon-mamba-7b's four linears of a layer are timed
-   at M = 256.  Device times replay a CUDA graph of the calls, so the host's
+   exponential rate, whichever is larger; the f32 matmuls at their own
+   route, two TF32 passes at 495 TFLOP/s (the bytes bind at decode), with
+   the f32 CUDA-core bound beside it.  Besides qwen3-0.6b's layer,
+   falcon-mamba-7b's four linears of a layer are timed at M = 4 and 256.
+   Device times replay a CUDA graph of the calls, so the host's
    launch gaps drop out; the same calls enqueued eagerly from Python are
    printed beside them;
 3. serving, three times: full-width qwen3-0.6b (28 layers, d_model 1024),
@@ -144,8 +145,9 @@ LAYER_LINEARS = {"wq": (1024, 2048), "wk": (1024, 1024), "wv": (1024, 1024),
 # d_inner 8,192, dt_rank 256, N 16 (x_proj gives dt_rank + 2N)
 FALCON_LINEARS = {"in_proj": (4096, 16384), "x_proj": (8192, 288),
                   "dt_proj": (256, 8192), "out_proj": (8192, 4096)}
-# the tensor-core kernels of the f32 matmuls' M > 16 path (csrc/qmm_tc.cuh)
-TC_KERNELS = ("qmm_tc", "bs_tc")
+# the tensor-core kernels of the f32 matmuls: decode, M <= 16
+# (csrc/qmm_decode.cuh), and M > 16 (csrc/qmm_tc.cuh)
+TC_KERNELS = ("qmm_dec", "bs_dec", "qmm_tc", "bs_tc")
 
 
 def card_line() -> str:
@@ -252,7 +254,7 @@ def phase_build(build):
 def check_qmatmul(torch, ops, ref, qmm, dev) -> float:
     gen = torch.Generator(device=dev).manual_seed(1)
     worst = 0.0
-    cases = [(bits, m, k, n) for bits in (8, 4, 2) for m in (4, 256)
+    cases = [(bits, m, k, n) for bits in (8, 4, 2) for m in (1, 4, 16, 256)
              for k, n in sorted(set(LAYER_LINEARS.values()))]
     cases += [(bits, m, 1001, 515) for bits in (8, 4, 2) for m in (7, 37)]
     for bits, m, k, n in cases:
@@ -271,8 +273,9 @@ def check_qmatmul(torch, ops, ref, qmm, dev) -> float:
         if not torch.equal(got, again):
             raise AssertionError(f"qmatmul_f32 bits={bits} M={m} K={k} N={n}:"
                                  " two calls on one input differ")
-    print(f"[check] qmatmul_f32: {len(cases)} cases (bits 8/4/2, M 4/256 at "
-          f"the layer shapes, ragged K=1001), max abs err {worst:.3e}, "
+    print(f"[check] qmatmul_f32: {len(cases)} cases (bits 8/4/2, M "
+          f"1/4/16/256 at the layer shapes, ragged K=1001), max abs err "
+          f"{worst:.3e}, "
           f"tolerance {QMM_TOL}; each case called twice, bit-equal")
     return worst
 
@@ -311,18 +314,17 @@ def check_flash(torch, ref, fa, dev) -> float:
     return worst
 
 
-def route_bound(res, m: int, gemv_max_m: int, nbytes: float, flops: float,
-                passes: int):
-    """Above the GEMV (M > ``gemv_max_m``) the f32 matmuls run on the tensor
-    cores, ``passes`` TF32 MMAs for each f32 multiply-add: ``bound_ms`` is
-    then that route's bound and the f32 CUDA-core bound moves to
-    ``bound_f32_ms``.  The GEMV runs on the CUDA cores and keeps the f32
-    bound."""
-    if m > gemv_max_m:
-        res["bound_f32_ms"], res["bound_f32_by"] = (res["bound_ms"],
-                                                    res["bound_by"])
-        res["bound_ms"], res["bound_by"] = bound_ms(
-            nbytes, passes * flops, TF32_FLOPS_PER_S)
+def route_bound(res, nbytes: float, flops: float, passes: int):
+    """The f32 matmuls run on the tensor cores at every M, ``passes`` TF32
+    MMAs for each f32 multiply-add: ``bound_ms`` is that route's bound (the
+    bytes bind at decode, the operations at prefill), with both figures
+    beside it (``bytes_ms``, ``tf32_ops_ms``) and the f32 CUDA-core bound in
+    ``bound_f32_ms``."""
+    res["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    res["tf32_ops_ms"] = passes * flops / TF32_FLOPS_PER_S * 1e3
+    res["bound_f32_ms"], res["bound_f32_by"] = bound_ms(nbytes, flops)
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, passes * flops,
+                                                TF32_FLOPS_PER_S)
 
 
 def time_qmatmul(torch, packing, ops, ref, qmm, dev, m: int,
@@ -360,9 +362,7 @@ def time_qmatmul(torch, packing, ops, ref, qmm, dev, m: int,
                  for (x, p, s, k, _), (_, n) in zip(layers[0],
                                                     linears.values()))
     flops = sum(2 * m * n * k for k, n in linears.values())
-    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
-    route_bound(res, m, qmm.tc_geometry("qmatmul_f32").gemv_max_m, nbytes,
-                flops, 2)
+    route_bound(res, nbytes, flops, 2)
     res["work"] = f"{what} {list(linears)}, M={m}, {bits}-bit"
     print_times(f"{what} M={m} bits={bits}",
                 "torch.matmul on pre-dequantised f32", res, nbytes, flops)
@@ -377,7 +377,7 @@ def check_blockscale(torch, ref, qmm, dev, linears) -> float:
     gen = torch.Generator(device=dev).manual_seed(11)
     cases = [(8, 4, 70, 9), (4, 4, 69, 9), (2, 4, 70, 9), (2, 4, 69, 9)]
     cases += [(bits, m, 1001, 515) for bits in (8, 4, 2) for m in (7, 37)]
-    cases += [(8, m, k, n) for m in (4, 256) for k, n in linears]
+    cases += [(8, m, k, n) for m in (1, 4, 16, 256) for k, n in linears]
     worst = 0.0
     for bits, m, k, n in cases:
         packed, scales = wire_weight(torch, gen, dev, n, k, bits)
@@ -399,7 +399,8 @@ def check_blockscale(torch, ref, qmm, dev, linears) -> float:
                                  f"K={k} N={n}: two calls on one input differ")
     print(f"[check] qmatmul_f32_blockscale: {len(cases)} cases (the "
           f"reference test's bits 8 / K 70 and bits 4 / K 69, bits 2, ragged "
-          f"K=1001 at bits 8/4/2, the cold linears {linears} at M 4/256), "
+          f"K=1001 at bits 8/4/2, the cold linears {linears} at M "
+          f"1/4/16/256), "
           f"max abs err {worst:.3e}, tolerance {QMM_TOL}; each case called "
           "twice, bit-equal")
     return worst
@@ -437,9 +438,7 @@ def time_blockscale(torch, packing, ref, qmm, dev, m: int, linears,
     nbytes = sum(m * k * 4 + p.numel() + s.numel() * 4 + m * n * 4
                  for (x, p, s, k, _), (_, n) in zip(layers[0], linears))
     flops = sum(2 * m * n * k for k, n in linears)
-    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
-    route_bound(res, m, qmm.tc_geometry("qmatmul_blockscale").gemv_max_m,
-                nbytes, flops, 2)
+    route_bound(res, nbytes, flops, 2)
     res["work"] = (f"one layer's {len(linears)} cold linears {linears}, "
                    f"M={m}, int8 wire form")
     print_times(f"qmatmul_f32_blockscale {res['work']}",
@@ -496,8 +495,10 @@ def print_times(what: str, library: str, res, nbytes: int, flops: int,
                 ops: str = "flop"):
     def ms(key):
         return "none" if res[key] is None else f"{res[key]:.4f}"
-    f32 = (f"; f32 CUDA-core bound {res['bound_f32_ms']:.4f} "
-           f"({res['bound_f32_by']})" if "bound_f32_ms" in res else "")
+    f32 = (f" (bytes {res['bytes_ms']:.4f}, 2 x TF32 operations "
+           f"{res['tf32_ops_ms']:.4f}); f32 CUDA-core bound "
+           f"{res['bound_f32_ms']:.4f} ({res['bound_f32_by']})"
+           if "bound_f32_ms" in res else "")
     route = " at the 2 x TF32 route" if f32 else ""
     print(f"[time] {what}: device (graph replay) kernel_ms "
           f"{res['ms_runs'][0]:.4f}/{res['ms_runs'][1]:.4f} plain_ms "
@@ -1142,10 +1143,11 @@ def serve_paged(torch, m, cfg, dev):
 # kernel-name fragments of the LM paths' device time, as the profiler names
 # them; cuBLAS / CUTLASS GEMMs are the unembedding's f32 matmul
 PROFILE_LM_KERNELS = (("qmm_tc", "qmatmul_f32 tensor cores (prefill)"),
-                      ("qmm_gemv", "qmatmul_f32 gemv (decode)"),
+                      ("qmm_dec", "qmatmul_f32 tensor cores (decode)"),
                       ("bs_tc", "qmatmul_f32_blockscale tensor cores "
                        "(prefill)"),
-                      ("bs_gemv", "qmatmul_f32_blockscale gemv (decode)"),
+                      ("bs_dec", "qmatmul_f32_blockscale tensor cores "
+                       "(decode)"),
                       ("memcpy", "memcpy (host <-> device)"),
                       ("flash_fwd", "flash_attention"),
                       ("ssm_scan_fwd", "selective_scan"),
@@ -1580,9 +1582,11 @@ def main() -> int:
     fa_err = check_flash(torch, ref, fa, dev)
     t_dec = time_qmatmul(torch, packing, ops, ref, qmm, dev, m=4)
     t_pre = time_qmatmul(torch, packing, ops, ref, qmm, dev, m=256)
-    t_falcon = time_qmatmul(torch, packing, ops, ref, qmm, dev, m=256,
-                            copies=2, linears=FALCON_LINEARS,
-                            what="qmatmul_f32 falcon-mamba-7b layer x4")
+    t_falcon_dec, t_falcon = (
+        time_qmatmul(torch, packing, ops, ref, qmm, dev, m=m, copies=2,
+                     linears=FALCON_LINEARS,
+                     what="qmatmul_f32 falcon-mamba-7b layer x4")
+        for m in (4, 256))
     t_fa = time_flash(torch, F, ref, fa, dev)
     jobs = {j.name: j for j in mobilenet_v2_jobs(8, MNV2_IMG)}
     nk_err = check_neureka(torch, packing, ops, ref, nkc, qmm, dev,
@@ -1652,7 +1656,10 @@ def main() -> int:
              bound_ms=t_dec["bound_ms"], bound_by=t_dec["bound_by"],
              library_ms=t_dec["library_ms"], eager_ms=t_dec["eager_ms"],
              work="one layer's 7 packed linears, decode M=4, 8-bit",
-             prefill_M256=t_pre, prefill_falcon_M256=t_falcon),
+             bytes_ms=t_dec["bytes_ms"], tf32_ops_ms=t_dec["tf32_ops_ms"],
+             bound_f32_ms=t_dec["bound_f32_ms"],
+             decode_falcon_M4=t_falcon_dec, prefill_M256=t_pre,
+             prefill_falcon_M256=t_falcon),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:71",
@@ -1706,7 +1713,8 @@ def main() -> int:
         max_abs_err=bs_err, ms=t["ms"], plain_ms=t["plain_ms"],
         bound_ms=t["bound_ms"], bound_by=t["bound_by"],
         library_ms=t["library_ms"], eager_ms=t["eager_ms"], work=t["work"],
-        prefill_M256=t_bs["prefill"]))
+        bytes_ms=t["bytes_ms"], tf32_ops_ms=t["tf32_ops_ms"],
+        bound_f32_ms=t["bound_f32_ms"], prefill_M256=t_bs["prefill"]))
     print(json.dumps({"serve": served}))
     print(json.dumps({"kernels": kernels}))
     print(card)

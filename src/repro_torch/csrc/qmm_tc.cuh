@@ -1,5 +1,6 @@
 // Tensor-core main loop of the packed f32 matmuls for M > 16 (sm_90a), shared
-// by csrc/qmatmul_f32.cu and csrc/qmatmul_blockscale.cu.
+// by csrc/qmatmul_f32.cu and csrc/qmatmul_blockscale.cu; M <= 16 (decode)
+// takes csrc/qmm_decode.cuh, which uses this header's copy helpers.
 //
 // Replaces: the prefill (M > 16) path of src/repro/kernels/qmatmul.py ::
 //   qmatmul_f32 (_qmatmul_f32_kernel) and :: qmatmul_f32_blockscale
@@ -66,15 +67,7 @@ constexpr int THREADS = 128;           // one warpgroup
 constexpr int ACC = BM * BN / THREADS; // f32 accumulators a thread
 constexpr int STAGES = 4;
 constexpr int MIN_BLOCKS = 2;          // resident blocks an SM (launch bounds)
-constexpr int GEMV_MAX_M = 16;          // largest M the .cu files send to their GEMV instead
-
-// The numbers kernels/qmatmul.py plans a launch with (how far to split K,
-// which copy width the rows allow), exported by each .cu so that they are
-// written once: BM, BN, BK, GEMV_MAX_M, MIN_BLOCKS, STAGES.
-inline void geometry(int* g) {
-  const int v[6] = {BM, BN, BK, GEMV_MAX_M, MIN_BLOCKS, STAGES};
-  for (int i = 0; i < 6; ++i) g[i] = v[i];
-}
+// (kernels/qmatmul.py reads these through dcmm::geometry, csrc/qmm_decode.cuh)
 
 // x rows in shared memory, padded so that the warps' scalar fragment loads
 // (rows g, columns 8s + t of quad lane (g, t)) hit 32 distinct banks: 36

@@ -13,11 +13,12 @@ Ports the three kernels of ``repro/kernels/qmatmul.py``:
   path (``csrc/qmatmul_int8.cu``).
 
 Packed 2/4/8-bit weights stay packed in device memory; the kernels unpack
-them in registers next to the multiply-adds.  The two f32 kernels take a
-weight-streaming GEMV for M <= 16 and, for larger M, one tensor-core main
-loop (``csrc/qmm_tc.cuh``, two TF32 passes at f32 accuracy); the shape
-decisions around it (how far to split K, which copy width the rows allow)
-are made here, by ``tc_splits`` and ``tc_aligned``, from the geometry the
+them in registers next to the multiply-adds.  The two f32 kernels run on the
+tensor cores at f32 accuracy (x split into TF32 hi and lo parts): M <= 16
+(decode) through the weight-streaming loop of ``csrc/qmm_decode.cuh``, larger
+M through the main loop of ``csrc/qmm_tc.cuh``; the shape decisions around
+them (how far to split K, which copy width the rows allow) are made here, by
+``tc_splits``, ``tc_aligned`` and ``decode_aligned``, from the geometry the
 built library reports (``tc_geometry``).  Each wrapper launches
 its kernel for CUDA tensors and raises on anything it does not take.  For
 CPU tensors it computes the plain PyTorch version (``kernels/ref.py``).
@@ -39,18 +40,32 @@ _c_int = ctypes.c_int
 
 
 class TcGeometry(NamedTuple):
-    """csrc/qmm_tc.cuh's launch geometry, as its library reports it: the
-    block tile bm x bn, the K stage bk (one 32-wide scale group), the M up to
-    which both f32 kernels take their GEMV instead, the blocks resident on
-    one SM (the launch bounds) and the copy ring's depth, which is also the
-    fewest groups a K split keeps, so that the ring still overlaps loads
-    with MMAs."""
+    """The launch geometry of both tensor-core loops, as their library
+    reports it (``dcmm::geometry``).  M > decode_max_m: ``csrc/qmm_tc.cuh``'s
+    block tile bm x bn, its K stage bk (one 32-wide scale group), its blocks
+    resident on one SM (the launch bounds) and its copy ring's depth, which is
+    also the fewest groups a K split keeps, so that the ring still overlaps
+    loads with MMAs.  M <= decode_max_m: ``csrc/qmm_decode.cuh``'s packed rows
+    a block (an N tile), its resident blocks an SM, the words of x a block
+    stages (hi and lo columns times its K range) and the packed bytes of a
+    row a ring stage holds."""
     bm: int
     bn: int
     bk: int
-    gemv_max_m: int
+    decode_max_m: int
     blocks_per_sm: int
     stages: int
+    decode_bn: int
+    decode_blocks_per_sm: int
+    decode_x_words: int
+    decode_stage_bytes: int
+
+
+# the decode split rule's limits: at least DECODE_MIN_GROUPS 32-wide groups
+# a split, so that a block streams more than one ring stage, and at most
+# DECODE_MAX_SPLITS splits, which the last block of a tile adds
+DECODE_MIN_GROUPS = 4
+DECODE_MAX_SPLITS = 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,21 +80,48 @@ def tc_geometry(library: str = "qmatmul_f32") -> TcGeometry:
     return TcGeometry(*g)
 
 
-def tc_splits(m: int, n: int, k: int, sms: int, geo: TcGeometry) -> int:
-    """How many K splits the tensor-core path runs for an (m, k) x (k, n)
-    product (k > 0) on a card with ``sms`` SMs: 1 when the output tiles
-    alone give every SM a block (or for the GEMV, m <= geo.gemv_max_m); else
-    as many splits as fit the card's resident block slots in one wave, each
-    split at least ``geo.stages`` groups, normalised so that every split
-    owns at least one group.  The splits' partial sums are added in a fixed
-    order, so the result does not depend on this choice beyond rounding, and
-    one shape always gets the same bits."""
-    if m <= geo.gemv_max_m:
-        return 1
+def decode_cols(m: int) -> int:
+    """B columns of the decode loop for m rows of f32 x: the hi and lo parts
+    of each row, in whole 8-column MMA tiles of 1, 2 or 4 (bf16 x needs no
+    more)."""
+    tiles = -(-2 * m // 8)
+    return 8 * (tiles if tiles <= 2 else 4)
+
+
+def tc_splits(m: int, n: int, k: int, sms: int, geo: TcGeometry,
+              bits: int = 8) -> int:
+    """How many K splits the tensor-core loops run for an (m, k) x (k, n)
+    product (k > 0) of ``bits``-bit levels on a card with ``sms`` SMs.
+
+    Decode (m <= geo.decode_max_m): enough splits of the n / decode_bn tiles
+    to give every SM decode_blocks_per_sm blocks, but no more than
+    DECODE_MAX_SPLITS and at least DECODE_MIN_GROUPS groups a split, and as
+    many as the block's x slice (decode_cols(m) columns of its K range, in
+    decode_x_words, or in one stage's range where that is more) needs; a
+    split is whole ring stages (decode_stage_bytes of a row).
+
+    M > decode_max_m: 1 when the output tiles alone give every SM a block;
+    else as many splits as fit the card's resident block slots in one wave,
+    each split at least ``geo.stages`` groups.
+
+    Both are normalised so that every split owns at least one group.  The
+    splits' partial sums are added in a fixed order, so the result does not
+    depend on this choice beyond rounding, and one shape always gets the
+    same bits."""
+    groups = -(-k // geo.bk)
+    if m <= geo.decode_max_m:
+        gs = 8 * geo.decode_stage_bytes // (geo.bk * bits)   # a stage's groups
+        most = max(gs, geo.decode_x_words // (decode_cols(m) * geo.bk)
+                   // gs * gs)
+        tiles = -(-n // geo.decode_bn)
+        want = min(-(-geo.decode_blocks_per_sm * sms // tiles),
+                   max(1, groups // DECODE_MIN_GROUPS), DECODE_MAX_SPLITS)
+        splits = max(want, -(-groups // most))
+        per = -(-(-(-groups // splits)) // gs) * gs
+        return -(-groups // per)
     tiles = -(-m // geo.bm) * -(-n // geo.bn)
     if tiles >= sms:
         return 1
-    groups = -(-k // geo.bk)
     splits = min(geo.blocks_per_sm * sms // tiles,
                  max(1, groups // geo.stages))
     per = -(-groups // splits)
@@ -98,29 +140,64 @@ def tc_aligned(x: torch.Tensor, packed: torch.Tensor, bits: int,
             and packed.shape[1] % chunk == 0 and packed.data_ptr() % 16 == 0)
 
 
+def decode_aligned(packed: torch.Tensor) -> bool:
+    """Whether the decode loop may copy packed rows with 16 B cp.async: every
+    row starts on 16 B.  Else it takes plain loads in the same kernel."""
+    return packed.shape[1] % 16 == 0 and packed.data_ptr() % 16 == 0
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+# one zeroed int an N tile for the decode loop's last-block count, a buffer
+# for each (device, stream): a kernel leaves it zeroed, and kernels of one
+# stream never overlap
+_counters = {}
+
+
+def _decode_counters(device: torch.device, tiles: int) -> torch.Tensor:
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
+
+
 def _tc_scratch(library: str, x: torch.Tensor, packed: torch.Tensor,
                 bits: int, n: int):
-    """(aligned, splits, scratch) of one launch: the (splits, M, N) f32
-    partial sums when K is split, else None."""
+    """(aligned, splits, scratch, counters) of one launch.  Split, the
+    scratch is the partial sums, (splits, N, M rounded up to 4) f32 for the
+    decode loop with its counters, (splits, M, N) for M > decode_max_m;
+    unsplit both are None."""
     m, k = x.shape
     geo = tc_geometry(library)
     index = x.device.index
     splits = tc_splits(m, n, k, _sm_count(
-        torch.cuda.current_device() if index is None else index), geo)
+        torch.cuda.current_device() if index is None else index), geo, bits)
+    if m <= geo.decode_max_m:
+        if splits == 1:
+            return int(decode_aligned(packed)), 1, None, None
+        part = torch.empty((splits, n, -(-m // 4) * 4), dtype=torch.float32,
+                           device=x.device)
+        return (int(decode_aligned(packed)), splits, part,
+                _decode_counters(x.device, -(-n // geo.decode_bn)))
     part = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
-    return int(tc_aligned(x, packed, bits, geo)), splits, part
+    return int(tc_aligned(x, packed, bits, geo)), splits, part, None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = build.library("qmatmul_f32").qmatmul_f32_launch
-    fn.argtypes = [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
+    fn.argtypes = [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
                    _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
                    _c_ptr]
     fn.restype = _c_int
@@ -130,8 +207,9 @@ def _launcher():
 @functools.lru_cache(maxsize=None)
 def _launcher_blockscale():
     fn = build.library("qmatmul_blockscale").qmatmul_blockscale_launch
-    fn.argtypes = [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
-                   _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr]
+    fn.argtypes = [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int,
+                   _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
+                   _c_ptr]
     fn.restype = _c_int
     return fn
 
@@ -179,12 +257,12 @@ def qmatmul_f32(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0 or k == 0:
         return out.zero_()
-    aligned, splits, part = _tc_scratch("qmatmul_f32", x, packed, bits, n)
+    aligned, splits, part, counters = _tc_scratch("qmatmul_f32", x, packed,
+                                                  bits, n)
     rc = _launcher()(x.data_ptr(), int(x.dtype == torch.bfloat16),
                      packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                     None if part is None else part.data_ptr(),
-                     m, n, k, kp, bits, aligned, splits,
-                     torch.cuda.current_stream(x.device).cuda_stream)
+                     _ptr(part), _ptr(counters), m, n, k, kp, bits, aligned,
+                     splits, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"qmatmul_f32 launch failed: CUDA error {rc}")
     qmatmul_f32.launches += 1
@@ -236,12 +314,12 @@ def qmatmul_f32_blockscale(x: torch.Tensor, packed: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0 or k == 0:
         return out.zero_()
-    aligned, splits, part = _tc_scratch("qmatmul_blockscale", x, packed,
-                                        bits, n)
+    aligned, splits, part, counters = _tc_scratch("qmatmul_blockscale", x,
+                                                  packed, bits, n)
     rc = _launcher_blockscale()(
         x.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), m, n, k, kp, nblk, bits,
-        aligned, splits, torch.cuda.current_stream(x.device).cuda_stream)
+        _ptr(part), _ptr(counters), m, n, k, kp, nblk, bits, aligned, splits,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"qmatmul_f32_blockscale launch failed: CUDA "
                            f"error {rc}")

@@ -71,8 +71,10 @@ def mamba_mixer(x: torch.Tensor, p: Dict[str, Any], *, d_inner: int,
 
     ``shard_inner`` is the reference's multi-device constraint of d_inner
     onto the model axis (ROADMAP A11); it is accepted and ignored here.
-    The reference's ``chunk`` and ``scan_dtype`` pick the jnp scan's chunk
-    and compute type; the kernel needs neither (it scans in f32).
+    The reference's ``chunk`` picks the jnp scan's chunk, which the kernel
+    does not need; its ``scan_dtype`` picks the scan's compute type, and the
+    port scans in f32 only: ``transformer.check_family`` refuses a config
+    with another ``scan_dtype`` (ROADMAP C7).
     """
     del shard_inner, d_inner
     decode = state is not None and x.shape[1] == 1

@@ -50,6 +50,14 @@ def check_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: segmented_window_scan is not ported yet "
             "(ROADMAP A9)")
+    # the card's attention and scan kernels compute in f32 only: a config
+    # that asks for another compute dtype is refused, not run in f32
+    for field in ("attn_dtype", "scan_dtype"):
+        if getattr(cfg, field) != "float32":
+            raise NotImplementedError(
+                f"{cfg.name}: {field}={getattr(cfg, field)!r} is not ported "
+                "(ROADMAP C6 / C7); the port computes attention and the "
+                "selective scan in float32 only")
 
 
 # ---------------------------------------------------------------------------

@@ -404,11 +404,11 @@ def test_paged_wire_serve_on_the_card_matches_the_cpu(cuda):
     assert out["cuda"] == out["cpu"]
 
 
-# The tensor-core path (M > 16) of both f32 kernels, csrc/qmm_tc.cuh: the
-# serves' prefill shapes, both sides of the GEMV threshold, K = 0, and the
-# same bits on every call (bf16 x at M = 256 is in
-# test_qmatmul_kernel_bf16_input).  Tolerance 1e-4, as everywhere for these
-# kernels.
+# The two tensor-core loops of both f32 kernels, csrc/qmm_decode.cuh (M <=
+# 16) and csrc/qmm_tc.cuh (M > 16): the serves' decode and prefill shapes,
+# both sides of the decode threshold, K = 0, and the same bits on every call
+# (bf16 x at M = 256 is in test_qmatmul_kernel_bf16_input).  Tolerance 1e-4,
+# as everywhere for these kernels.
 
 def _f32_inputs(kernel, rng, m, k, n, bits, dev):
     x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev)
@@ -444,10 +444,44 @@ def test_tc_path_at_the_serve_shapes(cuda, rng, kernel, bits, k, n):
     torch.testing.assert_close(got, plain(x), rtol=1e-4, atol=1e-4)
 
 
+# (K, N) of every packed linear the serves call at decode (M = 4):
+# qwen3-0.6b's seven, falcon-mamba-7b's four (x_proj N = 288) and
+# hymba-1.5b's, whose dt_proj rows (K = 100) are not 16 B aligned
+DECODE_SHAPES = sorted({
+    (1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024),
+    (4096, 16384), (8192, 288), (256, 8192), (8192, 4096),
+    (1600, 1600), (1600, 320), (1600, 5504), (5504, 1600), (1600, 6400),
+    (3200, 132), (100, 3200), (3200, 1600)})
+
+
 @pytest.mark.parametrize("kernel", F32_KERNELS)
-@pytest.mark.parametrize("m", [16, 17, 64, 1157])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("k,n", DECODE_SHAPES)
+def test_decode_path_at_the_serve_shapes(cuda, rng, kernel, bits, k, n):
+    fn, plain, x = _f32_inputs(kernel, rng, 4, k, n, bits, cuda)
+    before = COUNTERS[kernel].launches
+    got = fn(x)
+    torch.cuda.synchronize()
+    assert COUNTERS[kernel].launches == before + 1
+    torch.testing.assert_close(got, plain(x), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("k,n", [(1024, 2048), (100, 3200), (8192, 288)])
+def test_decode_path_bf16_input(cuda, rng, bits, m, k, n):
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
+    packed, scale = _packed(rng, n, k, bits, cuda)
+    xb = x.to(cuda, torch.bfloat16)
+    got = qmatmul_f32(xb, packed, scale, bits=bits, k_orig=k)
+    expect = ref.qmatmul_f32(xb, packed, scale, bits=bits, k_orig=k)
+    torch.testing.assert_close(got, expect, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("kernel", F32_KERNELS)
+@pytest.mark.parametrize("m", [1, 4, 15, 16, 17, 64, 1157])
 @pytest.mark.parametrize("k,n", [(1024, 1024), (1001, 515)])
-def test_tc_path_around_the_gemv_threshold(cuda, rng, kernel, m, k, n):
+def test_tc_path_around_the_decode_threshold(cuda, rng, kernel, m, k, n):
     fn, plain, x = _f32_inputs(kernel, rng, m, k, n, 4, cuda)
     got = fn(x)
     torch.testing.assert_close(got, plain(x), rtol=1e-4, atol=1e-4)
@@ -457,7 +491,7 @@ def test_tc_path_around_the_gemv_threshold(cuda, rng, kernel, m, k, n):
 @pytest.mark.parametrize("m", [4, 17])
 def test_f32_kernels_take_an_empty_k(cuda, rng, kernel, m):
     # K = 0: packed (N, 0) and, for the blockscale kernel, scales (N, 0);
-    # both sides of the GEMV threshold give zeros, as the plain versions do
+    # both sides of the decode threshold give zeros, as the plain versions do
     x = torch.zeros((m, 0), device=cuda)
     packed = torch.zeros((64, 0), dtype=torch.uint8, device=cuda)
     if kernel == "qmatmul_f32":
@@ -478,7 +512,11 @@ def test_f32_kernels_take_an_empty_k(cuda, rng, kernel, m):
 @pytest.mark.parametrize("m,k,n", [(256, 8192, 288),    # K split 22 ways
                                    (256, 1024, 2048),   # split 4 ways
                                    (256, 256, 8192),    # not split
-                                   (4, 1024, 1024)])    # the GEMV
+                                   (4, 1024, 1024),     # decode, split 8 ways
+                                   (4, 8192, 288),      # decode, 32 ways
+                                   (4, 4096, 16384),    # decode, 4 ways
+                                   (16, 8192, 4096),    # decode M = 16
+                                   (4, 256, 8192)])     # decode, 2 ways
 def test_f32_kernels_give_the_same_bits_every_call(cuda, rng, kernel, m, k,
                                                    n):
     fn, _, x = _f32_inputs(kernel, rng, m, k, n, 8, cuda)

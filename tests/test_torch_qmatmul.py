@@ -4,8 +4,9 @@
 Tolerances are the reference test's: 1e-4 for f32 x, 2e-2 for bf16 x.  On
 CPU tensors the wrapper computes the plain version; the Hopper kernel
 itself is held against it on the card by ``test_torch_gpu.py`` and
-``chip_smoke.py``.  The numeric design of its tensor-core path and the shape
-rules around it (K splits, copy widths) are checked here too."""
+``chip_smoke.py``.  The numeric design of its two tensor-core loops (decode,
+M <= 16, and M > 16) and the shape rules around them (K splits, copy
+widths) are checked here too."""
 
 import pytest
 
@@ -23,13 +24,16 @@ from repro.kernels.qmatmul import qmatmul_f32 as jqmatmul  # noqa: E402
 from repro_torch.core import packing, quantize  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.qmatmul import (  # noqa: E402
-    TcGeometry, qmatmul_f32, tc_aligned, tc_splits)
+    DECODE_MAX_SPLITS, DECODE_MIN_GROUPS, TcGeometry, decode_aligned,
+    decode_cols, qmatmul_f32, tc_aligned, tc_splits)
 
 BITS = (2, 4, 8)
-# csrc/qmm_tc.cuh's geometry (the card reports it through tc_geometry; the
-# split and alignment rules are checked here against these numbers)
-GEO = TcGeometry(bm=64, bn=128, bk=32, gemv_max_m=16, blocks_per_sm=2,
-                 stages=4)
+# csrc/qmm_tc.cuh's and csrc/qmm_decode.cuh's geometry (the card reports it
+# through tc_geometry; the split and alignment rules are checked here
+# against these numbers)
+GEO = TcGeometry(bm=64, bn=128, bk=32, decode_max_m=16, blocks_per_sm=2,
+                 stages=4, decode_bn=128, decode_blocks_per_sm=2,
+                 decode_x_words=8192, decode_stage_bytes=128)
 
 
 def _operands(rng, m, k, n, bits):
@@ -142,25 +146,59 @@ def _emulate_tc(x, levels, pre, passes):
     return acc
 
 
-def _emu_b1(rng, bits, k, n, passes, m=32):
+def _emulate_decode(x, levels, pre, passes, splits, stage_groups):
+    """The decode loop's order (csrc/qmm_decode.cuh): weights on the MMA's M
+    side, each 32-wide group's levels (N, 32) times the B columns, x's TF32
+    hi parts then its lo parts (32, 2M), summed in f32 and promoted group by
+    group with pre into its K split's f32 sum; a split's hi and lo columns
+    added in f32; the splits (whole ring stages of ``stage_groups``) added
+    in order.  Returns (M, N) before B1's per-channel scale."""
+    m, k = x.shape
+    n = levels.shape[0]
+    groups = -(-k // 32)
+    pad = groups * 32 - k
+    xp = np.pad(x, ((0, 0), (0, pad)))
+    lp = np.pad(levels, ((0, 0), (0, pad))).astype(np.float32)
+    hi = _tf32_rna(xp)
+    cols = np.concatenate([hi, _tf32_rna(xp - hi)])[:passes * m]
+    per = -(-(-(-groups // splits)) // stage_groups) * stage_groups
+    total = np.zeros((n, m), np.float32)
+    for g0 in range(0, groups, per):
+        acc = np.zeros((n, passes * m), np.float32)
+        for g in range(g0, min(groups, g0 + per)):
+            ks = slice(32 * g, 32 * g + 32)
+            acc += pre[:, g:g + 1] * np.matmul(lp[:, ks], cols[:, ks].T)
+        total += acc[:, :m] + acc[:, m:] if passes == 2 else acc
+    return total.T
+
+
+def _decode_route(bits, k, n, m):
+    def emulate(x, levels, pre, passes):
+        splits = tc_splits(m, n, k, 132, GEO, bits)
+        gs = 8 * GEO.decode_stage_bytes // (GEO.bk * bits)
+        return _emulate_decode(x, levels, pre, passes, splits, gs)
+    return emulate
+
+
+def _emu_b1(rng, bits, k, n, passes, m=32, route=_emulate_tc):
     x = rng.normal(size=(m, k)).astype(np.float32)
     w = torch.from_numpy((rng.normal(size=(n, k)) * k ** -0.5)
                          .astype(np.float32))
     packed, scale = ops.prep_linear(w, bits)
     levels = packing.unpack(packed, bits, k).numpy()
     pre = np.ones((n, -(-k // 32)), np.float32)
-    got = _emulate_tc(x, levels, pre, passes) * scale.numpy()[None]
+    got = route(x, levels, pre, passes) * scale.numpy()[None]
     expect = ref.qmatmul_f32(torch.from_numpy(x), packed, scale, bits=bits,
                              k_orig=k)
     return got, expect.numpy()
 
 
-def _emu_b3(rng, bits, k, n, passes, m=32):
+def _emu_b3(rng, bits, k, n, passes, m=32, route=_emulate_tc):
     x = rng.normal(size=(m, k)).astype(np.float32)
     w = (rng.normal(size=(n, k)) * k ** -0.5).astype(np.float32)
     levels, scales = quantize.quantize_blockwise(w, bits)
     packed = packing.pack(torch.from_numpy(levels), bits)
-    got = _emulate_tc(x, levels, scales, passes)
+    got = route(x, levels, scales, passes)
     expect = ref.qmatmul_f32_blockscale(torch.from_numpy(x), packed,
                                         torch.from_numpy(scales), bits=bits,
                                         k_orig=k)
@@ -186,8 +224,28 @@ def test_one_tf32_pass_misses_the_tolerance(rng, kernel):
     assert not np.allclose(got, expect, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("kernel", sorted(EMULATED))
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("k,n", [(3072, 1024), (1001, 130)])
+def test_decode_route_keeps_f32_accuracy(rng, kernel, bits, m, k, n):
+    """The decode loop's order of operations, with the K splits the wrapper
+    picks (24 at M = 4, K = 3,072), within 1e-4 of the plain version."""
+    got, expect = EMULATED[kernel](rng, bits, k, n, passes=2, m=m,
+                                   route=_decode_route(bits, k, n, m))
+    np.testing.assert_allclose(got, expect, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("m,k,n,splits", [
-    (4, 1024, 1024, 1),          # the GEMV: no split
+    (4, 1024, 1024, 8),          # decode: 8 tiles, 8 splits of 4 groups
+    (4, 1024, 2048, 8),          # qwen3 wq: 16 tiles
+    (4, 3072, 1024, 24),         # qwen3 w_down: 24 splits of 4 groups
+    (4, 4096, 16384, 4),         # falcon in_proj: x slice of 32 groups
+    (4, 8192, 288, 32),          # falcon x_proj: 3 tiles, at most 32 splits
+    (4, 8192, 4096, 8),          # falcon out_proj: 32 tiles, 8 x 32 groups
+    (4, 256, 8192, 2),           # falcon dt_proj: 8 groups
+    (16, 8192, 4096, 32),        # M = 16: 32 x columns, 8 groups a split
+    (1, 100, 3200, 1),           # hymba dt_proj: 4 groups, no split
     (256, 4096, 16384, 1),       # 512 output tiles fill the card
     (256, 1024, 2048, 4),        # 64 tiles: 4 splits of 8 groups
     (256, 1024, 1024, 8),        # 32 tiles: 8 splits of 4 groups
@@ -199,11 +257,45 @@ def test_one_tf32_pass_misses_the_tolerance(rng, kernel):
 def test_tc_splits_fill_the_card_in_one_wave(m, k, n, splits):
     got = tc_splits(m, n, k, 132, GEO)
     assert got == splits
-    tiles = -(-m // GEO.bm) * -(-n // GEO.bn)
     groups = -(-k // GEO.bk)
-    per = -(-groups // got)
+    if m <= GEO.decode_max_m:
+        # decode: whole ring stages (4 groups at 8 bits), an x slice that
+        # fits, and at least two blocks an SM unless the split limits bind
+        per = -(-(-(-groups // got)) // 4) * 4
+        tiles = -(-n // GEO.decode_bn)
+        assert decode_cols(m) * per * GEO.bk <= max(
+            GEO.decode_x_words, decode_cols(m) * GEO.bk * 4)
+        fill = -(-groups * tiles // (GEO.decode_blocks_per_sm * 132))
+        assert (per <= -(-fill // 4) * 4         # a split's groups for 2 an SM
+                or got >= min(DECODE_MAX_SPLITS,
+                              groups // DECODE_MIN_GROUPS))
+    else:
+        per = -(-groups // got)
+        tiles = -(-m // GEO.bm) * -(-n // GEO.bn)
+        assert got == 1 or tiles * got <= GEO.blocks_per_sm * 132  # one wave
     assert (got - 1) * per < groups              # every split owns a group
-    assert got == 1 or tiles * got <= GEO.blocks_per_sm * 132   # one wave
+
+
+@pytest.mark.parametrize("bits,splits", [(8, 8), (4, 4), (2, 2)])
+def test_tc_splits_decode_takes_whole_ring_stages(bits, splits):
+    """A ring stage holds 128 B of a row: 4, 8 or 16 groups at 8, 4 or 2
+    bits, and a decode split is whole stages (K = 1,024: 32 groups)."""
+    got = tc_splits(4, 1024, 1024, 132, GEO, bits)
+    assert got == splits
+    gs = 32 // bits
+    per = -(-(-(-32 // got)) // gs) * gs
+    assert per % gs == 0 and (got - 1) * per < 32 <= got * per
+
+
+def test_decode_aligned_takes_cp_async_only_on_16_byte_rows():
+    def case(kp, offset=0):
+        return decode_aligned(torch.zeros(3 * kp + offset,
+                                          dtype=torch.uint8)[offset:]
+                              .view(3, kp))
+    assert case(1024) and case(512) and case(16)
+    assert not case(100)                     # hymba dt_proj at 8 bits
+    assert not case(1001) and not case(8)
+    assert not case(1024, offset=4)          # rows 4 B off a chunk
 
 
 def test_tc_aligned_takes_cp_async_only_on_chunk_rows():

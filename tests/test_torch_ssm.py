@@ -30,7 +30,9 @@ from repro_torch import interop  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.kernels import ops, ref, ssm_scan  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.parallel import sharding  # noqa: E402
+from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
 Y_TOL = dict(rtol=5e-4, atol=5e-4)
 H_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -142,6 +144,42 @@ def test_decode_step_continues_the_scan():
                                 C[:, 12:], D, h_cache, h_out=h_cache)
     assert h1 is h_cache
     assert torch.equal(y1[:, 0], y_step) and torch.equal(h1, h_step)
+
+
+# C7: the reference scans prefill and forward in cfg.scan_dtype; the port's
+# scan kernel computes in f32 only, so its entry points refuse any other
+# value instead of running it in f32.
+
+@pytest.fixture(scope="module")
+def falcon_smoke():
+    cfg = get_config("falcon-mamba-7b").smoke()
+    return cfg, jtfm.init_params(cfg, jax.random.PRNGKey(0))
+
+
+def test_reference_scan_dtype_moves_the_logits(falcon_smoke):
+    cfg, params = falcon_smoke
+    toks = jnp.asarray(np.random.default_rng(1).integers(0, 256, (2, 16)),
+                       jnp.int32)
+    f32 = np.asarray(jtfm.forward(params, toks, cfg))
+    bf16 = np.asarray(jtfm.forward(params, toks,
+                                   cfg.replace(scan_dtype="bfloat16")))
+    assert np.abs(bf16 - f32).max() > 1e-4
+
+
+@pytest.mark.parametrize("entry", ["init_params", "forward", "engine"])
+def test_scan_dtype_other_than_f32_is_refused(falcon_smoke, entry):
+    cfg, params = falcon_smoke
+    tcfg = tget("falcon-mamba-7b").smoke()
+    bcfg = tcfg.replace(scan_dtype="bfloat16")
+    tparams = interop.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, params), tcfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="scan_dtype.*ROADMAP C6 / C7"):
+        if entry == "init_params":
+            tfm.init_params(bcfg, device="cpu")
+        elif entry == "forward":
+            tfm.forward(tparams, torch.zeros((2, 16), dtype=torch.long), bcfg)
+        else:
+            ServingEngine(bcfg, tparams, device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -24,6 +24,7 @@ from repro.parallel.sharding import freeze_for_serving as jfreeze  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 ARCH = "qwen3-0.6b"
@@ -149,6 +150,39 @@ def test_init_params_has_the_reference_structure(model):
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         tfm.init_params(tget(arch).smoke(), device="cpu")
+
+
+# C6: the reference computes decode, chunked and windowed attention in
+# cfg.attn_dtype; the port's attention kernels compute in f32 only, so its
+# entry points refuse any other value instead of running it in f32.
+
+@pytest.fixture(scope="module")
+def bf16_attention_logits(model):
+    cfg, tcfg, params = model
+    toks = jnp.asarray(_tokens((2, 16)))
+    f32 = np.asarray(jtfm.forward(params, toks, cfg))
+    bf16 = np.asarray(jtfm.forward(params, toks,
+                                   cfg.replace(attn_dtype="bfloat16")))
+    return f32, bf16
+
+
+def test_reference_attn_dtype_moves_the_logits(bf16_attention_logits):
+    f32, bf16 = bf16_attention_logits
+    assert np.abs(bf16 - f32).max() > TOL["atol"]
+
+
+@pytest.mark.parametrize("entry", ["init_params", "forward", "engine"])
+def test_attn_dtype_other_than_f32_is_refused(model, entry):
+    cfg, tcfg, params = model
+    bcfg = tcfg.replace(attn_dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="attn_dtype.*ROADMAP C6"):
+        if entry == "init_params":
+            tfm.init_params(bcfg, device="cpu")
+        elif entry == "forward":
+            tfm.forward(_carry(params, tcfg),
+                        torch.from_numpy(_tokens((2, 16))).long(), bcfg)
+        else:
+            ServingEngine(bcfg, _carry(params, tcfg), device="cpu")
 
 
 def test_other_dense_archs_match(model):

@@ -12,7 +12,7 @@ kernels and times, with ``chip_smoke.py``'s timing helpers of this
 checkout (CUDA-graph replay, L2-cold, TF32 off): qwen3-0.6b's seven linears
 of a layer at decode M = 4 and prefill M = 256, 8-bit; the paged serve's
 four cold linears in int8 wire form at M = 4 and 256; falcon-mamba-7b's four
-linears of a layer at M = 256, 8-bit.  Each process prints one JSON line;
+linears of a layer at M = 4 and 256, 8-bit.  Each process prints one JSON line;
 the last line gives them all with the card's name and power limit.
 """
 
@@ -53,14 +53,19 @@ def one(tree: Path) -> dict:
                                         cold),
         "b3_prefill": cs.time_blockscale(torch, packing, ref, qmm, dev, 256,
                                          cold),
+        "falcon_decode": cs.time_qmatmul(
+            torch, packing, ops, ref, qmm, dev, 4, copies=2,
+            linears=cs.FALCON_LINEARS,
+            what="qmatmul_f32 falcon-mamba-7b layer x4"),
         "falcon_prefill": cs.time_qmatmul(
             torch, packing, ops, ref, qmm, dev, 256, copies=2,
             linears=cs.FALCON_LINEARS,
             what="qmatmul_f32 falcon-mamba-7b layer x4"),
     }
     return {k: {f: v.get(f) for f in ("ms", "ms_runs", "plain_ms",
-                                       "library_ms", "bound_ms",
-                                       "bound_f32_ms", "eager_ms")}
+                                       "library_ms", "bound_ms", "bytes_ms",
+                                       "tf32_ops_ms", "bound_f32_ms",
+                                       "eager_ms")}
             for k, v in res.items()}
 
 

@@ -9,8 +9,9 @@ that the route's operations reach (two TF32 passes for f32 x, one for bf16).
 Each shape is M,K,N,bits,kind with kind ``f32`` / ``bf16`` (x of
 ``qmatmul_f32``) or ``bs`` (``qmatmul_f32_blockscale``).  Times are CUDA-graph
 replays over copies of the weights that exceed the 50 MB L2, as in
-``chip_smoke.py``.  Prints one line a shape and a JSON line with all of them
-and the card's name and power limit.
+``chip_smoke.py``.  Prints one line a shape (with the rate at which the
+packed weights and their scales stream, which binds at decode) and a JSON
+line with all of them and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -27,6 +28,11 @@ DEFAULT = ["256,1024,2048,8,f32", "256,1024,1024,8,f32", "256,2048,1024,8,f32",
            "256,4096,16384,2,f32", "256,4096,16384,8,bf16",
            "256,8192,288,8,f32", "256,256,8192,8,f32", "256,8192,4096,8,f32",
            "256,1024,2048,8,bs", "256,1024,3072,8,bs",
+           "4,1024,2048,8,f32", "4,3072,1024,8,f32", "4,4096,16384,8,f32",
+           "4,4096,16384,4,f32", "4,4096,16384,2,f32", "4,4096,16384,8,bf16",
+           "4,8192,288,8,f32", "4,256,8192,8,f32", "4,8192,4096,8,f32",
+           "1,4096,16384,8,f32", "16,4096,16384,8,f32", "4,100,3200,8,f32",
+           "4,1024,2048,8,bs", "4,1024,3072,8,bs",
            "4652,1600,6400,8,f32", "4652,100,3200,8,f32"]
 
 
@@ -75,11 +81,14 @@ def main(argv) -> int:
         passes = 1 if kind == "bf16" else 2
         geo = qmm.tc_geometry("qmatmul_blockscale" if kind == "bs"
                               else "qmatmul_f32")
-        splits = qmm.tc_splits(m, n, k, sms, geo)
+        splits = qmm.tc_splits(m, n, k, sms, geo, bits)
+        wbytes = sum(t.numel() * t.element_size() for t in sets[0][1:])
         row = dict(shape=spec, ms=ms, splits=splits,
-                   tflops=passes * 2 * m * n * k / (ms * 1e-3) / 1e12)
+                   tflops=passes * 2 * m * n * k / (ms * 1e-3) / 1e12,
+                   weight_gbps=wbytes / (ms * 1e-3) / 1e9)
         print(f"[shape] {spec}: {ms:.4f} ms, {row['splits']} splits, "
-              f"{row['tflops']:.1f} TFLOP/s at the route's passes")
+              f"{row['tflops']:.1f} TFLOP/s at the route's passes, weights "
+              f"and scales at {row['weight_gbps']:.0f} GB/s")
         rows.append(row)
         del sets
         torch.cuda.empty_cache()
