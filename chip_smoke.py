@@ -13,15 +13,20 @@ fails:
    and power limit, builds every ``csrc/*.cu`` with nvcc for sm_90a (one
    nvcc each, in parallel), prints what ptxas reports for each kernel and
    fails if the tensor-core kernels of the f32 matmuls (``qmm_dec``,
-   ``bs_dec`` for M <= 16, ``qmm_tc``, ``bs_tc`` above) spill;
+   ``bs_dec`` for M <= 16, ``qmm_tc``, ``bs_tc`` above) or the int8 MMA
+   kernels (``qmm_int8_direct``, ``qmm_int8_staged``, ``dense3x3_mma``)
+   spill, or if ``cuobjdump
+   --dump-sass`` finds no ``IMMA`` in an int8 MMA kernel;
 2. each Hopper kernel against its plain PyTorch version on the card, at the
    shapes its path gives it: ``qmatmul_f32``, ``flash_attention`` and
    ``selective_scan`` within the stated tolerances (the scan also at a
    ragged S, with and without h0, and its dt = 0 pads bit-exact no-ops);
    ``qmatmul_int8``, ``conv3x3_dense`` and ``conv3x3_dw`` bit for bit
    (``torch.equal``) at every distinct MobileNet-V2 job shape at 224, at 8,
-   4 and 2 bits, at the ragged shapes of the reference's kernel tests and
-   at requant ties; ``qmatmul_f32`` and ``qmatmul_f32_blockscale`` must
+   4 and 2 bits, at the ragged shapes of the reference's kernel tests (and
+   dense 3x3 at Cin 40 and 64, and ``qmatmul_int8`` on each side of its
+   plan's K-split thresholds) and at requant ties; ``qmatmul_f32`` and
+   ``qmatmul_f32_blockscale`` must
    also give the same bits on two calls.  Then each is timed with CUDA
    events (L2-cold: inputs rotate over more than the 50 MB L2) beside its
    plain version, one PyTorch library call for the same function where
@@ -59,8 +64,11 @@ fails:
    the CPU's; two frames must equal the plain path on the CPU bit for
    bit, and one frame each frozen at 4 and 2 bits too.  It prints the
    eager and CUDA-graph frame times, peak memory, and from
-   ``torch.profiler`` the device time by kernel and by job and the
-   device's idle share of the eager frames;
+   ``torch.profiler`` the device time by kernel and by job (each
+   ``qmatmul_int8`` job with its launch plan) and the device's idle share
+   of the eager frames; the k-th N-EUREKA kernel of the profile must be
+   job k's operator, and the per-job times summed by operator must equal
+   the per-kernel sums;
 6. paged serving (§II-B2 virtual paging with wire-serve): full-width
    qwen3-0.6b with random weights from a seeded CUDA ``torch.Generator``,
    frozen at 4 bits; ``plan_for_budget`` pins half the store's bytes on the
@@ -125,6 +133,10 @@ MNV2_IMG = 224
 MNV2_FRAMES = 16
 NEUREKA_KERNELS = ("conv3x3_dense", "conv3x3_dw", "qmatmul_int8")
 NEUREKA_PER_FRAME = {"conv3x3_dense": 1, "conv3x3_dw": 17, "qmatmul_int8": 35}
+# the jobs timed alone: B4 at its largest map, at a 7 x 7 projection with a
+# long K, at conv_last and at fc; B5 at conv0; B6 at its largest map
+NEUREKA_TIMED = ("b1.pw_exp", "b14.pw_proj", "conv_last", "fc", "conv0",
+                 "b1.dw")
 L2_COLD_BYTES = 64e6             # rotate timing inputs over more than L2
 
 # the serving paths: (arch, max_len, one prompt of 1,000-1,200 tokens so that
@@ -148,6 +160,10 @@ FALCON_LINEARS = {"in_proj": (4096, 16384), "x_proj": (8192, 288),
 # the tensor-core kernels of the f32 matmuls: decode, M <= 16
 # (csrc/qmm_decode.cuh), and M > 16 (csrc/qmm_tc.cuh)
 TC_KERNELS = ("qmm_dec", "bs_dec", "qmm_tc", "bs_tc")
+# the int8 MMA kernels (csrc/int8_mma.cuh) and the libraries they are in
+INT8_MMA_KERNELS = {"qmm_int8_direct": "qmatmul_int8",
+                    "qmm_int8_staged": "qmatmul_int8",
+                    "dense3x3_mma": "neureka_conv"}
 
 
 def card_line() -> str:
@@ -229,10 +245,11 @@ def bound_ms(nbytes: float, ops: float, rate: float = F32_FLOPS_PER_S):
 
 def phase_build(build):
     """Build every kernel, print what ptxas reports, and fail if a
-    tensor-core kernel of the f32 matmuls spills."""
+    tensor-core kernel spills or an int8 MMA kernel has no IMMA."""
     t0 = time.perf_counter()
     build.build_all()
     print(f"[build] nvcc sm_90a, {time.perf_counter() - t0:.2f} s")
+    checked = tuple(TC_KERNELS) + tuple(INT8_MMA_KERNELS)
     spills = []
     for name, report in build.ptxas_reports().items():
         func = None
@@ -243,12 +260,43 @@ def phase_build(build):
                     or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}")
             spilled = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
-            if (func is not None and any(k in func for k in TC_KERNELS)
+            if (func is not None and any(k in func for k in checked)
                     and any(int(b) for b in spilled)):
                 spills.append(f"{func}: {line.strip()}")
     if spills:
         raise AssertionError("the tensor-core kernels spill:\n"
                              + "\n".join(spills))
+    imma = sass_imma(build)
+    print(f"[build] cuobjdump: IMMA instructions in each int8 MMA kernel "
+          f"{json.dumps(imma)}")
+    for frag in INT8_MMA_KERNELS:
+        mine = {f: c for f, c in imma.items() if frag in f}
+        if not mine or not all(mine.values()):
+            raise AssertionError(f"{frag}: no IMMA in its SASS: {mine}")
+
+
+def sass_imma(build) -> dict:
+    """{int8 MMA kernel function: its count of IMMA instructions} from
+    ``cuobjdump --dump-sass`` of the built libraries."""
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    counts = {}
+    for lib in sorted(set(INT8_MMA_KERNELS.values())):
+        sass = subprocess.run([str(tool), "--dump-sass",
+                               str(build.BUILD_DIR / f"{lib}.so")],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        func = None
+        for line in sass.splitlines():
+            hit = re.search(r"Function : (\S+)", line)
+            if hit:
+                func = hit.group(1)
+                if not any(k in func for k in INT8_MMA_KERNELS):
+                    func = None
+                else:
+                    counts[func] = 0
+            elif func is not None and "IMMA" in line:
+                counts[func] += 1
+    return counts
 
 
 def check_qmatmul(torch, ops, ref, qmm, dev) -> float:
@@ -1291,23 +1339,43 @@ def neureka_pair(nkc, qmm, ref, op, shape, bits):
             lambda *a: ref.conv3x3_dw(*a, bits=bits, stride=st))
 
 
-# the ragged shapes of the reference's kernel tests (test_kernels.py:45-100)
+# the ragged shapes of the reference's kernel tests (test_kernels.py:45-100),
+# and dense 3x3 at Cin 40 and 64 (odd maps; K runs over several 32-wide
+# steps across taps)
 RAGGED_CASES = (
     [("pw1x1", (40, 130, 50)), ("pw1x1", (1, 33, 7)), ("pw1x1", (63, 130, 17))]
     + [("dense3x3", (12, 10, 24, 16, s)) for s in (1, 2)]
     + [("dense3x3", (7, 7, 3, 32, s)) for s in (1, 2)]
+    + [("dense3x3", (9, 11, 40, 8, s)) for s in (1, 2)]
+    + [("dense3x3", (13, 7, 64, 40, s)) for s in (1, 2)]
     + [("dw3x3", (9, 11, 40, s)) for s in (1, 2)])
 TIE_CASES = [("pw1x1", (37, 4, 9)), ("pw1x1", (50, 24, 40)),
              ("dense3x3", (7, 7, 3, 32, 1)), ("dw3x3", (9, 11, 40, 2))]
+
+
+def split_edges(plan, m: int, n: int, most: int = 4):
+    """(m, k, n) on each side of the first ``most`` K values (multiples of
+    32 up to 2,048) where ``plan(m, k, n)`` changes its number of K splits."""
+    out, prev = [], plan(m, 32, n).splits
+    for k in range(64, 2049, 32):
+        splits = plan(m, k, n).splits
+        if splits != prev and len(out) < 2 * most:
+            out += [(m, k - 32, n), (m, k, n)]
+        prev = splits
+    return out
 
 
 def check_neureka(torch, packing, ops, ref, nkc, qmm, dev, jobs):
     """Every N-EUREKA kernel equals its plain version bit for bit."""
     gen = torch.Generator(device=dev).manual_seed(5)
     shapes = list(dict.fromkeys(job_key(j) for j in jobs))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    edges = [("pw1x1", shape) for mn in ((49, 160), (1, 1000), (196, 96))
+             for shape in split_edges(lambda m, k, n: qmm.int8_plan(
+                 m, k, n, sms), *mn)]
     cases = [(op, shape, bits, False) for op, shape in shapes
              for bits in (8, 4, 2)]
-    cases += [(op, shape, bits, False) for op, shape in RAGGED_CASES
+    cases += [(op, shape, bits, False) for op, shape in RAGGED_CASES + edges
               for bits in (8, 4, 2)]
     cases += [(op, shape, bits, True) for op, shape in TIE_CASES
               for bits in (4, 2)]
@@ -1330,27 +1398,38 @@ def check_neureka(torch, packing, ops, ref, nkc, qmm, dev, jobs):
     print(f"[check] N-EUREKA kernels bit-equal to their plain versions: "
           f"{counts} cases ({len(shapes)} distinct MobileNet-V2 job shapes "
           f"at {MNV2_IMG} x bits 8/4/2, {len(RAGGED_CASES)} ragged shapes "
+          f"and {len(edges)} qmatmul_int8 shapes at its K-split thresholds "
           f"x bits 8/4/2, {len(TIE_CASES)} requant-tie shapes x bits 4/2)")
     return worst
 
 
+def cold_sets(torch, packing, ops, gen, dev, op, shape, bits):
+    """Input sets of one job, as many as rotate over more than L2 (2-64)."""
+    probe = neureka_case(torch, packing, ops, gen, dev, op, shape, bits)
+    if op == "pw1x1":
+        out_numel = shape[0] * shape[2]
+    else:   # (H, W, ..., C out, stride)
+        s = shape[-1]
+        out_numel = -(-shape[0] // s) * -(-shape[1] // s) * shape[-2]
+    set_bytes = probe[0].numel() + probe[1].numel() + out_numel
+    copies = int(min(64, max(2, -(-L2_COLD_BYTES // set_bytes))))
+    return [probe] + [neureka_case(torch, packing, ops, gen, dev, op, shape,
+                                   bits) for _ in range(copies - 1)]
+
+
 def time_neureka(torch, F, packing, ops, ref, nkc, qmm, dev, op, shape,
-                 job):
+                 job, note=""):
     """One N-EUREKA job at 8 bits, inputs rotated over > 50 MB.  The
     library call is the same accumulation in f32 on pre-unpacked levels,
     without the requant: ``torch.matmul`` for pw1x1, ``F.conv2d`` (NCHW,
-    ``groups=C`` for dw3x3) for the 3x3 operators."""
+    ``groups=C`` for dw3x3) for the 3x3 operators.  ``note`` (the launch
+    plan) is added to the printed work."""
     bits = 8
     gen = torch.Generator(device=dev).manual_seed(7)
     name, kernel, plain = neureka_pair(nkc, qmm, ref, op, shape, bits)
-    probe = neureka_case(torch, packing, ops, gen, dev, op, shape, bits)
-    out_numel = plain(*probe).numel()
-    set_bytes = probe[0].numel() + probe[1].numel() + out_numel
-    copies = int(min(64, max(2, -(-L2_COLD_BYTES // set_bytes))))
     sets = []
-    for _ in range(copies):
-        x, packed, mult, bias = neureka_case(torch, packing, ops, gen, dev,
-                                             op, shape, bits)
+    for x, packed, mult, bias in cold_sets(torch, packing, ops, gen, dev, op,
+                                           shape, bits):
         if op == "pw1x1":
             lib_args = (x.float(), packing.unpack(packed, bits,
                                                   shape[1]).float().T)
@@ -1363,6 +1442,7 @@ def time_neureka(torch, F, packing, ops, ref, nkc, qmm, dev, op, shape,
                         packing.unpack(packed, bits, 9).float()
                         .reshape(-1, 1, 3, 3))
         sets.append(((x, packed, mult, bias), lib_args))
+    copies = len(sets)
 
     def library(i):
         a, w = sets[i % copies][1]
@@ -1376,7 +1456,8 @@ def time_neureka(torch, F, packing, ops, ref, nkc, qmm, dev, op, shape,
     res = time_versions(torch, lambda i: kernel(*sets[i % copies][0]),
                         lambda i: plain(*sets[i % copies][0]), library,
                         copies, 50)
-    x, packed, mult, _ = probe
+    x, packed, mult, _ = sets[0][0]
+    out_numel = plain(*sets[0][0]).numel()
     if op == "pw1x1":
         macs = shape[0] * shape[1] * shape[2]
     elif op == "dense3x3":
@@ -1386,7 +1467,8 @@ def time_neureka(torch, F, packing, ops, ref, nkc, qmm, dev, op, shape,
     nbytes = x.numel() + packed.numel() + 8 * mult.numel() + out_numel
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 2 * macs,
                                                 INT8_OPS_PER_S)
-    res["work"] = f"{job} {op} {shape} bits={bits}"
+    res["work"] = f"{job} {op} {shape} bits={bits}" + (
+        f", {note}" if note else "")
     library_name = ("torch.matmul f32 on unpacked levels" if op == "pw1x1"
                     else "F.conv2d f32 on unpacked levels")
     print_times(f"{name} {res['work']}",
@@ -1394,33 +1476,52 @@ def time_neureka(torch, F, packing, ops, ref, nkc, qmm, dev, op, shape,
     return res
 
 
-# kernel-name fragments of the N-EUREKA kernels, as the profiler names them
-PROFILE_KERNELS = (("qmm_int8_tiled", "qmatmul_int8 tiled"),
-                   ("qmm_int8_stream", "qmatmul_int8 streaming"),
-                   ("dense3x3", "conv3x3_dense"), ("dw3x3", "conv3x3_dw"))
+def plan_text(plan) -> str:
+    """An ``Int8Plan`` as 'route, splits x kchunk K, blocks'."""
+    return (f"{plan.route}, {plan.splits} x {plan.kchunk} K, "
+            f"{plan.blocks} blocks")
 
 
-def profile_frames(torch, mnv2, frozen, frames, jobs, n: int = 4):
+# kernel-name fragments of the N-EUREKA kernels, as the profiler names them,
+# and the kernel of each job's operator
+PROFILE_KERNELS = (("qmm_int8", "qmatmul_int8"), ("dense3x3", "conv3x3_dense"),
+                   ("dw3x3", "conv3x3_dw"))
+OP_KERNEL = {"pw1x1": "qmatmul_int8", "dense3x3": "conv3x3_dense",
+             "dw3x3": "conv3x3_dw"}
+
+
+def profile_frames(torch, mnv2, qmm, frozen, frames, jobs, n: int = 4):
     """Device time of ``n`` eager frames by kernel and by job, and the
-    device's idle share of the host window, from ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
+    device's idle share of the host window, from ``torch.profiler``.  One
+    frame before them is traced and dropped (the schedule's warm-up step,
+    one cycle), so that the tracer runs before the first kernel it counts.
+    The k-th N-EUREKA kernel is job k mod len(jobs); the phase fails if its
+    name is not that job's operator, or if the per-job times summed by
+    operator differ from the per-kernel sums."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(n):
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=n,
+                                   repeat=1)) as prof:
+        for i in range(n + 1):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
             mnv2.apply(frozen, frames[i], weight_bits=8, img=MNV2_IMG)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+            if i == n:
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            prof.step()
+    # device events, without the schedule's own step annotations
     kernels = sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.name.startswith("ProfilerStep")),
                      key=lambda e: e.time_range.start)
     if not kernels:
-        print("[frames] profiler: no device events recorded; device time "
-              "by kernel not measured")
-        return None
-    by_kernel, by_job = {}, {}
+        raise AssertionError("profile: no device events recorded over the "
+                             f"{n} frames")
+    by_kernel, by_job, others = {}, {}, {}
     busy, end = 0.0, -1.0
     nk = 0
     for e in kernels:
@@ -1430,20 +1531,59 @@ def profile_frames(torch, mnv2, frozen, frames, jobs, n: int = 4):
         label = next((lab for frag, lab in PROFILE_KERNELS if frag in e.name),
                      "other torch ops")
         by_kernel[label] = by_kernel.get(label, 0.0) + (t1_ - t0_) / n
-        if label != "other torch ops":
+        if label == "other torch ops":
+            name = re.sub(r"void |at::native::|\(anonymous namespace\)::|"
+                          r"std::array<[^>]*>", "", e.name)[:64]
+            others[name] = others.get(name, 0.0) + (t1_ - t0_) / n
+        else:
             job = jobs[nk % len(jobs)]
+            if OP_KERNEL[job.op_kind] != label:
+                raise AssertionError(
+                    f"profile: N-EUREKA kernel {nk} is {e.name} ({label}), "
+                    f"but job {job.name} runs {OP_KERNEL[job.op_kind]}")
             by_job[job.name] = by_job.get(job.name, 0.0) + (t1_ - t0_) / n
             nk += 1
+    if nk != n * len(jobs):
+        raise AssertionError(f"profile: {nk} N-EUREKA kernels in {n} frames, "
+                             f"want {len(jobs)} a frame")
+    by_op = {}
+    for job in jobs:
+        lab = OP_KERNEL[job.op_kind]
+        by_op[lab] = by_op.get(lab, 0.0) + by_job[job.name]
+    for lab, t in by_op.items():
+        if abs(t - by_kernel[lab]) > 1e-6 * max(1.0, by_kernel[lab]):
+            raise AssertionError(f"profile: {lab}'s jobs add up to {t:.3f} "
+                                 f"us a frame, its kernels to "
+                                 f"{by_kernel[lab]:.3f}")
     span = kernels[-1].time_range.end - kernels[0].time_range.start
+    top = dict(sorted(((k, round(v, 2)) for k, v in others.items()),
+                      key=lambda kv: -kv[1])[:4])
     res = dict(busy_us_per_frame=busy / n, wall_us_per_frame=wall_us / n,
                idle_share=1.0 - busy / wall_us, kernel_span_us=span / n,
-               by_kernel_us=by_kernel, n_kernel_launches=nk)
-    print(f"[frames] profiler over {n} eager frames: device busy "
-          f"{busy / n:.1f} us a frame of {wall_us / n:.1f} us on the host "
-          f"clock (idle share {res['idle_share']:.3f}); by kernel (us a "
-          f"frame) {json.dumps({k: round(v, 2) for k, v in by_kernel.items()})}")
-    print(f"[frames] device time by job (us a frame, job order): "
-          f"{json.dumps({k: round(v, 2) for k, v in by_job.items()})}")
+               by_kernel_us=by_kernel, n_kernel_launches=nk,
+               other_ops_us=top)
+    index = frames.device.index
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device() if index is None else index
+    ).multi_processor_count
+    per_job = {}
+    for job in jobs:
+        entry = {"op": OP_KERNEL[job.op_kind],
+                 "us": round(by_job[job.name], 3)}
+        if job.op_kind == "pw1x1":
+            entry["plan"] = plan_text(qmm.int8_plan(
+                job.h * job.w, job.cin, job.cout, sms))
+        per_job[job.name] = entry
+    res["by_job"] = per_job
+    print(f"[frames] profiler over {n} eager frames (after one warm-up frame):"
+          f" device busy {busy / n:.1f} us a frame of {wall_us / n:.1f} us on "
+          f"the host clock (idle share {res['idle_share']:.3f}); by kernel "
+          f"(us a frame) "
+          f"{json.dumps({k: round(v, 2) for k, v in by_kernel.items()})}; "
+          f"the largest other ops (us a frame) {json.dumps(top)}")
+    print(f"[frames] device time by job at 8 bits (us a frame, job order; "
+          f"summed by operator equal to the per-kernel sums): "
+          f"{json.dumps(per_job)}")
     return res
 
 
@@ -1506,7 +1646,7 @@ def run_frames(torch, mnv2, nkc, qmm, dev):
         raise AssertionError("a frame's logits collapsed to one value")
     graph = graph_ms(torch, lambda i: mnv2.apply(
         frozen, frames[i], weight_bits=8, img=MNV2_IMG), 4)
-    profile_frames(torch, mnv2, frozen, frames,
+    profile_frames(torch, mnv2, qmm, frozen, frames,
                    mnv2.job_list(8, MNV2_IMG))
     print(f"[frames] {MNV2_FRAMES} frames at 8 bits: eager wall {wall:.4f} s "
           f"after synchronize ({wall / MNV2_FRAMES * 1e3:.3f} ms a frame), "
@@ -1591,9 +1731,16 @@ def main() -> int:
     jobs = {j.name: j for j in mobilenet_v2_jobs(8, MNV2_IMG)}
     nk_err = check_neureka(torch, packing, ops, ref, nkc, qmm, dev,
                            list(jobs.values()))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = {name: qmm.int8_plan(*job_key(jobs[name])[1], sms)
+             for name in NEUREKA_TIMED if jobs[name].op_kind == "pw1x1"}
     t_nk = {name: time_neureka(torch, F, packing, ops, ref, nkc, qmm, dev,
-                               *job_key(jobs[name]), name)
-            for name in ("b1.pw_exp", "conv_last", "conv0", "b1.dw")}
+                               *job_key(jobs[name]), name,
+                               plan_text(plans[name]) if name in plans
+                               else "")
+            for name in NEUREKA_TIMED}
+    for name, plan in plans.items():
+        t_nk[name].update(launch_route=plan.route, plan=plan._asdict())
     scan_err = check_scan(torch, ref, ssm, dev)
     t_scan = {"prefill": time_scan(torch, ref, ssm, dev, 64),
               "decode": time_scan(torch, ref, ssm, dev, 1)}
@@ -1688,7 +1835,9 @@ def main() -> int:
                      bound_by=t["bound_by"], library_ms=t["library_ms"],
                      eager_ms=t["eager_ms"], work=t["work"])
         if name == "qmatmul_int8":
-            entry["conv_last"] = t_nk["conv_last"]
+            entry.update(launch_route=t["launch_route"], plan=t["plan"],
+                         b14_pw_proj=t_nk["b14.pw_proj"],
+                         conv_last=t_nk["conv_last"], fc=t_nk["fc"])
         kernels.append(entry)
     t = t_scan["prefill"]
     kernels.append(dict(

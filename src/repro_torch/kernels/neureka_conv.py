@@ -5,7 +5,9 @@ supports (paper §II-C) over HWC uint8 maps with packed 2/4/8-bit weights
 and the per-channel NORMQUANT requant to uint8.
 
 - ``conv3x3_dense`` (``_dense3x3_kernel``) and ``conv3x3_dw``
-  (``_dw3x3_kernel``) launch ``csrc/neureka_conv.cu``;
+  (``_dw3x3_kernel``) launch ``csrc/neureka_conv.cu``; the dense one is an
+  implicit GEMM on the int8 tensor cores, with the block tile that
+  ``dense_plan`` chooses;
 - ``conv1x1`` is the strided slice plus ``qmatmul_int8``
   (``csrc/qmatmul_int8.cu``), as in the reference.
 
@@ -22,11 +24,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.qmatmul import qmatmul_int8
+from repro_torch.kernels.qmatmul import copy_width, qmatmul_int8
 
 _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -39,6 +42,36 @@ def _launcher(name: str, n_ints: int):
     fn.argtypes = [_c_ptr] * 5 + [_c_int] * n_ints + [_c_ptr]
     fn.restype = _c_int
     return fn
+
+
+DENSE_BN = 16        # output channels a dense block
+
+
+class DensePlan(NamedTuple):
+    """A ``conv3x3_dense`` launch: blocks of ``rows`` output rows by ``tw``
+    output pixels (the MMA's M) by DENSE_BN output channels (N)."""
+    rows: int
+    tw: int
+    blocks: int
+
+
+def dense_tile(h: int, w: int, cout: int, stride: int, rows: int,
+               tw: int) -> DensePlan:
+    ho, wo = -(-h // stride), -(-w // stride)
+    return DensePlan(rows, tw, -(-wo // tw) * -(-ho // rows)
+                     * -(-cout // DENSE_BN))
+
+
+def dense_plan(h: int, w: int, cout: int, stride: int) -> DensePlan:
+    """The tile ``conv3x3_dense`` launches for an (h, w) map: output
+    rows cut into equal parts of at most 32 pixels, and as many rows as
+    keep a block within 64 pixels (one 16-pixel MMA tile a warp); conv0
+    gets 2 rows of 28 pixels, 448 blocks.  From conv0's times on an H100
+    SXM (``tools/neureka_ab.py --sweep``): 56-64 pixels by 16 channels
+    beat every wider or taller tile."""
+    ho, wo = -(-h // stride), -(-w // stride)
+    tw = -(-wo // -(-wo // 32))
+    return dense_tile(h, w, cout, stride, max(1, min(ho, 64 // tw)), tw)
 
 
 def _check(name: str, x, packed, mult, bias, bits: int, stride: int,
@@ -77,6 +110,21 @@ def _out(x: torch.Tensor, stride: int, channels: int) -> torch.Tensor:
                        dtype=torch.uint8, device=x.device)
 
 
+def _launch_dense(x, packed, mult, bias, out, bits: int, cin: int,
+                  stride: int, plan: DensePlan):
+    h, w, _ = x.shape
+    cout, cinp = packed.shape[0], packed.shape[3]
+    rc = _launcher("conv3x3_dense", 12)(
+        x.data_ptr(), packed.data_ptr(), mult.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), h, w, cin, cout, cinp, stride, bits, plan.rows,
+        plan.tw, copy_width(w * cin, x.data_ptr()),
+        copy_width(9 * cinp, packed.data_ptr()),
+        copy_width(cout, out.data_ptr(), (16, 8, 4, 2)),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"conv3x3_dense launch failed: CUDA error {rc}")
+
+
 def conv3x3_dense(x: torch.Tensor, packed: torch.Tensor, mult: torch.Tensor,
                   bias: torch.Tensor, *, bits: int, cin: int,
                   stride: int = 1) -> torch.Tensor:
@@ -93,12 +141,8 @@ def conv3x3_dense(x: torch.Tensor, packed: torch.Tensor, mult: torch.Tensor,
     if out.numel() == 0:
         return out
     h, w, _ = x.shape
-    rc = _launcher("conv3x3_dense", 7)(
-        x.data_ptr(), packed.data_ptr(), mult.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), h, w, cin, cout, cinp, stride, bits,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"conv3x3_dense launch failed: CUDA error {rc}")
+    _launch_dense(x, packed, mult, bias, out, bits, cin, stride,
+                  dense_plan(h, w, cout, stride))
     conv3x3_dense.launches += 1
     return out
 

@@ -10,7 +10,8 @@ Ports the three kernels of ``repro/kernels/qmatmul.py``:
   (``csrc/qmatmul_blockscale.cu``);
 - ``qmatmul_int8`` (``_qmatmul_int8_kernel``): uint8 activations, int32
   accumulators and the NORMQUANT requant to uint8, N-EUREKA's pointwise
-  path (``csrc/qmatmul_int8.cu``).
+  path (``csrc/qmatmul_int8.cu``), on the int8 tensor cores with the block
+  tile and K split that ``int8_plan`` chooses per shape.
 
 Packed 2/4/8-bit weights stay packed in device memory; the kernels unpack
 them in registers next to the multiply-adds.  The two f32 kernels run on the
@@ -151,13 +152,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# one zeroed int an N tile for the decode loop's last-block count, a buffer
-# for each (device, stream): a kernel leaves it zeroed, and kernels of one
-# stream never overlap
+# one zeroed int an output tile for the last-block count of a split launch
+# (the decode loop's, qmatmul_int8's), a buffer for each (device, stream): a
+# kernel leaves it zeroed, and kernels of one stream never overlap
 _counters = {}
 
 
-def _decode_counters(device: torch.device, tiles: int) -> torch.Tensor:
+def _tile_counters(device: torch.device, tiles: int) -> torch.Tensor:
     stream = torch.cuda.current_stream(device)
     key = (stream.device_index, stream.cuda_stream)
     buf = _counters.get(key)
@@ -184,7 +185,7 @@ def _tc_scratch(library: str, x: torch.Tensor, packed: torch.Tensor,
         part = torch.empty((splits, n, -(-m // 4) * 4), dtype=torch.float32,
                            device=x.device)
         return (int(decode_aligned(packed)), splits, part,
-                _decode_counters(x.device, -(-n // geo.decode_bn)))
+                _tile_counters(x.device, -(-n // geo.decode_bn)))
     part = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
     return int(tc_aligned(x, packed, bits, geo)), splits, part, None
@@ -217,8 +218,7 @@ def _launcher_blockscale():
 @functools.lru_cache(maxsize=None)
 def _launcher_int8():
     fn = build.library("qmatmul_int8").qmatmul_int8_launch
-    fn.argtypes = [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
-                   _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr]
+    fn.argtypes = [_c_ptr] * 7 + [_c_int] * 11 + [_c_ptr]
     fn.restype = _c_int
     return fn
 
@@ -330,6 +330,102 @@ def qmatmul_f32_blockscale(x: torch.Tensor, packed: torch.Tensor,
 qmatmul_f32_blockscale.launches = 0
 
 
+class Int8Plan(NamedTuple):
+    """One launch of ``csrc/qmatmul_int8.cu``: blocks of INT8_BM rows by
+    INT8_BN columns, K split into ``splits`` ranges of ``kchunk`` (the last
+    block of a tile adds the others' int32 slices).  ``route`` is
+    "mma_direct" (each lane loads its MMA fragments straight into
+    registers; K a multiple of 8 up to INT8_DIRECT_MAX_K, rows on 8 B,
+    unsplit) or "mma_staged" (the tiles copied into shared memory first, at
+    any alignment); ``blocks`` is the grid's size."""
+    route: str
+    splits: int
+    kchunk: int
+    blocks: int
+
+
+INT8_BM, INT8_BN = 64, 16   # a block's tile
+INT8_KSTAGE = 256           # K a staged block holds in shared memory at once
+INT8_DIRECT_MAX_K = 64      # K a direct block holds in registers
+INT8_KUNIT = 64             # a split's K range is whole multiples of this
+INT8_MAX_SPLITS = 16
+
+
+def int8_tile_plan(m: int, k: int, n: int, splits: int = 1,
+                   direct: bool = False) -> Int8Plan:
+    """The launch on a route with K in about ``splits`` ranges: each range
+    whole INT8_KUNITs, as many ranges as that leaves (at least 1)."""
+    tiles = -(-m // INT8_BM) * -(-n // INT8_BN)
+    kchunk = max(k, 0)
+    if splits > 1 and k > INT8_KUNIT:
+        kchunk = -(-(-(-k // splits)) // INT8_KUNIT) * INT8_KUNIT
+    splits = -(-k // kchunk) if kchunk else 1
+    if splits == 1:
+        kchunk = max(k, 0)
+    return Int8Plan("mma_direct" if direct else "mma_staged", splits, kchunk,
+                    tiles * splits)
+
+
+def int8_direct_ok(k: int, aligned: bool) -> bool:
+    """Whether the direct route takes K (a positive multiple of 8, at most
+    INT8_DIRECT_MAX_K) and rows whose x and packed start on 8 B."""
+    return aligned and 0 < k <= INT8_DIRECT_MAX_K and k % 8 == 0
+
+
+def int8_plan(m: int, k: int, n: int, sms: int = 132,
+              aligned: bool = True) -> Int8Plan:
+    """The launch ``qmatmul_int8`` makes for an (m, k) x (k, n) product (of
+    levels at any bit width) on a card with ``sms`` SMs; ``aligned``: x and
+    packed start on 8 B.
+
+    Every MobileNet-V2 job is bound by latency, not by its bytes or MMAs.
+    Per-job times of every route, tile and split on an H100 SXM
+    (``tools/neureka_ab.py --sweep``) set the rule: the direct route where
+    it takes K and the rows, else the staged one; K split into
+    INT8_KSTAGE-wide ranges only where the tiles do not give every SM a
+    block and a staged block would hold its K three times or more.
+    Splitting a shorter K cost more (the slices' second trip through L2)
+    than the blocks it added."""
+    if int8_direct_ok(k, aligned):
+        return int8_tile_plan(m, k, n, direct=True)
+    splits = 1
+    if (-(-m // INT8_BM) * -(-n // INT8_BN) < sms
+            and k > 2 * INT8_KSTAGE):
+        splits = min(-(-k // INT8_KSTAGE), INT8_MAX_SPLITS)
+    return int8_tile_plan(m, k, n, splits)
+
+
+def copy_width(row_bytes: int, ptr: int, widths=(16, 8, 4)) -> int:
+    """The widest copy (of ``widths``, else 1 byte) that every row of
+    ``row_bytes`` bytes from ``ptr`` on starts on: the gate for a kernel's
+    wide reads of x, packed and out."""
+    for w in widths:
+        if row_bytes % w == 0 and ptr % w == 0:
+            return w
+    return 1
+
+
+def _launch_int8(x_q, packed, mult, bias, out, bits: int, plan: Int8Plan):
+    """Launch ``plan`` into ``out``; split launches take an int32 scratch of
+    their slices and the per-stream tile counters."""
+    m, k = x_q.shape
+    n, kp = packed.shape
+    part = counters = None
+    if plan.splits > 1:
+        part = torch.empty(plan.blocks * INT8_BM * INT8_BN, dtype=torch.int32,
+                           device=x_q.device)
+        counters = _tile_counters(x_q.device, plan.blocks // plan.splits)
+    rc = _launcher_int8()(
+        x_q.data_ptr(), packed.data_ptr(), mult.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), _ptr(part), _ptr(counters), m, n, k, kp, bits,
+        int(plan.route == "mma_direct"), plan.splits, plan.kchunk,
+        copy_width(k, x_q.data_ptr()), copy_width(kp, packed.data_ptr()),
+        copy_width(n, out.data_ptr(), (16, 8, 4, 2)),
+        torch.cuda.current_stream(x_q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"qmatmul_int8 launch failed: CUDA error {rc}")
+
+
 def qmatmul_int8(x_q: torch.Tensor, packed: torch.Tensor, mult: torch.Tensor,
                  bias: torch.Tensor, *, bits: int, k_orig: int
                  ) -> torch.Tensor:
@@ -369,13 +465,11 @@ def qmatmul_int8(x_q: torch.Tensor, packed: torch.Tensor, mult: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.uint8, device=x_q.device)
     if m == 0 or n == 0:
         return out
-    aligned = k % 4 == 0 and (x_q.data_ptr() | packed.data_ptr()) % 4 == 0
-    rc = _launcher_int8()(x_q.data_ptr(), packed.data_ptr(), mult.data_ptr(),
-                          bias.data_ptr(), out.data_ptr(), m, n, k, kp, bits,
-                          int(aligned),
-                          torch.cuda.current_stream(x_q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"qmatmul_int8 launch failed: CUDA error {rc}")
+    index = x_q.device.index
+    plan = int8_plan(m, k, n, _sm_count(
+        torch.cuda.current_device() if index is None else index),
+        (x_q.data_ptr() | packed.data_ptr()) % 8 == 0)
+    _launch_int8(x_q, packed, mult, bias, out, bits, plan)
     qmatmul_int8.launches += 1
     return out
 

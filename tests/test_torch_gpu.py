@@ -18,7 +18,8 @@ from repro_torch.core import weight_store as ws  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import neureka_conv as nkc  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.qmatmul import (qmatmul_f32,  # noqa: E402
+from repro_torch.kernels.qmatmul import (int8_plan,  # noqa: E402
+                                         qmatmul_f32,
                                          qmatmul_f32_blockscale,
                                          qmatmul_int8)
 from repro_torch.kernels.ssm_scan import selective_scan  # noqa: E402
@@ -522,3 +523,112 @@ def test_f32_kernels_give_the_same_bits_every_call(cuda, rng, kernel, m, k,
     fn, _, x = _f32_inputs(kernel, rng, m, k, n, 8, cuda)
     first = fn(x)
     assert torch.equal(fn(x), first)
+
+
+# --- qmatmul_int8 and conv3x3_dense on the int8 tensor cores ---------------
+
+def _mnv2_pw_shapes():
+    from repro_torch.core.perf_model import mobilenet_v2_jobs
+    return list(dict.fromkeys((j.h * j.w, j.cin, j.cout)
+                              for j in mobilenet_v2_jobs(8, 224)
+                              if j.op_kind == "pw1x1"))
+
+
+def _split_edges(m, n, odd=False, sms=132, most=3):
+    # (m, k, n) on each side of the first K values where the plan changes its
+    # number of K splits, on a card of `sms` SMs: K multiples of 32 (the
+    # direct route), or one more (odd K: the staged route)
+    ks = [k + int(odd) for k in range(32, 2049, 32)]
+    out, prev = [], int8_plan(m, ks[0], n, sms).splits
+    for lo, k in zip(ks, ks[1:]):
+        splits = int8_plan(m, k, n, sms).splits
+        if splits != prev and len(out) < 2 * most:
+            out += [(m, lo, n), (m, k, n)]
+        prev = splits
+    return out
+
+
+def _int8_case(rng, m, k, n, bits, dev, x=None):
+    if x is None:
+        x = _u8(rng, (m, k), dev)
+    w = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32))
+    packed = ops.prep_linear(w, bits)[0].to(dev)
+    # mult spreads the sums over ~40 LSB, as freeze_packed does
+    mult = torch.full((n,), 40.0 / (128.0 * 40.0 * k ** 0.5),
+                      dtype=torch.float32, device=dev)
+    bias = torch.from_numpy(rng.integers(96, 160, n).astype(np.int32)).to(dev)
+    return x, packed, mult, bias
+
+
+def _int8_equal_twice(x, packed, mult, bias, bits):
+    k = x.shape[1]
+    before = qmatmul_int8.launches
+    first = qmatmul_int8(x, packed, mult, bias, bits=bits, k_orig=k)
+    torch.cuda.synchronize()
+    assert qmatmul_int8.launches == before + 1
+    assert torch.equal(first, ref.qmatmul_int8(x, packed, mult, bias,
+                                               bits=bits, k_orig=k))
+    assert torch.equal(qmatmul_int8(x, packed, mult, bias, bits=bits,
+                                    k_orig=k), first)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("m,k,n", _mnv2_pw_shapes())
+def test_qmatmul_int8_at_the_mobilenet_shapes(cuda, rng, bits, m, k, n):
+    _int8_equal_twice(*_int8_case(rng, m, k, n, bits, cuda), bits)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for k in (16, 24, 33, 130)
+                                   for m, n in ((1, 1000), (49, 160),
+                                                (784, 32))]
+                         + [(1, 8, 3), (5, 4, 1)])
+def test_qmatmul_int8_ragged_k(cuda, rng, bits, m, k, n):
+    _int8_equal_twice(*_int8_case(rng, m, k, n, bits, cuda), bits)
+
+
+@pytest.mark.parametrize("bits", [8, 2])
+@pytest.mark.parametrize("m,k,n", [e for mn in ((49, 160), (1, 1000),
+                                                (196, 96), (49, 1280))
+                                   for odd in (False, True)
+                                   for e in _split_edges(*mn, odd)])
+def test_qmatmul_int8_around_the_split_thresholds(cuda, rng, bits, m, k, n):
+    _int8_equal_twice(*_int8_case(rng, m, k, n, bits, cuda), bits)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("m,k,n", [(49, 320, 1280), (196, 64, 384),
+                                   (1, 1280, 1000), (40, 130, 50)])
+def test_qmatmul_int8_x_at_a_byte_offset(cuda, rng, bits, m, k, n):
+    # x starts one byte into its buffer: the kernel takes byte loads for x
+    buf = _u8(rng, (m * k + 1,), cuda)
+    x = buf[1:].view(m, k)
+    assert x.data_ptr() % 2 == 1 and x.is_contiguous()
+    _int8_equal_twice(*_int8_case(rng, m, k, n, bits, cuda, x=x), bits)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("h,w,cin,cout", [(13, 9, 3, 32), (11, 7, 24, 16),
+                                          (9, 11, 40, 8), (7, 13, 64, 40),
+                                          (225, 223, 3, 32)])
+def test_conv3x3_dense_kernel_at_cin(cuda, rng, bits, stride, h, w, cin,
+                                     cout):
+    x = _u8(rng, (h, w, cin), cuda)
+    wf = torch.from_numpy(rng.normal(size=(cout, 3, 3, cin)).astype(
+        np.float32))
+    packed = ops.prep_conv3x3(wf, bits)[0].to(cuda)
+    mult = torch.full((cout,), 40.0 / (128.0 * 40.0 * (9 * cin) ** 0.5),
+                      dtype=torch.float32, device=cuda)
+    bias = torch.from_numpy(rng.integers(96, 160, cout).astype(np.int32)
+                            ).to(cuda)
+    before = nkc.conv3x3_dense.launches
+    got = nkc.conv3x3_dense(x, packed, mult, bias, bits=bits, cin=cin,
+                            stride=stride)
+    torch.cuda.synchronize()
+    assert nkc.conv3x3_dense.launches == before + 1
+    assert torch.equal(got, ref.conv3x3_dense(x, packed, mult, bias,
+                                              bits=bits, cin=cin,
+                                              stride=stride))
+    assert torch.equal(nkc.conv3x3_dense(x, packed, mult, bias, bits=bits,
+                                         cin=cin, stride=stride), got)

@@ -239,3 +239,139 @@ def test_wrappers_take_cpu_or_cuda_only(name):
     with pytest.raises(ValueError, match="CUDA device"):
         fn(*args, mult, bias, **kw)
     assert fn.launches == before
+
+
+# --- the launch plans and the implicit GEMM of the Hopper kernels ---------
+
+def _mnv2_pw_shapes():
+    from repro_torch.core.perf_model import mobilenet_v2_jobs
+    return list(dict.fromkeys((j.h * j.w, j.cin, j.cout)
+                              for j in mobilenet_v2_jobs(8, 224)
+                              if j.op_kind == "pw1x1"))
+
+
+# every distinct MobileNet-V2 1.0-224 pointwise shape (20 for its 35 jobs),
+# and the ragged shapes chip_smoke.py checks on the card
+INT8_PLAN_SHAPES = _mnv2_pw_shapes() + [(40, 130, 50), (1, 33, 7),
+                                        (63, 130, 17), (17, 33, 7)]
+
+
+@pytest.mark.parametrize("m,k,n", INT8_PLAN_SHAPES)
+def test_int8_plan_covers_k_once(m, k, n):
+    from repro_torch.kernels import qmatmul as qmm
+    for sms in (132, 114):
+        for aligned in (True, False):
+            plan = qmm.int8_plan(m, k, n, sms, aligned)
+            # the splits' K ranges [z * kchunk, min(k, (z + 1) * kchunk))
+            # are non-empty and cover [0, k) exactly once
+            ranges = [(z * plan.kchunk, min(k, (z + 1) * plan.kchunk))
+                      for z in range(plan.splits)]
+            assert all(lo < hi for lo, hi in ranges)
+            covered = np.zeros(k, np.int64)
+            for lo, hi in ranges:
+                covered[lo:hi] += 1
+            assert (covered == 1).all()
+            tiles = -(-m // qmm.INT8_BM) * -(-n // qmm.INT8_BN)
+            if aligned and k % 8 == 0 and k <= qmm.INT8_DIRECT_MAX_K:
+                assert plan.route == "mma_direct" and plan.splits == 1
+            else:
+                # staged (always for unaligned rows); split only where the
+                # tiles leave SMs idle and a block would hold its K three
+                # times or more
+                assert plan.route == "mma_staged"
+                assert plan.splits == 1 or (tiles < sms and k > 512)
+            if plan.splits > 1:
+                assert plan.kchunk % qmm.INT8_KUNIT == 0
+                assert plan.splits <= qmm.INT8_MAX_SPLITS
+            else:
+                assert plan.kchunk == k
+            assert plan.blocks == tiles * plan.splits
+
+
+def _requant_np(acc, mult, bias):
+    # the kernels' requant in numpy f32: rint(f32(acc) * mult) + bias,
+    # rounded apart, half to even, clipped to uint8
+    y = np.rint((acc.astype(np.float32) * mult).astype(np.float32))
+    y = (y + bias.astype(np.float32)).astype(np.float32)
+    return np.clip(y, 0, 255).astype(np.uint8)
+
+
+def _dense_implicit_gemm(x, packed, mult, bias, *, bits, cin, stride):
+    """csrc/neureka_conv.cu::dense3x3_mma in numpy, block by block as
+    dense_plan tiles the map: the staged input rows with their zero halo
+    (the map's bytes from a 16 B boundary, at an offset of round_up(Cin,
+    16)), the table of K offsets (K = 9 * Cin, tap-major then ci, padded
+    with zero levels to a multiple of 32), an im2col gather through it, an
+    int matmul and the requant."""
+    h, w, _ = x.shape
+    cout, cinp = packed.shape[0], packed.shape[3]
+    plan = nkc.dense_plan(h, w, cout, stride)
+    s, f = stride, 8 // bits
+    ho, wo = -(-h // s), -(-w // s)
+    k9 = 9 * cin
+    kp = -(-k9 // 32) * 32
+    left = -(-cin // 16) * 16
+    pitch = -(-(left + ((plan.tw - 1) * s + 3) * cin + 16) // 16) * 16
+    rows = (plan.rows - 1) * s + 3
+    fields = (packed[..., None].astype(np.int64) >> (bits * np.arange(f))) \
+        & ((1 << bits) - 1)
+    levels = fields.reshape(cout, 9, cinp * f)[:, :, :cin] - (1 << (bits - 1))
+    wk = np.zeros((cout, kp), np.int64)
+    wk[:, :k9] = levels.reshape(cout, k9)
+    kk = np.arange(k9)
+    tap, ci = kk // cin, kk % cin
+    koff = np.zeros(kp, np.int64)
+    koff[:k9] = (tap // 3) * pitch + (tap % 3 - 1) * cin + ci
+    flat = x.reshape(h, w * cin).astype(np.int64)
+    out = np.zeros((ho, wo, cout), np.uint8)
+    for oh0 in range(0, ho, plan.rows):
+        for ow0 in range(0, wo, plan.tw):
+            ih0 = oh0 * s - 1
+            c_lo = max(0, ow0 * s - 1)
+            c_hi = min(w, (ow0 + plan.tw - 1) * s + 2)
+            b_lo = c_lo * cin // 16 * 16
+            b_hi = min(w * cin, -(-(c_hi * cin) // 16) * 16)
+            xs = np.zeros((rows, pitch), np.int64)
+            for q in range(rows):
+                if 0 <= ih0 + q < h:
+                    xs[q, left:left + b_hi - b_lo] = flat[ih0 + q, b_lo:b_hi]
+            pix = [(r, c) for r in range(plan.rows) for c in range(plan.tw)
+                   if oh0 + r < ho and ow0 + c < wo]
+            base = np.array([left + (ow0 + c) * s * cin - b_lo + r * s * pitch
+                             for r, c in pix])
+            a = xs.reshape(-1)[base[:, None] + koff[None, :]]   # im2col
+            y = _requant_np(a @ wk.T, mult, bias)
+            for (r, c), row in zip(pix, y):
+                out[oh0 + r, ow0 + c] = row
+    return out
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("hwc", [(12, 10, 24, 16), (7, 7, 3, 32),
+                                 (9, 11, 40, 8)])
+def test_dense_implicit_gemm_matches_reference(rng, bits, stride, hwc):
+    h, w_, cin, cout = hwc
+    x = rng.integers(0, 255, (h, w_, cin)).astype(np.uint8)
+    wf = rng.normal(size=(cout, 3, 3, cin)).astype(np.float32)
+    packed, _ = jops.prep_conv3x3(jnp.asarray(wf), bits)
+    mult, bias = _requant_operands(rng, cout)
+    args = (jnp.asarray(x), packed, jnp.asarray(mult), jnp.asarray(bias))
+    pallas = jnkc.conv3x3_dense(*args, bits=bits, cin=cin, stride=stride,
+                                bco=16, bci=8, interpret=True)
+    got = _dense_implicit_gemm(x, np.asarray(packed), mult, bias, bits=bits,
+                               cin=cin, stride=stride)
+    _assert_equal(torch.from_numpy(got), pallas)
+
+
+@pytest.mark.parametrize("shape", [(224, 224, 3, 32, 2), (12, 10, 24, 16, 1),
+                                   (7, 7, 3, 32, 2), (9, 11, 40, 8, 2),
+                                   (13, 7, 64, 40, 1), (112, 112, 32, 64, 1)])
+def test_dense_plan_tiles_the_map(shape):
+    h, w, cin, cout, s = shape
+    plan = nkc.dense_plan(h, w, cout, s)
+    ho, wo = -(-h // s), -(-w // s)
+    assert 1 <= plan.rows <= ho and 1 <= plan.tw <= wo
+    assert plan.rows * plan.tw <= 64 and plan.tw <= 32
+    assert plan.blocks == (-(-wo // plan.tw) * -(-ho // plan.rows)
+                           * -(-cout // nkc.DENSE_BN))
