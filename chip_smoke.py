@@ -13,14 +13,20 @@ fails:
    and power limit, builds every ``csrc/*.cu`` with nvcc for sm_90a (one
    nvcc each, in parallel), prints what ptxas reports for each kernel and
    fails if the tensor-core kernels of the f32 matmuls (``qmm_dec``,
-   ``bs_dec`` for M <= 16, ``qmm_tc``, ``bs_tc`` above) or the int8 MMA
-   kernels (``qmm_int8_direct``, ``qmm_int8_staged``, ``dense3x3_mma``)
-   spill, or if ``cuobjdump
-   --dump-sass`` finds no ``IMMA`` in an int8 MMA kernel;
+   ``bs_dec`` for M <= 16, ``qmm_tc``, ``bs_tc`` above), the flash kernel
+   (``flash_fwd_tc``), the scan's two routes (``scan_step``,
+   ``scan_chunked``) or the int8 MMA kernels (``qmm_int8_direct``,
+   ``qmm_int8_staged``, ``dense3x3_mma``) spill, or if ``cuobjdump
+   --dump-sass`` finds no ``IMMA`` in an int8 MMA kernel or no TF32
+   ``HMMA`` in the flash kernel;
 2. each Hopper kernel against its plain PyTorch version on the card, at the
    shapes its path gives it: ``qmatmul_f32``, ``flash_attention`` and
-   ``selective_scan`` within the stated tolerances (the scan also at a
-   ragged S, with and without h0, and its dt = 0 pads bit-exact no-ops);
+   ``selective_scan`` within the stated tolerances (flash at each tile the
+   kernel holds, with GQA 2 and 5, windows, hymba's long prompt and rows
+   that see no key, and two calls bit-equal; the scan also at a ragged S,
+   with and without h0, at N 4 / 8 / 32 on a ragged Di, on each side of
+   its route threshold, and its dt = 0 pads bit-exact no-ops on both
+   routes);
    ``qmatmul_int8``, ``conv3x3_dense`` and ``conv3x3_dw`` bit for bit
    (``torch.equal``) at every distinct MobileNet-V2 job shape at 224, at 8,
    4 and 2 bits, at the ragged shapes of the reference's kernel tests (and
@@ -32,10 +38,13 @@ fails:
    plain version, one PyTorch library call for the same function where
    there is one, and its bound: bytes over 3.35 TB/s, or operations over
    67 TFLOP/s (f32), 1,979 TOP/s (int8 tensor cores) or the SFUs'
-   exponential rate, whichever is larger; the f32 matmuls at their own
-   route, two TF32 passes at 495 TFLOP/s (the bytes bind at decode), with
-   the f32 CUDA-core bound beside it.  Besides qwen3-0.6b's layer,
-   falcon-mamba-7b's four linears of a layer are timed at M = 4 and 256.
+   exponential rate, whichever is larger; the f32 matmuls and flash
+   attention at their own route, two (matmuls) or three (flash) TF32
+   passes at 495 TFLOP/s, with the f32 CUDA-core bound beside it.  Besides
+   qwen3-0.6b's layer, falcon-mamba-7b's four linears of a layer are timed
+   at M = 4 and 256; flash at qwen3-0.6b's prefill chunk and hymba-1.5b's
+   longest prompt; the scan at falcon-mamba-7b's and hymba-1.5b's prefill
+   and decode.
    Device times replay a CUDA graph of the calls, so the host's
    launch gaps drop out; the same calls enqueued eagerly from Python are
    printed beside them;
@@ -49,7 +58,8 @@ fails:
    of the family's kernels are set to 0 before and must have grown after;
 4. after each serve: the same requests again on a fresh engine under
    ``torch.profiler``, with every call the model code makes to
-   ``qmatmul_f32``, ``flash_attention`` and ``selective_scan`` noted; each
+   ``qmatmul_f32``, ``flash_attention`` and ``selective_scan`` noted (and
+   counted: flash launches by shape, scan launches by route); each
    kernel is then held against its plain version at every distinct call
    shape (and window, offsets, h0 use) of that serve, on random inputs.
    Then card vs CPU: ``forward`` logits of one 64-token sequence with the
@@ -158,12 +168,17 @@ LAYER_LINEARS = {"wq": (1024, 2048), "wk": (1024, 1024), "wv": (1024, 1024),
 FALCON_LINEARS = {"in_proj": (4096, 16384), "x_proj": (8192, 288),
                   "dt_proj": (256, 8192), "out_proj": (8192, 4096)}
 # the tensor-core kernels of the f32 matmuls: decode, M <= 16
-# (csrc/qmm_decode.cuh), and M > 16 (csrc/qmm_tc.cuh)
-TC_KERNELS = ("qmm_dec", "bs_dec", "qmm_tc", "bs_tc")
-# the int8 MMA kernels (csrc/int8_mma.cuh) and the libraries they are in
-INT8_MMA_KERNELS = {"qmm_int8_direct": "qmatmul_int8",
-                    "qmm_int8_staged": "qmatmul_int8",
-                    "dense3x3_mma": "neureka_conv"}
+# (csrc/qmm_decode.cuh), and M > 16 (csrc/qmm_tc.cuh); the flash kernel; the
+# scan's two routes (csrc/ssm_scan.cu)
+TC_KERNELS = ("qmm_dec", "bs_dec", "qmm_tc", "bs_tc", "flash_fwd_tc")
+SCAN_KERNELS = ("scan_step", "scan_chunked")
+# the kernels whose SASS must hold their tensor-core op: {function name
+# fragment: (library, the op's tokens)}; the int8 MMA kernels
+# (csrc/int8_mma.cuh) IMMA, the flash kernel a TF32 HMMA
+MMA_OPS = {"qmm_int8_direct": ("qmatmul_int8", ("IMMA",)),
+           "qmm_int8_staged": ("qmatmul_int8", ("IMMA",)),
+           "dense3x3_mma": ("neureka_conv", ("IMMA",)),
+           "flash_fwd_tc": ("flash_attention", ("HMMA", "TF32"))}
 
 
 def card_line() -> str:
@@ -245,11 +260,12 @@ def bound_ms(nbytes: float, ops: float, rate: float = F32_FLOPS_PER_S):
 
 def phase_build(build):
     """Build every kernel, print what ptxas reports, and fail if a
-    tensor-core kernel spills or an int8 MMA kernel has no IMMA."""
+    tensor-core or scan kernel spills or an MMA kernel's SASS lacks its
+    tensor-core op."""
     t0 = time.perf_counter()
     build.build_all()
     print(f"[build] nvcc sm_90a, {time.perf_counter() - t0:.2f} s")
-    checked = tuple(TC_KERNELS) + tuple(INT8_MMA_KERNELS)
+    checked = TC_KERNELS + SCAN_KERNELS + tuple(MMA_OPS)
     spills = []
     for name, report in build.ptxas_reports().items():
         func = None
@@ -264,37 +280,41 @@ def phase_build(build):
                     and any(int(b) for b in spilled)):
                 spills.append(f"{func}: {line.strip()}")
     if spills:
-        raise AssertionError("the tensor-core kernels spill:\n"
+        raise AssertionError("the tensor-core or scan kernels spill:\n"
                              + "\n".join(spills))
-    imma = sass_imma(build)
-    print(f"[build] cuobjdump: IMMA instructions in each int8 MMA kernel "
-          f"{json.dumps(imma)}")
-    for frag in INT8_MMA_KERNELS:
-        mine = {f: c for f, c in imma.items() if frag in f}
+    ops = sass_mma(build)
+    print(f"[build] cuobjdump: tensor-core ops in each MMA kernel "
+          f"{json.dumps(ops)}")
+    for frag, (_, tokens) in MMA_OPS.items():
+        mine = {f: c for f, c in ops.items() if frag in f}
         if not mine or not all(mine.values()):
-            raise AssertionError(f"{frag}: no IMMA in its SASS: {mine}")
+            raise AssertionError(f"{frag}: no {' '.join(tokens)} in its "
+                                 f"SASS: {mine}")
 
 
-def sass_imma(build) -> dict:
-    """{int8 MMA kernel function: its count of IMMA instructions} from
-    ``cuobjdump --dump-sass`` of the built libraries."""
+def sass_mma(build) -> dict:
+    """{MMA kernel function: its count of instructions with all of its
+    op's tokens (``MMA_OPS``)} from ``cuobjdump --dump-sass`` of the built
+    libraries."""
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
     counts = {}
-    for lib in sorted(set(INT8_MMA_KERNELS.values())):
+    for lib in sorted({lib for lib, _ in MMA_OPS.values()}):
         sass = subprocess.run([str(tool), "--dump-sass",
                                str(build.BUILD_DIR / f"{lib}.so")],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
-        func = None
+        func = tokens = None
         for line in sass.splitlines():
             hit = re.search(r"Function : (\S+)", line)
             if hit:
                 func = hit.group(1)
-                if not any(k in func for k in INT8_MMA_KERNELS):
+                tokens = next((t for frag, (lb, t) in MMA_OPS.items()
+                               if lb == lib and frag in func), None)
+                if tokens is None:
                     func = None
                 else:
                     counts[func] = 0
-            elif func is not None and "IMMA" in line:
+            elif func is not None and all(t in line for t in tokens):
                 counts[func] += 1
     return counts
 
@@ -329,45 +349,67 @@ def check_qmatmul(torch, ops, ref, qmm, dev) -> float:
 
 
 FLASH_CASES = [
-    # b, hq, hkv, sq, sk, d, window, per-row q_offset (None: sk - sq)
-    (4, 16, 8, 64, 512, 128, None, (0, 64, 192, 448)),
-    (4, 16, 8, 16, 256, 128, None, (3, 40, 77, 240)),
-    (4, 16, 8, 64, 64, 128, None, None),
-    (4, 16, 8, 64, 512, 128, 96, (0, 100, 300, 448)),
+    # b, hq, hkv, sq, sk, d, window, per-row q_offset (None: sk - sq), causal
+    (4, 16, 8, 64, 512, 128, None, (0, 64, 192, 448), True),   # qwen3, timed
+    (4, 16, 8, 16, 256, 128, None, (3, 40, 77, 240), True),
+    (4, 16, 8, 64, 64, 128, None, None, True),
+    (4, 16, 8, 64, 512, 128, 96, (0, 100, 300, 448), True),
+    # hymba-1.5b's longest prompt (1,035 tokens + 128 meta tokens, all four
+    # rows alike, as the engine pads a group), window 1,024; timed
+    (4, 25, 5, 1163, 2048, 64, 1024, (0, 0, 0, 0), True),
+    # rows that see no key (the mean of v): Sq > Sk at the default offset
+    # (whole blocks and a mixed one), a window past the keys' end, and one
+    # row of a block whose kv range spans two slices
+    (2, 4, 2, 100, 24, 64, None, None, True),
+    (2, 8, 8, 32, 64, 32, 16, (0, 70), True),
+    (1, 2, 2, 64, 280, 16, 40, (256,), False),
 ]
+FLASH_TIMED = {"qwen3": 0, "hymba": 4}     # FLASH_CASES rows timed
+
+
+def flash_inputs(torch, gen, dev, case):
+    b, hq, hkv, sq, sk, d, window, offs, causal = case
+    q = torch.randn((b, hq, sq, d), generator=gen, device=dev)
+    k = torch.randn((b, hkv, sk, d), generator=gen, device=dev)
+    v = torch.randn((b, hkv, sk, d), generator=gen, device=dev)
+    off = None if offs is None else torch.tensor(offs, dtype=torch.int32,
+                                                 device=dev)
+    return q, k, v, dict(causal=causal, window=window, q_offset=off)
 
 
 def check_flash(torch, ref, fa, dev) -> float:
+    """Each FLASH_CASES row at its plan against the plain version; the call
+    twice, bit-equal."""
     gen = torch.Generator(device=dev).manual_seed(2)
     worst = 0.0
-    for b, hq, hkv, sq, sk, d, window, offs in FLASH_CASES:
-        q = torch.randn((b, hq, sq, d), generator=gen, device=dev)
-        k = torch.randn((b, hkv, sk, d), generator=gen, device=dev)
-        v = torch.randn((b, hkv, sk, d), generator=gen, device=dev)
-        off = None if offs is None else torch.tensor(offs, dtype=torch.int32,
-                                                     device=dev)
-        got = fa.flash_attention(q, k, v, causal=True, window=window,
-                                 q_offset=off)
-        expect = ref.flash_attention(q, k, v, causal=True, window=window,
-                                     q_offset=off)
+    for case in FLASH_CASES:
+        q, k, v, kw = flash_inputs(torch, gen, dev, case)
+        expect = ref.flash_attention(q, k, v, **kw)
+        got = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         err = (got - expect).abs().max().item()
         worst = max(worst, err)
         if not torch.allclose(got, expect, **FLASH_TOL):
-            raise AssertionError(f"flash_attention case {(b, hq, hkv, sq, sk, d, window, offs)}:"
-                                 f" max abs err {err}")
-    print(f"[check] flash_attention: {len(FLASH_CASES)} cases (GQA 16/8, "
-          f"per-row q_offset, causal, one windowed), max abs err "
-          f"{worst:.3e}, tolerance {FLASH_TOL}")
+            raise AssertionError(f"flash_attention case {case}: max abs err "
+                                 f"{err}")
+        if not torch.equal(got, fa.flash_attention(q, k, v, **kw)):
+            raise AssertionError(f"flash_attention case {case}: two calls "
+                                 "differ")
+        del q, k, v, expect, got
+    print(f"[check] flash_attention: {len(FLASH_CASES)} cases (GQA 16/8 and "
+          f"25/5, per-row q_offset, causal and not, windows, hymba's long "
+          f"prompt, rows that see no key), max abs err {worst:.3e}, "
+          f"tolerance {FLASH_TOL}; each call twice, bit-equal")
     return worst
 
 
 def route_bound(res, nbytes: float, flops: float, passes: int):
-    """The f32 matmuls run on the tensor cores at every M, ``passes`` TF32
-    MMAs for each f32 multiply-add: ``bound_ms`` is that route's bound (the
-    bytes bind at decode, the operations at prefill), with both figures
-    beside it (``bytes_ms``, ``tf32_ops_ms``) and the f32 CUDA-core bound in
-    ``bound_f32_ms``."""
+    """The f32 matmuls and flash attention run on the tensor cores,
+    ``passes`` TF32 MMAs for each f32 multiply-add: ``bound_ms`` is that
+    route's bound (the bytes bind at decode, the operations at prefill),
+    with both figures beside it (``bytes_ms``, ``tf32_ops_ms``) and the f32
+    CUDA-core bound in ``bound_f32_ms``."""
+    res["tf32_passes"] = passes
     res["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
     res["tf32_ops_ms"] = passes * flops / TF32_FLOPS_PER_S * 1e3
     res["bound_f32_ms"], res["bound_f32_by"] = bound_ms(nbytes, flops)
@@ -494,46 +536,70 @@ def time_blockscale(torch, packing, ref, qmm, dev, m: int, linears,
     return res
 
 
-def time_flash(torch, F, ref, fa, dev, copies: int = 4):
-    """The main prefill shape: 4 rows x 16/8 heads, a 64-query chunk over a
-    512-row kv span at per-row offsets; k/v rotate over 4 x 16.8 MB."""
-    b, hq, hkv, sq, sk, d, window, offs = FLASH_CASES[0]
+def flash_work(case):
+    """(bytes, flops) that one call needs with this case's data: q read and
+    the output written once, each kv head's keys that its batch row's
+    queries can see read once, 4 D flops a visible (query, key) pair."""
+    b, hq, hkv, sq, sk, d, window, offs, causal = case
+    offs = offs if offs is not None else (sk - sq,) * b
+    nbytes, pairs = 2 * b * hq * sq * d * 4 + b * 4, 0
+    for o in offs:
+        lo_all, hi_all = sk, 0
+        for i in range(sq):
+            hi = min(sk, o + i + 1) if causal else sk
+            lo = max(0, o + i - window + 1) if window else 0
+            if hi > lo:
+                pairs += hq * (hi - lo)
+                lo_all, hi_all = min(lo_all, lo), max(hi_all, hi)
+        nbytes += 2 * hkv * max(0, hi_all - lo_all) * d * 4
+    return nbytes, 4 * d * pairs
+
+
+def time_flash(torch, F, ref, fa, dev, which: str = "qwen3",
+               copies: int = 4):
+    """A timed FLASH_CASES row (qwen3-0.6b's prefill chunk: 4 rows x 16/8
+    heads, 64 queries over a 512-row kv span at per-row offsets; hymba-
+    1.5b's longest prompt: 4 rows x 25/5 heads, 1,163 queries, window
+    1,024) on ``copies`` input sets in turn (more than the 50 MB L2).  The
+    library call is ``F.scaled_dot_product_attention`` with the same
+    boolean mask, on k and v expanded to Hq heads outside the timing."""
+    case = FLASH_CASES[FLASH_TIMED[which]]
+    b, hq, hkv, sq, sk, d, window, offs, causal = case
     gen = torch.Generator(device=dev).manual_seed(4)
-    off = torch.tensor(offs, dtype=torch.int32, device=dev)
-    qpos = off[:, None] + torch.arange(sq, device=dev)
-    mask = (torch.arange(sk, device=dev)[None, None] <= qpos[..., None])
     sets = []
     for _ in range(copies):
-        q = torch.randn((b, hq, sq, d), generator=gen, device=dev)
-        k = torch.randn((b, hkv, sk, d), generator=gen, device=dev)
-        v = torch.randn((b, hkv, sk, d), generator=gen, device=dev)
+        q, k, v, kw = flash_inputs(torch, gen, dev, case)
         # the library call takes equal head counts: expand outside timing
         ke = k.repeat_interleave(hq // hkv, dim=1)
         ve = v.repeat_interleave(hq // hkv, dim=1)
         sets.append((q, k, v, ke, ve))
+    off = kw["q_offset"]
+    qpos = off[:, None] + torch.arange(sq, device=dev)
+    kpos = torch.arange(sk, device=dev)[None, None]
+    mask = torch.ones((b, sq, sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kpos <= qpos[..., None]
+    if window:
+        mask &= kpos > qpos[..., None] - window
 
     def kernel(i):
         q, k, v, _, _ = sets[i % copies]
-        fa.flash_attention(q, k, v, causal=True, q_offset=off)
+        fa.flash_attention(q, k, v, **kw)
 
     def plain(i):
         q, k, v, _, _ = sets[i % copies]
-        ref.flash_attention(q, k, v, causal=True, q_offset=off)
+        ref.flash_attention(q, k, v, **kw)
 
     def library(i):
         q, _, _, ke, ve = sets[i % copies]
         F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask[:, None])
 
-    res = time_versions(torch, kernel, plain, library, copies, 50)
-    # what this run's data needs: keys up to each row's causal frontier
-    keys = [min(sk, o + sq) for o in offs]
-    pairs = sum(min(sk, o + i + 1) for o in offs for i in range(sq)) * hq
-    nbytes = (2 * b * hq * sq * d * 4 + b * 4
-              + sum(2 * hkv * kk * d * 4 for kk in keys))
-    flops = 4 * d * pairs
-    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
-    print_times(f"flash_attention B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} "
-                f"D={d} offsets={offs}",
+    res = time_versions(torch, kernel, plain, library, copies, 20)
+    nbytes, flops = flash_work(case)
+    route_bound(res, nbytes, flops, 3)
+    res["work"] = (f"{which}: B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} D={d} "
+                   f"window={window} offsets={offs}")
+    print_times(f"flash_attention {res['work']}",
                 "F.scaled_dot_product_attention, same mask", res, nbytes,
                 flops)
     return res
@@ -543,11 +609,12 @@ def print_times(what: str, library: str, res, nbytes: int, flops: int,
                 ops: str = "flop"):
     def ms(key):
         return "none" if res[key] is None else f"{res[key]:.4f}"
-    f32 = (f" (bytes {res['bytes_ms']:.4f}, 2 x TF32 operations "
+    passes = res.get("tf32_passes")
+    f32 = (f" (bytes {res['bytes_ms']:.4f}, {passes} x TF32 operations "
            f"{res['tf32_ops_ms']:.4f}); f32 CUDA-core bound "
            f"{res['bound_f32_ms']:.4f} ({res['bound_f32_by']})"
            if "bound_f32_ms" in res else "")
-    route = " at the 2 x TF32 route" if f32 else ""
+    route = f" at the {passes} x TF32 route" if f32 else ""
     print(f"[time] {what}: device (graph replay) kernel_ms "
           f"{res['ms_runs'][0]:.4f}/{res['ms_runs'][1]:.4f} plain_ms "
           f"{res['plain_ms']:.4f} library_ms ({library}) "
@@ -559,11 +626,18 @@ def print_times(what: str, library: str, res, nbytes: int, flops: int,
 
 
 # bsz, S, Di, N, with h0: the falcon-mamba prefill chunk and decode step at
-# 4 slots, a ragged S, a hymba prefill and decode
+# 4 slots, a ragged S, a hymba prefill and decode, and N = 4, 8 and 32 at a
+# ragged Di; check_scan adds S on each side of the route threshold
 SCAN_CASES = [(4, 64, 8192, 16, True), (4, 64, 8192, 16, False),
               (4, 1, 8192, 16, True), (4, 1, 8192, 16, False),
               (4, 37, 8192, 16, True), (4, 157, 3200, 16, True),
-              (4, 1, 3200, 16, True)]
+              (4, 1, 3200, 16, True), (3, 37, 1001, 4, True),
+              (3, 37, 1001, 8, False), (3, 37, 1001, 32, True),
+              (2, 1, 1001, 4, True), (2, 1, 1001, 32, False)]
+# the scan shapes timed: falcon-mamba-7b's prefill chunk and decode step,
+# hymba-1.5b's longest prompt and decode step, 4 slots each
+SCAN_TIMED = {"falcon_prefill": (4, 64, 8192), "falcon_decode": (4, 1, 8192),
+              "hymba_prefill": (4, 1163, 3200), "hymba_decode": (4, 1, 3200)}
 
 
 def scan_inputs(torch, gen, dev, bsz, s, di, n, h0):
@@ -581,7 +655,9 @@ def scan_inputs(torch, gen, dev, bsz, s, di, n, h0):
 def check_scan(torch, ref, ssm, dev) -> float:
     gen = torch.Generator(device=dev).manual_seed(8)
     worst = 0.0
-    for case in SCAN_CASES:
+    edge = ssm.STEP_MAX_S
+    cases = SCAN_CASES + [(4, s, 8192, 16, True) for s in (edge, edge + 1)]
+    for case in cases:
         args = scan_inputs(torch, gen, dev, *case)
         (y, h), (y_ref, h_ref) = ssm.selective_scan(*args), \
             ref.selective_scan(*args)
@@ -591,34 +667,42 @@ def check_scan(torch, ref, ssm, dev) -> float:
         worst = max(worst, err)
         if not (torch.allclose(y, y_ref, **SCAN_TOL)
                 and torch.allclose(h, h_ref, **SCAN_TOL)):
-            raise AssertionError(f"selective_scan {case}: max abs err {err}")
-    # pads (dt = 0) are exact no-ops: h_last after [real, pads] equals
-    # h_last after the real tokens alone
-    x, dt, A, B, C, D, h0 = scan_inputs(torch, gen, dev, 4, 64, 8192, 16,
-                                        True)
-    real = 37
-    dt_pad = dt.clone()
-    dt_pad[:, real:] = 0
-    _, h_pad = ssm.selective_scan(x, dt_pad, A, B, C, D, h0)
-    _, h_real = ssm.selective_scan(x[:, :real].contiguous(),
-                                   dt[:, :real].contiguous(), A,
-                                   B[:, :real], C[:, :real], D, h0)
-    torch.cuda.synchronize()
-    if not torch.equal(h_pad, h_real):
-        raise AssertionError("selective_scan: dt = 0 pads changed h_last")
-    print(f"[check] selective_scan: {len(SCAN_CASES)} cases (falcon-mamba "
+            raise AssertionError(f"selective_scan {case} "
+                                 f"{ssm.scan_plan(case[1], case[3])}: max "
+                                 f"abs err {err}")
+    # pads (dt = 0) are exact no-ops at each route: h_last after [real,
+    # pads] equals h_last after the real tokens alone (h0 after none)
+    routes = set()
+    for s_all, real in ((64, 37), (edge + 1, edge), (edge, 0)):
+        x, dt, A, B, C, D, h0 = scan_inputs(torch, gen, dev, 4, s_all, 8192,
+                                            16, True)
+        dt_pad = dt.clone()
+        dt_pad[:, real:] = 0
+        _, h_pad = ssm.selective_scan(x, dt_pad, A, B, C, D, h0)
+        h_real = h0 if real == 0 else ssm.selective_scan(
+            x[:, :real].contiguous(), dt[:, :real].contiguous(), A,
+            B[:, :real], C[:, :real], D, h0)[1]
+        torch.cuda.synchronize()
+        if not torch.equal(h_pad, h_real):
+            raise AssertionError(f"selective_scan: dt = 0 pads changed "
+                                 f"h_last (S={s_all}, {real} real steps)")
+        routes.add(ssm.scan_plan(s_all, 16).route)
+    if routes != {"step", "chunked"}:
+        raise AssertionError(f"pads checked on routes {routes} only")
+    print(f"[check] selective_scan: {len(cases)} cases (falcon-mamba "
           f"prefill 4x64x8192 and decode 4x1x8192 with and without h0, "
-          f"ragged S=37, hymba 4x157x3200 and 4x1x3200), max abs err "
-          f"{worst:.3e}, tolerance {SCAN_TOL}; {64 - real} dt=0 pads leave h_last "
-          f"equal (torch.equal)")
+          f"ragged S=37, hymba 4x157x3200 and 4x1x3200, N 4/8/32 at Di "
+          f"1001, S {edge} and {edge + 1} on each side of the route "
+          f"threshold), max abs err {worst:.3e}, tolerance {SCAN_TOL}; dt=0 "
+          f"pads leave h_last equal (torch.equal) on both routes")
     return worst
 
 
-def time_scan(torch, ref, ssm, dev, s: int, bsz: int = 4, di: int = 8192,
-              n: int = 16):
-    """One falcon-mamba layer's scan at 4 slots (S = 64: a prefill chunk;
-    S = 1: a decode step), from h0, inputs rotated over more than 50 MB.
-    No PyTorch call computes a selective scan, so there is no library time."""
+def time_scan(torch, ref, ssm, dev, which: str, n: int = 16):
+    """One layer's scan at a SCAN_TIMED shape, from h0, inputs rotated over
+    more than 50 MB.  No PyTorch call computes a selective scan, so there
+    is no library time."""
+    bsz, s, di = SCAN_TIMED[which]
     gen = torch.Generator(device=dev).manual_seed(9)
     nbytes = 4 * (3 * bsz * s * di + 2 * bsz * s * n + di * n + di
                   + 2 * bsz * di * n)
@@ -627,11 +711,14 @@ def time_scan(torch, ref, ssm, dev, s: int, bsz: int = 4, di: int = 8192,
             for _ in range(copies)]
     res = time_versions(torch, lambda i: ssm.selective_scan(*sets[i % copies]),
                         lambda i: ref.selective_scan(*sets[i % copies]),
-                        None, copies, 50)
+                        None, copies, 20)
     exps = bsz * s * di * n
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, exps, MUFU_PER_S)
-    res["work"] = f"Bz={bsz} S={s} Di={di} N={n}, from h0"
-    print_times(f"selective_scan {res['work']}",
+    res["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    res["exp_ms"] = exps / MUFU_PER_S * 1e3
+    res["route"] = ssm.scan_plan(s, n).route
+    res["work"] = f"{which}: Bz={bsz} S={s} Di={di} N={n}, from h0"
+    print_times(f"selective_scan {res['work']} ({res['route']} route)",
                 "none: no single PyTorch call computes a selective scan",
                 res, nbytes, exps, "exp")
     return res
@@ -656,8 +743,8 @@ def recording(torch, ops):
     ``kernels/ops.py``, which calls each wrapper through its kernel module;
     those module references are put behind recorders that call the wrapper
     unchanged (so its launch count moves as usual) and are restored after.
-    Yields {kernel name: [call key, ...]}; per-row query offsets are kept
-    as device tensors until the block ends, so nothing syncs."""
+    Yields {kernel name: [call key, ...]}; per-row query offsets are kept as
+    device tensors until the block ends, so nothing syncs."""
     calls = {"qmatmul_f32": [], "qmatmul_f32_blockscale": [],
              "flash_attention": [], "selective_scan": []}
     qmm, fa, ssm = ops._qmm, ops._fa, ops._ssm
@@ -802,6 +889,33 @@ def check_path(torch, ops, ref, qmm, fa, ssm, dev, arch: str, calls):
                 max_abs_err=worst)
 
 
+# the wrappers that also split their launches, with the attribute that
+# holds the split: flash attention by (Sq, Sk), the scan by route
+SPLIT_LAUNCHES = {"flash_attention": "launches_by_shape",
+                  "selective_scan": "launches_by_route"}
+
+
+def zero_launches(counters):
+    """Sets each wrapper's launch count, and its split of them, to 0."""
+    for name, fn in counters.items():
+        fn.launches = 0
+        if name in SPLIT_LAUNCHES:
+            getattr(fn, SPLIT_LAUNCHES[name]).clear()
+
+
+def read_launches(counters):
+    """({wrapper: launches}, {wrapper: its split of them}); fails if a
+    split does not add up to its wrapper's count."""
+    launches = {name: fn.launches for name, fn in counters.items()}
+    split = {name: dict(getattr(counters[name], attr))
+             for name, attr in SPLIT_LAUNCHES.items() if name in counters}
+    for name, by in split.items():
+        if sum(by.values()) != launches[name]:
+            raise AssertionError(f"{name}: launches split as {by} add up to "
+                                 f"{sum(by.values())}, not {launches[name]}")
+    return launches, split
+
+
 def serve_lm(torch, m, cfg, max_len: int, long_prompt: bool, counters,
              depth, dev):
     """Serve 8 greedy requests (prompts of 16-256 tokens, one of 1,000-1,200
@@ -838,15 +952,14 @@ def serve_lm(torch, m, cfg, max_len: int, long_prompt: bool, counters,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    for fn in counters.values():
-        fn.launches = 0
+    zero_launches(counters)
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
     done = eng.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches, by_class = read_launches(counters)
     peak = torch.cuda.max_memory_allocated()
     ttft = [r.first_token_s - r.arrival_s for r in done]
     if len(done) != 8 or any(len(r.generated) != 16 for r in done):
@@ -863,7 +976,8 @@ def serve_lm(torch, m, cfg, max_len: int, long_prompt: bool, counters,
           f"{wall:.3f} s after synchronize, TTFT mean {np.mean(ttft):.3f} s "
           f"max {np.max(ttft):.3f} s, peak memory {peak / 2**30:.3f} GiB "
           f"({base / 2**30:.3f} GiB allocated at the start), "
-          f"launches {launches}")
+          f"launches {launches}, by flash shape and scan route "
+          f"{json.dumps(by_class)}")
     del eng
     # the same requests again on a fresh engine, under the profiler, with
     # the kernel calls noted; then each kernel at each of those calls
@@ -908,8 +1022,8 @@ def serve_lm(torch, m, cfg, max_len: int, long_prompt: bool, counters,
               f"|logit| {cpu_logits.abs().max().item():.3f}")
         errs.append(err)
         del gpu_logits, cpu_logits
-    return dict(launches=launches, wall_s=wall, ttft_mean_s=float(
-        np.mean(ttft)), ttft_max_s=float(np.max(ttft)), peak_gib=peak / 2**30,
+    return dict(launches=launches, launches_by_class=by_class,
+        wall_s=wall, ttft_mean_s=float(np.mean(ttft)), ttft_max_s=float(np.max(ttft)), peak_gib=peak / 2**30,
         prompt_tokens=int(lens.sum()), logits_max_abs_err=max(errs),
         path_check=path_check, profile=profile)
 
@@ -1035,12 +1149,11 @@ def serve_paged(torch, m, cfg, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    for fn in counters.values():
-        fn.launches = 0
+    zero_launches(counters)
     t0 = time.perf_counter()
     tokens, ticks, done = serve(eng)
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches, by_class = read_launches(counters)
     peak = torch.cuda.max_memory_allocated()
     ttft = [r.first_token_s - r.arrival_s for r in done]
     summary, fsum = eng.paging_summary(), eng.faults_summary()
@@ -1069,7 +1182,8 @@ def serve_paged(torch, m, cfg, dev):
           f"{lens.tolist()}, wall {wall:.3f} s after synchronize, TTFT mean "
           f"{np.mean(ttft):.3f} s max {np.max(ttft):.3f} s, peak memory "
           f"{peak / 2**30:.3f} GiB ({base / 2**30:.3f} GiB at the start), "
-          f"launches {launches}; {nt} ticks x {per_pass} = swaps "
+          f"launches {launches}, by flash shape "
+          f"{json.dumps(by_class)}; {nt} ticks x {per_pass} = swaps "
           f"{summary['swap_count']} misses {summary['miss_count']}, "
           f"{summary['bytes_streamed_wire']} wire B streamed, decode_s "
           f"{summary['decode_s']}, decode_skipped_bytes "
@@ -1175,7 +1289,8 @@ def serve_paged(torch, m, cfg, dev):
           f"abs err {err:.3e} (tolerance {CUT_LOGITS_TOL})")
     bs_err = max(bs_err, path_check["max_abs_err"]["qmatmul_f32_blockscale"])
     return dict(
-        launches=launches, wall_s=wall, ttft_mean_s=float(np.mean(ttft)),
+        launches=launches, launches_by_class=by_class, wall_s=wall,
+        ttft_mean_s=float(np.mean(ttft)),
         ttft_max_s=float(np.max(ttft)), peak_gib=peak / 2**30,
         prompt_tokens=int(lens.sum()), attach_s=attach_s,
         cold_freed_bytes=freed,
@@ -1198,7 +1313,8 @@ PROFILE_LM_KERNELS = (("qmm_tc", "qmatmul_f32 tensor cores (prefill)"),
                        "(decode)"),
                       ("memcpy", "memcpy (host <-> device)"),
                       ("flash_fwd", "flash_attention"),
-                      ("ssm_scan_fwd", "selective_scan"),
+                      ("scan_step", "selective_scan (step route)"),
+                      ("scan_chunked", "selective_scan (chunked route)"),
                       ("gemm", "torch.matmul (unembed)"))
 
 
@@ -1727,7 +1843,8 @@ def main() -> int:
                      linears=FALCON_LINEARS,
                      what="qmatmul_f32 falcon-mamba-7b layer x4")
         for m in (4, 256))
-    t_fa = time_flash(torch, F, ref, fa, dev)
+    t_fa = {which: time_flash(torch, F, ref, fa, dev, which)
+            for which in FLASH_TIMED}
     jobs = {j.name: j for j in mobilenet_v2_jobs(8, MNV2_IMG)}
     nk_err = check_neureka(torch, packing, ops, ref, nkc, qmm, dev,
                            list(jobs.values()))
@@ -1742,8 +1859,8 @@ def main() -> int:
     for name, plan in plans.items():
         t_nk[name].update(launch_route=plan.route, plan=plan._asdict())
     scan_err = check_scan(torch, ref, ssm, dev)
-    t_scan = {"prefill": time_scan(torch, ref, ssm, dev, 64),
-              "decode": time_scan(torch, ref, ssm, dev, 1)}
+    t_scan = {which: time_scan(torch, ref, ssm, dev, which)
+              for which in SCAN_TIMED}
     gc.collect()                  # drop the timing graphs and their pools
     torch.cuda.empty_cache()
 
@@ -1793,6 +1910,10 @@ def main() -> int:
     by_path = {name: {arch: s["launches"][name] for arch, s in served.items()
                       if name in s["launches"]}
                for name in counters}
+    by_class = {name: {arch: s["launches_by_class"][name]
+                       for arch, s in served.items()
+                       if s["launches_by_class"].get(name)}
+                for name in SPLIT_LAUNCHES}
     kernels = [
         dict(name="qmatmul_f32", route="cuda",
              source="src/repro_torch/csrc/qmatmul_f32.cu",
@@ -1811,11 +1932,18 @@ def main() -> int:
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:71",
              launches=launches["flash_attention"],
-             launches_by_path=by_path["flash_attention"], max_abs_err=fa_err,
-             ms=t_fa["ms"], plain_ms=t_fa["plain_ms"],
-             bound_ms=t_fa["bound_ms"], bound_by=t_fa["bound_by"],
-             library_ms=t_fa["library_ms"], eager_ms=t_fa["eager_ms"],
-             work="prefill chunk B=4 Hq=16 Hkv=8 Sq=64 Sk=512 D=128"),
+             launches_by_path=by_path["flash_attention"],
+             launches_by_shape=by_class["flash_attention"],
+             max_abs_err=fa_err, ms=t_fa["qwen3"]["ms"],
+             plain_ms=t_fa["qwen3"]["plain_ms"],
+             bound_ms=t_fa["qwen3"]["bound_ms"],
+             bound_by=t_fa["qwen3"]["bound_by"],
+             library_ms=t_fa["qwen3"]["library_ms"],
+             eager_ms=t_fa["qwen3"]["eager_ms"], work=t_fa["qwen3"]["work"],
+             bytes_ms=t_fa["qwen3"]["bytes_ms"],
+             tf32_ops_ms=t_fa["qwen3"]["tf32_ops_ms"],
+             bound_f32_ms=t_fa["qwen3"]["bound_f32_ms"],
+             hymba=t_fa["hymba"]),
     ]
     for name, source, replaces, timed in (
             ("qmatmul_int8", "qmatmul_int8.cu", "qmatmul.py:218",
@@ -1839,18 +1967,19 @@ def main() -> int:
                          b14_pw_proj=t_nk["b14.pw_proj"],
                          conv_last=t_nk["conv_last"], fc=t_nk["fc"])
         kernels.append(entry)
-    t = t_scan["prefill"]
+    t = t_scan["falcon_prefill"]
     kernels.append(dict(
         name="selective_scan", route="cuda",
         source="src/repro_torch/csrc/ssm_scan.cu",
         replaces="src/repro/kernels/ssm_scan.py:64",
         launches=launches["selective_scan"],
-        launches_by_path=by_path["selective_scan"], max_abs_err=scan_err,
+        launches_by_path=by_path["selective_scan"],
+        launches_by_route=by_class["selective_scan"], max_abs_err=scan_err,
         ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         bound_by=t["bound_by"], library_ms=None,
         library_note="no single PyTorch call computes a selective scan",
-        eager_ms=t["eager_ms"], work="falcon-mamba prefill chunk, "
-        + t["work"], decode=t_scan["decode"]))
+        eager_ms=t["eager_ms"], work=t["work"],
+        **{k: v for k, v in t_scan.items() if k != "falcon_prefill"}))
     t = t_bs["decode"]
     kernels.append(dict(
         name="qmatmul_f32_blockscale", route="cuda",

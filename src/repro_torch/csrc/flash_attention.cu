@@ -1,4 +1,5 @@
-// Blocked online-softmax (flash) attention for Hopper (sm_90a), f32.
+// Blocked online-softmax (flash) attention for Hopper (sm_90a), f32, on the
+// TF32 tensor cores.
 //
 // Replaces: src/repro/kernels/flash_attention.py :: flash_attention (Pallas
 //   body _flash_kernel).  Generalised to what model prefill needs: q is
@@ -7,192 +8,439 @@
 //   the kv sequence.  Query i of row b sits at qpos = q_offset[b] + i; key j is
 //   visible when j <= qpos (causal) and j > qpos - window (window > 0).  Scores
 //   are q.k * scale; masked scores take the reference's finite NEG_INF, and the
-//   running max, sum and accumulator are f32, as in the reference.  Every query
-//   row must see at least one key (true for every causal prefill chunk).
+//   running max, sum and accumulator are f32, as in the reference.  A query
+//   row that sees no key gets what the plain version (kernels/ref.py) gives it,
+//   a softmax over Sk equal scores: the mean of v over [0, Sk).  (The Pallas
+//   kernel agrees where its 256-key blocks cover Sk exactly; beyond that it
+//   counts its own zero pads in the mean.)
 //
-// What bounds it on this card: at the serving shapes (Sq <= 64 queries per
-//   chunk, Sk <= 512 keys, D = 128) it does 4 * D flops per visible
-//   (query, key) pair on the f32 CUDA cores (67 TFLOP/s) against reading k and
-//   v once, about 2 * D * 4 bytes per key per kv head; per head group of Hq/Hkv
-//   queries that is below the card's ratio of flops to bytes, so the bound is
-//   the bytes of k and v, and in practice the latency of a short kv loop.
+// What bounds it on this card: 4 D flops a visible (query, key) pair.  In
+//   f32 on the CUDA cores (67 TFLOP/s) those bind at every serving shape; on
+//   the tensor cores in TF32 (495 TFLOP/s) with each f32 operand split into a
+//   TF32 hi and lo part, three MMAs a multiply-add, the operations still bind
+//   at hymba's long prompt and k / v bytes (3.35 TB/s) at qwen3's 64-query
+//   chunks.  Where the kv loop is short, latency and balance bind.
 //
-// What the design does about it: one block per (batch * query head, tile of 16
-//   queries); the kv loop runs inside the block, so nothing carries across
-//   blocks.  The loop starts at the first tile the window can reach and ends at
-//   the causal frontier of the block's last query, so kv tiles wholly masked
-//   for every query of the block are never read (the early-out the reference
-//   docstring promises and its body never does).  A 32-key tile of k and v is
-//   staged in shared memory; each of the 4 warps carries 4 query rows.  Lane j
-//   scores key j against the 4 rows (k padded by one float so the lanes hit
-//   different banks), the row max and sum are warp shuffles, and for p @ v the
-//   lanes split the head dimension and take each key's probability by shuffle.
+// What the design does about it:
+//   - the GQA group is folded into the tile's rows: a block owns 16 * WARPS
+//     = 64 (query, head) rows of one (batch row, kv head), query-major (row r is
+//     query r / G, head r % G of the group), so each k / v tile is read once
+//     for the group's G heads;
+//   - QK^T and PV run as mma.sync.m16n8k8 TF32 with f32 accumulators, each
+//     operand split on its way from shared memory into registers, hi =
+//     tf32_rna(x) and lo = tf32_rna(x - hi), the products hi.hi + hi.lo +
+//     lo.hi (the lo.lo term is below f32's rounding).  P goes from S's
+//     accumulator fragment through 16 rows a warp of shared memory, so that
+//     the k loops of QK^T and PV may run rolled: at D = 128 they take two
+//     steps a turn, which keeps the code small where a block walks one or
+//     two tiles and runs its code once (qwen3-0.6b's serving chunks, 2-22 %
+//     faster than unrolled); at D <= 64 they are unrolled (hymba-1.5b's
+//     blocks walk up to 32 tiles; 0-4 % faster so; tools/attn_scan_ab.py
+//     --sweep, PERF.md section 6).  Quad lane t reads keys 2t and 2t + 1
+//     of an 8-key step as the MMA's k = t and t + 4, and V's fragment the
+//     same keys.  Each kv tile's PV lands in a fresh fragment that is folded
+//     into the f32 output by one FMA (o = o * alpha + pv), so the tensor
+//     core's own accumulation spans one tile;
+//   - k and v tiles go through a two-stage cp.async ring in shared memory,
+//     rows padded by 4 words (P's by 8) so that every fragment read (Q and
+//     K rows at column t, V rows 2t at column g, P rows at 2t) hits distinct
+//     banks; the next tile's copy runs under this tile's MMAs, one barrier a
+//     tile;
+//   - the online softmax stays in registers: row max and sum over the quad by
+//     two xor-shuffles, exponentials as ex2 of log2(e)-scaled scores, masked
+//     scores weighted 0 (a row that has seen no key keeps l = 0 and o = 0);
+//   - the kv loop runs over the tiles the block's rows can see, so wholly
+//     masked tiles are never read, and only tiles at the causal or window edge
+//     evaluate the mask;
+//   - the work is balanced by splitting each row tile's kv tiles into slices
+//     of split_tiles tiles, one block each, the slices of a row tile next to
+//     each other in the grid (kernels/flash_attention.py::flash_plan picks
+//     the sizes from the shapes and the card's SMs).  A block whose
+//     slice holds no visible tile exits at once.  Where one slice holds all of
+//     a row tile's tiles, its block writes the output; else every slice
+//     writes (m, l, o) to a scratch and the last block of the row tile to
+//     arrive (an int counter a row tile, kept zeroed) adds the slices in
+//     slice order, so two calls give the same bits.  One launch a call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "qmm_decode.cuh"   // tcmm::cp_async / cp_commit / cp_wait / tf32_rna, dcmm::mma_tf32
+
 namespace {
 
-constexpr int WARPS = 4;
-constexpr int ROWS = 4;              // query rows per warp
-constexpr int BQ = WARPS * ROWS;     // query rows per block
-constexpr int BK = 32;               // keys per tile, one per lane
-constexpr float NEG_INF = -1e30f;    // the reference's finite mask value
+constexpr float NEG_INF = -1e30f;     // the reference's finite mask value
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
+constexpr int WARPS = 4;              // a block: 16 (query, head) rows a warp
 
 template <int D>
-__global__ void __launch_bounds__(WARPS * 32)
-flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, const int* __restrict__ q_offset,
-          float* __restrict__ out, int Hq, int Hkv, int Sq, int Sk, float scale,
-          int causal, int window) {
-  constexpr int DL = (D + 31) / 32;   // head dims per lane in p @ v
-  constexpr int D4 = D / 4;
-  __shared__ float qs[BQ][D];
-  __shared__ float ks[BK][D + 1];
-  __shared__ __align__(16) float vs[BK][D];
+__host__ __device__ constexpr int pitch() { return D + 4; }   // words a staged row
+template <int BK>
+__host__ __device__ constexpr int p_pitch() { return BK + 8; }  // words a staged row of P
+template <int D, int BK>
+__host__ __device__ constexpr int smem_bytes() {
+  // q tile, 2 x (k, v) tiles, each warp's 16 rows of P
+  return ((16 * WARPS + 4 * BK) * pitch<D>() + 16 * WARPS * p_pitch<BK>()) * 4;
+}
 
-  const int bh = blockIdx.x;                  // b * Hq + h
-  const int b = bh / Hq, h = bh % Hq;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = blockIdx.y * BQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int off = q_offset[b];
-  const float* qb = q + static_cast<size_t>(bh) * Sq * D;
-  const size_t kv_base = static_cast<size_t>(b * Hkv + hk) * Sk * D;
-  const float* kb = k + kv_base;
-  const float* vb = v + kv_base;
+struct Args {
+  const float* q;
+  const float* k;
+  const float* v;
+  const int* q_offset;
+  float* out;
+  float* part;       // slices' o (tiles, splits, rows, D) then (m, l) (tiles, splits, rows, 2)
+  int* counters;     // one zeroed int a row tile
+  int Hq, Hkv, Sq, Sk;
+  float scale_log2;  // scale * log2(e)
+  int causal, window;
+  int row_tiles, split_tiles, splits;
+};
 
-  for (int i = tid; i < BQ * D; i += WARPS * 32) {
-    const int r = i / D, qi = q0 + r;
-    qs[r][i % D] = qi < Sq ? qb[static_cast<size_t>(qi) * D + i % D] : 0.f;
-  }
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  // kv range that any query of this block can see
-  const int qpos_first = off + q0;
-  const int qpos_last = off + min(q0 + BQ, Sq) - 1;
-  const int kend = causal ? min(Sk, qpos_last + 1) : Sk;
-  const int kstart = window > 0 ? max(0, qpos_first - window + 1) : 0;
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tcmm::tf32_rna(x);
+  lo = tcmm::tf32_rna(x - __uint_as_float(hi));
+}
 
-  const int row0 = warp * ROWS;
-  int qpos[ROWS];
-  float m[ROWS], l[ROWS], o[ROWS][DL];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    qpos[r] = off + q0 + row0 + r;
-    m[r] = NEG_INF;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DL; ++i) o[r][i] = 0.f;
-  }
+// d += a x b in three TF32 passes: lo.hi + hi.lo + hi.hi
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                     uint32_t bl0, uint32_t bl1) {
+  dcmm::mma_tf32(d, al[0], al[1], al[2], al[3], bh0, bh1);
+  dcmm::mma_tf32(d, ah[0], ah[1], ah[2], ah[3], bl0, bl1);
+  dcmm::mma_tf32(d, ah[0], ah[1], ah[2], ah[3], bh0, bh1);
+}
 
-  for (int kt = (kstart / BK) * BK; kt < kend; kt += BK) {
-    __syncthreads();   // qs is written / the previous tile is consumed
-    for (int i = tid; i < BK * D4; i += WARPS * 32) {
-      const int kl = i / D4, d = (i % D4) * 4;
-      float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f), vv4 = kv4;
-      if (kt + kl < Sk) {
-        const size_t g = static_cast<size_t>(kt + kl) * D + d;
-        kv4 = *reinterpret_cast<const float4*>(kb + g);
-        vv4 = *reinterpret_cast<const float4*>(vb + g);
+template <int D, int BK>
+__global__ void __launch_bounds__(32 * WARPS)
+flash_fwd_tc(const Args a) {
+  constexpr int THREADS = 32 * WARPS;
+  constexpr int BR = 16 * WARPS;     // (query, head) rows a block
+  constexpr int P = pitch<D>();
+  constexpr int NKT = BK / 8;        // 8-key column tiles of S, k steps of PV
+  constexpr int NDT = D / 8;         // k steps of S, 8-wide column tiles of PV
+  constexpr int CPR = D / 4;         // 16 B chunks a row
+  constexpr int PP = p_pitch<BK>();
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                  // BR x P
+  float* kvs = smem + BR * P;        // stage s: k at 2s BK P, v at (2s + 1) BK P
+  float* pss = kvs + 4 * BK * P;     // warp w's P at w 16 PP
+  __shared__ int last;
+
+  const int split = blockIdx.x % a.splits, tile = blockIdx.x / a.splits;
+  const int rt = tile % a.row_tiles, bhk = tile / a.row_tiles;
+  const int b = bhk / a.Hkv, hk = bhk % a.Hkv;
+  const int G = a.Hq / a.Hkv, rows = a.Sq * G, r0 = rt * BR;
+  const int off = a.q_offset[b];
+  const int qfirst = off + r0 / G, qlast = off + (min(r0 + BR, rows) - 1) / G;
+
+  // the kv tiles [lo, hi) that any row of the block sees (mirrored by
+  // kernels/flash_attention.py::visible_tiles), and the live slices of them;
+  // with none, slice 0 alone writes the rows (as rows that see no key)
+  const int khi = a.causal ? min(a.Sk, qlast + 1) : a.Sk;
+  const int klo = a.window > 0 ? max(0, qfirst - a.window + 1) : 0;
+  int lo = 0, hi = 0;
+  if (khi > klo) { lo = klo / BK; hi = (khi + BK - 1) / BK; }
+  const int s_lo = hi > lo ? lo / a.split_tiles : 0;
+  const int s_hi = hi > lo ? (hi - 1) / a.split_tiles : 0;
+  if (split < s_lo || split > s_hi) return;
+  const int n_live = s_hi - s_lo + 1;
+  const int t_begin = max(lo, split * a.split_tiles);
+  const int t_end = min(hi, (split + 1) * a.split_tiles);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int wr = 16 * warp;          // the warp's first row in the block
+  const size_t kv_base = static_cast<size_t>(b * a.Hkv + hk) * a.Sk * D;
+  const float* kb = a.k + kv_base;
+  const float* vb = a.v + kv_base;
+
+  auto load_kv = [&](int t, int st) {
+    float* ks = kvs + 2 * st * BK * P;
+    float* vs = ks + BK * P;
+    for (int i = tid; i < BK * CPR; i += THREADS) {
+      const int r = i / CPR, c = i % CPR, key = t * BK + r;
+      const bool in = key < a.Sk;
+      const size_t gofs = in ? static_cast<size_t>(key) * D + 4 * c : 0;
+      tcmm::cp_async<16>(ks + r * P + 4 * c, kb + gofs, in ? 16 : 0);
+      tcmm::cp_async<16>(vs + r * P + 4 * c, vb + gofs, in ? 16 : 0);
+    }
+  };
+
+  if (t_begin < t_end) {
+    for (int i = tid; i < BR * CPR; i += THREADS) {
+      const int r = i / CPR, c = i % CPR, rr = r0 + r;
+      const bool in = rr < rows;
+      const float* src = a.q;
+      if (in) {
+        const int qi = rr / G, h = hk * G + rr % G;
+        src = a.q + (static_cast<size_t>(b * a.Hq + h) * a.Sq + qi) * D + 4 * c;
       }
-      ks[kl][d] = kv4.x; ks[kl][d + 1] = kv4.y; ks[kl][d + 2] = kv4.z; ks[kl][d + 3] = kv4.w;
-      *reinterpret_cast<float4*>(&vs[kl][d]) = vv4;
+      tcmm::cp_async<16>(qs + r * P + 4 * c, src, in ? 16 : 0);
+    }
+    load_kv(t_begin, 0);
+  }
+  tcmm::cp_commit();
+
+  int qp[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) qp[i] = off + (r0 + wr + g + 8 * i) / G;
+  float o[NDT][4];
+#pragma unroll
+  for (int n = 0; n < NDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int it = t_begin; it < t_end; ++it) {
+    const int st = (it - t_begin) & 1;
+    tcmm::cp_wait<0>();
+    __syncthreads();                 // tile it landed; tile it - 1 is consumed
+    if (it + 1 < t_end) load_kv(it + 1, st ^ 1);
+    tcmm::cp_commit();
+    const float* ks = kvs + 2 * st * BK * P;
+    const float* vs = ks + BK * P;
+
+    // S = Q K^T: rows wr + g (+ 8), keys 8 nt + 2 t4 (+ 1)
+    float s[NKT][4];
+#pragma unroll
+    for (int n = 0; n < NKT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll(D >= 128 ? 2 : D / 8)
+    for (int kk = 0; kk < NDT; ++kk) {
+      const float* qa = qs + (wr + g) * P + 8 * kk + t4;
+      uint32_t ah[4], al[4];
+      tf32_split(qa[0], ah[0], al[0]);
+      tf32_split(qa[8 * P], ah[1], al[1]);
+      tf32_split(qa[4], ah[2], al[2]);
+      tf32_split(qa[8 * P + 4], ah[3], al[3]);
+#pragma unroll
+      for (int n = 0; n < NKT; ++n) {
+        const float* kp = ks + (8 * n + g) * P + 8 * kk + t4;
+        uint32_t bh0, bl0, bh1, bl1;
+        tf32_split(kp[0], bh0, bl0);
+        tf32_split(kp[4], bh1, bl1);
+        mma3(s[n], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+
+    // scale, mask at the edges, online softmax in the fragment
+    const int k0 = it * BK;
+    const bool full = k0 + BK <= a.Sk && (!a.causal || k0 + BK - 1 <= qfirst) &&
+                      (a.window <= 0 || k0 > qlast - a.window);
+#pragma unroll
+    for (int n = 0; n < NKT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * a.scale_log2;
+        if (!full) {
+          const int key = k0 + 8 * n + 2 * t4 + (e & 1), qpos = qp[e >> 1];
+          const bool ok = key < a.Sk && (!a.causal || key <= qpos) &&
+                          (a.window <= 0 || key > qpos - a.window);
+          if (!ok) x = NEG_INF;
+        }
+        s[n][e] = x;
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int n = 0; n < NKT; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float mn = fmaxf(m[i], mx);
+      // a row with no visible key yet subtracts 0: its masked scores give
+      // ex2(NEG_INF) = 0, so l and o stay 0
+      const float base = mn == NEG_INF ? 0.f : mn;
+      alpha[i] = ex2(m[i] - base);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NKT; ++n) {
+        s[n][2 * i] = ex2(s[n][2 * i] - base);
+        s[n][2 * i + 1] = ex2(s[n][2 * i + 1] - base);
+        sum += s[n][2 * i] + s[n][2 * i + 1];
+      }
+      sum += __shfl_xor_sync(FULL, sum, 1);
+      sum += __shfl_xor_sync(FULL, sum, 2);
+      l[i] = l[i] * alpha[i] + sum;
+      m[i] = mn;
+    }
+
+    // O = O * alpha + P V.  P goes through the warp's own staging rows, so
+    // that the k loop need not be unrolled; the MMA's k = t4 (t4 + 4) is key
+    // 8 kk + 2 t4 (+ 1), so that P's and V's reads hit distinct banks
+    float* ps = pss + warp * 16 * PP;
+#pragma unroll
+    for (int n = 0; n < NKT; ++n) {
+      *reinterpret_cast<float2*>(ps + g * PP + 8 * n + 2 * t4) = make_float2(s[n][0], s[n][1]);
+      *reinterpret_cast<float2*>(ps + (g + 8) * PP + 8 * n + 2 * t4) =
+          make_float2(s[n][2], s[n][3]);
+    }
+    __syncwarp();
+    float pv[NDT][4];
+#pragma unroll
+    for (int n = 0; n < NDT; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+#pragma unroll(D >= 128 ? 2 : BK / 8)
+    for (int kk = 0; kk < NKT; ++kk) {
+      const float2 p0 = *reinterpret_cast<const float2*>(ps + g * PP + 8 * kk + 2 * t4);
+      const float2 p1 = *reinterpret_cast<const float2*>(ps + (g + 8) * PP + 8 * kk + 2 * t4);
+      uint32_t ph[4], pl[4];
+      tf32_split(p0.x, ph[0], pl[0]);
+      tf32_split(p1.x, ph[1], pl[1]);
+      tf32_split(p0.y, ph[2], pl[2]);
+      tf32_split(p1.y, ph[3], pl[3]);
+#pragma unroll
+      for (int n = 0; n < NDT; ++n) {
+        const float* vp = vs + (8 * kk + 2 * t4) * P + 8 * n + g;
+        uint32_t bh0, bl0, bh1, bl1;
+        tf32_split(vp[0], bh0, bl0);
+        tf32_split(vp[P], bh1, bl1);
+        mma3(pv[n], ph, pl, bh0, bh1, bl0, bl1);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NDT; ++n) {
+      o[n][0] = fmaf(o[n][0], alpha[0], pv[n][0]);
+      o[n][1] = fmaf(o[n][1], alpha[0], pv[n][1]);
+      o[n][2] = fmaf(o[n][2], alpha[1], pv[n][2]);
+      o[n][3] = fmaf(o[n][3], alpha[1], pv[n][3]);
+    }
+  }
+  tcmm::cp_wait<0>();
+
+  if (n_live > 1) {
+    // this slice's (m, l, o) to the scratch, in the fragment's own layout
+    const size_t slot = (static_cast<size_t>(tile) * a.splits + split) * BR;
+    float* po = a.part;
+    float* pml = a.part + static_cast<size_t>(gridDim.x) * BR * D;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const size_t row = slot + wr + g + 8 * i;
+#pragma unroll
+      for (int n = 0; n < NDT; ++n)
+        *reinterpret_cast<float2*>(po + row * D + 8 * n + 2 * t4) =
+            make_float2(o[n][2 * i], o[n][2 * i + 1]);
+      if (t4 == 0) *reinterpret_cast<float2*>(pml + 2 * row) = make_float2(m[i], l[i]);
+    }
+    // the last slice of the row tile to arrive adds them all, in slice order
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(a.counters + tile, 1) == n_live - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    // slices outer, the lane's two rows inner, so that each slice's loads
+    // of both rows are in flight together
+    const size_t row = static_cast<size_t>(tile) * a.splits * BR + wr + g;
+    float base[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) m[i] = NEG_INF;
+    for (int z = s_lo; z <= s_hi; ++z)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        m[i] = fmaxf(m[i], __ldcg(pml + 2 * (row + 8 * i + static_cast<size_t>(z) * BR)));
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      base[i] = m[i] == NEG_INF ? 0.f : m[i];
+      l[i] = 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < NDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    for (int z = s_lo; z <= s_hi; ++z) {
+      float2 ml[2], p[2][NDT];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const size_t zr = row + 8 * i + static_cast<size_t>(z) * BR;
+        ml[i] = __ldcg(reinterpret_cast<const float2*>(pml + 2 * zr));
+#pragma unroll
+        for (int n = 0; n < NDT; ++n)
+          p[i][n] = __ldcg(reinterpret_cast<const float2*>(po + zr * D + 8 * n + 2 * t4));
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float w = ex2(ml[i].x - base[i]);
+        l[i] = fmaf(w, ml[i].y, l[i]);
+#pragma unroll
+        for (int n = 0; n < NDT; ++n) {
+          o[n][2 * i] = fmaf(w, p[i][n].x, o[n][2 * i]);
+          o[n][2 * i + 1] = fmaf(w, p[i][n].y, o[n][2 * i + 1]);
+        }
+      }
+    }
+    if (tid == 0) a.counters[tile] = 0;      // ready for the next launch
+  }
+
+  // rows that saw no key take the mean of v over [0, Sk), as the plain
+  // version's softmax over Sk equal scores gives them
+  bool empty[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) empty[i] = m[i] == NEG_INF && r0 + wr + g + 8 * i < rows;
+  if (__syncthreads_or(empty[0] || empty[1])) {
+    for (int d = tid; d < D; d += THREADS) {
+      float sum = 0.f;
+      for (int j = 0; j < a.Sk; ++j) sum += vb[static_cast<size_t>(j) * D + d];
+      smem[d] = sum / static_cast<float>(a.Sk);
     }
     __syncthreads();
-
-    float s[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) s[r] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float kd = ks[lane][d];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) s[r] += qs[row0 + r][d] * kd;
-    }
-    const int kpos = kt + lane;
-    float p[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      bool ok = kpos < Sk;
-      if (causal) ok = ok && kpos <= qpos[r];
-      if (window > 0) ok = ok && kpos > qpos[r] - window;
-      const float sr = ok ? s[r] * scale : NEG_INF;
-      const float m_new = fmaxf(m[r], warp_max(sr));
-      p[r] = expf(sr - m_new);
-      const float alpha = expf(m[r] - m_new);
-      l[r] = l[r] * alpha + warp_sum(p[r]);
-#pragma unroll
-      for (int i = 0; i < DL; ++i) o[r][i] *= alpha;
-      m[r] = m_new;
-    }
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float vj[DL];
-#pragma unroll
-      for (int i = 0; i < DL; ++i) {
-        const int d = lane + 32 * i;
-        vj[i] = d < D ? vs[j][d] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float pj = __shfl_sync(FULL, p[r], j);
-#pragma unroll
-        for (int i = 0; i < DL; ++i) o[r][i] += pj * vj[i];
-      }
-    }
   }
-
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int qi = q0 + row0 + r;
-    if (qi >= Sq) continue;
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    float* orow = out + (static_cast<size_t>(bh) * Sq + qi) * D;
+  for (int i = 0; i < 2; ++i) {
+    const int rr = r0 + wr + g + 8 * i;
+    if (rr >= rows) continue;
+    const int qi = rr / G, h = hk * G + rr % G;
+    float* dst = a.out + (static_cast<size_t>(b * a.Hq + h) * a.Sq + qi) * D + 2 * t4;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int i = 0; i < DL; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) orow[d] = o[r][i] * inv;
+    for (int n = 0; n < NDT; ++n) {
+      const float2 val = empty[i] ? make_float2(smem[8 * n + 2 * t4], smem[8 * n + 2 * t4 + 1])
+                                  : make_float2(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+      *reinterpret_cast<float2*>(dst + 8 * n) = val;
     }
   }
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, const void* q_offset, void* out,
-           int B, int Hq, int Hkv, int Sq, int Sk, float scale, int causal, int window,
-           cudaStream_t stream) {
-  dim3 grid(B * Hq, (Sq + BQ - 1) / BQ);
-  flash_fwd<D><<<grid, WARPS * 32, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(q_offset),
-      static_cast<float*>(out), Hq, Hkv, Sq, Sk, scale, causal, window);
+template <int D, int BK>
+int launch(const Args& a, int B, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<D, BK>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_tc<D, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int kv_tiles = (a.Sk + BK - 1) / BK;
+  // one block a (row tile, slice), on grid x
+  const long blocks = static_cast<long>(B) * a.Hkv * a.row_tiles * a.splits;
+  if (a.split_tiles < 1 || a.splits != (kv_tiles + a.split_tiles - 1) / a.split_tiles ||
+      a.row_tiles != (a.Sq * (a.Hq / a.Hkv) + 16 * WARPS - 1) / (16 * WARPS) ||
+      blocks > 0x7fffffffL || (a.splits > 1 && (a.part == nullptr || a.counters == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  flash_fwd_tc<D, BK><<<static_cast<unsigned>(blocks), 32 * WARPS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// The (head dim, keys a kv tile) pairs instantiated, as BLOCK_KEYS of
+// kernels/flash_attention.py gives them.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      const void* q_offset, void* out, int B, int Hq,
-                                      int Hkv, int Sq, int Sk, int D, float scale,
-                                      int causal, int window, void* stream) {
+                                      const void* q_offset, void* out, void* part,
+                                      void* counters, int B, int Hq, int Hkv, int Sq, int Sk,
+                                      int D, float scale, int causal, int window,
+                                      int block_keys, int row_tiles, int split_tiles,
+                                      int splits, void* stream) {
+  const Args a{static_cast<const float*>(q), static_cast<const float*>(k),
+               static_cast<const float*>(v), static_cast<const int*>(q_offset),
+               static_cast<float*>(out), static_cast<float*>(part),
+               static_cast<int*>(counters), Hq, Hkv, Sq, Sk, scale * LOG2E, causal, window,
+               row_tiles, split_tiles, splits};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16>(q, k, v, q_offset, out, B, Hq, Hkv, Sq, Sk, scale, causal, window, s);
-    case 32: return launch<32>(q, k, v, q_offset, out, B, Hq, Hkv, Sq, Sk, scale, causal, window, s);
-    case 64: return launch<64>(q, k, v, q_offset, out, B, Hq, Hkv, Sq, Sk, scale, causal, window, s);
-    case 128: return launch<128>(q, k, v, q_offset, out, B, Hq, Hkv, Sq, Sk, scale, causal, window, s);
+  switch (D * 1000 + block_keys) {
+    case 16064: return launch<16, 64>(a, B, s);
+    case 32032: return launch<32, 32>(a, B, s);
+    case 64032: return launch<64, 32>(a, B, s);
+    case 128032: return launch<128, 32>(a, B, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

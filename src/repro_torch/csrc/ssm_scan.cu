@@ -11,8 +11,8 @@
 //   h_last (Bz, Di, N).  h_last may be h0 itself (the serve cache's state,
 //   updated in place): each thread reads its own h0 elements before the
 //   time loop and writes the same h_last elements after it, so neither
-//   pointer is __restrict__.  A position with dt = 0 (a pad of bucketed prefill)
-//   gives exp(0) = 1 and a zero update, so it leaves h unchanged.
+//   pointer is __restrict__.  A position with dt = 0 (a pad of bucketed
+//   prefill) gives exp2(0) = 1 and a zero update, so it leaves h unchanged.
 //
 // What bounds it on this card: every (b, t, d) reads x and dt and writes y
 //   once, and the state is read (h0) and written (h_last) once: at the
@@ -22,145 +22,303 @@
 //
 // What the design does about it: the TPU kernel expands (chunk, di_block, N)
 //   in VMEM and runs an associative scan over it; here nothing is expanded.
-//   Each channel d is owned by G = 4 neighbouring lanes, each holding N / 4
-//   states and their A in registers, and the block walks t in a loop.  One
-//   block covers 32 channels of one batch row (128 threads).  Per chunk of 32
-//   time steps it stages x and dt (coalesced along Di, one 128-byte row a
-//   step) and the B and C rows that every channel reads into shared memory,
-//   runs the recurrence from there, reduces y over the 4 lanes with two
-//   xor-shuffles and writes the chunk of y back coalesced.  expf, not the
-//   faster __expf, so that the scan stays within the reference's tolerance
-//   and exp(0) is exactly 1.
+//   Each channel d is owned by G neighbouring lanes (1, 2, 4 or 8), each
+//   holding N / G states and their A in registers, and a thread walks t in a
+//   loop; y is reduced over the G lanes by xor-shuffles.  One MUFU op a state
+//   step: A is scaled by log2(e) once, into registers, and each step takes
+//   ex2.approx(dt * A log2(e)); ex2.approx(0) is exactly 1, so pads stay
+//   no-ops.  Two routes, chosen by S in kernels/ssm_scan.py::scan_plan:
+//   - scan_step (decode, small S): no shared memory and no barrier.  Each
+//     thread issues its loads of h0, A, D and the step's x, dt, B and C row
+//     together, then computes and writes y and h_last;
+//   - scan_chunked (prefill): a block covers CH channels of one batch row.
+//     x, dt and the B and C rows of a chunk of T steps go through a 3-stage
+//     cp.async ring in shared memory (16 B copies where Di allows, else 4 B),
+//     so chunk c + 1 and c + 2 arrive while chunk c runs; the h0 and A loads
+//     are issued right after the first stages, one barrier a chunk.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int G = 4;                 // lanes per channel
-constexpr int CH = 32;               // channels per block
-constexpr int THREADS = CH * G;
-constexpr int T = 32;                // time steps per staged chunk
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int STAGES = 3;            // scan_chunked's ring depth
+constexpr int MAX_THREADS = 256;     // a block, either route (launch bounds)
+constexpr int MAX_SMEM = 227 * 1024;
 
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// NPT consecutive floats from p (aligned to 4 NPT bytes, up to 16 B)
 template <int NPT>
-__global__ void __launch_bounds__(THREADS)
-ssm_scan_fwd(const float* __restrict__ x, const float* __restrict__ dt,
-             const float* __restrict__ A, const float* __restrict__ B,
-             const float* __restrict__ C, const float* __restrict__ D,
-             const float* h0, float* __restrict__ y, float* h_last, int S,
-             int Di) {
-  constexpr int N = G * NPT;
-  __shared__ float xs[T][CH];
-  __shared__ float dts[T][CH];
-  __shared__ float ys[T][CH];
-  __shared__ float Bs[T][N];
-  __shared__ float Cs[T][N];
-
-  const int b = blockIdx.y;
-  const int d0 = blockIdx.x * CH;
-  const int tid = threadIdx.x;
-  const int c = tid / G;             // channel within the block
-  const int j = tid % G;             // this lane's share of the N states
-  const int d = d0 + c;
-  const bool live = d < Di;
-  const size_t hrow = (static_cast<size_t>(b) * Di + d) * N + j * NPT;
-
-  float a[NPT], h[NPT];
+__device__ __forceinline__ void load_vec(const float* p, float (&r)[NPT]) {
+  if constexpr (NPT % 4 == 0) {
 #pragma unroll
-  for (int i = 0; i < NPT; ++i) {
-    a[i] = live ? A[static_cast<size_t>(d) * N + j * NPT + i] : 0.f;
-    h[i] = (live && h0 != nullptr) ? h0[hrow + i] : 0.f;
-  }
-  const float dd = live ? D[d] : 0.f;
-
-  for (int t0 = 0; t0 < S; t0 += T) {
-    const int tn = min(T, S - t0);
-    const size_t row0 = static_cast<size_t>(b) * S + t0;
-    for (int e = tid; e < T * CH; e += THREADS) {
-      const int tt = e / CH, cc = e % CH;
-      float xv = 0.f, dv = 0.f;
-      if (tt < tn && d0 + cc < Di) {
-        const size_t off = (row0 + tt) * Di + d0 + cc;
-        xv = x[off];
-        dv = dt[off];
-      }
-      xs[tt][cc] = xv;
-      dts[tt][cc] = dv;
+    for (int i = 0; i < NPT; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + i);
+      r[i] = v.x; r[i + 1] = v.y; r[i + 2] = v.z; r[i + 3] = v.w;
     }
-    for (int e = tid; e < T * N; e += THREADS) {
-      const int tt = e / N, nn = e % N;
-      float bv = 0.f, cv = 0.f;
-      if (tt < tn) {
-        const size_t off = (row0 + tt) * N + nn;
-        bv = B[off];
-        cv = C[off];
-      }
-      Bs[tt][nn] = bv;
-      Cs[tt][nn] = cv;
-    }
-    __syncthreads();
-
-    for (int tt = 0; tt < tn; ++tt) {
-      const float xv = xs[tt][c];
-      const float dv = dts[tt][c];
-      float acc = 0.f;
-#pragma unroll
-      for (int i = 0; i < NPT; ++i) {
-        const int n = j * NPT + i;
-        const float dA = expf(dv * a[i]);
-        const float dBx = dv * Bs[tt][n] * xv;
-        h[i] = dA * h[i] + dBx;
-        acc += h[i] * Cs[tt][n];
-      }
-      acc += __shfl_xor_sync(FULL, acc, 1);
-      acc += __shfl_xor_sync(FULL, acc, 2);
-      if (j == 0) ys[tt][c] = acc + xv * dd;
-    }
-    __syncthreads();
-
-    for (int e = tid; e < tn * CH; e += THREADS) {
-      const int tt = e / CH, cc = e % CH;
-      if (d0 + cc < Di) y[(row0 + tt) * Di + d0 + cc] = ys[tt][cc];
-    }
-    // the next chunk's staging writes xs, dts, Bs and Cs only, and its
-    // compute (which writes ys) starts after the next __syncthreads
-  }
-
-  if (live) {
-#pragma unroll
-    for (int i = 0; i < NPT; ++i) h_last[hrow + i] = h[i];
+  } else if constexpr (NPT == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    r[0] = v.x; r[1] = v.y;
+  } else {
+    r[0] = p[0];
   }
 }
 
 template <int NPT>
-int launch(const void* x, const void* dt, const void* A, const void* B,
-           const void* C, const void* D, const void* h0, void* y, void* h_last,
-           int Bz, int S, int Di, cudaStream_t stream) {
-  dim3 grid((Di + CH - 1) / CH, Bz);
-  ssm_scan_fwd<NPT><<<grid, THREADS, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const float*>(B),
-      static_cast<const float*>(C), static_cast<const float*>(D),
-      static_cast<const float*>(h0), static_cast<float*>(y),
-      static_cast<float*>(h_last), S, Di);
+__device__ __forceinline__ void store_vec(float* p, const float (&r)[NPT]) {
+  if constexpr (NPT % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < NPT; i += 4)
+      *reinterpret_cast<float4*>(p + i) = make_float4(r[i], r[i + 1], r[i + 2], r[i + 3]);
+  } else if constexpr (NPT == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(r[0], r[1]);
+  } else {
+    p[0] = r[0];
+  }
+}
+
+// one step of the recurrence for this lane's NPT states; returns the
+// channel's y_t - x_t D, summed over its G lanes
+template <int NPT, int G>
+__device__ __forceinline__ float step(float (&h)[NPT], const float (&a2)[NPT], float xv, float dv,
+                                      const float (&Bv)[NPT], const float (&Cv)[NPT]) {
+  const float dx = dv * xv;
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < NPT; ++i) {
+    h[i] = fmaf(ex2(dv * a2[i]), h[i], dx * Bv[i]);
+    acc = fmaf(h[i], Cv[i], acc);
+  }
+#pragma unroll
+  for (int o = 1; o < G; o <<= 1) acc += __shfl_xor_sync(FULL, acc, o);
+  return acc;
+}
+
+// the lane's states (zero without h0) and A * log2(e)
+template <int N, int G>
+__device__ __forceinline__ void load_state(const float* h0, const float* __restrict__ A,
+                                           size_t hrow, int d, int j, float (&h)[N / G],
+                                           float (&a2)[N / G]) {
+  constexpr int NPT = N / G;
+  load_vec<NPT>(A + static_cast<size_t>(d) * N + j * NPT, a2);
+  if (h0 != nullptr) {
+    load_vec<NPT>(h0 + hrow, h);
+  } else {
+#pragma unroll
+    for (int i = 0; i < NPT; ++i) h[i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < NPT; ++i) a2[i] *= LOG2E;
+}
+
+struct Args {
+  const float* x;
+  const float* dt;
+  const float* A;
+  const float* B;
+  const float* C;
+  const float* D;
+  const float* h0;
+  float* y;
+  float* h_last;
+  int Bz, S, Di;
+};
+
+// decode route: thread (b, d, j) of a flat grid, loads straight to registers
+template <int N, int G>
+__global__ void __launch_bounds__(MAX_THREADS)
+scan_step(const Args a) {
+  constexpr int NPT = N / G;
+  const long idx = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int j = static_cast<int>(idx % G);
+  const long bd = idx / G;
+  const bool live = bd < static_cast<long>(a.Bz) * a.Di;   // others only shuffle
+  const int d = live ? static_cast<int>(bd % a.Di) : 0;
+  const int b = live ? static_cast<int>(bd / a.Di) : 0;
+  const size_t hrow = (static_cast<size_t>(b) * a.Di + d) * N + j * NPT;
+  float h[NPT], a2[NPT];
+  load_state<N, G>(a.h0, a.A, hrow, d, j, h, a2);
+  const float dd = a.D[d];
+  for (int t = 0; t < a.S; ++t) {
+    const size_t row = static_cast<size_t>(b) * a.S + t;
+    const float xv = a.x[row * a.Di + d], dv = a.dt[row * a.Di + d];
+    float Bv[NPT], Cv[NPT];
+    load_vec<NPT>(a.B + row * N + j * NPT, Bv);
+    load_vec<NPT>(a.C + row * N + j * NPT, Cv);
+    const float acc = step<NPT, G>(h, a2, xv, dv, Bv, Cv);
+    if (live && j == 0) a.y[row * a.Di + d] = acc + xv * dd;
+  }
+  if (live) store_vec<NPT>(a.h_last + hrow, h);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool in) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 16 : 0) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__host__ __device__ constexpr int stage_floats(int T, int CH, int N) {
+  return 2 * T * CH + 2 * T * N;
+}
+
+// prefill route: block (channel tile, b) of CH x G threads, chunks of T steps
+// through the ring; vec: x and dt rows take 16 B copies (Di % 4 == 0)
+template <int N, int G>
+__global__ void __launch_bounds__(MAX_THREADS)
+scan_chunked(const Args a, int T, int vec) {
+  constexpr int NPT = N / G;
+  extern __shared__ __align__(16) float sm[];
+  const int CH = blockDim.x / G;
+  const int sf = stage_floats(T, CH, N);
+  const int b = blockIdx.y, d0 = blockIdx.x * CH;
+  const int tid = threadIdx.x, c = tid / G, j = tid % G, d = d0 + c;
+  const bool live = d < a.Di;
+  const size_t hrow = (static_cast<size_t>(b) * a.Di + (live ? d : 0)) * N + j * NPT;
+  const int chunks = (a.S + T - 1) / T;
+
+  auto load_chunk = [&](int ci) {
+    float* xs = sm + (ci % STAGES) * sf;
+    float* dts = xs + T * CH;
+    float* Bs = dts + T * CH;
+    float* Cs = Bs + T * N;
+    const int t0 = ci * T, tn = min(T, a.S - t0);
+    const size_t row0 = static_cast<size_t>(b) * a.S + t0;
+    if (vec) {
+      const int q = CH / 4;
+      for (int e = tid; e < tn * q; e += blockDim.x) {
+        const int tt = e / q, cc = 4 * (e % q);
+        const bool in = d0 + cc < a.Di;
+        const size_t off = in ? (row0 + tt) * a.Di + d0 + cc : 0;
+        cp_async<16>(xs + tt * CH + cc, a.x + off, in);
+        cp_async<16>(dts + tt * CH + cc, a.dt + off, in);
+      }
+    } else {
+      for (int e = tid; e < tn * CH; e += blockDim.x) {
+        const int tt = e / CH, cc = e % CH;
+        const bool in = d0 + cc < a.Di;
+        const size_t off = in ? (row0 + tt) * a.Di + d0 + cc : 0;
+        cp_async<4>(xs + tt * CH + cc, a.x + off, in);
+        cp_async<4>(dts + tt * CH + cc, a.dt + off, in);
+      }
+    }
+    for (int e = tid; e < tn * (N / 4); e += blockDim.x) {
+      const size_t off = row0 * N + 4 * e;
+      cp_async<16>(Bs + 4 * e, a.B + off, true);
+      cp_async<16>(Cs + 4 * e, a.C + off, true);
+    }
+  };
+
+#pragma unroll
+  for (int p = 0; p < STAGES - 1; ++p) {
+    if (p < chunks) load_chunk(p);
+    cp_commit();
+  }
+  float h[NPT], a2[NPT];
+  load_state<N, G>(a.h0, a.A, hrow, live ? d : 0, j, h, a2);
+  const float dd = a.D[live ? d : 0];
+
+  for (int ci = 0; ci < chunks; ++ci) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();                 // chunk ci landed; chunk ci - 1 is consumed
+    if (ci + STAGES - 1 < chunks) load_chunk(ci + STAGES - 1);
+    cp_commit();
+    const float* xs = sm + (ci % STAGES) * sf;
+    const float* dts = xs + T * CH;
+    const float* Bs = dts + T * CH;
+    const float* Cs = Bs + T * N;
+    const int t0 = ci * T, tn = min(T, a.S - t0);
+    float* yrow = a.y + (static_cast<size_t>(b) * a.S + t0) * a.Di + d;
+#pragma unroll 4
+    for (int tt = 0; tt < tn; ++tt) {
+      const float xv = xs[tt * CH + c], dv = dts[tt * CH + c];
+      float Bv[NPT], Cv[NPT];
+      load_vec<NPT>(Bs + tt * N + j * NPT, Bv);
+      load_vec<NPT>(Cs + tt * N + j * NPT, Cv);
+      const float acc = step<NPT, G>(h, a2, xv, dv, Bv, Cv);
+      if (live && j == 0) yrow[static_cast<size_t>(tt) * a.Di] = acc + xv * dd;
+    }
+  }
+  cp_wait<0>();
+  if (live) store_vec<NPT>(a.h_last + hrow, h);
+}
+
+// route 0: scan_step, block threads a block; route 1: scan_chunked, block
+// channels a block (a multiple of 4), chunk steps a ring stage
+template <int N, int G>
+int launch(const Args& a, int route, int block, int chunk, int vec, cudaStream_t s) {
+  if (route == 0) {
+    if (block < 32 || block > MAX_THREADS || block % 32)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const long threads = static_cast<long>(a.Bz) * a.Di * G;
+    scan_step<N, G><<<static_cast<unsigned>((threads + block - 1) / block), block, 0, s>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      scan_chunked<N, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int smem = STAGES * stage_floats(chunk, block, N) * 4;
+  if (route != 1 || block % 4 || block * G > MAX_THREADS || (block * G) % 32 || chunk < 1 ||
+      smem > MAX_SMEM || a.Bz > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((a.Di + block - 1) / block, a.Bz);
+  scan_chunked<N, G><<<grid, block * G, smem, s>>>(a, chunk, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int N>
+int launch_n(const Args& a, int lanes, int route, int block, int chunk, int vec, cudaStream_t s) {
+  switch (lanes) {
+    case 1: if constexpr (N <= 16) return launch<N, 1>(a, route, block, chunk, vec, s);
+            return static_cast<int>(cudaErrorInvalidValue);
+    case 2: return launch<N, 2>(a, route, block, chunk, vec, s);
+    case 4: return launch<N, 4>(a, route, block, chunk, vec, s);
+    case 8: if constexpr (N >= 8) return launch<N, 8>(a, route, block, chunk, vec, s);
+            [[fallthrough]];
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// h0 may be null (zero initial state) and h_last may equal h0.  N must be
-// 4, 8, 16 or 32.
-extern "C" int ssm_scan_launch(const void* x, const void* dt, const void* A,
-                               const void* B, const void* C, const void* D,
-                               const void* h0, void* y, void* h_last, int Bz,
-                               int S, int Di, int N, void* stream) {
+// h0 may be null (zero initial state) and h_last may equal h0.  N must be 4,
+// 8, 16 or 32; lanes (G) 1, 2, 4 or 8 with 1 <= N / G <= 16.  route, block and chunk as
+// kernels/ssm_scan.py::scan_plan gives them; vec: Di % 4 == 0 and x, dt on 16 B.
+extern "C" int ssm_scan_launch(const void* x, const void* dt, const void* A, const void* B,
+                               const void* C, const void* D, const void* h0, void* y,
+                               void* h_last, int Bz, int S, int Di, int N, int route,
+                               int lanes, int block, int chunk, int vec, void* stream) {
+  const Args a{static_cast<const float*>(x), static_cast<const float*>(dt),
+               static_cast<const float*>(A), static_cast<const float*>(B),
+               static_cast<const float*>(C), static_cast<const float*>(D),
+               static_cast<const float*>(h0), static_cast<float*>(y),
+               static_cast<float*>(h_last), Bz, S, Di};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (N) {
-    case 4: return launch<1>(x, dt, A, B, C, D, h0, y, h_last, Bz, S, Di, s);
-    case 8: return launch<2>(x, dt, A, B, C, D, h0, y, h_last, Bz, S, Di, s);
-    case 16: return launch<4>(x, dt, A, B, C, D, h0, y, h_last, Bz, S, Di, s);
-    case 32: return launch<8>(x, dt, A, B, C, D, h0, y, h_last, Bz, S, Di, s);
+    case 4: return launch_n<4>(a, lanes, route, block, chunk, vec, s);
+    case 8: return launch_n<8>(a, lanes, route, block, chunk, vec, s);
+    case 16: return launch_n<16>(a, lanes, route, block, chunk, vec, s);
+    case 32: return launch_n<32>(a, lanes, route, block, chunk, vec, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

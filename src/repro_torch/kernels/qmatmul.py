@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.launch import sm_count, tile_counters
 
 _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -147,27 +148,6 @@ def decode_aligned(packed: torch.Tensor) -> bool:
     return packed.shape[1] % 16 == 0 and packed.data_ptr() % 16 == 0
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-# one zeroed int an output tile for the last-block count of a split launch
-# (the decode loop's, qmatmul_int8's), a buffer for each (device, stream): a
-# kernel leaves it zeroed, and kernels of one stream never overlap
-_counters = {}
-
-
-def _tile_counters(device: torch.device, tiles: int) -> torch.Tensor:
-    stream = torch.cuda.current_stream(device)
-    key = (stream.device_index, stream.cuda_stream)
-    buf = _counters.get(key)
-    if buf is None or buf.numel() < tiles:
-        buf = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
-        _counters[key] = buf
-    return buf
-
-
 def _tc_scratch(library: str, x: torch.Tensor, packed: torch.Tensor,
                 bits: int, n: int):
     """(aligned, splits, scratch, counters) of one launch.  Split, the
@@ -177,7 +157,7 @@ def _tc_scratch(library: str, x: torch.Tensor, packed: torch.Tensor,
     m, k = x.shape
     geo = tc_geometry(library)
     index = x.device.index
-    splits = tc_splits(m, n, k, _sm_count(
+    splits = tc_splits(m, n, k, sm_count(
         torch.cuda.current_device() if index is None else index), geo, bits)
     if m <= geo.decode_max_m:
         if splits == 1:
@@ -185,7 +165,7 @@ def _tc_scratch(library: str, x: torch.Tensor, packed: torch.Tensor,
         part = torch.empty((splits, n, -(-m // 4) * 4), dtype=torch.float32,
                            device=x.device)
         return (int(decode_aligned(packed)), splits, part,
-                _tile_counters(x.device, -(-n // geo.decode_bn)))
+                tile_counters(x.device, -(-n // geo.decode_bn)))
     part = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
     return int(tc_aligned(x, packed, bits, geo)), splits, part, None
@@ -414,7 +394,7 @@ def _launch_int8(x_q, packed, mult, bias, out, bits: int, plan: Int8Plan):
     if plan.splits > 1:
         part = torch.empty(plan.blocks * INT8_BM * INT8_BN, dtype=torch.int32,
                            device=x_q.device)
-        counters = _tile_counters(x_q.device, plan.blocks // plan.splits)
+        counters = tile_counters(x_q.device, plan.blocks // plan.splits)
     rc = _launcher_int8()(
         x_q.data_ptr(), packed.data_ptr(), mult.data_ptr(), bias.data_ptr(),
         out.data_ptr(), _ptr(part), _ptr(counters), m, n, k, kp, bits,
@@ -466,7 +446,7 @@ def qmatmul_int8(x_q: torch.Tensor, packed: torch.Tensor, mult: torch.Tensor,
     if m == 0 or n == 0:
         return out
     index = x_q.device.index
-    plan = int8_plan(m, k, n, _sm_count(
+    plan = int8_plan(m, k, n, sm_count(
         torch.cuda.current_device() if index is None else index),
         (x_q.data_ptr() | packed.data_ptr()) % 8 == 0)
     _launch_int8(x_q, packed, mult, bias, out, bits, plan)

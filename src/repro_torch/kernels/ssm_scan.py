@@ -12,21 +12,69 @@ The wrapper launches ``csrc/ssm_scan.cu`` for CUDA tensors and raises on
 anything it does not take: the inputs must be float32 (the TPU kernel's
 bf16 input is later work, ROADMAP A9).  For CPU tensors it computes the
 plain PyTorch version (``kernels/ref.py::selective_scan``).
-``selective_scan.launches`` counts kernel launches.
+``selective_scan.launches`` counts kernel launches, and
+``selective_scan.launches_by_route`` the same launches by route.
+
+The kernel has two routes, chosen by S (``scan_plan``, pure Python so that
+the CPU tests hold it): ``step`` for decode (S <= ``STEP_MAX_S``), one pass
+with every load straight to registers, and ``chunked`` for prefill, chunks
+of time steps through a cp.async ring.  Both take ``exp2(dt * A log2 e)``,
+one MUFU op a state step.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build, ref
 
-# state sizes the kernel is instantiated for (4 lanes share a channel's N)
+# state sizes the kernel is instantiated for
 N_STATES = (4, 8, 16, 32)
+# the route rule: S up to this takes the step route, longer S the ring
+STEP_MAX_S = 1
+# a block holds at most this many threads (the kernel's launch bounds), a
+# thread at most this many states
+MAX_THREADS = 256
+MAX_STATES = 16
+
+
+class ScanPlan(NamedTuple):
+    """One launch: ``route`` "step" or "chunked"; ``lanes`` threads share a
+    channel's N states (N / lanes each); ``block`` is threads a block
+    (step) or channels a block (chunked); ``chunk`` time steps a ring stage
+    (chunked only, else 0)."""
+    route: str
+    lanes: int
+    block: int
+    chunk: int
+
+
+def scan_plan(s: int, n: int, *, lanes: Optional[int] = None,
+              block: Optional[int] = None, chunk: Optional[int] = None
+              ) -> ScanPlan:
+    """The launch plan for a scan of S steps with N states: the step route
+    for S <= STEP_MAX_S, else the chunked one.  The defaults are the
+    fastest of ``tools/attn_scan_ab.py --sweep`` at falcon-mamba-7b's and
+    hymba-1.5b's shapes (N = 16) or within its spread: the step route 4
+    states a lane, MAX_THREADS threads a block; the chunked route 8 states
+    a lane (fewer lanes leave the SFUs idle between steps, more spend the
+    issue slots on shuffles), 64 channels a block and 16 steps a ring
+    stage, 32 from 256 steps on.  ``lanes``, ``block`` and ``chunk``
+    override them (for sweeps)."""
+    step = s <= STEP_MAX_S
+    if lanes is None:
+        lanes = max(1, n // (4 if step else 8))
+    if lanes not in (1, 2, 4, 8) or not 1 <= n // lanes <= MAX_STATES:
+        raise ValueError(f"lanes must be 1, 2, 4 or 8 with 1 to "
+                         f"{MAX_STATES} of the {n} states each, got {lanes}")
+    if step:
+        return ScanPlan("step", lanes, block or MAX_THREADS, 0)
+    return ScanPlan("chunked", lanes, block or min(64, MAX_THREADS // lanes),
+                    chunk or (32 if s >= 256 else 16))
 
 _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -35,7 +83,7 @@ _c_int = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = build.library("ssm_scan").ssm_scan_launch
-    fn.argtypes = [_c_ptr] * 9 + [_c_int] * 4 + [_c_ptr]
+    fn.argtypes = [_c_ptr] * 9 + [_c_int] * 9 + [_c_ptr]
     fn.restype = _c_int
     return fn
 
@@ -43,7 +91,8 @@ def _launcher():
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
                    h0: Optional[torch.Tensor] = None, *,
-                   h_out: Optional[torch.Tensor] = None
+                   h_out: Optional[torch.Tensor] = None,
+                   plan: Optional[ScanPlan] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x, dt (Bz, S, Di); A (Di, N); B, C (Bz, S, N); D (Di,); h0 (Bz, Di, N)
     or None -> (y (Bz, S, Di) f32, h_last (Bz, Di, N) f32).
@@ -51,7 +100,8 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     B and C may be strided views (slices of the ``x_proj`` output); they are
     made contiguous here.  The other inputs must be contiguous.  ``h_out``
     (contiguous f32 (Bz, Di, N), and may be ``h0`` itself) receives h_last
-    and is returned as it; without it h_last is a new tensor.
+    and is returned as it; without it h_last is a new tensor.  ``plan``
+    overrides ``scan_plan``'s (for sweeps).
     """
     tensors = [x, dt, A, B, C, D] + [t for t in (h0, h_out) if t is not None]
     if {t.device.type for t in tensors} == {"cpu"}:
@@ -85,24 +135,38 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if not all(t.is_contiguous() for t in [x, dt, A, D] + tensors[6:]):
         raise ValueError("selective_scan needs contiguous x, dt, A, D, h0 "
                          "and h_out")
+    if h_out is not None and h_out.data_ptr() % 16:
+        raise ValueError("selective_scan stores h_out in 16 B pieces: its "
+                         "storage must be 16-byte aligned")
+    # A, B, C and h0 are read in 16 B pieces: an unaligned one is copied
     B, C = B.contiguous(), C.contiguous()
+    A, B, C, h0 = (t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (A, B, C, h0))
     y = torch.empty((bsz, s, di), dtype=torch.float32, device=x.device)
     h_last = (torch.empty((bsz, di, n), dtype=torch.float32, device=x.device)
               if h_out is None else h_out)
     if bsz == 0 or di == 0:
         return y, h_last
+    plan = plan or scan_plan(s, n)
+    vec = di % 4 == 0 and (x.data_ptr() | dt.data_ptr()) % 16 == 0
     rc = _launcher()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                      C.data_ptr(), D.data_ptr(),
                      None if h0 is None else h0.data_ptr(),
                      y.data_ptr(), h_last.data_ptr(), bsz, s, di, n,
+                     0 if plan.route == "step" else 1, plan.lanes,
+                     plan.block, plan.chunk, int(vec),
                      torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"selective_scan launch failed: CUDA error {rc}")
+        raise RuntimeError(f"selective_scan launch failed: CUDA error {rc} "
+                           f"({plan})")
     selective_scan.launches += 1
+    by_route = selective_scan.launches_by_route
+    by_route[plan.route] = by_route.get(plan.route, 0) + 1
     return y, h_last
 
 
 selective_scan.launches = 0
+selective_scan.launches_by_route = {}
 
 
 def hbm_bytes_per_token(di: int, n: int, itemsize: int = 2) -> Tuple[int, int]:

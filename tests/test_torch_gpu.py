@@ -17,6 +17,8 @@ from repro_torch.core import packing, paging, placement, quantize  # noqa: E402
 from repro_torch.core import weight_store as ws  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import neureka_conv as nkc  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ssm_scan  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.qmatmul import (int8_plan,  # noqa: E402
                                          qmatmul_f32,
@@ -632,3 +634,177 @@ def test_conv3x3_dense_kernel_at_cin(cuda, rng, bits, stride, h, w, cin,
                                               stride=stride))
     assert torch.equal(nkc.conv3x3_dense(x, packed, mult, bias, bits=bits,
                                          cin=cin, stride=stride), got)
+
+
+# --- flash attention on the TF32 tensor cores: tiles, splits, GQA, C1 ---
+
+def _flash_case(rng, dev, b, hq, hkv, sq, sk, d, offsets):
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(dev)
+    off = (None if offsets is None
+           else torch.tensor(offsets, dtype=torch.int32, device=dev))
+    return t(b, hq, sq, d), t(b, hkv, sk, d), t(b, hkv, sk, d), off
+
+
+def _flash_plans(q, k):
+    """The default split, unsplit, and split one kv tile a slice."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    base = fa.flash_plan(b, hq, hkv, sq, sk, d, sms)
+    return sorted({base, fa.flash_plan(b, hq, hkv, sq, sk, d, sms,
+                                       split_tiles=1),
+                   fa.flash_plan(b, hq, hkv, sq, sk, d, sms,
+                                 split_tiles=base.kv_tiles)})
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("group", [1, 2, 5])
+def test_flash_kernel_heads_and_groups_at_every_plan(cuda, rng, d, group):
+    q, k, v, off = _flash_case(rng, cuda, 2, 2 * group, 2, 45, 200, d,
+                               (30, 155))
+    expect = ref.flash_attention(q, k, v, window=64, q_offset=off)
+    for plan in _flash_plans(q, k):
+        got = flash_attention(q, k, v, window=64, q_offset=off, plan=plan)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, expect, rtol=3e-5, atol=3e-5,
+                                   msg=str(plan))
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,window,offsets,causal", [
+    (2, 4, 2, 100, 24, 64, None, None, True),      # Sq > Sk: whole blocks
+    (2, 8, 8, 32, 64, 32, 16, (0, 70), True),      # a window past the keys
+    (1, 2, 2, 64, 280, 16, 40, (256,), False),     # an empty row, 2 slices
+    (1, 10, 2, 300, 256, 128, None, None, True),   # Sk = 256, GQA 5
+    (3, 1, 1, 40, 24, 16, None, None, True),       # the folded form's case
+])
+def test_flash_kernel_rows_that_see_no_key(cuda, rng, b, hq, hkv, sq, sk, d,
+                                           window, offsets, causal):
+    """C1: a row that sees no key gets the plain version's mean of v, at
+    every plan, whether its block walks tiles or none."""
+    q, k, v, off = _flash_case(rng, cuda, b, hq, hkv, sq, sk, d, offsets)
+    kw = dict(causal=causal, window=window, q_offset=off)
+    expect = ref.flash_attention(q, k, v, **kw)
+    for plan in _flash_plans(q, k):
+        got = flash_attention(q, k, v, plan=plan, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, expect, rtol=3e-5, atol=3e-5,
+                                   msg=str(plan))
+    if offsets is None and causal:
+        empty = sq - sk
+        torch.testing.assert_close(
+            got[:, :, :empty], v.mean(2, keepdim=True).repeat_interleave(
+                hq // hkv, 1).expand(-1, -1, empty, -1), rtol=3e-5,
+            atol=3e-5)
+
+
+@pytest.mark.parametrize("window", [1024, 1 << 30])
+def test_flash_kernel_hymba_long_prompt(cuda, rng, window):
+    """hymba-1.5b's longest prompt as the engine sends it: 4 rows alike at
+    offset 0, 25 / 5 heads, 1,163 queries over a 2,048-key span, a local
+    window and a global layer's; twice, bit-equal."""
+    q, k, v, off = _flash_case(rng, cuda, 4, 25, 5, 1163, 2048, 64,
+                               (0, 0, 0, 0))
+    got = flash_attention(q, k, v, window=window, q_offset=off)
+    again = flash_attention(q, k, v, window=window, q_offset=off)
+    expect = ref.flash_attention(q, k, v, window=window, q_offset=off)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, expect, rtol=3e-5, atol=3e-5)
+    assert torch.equal(got, again)
+
+
+def test_flash_kernel_split_gives_the_same_bits_every_call(cuda, rng):
+    q, k, v, off = _flash_case(rng, cuda, 4, 16, 8, 64, 512, 128,
+                               (0, 64, 192, 448))
+    plan = fa.flash_plan(4, 16, 8, 64, 512, 128, 132, split_tiles=1)
+    assert plan.splits > 1
+    outs = [flash_attention(q, k, v, q_offset=off, plan=plan)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def test_flash_kernel_takes_more_than_65535_row_tiles(cuda, rng):
+    """64 heads x 1,025 row tiles: more (batch row, kv head, row tile)
+    tiles than a grid's y dimension holds."""
+    q, k, v, _ = _flash_case(rng, cuda, 1, 64, 64, 65600, 32, 16, None)
+    plan = fa.flash_plan(1, 64, 64, 65600, 32, 16, 132)
+    assert 64 * plan.row_tiles > 65535
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.flash_attention(q, k, v,
+                                                        causal=False),
+                               rtol=3e-5, atol=3e-5)
+
+
+def test_launches_are_split_where_they_launch(cuda, rng):
+    """Each launch adds one to its wrapper's count and one to its shape
+    (flash) or route (scan)."""
+    q, k, v, off = _flash_case(rng, cuda, 2, 4, 2, 45, 200, 64, (30, 155))
+    before = flash_attention.launches, dict(flash_attention.launches_by_shape)
+    flash_attention(q, k, v, q_offset=off)
+    expect = dict(before[1])
+    expect["Sq=45 Sk=200"] = expect.get("Sq=45 Sk=200", 0) + 1
+    assert flash_attention.launches == before[0] + 1
+    assert flash_attention.launches_by_shape == expect
+    for s, route in ((1, "step"), (37, "chunked")):
+        args = _scan_inputs(rng, 3, s, 256, 16, cuda, True)
+        before = selective_scan.launches, dict(
+            selective_scan.launches_by_route)
+        selective_scan(*args)
+        expect = dict(before[1])
+        expect[route] = expect.get(route, 0) + 1
+        assert selective_scan.launches == before[0] + 1
+        assert selective_scan.launches_by_route == expect
+
+
+# --- the scan's two routes ---
+
+def _scan_plans(s, n):
+    """The default plan and each route at each lanes count it takes."""
+    plans = {ssm_scan.scan_plan(s, n)}
+    for lanes in (1, 2, 4, 8):
+        if 1 <= n // lanes <= ssm_scan.MAX_STATES:
+            plans.add(ssm_scan.ScanPlan("step", lanes, 128, 0))
+            plans.add(ssm_scan.ScanPlan("chunked", lanes,
+                                        min(32, 256 // lanes), 8))
+    return sorted(plans)
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+@pytest.mark.parametrize("s", [1, 2, 37])
+def test_selective_scan_both_routes(cuda, rng, n, s):
+    """Each route and lanes count at N 4-32, a ragged Di (4 B copies) and a
+    Di of 16 B rows, with h_out = h0 in place bit-equal to a fresh output."""
+    for di in (1001, 256):
+        args = _scan_inputs(rng, 3, s, di, n, cuda, True)
+        y_ref, h_ref = ref.selective_scan(*args)
+        for plan in _scan_plans(s, n):
+            y, h = selective_scan(*args, plan=plan)
+            cache = args[-1].clone()
+            y_ip, h_ip = selective_scan(*args[:-1], cache, h_out=cache,
+                                        plan=plan)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(y, y_ref, rtol=5e-4, atol=5e-4,
+                                       msg=str(plan))
+            torch.testing.assert_close(h, h_ref, rtol=5e-4, atol=5e-4,
+                                       msg=str(plan))
+            assert torch.equal(y_ip, y) and torch.equal(h_ip, h)
+
+
+@pytest.mark.parametrize("n", [4, 16, 32])
+def test_selective_scan_pads_are_no_ops_on_each_route(cuda, rng, n):
+    """dt = 0 pads leave h_last's bits as the real steps left them, on each
+    route: all pads (h_last = h0) and pads after real steps."""
+    x, dt, A, B, C, D, h0 = _scan_inputs(rng, 4, 40, 512, n, cuda)
+    for plan in _scan_plans(40, n):
+        for real in (0, 1, 23):
+            dt_pad = dt.clone()
+            dt_pad[:, real:] = 0
+            _, h_pad = selective_scan(x, dt_pad, A, B, C, D, h0, plan=plan)
+            h_real = h0 if real == 0 else selective_scan(
+                x[:, :real].contiguous(), dt[:, :real].contiguous(), A,
+                B[:, :real], C[:, :real], D, h0, plan=plan)[1]
+            torch.cuda.synchronize()
+            assert torch.equal(h_pad, h_real), (plan, real)

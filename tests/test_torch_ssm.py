@@ -295,3 +295,103 @@ def test_scan_wrapper_checks_its_inputs():
     y, h = ssm_scan.selective_scan(x, dt, A, B, C, D)
     y_ref, h_ref = ref.selective_scan(x, dt, A, B, C, D)
     assert torch.equal(y, y_ref) and torch.equal(h, h_ref)
+
+
+# --- the Hopper kernel's arithmetic and route rule, on the CPU ---
+#
+# csrc/ssm_scan.cu takes one MUFU op a state step: A is scaled by log2(e)
+# once, and each step's decay is ex2.approx(dt * A log2(e)).  The emulation
+# follows its f32 operations; ex2.approx is modelled as exact exp2 rounded
+# to f32, moved by a relative bias of +-2^-22 (about 2 ulp, the size of the
+# approximation's error) in the same direction at every step, the worst
+# case for a long recurrence.
+
+LOG2E = np.float32(1.4426950408889634)
+SCAN_TOL = dict(rtol=5e-4, atol=5e-4)     # chip_smoke.py's, the reference's
+
+
+def emulate_scan(x, dt, A, B, C, D, h0=None, bias=0.0):
+    bsz, s, di = x.shape
+    a2 = (A * LOG2E).astype(np.float32)
+    h = (np.zeros((bsz, di, A.shape[1]), np.float32) if h0 is None
+         else h0.copy())
+    y = np.empty_like(x)
+    for t in range(s):
+        arg = (dt[:, t, :, None] * a2[None]).astype(np.float32)
+        decay = (np.exp2(arg.astype(np.float64)) * (1.0 + bias)
+                 ).astype(np.float32)
+        dx = dt[:, t] * x[:, t]
+        h = (decay.astype(np.float64) * h
+             + (dx[..., None] * B[:, t, None, :])).astype(np.float32)
+        y[:, t] = (h * C[:, t, None, :]).sum(-1, dtype=np.float32) \
+            + x[:, t] * D
+    return y, h
+
+
+@pytest.mark.parametrize("bias", [0.0, 2.0 ** -22, -2.0 ** -22])
+@pytest.mark.parametrize("bsz,s,di,n,h0", [(2, 20, 12, 4, False),
+                                           (1, 64, 32, 16, True),
+                                           (2, 33, 24, 8, True),
+                                           (1, 1163, 16, 16, True),
+                                           (2, 37, 10, 32, False)])
+def test_exp2_emulation_holds_the_tolerance(bsz, s, di, n, h0, bias):
+    """exp2(dt * A log2 e) in f32, even with a 2 ulp bias at every step of
+    hymba's longest prompt, stays within SCAN_TOL of the reference's
+    scan."""
+    a = _inputs(bsz * 7 + s, bsz, s, di, n, h0)
+    names = ("x", "dt", "A", "B", "C", "D", "h0")
+    y, h = emulate_scan(*(a[k] for k in names), bias=bias)
+    y_ref, h_ref = jssm.selective_scan(*(_j(a[k]) for k in names), chunk=7)
+    np.testing.assert_allclose(y, np.asarray(y_ref), **SCAN_TOL)
+    np.testing.assert_allclose(h, np.asarray(h_ref), **SCAN_TOL)
+
+
+def test_exp2_of_a_pad_is_exactly_one():
+    """dt = 0: the decay's argument is -0 and ex2(-0) = 1, the update is 0,
+    so a pad leaves every state's bits as they were."""
+    a = _inputs(11, 2, 24, 16, 16, h0=True)
+    arg = np.float32(0) * (a["A"] * LOG2E).astype(np.float32)
+    assert (np.exp2(arg) == 1).all()
+    dt = a["dt"].copy()
+    dt[:, 13:] = 0
+    names = ("x", "A", "B", "C", "D", "h0")
+    _, h_pad = emulate_scan(a["x"], dt, *(a[k] for k in names[1:]))
+    _, h_real = emulate_scan(a["x"][:, :13], dt[:, :13], a["A"],
+                             a["B"][:, :13], a["C"][:, :13], a["D"],
+                             a["h0"])
+    np.testing.assert_array_equal(h_pad, h_real)
+
+
+def test_route_rule_by_s():
+    """S up to STEP_MAX_S (decode) takes the step route, longer S the
+    chunked ring; every default plan fits the kernel's block and state
+    limits, and lanes it cannot take are refused."""
+    edge = ssm_scan.STEP_MAX_S
+    for s in range(1, edge + 1):
+        assert ssm_scan.scan_plan(s, 16).route == "step"
+    for s in (edge + 1, 64, 1163):
+        assert ssm_scan.scan_plan(s, 16).route == "chunked"
+    for n in ssm_scan.N_STATES:
+        for s in (1, 64):
+            p = ssm_scan.scan_plan(s, n)
+            assert 1 <= n // p.lanes <= ssm_scan.MAX_STATES
+            threads = p.block if p.route == "step" else p.block * p.lanes
+            assert threads <= ssm_scan.MAX_THREADS and threads % 32 == 0
+            assert p.route == "step" or (p.block % 4 == 0 and p.chunk > 0)
+    for n, lanes in ((16, 3), (32, 1), (4, 8)):
+        with pytest.raises(ValueError, match="lanes"):
+            ssm_scan.scan_plan(64, n, lanes=lanes)
+
+
+def test_cpu_calls_launch_nothing(rng):
+    """On the CPU the wrapper computes the plain version: its launch count
+    and its split by route stay as they were."""
+    fn = ssm_scan.selective_scan
+    before = fn.launches, dict(fn.launches_by_route)
+    x, dt = (torch.from_numpy(rng.random((1, 3, 8), np.float32))
+             for _ in range(2))
+    A = -torch.from_numpy(rng.random((8, 4), np.float32))
+    B, C = (torch.from_numpy(rng.normal(size=(1, 3, 4)).astype(np.float32))
+            for _ in range(2))
+    fn(x, dt, A, B, C, torch.ones(8))
+    assert (fn.launches, fn.launches_by_route) == before
