@@ -15,8 +15,9 @@ fails:
    fails if the tensor-core kernels of the f32 matmuls (``qmm_dec``,
    ``bs_dec`` for M <= 16, ``qmm_tc``, ``bs_tc`` above), the flash kernel
    (``flash_fwd_tc``), the scan's two routes (``scan_step``,
-   ``scan_chunked``) or the int8 MMA kernels (``qmm_int8_direct``,
-   ``qmm_int8_staged``, ``dense3x3_mma``) spill, or if ``cuobjdump
+   ``scan_chunked``), the int8 MMA kernels (``qmm_int8_direct``,
+   ``qmm_int8_staged``, ``dense3x3_mma``) or the depthwise kernel
+   (``dw3x3_vec``, every instantiation) spill, or if ``cuobjdump
    --dump-sass`` finds no ``IMMA`` in an int8 MMA kernel or no TF32
    ``HMMA`` in the flash kernel;
 2. each Hopper kernel against its plain PyTorch version on the card, at the
@@ -30,8 +31,9 @@ fails:
    ``qmatmul_int8``, ``conv3x3_dense`` and ``conv3x3_dw`` bit for bit
    (``torch.equal``) at every distinct MobileNet-V2 job shape at 224, at 8,
    4 and 2 bits, at the ragged shapes of the reference's kernel tests (and
-   dense 3x3 at Cin 40 and 64, and ``qmatmul_int8`` on each side of its
-   plan's K-split thresholds) and at requant ties; ``qmatmul_f32`` and
+   dense 3x3 at Cin 40 and 64, depthwise 3x3 at C 24, 17 and 1, and
+   ``qmatmul_int8`` on each side of its plan's K-split thresholds) and at
+   requant ties; ``qmatmul_f32`` and
    ``qmatmul_f32_blockscale`` must
    also give the same bits on two calls.  Then each is timed with CUDA
    events (L2-cold: inputs rotate over more than the 50 MB L2) beside its
@@ -44,7 +46,9 @@ fails:
    qwen3-0.6b's layer, falcon-mamba-7b's four linears of a layer are timed
    at M = 4 and 256; flash at qwen3-0.6b's prefill chunk and hymba-1.5b's
    longest prompt; the scan at falcon-mamba-7b's and hymba-1.5b's prefill
-   and decode.
+   and decode; the N-EUREKA kernels at MobileNet-V2 jobs (``NEUREKA_TIMED``:
+   ``conv3x3_dw`` at b0.dw, b1.dw and b14.dw, its largest stride-1 and
+   stride-2 maps and its smallest one).
    Device times replay a CUDA graph of the calls, so the host's
    launch gaps drop out; the same calls enqueued eagerly from Python are
    printed beside them;
@@ -144,9 +148,10 @@ MNV2_FRAMES = 16
 NEUREKA_KERNELS = ("conv3x3_dense", "conv3x3_dw", "qmatmul_int8")
 NEUREKA_PER_FRAME = {"conv3x3_dense": 1, "conv3x3_dw": 17, "qmatmul_int8": 35}
 # the jobs timed alone: B4 at its largest map, at a 7 x 7 projection with a
-# long K, at conv_last and at fc; B5 at conv0; B6 at its largest map
+# long K, at conv_last and at fc; B5 at conv0; B6 at its largest stride-2
+# map (b1.dw), its largest stride-1 map (b0.dw) and its smallest (b14.dw)
 NEUREKA_TIMED = ("b1.pw_exp", "b14.pw_proj", "conv_last", "fc", "conv0",
-                 "b1.dw")
+                 "b1.dw", "b0.dw", "b14.dw")
 L2_COLD_BYTES = 64e6             # rotate timing inputs over more than L2
 
 # the serving paths: (arch, max_len, one prompt of 1,000-1,200 tokens so that
@@ -172,6 +177,8 @@ FALCON_LINEARS = {"in_proj": (4096, 16384), "x_proj": (8192, 288),
 # scan's two routes (csrc/ssm_scan.cu)
 TC_KERNELS = ("qmm_dec", "bs_dec", "qmm_tc", "bs_tc", "flash_fwd_tc")
 SCAN_KERNELS = ("scan_step", "scan_chunked")
+# the depthwise kernel's instantiations (csrc/neureka_conv.cu)
+DW_KERNELS = ("dw3x3_vec",)
 # the kernels whose SASS must hold their tensor-core op: {function name
 # fragment: (library, the op's tokens)}; the int8 MMA kernels
 # (csrc/int8_mma.cuh) IMMA, the flash kernel a TF32 HMMA
@@ -260,12 +267,12 @@ def bound_ms(nbytes: float, ops: float, rate: float = F32_FLOPS_PER_S):
 
 def phase_build(build):
     """Build every kernel, print what ptxas reports, and fail if a
-    tensor-core or scan kernel spills or an MMA kernel's SASS lacks its
-    tensor-core op."""
+    tensor-core, scan or depthwise kernel spills or an MMA kernel's SASS
+    lacks its tensor-core op."""
     t0 = time.perf_counter()
     build.build_all()
     print(f"[build] nvcc sm_90a, {time.perf_counter() - t0:.2f} s")
-    checked = TC_KERNELS + SCAN_KERNELS + tuple(MMA_OPS)
+    checked = TC_KERNELS + SCAN_KERNELS + DW_KERNELS + tuple(MMA_OPS)
     spills = []
     for name, report in build.ptxas_reports().items():
         func = None
@@ -280,7 +287,8 @@ def phase_build(build):
                     and any(int(b) for b in spilled)):
                 spills.append(f"{func}: {line.strip()}")
     if spills:
-        raise AssertionError("the tensor-core or scan kernels spill:\n"
+        raise AssertionError("the tensor-core, scan or depthwise kernels "
+                             "spill:\n"
                              + "\n".join(spills))
     ops = sass_mma(build)
     print(f"[build] cuobjdump: tensor-core ops in each MMA kernel "
@@ -1456,15 +1464,17 @@ def neureka_pair(nkc, qmm, ref, op, shape, bits):
 
 
 # the ragged shapes of the reference's kernel tests (test_kernels.py:45-100),
-# and dense 3x3 at Cin 40 and 64 (odd maps; K runs over several 32-wide
-# steps across taps)
+# dense 3x3 at Cin 40 and 64 (odd maps; K runs over several 32-wide steps
+# across taps), and depthwise 3x3 at C 24, 17 and 1 (8, 1 and 1 channels a
+# thread)
 RAGGED_CASES = (
     [("pw1x1", (40, 130, 50)), ("pw1x1", (1, 33, 7)), ("pw1x1", (63, 130, 17))]
     + [("dense3x3", (12, 10, 24, 16, s)) for s in (1, 2)]
     + [("dense3x3", (7, 7, 3, 32, s)) for s in (1, 2)]
     + [("dense3x3", (9, 11, 40, 8, s)) for s in (1, 2)]
     + [("dense3x3", (13, 7, 64, 40, s)) for s in (1, 2)]
-    + [("dw3x3", (9, 11, 40, s)) for s in (1, 2)])
+    + [("dw3x3", shape + (s,)) for s in (1, 2)
+       for shape in ((9, 11, 40), (12, 10, 24), (9, 11, 17), (7, 5, 1))])
 TIE_CASES = [("pw1x1", (37, 4, 9)), ("pw1x1", (50, 24, 40)),
              ("dense3x3", (7, 7, 3, 32, 1)), ("dw3x3", (9, 11, 40, 2))]
 
@@ -1539,7 +1549,8 @@ def time_neureka(torch, F, packing, ops, ref, nkc, qmm, dev, op, shape,
     library call is the same accumulation in f32 on pre-unpacked levels,
     without the requant: ``torch.matmul`` for pw1x1, ``F.conv2d`` (NCHW,
     ``groups=C`` for dw3x3) for the 3x3 operators.  ``note`` (the launch
-    plan) is added to the printed work."""
+    plan; a dw3x3 job prints the plan its timed launches took) is added
+    to the printed work."""
     bits = 8
     gen = torch.Generator(device=dev).manual_seed(7)
     name, kernel, plain = neureka_pair(nkc, qmm, ref, op, shape, bits)
@@ -1572,6 +1583,11 @@ def time_neureka(torch, F, packing, ops, ref, nkc, qmm, dev, op, shape,
     res = time_versions(torch, lambda i: kernel(*sets[i % copies][0]),
                         lambda i: plain(*sets[i % copies][0]), library,
                         copies, 50)
+    # the plan of the dw3x3 launches just timed (tools/neureka_ab.py also
+    # times checkouts whose wrapper kept no plans)
+    if op == "dw3x3" and getattr(nkc.conv3x3_dw, "plans", None):
+        res["plan"] = nkc.conv3x3_dw.plans[-1]
+        note = plan_text(res["plan"])
     x, packed, mult, _ = sets[0][0]
     out_numel = plain(*sets[0][0]).numel()
     if op == "pw1x1":
@@ -1593,9 +1609,14 @@ def time_neureka(torch, F, packing, ops, ref, nkc, qmm, dev, op, shape,
 
 
 def plan_text(plan) -> str:
-    """An ``Int8Plan`` as 'route, splits x kchunk K, blocks'."""
-    return (f"{plan.route}, {plan.splits} x {plan.kchunk} K, "
-            f"{plan.blocks} blocks")
+    """An ``Int8Plan`` as 'route, splits x kchunk K, blocks', a ``DwPlan``
+    as 'vec B a thread, cg ch x tc x rows a block, route, blocks'."""
+    if hasattr(plan, "route"):
+        return (f"{plan.route}, {plan.splits} x {plan.kchunk} K, "
+                f"{plan.blocks} blocks")
+    return (f"{plan.vec} B a thread, {plan.cg} ch x "
+            f"{plan.tc} x {plan.rows} rows a block, "
+            f"{'staged' if plan.staged else 'direct'}, {plan.blocks} blocks")
 
 
 # kernel-name fragments of the N-EUREKA kernels, as the profiler names them,
@@ -1615,6 +1636,8 @@ def profile_frames(torch, mnv2, qmm, frozen, frames, jobs, n: int = 4):
     name is not that job's operator, or if the per-job times summed by
     operator differ from the per-kernel sums."""
     from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.kernels.neureka_conv import conv3x3_dw
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1682,6 +1705,9 @@ def profile_frames(torch, mnv2, qmm, frozen, frames, jobs, n: int = 4):
     sms = torch.cuda.get_device_properties(
         torch.cuda.current_device() if index is None else index
     ).multi_processor_count
+    # the plans the last frame's depthwise launches took, in job order
+    n_dw = sum(job.op_kind == "dw3x3" for job in jobs)
+    dw_plans = iter(list(conv3x3_dw.plans)[-n_dw:])
     per_job = {}
     for job in jobs:
         entry = {"op": OP_KERNEL[job.op_kind],
@@ -1689,6 +1715,8 @@ def profile_frames(torch, mnv2, qmm, frozen, frames, jobs, n: int = 4):
         if job.op_kind == "pw1x1":
             entry["plan"] = plan_text(qmm.int8_plan(
                 job.h * job.w, job.cin, job.cout, sms))
+        elif job.op_kind == "dw3x3":
+            entry["plan"] = plan_text(next(dw_plans))
         per_job[job.name] = entry
     res["by_job"] = per_job
     print(f"[frames] profiler over {n} eager frames (after one warm-up frame):"
@@ -1857,7 +1885,10 @@ def main() -> int:
                                else "")
             for name in NEUREKA_TIMED}
     for name, plan in plans.items():
-        t_nk[name].update(launch_route=plan.route, plan=plan._asdict())
+        t_nk[name].update(plan=plan._asdict(), launch_route=plan.route)
+    for t in t_nk.values():
+        if "plan" in t and not isinstance(t["plan"], dict):
+            t["plan"] = t["plan"]._asdict()
     scan_err = check_scan(torch, ref, ssm, dev)
     t_scan = {which: time_scan(torch, ref, ssm, dev, which)
               for which in SCAN_TIMED}
@@ -1966,6 +1997,9 @@ def main() -> int:
             entry.update(launch_route=t["launch_route"], plan=t["plan"],
                          b14_pw_proj=t_nk["b14.pw_proj"],
                          conv_last=t_nk["conv_last"], fc=t_nk["fc"])
+        if name == "conv3x3_dw":
+            entry.update(plan=t["plan"], b0_dw=t_nk["b0.dw"],
+                         b14_dw=t_nk["b14.dw"])
         kernels.append(entry)
     t = t_scan["falcon_prefill"]
     kernels.append(dict(

@@ -7,7 +7,9 @@ and the per-channel NORMQUANT requant to uint8.
 - ``conv3x3_dense`` (``_dense3x3_kernel``) and ``conv3x3_dw``
   (``_dw3x3_kernel``) launch ``csrc/neureka_conv.cu``; the dense one is an
   implicit GEMM on the int8 tensor cores, with the block tile that
-  ``dense_plan`` chooses;
+  ``dense_plan`` chooses, the depthwise one channel vectors summed by
+  ``dp4a``, with the plan (and the route: taps from a staged window or
+  loaded direct) that ``dw_plan`` chooses;
 - ``conv1x1`` is the strided slice plus ``qmatmul_int8``
   (``csrc/qmatmul_int8.cu``), as in the reference.
 
@@ -17,14 +19,17 @@ as zero outside the map (the reference's halo padding,
 tensors and raises on anything it does not take.  For CPU tensors it
 computes the plain PyTorch version (``kernels/ref.py``).
 ``conv3x3_dense.launches`` and ``conv3x3_dw.launches`` count kernel
-launches (``conv1x1``'s are ``qmatmul_int8.launches``).
+launches (``conv1x1``'s are ``qmatmul_int8.launches``);
+``conv3x3_dw.plans`` holds the plans of its latest 64 launches, newest
+last.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -72,6 +77,105 @@ def dense_plan(h: int, w: int, cout: int, stride: int) -> DensePlan:
     ho, wo = -(-h // stride), -(-w // stride)
     tw = -(-wo // -(-wo // 32))
     return dense_tile(h, w, cout, stride, max(1, min(ho, 64 // tw)), tw)
+
+
+DW_THREADS = 128                 # the most threads a depthwise block
+DW_WIDTHS = (16, 8, 4, 2, 1)     # channels (bytes) a thread
+MAX_SMEM = 227 * 1024            # shared memory a block can have
+
+
+class DwPlan(NamedTuple):
+    """A ``conv3x3_dw`` launch: each thread takes ``vec`` channels of one
+    output pixel; a block ``cg`` channels (a multiple of ``vec``) of
+    ``rows`` output rows of ``tc`` pixels, so (cg / vec) * tc * rows
+    threads.  ``staged``: the taps come from the block's input window
+    staged in shared memory; otherwise each thread loads its nine taps
+    from the map into registers."""
+    vec: int
+    cg: int
+    tc: int
+    rows: int
+    staged: bool
+    blocks: int
+
+    @property
+    def threads(self) -> int:
+        return self.cg // self.vec * self.tc * self.rows
+
+
+def dw_vec(c: int, width: int = 16) -> int:
+    """The widest of DW_WIDTHS, at most ``width``, that divides C."""
+    return next(v for v in DW_WIDTHS if v <= width and c % v == 0)
+
+
+def dw_smem(plan: DwPlan, stride: int) -> int:
+    """Shared bytes of a block (csrc/neureka_conv.cu ``dw_layout``): the
+    staged window, 3 level words, mult and bias for each channel."""
+    def up(v):
+        return -(-v // 16) * 16
+    window = ((plan.rows - 1) * stride + 3) * (
+        (plan.tc - 1) * stride + 3) * plan.cg
+    return (up(window) if plan.staged else 0) + up(12 * plan.cg) \
+        + 2 * up(4 * plan.cg)
+
+
+def dw_tile(h: int, w: int, c: int, stride: int, vec: int, cg: int,
+            threads: int, staged: bool = True) -> DwPlan:
+    """The plan of ``vec`` channels a thread and ``cg`` channels a block
+    that has at most ``threads`` threads, with the output's rows and
+    columns cut into equal tiles."""
+    ho, wo = -(-h // stride), -(-w // stride)
+    nv = cg // vec
+    tc = -(-wo // -(-wo // max(1, threads // nv)))
+    rows = max(1, min(ho, 64, threads // (nv * tc)))
+    rows = -(-ho // -(-ho // rows))
+    blocks = -(-wo // tc) * -(-ho // rows) * -(-c // cg)
+    return DwPlan(vec, cg, tc, rows, staged, blocks)
+
+
+def dw_groups(c: int, vec: int) -> list:
+    """Channel groups a block can take: vec times 1-32 (at most C, and at
+    most DW_THREADS threads a row of one pixel), and C itself."""
+    out = {vec * n for n in (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
+           if vec * n <= c}
+    if c // vec <= DW_THREADS:
+        out.add(c)
+    return sorted(out)
+
+
+def dw_plans(h: int, w: int, c: int, stride: int, width: int = 16) -> list:
+    """Every plan the sweep times at one shape: the widest vector, each
+    channel group and thread budget (64 and 128), each route."""
+    vec = dw_vec(c, width)
+    plans = {dw_tile(h, w, c, stride, vec, cg, t, staged)
+             for staged in (True, False) for cg in dw_groups(c, vec)
+             for t in (64, DW_THREADS) if cg // vec <= t}
+    return sorted(plans)
+
+
+@functools.lru_cache(maxsize=None)
+def dw_plan(h: int, w: int, c: int, stride: int,
+            width: int = 16) -> DwPlan:
+    """The plan ``conv3x3_dw`` launches: the widest vector that divides C
+    and ``width`` (the map pointers' alignment), two vectors of channels a
+    block (one where C holds one), DW_THREADS threads at most, the
+    output's rows and columns cut into equal tiles; the window staged
+    where a block holds several output rows at stride 1 (a staged byte
+    then serves up to 9 of its outputs), the taps loaded straight to
+    registers otherwise.  From ``tools/neureka_ab.py --sweep --op dw3x3``
+    on an H100 SXM (every plan of ``dw_plans`` at the 10 MobileNet-V2
+    depthwise shapes, each 2.3-3.7 us): 32-channel groups beat the others
+    by 1-8 % but at b3.dw (2.4 % behind 64), the direct route beat the
+    staged one by 2-10 % at stride 2 and at the one-row blocks of b0.dw
+    and b2.dw, and lost by 1-5 % at the stride-1 maps of 7-28 rows.  The
+    same sweep also timed two and four pixels a thread (slower than one
+    by 6-41 % and 25-103 %) and 256-thread blocks (never more than 0.4 %
+    faster than the best of 128 threads, up to 17 % slower), which the
+    kernel therefore does not take.  No SM count enters: the best plans
+    ran from 18 to 280 blocks."""
+    vec = dw_vec(c, width)
+    plan = dw_tile(h, w, c, stride, vec, min(c, 2 * vec), DW_THREADS)
+    return plan._replace(staged=stride == 1 and plan.rows > 1)
 
 
 def _check(name: str, x, packed, mult, bias, bits: int, stride: int,
@@ -151,30 +255,42 @@ conv3x3_dense.launches = 0
 
 
 def conv3x3_dw(x: torch.Tensor, packed: torch.Tensor, mult: torch.Tensor,
-               bias: torch.Tensor, *, bits: int,
-               stride: int = 1) -> torch.Tensor:
+               bias: torch.Tensor, *, bits: int, stride: int = 1,
+               plan: Optional[DwPlan] = None) -> torch.Tensor:
     """Depthwise 3x3: x (H, W, C) uint8, packed (C, ceil(9/f)) along the
-    nine taps (t = 3i + j) -> (ceil(H/s), ceil(W/s), C) uint8."""
+    nine taps (t = 3i + j) -> (ceil(H/s), ceil(W/s), C) uint8.  ``plan``
+    overrides ``dw_plan``'s (for sweeps and tests); a plan the kernel
+    cannot take raises."""
     if {t.device.type for t in (x, packed, mult, bias)} == {"cpu"}:
         return ref.conv3x3_dw(x, packed, mult, bias, bits=bits, stride=stride)
     c = x.shape[-1] if x.ndim == 3 else -1
     kp = -(-9 // (8 // bits)) if bits in (2, 4, 8) else -1
     _check("conv3x3_dw", x, packed, mult, bias, bits, stride, c, (c, kp))
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"conv3x3_dw indexes the map in 32 bits: "
+                         f"{tuple(x.shape)} is too large")
     out = _out(x, stride, c)
     if out.numel() == 0:
         return out
     h, w, _ = x.shape
-    rc = _launcher("conv3x3_dw", 6)(
+    if plan is None:
+        plan = dw_plan(h, w, c, stride, copy_width(
+            c, x.data_ptr() | out.data_ptr(), DW_WIDTHS[:-1]))
+    rc = _launcher("conv3x3_dw", 11)(
         x.data_ptr(), packed.data_ptr(), mult.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), h, w, c, kp, stride, bits,
+        out.data_ptr(), h, w, c, kp, stride, bits, plan.vec,
+        plan.cg, plan.tc, plan.rows, int(plan.staged),
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"conv3x3_dw launch failed: CUDA error {rc}")
+        raise RuntimeError(f"conv3x3_dw launch failed: CUDA error {rc} "
+                           f"({plan})")
     conv3x3_dw.launches += 1
+    conv3x3_dw.plans.append(plan)
     return out
 
 
 conv3x3_dw.launches = 0
+conv3x3_dw.plans = collections.deque(maxlen=64)   # of the latest launches
 
 
 def conv1x1(x: torch.Tensor, packed: torch.Tensor, mult: torch.Tensor,

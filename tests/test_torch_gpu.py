@@ -181,7 +181,8 @@ def test_conv3x3_dense_kernel_matches_plain(cuda, rng, bits, stride, h, w,
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("stride", [1, 2])
 @pytest.mark.parametrize("h,w,c", [(9, 11, 40), (112, 112, 96),
-                                   (7, 7, 960)])
+                                   (7, 7, 960), (12, 10, 24), (9, 11, 17),
+                                   (7, 5, 1)])
 def test_conv3x3_dw_kernel_matches_plain(cuda, rng, bits, stride, h, w, c):
     x = _u8(rng, (h, w, c), cuda)
     wf = torch.from_numpy(rng.normal(size=(c, 3, 3)).astype(np.float32))
@@ -191,8 +192,43 @@ def test_conv3x3_dw_kernel_matches_plain(cuda, rng, bits, stride, h, w, c):
     got = nkc.conv3x3_dw(x, packed, mult, bias, bits=bits, stride=stride)
     torch.cuda.synchronize()
     assert nkc.conv3x3_dw.launches == before + 1
-    assert torch.equal(got, ref.conv3x3_dw(x, packed, mult, bias, bits=bits,
-                                           stride=stride))
+    expect = ref.conv3x3_dw(x, packed, mult, bias, bits=bits, stride=stride)
+    assert torch.equal(got, expect)
+    # every plan the sweep times, forced
+    for plan in nkc.dw_plans(h, w, c, stride):
+        got = nkc.conv3x3_dw(x, packed, mult, bias, bits=bits, stride=stride,
+                             plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, expect), plan
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("h,w,c", [(9, 11, 40), (56, 56, 144), (7, 7, 960)])
+def test_conv3x3_dw_kernel_x_at_a_byte_offset(cuda, rng, bits, stride, h, w,
+                                              c):
+    # x starts one byte into its buffer: the plan takes one channel a
+    # thread, and a forced 16 B plan is refused, not run
+    buf = _u8(rng, (h * w * c + 1,), cuda)
+    x = buf[1:].view(h, w, c)
+    assert x.data_ptr() % 2 == 1 and x.is_contiguous()
+    wf = torch.from_numpy(rng.normal(size=(c, 3, 3)).astype(np.float32))
+    packed = ops.prep_dw3x3(wf, bits)[0].to(cuda)
+    mult, bias = _requant(rng, c, cuda)
+    expect = ref.conv3x3_dw(x, packed, mult, bias, bits=bits, stride=stride)
+    got = nkc.conv3x3_dw(x, packed, mult, bias, bits=bits, stride=stride)
+    torch.cuda.synchronize()
+    assert torch.equal(got, expect)
+    # the wrapper records the plan it launched: one channel a thread
+    assert nkc.conv3x3_dw.plans[-1] == nkc.dw_plan(h, w, c, stride, width=1)
+    wide = nkc.dw_plan(h, w, c, stride)
+    assert wide.vec > 1
+    before = nkc.conv3x3_dw.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        nkc.conv3x3_dw(x, packed, mult, bias, bits=bits, stride=stride,
+                       plan=wide)
+    assert nkc.conv3x3_dw.launches == before
+    assert nkc.conv3x3_dw.plans[-1] != wide
 
 
 def test_conv1x1_strided_on_the_card(cuda, rng):

@@ -375,3 +375,201 @@ def test_dense_plan_tiles_the_map(shape):
     assert plan.rows * plan.tw <= 64 and plan.tw <= 32
     assert plan.blocks == (-(-wo // plan.tw) * -(-ho // plan.rows)
                            * -(-cout // nkc.DENSE_BN))
+
+
+# --- the depthwise kernel's tiling and launch plan ------------------------
+
+def _byte_perm(x, y, sel):
+    # __byte_perm: result byte n is byte (sel >> 4n) & 7 of (x, y)
+    src = np.stack([(x >> (8 * b)) & 0xFF for b in range(4)]
+                   + [(y >> (8 * b)) & 0xFF for b in range(4)])
+    out = np.zeros_like(x)
+    for n in range(4):
+        out |= src[(sel >> (4 * n)) & 7] << (8 * n)
+    return out
+
+
+def _dp4a_us(a, b, c):
+    # dp4a.u32.s32: c + unsigned bytes of a times signed bytes of b
+    for n in range(4):
+        ua = (a >> (8 * n)) & 0xFF
+        sb = ((b >> (8 * n)) & 0xFF).astype(np.int64)
+        c = c + ua.astype(np.int64) * np.where(sb > 127, sb - 256, sb)
+    return c
+
+
+def _direct_taps(x, ih, iw, ch, vec, live):
+    # the direct route's load of each thread's vec channels at (ih, iw):
+    # zeros outside the map and for threads with no output
+    h, w, _ = x.shape
+    inside = live & (ih >= 0) & (ih < h) & (iw >= 0) & (iw < w)
+    out = np.zeros((len(ih), vec), np.int64)
+    out[inside] = x[ih[inside, None], iw[inside, None],
+                    ch[inside, None] + np.arange(vec)]
+    return out
+
+
+def _dw_kernel(x, packed, mult, bias, *, bits, stride, plan):
+    """csrc/neureka_conv.cu::dw3x3_vec in numpy, block by block and thread
+    by thread (vectorised over a block's threads) as ``plan`` launches it:
+    the staged window with its zero halo (flat, pixel-major, cg channels a
+    pixel) or, on the direct route, each thread's nine taps read from the
+    map with zeros outside it, the level words (kernel row i of channel c:
+    taps 3i .. 3i + 2 as signed bytes, byte 3 zero), each thread's vec
+    channels of its pixel read at the kernel's offsets, each kernel row's
+    taps of four channels moved by the kernel's byte permutes into a word
+    a channel and summed by dp4a.  Returns the output and how often each
+    byte was written."""
+    h, w, c = x.shape
+    s, vec, cg, tw = stride, plan.vec, plan.cg, plan.tc
+    ho, wo = -(-h // s), -(-w // s)
+    ir, ic = (plan.rows - 1) * s + 3, (tw - 1) * s + 3
+    tiles_w, tiles_h = -(-wo // tw), -(-ho // plan.rows)
+    f = 8 // bits
+    fields = (packed[:, :, None].astype(np.int64) >> (bits * np.arange(f))) \
+        & ((1 << bits) - 1)
+    levels = fields.reshape(c, -1)[:, :9] - (1 << (bits - 1))
+    nw = -(-vec // 4)
+    zz, yy, xk = np.meshgrid(np.arange(plan.rows), np.arange(tw),
+                             np.arange(cg // vec), indexing="ij")
+    zz, yy, k = zz.ravel(), yy.ravel(), xk.ravel() * vec
+    out = np.zeros((ho, wo, c), np.uint8)
+    written = np.zeros((ho, wo, c), np.int64)
+    for gy in range(-(-c // cg)):
+        c0 = gy * cg
+        ncg = min(cg, c - c0)
+        lvw = np.zeros((3, cg), np.int64)
+        for i in range(3):
+            for j in range(3):
+                lvw[i, :ncg] |= ((levels[c0:c0 + ncg, 3 * i + j] & 0xFF)
+                                 << (8 * j))
+        mu = np.zeros(cg, np.float32)
+        bi = np.zeros(cg, np.int32)
+        mu[:ncg], bi[:ncg] = mult[c0:c0 + ncg], bias[c0:c0 + ncg]
+        for bx in range(tiles_w * tiles_h):
+            th, twi = divmod(bx, tiles_w)
+            oh0, ow0 = th * plan.rows, twi * tw
+            xs = np.zeros(ir * ic * cg, np.int64)
+            for pix in range(ir * ic):
+                q, col = divmod(pix, ic)
+                ih, iw = oh0 * s - 1 + q, ow0 * s - 1 + col
+                if 0 <= ih < h and 0 <= iw < w:
+                    xs[pix * cg:pix * cg + ncg] = x[ih, iw, c0:c0 + ncg]
+            oh, ow = oh0 + zz, ow0 + yy
+            live = (oh < ho) & (ow < wo) & (k < ncg)
+            base = (zz * s * ic + yy * s) * cg + k
+            acc = np.zeros((len(k), vec), np.int64)
+            for i in range(3):
+                lv = lvw[i][k[:, None] + np.arange(vec)]          # (T, vec)
+                row = base + i * ic * cg
+                if plan.staged:
+                    taps = [xs[row[:, None] + j * cg + np.arange(vec)]
+                            for j in range(3)]                    # (T, vec)
+                else:
+                    taps = [_direct_taps(x, oh * s + i - 1, ow * s + j - 1,
+                                         c0 + k, vec, live)
+                            for j in range(3)]
+                words = []
+                for t in taps:
+                    t4 = np.zeros((len(k), 4 * nw), np.int64)
+                    t4[:, :vec] = t
+                    words.append((t4.reshape(-1, nw, 4)
+                                  << (8 * np.arange(4))).sum(-1))
+                for wi in range(nw):
+                    x0, x1, x2 = (wd[:, wi] for wd in words)
+                    a = _byte_perm(x0, x1, 0x5140)
+                    b = _byte_perm(x0, x1, 0x7362)
+                    for ci, (src, sel) in enumerate(
+                            ((a, 0x4410), (a, 0x5532), (b, 0x6610),
+                             (b, 0x7732))):
+                        ch = 4 * wi + ci
+                        if ch < vec:
+                            acc[:, ch] = _dp4a_us(_byte_perm(src, x2, sel),
+                                                  lv[:, ch], acc[:, ch])
+            ch = k[:, None] + np.arange(vec)
+            y = _requant_np(acc[live], mu[ch[live]], bi[ch[live]])
+            oo, ww, cc = (np.broadcast_to(oh[live, None], ch[live].shape),
+                          np.broadcast_to(ow[live, None], ch[live].shape),
+                          c0 + ch[live])
+            out[oo, ww, cc] = y
+            np.add.at(written, (oo, ww, cc), 1)
+    return out, written
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("hwc", [(9, 11, 40), (12, 10, 24), (7, 7, 960),
+                                 (1, 1, 16)])
+def test_dw_kernel_emulation_matches_reference(rng, bits, stride, hwc):
+    h, w_, c = hwc
+    x = rng.integers(0, 255, (h, w_, c)).astype(np.uint8)
+    wf = rng.normal(size=(c, 3, 3)).astype(np.float32)
+    packed, _ = jops.prep_dw3x3(jnp.asarray(wf), bits)
+    mult, bias = _requant_operands(rng, c)
+    args = (jnp.asarray(x), packed, jnp.asarray(mult), jnp.asarray(bias))
+    pallas = np.asarray(jnkc.conv3x3_dw(*args, bits=bits, stride=stride,
+                                        bc=16 if c < 64 else 64,
+                                        interpret=True))
+    # the plan launched from aligned and from odd pointers, both routes,
+    # and a block of several channel vectors
+    first = nkc.dw_plan(h, w_, c, stride)
+    plans = {first, nkc.dw_plan(h, w_, c, stride, width=1)}
+    plans |= {nkc.dw_tile(h, w_, c, stride, first.vec, cg, 128, staged)
+              for cg in (first.cg, min(c, 4 * first.vec))
+              for staged in (True, False)}
+    for plan in plans:
+        got, written = _dw_kernel(x, np.asarray(packed), mult, bias,
+                                  bits=bits, stride=stride, plan=plan)
+        assert (written == 1).all(), plan
+        np.testing.assert_array_equal(got, pallas, err_msg=str(plan))
+
+
+def _mnv2_dw_shapes():
+    from repro_torch.core.perf_model import mobilenet_v2_jobs
+    return list(dict.fromkeys((j.h, j.w, j.cin, j.stride)
+                              for j in mobilenet_v2_jobs(8, 224)
+                              if j.op_kind == "dw3x3"))
+
+
+# every distinct MobileNet-V2 1.0-224 depthwise shape (10 for its 17 jobs),
+# and ragged ones: C not a multiple of 16, odd maps, a single pixel
+DW_PLAN_SHAPES = _mnv2_dw_shapes() + [
+    (9, 11, 40, 1), (9, 11, 40, 2), (12, 10, 24, 2), (9, 11, 17, 1),
+    (7, 5, 1, 2), (1, 1, 16, 1), (225, 3, 2, 2)]
+
+
+def test_dw_plan_shapes_are_mobilenets():
+    assert len(_mnv2_dw_shapes()) == 10
+
+
+@pytest.mark.parametrize("h,w,c,stride", DW_PLAN_SHAPES)
+def test_dw_plan_covers_every_output_once(h, w, c, stride):
+    ho, wo = -(-h // stride), -(-w // stride)
+    for width in (16, 8, 1):
+        plans = set(nkc.dw_plans(h, w, c, stride, width))
+        # the rule's plan is one the sweep times
+        assert nkc.dw_plan(h, w, c, stride, width) in plans
+        for plan in plans:
+            assert plan.vec <= width and c % plan.vec == 0
+            assert plan.cg % plan.vec == 0 and plan.threads <= nkc.DW_THREADS
+            assert 1 <= plan.rows <= 64
+            assert nkc.dw_smem(plan, stride) <= nkc.MAX_SMEM
+            tw = plan.tc
+            tiles = (-(-wo // tw), -(-ho // plan.rows), -(-c // plan.cg))
+            assert plan.blocks == np.prod(tiles) and tiles[2] <= 65535
+            # the kernel's blocks x threads x vector lanes, as flat output
+            # indices: each output byte exactly once
+            th, tw_i, gy, z, y, xk, v = np.meshgrid(
+                *(np.arange(n) for n in (tiles[1], tiles[0], tiles[2],
+                                         plan.rows, plan.tc,
+                                         plan.cg // plan.vec, plan.vec)),
+                indexing="ij", sparse=True)
+            oh = th * plan.rows + z
+            ow = tw_i * tw + y
+            ch = gy * plan.cg + xk * plan.vec + v
+            hit = np.broadcast_to((oh < ho) & (ow < wo) & (ch < c),
+                                  np.broadcast_shapes(oh.shape, ow.shape,
+                                                      ch.shape))
+            flat = np.broadcast_to((oh * wo + ow) * c + ch, hit.shape)[hit]
+            counts = np.bincount(flat, minlength=ho * wo * c)
+            assert counts.size == ho * wo * c and (counts == 1).all(), plan
