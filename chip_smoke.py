@@ -5,9 +5,10 @@
 
 It drives the port's paths once, each at full width -- serving qwen3-0.6b,
 falcon-mamba-7b and hymba-1.5b, int8 MobileNet-V2 1.0-224 on the N-EUREKA
-operators, and qwen3-0.6b again from a paged 4-bit store whose cold half is
-wire-served -- and fails (non-zero exit, no result line) if any phase
-fails:
+operators, qwen3-0.6b again from a paged 4-bit store whose cold half is
+wire-served, and both qwen3-0.6b stores once more behind the deadline-aware
+``Scheduler`` under XR traffic -- and fails (non-zero exit, no result line)
+if any phase fails:
 
 1. set-up: requires a CUDA device, turns TF32 off, prints the card's name
    and power limit, builds every ``csrc/*.cu`` with nvcc for sm_90a (one
@@ -108,7 +109,41 @@ fails:
    the pages of a sync pass; the kernels are checked at every call of a
    profiled serve; and the wire tree's logits (4 layers) on the card must
    match the CPU's;
-7. the ``{"serve": ...}`` and ``{"kernels": [...]}`` lines, the card line,
+7. the scheduled XR serve: the XR traffic of
+   ``benchmarks/serving_load.py`` (copied: the bench imports JAX) -- a
+   t = 0 backlog of best-effort assistant requests (16-48 prompt tokens,
+   24 new) and a hand-tracking (priority 2, 15 ms deadline) and a gaze
+   request (priority 1, 10 ms; 2-8 prompt tokens, 2 new) every 6 ms --
+   served by ``serving.Scheduler`` on the bench's virtual clock (1 ms a
+   tick) with its defaults (4 slots, max_len 128, prefill chunk 16, token
+   budget 96, ``est_tick_s`` pinned).  (a) Phase 3's 8-bit qwen3-0.6b tree,
+   60 requests, under both legs of the bench: run-to-completion, and
+   continuous (token budget, preemption, reject-mode admission; traced).
+   It fails unless every uid's tokens are equal across the legs, the
+   continuous leg preempted, the trackers' miss rate is <= 0.05 and the
+   assistant's tokens per virtual second are >= 0.90 of the baseline's
+   (the bench's gate), both metrics documents pass ``metrics.validate``
+   and the trace ``trace.validate``, and ``qmatmul_f32`` and
+   ``flash_attention`` launched in each leg.  (b) The same traffic on a
+   2-layer smoke config of qwen3-0.6b on the CPU: each leg's decisions
+   (per uid: arrival, admission, first-token and finish times on the
+   virtual clock, preemptions, rejection, degradation, ``max_new_tokens``;
+   the scheduler's counters) must equal the card's, since on this clock
+   they depend only on the traffic.  (c) Phase 6's paged store, 24
+   requests, continuous leg with ``async_io=True``: swaps and misses must
+   equal the ticks times ``pass_counters`` under preemption, the tokens
+   must equal per uid those of a resident engine on the same wire-form
+   bytes under the same leg (a reference run, whose launches are not
+   counted), and ``qmatmul_f32_blockscale`` must have launched.  The
+   kernels are checked against their plain versions at every distinct call
+   of the continuous legs of (a) and (c) (the short-prompt prefill buckets
+   and the decode tiles that the scheduler's budget gives them).  (d) The
+   same paged leg on the real clock
+   (``time.perf_counter``), printed as a smoke reading: TTFT p50 / p99 by
+   stream, tok/s, miss rate, exposed and hidden page wait and
+   ``overlap_frac``, the predicted-vs-measured stall ratio; nothing is
+   asserted on these times;
+8. the ``{"serve": ...}`` and ``{"kernels": [...]}`` lines, the card line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -931,7 +966,7 @@ def serve_lm(torch, m, cfg, max_len: int, long_prompt: bool, counters,
     random weights from a CUDA generator seeded 0, frozen at 8 bits; the
     family's kernels must launch.  Then ``forward`` logits of 64 tokens on
     the card against the CPU's plain path, on the first ``depth`` layers
-    (all with None)."""
+    (all with None).  Returns the serve's readings and the packed tree."""
     np, tfm = m["np"], m["tfm"]
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -1033,7 +1068,7 @@ def serve_lm(torch, m, cfg, max_len: int, long_prompt: bool, counters,
     return dict(launches=launches, launches_by_class=by_class,
         wall_s=wall, ttft_mean_s=float(np.mean(ttft)), ttft_max_s=float(np.max(ttft)), peak_gib=peak / 2**30,
         prompt_tokens=int(lens.sum()), logits_max_abs_err=max(errs),
-        path_check=path_check, profile=profile)
+        path_check=path_check, profile=profile), packed
 
 
 # the paged path: qwen3-0.6b frozen at 4 bits, half the store's bytes pinned
@@ -1049,7 +1084,10 @@ def serve_paged(torch, m, cfg, dev):
     with wire-serve on; check the counters, the tokens against a resident
     engine on the same wire-form bytes, the same serve under faults, an
     overlapped pass against a sync one, and card vs CPU logits of the wire
-    tree; time B3 and split the paged tick into CRC, copy and compute."""
+    tree; time B3 and split the paged tick into CRC, copy and compute.
+    Returns the readings, B3's error and times, and the paged store (the
+    tree with its cold leaves on the host, the plan) with the resident
+    wire-form tree and plan, for phase 7."""
     np, tfm, pl, pg = m["np"], m["tfm"], m["placement"], m["paging"]
     qmm, fa = m["qmm"], m["fa"]
     t0 = time.perf_counter()
@@ -1308,8 +1346,361 @@ def serve_paged(torch, m, cfg, dev):
         n_pages=n_pages, wire_bytes_per_pass=wire_pass,
         paging={k: v for k, v in summary.items()}, tick_split=split,
         overlap=overlap, faults=fsum, logits_max_abs_err=err,
-        path_check=path_check, profile=profile), bs_err, t_bs
+        path_check=path_check, profile=profile), bs_err, t_bs, dict(
+            packed=packed, plan=plan, wire_tree=wire_tree,
+            wire_plan=wire_plan)
 
+
+# the scheduled XR serve: the XR traffic and the two scheduling legs of
+# benchmarks/serving_load.py (STREAMS :95-99, _VirtualClock :288-303,
+# _xr_traffic :306-330, _run_xr :333-382, the gate :385-417), copied since
+# the bench imports JAX; its defaults --xr-requests 60, --slots 4,
+# --max-len 128, --prefill-chunk 16, --token-budget 96, --tick-ms 1
+XR_STREAMS = (("hand_tracking", dict(priority=2, deadline_ms=15.0)),
+              ("gaze", dict(priority=1, deadline_ms=10.0)),
+              ("assistant", dict(priority=0, deadline_ms=None)))
+XR_TRACKERS = ("hand_tracking", "gaze")
+XR = dict(requests=60, slots=4, max_len=128, prefill_chunk=16,
+          token_budget=96, tick_s=1e-3, period_ms=6.0, assist_new=24, seed=0)
+XR_ARCH = "qwen3-0.6b"
+XR_PAGED_REQUESTS = 24           # parts (c)-(d): ~0.2 s a paged tick
+XR_GATE = dict(miss_rate=0.05, assistant_tok_ratio=0.90)
+
+
+class VirtualClock:
+    """Deterministic time: the loop advances one tick's ``tick_s`` per
+    scheduler tick, and every read adds 1 us so that timestamps within a
+    tick stay ordered."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def __call__(self):
+        self.now += 1e-6
+        return self.now
+
+    def advance(self, seconds):
+        self.now += seconds
+
+
+def xr_traffic(make_request, vocab: int, n_requests: int = XR["requests"],
+               seed: int = XR["seed"]):
+    """A t = 0 backlog of best-effort assistant requests (16-48 prompt
+    tokens, 24 new) and a hand-tracking and a gaze request (4-8 and 2-6
+    prompt tokens, 2 new) every 6 ms: [(arrival s, stream, request)] in
+    arrival order."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 7)
+    events, uid = [], 0
+    n_per_stream = max(n_requests // 3, 2)
+    for _ in range(n_per_stream):
+        n = int(rng.integers(16, 48))
+        events.append((0.0, "assistant", make_request(
+            uid=uid,
+            prompt=rng.integers(0, vocab, n).astype(np.int32),
+            max_new_tokens=XR["assist_new"])))
+        uid += 1
+    period = XR["period_ms"] / 1e3
+    for k in range(n_per_stream):
+        for off, stream, lo, hi in ((0.004, "hand_tracking", 4, 9),
+                                    (0.006, "gaze", 2, 7)):
+            n = int(rng.integers(lo, hi))
+            events.append((off + k * period, stream, make_request(
+                uid=uid,
+                prompt=rng.integers(0, vocab, n).astype(np.int32),
+                max_new_tokens=2)))
+            uid += 1
+    return sorted(events, key=lambda e: (e[0], e[2].uid))
+
+
+def xr_scheduler(scheduler_cls, eng, clock, continuous: bool, **kw):
+    """The bench's two legs: run-to-completion, or continuous (the token
+    budget, preemption, reject-mode admission with the cost model pinned
+    to one tick); ``kw`` adds to or overrides the leg's arguments."""
+    args = dict(prefill_chunk=XR["prefill_chunk"], clock=clock,
+                token_budget=XR["token_budget"] if continuous else None,
+                preemptive=continuous,
+                admission="reject" if continuous else None,
+                est_tick_s=XR["tick_s"] if continuous else None)
+    sched = scheduler_cls(eng, **{**args, **kw})
+    for name, spec in XR_STREAMS:
+        sched.add_stream(name, **spec)
+    return sched
+
+
+def serve_xr(sched, clock, events, tick_s=XR["tick_s"]):
+    """Submit each request at its arrival and tick until all are served;
+    on a :class:`VirtualClock` (``tick_s`` set) each tick advances it
+    ``tick_s``, on the real clock (``tick_s`` None) arrivals wait for the
+    wall.  Returns (finished requests, {uid: time of the tick that
+    admitted it}), both clocks measured from the first arrival."""
+    from collections import deque
+
+    t0 = 0.0 if tick_s is not None else clock()
+
+    def now():
+        return clock.now if tick_s is not None else clock() - t0
+
+    arrivals = deque(events)
+    done, admitted = [], {}
+    while arrivals or sched.pending:
+        if not sched.pending and arrivals and arrivals[0][0] > now():
+            if tick_s is not None:
+                clock.advance(arrivals[0][0] - clock.now)
+            else:
+                time.sleep(arrivals[0][0] - now())
+        while arrivals and arrivals[0][0] <= now():
+            _t, stream, req = arrivals.popleft()
+            sched.submit(req, stream=stream)
+        queued, t_tick = list(sched.queue), now()
+        done += sched.tick()
+        waiting = {id(r) for r in sched.queue}
+        for r in queued:
+            if id(r) not in waiting and not r.rejected:
+                admitted.setdefault(r.uid, t_tick)
+        if tick_s is not None:
+            clock.advance(tick_s)
+    return done, admitted
+
+
+def xr_record(sched, done, admitted):
+    """What the scheduler decided, per uid and in its counters: the part of
+    a run that depends on the traffic and not on the model or the device."""
+    per_uid = {r.uid: dict(arrival_s=r.arrival_s, admitted_s=admitted.get(
+        r.uid), first_token_s=r.first_token_s, finish_s=r.finish_s,
+        preemptions=r.preemptions, rejected=r.rejected, degraded=r.degraded,
+        max_new_tokens=r.max_new_tokens, n_generated=len(r.generated))
+        for r in done + sched.rejected}
+    mt = sched.metrics
+    counters = dict(ticks=sched.ticks, deferred_ticks=sched.deferred_ticks,
+                    preemptions=mt.preemptions, restores=mt.restores,
+                    rejected=mt.rejected, degraded=mt.degraded,
+                    budget_used=list(mt.tick_budget_used))
+    return dict(per_uid=dict(sorted(per_uid.items())), counters=counters)
+
+
+def xr_gate(base, cont):
+    """The bench's gate over the two legs' runs: the trackers' worst miss
+    rate in the continuous leg, and its assistant tok/s (virtual seconds)
+    over the baseline's."""
+    def assist_tok_s(run):
+        recs = run["sched"].metrics.records
+        return (sum(r.n_generated for r in recs if r.stream == "assistant")
+                / max(run["doc"]["throughput"]["wall_s"], 1e-9))
+    miss = max(cont["doc"]["streams"][s]["miss_rate"] for s in XR_TRACKERS
+               if s in cont["doc"]["streams"])
+    return miss, assist_tok_s(cont) / max(assist_tok_s(base), 1e-9)
+
+
+def serve_xr_phase(torch, m, cfg, resident_tree, paged, dev):
+    """Phase 7, the scheduled XR serve (see the module doc): (a) the
+    resident 8-bit qwen3-0.6b under both legs, (b) the decisions against a
+    2-layer smoke config on the CPU, (c) the paged 4-bit store under the
+    continuous leg, (d) that leg again on the real clock."""
+    np, sv, tr_mod, qmm, fa = m["np"], m["serving"], m["trace"], m["qmm"], \
+        m["fa"]
+    counters = {"qmatmul_f32": qmm.qmatmul_f32,
+                "qmatmul_f32_blockscale": qmm.qmatmul_f32_blockscale,
+                "flash_attention": fa.flash_attention}
+    total = {name: 0 for name in counters}
+    total_split = {}
+
+    def count(launches, split):
+        for name, n in launches.items():
+            total[name] += n
+        for name, by in split.items():
+            for k, n in by.items():
+                total_split.setdefault(name, {})
+                total_split[name][k] = total_split[name].get(k, 0) + n
+
+    calls = {}
+
+    def leg(eng, continuous, events, traced=False, clock=None,
+            counted=True, recorded=False, **kw):
+        """One leg on ``eng``; a card leg's launches go into the phase's
+        count unless ``counted`` is False (a leg that is only a reference),
+        and with ``recorded`` its kernel calls go into ``calls``."""
+        clock = clock if clock is not None else VirtualClock()
+        tracer = tr_mod.Tracer() if traced else None
+        sched = xr_scheduler(sv.Scheduler, eng, clock, continuous,
+                             tracer=tracer, trace_track="xr", **kw)
+        zero_launches(counters)
+        t0 = time.perf_counter()
+        with (recording(torch, m["ops"]) if recorded
+              else contextlib.nullcontext({})) as seen:
+            done, admitted = serve_xr(sched, clock, events,
+                                      XR["tick_s"] if isinstance(
+                                          clock, VirtualClock) else None)
+            if eng.device.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches, split = read_launches(counters)
+        if eng.device.type == "cuda" and counted:
+            count(launches, split)
+        for name, keys in seen.items():
+            calls[name] = list(dict.fromkeys(calls.get(name, []) + keys))
+        doc = sv.validate(sched.metrics.summary(
+            paging=eng.paging_summary(), trace=sched.trace_summary(),
+            faults=sched.faults_summary()))
+        if tracer is not None:
+            tr_mod.validate(tracer.to_dict())
+        if any(not 0 <= t < eng.cfg.vocab_size for r in done
+               for t in r.generated):
+            raise AssertionError("token id out of the vocabulary")
+        return dict(sched=sched, done=done, doc=doc, wall_s=wall,
+                    launches=launches, split=split, tracer=tracer,
+                    tokens={r.uid: r.generated for r in done},
+                    record=xr_record(sched, done, admitted))
+
+    def fresh(events, mod=None):
+        return [(t, s, sv.Request(uid=r.uid, prompt=r.prompt if mod is None
+                                  else r.prompt % mod,
+                                  max_new_tokens=r.max_new_tokens))
+                for t, s, r in events]
+
+    # (a) resident 8-bit, both legs
+    events = xr_traffic(sv.Request, cfg.vocab_size)
+    res = {}
+    for name, continuous in (("baseline", False), ("continuous", True)):
+        eng = sv.ServingEngine(cfg, resident_tree, batch_slots=XR["slots"],
+                               max_len=XR["max_len"], seed=XR["seed"])
+        res[name] = leg(eng, continuous, fresh(events), traced=continuous,
+                        recorded=continuous)
+        for kname in ("qmatmul_f32", "flash_attention"):
+            if res[name]["launches"][kname] <= 0:
+                raise AssertionError(f"{kname} never launched in the XR "
+                                     f"{name} leg")
+        del eng
+    base, cont = res["baseline"], res["continuous"]
+    if base["tokens"] != cont["tokens"]:
+        bad = [u for u in base["tokens"]
+               if base["tokens"][u] != cont["tokens"].get(u)]
+        raise AssertionError(f"XR tokens differ between the legs for uids "
+                             f"{bad}")
+    miss, ratio = xr_gate(base, cont)
+    preempted = cont["doc"]["scheduler"]["preemptions"]
+    gate = dict(deadline_miss_rate=miss, assistant_tok_ratio=ratio,
+                preemptions=preempted,
+                restores=cont["doc"]["scheduler"]["restores"],
+                rejected=cont["doc"]["scheduler"]["rejected"],
+                bit_exact=True, ticks=dict(
+                    baseline=base["sched"].ticks,
+                    continuous=cont["sched"].ticks))
+    print(f"[xr] {cfg.name} resident (8-bit), {len(events)} requests: "
+          f"gate {json.dumps(gate)}; host wall baseline "
+          f"{base['wall_s']:.2f} s, continuous {cont['wall_s']:.2f} s; "
+          f"trace {cont['tracer'].event_count} events on tracks "
+          f"{cont['tracer'].track_names}; launches baseline "
+          f"{base['launches']}, continuous {cont['launches']}")
+    if not (preempted >= 1 and miss <= XR_GATE["miss_rate"]
+            and ratio >= XR_GATE["assistant_tok_ratio"]):
+        raise AssertionError(f"XR gate failed: {gate}")
+
+    # (b) the decisions of a 2-layer smoke config of the family on the CPU
+    scfg = cfg.smoke()
+    sparams = m["tfm"].init_params(scfg, torch.Generator().manual_seed(0),
+                                   device="cpu")
+    stree = m["freeze"](sparams, bits=8, device="cpu")
+    for name, continuous in (("baseline", False), ("continuous", True)):
+        eng = sv.ServingEngine(scfg, stree, batch_slots=XR["slots"],
+                               max_len=XR["max_len"], seed=XR["seed"],
+                               device="cpu")
+        cpu = leg(eng, continuous, fresh(events, scfg.vocab_size))
+        if cpu["record"] != res[name]["record"]:
+            card_rec, cpu_rec = res[name]["record"], cpu["record"]
+            bad = [u for u in card_rec["per_uid"]
+                   if card_rec["per_uid"][u] != cpu_rec["per_uid"].get(u)]
+            raise AssertionError(
+                f"XR {name} leg: the card's decisions differ from the CPU's "
+                f"on {scfg.n_layers} layers: uids {bad}, counters "
+                f"{card_rec['counters']} vs {cpu_rec['counters']}")
+    print(f"[xr] decisions (admission, first-token and finish times on the "
+          f"virtual clock, preemptions, rejections, degradations, the "
+          f"scheduler's counters) equal per uid to the CPU's on a "
+          f"{scfg.n_layers}-layer smoke config of {cfg.name}, both legs")
+
+    # (c) the paged 4-bit store (cold half int8 wire pages), continuous
+    events24 = xr_traffic(sv.Request, cfg.vocab_size, XR_PAGED_REQUESTS)
+    eng = sv.ServingEngine(cfg, paged["packed"], batch_slots=XR["slots"],
+                           max_len=XR["max_len"], seed=XR["seed"],
+                           plan=paged["plan"])
+    eng.attach_paging(wire_serve=True)
+    pg = leg(eng, True, fresh(events24), recorded=True, async_io=True)
+    per_pass = m["paging"].pass_counters(len(eng.pager.pages),
+                                         eng.page_resident_slots)
+    ticks = pg["sched"].ticks
+    summary = pg["doc"]["paging"]
+    if (summary["swap_count"], summary["miss_count"]) != (
+            ticks * per_pass["swaps"], ticks * per_pass["misses"]):
+        raise AssertionError(f"paged XR: swap / miss "
+                             f"{summary['swap_count']} / "
+                             f"{summary['miss_count']} over {ticks} ticks, "
+                             f"want {per_pass} a tick")
+    if pg["launches"]["qmatmul_f32_blockscale"] <= 0:
+        raise AssertionError("qmatmul_f32_blockscale never launched in the "
+                             "paged XR leg")
+    eng.pager.close()
+    del eng
+    wire = sv.ServingEngine(cfg, paged["wire_tree"], batch_slots=XR["slots"],
+                            max_len=XR["max_len"], seed=XR["seed"],
+                            plan=paged["wire_plan"])
+    ref = leg(wire, True, fresh(events24), counted=False)
+    del wire
+    if ref["tokens"] != pg["tokens"]:
+        bad = [u for u in pg["tokens"]
+               if pg["tokens"][u] != ref["tokens"].get(u)]
+        raise AssertionError(f"paged XR tokens differ from the resident "
+                             f"wire-form engine's for uids {bad}")
+    print(f"[xr] {cfg.name} paged (4-bit, cold half int8 wire pages), "
+          f"continuous leg, {len(events24)} requests: {ticks} ticks x "
+          f"{per_pass} = swaps {summary['swap_count']} misses "
+          f"{summary['miss_count']}, preemptions "
+          f"{pg['doc']['scheduler']['preemptions']}; tokens equal per uid to "
+          f"a resident engine on the same wire-form bytes; host wall "
+          f"{pg['wall_s']:.2f} s; launches {pg['launches']}")
+
+    # each kernel against its plain version at every distinct call of the
+    # continuous legs of (a) and (c)
+    path_check = check_path(torch, m["ops"], m["ref"], qmm, fa, m["ssm"],
+                            dev, f"{cfg.name} xr", calls)
+
+    # (d) the same paged continuous leg on the real clock
+    eng = sv.ServingEngine(cfg, paged["packed"], batch_slots=XR["slots"],
+                           max_len=XR["max_len"], seed=XR["seed"],
+                           plan=paged["plan"])
+    eng.attach_paging(wire_serve=True)
+    real = leg(eng, True, fresh(events24), clock=time.perf_counter,
+               async_io=True)
+    eng.pager.close()
+    del eng
+    doc = real["doc"]
+    ttft = {}
+    for s in sorted({r.stream for r in real["sched"].metrics.records}):
+        xs = [r.ttft_s * 1e3 for r in real["sched"].metrics.records
+              if r.stream == s and r.ttft_s is not None]
+        ttft[s] = dict(p50=float(np.percentile(xs, 50)),
+                       p99=float(np.percentile(xs, 99)), n=len(xs))
+    pgs = doc["paging"]
+    reading = dict(
+        ttft_ms=ttft, tok_per_s=doc["throughput"]["tok_per_s"],
+        wall_s=doc["throughput"]["wall_s"], ticks=doc["ticks"]["count"],
+        tick_ms=doc["ticks"]["latency_ms"],
+        miss_rate=doc["deadlines"]["miss_rate"],
+        rejected=doc["scheduler"]["rejected"],
+        preemptions=doc["scheduler"]["preemptions"],
+        exposed_s=pgs["exposed_s"], hidden_s=pgs["hidden_s"],
+        overlap_frac=pgs["overlap_frac"],
+        predicted_vs_measured_stall_ratio=doc["trace"][
+            "predicted_vs_measured_stall_ratio"])
+    print(f"[xr] {cfg.name} paged continuous leg on the real clock "
+          f"(smoke reading, nothing asserted): {json.dumps(reading)}")
+    return dict(
+        launches=total, launches_by_class=total_split, gate=gate,
+        path_check=path_check,
+        resident=dict(baseline=base["doc"], continuous=cont["doc"]),
+        paged=dict(doc=pg["doc"], per_pass=per_pass, ticks=ticks),
+        real_clock=reading)
 
 # kernel-name fragments of the LM paths' device time, as the profiler names
 # them; cuBLAS / CUTLASS GEMMs are the unembedding's f32 matmul
@@ -1850,6 +2241,8 @@ def main() -> int:
     from repro_torch.models import mobilenet_v2 as mnv2
     from repro_torch.models import transformer as tfm
     from repro_torch.parallel.sharding import freeze_for_serving
+    from repro_torch import serving
+    from repro_torch.serving import trace
     from repro_torch.serving.engine import Request, ServingEngine
 
     # 1. set-up
@@ -1905,8 +2298,11 @@ def main() -> int:
                 "selective_scan": ssm.selective_scan}
     served = {}
     for arch, max_len, long_prompt, depth in SERVE_PATHS:
-        served[arch] = serve_lm(torch, mods, get_config(arch), max_len,
-                                long_prompt, counters, depth, dev)
+        served[arch], tree = serve_lm(torch, mods, get_config(arch), max_len,
+                                      long_prompt, counters, depth, dev)
+        if arch == XR_ARCH:
+            xr_tree = tree               # phase 7 serves it again
+        del tree
         gc.collect()
         torch.cuda.empty_cache()
     launches = {name: sum(s["launches"][name] for s in served.values())
@@ -1928,8 +2324,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     mods.update(placement=placement, paging=paging, packing=packing,
                 PackedParam=PackedParam, FaultPlan=FaultPlan)
-    paged, bs_err, t_bs = serve_paged(torch, mods, get_config(PAGED_ARCH),
-                                      dev)
+    paged, bs_err, t_bs, paged_store = serve_paged(
+        torch, mods, get_config(PAGED_ARCH), dev)
     served[f"{PAGED_ARCH} paged"] = paged
     for name in ("qmatmul_f32", "flash_attention"):
         launches[name] += paged["launches"][name]
@@ -1937,7 +2333,25 @@ def main() -> int:
     fa_err = max(fa_err,
                  paged["path_check"]["max_abs_err"]["flash_attention"])
 
-    # 7. result lines
+    # 7. the scheduled XR serve, resident and paged
+    gc.collect()
+    torch.cuda.empty_cache()
+    mods.update(serving=serving, trace=trace)
+    xr = serve_xr_phase(torch, mods, get_config(XR_ARCH), xr_tree,
+                        paged_store, dev)
+    del xr_tree, paged_store
+    served[f"{XR_ARCH} xr"] = xr
+    for name in ("qmatmul_f32", "flash_attention"):
+        launches[name] += xr["launches"][name]
+    qmm_err = max(qmm_err, xr["path_check"]["max_abs_err"]["qmatmul_f32"])
+    fa_err = max(fa_err, xr["path_check"]["max_abs_err"]["flash_attention"])
+    bs_err = max(bs_err,
+                 xr["path_check"]["max_abs_err"]["qmatmul_f32_blockscale"])
+    b3_by_path = {f"{PAGED_ARCH} paged":
+                  paged["launches"]["qmatmul_f32_blockscale"],
+                  f"{XR_ARCH} xr": xr["launches"]["qmatmul_f32_blockscale"]}
+
+    # 8. result lines
     by_path = {name: {arch: s["launches"][name] for arch, s in served.items()
                       if name in s["launches"]}
                for name in counters}
@@ -2019,9 +2433,7 @@ def main() -> int:
         name="qmatmul_f32_blockscale", route="cuda",
         source="src/repro_torch/csrc/qmatmul_blockscale.cu",
         replaces="src/repro/kernels/qmatmul.py:170",
-        launches=paged["launches"]["qmatmul_f32_blockscale"],
-        launches_by_path={f"{PAGED_ARCH} paged":
-                          paged["launches"]["qmatmul_f32_blockscale"]},
+        launches=sum(b3_by_path.values()), launches_by_path=b3_by_path,
         max_abs_err=bs_err, ms=t["ms"], plain_ms=t["plain_ms"],
         bound_ms=t["bound_ms"], bound_by=t["bound_by"],
         library_ms=t["library_ms"], eager_ms=t["eager_ms"], work=t["work"],

@@ -278,7 +278,8 @@ def layer_timing(layer: LayerShape, scenario: str,
 #     stall += swap - hidden,   hidden = min(swap, compute)
 # In the reference this one identity drives the analytical stall walk, the
 # static schedule prediction and the measured async-paging counters; in the
-# port the scheduler (ROADMAP A5) and the paging slice will read it.
+# port the pager's stall model, the scheduler's admission cost model and
+# its predicted-vs-measured stall overlay read it.
 # ---------------------------------------------------------------------------
 
 def overlap_stall(swap_s: float, compute_s: float) -> Dict[str, float]:

@@ -27,10 +27,15 @@ page over (``fence``, or the sync stream's yield) they are marked
 (``record_stream``) for the stream current then, so the caching allocator
 cannot give their memory to the next copy while compute still reads it.
 
+With a :class:`~repro_torch.serving.trace.Tracer` on ``store.tracer``
+(``ServingEngine.set_tracer`` puts it there), every swap is a ``page`` span
+on the ``io`` track with its ``nbytes``, ``wire_nbytes`` and ``encoding``,
+and every injected fault and retry an instant there.
+
 Not ported here, each raising where the API reaches it: the shared page
-pool of several tenants (``SharedPagePool``, ``pool=``: ROADMAP A8), the
-mesh-sharded stores (A11) and KV-cache paging (``KVPageTable`` and its
-stream: A7).  The reference's tracer hooks wait for the tracer (A5).
+pool of several tenants (``SharedPagePool``, ``pool=``: ROADMAP A8, with
+its own tracer hooks), the mesh-sharded stores (A11) and KV-cache paging
+(``KVPageTable`` and its stream: A7).
 """
 
 from __future__ import annotations
@@ -370,7 +375,9 @@ def retry_fetch(store: Any, idx: int, attempt_fn: Callable[[int], Any]) -> Any:
     transient failure or a checksum mismatch retries after the plan's
     deterministic backoff; exhausting ``max_attempts`` (1 without a fault
     plan) raises PageFetchError.  Counters land on
-    ``store.fault_counters``."""
+    ``store.fault_counters``, and with a ``store.tracer`` each fault and
+    retry is an instant on its ``io`` track."""
+    tr = getattr(store, "tracer", None)
     inj = store.faults
     plan = inj.plan if inj is not None else None
     max_attempts = plan.max_attempts if plan is not None else 1
@@ -381,6 +388,9 @@ def retry_fetch(store: Any, idx: int, attempt_fn: Callable[[int], Any]) -> Any:
         except (TransientFetchFault, PageChecksumError) as e:
             if isinstance(e, TransientFetchFault):
                 store.fault_counters["injected"] += 1
+                if tr is not None:
+                    tr.instant("fault", track="io", model=store.name,
+                               page=idx, kind="fail", attempt=attempt)
             else:
                 store.fault_counters["checksum_failures"] += 1
                 store.fault_counters["refetches"] += 1
@@ -389,6 +399,9 @@ def retry_fetch(store: Any, idx: int, attempt_fn: Callable[[int], Any]) -> Any:
                 raise PageFetchError(model=store.name, page=idx,
                                      attempts=attempt, last_error=e) from e
             store.fault_counters["retries"] += 1
+            if tr is not None:
+                tr.instant("retry", track="io", model=store.name, page=idx,
+                           attempt=attempt, cause=type(e).__name__)
             time.sleep(plan.backoff(attempt))
 
 
@@ -464,8 +477,13 @@ class HostPagedStore:
         self.fault_counters = new_fault_counters()
         self._closed = False
         self._live: Dict[int, Dict[str, PackedParam]] = {}
+        # opt-in chrome trace: per-page fetch spans on the "io" track,
+        # emitted from the fetch worker
+        self.tracer = None
 
     def _fetch_page(self, idx: int) -> Dict[str, PackedParam]:
+        tr = self.tracer
+        t0 = tr.now() if tr is not None else 0.0
         if self._closed:
             raise CancelledError(f"{self.name}: store closed before fetch "
                                  f"of page {idx} started")
@@ -480,6 +498,11 @@ class HostPagedStore:
         self.swap_count += 1
         self.bytes_streamed_wire += page.wire_nbytes
         self.bytes_streamed_raw += page.raw_nbytes
+        if tr is not None:
+            tr.complete("page", tr.now() - t0, track="io", model=self.name,
+                        page=idx, nbytes=page.nbytes,
+                        wire_nbytes=page.wire_nbytes,
+                        encoding=page.encoding, pool_hit=False)
         return out
 
     def _fetch_page_once(self, idx: int, page: Page,
@@ -501,6 +524,11 @@ class HostPagedStore:
                                       np.ascontiguousarray(payload).tobytes())
                 if flipped is not None:
                     self.fault_counters["injected"] += 1
+                    if self.tracer is not None:
+                        self.tracer.instant("fault", track="io",
+                                            model=self.name, page=idx,
+                                            kind="bitflip", param=name,
+                                            attempt=attempt)
                     payload = np.frombuffer(
                         flipped, dtype=payload.dtype).reshape(payload.shape)
             wire.append((name, hp, payload, hp.scales))

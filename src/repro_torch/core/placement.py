@@ -4,7 +4,8 @@ scenarios + §II-B2 virtual paging).
 A copy of ``repro/core/placement.py`` (``:111-247`` and ``:332-448``) over
 the port's trees: ``SCENARIOS``, ``ScenarioCost``, ``Placement``, ``HOT`` /
 ``COLD``, ``PlacementPlan`` with its store accounting, ``as_plan``,
-``linear_dispatch``, ``wire_served_bits``, ``path_key``, ``packed_sizes``,
+``linear_dispatch`` (both also taking a ``core/engine.EngineConfig``),
+``wire_served_bits``, ``path_key``, ``packed_sizes``,
 ``plan_for_budget`` over a ``WeightStore`` or a plain ``{name: nbytes}``
 mapping, and ``freeze_policy``.  It holds no tensor code.  The reference's
 ``shard_factors`` (per-device sizes of a mesh-sharded store) arrive with
@@ -190,8 +191,9 @@ def _sizes_of(store: StoreSizes) -> Dict[str, int]:
 
 
 def as_plan(engine: Any) -> PlacementPlan:
-    """Normalize a plan, a legacy {"scenario", "mode", "bits"} dict or None
-    into a PlacementPlan."""
+    """Normalize a plan, an ``EngineConfig`` (its plan, else a uniform plan
+    of its scenario and bits), a legacy {"scenario", "mode", "bits"} dict
+    or None into a PlacementPlan."""
     if engine is None:
         return DEFAULT_PLAN
     if isinstance(engine, PlacementPlan):
@@ -201,6 +203,14 @@ def as_plan(engine: Any) -> PlacementPlan:
             scenario=engine.get("scenario", "l1mram"),
             bits=int(engine.get("bits", 8)),
             mode=engine.get("mode", "xla"))
+    plan = getattr(engine, "plan", None)           # EngineConfig
+    if isinstance(plan, PlacementPlan):
+        return plan
+    if hasattr(engine, "scenario"):
+        return PlacementPlan.uniform(
+            scenario=engine.scenario,
+            bits=int(getattr(engine, "weight_bits", 8)),
+            mode=getattr(engine, "mode", "xla"))
     raise TypeError(f"cannot interpret {type(engine).__name__} as a "
                     "placement plan")
 

@@ -28,20 +28,28 @@ A continuous-batching loop, as in the reference:
     kept); with ``wire_serve=True`` its re-encoded int8 cold pages are
     multiplied straight from their wire form by the blockscale kernel.
     :meth:`begin_tick_params` kicks a tick's pass while the caller computes
-    and :meth:`fence_tick_params` joins it at first use;
-    :meth:`tick_params` is the blocking begin + fence that ``step`` uses.
+    and :meth:`fence_tick_params` joins it at first use (under an optional
+    deadline); :meth:`tick_params` is the blocking begin + fence that
+    ``step`` uses.
+
+The engine owns mechanism only.  Policy (deadlines, priorities, chunk
+pacing, the token budget, preemption, metrics) lives in
+:class:`repro_torch.serving.sched.Scheduler`, which drives the tick
+primitives: ``begin_tick_params`` / ``fence_tick_params`` /
+``cancel_tick_params`` / ``has_tick_after`` / ``assign`` / ``preempt`` /
+``restore`` / ``prefill_tick(chunk=, plan=)`` / ``decode_tick`` /
+``sync_kv_tick``.  :meth:`set_tracer` puts the engine's fences and the
+pager's page fetches on a :class:`~repro_torch.serving.trace.Tracer`.
 
 The reference compiles one program per (bucket, kv span); PyTorch runs
 eagerly, so there is nothing to cache beyond the per-layer parameter views.
 Sampling draws from an explicit ``torch.Generator`` on the engine's device
 (the reference splits ``jax.random`` keys; the two agree at temperature 0).
 
-Not ported yet: KV paging (``attach_kv_paging``: ROADMAP A7), paging on a
-page pool shared by tenants (``pool=``: A8) or across a mesh (``mesh=``:
-A11), tracing and the scheduler hooks (A5: ``has_tick_after``,
-``cancel_tick_params``, the fence deadline and chunk-paced prefill, which
-only the scheduler calls), and the MoE family's one-slot-at-a-time prefill
-(A9).
+Not ported yet: KV paging (``attach_kv_paging`` raises and
+``sync_kv_tick`` has nothing to write back: ROADMAP A7), paging on a page
+pool shared by tenants (``pool=``: A8) or across a mesh (``mesh=``: A11),
+and the MoE family's one-slot-at-a-time prefill (A9).
 """
 
 from __future__ import annotations
@@ -104,6 +112,12 @@ class Request:
     prompt: np.ndarray                 # (S,) int32
     max_new_tokens: int = 16
     temperature: float = 0.0
+    # deadline-aware scheduling (serving.sched): latency bound in ms from
+    # arrival to the last token, None = best effort; priority None takes
+    # the stream's default
+    deadline_ms: Optional[float] = None
+    priority: Optional[int] = None
+    stream: str = "default"
     generated: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     # retired because the KV cache ran out before max_new_tokens
@@ -112,6 +126,11 @@ class Request:
     arrival_s: Optional[float] = None
     first_token_s: Optional[float] = None
     finish_s: Optional[float] = None
+    # the monotonic submission sequence (the admission tie-break), the
+    # admission-control verdicts, and the preemptions suffered
+    seq: Optional[int] = None
+    rejected: bool = False             # admission control refused it
+    degraded: bool = False             # max_new_tokens cut to fit
     preemptions: int = 0
 
 
@@ -169,6 +188,9 @@ class ServingEngine:
         self.slot_pos = np.zeros(batch_slots, np.int32)
         self.waiting: List[Request] = []
         self.finished: List[Request] = []
+        # every slot handover (assign, preempt, restore, retire) bumps the
+        # slot's generation, the guard a KV pass in flight checks (A7)
+        self._slot_gen = np.zeros(batch_slots, np.int64)
         self.preempt_count = 0
         self.restore_count = 0
 
@@ -185,6 +207,10 @@ class ServingEngine:
         # hidden_s (the memsys.overlap_stall identity)
         self.last_overlap: Optional[Dict[str, float]] = None
         self._inflight_pass = None        # AsyncPageStream begun, unfenced
+        # opt-in chrome trace (set_tracer): the untraced fence pays one
+        # branch
+        self.tracer = None
+        self.trace_track = "serve"
 
     # -- §II-B2: weight paging -----------------------------------------------
     def attach_paging(self, page_bytes: Optional[int] = None,
@@ -245,10 +271,30 @@ class ServingEngine:
         self.params = thread_packed(self.params,
                                     {**self.pager.resident, **host_view})
         self._layers = tfm.layer_params(self.params, self.cfg)
+        self.pager.tracer = self.tracer    # reach the new store
         return self
 
     def attach_kv_paging(self, *args, **kwargs):
         raise NotImplementedError("KV paging is not ported yet (ROADMAP A7)")
+
+    def set_tracer(self, tracer, track: Optional[str] = None
+                   ) -> "ServingEngine":
+        """Attach (or, with None, detach) a
+        :class:`~repro_torch.serving.trace.Tracer` to the engine and its
+        paged store, so that one trace shows the scheduler's phases, the
+        fence stalls and the per-page fetches together.  ``track`` names
+        this engine's rows.  A store attached later picks it up too."""
+        self.tracer = tracer
+        if track is not None:
+            self.trace_track = track
+        if self.pager is not None:
+            self.pager.tracer = tracer
+        return self
+
+    def sync_kv_tick(self) -> None:
+        """End-of-tick KV writeback, which the scheduler's tick and
+        ``step`` call.  A no-op: without KV paging (A7) no block has a
+        host image to write back."""
 
     def begin_tick_params(self) -> None:
         """Kick the overlapped host->device page stream for the next fence
@@ -258,13 +304,21 @@ class ServingEngine:
         if self.pager is not None and self._inflight_pass is None:
             self._inflight_pass = self.pager.begin_pass(
                 self.page_resident_slots)
+            if self.tracer is not None:
+                self.tracer.instant("begin_pass", track=self.trace_track,
+                                    streams="weights")
 
-    def fence_tick_params(self) -> Any:
+    def fence_tick_params(self, timeout_s: Optional[float] = None) -> Any:
         """The params tree for this tick, fencing at first use.  Without
         paging it is the resident tree.  With paging the in-flight pass
         (demand-begun here if none is) is joined, its pages threaded into
         the template, and its wait split into the exposed part (this call
-        blocked) and the hidden part."""
+        blocked) and the hidden part.
+
+        ``timeout_s`` bounds the wait: on expiry
+        :class:`~repro_torch.core.faults.PageFetchTimeout` is raised with
+        the pass still in flight and owned by the engine (nothing threaded,
+        no stall booked), and the next call resumes the same pass."""
         self.last_stall_s = 0.0
         self.last_hidden_s = 0.0
         if self.pager is None:
@@ -273,7 +327,7 @@ class ServingEngine:
         if demand:
             self.begin_tick_params()
         ps = self._inflight_pass
-        dev = ps.fence()
+        dev = ps.fence(timeout_s=timeout_s)
         self._inflight_pass = None
         self.last_overlap = self._account_fence(ps, demand)
         # the reference caches a flattened template (engine.py:399-430) to
@@ -292,13 +346,67 @@ class ServingEngine:
         self.last_hidden_s += hidden
         self.paging_stall_s += exposed
         self.paging_hidden_s += hidden
+        tr = self.tracer
+        if tr is not None:
+            # retro-dated so that [hidden][exposed] render as one swap bar
+            # ending at the fence: the spans that reconcile with the
+            # metrics' exposed_s / hidden_s
+            track = f"{self.trace_track}:stall"
+            if hidden > 0.0:
+                tr.complete("hidden:weights", hidden, track=track,
+                            end_offset_s=exposed, swap_ms=ps.swap_s * 1e3)
+            tr.complete("exposed:weights", exposed, track=track,
+                        demand=demand, window_ms=window * 1e3)
         return dict(swap_s=ps.swap_s, window_s=window, exposed_s=exposed,
                     hidden_s=hidden)
+
+    def cancel_tick_params(self) -> None:
+        """Cancel or drain a pass begun for a tick that will never run
+        (an early scheduler exit), so that no worker fetch outlives it."""
+        if self._inflight_pass is not None:
+            self._inflight_pass.close()
+            self._inflight_pass = None
 
     def tick_params(self) -> Any:
         """Blocking begin + fence: the stream's whole wall lands exposed."""
         self.begin_tick_params()
         return self.fence_tick_params()
+
+    def has_tick_after(self, chunk: Optional[int] = None,
+                       plan: Optional[Dict[int, int]] = None) -> bool:
+        """Will the engine still hold work after one more scheduler-paced
+        tick (prefill at ``chunk`` pacing, or at the per-slot ``plan``
+        allocations of a budgeted tick)?  The scheduler begins the next
+        pass only then: a pass no tick consumes would stream an extra pass
+        and move the swap counters off ``ticks x pass_counters``.  It
+        mirrors the tick's own retirement rules; in doubt it answers False
+        (a missed overlap costs time, a phantom pass determinism)."""
+        if self.waiting:
+            return True
+        prefix = self.cfg.n_meta_tokens
+        for i, r in enumerate(self.slot_req):
+            if r is None:
+                continue
+            remaining = len(r.prompt) - r.prefill_pos
+            if remaining > 0:
+                if plan is not None:
+                    if plan.get(i, 0) <= 0:
+                        return True      # unscheduled: the frontier stays
+                    n, _b, _p, _q = self._chunk_shape(r, plan[i])
+                else:
+                    n, _b, _p, _q = self._chunk_shape(r, chunk)
+                if n < remaining:
+                    return True          # more prefill chunks after this
+                # prefill completes this tick and the same tick's decode
+                # already sees it, so the slot leaves with two tokens
+                # unless max_new retires it at one
+                if (r.max_new_tokens > 2
+                        and prefix + len(r.prompt) + 1 < self.max_len - 1):
+                    return True
+            elif (len(r.generated) + 1 < r.max_new_tokens
+                    and self.slot_pos[i] + 1 < self.max_len - 1):
+                return True              # survives this decode tick
+        return False
 
     @property
     def swap_count(self) -> int:
@@ -326,7 +434,12 @@ class ServingEngine:
                                   else pg.decode_skipped_bytes),
             decode_s=0.0 if pg is None else pg.decode_s,
             crc_s=0.0 if pg is None else pg.crc_s,
-            copy_s=0.0 if pg is None else pg.copy_s)
+            copy_s=0.0 if pg is None else pg.copy_s,
+            # the KV share of the page stream (A7) and the per-device rows
+            # of a mesh-sharded store (A11): zero and empty until ported
+            kv_swaps=0, kv_pool_hits=0, kv_writebacks=0, kv_dropped=0,
+            kv_preempt_drops=0, kv_exposed_s=0.0, kv_hidden_s=0.0,
+            kv_block_rows=0, devices=[])
 
     def faults_summary(self) -> Dict[str, int]:
         """Fault-path counters of the engine's paging components."""
@@ -376,6 +489,7 @@ class ServingEngine:
         if req.arrival_s is None:
             req.arrival_s = _now()
         req.prefill_pos = 0
+        self._slot_gen[slot] += 1
         if "ssm" in self.cache:
             # recurrent state is live across the whole row (no position mask
             # hides a predecessor's leftovers), so a reused slot starts cold
@@ -411,6 +525,7 @@ class ServingEngine:
                               valid=int(valid), kv=kv, ssm=ssm)
         req.preemptions += 1
         self.slot_req[slot] = None
+        self._slot_gen[slot] += 1
         self.preempt_count += 1
         return ckpt
 
@@ -422,6 +537,7 @@ class ServingEngine:
             raise ValueError(f"slot {slot} is occupied")
         self.slot_req[slot] = ckpt.req
         self.slot_pos[slot] = ckpt.slot_pos
+        self._slot_gen[slot] += 1
         self.restore_count += 1
         if ckpt.kv is not None:
             for n, c in self.cache["kv"].items():
@@ -436,12 +552,15 @@ class ServingEngine:
                     or any(r is not None for r in self.slot_req))
 
     # -- tick primitives ----------------------------------------------------------
-    def _chunk_shape(self, req: Request) -> Tuple[int, int, bool, int]:
-        """(n_tokens, bucket, add_prefix, insert_pos) of the next chunk."""
+    def _chunk_shape(self, req: Request, chunk: Optional[int] = None
+                     ) -> Tuple[int, int, bool, int]:
+        """(n_tokens, bucket, add_prefix, insert_pos) of the next chunk, at
+        ``chunk`` tokens (default: the engine's pacing)."""
         prefix = self.cfg.n_meta_tokens
         remaining = len(req.prompt) - req.prefill_pos
         if self._bucketed:
-            n = min(self.prefill_chunk, remaining)
+            n = min(chunk if chunk is not None else self.prefill_chunk,
+                    remaining)
             bucket = _next_pow2(n)
             # never let the padded window spill past the cache: near the end
             # shrink to the largest power of two that still fits
@@ -458,27 +577,37 @@ class ServingEngine:
         insert_pos = 0 if first else prefix + req.prefill_pos
         return n, bucket, add_prefix, insert_pos
 
-    def prefill_tick(self, params: Any, complete: bool = False
+    def prefill_tick(self, params: Any, complete: bool = False,
+                     chunk: Optional[int] = None,
+                     plan: Optional[Dict[int, int]] = None
                      ) -> List[Request]:
         """Advance every prefilling slot by one chunk (``complete=True``
-        loops until all prompts are absorbed).  Slots whose prompt completes
-        sample their first token.  Returns the requests that got their
-        first token this call."""
+        loops until all prompts are absorbed).  ``chunk`` (a power of two)
+        overrides the engine's pacing for this call; ``plan`` ({slot: token
+        allocation}, a budgeted scheduler tick) prefills only the listed
+        slots, each at its own allocation, and the others hold their
+        frontier.  Slots whose prompt completes sample their first token.
+        Returns the requests that got their first token this call."""
+        if complete and plan is not None:
+            raise ValueError("plan= paces one scheduler tick; it cannot "
+                             "be combined with complete=True")
         started: List[Request] = []
         while True:
             pending = [(i, r) for i, r in enumerate(self.slot_req)
-                       if r is not None and r.prefill_pos < len(r.prompt)]
+                       if r is not None and r.prefill_pos < len(r.prompt)
+                       and (plan is None or plan.get(i, 0) > 0)]
             if not pending:
                 break
             groups: Dict[Tuple[int, bool],
                          List[Tuple[int, Request, int, int]]] = {}
             for i, r in pending:
-                n, bucket, add_prefix, pos = self._chunk_shape(r)
+                c = plan[i] if plan is not None else chunk
+                n, bucket, add_prefix, pos = self._chunk_shape(r, c)
                 groups.setdefault((bucket, add_prefix),
                                   []).append((i, r, n, pos))
             for (bucket, add_prefix), rows in groups.items():
-                self._run_prefill_rows(params, bucket, add_prefix, rows,
-                                       started)
+                self._run_prefill_group(params, bucket, add_prefix, rows,
+                                        started)
             if not complete:
                 break
         return started
@@ -496,9 +625,11 @@ class ServingEngine:
                    for _i, r, _n, pos in rows)
         return min(self.max_len, _next_pow2(need))
 
-    def _run_prefill_rows(self, params: Any, bucket: int, add_prefix: bool,
-                          rows: List[Tuple[int, Request, int, int]],
-                          started: List[Request]) -> None:
+    def _run_prefill_group(self, params: Any, bucket: int, add_prefix: bool,
+                           rows: List[Tuple[int, Request, int, int]],
+                           started: List[Request]) -> None:
+        """One batched prefill call for a (bucket, prefix) group, padded to
+        the slot count (the MoE family's one-row calls come with A9)."""
         k = self.slots
         kv_span = self._kv_span_for(bucket, rows)
         tokens = np.zeros((k, bucket), np.int64)
@@ -601,6 +732,7 @@ class ServingEngine:
         req.finish_s = _now()
         self.finished.append(req)
         self.slot_req[slot] = None
+        self._slot_gen[slot] += 1
         return req
 
     # -- FIFO loop ----------------------------------------------------------------
@@ -619,6 +751,7 @@ class ServingEngine:
         self._admit()
         self.prefill_tick(params, complete=True)
         self.decode_tick(params)
+        self.sync_kv_tick()
         return self.finished[before:]
 
     def run_until_done(self, max_ticks: int = 10_000) -> List[Request]:

@@ -129,6 +129,39 @@ def test_serving_on_the_card_matches_the_cpu(cuda, arch):
     assert out["cuda"] == out["cpu"]
 
 
+@pytest.mark.parametrize("continuous", [False, True])
+def test_scheduled_xr_serve_on_the_card_matches_the_cpu(cuda, continuous):
+    """The XR traffic of ``chip_smoke.py`` (24 requests) behind the
+    ``Scheduler`` on the virtual clock: the card gives the CPU's tokens and
+    decisions per uid (admission, first-token and finish times,
+    preemptions, rejections) and counters."""
+    import chip_smoke as cs
+    from repro_torch import serving
+
+    cfg = get_config("qwen3-0.6b").smoke()
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        packed = freeze_for_serving(params, bits=8, device=dev)
+        eng = serving.ServingEngine(cfg, packed, batch_slots=cs.XR["slots"],
+                                    max_len=cs.XR["max_len"], device=dev)
+        clock = cs.VirtualClock()
+        sched = cs.xr_scheduler(serving.Scheduler, eng, clock, continuous)
+        before = qmatmul_f32.launches
+        done, admitted = cs.serve_xr(sched, clock, cs.xr_traffic(
+            serving.Request, cfg.vocab_size, 24))
+        launched = qmatmul_f32.launches - before
+        out[dev] = ({r.uid: r.generated for r in done},
+                    cs.xr_record(sched, done, admitted))
+        serving.validate(sched.metrics.summary(paging=eng.paging_summary()))
+    assert launched > 0
+    assert out["cuda"][0] == out["cpu"][0]
+    assert out["cuda"][1] == out["cpu"][1]
+    if continuous:
+        assert out["cuda"][1]["counters"]["preemptions"] > 0
+
+
 def _requant(rng, n, dev):
     mult = torch.from_numpy(rng.uniform(1e-4, 1e-3, (n,)).astype(np.float32))
     bias = torch.from_numpy(rng.integers(-8, 8, (n,)).astype(np.int32))
