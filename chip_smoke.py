@@ -6,9 +6,10 @@
 It drives the port's paths once, each at full width -- serving qwen3-0.6b,
 falcon-mamba-7b and hymba-1.5b, int8 MobileNet-V2 1.0-224 on the N-EUREKA
 operators, qwen3-0.6b again from a paged 4-bit store whose cold half is
-wire-served, and both qwen3-0.6b stores once more behind the deadline-aware
-``Scheduler`` under XR traffic -- and fails (non-zero exit, no result line)
-if any phase fails:
+wire-served, both qwen3-0.6b stores once more behind the deadline-aware
+``Scheduler`` under XR traffic, and qwen3-0.6b with its KV cache paged,
+alone and beside falcon-mamba-7b as two tenants of one page pool -- and
+fails (non-zero exit, no result line) if any phase fails:
 
 1. set-up: requires a CUDA device, turns TF32 off, prints the card's name
    and power limit, builds every ``csrc/*.cu`` with nvcc for sm_90a (one
@@ -143,7 +144,32 @@ if any phase fails:
    stream, tok/s, miss rate, exposed and hidden page wait and
    ``overlap_frac``, the predicted-vs-measured stall ratio; nothing is
    asserted on these times;
-8. the ``{"serve": ...}`` and ``{"kernels": [...]}`` lines, the card line,
+8. KV paging and tenancy, the two-tenant leg of
+   ``benchmarks/serving_load.py`` (``_tenant_reqs`` copied: prompts of
+   2-47 tokens, 8 new tokens each, a third of them on each XR stream) at
+   its defaults (4 slots, max_len 128, prefill chunk 16, ``budget_frac``
+   0.5, ``shared_budget_frac`` 0.6, KV blocks of 16 rows, ``async_io``).
+   (a) Phase 3's 8-bit qwen3-0.6b tree with its cold half
+   (``attach_paging``) and its KV cache (``attach_kv_paging(16)``) joined
+   to one ``SharedPagePool`` (0.6 of the cold bytes), 24 requests through
+   ``Scheduler``: the tokens must equal per uid those of a resident
+   unpaged engine (a reference run, not counted); every pool member's
+   swaps, misses, pool hits, evictions, drops and wire / raw bytes must
+   equal the ``kv_pass_counters`` replay of the pool's event log; the KV
+   table's swaps times its page bytes must equal its streamed bytes, and
+   ``memsys.kv_stream_bytes`` over the spans its fetch batches listed its
+   swaps plus pool hits.  (b) That tree and phase 3's falcon-mamba-7b
+   tree, each half-paged, as two tenants of one ``MultiScheduler`` and
+   one pool (0.6 of both cold halves), qwen3-0.6b KV-paged, 8 requests a
+   tenant: each tenant's tokens must equal its solo run on a private
+   pager (reference runs, not counted), the counters the replay, and the
+   metrics v9 multi document must pass ``metrics.validate``.  Both legs'
+   kernel calls are recorded and each distinct call of ``qmatmul_f32``,
+   ``flash_attention`` and ``selective_scan`` is held against its plain
+   version; each leg must have launched them.  The pool summaries, the KV
+   exposed / hidden seconds and the host wall a tick are printed as smoke
+   readings;
+9. the ``{"serve": ...}`` and ``{"kernels": [...]}`` lines, the card line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -1702,6 +1728,294 @@ def serve_xr_phase(torch, m, cfg, resident_tree, paged, dev):
         paged=dict(doc=pg["doc"], per_pass=per_pass, ticks=ticks),
         real_clock=reading)
 
+# phase 8: KV paging and tenancy, the two-tenant leg of
+# benchmarks/serving_load.py (_tenant_reqs :121-131, _bench_multi :134-210)
+# at its defaults --arch qwen3-0.6b --arch2 falcon-mamba-7b --slots 4
+# --max-new 8 --max-len 128 --prefill-chunk 16 --budget-frac 0.5
+# --shared-budget-frac 0.6 --kv-block 16 --async-io, with --kv-paged for
+# the tenant that has a KV cache; copied since the bench imports JAX.  The
+# bench's 24 requests a tenant are cut to KV_REQUESTS / TENANT_REQUESTS
+TENANCY = dict(slots=4, max_new=8, max_len=128, prefill_chunk=16,
+               budget_frac=0.5, shared_budget_frac=0.6, kv_block=16, seed=0)
+TENANTS = ("qwen3-0.6b", "falcon-mamba-7b")
+KV_REQUESTS = 24                 # part (a): ~0.1-0.2 s a paged qwen3 tick
+TENANT_REQUESTS = 8              # part (b): ~1.6 s of CRC a falcon pass
+KV_KERNELS = ("qmatmul_f32", "flash_attention", "selective_scan")
+
+
+def tenant_reqs(make_request, vocab: int, n_requests: int, salt: int):
+    """``_tenant_reqs``: prompts of 2-47 tokens, ``max_new`` new tokens
+    each, from ``default_rng(seed + salt)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(TENANCY["seed"] + salt)
+    hi = max(3, min(48, TENANCY["max_len"] - TENANCY["max_new"] - 2))
+    out = []
+    for uid in range(n_requests):
+        n = int(rng.integers(2, hi))
+        out.append(make_request(
+            uid=uid, prompt=rng.integers(0, vocab, n).astype(np.int32),
+            max_new_tokens=TENANCY["max_new"]))
+    return out
+
+
+def half_paged_plan(placement, tree):
+    """The bench's plan: ``plan_for_budget`` at ``budget_frac`` of the
+    store's bytes (8-bit, cold pages streamed verbatim)."""
+    sizes = placement.packed_sizes(tree)
+    return placement.plan_for_budget(
+        sizes, int(sum(sizes.values()) * TENANCY["budget_frac"]))
+
+
+def pool_replay_check(paging, pool, weights, tables, what):
+    """Every pool member's counters and streamed bytes against the
+    ``kv_pass_counters`` replay of the pool's event log; the KV tables'
+    drops too.  Returns the replay."""
+    pred = paging.kv_pass_counters(
+        {name: paging.page_sizes(store.pages)
+         for name, store in weights.items()},
+        pool.budget_bytes, pool.events)
+    summ = pool.summary()
+    for name, c in summ["models"].items():
+        got = dict(swaps=c["swaps"], misses=c["misses"],
+                   pool_hits=c["pool_hits"], evicted=c["evicted"],
+                   bytes_wire=c["bytes_streamed_wire"],
+                   bytes_raw=c["bytes_streamed_raw"])
+        want = {k: pred.get(name, {}).get(k, 0) for k in got}
+        if name in tables:
+            got["dropped"] = tables[name].dropped
+            want["dropped"] = pred.get(name, {}).get("dropped", 0)
+        if got != want:
+            raise AssertionError(f"{what}: pool member {name} counters "
+                                 f"{got}, the replay of the event log "
+                                 f"{want}")
+    return pred
+
+
+def kv_span_bytes(memsys, table, events):
+    """The bytes of the KV spans each fetch batch of ``table`` listed, by
+    ``memsys.kv_stream_bytes`` over each slot's block range."""
+    total = 0
+    for ev in events:
+        if ev[0] != "kv" or ev[1] != table.name:
+            continue
+        per_slot = {}
+        for page, _nb in ev[2]:
+            slot = page // table.n_blocks
+            per_slot[slot] = per_slot.get(slot, 0) + 1
+        total += sum(memsys.kv_stream_bytes(n * table.block_rows,
+                                            table.block_rows,
+                                            table.row_nbytes)
+                     for n in per_slot.values())
+    return total
+
+
+def serve_kv_tenancy_phase(torch, m, cfgs, trees, dev):
+    """Phase 8 (see the module doc): (a) qwen3-0.6b with its cold half and
+    its KV cache paged through one pool, against a resident unpaged engine;
+    (b) qwen3-0.6b (KV-paged) and falcon-mamba-7b as two tenants of one
+    ``MultiScheduler`` and one pool, each against its solo run on a
+    private pager.  ``cfgs`` / ``trees`` map each tenant to its config and
+    its frozen 8-bit tree on ``dev``."""
+    sv, paging, placement, memsys = (m["serving"], m["paging"],
+                                     m["placement"], m["memsys"])
+    qwen, falcon = TENANTS
+    counters = {"qmatmul_f32": m["qmm"].qmatmul_f32,
+                "flash_attention": m["fa"].flash_attention,
+                "selective_scan": m["ssm"].selective_scan}
+    names = [s for s, _kw in XR_STREAMS]
+    card = dev.type == "cuda"
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    def engine(name, plan=None):
+        return sv.ServingEngine(cfgs[name], trees[name],
+                                batch_slots=TENANCY["slots"],
+                                max_len=TENANCY["max_len"], plan=plan,
+                                seed=TENANCY["seed"])
+
+    def scheduler(eng):
+        sched = sv.Scheduler(eng, prefill_chunk=TENANCY["prefill_chunk"],
+                             async_io=True)
+        for sname, spec in XR_STREAMS:
+            sched.add_stream(sname, **spec)
+        return sched
+
+    def serve(sched, reqs):
+        for r in reqs:
+            sched.submit(r, stream=names[r.uid % len(names)])
+        t0 = time.perf_counter()
+        done = sched.run_until_done()
+        sync()
+        return {r.uid: r.generated for r in done}, time.perf_counter() - t0
+
+    def close(eng):
+        for part in (eng.pager, eng.kv_table):
+            if part is not None:
+                part.close()
+
+    def tokens_equal(got, want, name, what):
+        if got != want:
+            bad = [u for u in want if got.get(u) != want[u]]
+            raise AssertionError(f"{what}: tokens differ for uids {bad}")
+        if any(not 0 <= t < cfgs[name].vocab_size for ts in got.values()
+               for t in ts):
+            raise AssertionError(f"{what}: token id out of the vocabulary")
+
+    def kv_reading(eng, sched):
+        pg = eng.paging_summary()
+        return dict(ticks=sched.ticks, kv_swaps=pg["kv_swaps"],
+                    kv_pool_hits=pg["kv_pool_hits"],
+                    kv_writebacks=pg["kv_writebacks"],
+                    kv_dropped=pg["kv_dropped"],
+                    kv_exposed_s=pg["kv_exposed_s"],
+                    kv_hidden_s=pg["kv_hidden_s"],
+                    exposed_s=pg["exposed_s"], hidden_s=pg["hidden_s"],
+                    crc_s=pg["crc_s"], copy_s=pg["copy_s"])
+
+    calls = {}
+    out = {}
+
+    # (a) one tenant: weights and KV blocks through one pool
+    plan = half_paged_plan(placement, trees[qwen])
+    cold = plan.paged_bytes(placement.packed_sizes(trees[qwen]))
+    pool = paging.SharedPagePool(int(cold * TENANCY["shared_budget_frac"]))
+    eng = engine(qwen, plan)
+    eng.attach_paging(pool=pool, name=qwen)
+    eng.attach_kv_paging(TENANCY["kv_block"], pool=pool)
+    sched = scheduler(eng)
+    reqs = tenant_reqs(sv.Request, cfgs[qwen].vocab_size, KV_REQUESTS, 0)
+    zero_launches(counters)
+    with recording(torch, m["ops"]) as seen:
+        got, wall = serve(sched, reqs)
+    launches_a, split_a = read_launches(counters)
+    for name, keys in seen.items():
+        calls[name] = list(dict.fromkeys(calls.get(name, []) + keys))
+    table = eng.kv_table
+    pred = pool_replay_check(paging, pool, {qwen: eng.pager},
+                             {table.name: table}, "kv-paged qwen3")
+    span = kv_span_bytes(memsys, table, pool.events)
+    if not (table.swap_count * table.page_nbytes == table.bytes_streamed_wire
+            == pred[table.name]["bytes_wire"]
+            and span == (table.swap_count + table.pool_hits)
+            * table.page_nbytes and table.swap_count > 0
+            and table.writebacks > 0):
+        raise AssertionError(
+            f"kv-paged qwen3: kv_swaps {table.swap_count} x page "
+            f"{table.page_nbytes} B, streamed {table.bytes_streamed_wire} "
+            f"B, spans listed {span} B with {table.pool_hits} pool hits, "
+            f"{table.writebacks} writebacks")
+    for kname in ("qmatmul_f32", "flash_attention"):
+        if launches_a[kname] <= 0:
+            raise AssertionError(f"{kname} never launched in the kv-paged "
+                                 "leg")
+    doc = sv.validate(sched.metrics.summary(paging=eng.paging_summary()))
+    reading = kv_reading(eng, sched)
+    summary_a = pool.summary()
+    pool.close()
+    del eng, sched
+    ref = engine(qwen)
+    want, ref_wall = serve(scheduler(ref), tenant_reqs(
+        sv.Request, cfgs[qwen].vocab_size, KV_REQUESTS, 0))
+    del ref
+    tokens_equal(got, want, qwen,
+                 "kv-paged qwen3 against the resident engine")
+    reading.update(wall_s=wall, tick_ms=wall / reading["ticks"] * 1e3,
+                   resident_wall_s=ref_wall, requests=len(reqs),
+                   tok_per_s=doc["throughput"]["tok_per_s"],
+                   page_nbytes=table.page_nbytes,
+                   kv_stream_bytes=span)
+    members = {name: {k: c[k] for k in ("swaps", "misses", "pool_hits",
+                                        "evicted")}
+               for name, c in summary_a["models"].items()}
+    print(f"[kv] {qwen} (8-bit, cold half paged, KV in blocks of "
+          f"{TENANCY['kv_block']} rows, one pool of "
+          f"{summary_a['budget_bytes']} B), {len(reqs)} requests: tokens "
+          f"equal per uid to a resident unpaged engine's; pool members on "
+          f"the kv_pass_counters replay ({json.dumps(members)}); "
+          f"kv_swaps x page = {table.swap_count} x {table.page_nbytes} B, "
+          f"kv_stream_bytes of the listed spans {span} B; host clock "
+          f"(smoke reading): {json.dumps(reading)}; launches {launches_a}")
+    out["kv"] = dict(launches=launches_a, launches_by_class=split_a,
+                     reading=reading, pool=summary_a, doc=doc)
+
+    # (b) two tenants, one MultiScheduler, one pool
+    plans = {name: half_paged_plan(placement, trees[name])
+             for name in TENANTS}
+    cold = sum(plans[n].paged_bytes(placement.packed_sizes(trees[n]))
+               for n in TENANTS)
+    budget = max(int(cold * TENANCY["shared_budget_frac"]), 1)
+    ms = sv.MultiScheduler(pool=paging.SharedPagePool(budget),
+                           async_io=True)
+    for salt, name in enumerate(TENANTS):
+        eng = engine(name, plans[name])
+        ms.add_model(name, eng, prefill_chunk=TENANCY["prefill_chunk"],
+                     kv_paged="kv" in eng.cache,
+                     kv_block_rows=TENANCY["kv_block"])
+        for sname, spec in XR_STREAMS:
+            ms.add_stream(name, sname, **spec)
+        for r in tenant_reqs(sv.Request, cfgs[name].vocab_size,
+                             TENANT_REQUESTS, salt):
+            ms.submit(name, r, stream=names[r.uid % len(names)])
+    zero_launches(counters)
+    t0 = time.perf_counter()
+    with recording(torch, m["ops"]) as seen:
+        done = ms.run_until_done()
+        sync()
+    wall = time.perf_counter() - t0
+    launches_b, split_b = read_launches(counters)
+    for name, keys in seen.items():
+        calls[name] = list(dict.fromkeys(calls.get(name, []) + keys))
+    doc = sv.validate(ms.summary())
+    engines = {n: ms.model(n).engine for n in TENANTS}
+    pool_replay_check(paging, ms.pool,
+                      {n: e.pager for n, e in engines.items()},
+                      {e.kv_table.name: e.kv_table for e in engines.values()
+                       if e.kv_table is not None}, "tenancy")
+    for kname in KV_KERNELS:
+        if launches_b[kname] <= 0:
+            raise AssertionError(f"{kname} never launched in the tenancy "
+                                 "leg")
+    readings = {n: kv_reading(e, ms.model(n)) for n, e in engines.items()}
+    summary_b = ms.pool.summary()
+    ms.close()
+    del engines, ms
+    gc.collect()
+    for salt, name in enumerate(TENANTS):
+        eng = engine(name, plans[name])
+        eng.attach_paging()
+        if "kv" in eng.cache:
+            eng.attach_kv_paging(TENANCY["kv_block"])
+        want, solo_wall = serve(scheduler(eng), tenant_reqs(
+            sv.Request, cfgs[name].vocab_size, TENANT_REQUESTS, salt))
+        close(eng)
+        del eng
+        gc.collect()
+        tokens_equal({r.uid: r.generated for r in done.get(name, [])}, want,
+                     name, f"tenant {name} against its solo run")
+        readings[name]["solo_wall_s"] = solo_wall
+    ticks = doc["ticks"]["count"]
+    reading = dict(wall_s=wall, ticks=ticks, tick_ms=wall / ticks * 1e3,
+                   tok_per_s=doc["totals"]["tok_per_s"],
+                   requests=doc["totals"]["requests"], tenants=readings)
+    print(f"[tenancy] {' + '.join(TENANTS)} (8-bit, cold halves paged, "
+          f"{qwen} KV-paged), {TENANT_REQUESTS} requests a tenant, one pool "
+          f"of {budget} B ({TENANCY['shared_budget_frac']} of {cold} B "
+          f"cold): tokens equal per uid to each tenant's solo run on a "
+          f"private pager; pool members on the kv_pass_counters replay; "
+          f"metrics v9 multi document valid; pool {json.dumps(summary_b)}; "
+          f"host clock (smoke reading): {json.dumps(reading)}; launches "
+          f"{launches_b}")
+    out["tenancy"] = dict(launches=launches_b, launches_by_class=split_b,
+                          reading=reading, pool=summary_b)
+    out["path_check"] = check_path(torch, m["ops"], m["ref"], m["qmm"],
+                                   m["fa"], m["ssm"], dev,
+                                   "kv-paged + tenancy", calls)
+    return out
+
+
 # kernel-name fragments of the LM paths' device time, as the profiler names
 # them; cuBLAS / CUTLASS GEMMs are the unembedding's f32 matmul
 PROFILE_LM_KERNELS = (("qmm_tc", "qmatmul_f32 tensor cores (prefill)"),
@@ -2229,7 +2543,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
-    from repro_torch.core import packing, paging, placement
+    from repro_torch.core import memsys, packing, paging, placement
     from repro_torch.core.faults import FaultPlan
     from repro_torch.core.weight_store import PackedParam
     from repro_torch.core.perf_model import mobilenet_v2_jobs
@@ -2301,7 +2615,9 @@ def main() -> int:
         served[arch], tree = serve_lm(torch, mods, get_config(arch), max_len,
                                       long_prompt, counters, depth, dev)
         if arch == XR_ARCH:
-            xr_tree = tree               # phase 7 serves it again
+            xr_tree = tree               # phases 7 and 8 serve it again
+        if arch == TENANTS[1]:
+            falcon_tree = tree           # phase 8's second tenant
         del tree
         gc.collect()
         torch.cuda.empty_cache()
@@ -2339,7 +2655,7 @@ def main() -> int:
     mods.update(serving=serving, trace=trace)
     xr = serve_xr_phase(torch, mods, get_config(XR_ARCH), xr_tree,
                         paged_store, dev)
-    del xr_tree, paged_store
+    del paged_store
     served[f"{XR_ARCH} xr"] = xr
     for name in ("qmatmul_f32", "flash_attention"):
         launches[name] += xr["launches"][name]
@@ -2347,11 +2663,30 @@ def main() -> int:
     fa_err = max(fa_err, xr["path_check"]["max_abs_err"]["flash_attention"])
     bs_err = max(bs_err,
                  xr["path_check"]["max_abs_err"]["qmatmul_f32_blockscale"])
+
+    # 8. KV paging and tenancy over one page pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    mods.update(memsys=memsys)
+    kvt = serve_kv_tenancy_phase(
+        torch, mods, {name: get_config(name) for name in TENANTS},
+        {TENANTS[0]: xr_tree, TENANTS[1]: falcon_tree}, dev)
+    del xr_tree, falcon_tree
+    for path, part in ((f"{TENANTS[0]} kv-paged", "kv"),
+                       (f"{'+'.join(TENANTS)} tenancy", "tenancy")):
+        served[path] = kvt[part]
+        for name in KV_KERNELS:
+            launches[name] += kvt[part]["launches"][name]
+    qmm_err, fa_err, scan_err = (
+        max(err, kvt["path_check"]["max_abs_err"][name])
+        for err, name in ((qmm_err, "qmatmul_f32"),
+                          (fa_err, "flash_attention"),
+                          (scan_err, "selective_scan")))
     b3_by_path = {f"{PAGED_ARCH} paged":
                   paged["launches"]["qmatmul_f32_blockscale"],
                   f"{XR_ARCH} xr": xr["launches"]["qmatmul_f32_blockscale"]}
 
-    # 8. result lines
+    # 9. result lines
     by_path = {name: {arch: s["launches"][name] for arch, s in served.items()
                       if name in s["launches"]}
                for name in counters}

@@ -5,9 +5,9 @@ array code): the operating points (paper Table I), the interface
 bandwidths, the calibrated energy constants, the N-EUREKA throughput model
 (``neureka_gops``), the per-scenario weight-path costs, ``LayerShape``, the
 double-buffered ``layer_timing`` and ``network_walk``, and the proactive-
-swap ``overlap_stall`` identity the scheduler uses, and the wire bytes of an
-encoded weight page (``encoded_wire_bytes``).  ``kv_stream_bytes`` arrives
-with KV paging (ROADMAP A7).
+swap ``overlap_stall`` identity the scheduler uses, the wire bytes of an
+encoded weight page (``encoded_wire_bytes``) and the bytes a tick's KV page
+stream moves (``kv_stream_bytes``).
 The constants are the paper's silicon, not the H100's.
 
 All bandwidths in bytes/s, energies in J, times in s.
@@ -297,6 +297,20 @@ def overlap_stall(swap_s: float, compute_s: float) -> Dict[str, float]:
     return dict(swap_s=swap_s, compute_s=compute_s, hidden_s=hidden,
                 exposed_s=exposed,
                 overlap_frac=(hidden / swap_s) if swap_s > 0 else 0.0)
+
+
+def kv_stream_bytes(valid_rows: int, block_rows: int,
+                    row_bytes: int) -> int:
+    """Host->device bytes ONE tick's KV page stream moves for a slot whose
+    valid cache prefix is ``valid_rows`` rows, under the completed-block
+    policy of :class:`repro_torch.core.paging.KVPageTable`: only full
+    blocks stream (the frontier block stays on the device, still being
+    appended to), so ``floor(valid / block) * block * row_bytes``."""
+    if block_rows < 1:
+        raise ValueError(f"block_rows must be >= 1, got {block_rows}")
+    if valid_rows < 0 or row_bytes < 0:
+        raise ValueError("valid_rows and row_bytes must be >= 0")
+    return (valid_rows // block_rows) * block_rows * row_bytes
 
 
 def encoded_wire_bytes(rows: int, k: int, page_bits: int,

@@ -1,13 +1,16 @@
 """Software-assisted virtual weight paging (paper §II-B2), on one device.
 
-Ports the single-device weight part of ``repro/core/paging.py``: ``Page``,
+Ports the single-device part of ``repro/core/paging.py``: ``Page``,
 ``page_sizes``, ``page_crc`` and ``build_pages`` (``:56-208``); the static
 schedule (``PageScheduleEntry``, ``StallModel``, ``make_schedule``,
-``validate_schedule``, ``:210-297``); the host wire images (``HostParam``,
-``encode_host_param``, ``page_roundtrip_param``, ``page_crc_of_buffers``,
-``retry_fetch``, ``:572-739``); ``HostPagedStore``, ``PageStream`` and
-``AsyncPageStream`` (``:741-1229``); ``pass_counters`` (``:1231-1259``);
-``thread_packed`` and ``packed_tree_store`` (``:2179-2229``).
+``validate_schedule``, ``:210-297``); the page pool shared by tenants
+(``SharedPagePool``, ``shared_pass_counters``, ``:299-570``); the host wire
+images (``HostParam``, ``encode_host_param``, ``page_roundtrip_param``,
+``page_crc_of_buffers``, ``retry_fetch``, ``:572-739``); ``HostPagedStore``,
+``PageStream`` and ``AsyncPageStream`` (``:741-1229``); ``pass_counters``
+(``:1231-1259``); KV-cache paging (``KVPageTable``, ``KVPageStream``,
+``kv_pass_counters``, ``:1696-2176``); ``thread_packed`` and
+``packed_tree_store`` (``:2179-2229``).
 
 Packed weights whose plan placement is ``paged`` live on the host in their
 page *wire* encoding ("background flash"); every pass streams them to the
@@ -17,32 +20,39 @@ its wire bytes before it is installed.  A re-encoded int8 page of a
 levels with one scale per 32 weights, and the blockscale kernel multiplies
 it from that form; every other page is decoded on the host first.
 
-On a CUDA device each host image is pinned once, when the store is built
-(the images are numpy views of page-locked memory).  The fetch worker
-copies a page with ``non_blocking=True`` on a side CUDA stream, records an
-event and waits on it before the page's future completes, so a fenced page
-is on the device and ``fence``'s exposed / hidden split keeps its meaning.
-The device tensors are allocated on the side stream; when a pass hands a
-page over (``fence``, or the sync stream's yield) they are marked
-(``record_stream``) for the stream current then, so the caching allocator
-cannot give their memory to the next copy while compute still reads it.
+Stores and KV page tables may join one :class:`SharedPagePool`: one
+device-bytes budget, LRU eviction across its members, a page still cached
+from an earlier pass served without a swap, and ONE fetch worker for every
+member, so that overlapped passes of several tenants run in begin order and
+the counters follow the :func:`kv_pass_counters` replay of the pool's event
+log exactly.
+
+On a CUDA device each host image is pinned once, when the store or table
+is built.  The fetch worker copies a page with ``non_blocking=True`` on a
+side CUDA stream, records an event and waits on it before the page's future
+completes, so a fenced page is on the device and ``fence``'s exposed /
+hidden split keeps its meaning.  The device tensors are allocated on the
+side stream; when a pass hands a page over (``fence``, or the sync
+stream's yield) they are marked (``record_stream``) for the stream current
+then, so the caching allocator cannot give their memory to the next copy
+while compute still reads it, even when a co-tenant's fetch evicts the
+page from the pool meanwhile.
 
 With a :class:`~repro_torch.serving.trace.Tracer` on ``store.tracer``
-(``ServingEngine.set_tracer`` puts it there), every swap is a ``page`` span
-on the ``io`` track with its ``nbytes``, ``wire_nbytes`` and ``encoding``,
-and every injected fault and retry an instant there.
+(``ServingEngine.set_tracer`` puts it there), every swap is a ``page``
+(weights) or ``kv_block`` span on the ``io`` track, and every injected
+fault and retry, pool eviction and KV drop an instant there.
 
-Not ported here, each raising where the API reaches it: the shared page
-pool of several tenants (``SharedPagePool``, ``pool=``: ROADMAP A8, with
-its own tracer hooks), the mesh-sharded stores (A11) and KV-cache paging
-(``KVPageTable`` and its stream: A7).
+Not ported here: the mesh-sharded stores (ROADMAP A11).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 import zlib
+from collections import OrderedDict
 from concurrent.futures import CancelledError, Future, ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FuturesTimeout
 from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
@@ -262,6 +272,227 @@ def validate_schedule(entries: Sequence[PageScheduleEntry],
                 f"page {e.page}", page=e.page)
 
 
+class SharedPagePool:
+    """One device-bytes budget shared by every tenant's paged store and KV
+    page table (the §V concurrent workloads share ONE memory hierarchy).
+
+    Members register under a name; every page a member fetches is admitted
+    here, and admission evicts least-recently-used pages of *other*
+    members until the new page fits (the fetching member's own pages, and
+    those of any member whose overlapped pass is mid-fetch, are never
+    evicted).  A page still cached from an earlier pass satisfies a
+    re-fetch without a host->device swap (a *pool hit*).
+
+    Every member routes its fetches through the pool's single fetch
+    worker, so overlapped passes of different tenants execute serialized
+    in begin order: the lookup / admit sequence, and with it every
+    counter, is that of the sequential sync passes, which
+    :func:`kv_pass_counters` replays from :attr:`events`."""
+
+    def __init__(self, budget_bytes: int):
+        if budget_bytes <= 0:
+            raise ValueError(f"budget_bytes must be > 0, got {budget_bytes}")
+        self.budget_bytes = int(budget_bytes)
+        self.members: "OrderedDict[str, Any]" = OrderedDict()
+        self._lock = threading.RLock()
+        # (member, page) -> (nbytes, wire_nbytes, device tensors); the
+        # insertion / touch order IS the LRU order (front = coldest)
+        self._cache: "OrderedDict[Tuple[str, int], Tuple[int, int, Any]]" = \
+            OrderedDict()
+        self.live_bytes = 0           # device bytes held (what budget charges)
+        self.live_wire_bytes = 0      # wire bytes those pages cost to re-swap
+        self.counters: Dict[str, Dict[str, Any]] = {}
+        # every member event in begin (== execution) order:
+        #   ("pass", model)                       one full weight pass
+        #   ("kv", model, ((page, nbytes), ...))  one KV fetch batch
+        #   ("kvdrop", model, (page, ...))        slot-reuse invalidation
+        self.events: List[Tuple] = []
+        # ONE fetch worker for every member store
+        self._exec = ThreadPoolExecutor(max_workers=1)
+        # members whose pass fetches are in flight: admit() never evicts
+        # their pages, so an overlapped pass's live window survives
+        self._active_fetch: set = set()
+        # opt-in chrome trace (ServingEngine.set_tracer): evictions as
+        # instants, live bytes as a counter track
+        self.tracer = None
+
+    def register(self, name: str, store: Any) -> None:
+        """Join the pool.  ``store`` is a :class:`HostPagedStore` or a
+        :class:`KVPageTable`; both kinds of page contend for the SAME
+        budget (one eviction domain)."""
+        with self._lock:
+            if name in self.members:
+                raise ValueError(f"model {name!r} already joined this pool")
+            self.members[name] = store
+            self.counters[name] = dict(pool_hits=0, evicted=0,
+                                       exposed_s=0.0, hidden_s=0.0)
+
+    @property
+    def pass_log(self) -> List[str]:
+        """One entry per full WEIGHT pass in begin order: the ``passes=``
+        argument of :func:`shared_pass_counters`."""
+        with self._lock:
+            return [m for kind, m, *_rest in self.events if kind == "pass"]
+
+    def log_event(self, *event) -> None:
+        with self._lock:
+            self.events.append(tuple(event))
+
+    def _pass_begin(self, name: str) -> None:
+        """Mark ``name``'s pass fetches in flight (eviction-protected)."""
+        with self._lock:
+            self._active_fetch.add(name)
+
+    def _pass_end(self, name: str) -> None:
+        """Release the fetch guard (idempotent; also called on cancel)."""
+        with self._lock:
+            self._active_fetch.discard(name)
+
+    def lookup(self, name: str, page_idx: int) -> Optional[Any]:
+        """The device tensors of a page still cached from an earlier fetch,
+        or None (the caller then swaps it in and admits it)."""
+        with self._lock:
+            key = (name, page_idx)
+            entry = self._cache.get(key)
+            if entry is None:
+                return None
+            self._cache.move_to_end(key)
+            self.counters[name]["pool_hits"] += 1
+            return entry[2]
+
+    def admit(self, name: str, page_idx: int, nbytes: int, params: Any,
+              wire_nbytes: Optional[int] = None,
+              raw_nbytes: Optional[int] = None) -> None:
+        """Cache a freshly swapped page under the shared budget, evicting
+        other members' LRU pages to make room.  A page that cannot fit even
+        then is not cached (and one larger than the whole budget flushes
+        nobody).  ``nbytes`` (device bytes) is what the budget charges;
+        ``wire_nbytes`` is only tracked; ``raw_nbytes`` is accepted for
+        symmetry with :class:`Page`."""
+        del raw_nbytes               # per-member ledgers live in the stores
+        with self._lock:
+            if nbytes > self.budget_bytes:
+                return              # can NEVER fit: don't flush co-tenants
+            wire = int(wire_nbytes) if wire_nbytes is not None else nbytes
+            tr = self.tracer
+            for key in list(self._cache.keys()):
+                if self.live_bytes + nbytes <= self.budget_bytes:
+                    break
+                victim_model, victim_page = key
+                if victim_model == name or victim_model in self._active_fetch:
+                    continue
+                freed, freed_wire, _ = self._cache.pop(key)
+                self.live_bytes -= freed
+                self.live_wire_bytes -= freed_wire
+                self.counters[victim_model]["evicted"] += 1
+                if tr is not None:
+                    tr.instant("evict", track="io", model=victim_model,
+                               page=victim_page, nbytes=freed, by=name)
+            if self.live_bytes + nbytes <= self.budget_bytes:
+                self._cache[(name, page_idx)] = (nbytes, wire, params)
+                self.live_bytes += nbytes
+                self.live_wire_bytes += wire
+            if tr is not None:
+                tr.counter("pool_bytes", track="io", bytes=self.live_bytes,
+                           wire_bytes=self.live_wire_bytes)
+
+    def invalidate(self, name: str, page_idx: int) -> bool:
+        """Drop ``name``'s cached page at its owner's request (a KV block
+        whose slot was handed over); not counted as an eviction.  Returns
+        whether the page was present."""
+        with self._lock:
+            entry = self._cache.pop((name, page_idx), None)
+            if entry is None:
+                return False
+            self.live_bytes -= entry[0]
+            self.live_wire_bytes -= entry[1]
+            if self.tracer is not None:
+                self.tracer.counter("pool_bytes", track="io",
+                                    bytes=self.live_bytes,
+                                    wire_bytes=self.live_wire_bytes)
+            return True
+
+    def add_stall(self, name: str, exposed_s: float,
+                  hidden_s: float = 0.0) -> None:
+        """Book one pass's stall split for ``name``."""
+        with self._lock:
+            self.counters[name]["exposed_s"] += float(exposed_s)
+            self.counters[name]["hidden_s"] += float(hidden_s)
+
+    def summary(self) -> Dict[str, Any]:
+        """Per-member swap / miss / pool-hit / evict counters, streamed
+        bytes and stall split, and the pool's state: the ``shared_pool``
+        section of the metrics document.  Its stall seconds are the pool's
+        view of the wall time the engines report too; a total sums one of
+        the two, never both."""
+        with self._lock:
+            models = {}
+            for name, store in self.members.items():
+                c = self.counters[name]
+                models[name] = dict(
+                    swaps=store.swap_count, misses=store.miss_count,
+                    pool_hits=c["pool_hits"], evicted=c["evicted"],
+                    exposed_s=c["exposed_s"], hidden_s=c["hidden_s"],
+                    n_pages=len(store.pages),
+                    bytes_streamed_wire=getattr(store, "bytes_streamed_wire",
+                                                0),
+                    bytes_streamed_raw=getattr(store, "bytes_streamed_raw",
+                                               0))
+            return dict(
+                budget_bytes=self.budget_bytes,
+                live_bytes=self.live_bytes,
+                live_wire_bytes=self.live_wire_bytes,
+                cached_pages=len(self._cache),
+                evictions=sum(c["evicted"] for c in self.counters.values()),
+                bytes_streamed_wire=sum(m["bytes_streamed_wire"]
+                                        for m in models.values()),
+                bytes_streamed_raw=sum(m["bytes_streamed_raw"]
+                                       for m in models.values()),
+                models=models)
+
+    def close(self, wait: bool = True) -> None:
+        with self._lock:
+            members = list(self.members.values())
+            self._cache.clear()
+            self.live_bytes = 0
+            self.live_wire_bytes = 0
+        for store in members:
+            store.close(wait=wait)
+        self._exec.shutdown(wait=wait, cancel_futures=not wait)
+
+    def __enter__(self) -> "SharedPagePool":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False
+
+
+def shared_pass_counters(page_nbytes: Dict[str, Sequence[Any]],
+                         budget_bytes: int, resident_slots: int = 2,
+                         passes: Optional[Sequence[str]] = None,
+                         ticks: int = 1) -> Dict[str, Dict[str, int]]:
+    """Static per-member counters of weight passes through a
+    :class:`SharedPagePool`: the weights-only view of
+    :func:`kv_pass_counters`.  ``page_nbytes`` maps each member to its page
+    sizes in access order (device-byte ints, or ``(device, wire, raw)``
+    triples from :func:`page_sizes`); ``passes`` is the sequence of full
+    passes (``SharedPagePool.pass_log``), by default ``ticks`` round-robin
+    rounds over the members in dict order."""
+    order = list(page_nbytes.keys())
+    if passes is None:
+        passes = [m for _ in range(ticks) for m in order]
+    out = kv_pass_counters(page_nbytes, budget_bytes,
+                           [("pass", m) for m in passes],
+                           resident_slots=resident_slots)
+    for m in order:
+        out.setdefault(m, dict(swaps=0, misses=0, pool_hits=0, evicted=0,
+                               dropped=0, bytes_wire=0, bytes_raw=0))
+    # weight passes never drop pages; keep the reference's key set
+    return {m: {k: n for k, n in c.items() if k != "dropped"}
+            for m, c in out.items()}
+
+
 @dataclasses.dataclass
 class HostParam:
     """Host image of ONE paged parameter, in its page wire encoding.
@@ -419,21 +650,21 @@ class HostPagedStore:
     ``decode_s`` (host decode), ``crc_s`` (CRC over the received wire
     bytes) and ``copy_s`` (host->device copies, enqueue to completion).
 
-    ``faults`` (a FaultPlan or FaultInjector) puts every fetch attempt
-    under seeded fault injection with CRC-verified retry.  ``device``
-    defaults to ``cuda`` and raises without a card.
+    With a ``pool`` (:class:`SharedPagePool`) the store joins the pool's
+    budget under ``name``: a fetch looks the page up there first (a hit
+    swaps nothing), admits what it swapped, and runs on the pool's single
+    fetch worker.  ``faults`` (a FaultPlan or FaultInjector) puts every
+    fetch attempt under seeded fault injection with CRC-verified retry.
+    ``device`` defaults to ``cuda`` and raises without a card.
     """
 
     def __init__(self, store: WeightStore, page_bytes: int,
                  device: DeviceLike = None,
                  plan: Optional[PlacementPlan] = None,
-                 pool: Optional[Any] = None, name: str = "default",
-                 faults: FaultsArg = None):
-        if pool is not None:
-            raise NotImplementedError("a page pool shared by several "
-                                      "stores arrives with tenancy "
-                                      "(ROADMAP A8)")
+                 pool: Optional[SharedPagePool] = None,
+                 name: str = "default", faults: FaultsArg = None):
         self.plan = plan
+        self.pool = pool
         self.name = name
         self.device = resolve_device(device)
         # the host wire images come first, so that build_pages can stamp
@@ -464,7 +695,7 @@ class HostPagedStore:
                 hp.payload = _cpu(hp.payload).pin_memory().numpy()
                 hp.scales = _cpu(hp.scales).pin_memory().numpy()
             self._copy_stream = torch.cuda.Stream(self.device)
-        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._exec = ThreadPoolExecutor(max_workers=1)
         self.swap_count = 0
         self.miss_count = 0
         self.bytes_streamed_wire = 0
@@ -480,6 +711,15 @@ class HostPagedStore:
         # opt-in chrome trace: per-page fetch spans on the "io" track,
         # emitted from the fetch worker
         self.tracer = None
+        if pool is not None:
+            pool.register(self.name, self)
+
+    @property
+    def _fetch_exec(self) -> ThreadPoolExecutor:
+        """The worker fetches run on: the pool's shared one for a member
+        (overlapped passes of tenants then run in begin order), else the
+        store's own."""
+        return self._exec if self.pool is None else self.pool._exec
 
     def _fetch_page(self, idx: int) -> Dict[str, PackedParam]:
         tr = self.tracer
@@ -487,6 +727,13 @@ class HostPagedStore:
         if self._closed:
             raise CancelledError(f"{self.name}: store closed before fetch "
                                  f"of page {idx} started")
+        if self.pool is not None:
+            cached = self.pool.lookup(self.name, idx)
+            if cached is not None:
+                if tr is not None:       # pool hit: no host->device swap
+                    tr.complete("page", tr.now() - t0, track="io",
+                                model=self.name, page=idx, pool_hit=True)
+                return cached
         page = self.pages[idx]
         out = retry_fetch(self, idx,
                           lambda attempt: self._fetch_page_once(idx, page,
@@ -498,6 +745,10 @@ class HostPagedStore:
         self.swap_count += 1
         self.bytes_streamed_wire += page.wire_nbytes
         self.bytes_streamed_raw += page.raw_nbytes
+        if self.pool is not None:
+            self.pool.admit(self.name, idx, page.nbytes, out,
+                            wire_nbytes=page.wire_nbytes,
+                            raw_nbytes=page.raw_nbytes)
         if tr is not None:
             tr.complete("page", tr.now() - t0, track="io", model=self.name,
                         page=idx, nbytes=page.nbytes,
@@ -586,7 +837,9 @@ class HostPagedStore:
                    ) -> Dict[str, PackedParam]:
         """Mark fetched device pages for the stream current now, the one
         the caller computes on: their memory then goes back to the side
-        stream's copies only after that stream's work on them is done."""
+        stream's copies only after that stream's work on them is done,
+        also when a co-tenant's fetch evicts a pooled page meanwhile.  A
+        pool hit hands over the pool's own tensors the same way."""
         if self._copy_stream is not None:
             stream = torch.cuda.current_stream(self.device)
             for p in params.values():
@@ -629,7 +882,7 @@ class HostPagedStore:
         finish; ``wait=False``: cancel what it can).  The closed flag goes
         up first, so a running fetch drops its page."""
         self._closed = True
-        self._pool.shutdown(wait=wait, cancel_futures=not wait)
+        self._exec.shutdown(wait=wait, cancel_futures=not wait)
 
     def __enter__(self) -> "HostPagedStore":
         return self
@@ -660,6 +913,8 @@ class PageStream:
         self._store = store
         self._sched = make_schedule(len(store.pages), resident_slots)
         self._inflight: Dict[int, Future] = {}
+        if store.pool is not None:
+            store.pool.log_event("pass", store.name)
         self._gen = self._iterate()
 
     def __iter__(self):
@@ -693,7 +948,7 @@ class PageStream:
                     st._live[e.page] = page_params
                 if (e.prefetch_next is not None
                         and e.prefetch_next not in st._live):
-                    self._inflight[e.prefetch_next] = st._pool.submit(
+                    self._inflight[e.prefetch_next] = st._fetch_exec.submit(
                         st._fetch_page, e.prefetch_next)
                 if e.evicts is not None:
                     st._live.pop(e.evicts, None)
@@ -716,7 +971,13 @@ class AsyncPageStream:
       * ``swap_s``    — ``hidden_s + exposed_s``,
 
     which is :func:`repro_torch.core.memsys.overlap_stall` applied to
-    (``swap_s``, ``window_s``)."""
+    (``swap_s``, ``window_s``).
+
+    For a pool member the pass holds the pool's fetch guard while its
+    fetches execute (marker tasks on the serialized worker set it right
+    before the first and release it right after the last), so co-tenant
+    admissions cannot evict its pages mid-pass; :meth:`close` releases it
+    too."""
 
     def __init__(self, store: HostPagedStore, resident_slots: int = 2):
         self._store = store
@@ -726,9 +987,15 @@ class AsyncPageStream:
         self.window_s = 0.0
         self.exposed_s = 0.0
         self.hidden_s = 0.0
+        pool = store.pool
         self._t_ready: Optional[float] = None   # last fetch completion
         self._t_begin = time.perf_counter()
         self._futures: List[Tuple[int, Future]] = []
+        self._marks: List[Future] = []
+        if pool is not None:
+            pool.log_event("pass", store.name)
+            self._marks.append(
+                store._fetch_exec.submit(pool._pass_begin, store.name))
         live: set = set()
         inflight: set = set()
         for e in make_schedule(len(store.pages), resident_slots):
@@ -740,15 +1007,20 @@ class AsyncPageStream:
             else:
                 store.miss_count += 1        # demand miss (cold start)
                 self._futures.append(
-                    (e.page, store._pool.submit(store._fetch_page, e.page)))
+                    (e.page, store._fetch_exec.submit(store._fetch_page,
+                                                      e.page)))
                 live.add(e.page)
             if e.prefetch_next is not None and e.prefetch_next not in live:
                 inflight.add(e.prefetch_next)
                 self._futures.append(
                     (e.prefetch_next,
-                     store._pool.submit(store._fetch_page, e.prefetch_next)))
+                     store._fetch_exec.submit(store._fetch_page,
+                                              e.prefetch_next)))
             if e.evicts is not None:
                 live.discard(e.evicts)
+        if pool is not None:
+            self._marks.append(
+                store._fetch_exec.submit(pool._pass_end, store.name))
         if self._futures:
             self._futures[-1][1].add_done_callback(self._mark_ready)
         else:
@@ -756,6 +1028,11 @@ class AsyncPageStream:
 
     def _mark_ready(self, _fut) -> None:
         self._t_ready = time.perf_counter()
+
+    @property
+    def done(self) -> bool:
+        """True once fenced or closed."""
+        return self._result is not None or self._closed
 
     def fence(self, timeout_s: Optional[float] = None
               ) -> Dict[str, PackedParam]:
@@ -794,12 +1071,17 @@ class AsyncPageStream:
 
     def close(self) -> None:
         """Cancel what has not started and drain what has (a fetch error of
-        the abandoned pass is raised here); a no-op on a fenced pass, and
-        idempotent."""
-        _drain([f for _i, f in self._futures])
-        self._futures.clear()
-        if self._result is None:
-            self._closed = True
+        the abandoned pass is raised here) and release the pool's fetch
+        guard; a no-op on a fenced pass, and idempotent."""
+        try:
+            _drain([f for _i, f in self._futures] + self._marks)
+        finally:
+            self._futures.clear()
+            self._marks.clear()
+            if self._result is None:
+                self._closed = True
+            if self._store.pool is not None:
+                self._store.pool._pass_end(self._store.name)
 
     def __enter__(self) -> "AsyncPageStream":
         return self
@@ -831,6 +1113,489 @@ def pass_counters(n_pages: int, resident_slots: int = 2) -> Dict[str, int]:
         if e.evicts is not None:
             live.discard(e.evicts)
     return dict(swaps=swaps, misses=misses)
+
+
+# ---------------------------------------------------------------------------
+# KV-cache paging: the per-slot KV cache flows through the SAME budget
+# ---------------------------------------------------------------------------
+
+KV_PARTS = ("k", "v")
+
+
+class KVPageTable:
+    """Pages a serving engine's per-slot KV cache through the same
+    device-bytes budget, and the same begin / fence overlap, as the weight
+    pages.
+
+    A KV *page* is ``block_rows`` consecutive cache rows of one batch
+    slot, across every layer and both k and v: page index ``slot *
+    n_blocks + block``.  The engine's device cache stays the compute
+    buffer; the authoritative copy of every *completed* block lives in
+    this table's host image:
+
+      * a block is written back host-ward once, when the prefill / decode
+        frontier crosses its end (KV rows are append-only);
+      * each tick the live slots' completed blocks stream host->device
+        (through the pool when there is one: a pooled block is a hit, not
+        a swap) and the engine scatters them over its cache;
+      * the partly filled frontier block stays on the device;
+      * when a slot is handed to a new request its pooled blocks are
+        dropped (``queue_drop`` / ``flush_drops``, at the next fence, once
+        every fetch in flight has settled) and its host rows zeroed.
+
+    The host image keeps the cache's dtype as CPU tensors, one contiguous
+    ``(n_layers, n_kv_heads, block_rows, head_dim)`` block a page (shape
+    ``(n_slots, n_blocks, n_layers, n_kv_heads, block_rows, head_dim)``,
+    the last block padded when ``block_rows`` does not divide
+    ``max_len``), pinned on a card, so a fetch is one asynchronous copy a
+    part on the side stream.  ``row_nbytes`` and ``page_nbytes`` are those
+    of the cache, so the pool charges what the reference charges.
+
+    Counters (``swap_count == miss_count``: every non-pooled KV fetch is a
+    demand swap), writebacks and drops follow the :func:`kv_pass_counters`
+    replay of the event log.  Faults: ``pre_fetch`` failures and latency
+    apply; bit-flips do not (KV rows cross no checksummed wire codec)."""
+
+    def __init__(self, cache_kv: Dict[str, torch.Tensor], *,
+                 block_rows: int = 16,
+                 pool: Optional[SharedPagePool] = None,
+                 name: str = "default/kv", device: DeviceLike = None,
+                 faults: FaultsArg = None):
+        if block_rows < 1:
+            raise ValueError(f"block_rows must be >= 1, got {block_rows}")
+        k, v = cache_kv["k"], cache_kv["v"]
+        # cache layout (n_layers, n_slots, n_kv_heads, max_len, head_dim)
+        n_layers, self.n_slots, n_heads, self.max_len, head_dim = k.shape
+        self.block_rows = int(block_rows)
+        self.n_blocks = -(-self.max_len // self.block_rows)
+        self.row_nbytes = ((k.numel() + v.numel()) * k.element_size()
+                           // (self.n_slots * self.max_len))
+        self.page_nbytes = self.block_rows * self.row_nbytes
+        self.name = name
+        self.pool = pool
+        self.device = resolve_device(device)
+        shape = (self.n_slots, self.n_blocks, n_layers, n_heads,
+                 self.block_rows, head_dim)
+        self._copy_stream = None
+        pin = self.device.type == "cuda"
+        self.host = {part: torch.zeros(shape, dtype=k.dtype,
+                                       pin_memory=pin)
+                     for part in KV_PARTS}
+        if pin:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        for slot in range(self.n_slots):      # the cache as it is now
+            self._write_rows(slot, 0, self.n_blocks, cache_kv)
+        self.swap_count = 0
+        self.miss_count = 0
+        self.pool_hits = 0
+        # KV rows stream in their device format: wire == raw == device
+        self.bytes_streamed_wire = 0
+        self.bytes_streamed_raw = 0
+        self.writebacks = 0           # blocks written back host-ward
+        self.dropped = 0              # pooled blocks invalidated (slot reuse)
+        self.preempt_drops = 0        # of which: mid-request preemptions
+        self.faults = as_injector(faults)
+        self.fault_counters = new_fault_counters()
+        self._closed = False
+        # pool-less prediction log (pooled tables log into pool.events)
+        self.events: List[Tuple] = []
+        self._pending_drops: set = set()
+        self._exec = ThreadPoolExecutor(max_workers=1)
+        # opt-in chrome trace (ServingEngine.set_tracer): per-block fetch
+        # spans and kvdrop instants on the "io" track
+        self.tracer = None
+        if pool is not None:
+            pool.register(name, self)
+
+    @property
+    def pages(self) -> range:
+        return range(self.n_slots * self.n_blocks)
+
+    @property
+    def _fetch_exec(self) -> ThreadPoolExecutor:
+        return self._exec if self.pool is None else self.pool._exec
+
+    def _log(self, *event) -> None:
+        if self.pool is not None:
+            self.pool.log_event(*event)
+        else:
+            self.events.append(tuple(event))
+
+    def page_index(self, slot: int, block: int) -> int:
+        return slot * self.n_blocks + block
+
+    def _block_rows_span(self, page_idx: int) -> Tuple[int, int, int]:
+        slot, blk = divmod(page_idx, self.n_blocks)
+        a = blk * self.block_rows
+        return slot, a, min(a + self.block_rows, self.max_len)
+
+    def _fetch_block(self, page_idx: int) -> Dict[str, torch.Tensor]:
+        tr = self.tracer
+        t0 = tr.now() if tr is not None else 0.0
+        if self._closed:
+            raise CancelledError(f"{self.name}: table closed before fetch "
+                                 f"of page {page_idx} started")
+        if self.pool is not None:
+            cached = self.pool.lookup(self.name, page_idx)
+            if cached is not None:
+                self.pool_hits += 1
+                if tr is not None:       # pool hit: no host->device swap
+                    tr.complete("kv_block", tr.now() - t0, track="io",
+                                model=self.name, page=page_idx,
+                                pool_hit=True)
+                return cached
+        slot, a, b = self._block_rows_span(page_idx)
+        rows = retry_fetch(self, page_idx,
+                           lambda attempt: self._fetch_block_once(
+                               page_idx, slot, a, b, attempt))
+        if self._closed:
+            raise CancelledError(f"{self.name}: table closed during fetch "
+                                 f"of page {page_idx}")
+        self.swap_count += 1
+        self.miss_count += 1
+        nb = (b - a) * self.row_nbytes
+        self.bytes_streamed_wire += nb
+        self.bytes_streamed_raw += nb
+        if self.pool is not None:
+            self.pool.admit(self.name, page_idx, nb, rows)
+        if tr is not None:
+            tr.complete("kv_block", tr.now() - t0, track="io",
+                        model=self.name, page=page_idx, nbytes=nb,
+                        pool_hit=False)
+        return rows
+
+    def _fetch_block_once(self, page_idx: int, slot: int, a: int, b: int,
+                          attempt: int) -> Dict[str, torch.Tensor]:
+        """One attempt: the block's pinned host rows to the device on the
+        side stream, complete (its event waited on) when this returns; on
+        the CPU, a copy (the pool keeps it, and a drop zeroes the host)."""
+        if self.faults is not None:
+            self.fault_counters["injected"] += self.faults.pre_fetch(
+                self.name, page_idx, attempt)
+        src = {part: self.host[part][slot, a // self.block_rows, :, :,
+                                     :b - a]
+               for part in KV_PARTS}
+        if self._copy_stream is None:
+            return {part: t.clone() for part, t in src.items()}
+        with torch.cuda.stream(self._copy_stream):
+            out = {part: t.to(self.device, non_blocking=True)
+                   for part, t in src.items()}
+            done = torch.cuda.Event()
+            done.record(self._copy_stream)
+        done.synchronize()
+        return out
+
+    def _write_rows(self, slot: int, block_lo: int, block_hi: int,
+                    cache_kv: Dict[str, torch.Tensor]) -> None:
+        a = block_lo * self.block_rows
+        b = min(block_hi * self.block_rows, self.max_len)
+        for part in KV_PARTS:
+            # a blocking copy on the current (compute) stream: it returns
+            # once the stream's queued work, the tick that wrote these
+            # rows, has finished and the rows are on the host
+            rows = cache_kv[part][:, slot, :, a:b].to("cpu")
+            for blk in range(block_lo, block_hi):
+                r0 = (blk - block_lo) * self.block_rows
+                n = min(self.block_rows, b - a - r0)
+                self.host[part][slot, blk, :, :, :n] = rows[:, :, r0:r0 + n]
+
+    def writeback(self, slot: int, block_lo: int, block_hi: int,
+                  cache_kv: Dict[str, torch.Tensor]) -> None:
+        """Completed blocks ``[block_lo, block_hi)`` of ``slot`` move
+        device->host from the engine's cache, each exactly once, when its
+        block fills (append-only KV: immutable from here on)."""
+        if block_hi <= block_lo:
+            return
+        self._write_rows(slot, block_lo, block_hi, cache_kv)
+        self.writebacks += block_hi - block_lo
+
+    def queue_drop(self, slot: int) -> None:
+        """Mark ``slot``'s pages stale (its request retired or the slot is
+        reassigned); :meth:`flush_drops` invalidates them at the next
+        fence, after every fetch in flight has settled, so a late fetch
+        cannot re-admit a dropped page."""
+        self._pending_drops.add(int(slot))
+
+    def flush_drops(self) -> None:
+        if not self._pending_drops:
+            return
+        for slot in sorted(self._pending_drops):
+            pages = range(slot * self.n_blocks, (slot + 1) * self.n_blocks)
+            if self.pool is not None:
+                removed = tuple(p for p in pages
+                                if self.pool.invalidate(self.name, p))
+                if removed:
+                    self.pool.log_event("kvdrop", self.name, removed)
+                    if self.tracer is not None:
+                        self.tracer.instant("kvdrop", track="io",
+                                            model=self.name, slot=slot,
+                                            pages=len(removed))
+                self.dropped += len(removed)
+            # stale rows are never served again: zeroed, a bug that
+            # fetches a dropped block shows as loud wrong bytes
+            for part in KV_PARTS:
+                self.host[part][slot] = 0
+        self._pending_drops.clear()
+
+    def preempt_release(self, slot: int, *, in_flight: bool) -> None:
+        """Release ``slot``'s pooled blocks for a mid-request preemption:
+        flushed now when no KV pass is in flight (so the slot's next
+        occupant can write back this very tick), else at that pass's
+        fence, which still comes before the usurper's first writeback."""
+        self.queue_drop(slot)
+        self.preempt_drops += 1
+        if not in_flight:
+            self.flush_drops()
+
+    def begin_pass(self, full_blocks: Dict[int, int]) -> "KVPageStream":
+        """Kick one overlapped KV pass: ``full_blocks`` maps each live slot
+        to its completed-block count; every listed block's fetch is
+        submitted now (slot, then block order), and blocks that complete
+        before the fence are demand-fetched there."""
+        return KVPageStream(self, full_blocks)
+
+    def close(self, wait: bool = True) -> None:
+        # flag first: a fetch already running aborts before it admits
+        self._closed = True
+        self._exec.shutdown(wait=wait, cancel_futures=not wait)
+
+    def __enter__(self) -> "KVPageTable":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False
+
+
+class KVPageStream:
+    """One overlapped KV pass, the KV counterpart of
+    :class:`AsyncPageStream` with the same exposed / hidden split.
+    ``fence(full_blocks)`` takes the *current* completed-block spans, so
+    blocks that filled during the compute window are demand-fetched
+    before the join."""
+
+    def __init__(self, table: KVPageTable, full_blocks: Dict[int, int]):
+        self._table = table
+        self._begun = {int(s): int(n) for s, n in full_blocks.items()}
+        self._futures: List[Tuple[int, Future]] = []
+        self._marks: List[Future] = []
+        self._result: Optional[Dict[int, Dict[str, torch.Tensor]]] = None
+        self._closed = False
+        self.swap_s = 0.0
+        self.window_s = 0.0
+        self.exposed_s = 0.0
+        self.hidden_s = 0.0
+        self._t_last_done: Optional[float] = None
+        self._t_begin = time.perf_counter()
+        pages = self._page_list(self._begun)
+        pool = table.pool
+        if pool is not None and pages:
+            # the guard brackets the pass's execution on the worker
+            self._marks.append(
+                table._fetch_exec.submit(pool._pass_begin, table.name))
+        self._submit(pages)
+        if pool is not None and pages:
+            self._marks.append(
+                table._fetch_exec.submit(pool._pass_end, table.name))
+        if not self._futures:
+            # nothing streamed in the window: hidden stays 0
+            self._t_last_done = self._t_begin
+
+    def _page_list(self, full_blocks: Dict[int, int],
+                   already: Optional[Dict[int, int]] = None) -> List[int]:
+        out = []
+        for slot in sorted(full_blocks):
+            lo = 0 if already is None else already.get(slot, 0)
+            for blk in range(lo, full_blocks[slot]):
+                out.append(self._table.page_index(slot, blk))
+        return out
+
+    def _submit(self, pages: List[int], track: bool = True) -> None:
+        t = self._table
+        if not pages:
+            return
+        t._log("kv", t.name, tuple((p, t.page_nbytes) for p in pages))
+        for p in pages:
+            fut = t._fetch_exec.submit(t._fetch_block, p)
+            if track:
+                # only the begin batch stamps the stream-ready time: the
+                # fence's demand fetches land wholly in exposed
+                fut.add_done_callback(self._mark_done)
+            self._futures.append((p, fut))
+
+    def _mark_done(self, _fut) -> None:
+        self._t_last_done = time.perf_counter()
+
+    @property
+    def done(self) -> bool:
+        return self._result is not None or self._closed
+
+    def fence(self, full_blocks: Optional[Dict[int, int]] = None,
+              timeout_s: Optional[float] = None
+              ) -> Dict[int, Dict[str, torch.Tensor]]:
+        """Join the pass: demand-fetch blocks completed since begin, wait
+        for every page, record the exposed / hidden split, and return
+        ``{page_index: {"k": rows, "v": rows}}`` for the engine to
+        scatter.  Idempotent.  ``timeout_s`` bounds the total wait; on
+        expiry PageFetchTimeout is raised and the pass stays resumable
+        (demand fetches submitted here are not submitted again)."""
+        if self._closed:
+            raise RuntimeError("fence() after close(): the pass was "
+                               "cancelled")
+        if self._result is not None:
+            return self._result
+        t_fence = time.perf_counter()
+        if full_blocks is not None:
+            self._submit(self._page_list(full_blocks, already=self._begun),
+                         track=False)
+            for slot, n in full_blocks.items():
+                self._begun[int(slot)] = max(self._begun.get(int(slot), 0),
+                                             int(n))
+        out: Dict[int, Dict[str, torch.Tensor]] = {}
+        for n_done, (p, fut) in enumerate(self._futures):
+            try:
+                remaining = (None if timeout_s is None else
+                             max(0.0, timeout_s - (time.perf_counter()
+                                                   - t_fence)))
+                out[p] = fut.result(timeout=remaining)
+            except FuturesTimeout:
+                self._table.fault_counters["fetch_timeouts"] += 1
+                raise PageFetchTimeout(
+                    model=self._table.name, timeout_s=timeout_s,
+                    pending=len(self._futures) - n_done) from None
+        # the worker waited on each block's copy event: the rows are on the
+        # device; hand them to the compute stream that scatters them
+        if self._table._copy_stream is not None:
+            stream = torch.cuda.current_stream(self._table.device)
+            for rows in out.values():
+                for t in rows.values():
+                    t.record_stream(stream)
+        t_join = time.perf_counter()
+        t_ready = (self._t_last_done if self._t_last_done is not None
+                   else t_join)
+        self.window_s = t_fence - self._t_begin
+        self.exposed_s = t_join - t_fence
+        self.hidden_s = min(max(t_ready - self._t_begin, 0.0),
+                            self.window_s)
+        self.swap_s = self.hidden_s + self.exposed_s
+        self._futures.clear()
+        self._result = out
+        return out
+
+    def close(self) -> None:
+        """Cancel what has not started, drain what has (a fetch error of
+        the abandoned pass is raised here), release the pool's guard; a
+        no-op on a fenced pass, and idempotent."""
+        try:
+            _drain([f for _p, f in self._futures] + self._marks)
+        finally:
+            self._futures.clear()
+            self._marks.clear()
+            if self._result is None:
+                self._closed = True
+            if self._table.pool is not None:
+                self._table.pool._pass_end(self._table.name)
+
+    def __enter__(self) -> "KVPageStream":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False
+
+
+def kv_pass_counters(page_nbytes: Dict[str, Sequence[Any]],
+                     budget_bytes: Optional[int],
+                     events: Sequence[Tuple],
+                     resident_slots: int = 2) -> Dict[str, Dict[str, int]]:
+    """Static per-member counters of a pool whose members mix weight
+    stores and KV page tables: the replay of its event log
+    (:attr:`SharedPagePool.events`, or a pool-less
+    :attr:`KVPageTable.events`) through the runtime's own lookup / admit
+    / evict / invalidate sequence.  ``page_nbytes`` maps each *weight*
+    member to its page sizes in access order (device-byte ints, or
+    ``(device, wire, raw)`` triples; KV batches carry their sizes inline).
+    The cache charges device bytes, every replayed swap adds wire / raw
+    bytes to ``bytes_wire`` / ``bytes_raw``.  ``budget_bytes=None`` models
+    a pool-less table: no cache, every fetch swaps."""
+    cache: "OrderedDict[Tuple[str, int], int]" = OrderedDict()
+    live_bytes = 0
+    out: Dict[str, Dict[str, int]] = {}
+
+    def sizes3(entry) -> Tuple[int, int, int]:
+        if isinstance(entry, (tuple, list)):
+            dev, wire, raw = entry
+            return int(dev), int(wire), int(raw)
+        nb = int(entry)
+        return nb, nb, nb
+
+    def member(m: str) -> Dict[str, int]:
+        return out.setdefault(m, dict(swaps=0, misses=0, pool_hits=0,
+                                      evicted=0, dropped=0,
+                                      bytes_wire=0, bytes_raw=0))
+
+    def fetch(model: str, idx: int, size) -> None:
+        nonlocal live_bytes
+        nb, wire, raw = sizes3(size)
+        key = (model, idx)
+        if budget_bytes is not None and key in cache:
+            cache.move_to_end(key)
+            member(model)["pool_hits"] += 1
+            return
+        member(model)["swaps"] += 1
+        member(model)["bytes_wire"] += wire
+        member(model)["bytes_raw"] += raw
+        if budget_bytes is None or nb > budget_bytes:
+            return                  # mirrors admit's never-fits pre-check
+        for victim in list(cache.keys()):
+            if live_bytes + nb <= budget_bytes:
+                break
+            if victim[0] == model:
+                continue
+            live_bytes -= cache.pop(victim)
+            member(victim[0])["evicted"] += 1
+        if live_bytes + nb <= budget_bytes:
+            cache[key] = nb
+            live_bytes += nb
+
+    for event in events:
+        kind, model = event[0], event[1]
+        if kind == "pass":
+            m = member(model)
+            sizes = page_nbytes[model]
+            live: set = set()
+            inflight: set = set()
+            for e in make_schedule(len(sizes), resident_slots):
+                if e.page in live:
+                    pass
+                elif e.page in inflight:
+                    inflight.discard(e.page)
+                    live.add(e.page)
+                else:
+                    m["misses"] += 1
+                    fetch(model, e.page, sizes[e.page])
+                    live.add(e.page)
+                if e.prefetch_next is not None and e.prefetch_next not in live:
+                    inflight.add(e.prefetch_next)
+                    fetch(model, e.prefetch_next, sizes[e.prefetch_next])
+                if e.evicts is not None:
+                    live.discard(e.evicts)
+        elif kind == "kv":
+            m = member(model)
+            for page, nb in event[2]:
+                before = m["pool_hits"]
+                fetch(model, int(page), nb)
+                if m["pool_hits"] == before:
+                    m["misses"] += 1     # every non-pooled KV fetch swaps
+        elif kind == "kvdrop":
+            for page in event[2]:
+                nb = cache.pop((model, int(page)), None)
+                if nb is not None:
+                    live_bytes -= nb
+                    member(model)["dropped"] += 1
+        else:
+            raise ValueError(f"unknown pool event kind {kind!r}")
+    return out
 
 
 def thread_packed(tree: Any, params: Dict[str, PackedParam],

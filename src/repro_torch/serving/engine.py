@@ -1,6 +1,5 @@
 """Batched serving engine over the packed At-MRAM weight store
-(reference: ``repro/serving/engine.py:55-430``, ``:576-806`` and
-``:808-1164``).
+(reference: ``repro/serving/engine.py``).
 
 A continuous-batching loop, as in the reference:
 
@@ -27,10 +26,18 @@ A continuous-batching loop, as in the reference:
     ``HostPagedStore`` (§II-B2 virtual paging, swap / miss / stall counters
     kept); with ``wire_serve=True`` its re-encoded int8 cold pages are
     multiplied straight from their wire form by the blockscale kernel.
-    :meth:`begin_tick_params` kicks a tick's pass while the caller computes
-    and :meth:`fence_tick_params` joins it at first use (under an optional
-    deadline); :meth:`tick_params` is the blocking begin + fence that
-    ``step`` uses.
+    With ``pool=`` the store joins a
+    :class:`~repro_torch.core.paging.SharedPagePool`, one device-bytes
+    budget shared with other tenants (:mod:`repro_torch.serving.tenancy`);
+  * with :meth:`attach_kv_paging`, the completed ``block_rows``-row blocks
+    of every slot's KV cache live on the host (``KVPageTable``), written
+    back once when the frontier crosses them; each tick the live slots'
+    blocks stream back, through the same pool when there is one, and are
+    scattered over the device cache in one indexed copy a part.
+    :meth:`begin_tick_params` kicks a tick's weight and KV passes while the
+    caller computes and :meth:`fence_tick_params` joins them at first use
+    (under an optional deadline); :meth:`tick_params` is the blocking begin
+    + fence that ``step`` uses.
 
 The engine owns mechanism only.  Policy (deadlines, priorities, chunk
 pacing, the token budget, preemption, metrics) lives in
@@ -46,10 +53,8 @@ eagerly, so there is nothing to cache beyond the per-layer parameter views.
 Sampling draws from an explicit ``torch.Generator`` on the engine's device
 (the reference splits ``jax.random`` keys; the two agree at temperature 0).
 
-Not ported yet: KV paging (``attach_kv_paging`` raises and
-``sync_kv_tick`` has nothing to write back: ROADMAP A7), paging on a page
-pool shared by tenants (``pool=``: A8) or across a mesh (``mesh=``: A11),
-and the MoE family's one-slot-at-a-time prefill (A9).
+Not ported yet: paging across a mesh (``mesh=``: ROADMAP A11) and the MoE
+family's one-slot-at-a-time prefill (A9).
 """
 
 from __future__ import annotations
@@ -62,8 +67,8 @@ import torch
 
 from repro_torch.core.device import DeviceLike, device_of, resolve_device
 from repro_torch.core.faults import merge_fault_counters
-from repro_torch.core.paging import (HostPagedStore, packed_tree_store,
-                                     thread_packed)
+from repro_torch.core.paging import (HostPagedStore, KVPageTable,
+                                     packed_tree_store, thread_packed)
 from repro_torch.core.placement import PlacementPlan, as_plan
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
@@ -189,8 +194,10 @@ class ServingEngine:
         self.waiting: List[Request] = []
         self.finished: List[Request] = []
         # every slot handover (assign, preempt, restore, retire) bumps the
-        # slot's generation, the guard a KV pass in flight checks (A7)
+        # slot's generation: a KV pass begun under an older generation must
+        # not scatter its rows over the slot's new occupant
         self._slot_gen = np.zeros(batch_slots, np.int64)
+        self._kv_begun_gen: Optional[np.ndarray] = None
         self.preempt_count = 0
         self.restore_count = 0
 
@@ -207,6 +214,16 @@ class ServingEngine:
         # hidden_s (the memsys.overlap_stall identity)
         self.last_overlap: Optional[Dict[str, float]] = None
         self._inflight_pass = None        # AsyncPageStream begun, unfenced
+
+        # KV-cache paging (attach_kv_paging), through the same pool budget
+        # and the same begin / fence overlap; kv_stall_s / kv_hidden_s are
+        # the KV share of paging_stall_s / paging_hidden_s
+        self.kv_table: Optional[KVPageTable] = None
+        self._inflight_kv = None          # KVPageStream begun, unfenced
+        self.kv_stall_s = 0.0
+        self.kv_hidden_s = 0.0
+        self.last_kv_overlap: Optional[Dict[str, float]] = None
+        self._kv_synced = np.zeros(batch_slots, np.int64)  # blocks on host
         # opt-in chrome trace (set_tracer): the untraced fence pays one
         # branch
         self.tracer = None
@@ -232,16 +249,16 @@ class ServingEngine:
         injection with CRC-verified retry.  ``wire_serve=True`` serves
         int8-re-encoded cold pages straight from their wire form: the fetch
         skips the host decode and ``linear`` sends those params to the
-        blockscale kernel.
+        blockscale kernel.  With ``pool`` (a
+        :class:`~repro_torch.core.paging.SharedPagePool`) the store joins
+        the pool's shared budget under ``name`` instead of keeping a
+        private cache: the tenancy path.
 
         After this call ``self.params`` holds the resident groups on the
         device and the cold groups' HOST (CPU tensor) view: on a card, a
         step that computed with it instead of the streamed pages would make
-        the kernel wrappers raise.  ``pool=`` (tenancy, ROADMAP A8) and
-        ``mesh=`` (sharded paging, A11) are not ported."""
-        if pool is not None:
-            raise NotImplementedError("paging into a pool shared by "
-                                      "tenants arrives with ROADMAP A8")
+        the kernel wrappers raise.  ``mesh=`` (sharded paging, ROADMAP A11)
+        is not ported."""
         if mesh is not None or shard_budget_bytes is not None:
             raise NotImplementedError("mesh-sharded paging arrives with "
                                       "ROADMAP A11")
@@ -263,7 +280,7 @@ class ServingEngine:
         if page_bytes is None:
             page_bytes = max(store.params[n].nbytes_packed for n in paged)
         self.pager = HostPagedStore(store, page_bytes, device=self.device,
-                                    plan=self.plan,
+                                    plan=self.plan, pool=pool,
                                     name=name if name is not None
                                     else "default", faults=faults)
         self.page_resident_slots = resident_slots
@@ -271,74 +288,199 @@ class ServingEngine:
         self.params = thread_packed(self.params,
                                     {**self.pager.resident, **host_view})
         self._layers = tfm.layer_params(self.params, self.cfg)
-        self.pager.tracer = self.tracer    # reach the new store
+        if self.tracer is not None:
+            self.set_tracer(self.tracer)   # reach the new store and pool
         return self
 
-    def attach_kv_paging(self, *args, **kwargs):
-        raise NotImplementedError("KV paging is not ported yet (ROADMAP A7)")
+    # -- KV-cache paging through the same pool --------------------------------
+    def attach_kv_paging(self, block_rows: int = 16, *,
+                         pool: Optional[Any] = None,
+                         name: Optional[str] = None,
+                         faults: Optional[Any] = None) -> "ServingEngine":
+        """Page the per-slot KV cache through the same device-bytes budget
+        and the same begin / fence overlap as the weight pages
+        (``repro/serving/engine.py:431-470``).
+
+        The device cache stays the compute buffer, but the authoritative
+        copy of every completed ``block_rows``-row block lives in a
+        :class:`~repro_torch.core.paging.KVPageTable` host image: written
+        back once when the frontier crosses it, and each tick the live
+        slots' completed blocks stream back device-ward beside the weight
+        pages.  With ``pool`` the table joins the shared budget under
+        ``name`` (default ``<weights name>/kv``); without one every block
+        swaps every pass.  Attach before serving: the table snapshots the
+        (idle) cache."""
+        if "kv" not in self.cache:
+            raise ValueError(f"family {self.cfg.family!r} has no KV cache "
+                             "to page (recurrent state is not paged)")
+        if self.kv_table is not None:
+            raise ValueError("KV paging already attached")
+        if self.waiting or any(r is not None for r in self.slot_req):
+            raise ValueError("attach_kv_paging before submitting work: "
+                             "the host image snapshots an idle cache")
+        if name is None:
+            name = (self.pager.name if self.pager is not None
+                    else "default") + "/kv"
+        self.kv_table = KVPageTable(self.cache["kv"], block_rows=block_rows,
+                                    pool=pool, name=name, device=self.device,
+                                    faults=faults)
+        self._kv_synced[:] = 0
+        if self.tracer is not None:
+            self.set_tracer(self.tracer)   # reach the new table and pool
+        return self
 
     def set_tracer(self, tracer, track: Optional[str] = None
                    ) -> "ServingEngine":
         """Attach (or, with None, detach) a
-        :class:`~repro_torch.serving.trace.Tracer` to the engine and its
-        paged store, so that one trace shows the scheduler's phases, the
-        fence stalls and the per-page fetches together.  ``track`` names
-        this engine's rows.  A store attached later picks it up too."""
+        :class:`~repro_torch.serving.trace.Tracer` to the engine and every
+        paging component it owns (the paged store, the KV page table and
+        their pool), so that one trace shows the scheduler's phases, the
+        fence stalls, the per-page fetches, evictions and pool occupancy
+        together.  ``track`` names this engine's rows.  Paging attached
+        later picks it up too."""
         self.tracer = tracer
         if track is not None:
             self.trace_track = track
-        if self.pager is not None:
-            self.pager.tracer = tracer
+        for part in (self.pager, self.kv_table):
+            if part is not None:
+                part.tracer = tracer
+                if part.pool is not None:
+                    part.pool.tracer = tracer
         return self
 
+    def _kv_full_blocks(self) -> Dict[int, int]:
+        """{slot: host-synced completed-block count} over the occupied
+        slots: the span map one KV pass fetches.  The *synced* count (not
+        the frontier) keeps a just-restored preemption victim safe: its
+        blocks live only in the device cache until ``sync_kv_tick`` writes
+        them back again."""
+        out = {}
+        for i, r in enumerate(self.slot_req):
+            if r is None:
+                continue
+            full = int(self._kv_synced[i])
+            if full > 0:
+                out[i] = full
+        return out
+
+    def _scatter_kv(self, blocks: Dict[int, Dict[str, torch.Tensor]]
+                    ) -> None:
+        """Fetched KV blocks -> the device cache, in one indexed copy a part
+        on the compute stream.  A slot retired since the pass began, or
+        handed over (its generation moved: preempt, restore, assign), is
+        skipped: those rows belong to its previous occupant."""
+        nb, br = self.kv_table.n_blocks, self.kv_table.block_rows
+        keep = []
+        for page in sorted(blocks):        # slot-major, block-ascending
+            slot, blk = divmod(page, nb)
+            if self.slot_req[slot] is None:
+                continue
+            if (self._kv_begun_gen is not None
+                    and self._kv_begun_gen[slot] != self._slot_gen[slot]):
+                continue
+            keep.append((slot, blk, blocks[page]))
+        if not keep:
+            return
+        slots: List[int] = []
+        rows: List[int] = []
+        for slot, blk, kv in keep:
+            n = kv["k"].shape[2]
+            slots += [slot] * n
+            rows += range(blk * br, blk * br + n)
+        s_idx = self._to_device(np.asarray(slots, np.int64), torch.long)
+        r_idx = self._to_device(np.asarray(rows, np.int64), torch.long)
+        for part, c in self.cache["kv"].items():
+            # (L, H, R, D) -> the (R, L, H, D) that c[:, slots, :, rows]
+            # selects: the two index tensors' dim goes first
+            data = torch.cat([kv[part] for _s, _b, kv in keep], dim=2)
+            c[:, s_idx, :, r_idx] = data.permute(2, 0, 1, 3)
+
     def sync_kv_tick(self) -> None:
-        """End-of-tick KV writeback, which the scheduler's tick and
-        ``step`` call.  A no-op: without KV paging (A7) no block has a
-        host image to write back."""
+        """End-of-tick writeback, which the scheduler's tick and ``step``
+        call: blocks the append-only frontier completed this tick move
+        device->host once, fetchable (and poolable) from the next pass
+        on."""
+        if self.kv_table is None:
+            return
+        block = self.kv_table.block_rows
+        for i, r in enumerate(self.slot_req):
+            if r is None:
+                continue
+            full = self._kv_valid(i) // block
+            if full > self._kv_synced[i]:
+                self.kv_table.writeback(i, int(self._kv_synced[i]), full,
+                                        self.cache["kv"])
+                self._kv_synced[i] = full
 
     def begin_tick_params(self) -> None:
         """Kick the overlapped host->device page stream for the next fence
         and return at once (a no-op without paging, or with a pass in
         flight): the fetch loop runs on the pager's worker while the
-        caller computes."""
+        caller computes.  With KV paging the live slots' completed blocks
+        ride the same stream (blocks completed after this begin are
+        demand-fetched at the fence)."""
+        kicked = []
         if self.pager is not None and self._inflight_pass is None:
             self._inflight_pass = self.pager.begin_pass(
                 self.page_resident_slots)
-            if self.tracer is not None:
-                self.tracer.instant("begin_pass", track=self.trace_track,
-                                    streams="weights")
+            kicked.append("weights")
+        if self.kv_table is not None and self._inflight_kv is None:
+            self._kv_begun_gen = self._slot_gen.copy()
+            self._inflight_kv = self.kv_table.begin_pass(
+                self._kv_full_blocks())
+            kicked.append("kv")
+        if kicked and self.tracer is not None:
+            self.tracer.instant("begin_pass", track=self.trace_track,
+                                streams="+".join(kicked))
 
     def fence_tick_params(self, timeout_s: Optional[float] = None) -> Any:
         """The params tree for this tick, fencing at first use.  Without
-        paging it is the resident tree.  With paging the in-flight pass
-        (demand-begun here if none is) is joined, its pages threaded into
-        the template, and its wait split into the exposed part (this call
+        paging it is the resident tree.  With paging the in-flight passes
+        (demand-begun here if none is) are joined, the weight pages
+        threaded into the template, the KV blocks scattered over the cache,
+        and each pass's wait split into the exposed part (this call
         blocked) and the hidden part.
 
         ``timeout_s`` bounds the wait: on expiry
         :class:`~repro_torch.core.faults.PageFetchTimeout` is raised with
-        the pass still in flight and owned by the engine (nothing threaded,
-        no stall booked), and the next call resumes the same pass."""
+        the passes still in flight and owned by the engine (nothing
+        threaded or scattered, no stall booked), and the next call resumes
+        the same passes (a fenced stream's result is kept)."""
         self.last_stall_s = 0.0
         self.last_hidden_s = 0.0
-        if self.pager is None:
+        if self.pager is None and self.kv_table is None:
             return self.params
-        demand = self._inflight_pass is None
+        demand = self._inflight_pass is None and self._inflight_kv is None
         if demand:
             self.begin_tick_params()
-        ps = self._inflight_pass
-        dev = ps.fence(timeout_s=timeout_s)
+        ps, ks = self._inflight_pass, self._inflight_kv
+        dev = ps.fence(timeout_s=timeout_s) if ps is not None else None
+        blocks = (ks.fence(self._kv_full_blocks(), timeout_s=timeout_s)
+                  if ks is not None else None)
         self._inflight_pass = None
-        self.last_overlap = self._account_fence(ps, demand)
-        # the reference caches a flattened template (engine.py:399-430) to
-        # spare a pytree walk a tick; threading the port's nested dicts
-        # rebuilds a few dozen dicts and copies no tensor
-        return thread_packed(self.params, dev)
+        self._inflight_kv = None
+        params = self.params
+        if ps is not None:
+            self.last_overlap = self._account_fence(
+                ps, demand, self.pager.pool, self.pager.name)
+            # the reference caches a flattened template (engine.py:399-430)
+            # to spare a pytree walk a tick; threading the port's nested
+            # dicts rebuilds a few dozen dicts and copies no tensor
+            params = thread_packed(self.params, dev)
+        if ks is not None:
+            self.last_kv_overlap = self._account_fence(
+                ks, demand, self.kv_table.pool, self.kv_table.name, kv=True)
+            self._scatter_kv(blocks)
+            # every fetch in flight has settled: retired slots' pooled
+            # blocks can go without a late fetch bringing them back
+            self.kv_table.flush_drops()
+        return params
 
-    def _account_fence(self, ps, demand: bool) -> Dict[str, float]:
-        """Book one fenced pass's stall split.  A pass demand-begun inside
-        this fence spent its whole wall blocked here: all of it lands
-        exposed, none hidden."""
+    def _account_fence(self, ps, demand: bool, pool, name: str,
+                       kv: bool = False) -> Dict[str, float]:
+        """Book one fenced pass's stall split, weight or KV.  A pass
+        demand-begun inside this fence spent its whole wall blocked here:
+        all of it lands exposed, none hidden."""
         exposed, hidden, window = ps.exposed_s, ps.hidden_s, ps.window_s
         if demand:
             exposed, hidden, window = exposed + hidden, 0.0, 0.0
@@ -346,26 +488,36 @@ class ServingEngine:
         self.last_hidden_s += hidden
         self.paging_stall_s += exposed
         self.paging_hidden_s += hidden
+        if kv:
+            self.kv_stall_s += exposed
+            self.kv_hidden_s += hidden
+        if pool is not None:
+            pool.add_stall(name, exposed, hidden)
         tr = self.tracer
         if tr is not None:
             # retro-dated so that [hidden][exposed] render as one swap bar
             # ending at the fence: the spans that reconcile with the
             # metrics' exposed_s / hidden_s
+            stream = "kv" if kv else "weights"
             track = f"{self.trace_track}:stall"
             if hidden > 0.0:
-                tr.complete("hidden:weights", hidden, track=track,
+                tr.complete(f"hidden:{stream}", hidden, track=track,
                             end_offset_s=exposed, swap_ms=ps.swap_s * 1e3)
-            tr.complete("exposed:weights", exposed, track=track,
+            tr.complete(f"exposed:{stream}", exposed, track=track,
                         demand=demand, window_ms=window * 1e3)
         return dict(swap_s=ps.swap_s, window_s=window, exposed_s=exposed,
                     hidden_s=hidden)
 
     def cancel_tick_params(self) -> None:
-        """Cancel or drain a pass begun for a tick that will never run
-        (an early scheduler exit), so that no worker fetch outlives it."""
+        """Cancel or drain passes begun for a tick that will never run
+        (an early scheduler exit), so that no worker fetch, and no pool
+        guard, outlives them."""
         if self._inflight_pass is not None:
             self._inflight_pass.close()
             self._inflight_pass = None
+        if self._inflight_kv is not None:
+            self._inflight_kv.close()
+            self._inflight_kv = None
 
     def tick_params(self) -> Any:
         """Blocking begin + fence: the stream's whole wall lands exposed."""
@@ -417,11 +569,11 @@ class ServingEngine:
         return 0 if self.pager is None else self.pager.miss_count
 
     def paging_summary(self) -> Dict[str, Any]:
-        """The weight stream's counters (the reference's keys for weights;
-        the KV keys wait for KV paging), plus the fetch worker's host
+        """The page streams' counters under the reference's keys (the
+        ``kv_*`` keys the KV share), plus the weight fetch worker's host
         seconds: ``decode_s``, ``crc_s`` and ``copy_s``."""
         total = self.paging_stall_s + self.paging_hidden_s
-        pg = self.pager
+        pg, kv = self.pager, self.kv_table
         return dict(
             swap_count=self.swap_count, miss_count=self.miss_count,
             exposed_s=self.paging_stall_s, hidden_s=self.paging_hidden_s,
@@ -435,16 +587,22 @@ class ServingEngine:
             decode_s=0.0 if pg is None else pg.decode_s,
             crc_s=0.0 if pg is None else pg.crc_s,
             copy_s=0.0 if pg is None else pg.copy_s,
-            # the KV share of the page stream (A7) and the per-device rows
-            # of a mesh-sharded store (A11): zero and empty until ported
-            kv_swaps=0, kv_pool_hits=0, kv_writebacks=0, kv_dropped=0,
-            kv_preempt_drops=0, kv_exposed_s=0.0, kv_hidden_s=0.0,
-            kv_block_rows=0, devices=[])
+            kv_swaps=0 if kv is None else kv.swap_count,
+            kv_pool_hits=0 if kv is None else kv.pool_hits,
+            kv_writebacks=0 if kv is None else kv.writebacks,
+            kv_dropped=0 if kv is None else kv.dropped,
+            kv_preempt_drops=0 if kv is None else kv.preempt_drops,
+            kv_exposed_s=self.kv_stall_s, kv_hidden_s=self.kv_hidden_s,
+            kv_block_rows=0 if kv is None else kv.block_rows,
+            # the per-device rows of a mesh-sharded store (ROADMAP A11)
+            devices=[])
 
     def faults_summary(self) -> Dict[str, int]:
-        """Fault-path counters of the engine's paging components."""
-        return merge_fault_counters(
-            [self.pager.fault_counters] if self.pager is not None else [])
+        """Fault-path counters summed over the engine's paging components
+        (weight pager and KV table)."""
+        return merge_fault_counters([s.fault_counters
+                                     for s in (self.pager, self.kv_table)
+                                     if s is not None])
 
     def _step(self, params: Any, tokens: torch.Tensor, cache: Dict[str, Any],
               pos: torch.Tensor, **kw) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -490,6 +648,11 @@ class ServingEngine:
             req.arrival_s = _now()
         req.prefill_pos = 0
         self._slot_gen[slot] += 1
+        if self.kv_table is not None:
+            # the previous occupant's pooled blocks were queued for drop at
+            # its retirement and flush at the next fence, before this
+            # request's first writeback; only the sync count resets here
+            self._kv_synced[slot] = 0
         if "ssm" in self.cache:
             # recurrent state is live across the whole row (no position mask
             # hides a predecessor's leftovers), so a reused slot starts cold
@@ -509,7 +672,10 @@ class ServingEngine:
 
     def preempt(self, slot: int) -> SlotCheckpoint:
         """Evict the request occupying ``slot`` mid-service and return a
-        bit-exact resumable :class:`SlotCheckpoint`."""
+        bit-exact resumable :class:`SlotCheckpoint`.  The device cache is
+        authoritative for an occupied slot.  Its pooled KV blocks are
+        released as on a retirement: flushed now when no KV pass is in
+        flight, else at that pass's fence."""
         req = self.slot_req[slot]
         if req is None:
             raise ValueError(f"slot {slot} is empty; nothing to preempt")
@@ -527,12 +693,18 @@ class ServingEngine:
         self.slot_req[slot] = None
         self._slot_gen[slot] += 1
         self.preempt_count += 1
+        if self.kv_table is not None:
+            self.kv_table.preempt_release(
+                slot, in_flight=self._inflight_kv is not None)
+            self._kv_synced[slot] = 0
         return ckpt
 
     def restore(self, ckpt: SlotCheckpoint, slot: int) -> None:
         """Rebind a preempted request to a free slot and scatter its
         checkpointed cache rows back; decode resumes from
-        ``generated[-1]``, chunked prefill from its chunk frontier."""
+        ``generated[-1]``, chunked prefill from its chunk frontier.  The KV
+        host image is not written here: the sync count restarts at 0 and
+        the next ``sync_kv_tick`` writes the completed blocks back."""
         if self.slot_req[slot] is not None:
             raise ValueError(f"slot {slot} is occupied")
         self.slot_req[slot] = ckpt.req
@@ -545,6 +717,8 @@ class ServingEngine:
         if ckpt.ssm is not None:
             for n, c in self.cache["ssm"].items():
                 c[:, slot] = ckpt.ssm[n].to(c.device, c.dtype)
+        if self.kv_table is not None:
+            self._kv_synced[slot] = 0
 
     @property
     def pending(self) -> bool:
@@ -733,6 +907,9 @@ class ServingEngine:
         self.finished.append(req)
         self.slot_req[slot] = None
         self._slot_gen[slot] += 1
+        if self.kv_table is not None:
+            self.kv_table.queue_drop(slot)
+            self._kv_synced[slot] = 0
         return req
 
     # -- FIFO loop ----------------------------------------------------------------

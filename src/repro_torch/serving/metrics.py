@@ -41,9 +41,8 @@ end-to-end latency (arrival -> last token) is within ``deadline_ms``.
 Requests without a deadline never count toward the miss rate; truncated
 requests (retired by KV-cache exhaustion, partial service) are excluded
 from it and counted on their own.  Requests the admission controller
-rejected appear only in ``scheduler.rejected``.  The ``kv_*`` keys and
-``devices`` stay zero / empty until KV paging and mesh-sharded paging are
-ported.
+rejected appear only in ``scheduler.rejected``.  ``devices`` stays empty
+until mesh-sharded paging is ported.
 
 :func:`multi_summary` assembles the multi-model (tenancy) shape: per-model
 sections under ``models``, the shared pool's stats under ``shared_pool``,
@@ -332,7 +331,7 @@ def multi_summary(models: Dict[str, Dict[str, Any]],
                   ticks: int = 0) -> Dict[str, Any]:
     """Assemble the multi-model document from per-model single-model
     summaries (as produced by :meth:`MetricsRecorder.summary`) plus the
-    shared page pool's summary (the pool arrives with tenancy).
+    shared page pool's summary (``SharedPagePool.summary``).
 
     The totals' paging seconds are summed from the per-model ``paging``
     sections alone; ``shared_pool.models[*].exposed_s/hidden_s`` are the

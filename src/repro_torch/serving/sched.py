@@ -28,10 +28,10 @@ hierarchy.  This is the serving-side analogue:
     cut to the longest completion that still fits;
   * **chunked prefill**: a long prompt advances at most ``prefill_chunk``
     tokens a tick;
-  * **overlapped paged weights** (``async_io=True``, the default): fence
-    the pass begun last tick, admit, *begin* the next tick's page stream,
-    then compute while the stream proceeds; only the exposed wait lands on
-    the tick.  ``async_io=False`` is the synchronous stream-then-step tick,
+  * **overlapped paging** (``async_io=True``, the default): fence the
+    weight and KV passes begun last tick, admit, *begin* the next tick's
+    streams, then compute while they proceed; only the exposed wait lands
+    on the tick.  ``async_io=False`` is the synchronous stream-then-step tick,
     with the same tokens and swap / miss counters;
   * **metrics**: TTFT, end-to-end latency, p50 / p99, deadline-miss rate,
     tok/s, exposed vs hidden paging stalls, preemption and admission
@@ -40,8 +40,9 @@ hierarchy.  This is the serving-side analogue:
 
 The scheduler owns no device state: it drives the engine's tick primitives
 (``begin_tick_params`` / ``fence_tick_params`` / ``assign`` / ``preempt``
-/ ``restore`` / ``prefill_tick`` / ``decode_tick``).  ``MultiScheduler``
-(tenancy over a shared page pool) arrives with ROADMAP A8.
+/ ``restore`` / ``prefill_tick`` / ``decode_tick`` / ``sync_kv_tick``).
+:class:`~repro_torch.serving.tenancy.MultiScheduler` drives several of
+them through one admission loop and one page pool.
 """
 
 from __future__ import annotations
@@ -92,7 +93,9 @@ class Scheduler:
     (an explicit ``est_tick_s`` pins the cost model — deterministic
     admission for virtual-clock benches; without it the controller uses
     measured per-tick EMAs, admitting optimistically until it has
-    data)."""
+    data).  ``seq_counter`` shares one submission sequence across
+    schedulers (the tenancy loop passes its own, so that the global
+    admission order is deterministic)."""
 
     def __init__(self, engine: ServingEngine, *,
                  prefill_chunk: Optional[int] = None,
@@ -102,6 +105,7 @@ class Scheduler:
                  preemptive: bool = False,
                  admission: Optional[str] = None,
                  est_tick_s: Optional[float] = None,
+                 seq_counter: Optional[itertools.count] = None,
                  clock=time.perf_counter,
                  tracer: Optional[Tracer] = None,
                  trace_track: Optional[str] = None,
@@ -143,7 +147,8 @@ class Scheduler:
         # of stalling the world — graceful degradation under stuck pages
         self.fetch_timeout_s = fetch_timeout_s
         self.deferred_ticks = 0
-        self._seq = itertools.count()
+        self._seq = (seq_counter if seq_counter is not None
+                     else itertools.count())
         # the budgeted tick's plan ({slot: token alloc}), set between
         # admission and begin (the tenancy loop sets it from its GLOBAL
         # plan), consumed by tick_begin/tick_compute
@@ -491,12 +496,16 @@ class Scheduler:
         render the closed-form prediction on the ``<track> (predicted)``
         overlay next to the measured fence spans."""
         eng = self.engine
-        ov = eng.last_overlap
-        if ov is None:
+        overlaps = [ov for ov in (eng.last_overlap, eng.last_kv_overlap)
+                    if ov is not None]
+        if not overlaps:
             return
-        st = overlap_stall(ov["swap_s"], ov["window_s"])
-        pred_exposed, pred_hidden = st["exposed_s"], st["hidden_s"]
-        swap = ov["swap_s"]
+        pred_exposed = pred_hidden = swap = 0.0
+        for ov in overlaps:
+            st = overlap_stall(ov["swap_s"], ov["window_s"])
+            pred_exposed += st["exposed_s"]
+            pred_hidden += st["hidden_s"]
+            swap += ov["swap_s"]
         self._pred_exposed_s += pred_exposed
         self._meas_exposed_s += measured_exposed_s
         tr = self.tracer

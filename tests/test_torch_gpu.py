@@ -448,6 +448,79 @@ def test_pinned_page_stream_matches_the_sync_pass(cuda, rng):
     pager.close()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kv_block_writeback_fetch_scatter_on_the_card(cuda, dtype):
+    """A KV block written back from the card's cache, fetched through the
+    pool on the side stream and scattered by the engine comes back bit for
+    bit (also the padded last block), first swapped, then a pool hit."""
+    cfg = get_config("qwen3-0.6b").smoke().replace(dtype=dtype)
+    packed = freeze_for_serving(tfm.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda),
+        bits=8, device=cuda)
+    eng = ServingEngine(cfg, packed, batch_slots=3, max_len=44, device=cuda)
+    pool = paging.SharedPagePool(1 << 30)
+    eng.attach_kv_paging(8, pool=pool)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for c in eng.cache["kv"].values():
+        c.copy_(torch.randn(c.shape, generator=gen, device=cuda).to(c.dtype))
+    want = {n: c.clone() for n, c in eng.cache["kv"].items()}
+    full = {0: 6, 2: 3}                        # 44 rows: 5 blocks of 8 + 4
+    for slot, n in full.items():
+        eng.assign(Request(uid=slot, prompt=np.arange(4, dtype=np.int32)),
+                   slot)
+        eng.kv_table.writeback(slot, 0, n, eng.cache["kv"])
+        eng._kv_synced[slot] = n
+    for swaps, hits in ((9, 0), (9, 9)):
+        for c in eng.cache["kv"].values():
+            c.zero_()
+        eng.fence_tick_params()                # demand pass: fetch, scatter
+        torch.cuda.synchronize()
+        assert (eng.kv_table.swap_count, eng.kv_table.pool_hits) == (swaps,
+                                                                     hits)
+        for name, c in eng.cache["kv"].items():
+            for slot, n in full.items():
+                rows = min(n * 8, 44)
+                assert torch.equal(c[:, slot, :, :rows],
+                                   want[name][:, slot, :, :rows])
+                assert not c[:, slot, :, rows:].any()
+            assert not c[:, 1].any()           # slot 1 is empty
+    pool.close()
+
+
+def _one_page_store(cuda, pool, name, seed):
+    w = {name: dict(w=np.random.default_rng(seed).normal(
+        size=(512, 1024)).astype(np.float32))}
+    store = ws.freeze(w, ws.uniform_policy(8, min_size=16))
+    return store, paging.HostPagedStore(store, 512 * 1024, device=cuda,
+                                        pool=pool, name=name)
+
+
+@pytest.mark.parametrize("evict", [False, True])
+def test_pooled_page_evicted_while_a_kernel_reads_it(cuda, evict):
+    """A pooled weight page that a co-tenant's fetch evicts while a kernel
+    queued on the compute stream still reads it: its memory must not go to
+    the next allocation on its store's copy stream before the kernel has
+    run, so the output equals the one without eviction."""
+    pool = paging.SharedPagePool(512 * 1024)   # room for one page
+    store_a, a = _one_page_store(cuda, pool, "a", 0)
+    _store_b, b = _one_page_store(cuda, pool, "b", 1)
+    expect = int(store_a.params["a/w"].packed.to(torch.int64).sum())
+    dev = a.begin_pass().fence()
+    torch.cuda._sleep(200_000_000)             # ~0.1 s on the compute stream
+    out = dev["a/w"].packed.to(torch.int64).sum()
+    shape = dev["a/w"].packed.shape
+    del dev                                    # the pool holds the page now
+    if evict:
+        b.begin_pass().fence()                 # evicts a's page
+        assert pool.counters["a"]["evicted"] == 1
+    with torch.cuda.stream(a._copy_stream):
+        junk = torch.full(shape, 255, dtype=torch.uint8, device=cuda)
+    torch.cuda.synchronize()
+    assert int(out) == expect
+    del junk
+    pool.close()
+
+
 def test_paged_wire_serve_on_the_card_matches_the_cpu(cuda):
     cfg = get_config("qwen3-0.6b").smoke()
     params = tfm.init_params(cfg, torch.Generator().manual_seed(0),

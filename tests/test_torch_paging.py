@@ -361,8 +361,13 @@ def test_begin_pass_gives_the_sync_pages(rng):
 
 def test_store_raises_where_the_port_stops(rng, monkeypatch):
     store, _ = _flat_stores(rng, n=2)
-    with pytest.raises(NotImplementedError, match="A8"):
-        paging.HostPagedStore(store, 4096, device="cpu", pool=object())
+    pool = paging.SharedPagePool(1 << 20)
+    joined = paging.HostPagedStore(store, 4096, device="cpu", pool=pool,
+                                   name="m")
+    assert pool.members["m"] is joined and joined._fetch_exec is pool._exec
+    with pytest.raises(ValueError, match="already joined"):
+        paging.HostPagedStore(store, 4096, device="cpu", pool=pool, name="m")
+    pool.close()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         paging.HostPagedStore(store, 4096)
@@ -478,10 +483,14 @@ def test_attach_paging_raises_where_the_port_stops(served):
     plan = _wire_plans()(placement, sizes)
     eng = ServingEngine(served["tcfg"], served[4][1], plan=plan,
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        eng.attach_paging(pool=object())
     with pytest.raises(NotImplementedError, match="A11"):
         eng.attach_paging(mesh=object())
+    pooled = ServingEngine(served["tcfg"], served[4][1], plan=plan,
+                           device="cpu")
+    pool = paging.SharedPagePool(1 << 30)
+    pooled.attach_paging(pool=pool, name="q")
+    assert pool.members["q"] is pooled.pager and pooled.pager.pool is pool
+    pool.close()
     with pytest.raises(ValueError, match="no paged parameters"):
         ServingEngine(served["tcfg"], served[4][1],
                       device="cpu").attach_paging()

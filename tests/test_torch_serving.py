@@ -21,6 +21,7 @@ from repro.serving import ServingEngine as JEngine  # noqa: E402
 
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
+from repro_torch.core.paging import KVPageTable  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 
 ARCH = "qwen3-0.6b"
@@ -106,8 +107,12 @@ def test_engine_without_a_card_raises(served, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(tcfg, tpacked)
-    with pytest.raises(NotImplementedError, match="A7"):
-        ServingEngine(tcfg, tpacked, device="cpu").attach_kv_paging()
+    eng = ServingEngine(tcfg, tpacked, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KVPageTable(eng.cache["kv"])           # a table defaults to the card
+    eng.attach_kv_paging()                     # the engine's device: the CPU
+    assert eng.kv_table.device.type == "cpu"
+    eng.kv_table.close()
 
 
 def test_sampling_uses_the_explicit_generator(served):
