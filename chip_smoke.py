@@ -7,9 +7,10 @@ It drives the port's paths once, each at full width -- serving qwen3-0.6b,
 falcon-mamba-7b and hymba-1.5b, int8 MobileNet-V2 1.0-224 on the N-EUREKA
 operators, qwen3-0.6b again from a paged 4-bit store whose cold half is
 wire-served, both qwen3-0.6b stores once more behind the deadline-aware
-``Scheduler`` under XR traffic, and qwen3-0.6b with its KV cache paged,
-alone and beside falcon-mamba-7b as two tenants of one page pool -- and
-fails (non-zero exit, no result line) if any phase fails:
+``Scheduler`` under XR traffic, qwen3-0.6b with its KV cache paged,
+alone and beside falcon-mamba-7b as two tenants of one page pool, and the
+MoE qwen2-moe-a2.7b on the grouped expert kernel -- and fails (non-zero
+exit, no result line) if any phase fails:
 
 1. set-up: requires a CUDA device, turns TF32 off, prints the card's name
    and power limit, builds every ``csrc/*.cu`` with nvcc for sm_90a (one
@@ -169,8 +170,23 @@ fails (non-zero exit, no result line) if any phase fails:
    version; each leg must have launched them.  The pool summaries, the KV
    exposed / hidden seconds and the host wall a tick are printed as smoke
    readings;
-9. the ``{"serve": ...}`` and ``{"kernels": [...]}`` lines, the card line,
-   and as the last line ``{"ok": true, "device": {...}}``.
+9. the MoE family: ``qmatmul_f32_grouped`` (B1 over a stack of experts
+   in one launch) against its plain version at qwen2-moe-a2.7b's expert
+   shapes (E 60; C 8, 16 and 24; (K, N) (2048, 1408) and (1408, 2048)),
+   a ragged C on each route, E = 1 on each, bits 4 and 2, with experts
+   that got no rows giving zeros and two calls bit-equal; timed like the
+   others (one layer's three expert linears at C 8 and 24) beside the
+   plain version and ``torch.bmm`` on pre-dequantised f32 weights.  Then
+   qwen2-moe-a2.7b at full width (24 layers, d_model 2048, 60 experts
+   top-4 of d_ff 1408, a shared expert of 5632, vocab 151,936) with
+   random weights from a seeded CUDA ``torch.Generator``, drawn and frozen
+   at 8 bits one layer at a time, served as in phases 3-4 (8 requests;
+   the grouped and plain ``qmatmul_f32`` and ``flash_attention`` counters
+   set to 0 before and grown after; every distinct call of the profiled
+   serve, grouped ones included, against its plain version; the first 2
+   layers' logits card vs CPU within ``LOGITS_TOL``);
+10. the ``{"serve": ...}`` and ``{"kernels": [...]}`` lines, the card
+   line, and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -221,6 +237,8 @@ SERVE_PATHS = (("qwen3-0.6b", 512, False, None),
                ("falcon-mamba-7b", 512, False, 2),
                ("hymba-1.5b", 2048, True, 4))
 SERVE_KERNELS = {"dense": ("qmatmul_f32", "flash_attention"),
+                 "moe": ("qmatmul_f32", "qmatmul_f32_grouped",
+                         "flash_attention"),
                  "ssm": ("qmatmul_f32", "selective_scan"),
                  "hybrid": ("qmatmul_f32", "flash_attention",
                             "selective_scan")}
@@ -814,14 +832,21 @@ def recording(torch, ops):
     unchanged (so its launch count moves as usual) and are restored after.
     Yields {kernel name: [call key, ...]}; per-row query offsets are kept as
     device tensors until the block ends, so nothing syncs."""
-    calls = {"qmatmul_f32": [], "qmatmul_f32_blockscale": [],
-             "flash_attention": [], "selective_scan": []}
+    calls = {"qmatmul_f32": [], "qmatmul_f32_grouped": [],
+             "qmatmul_f32_blockscale": [], "flash_attention": [],
+             "selective_scan": []}
     qmm, fa, ssm = ops._qmm, ops._fa, ops._ssm
 
     def rec_qmm(x, packed, scale, *, bits, k_orig):
         calls["qmatmul_f32"].append((x.shape[0], k_orig, packed.shape[0],
                                      bits, x.dtype))
         return qmm.qmatmul_f32(x, packed, scale, bits=bits, k_orig=k_orig)
+
+    def rec_grouped(x, packed, scale, *, bits, k_orig):
+        calls["qmatmul_f32_grouped"].append((x.shape[0], x.shape[1], k_orig,
+                                             packed.shape[1], bits, x.dtype))
+        return qmm.qmatmul_f32_grouped(x, packed, scale, bits=bits,
+                                       k_orig=k_orig)
 
     def rec_bs(x, packed, scales, *, bits, k_orig, block=32):
         calls["qmatmul_f32_blockscale"].append((x.shape[0], k_orig,
@@ -844,6 +869,7 @@ def recording(torch, ops):
         return ssm.selective_scan(x, dt, A, B, C, D, h0, h_out=h_out)
 
     ops._qmm = _Recorder(qmm, {"qmatmul_f32": rec_qmm,
+                               "qmatmul_f32_grouped": rec_grouped,
                                "qmatmul_f32_blockscale": rec_bs})
     ops._fa = _Recorder(fa, {"flash_attention": rec_fa})
     ops._ssm = _Recorder(ssm, {"selective_scan": rec_scan})
@@ -869,6 +895,14 @@ def wire_weight(torch, gen, dev, n: int, k: int, bits: int):
     levels, scales = quantize.quantize_blockwise(w.cpu().numpy(), bits)
     packed = packing.pack(torch.from_numpy(levels), bits)
     return packed.to(dev), torch.from_numpy(scales).to(dev)
+
+
+def expert_weights(torch, ops, gen, dev, e: int, k: int, n: int, bits: int):
+    """(packed (E, N, Kp), scale (E, N)) of E random (n, k) expert weights
+    at the model's init scale, frozen as ``freeze_for_serving`` does."""
+    w = torch.randn((e * n, k), generator=gen, device=dev) * k ** -0.5
+    packed, scale = ops.prep_linear(w, bits)
+    return packed.reshape(e, n, -1), scale.reshape(e, n)
 
 
 def check_path(torch, ops, ref, qmm, fa, ssm, dev, arch: str, calls):
@@ -899,6 +933,14 @@ def check_path(torch, ops, ref, qmm, fa, ssm, dev, arch: str, calls):
              ref.qmatmul_f32(x, packed, scale, bits=bits, k_orig=k),
              QMM_TOL, f"M={m} K={k} N={n} bits={bits}")
     del weights
+    for e, c, k, n, bits, dtype in calls.get("qmatmul_f32_grouped", ()):
+        packed, scale = expert_weights(torch, ops, gen, dev, e, k, n, bits)
+        x = torch.randn((e, c, k), generator=gen, device=dev).to(dtype)
+        got = qmm.qmatmul_f32_grouped(x, packed, scale, bits=bits, k_orig=k)
+        hold("qmatmul_f32_grouped", got,
+             ref.qmatmul_f32_grouped(x, packed, scale, bits=bits, k_orig=k),
+             QMM_TOL, f"E={e} C={c} K={k} N={n} bits={bits}")
+        del packed, scale, x, got
     wires = {}
     for m, k, n, bits in calls["qmatmul_f32_blockscale"]:
         if (k, n, bits) not in wires:
@@ -940,12 +982,14 @@ def check_path(torch, ops, ref, qmm, fa, ssm, dev, arch: str, calls):
 
     def span(vals):
         return f"{min(vals)}-{max(vals)}" if vals else "-"
-    qc, bc, fc, sc = (calls[k] for k in (
-        "qmatmul_f32", "qmatmul_f32_blockscale", "flash_attention",
-        "selective_scan"))
+    qc, gc_, bc, fc, sc = (calls.get(k, []) for k in (
+        "qmatmul_f32", "qmatmul_f32_grouped", "qmatmul_f32_blockscale",
+        "flash_attention", "selective_scan"))
     print(f"[check] {arch} path, kernels vs plain at each distinct call of "
           f"the serve: qmatmul_f32 {len(qc)} (M {span([c[0] for c in qc])}, "
-          f"(K, N) {sorted({c[1:3] for c in qc})}), qmatmul_f32_blockscale "
+          f"(K, N) {sorted({c[1:3] for c in qc})}), qmatmul_f32_grouped "
+          f"{len(gc_)} ((E, C) {sorted({c[:2] for c in gc_})}, (K, N) "
+          f"{sorted({c[2:4] for c in gc_})}), qmatmul_f32_blockscale "
           f"{len(bc)} (M {span([c[0] for c in bc])}, (K, N) "
           f"{sorted({c[1:3] for c in bc})}), flash_attention "
           f"{len(fc)} (q {sorted({c[0] for c in fc})}, k "
@@ -986,20 +1030,25 @@ def read_launches(counters):
 
 
 def serve_lm(torch, m, cfg, max_len: int, long_prompt: bool, counters,
-             depth, dev):
+             depth, dev, make_tree=None, logits_tol=None):
     """Serve 8 greedy requests (prompts of 16-256 tokens, one of 1,000-1,200
     with ``long_prompt``; 16 new tokens each) on full-width ``cfg`` with
-    random weights from a CUDA generator seeded 0, frozen at 8 bits; the
-    family's kernels must launch.  Then ``forward`` logits of 64 tokens on
-    the card against the CPU's plain path, on the first ``depth`` layers
-    (all with None).  Returns the serve's readings and the packed tree."""
+    random weights from a CUDA generator seeded 0, frozen at 8 bits (or the
+    packed tree ``make_tree()`` builds); the family's kernels must launch.
+    Then ``forward`` logits of 64 tokens on the card against the CPU's plain
+    path, on the first ``depth`` layers (all with None), within
+    ``logits_tol`` (default: LOGITS_TOL for all layers, CUT_LOGITS_TOL for
+    a cut copy).  Returns the serve's readings and the packed tree."""
     np, tfm = m["np"], m["tfm"]
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    params = tfm.init_params(cfg, generator=torch.Generator(
-        device=dev).manual_seed(0))
-    packed = m["freeze"](params, bits=8)
-    del params
+    if make_tree is not None:
+        packed = make_tree()
+    else:
+        params = tfm.init_params(cfg, generator=torch.Generator(
+            device=dev).manual_seed(0))
+        packed = m["freeze"](params, bits=8)
+        del params
     torch.cuda.synchronize()
     init_peak = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
@@ -1025,7 +1074,10 @@ def serve_lm(torch, m, cfg, max_len: int, long_prompt: bool, counters,
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
-    done = eng.run_until_done()
+    done, ticks = [], 0
+    while eng.pending:
+        done += eng.step()
+        ticks += 1
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, by_class = read_launches(counters)
@@ -1042,7 +1094,10 @@ def serve_lm(torch, m, cfg, max_len: int, long_prompt: bool, counters,
     print(f"[serve] {cfg.name}: {len(done)} requests, prompts "
           f"{lens.tolist()} ({int(lens.sum())} prompt tokens), "
           f"{sum(len(r.generated) for r in done)} new tokens, wall "
-          f"{wall:.3f} s after synchronize, TTFT mean {np.mean(ttft):.3f} s "
+          f"{wall:.3f} s after synchronize ({ticks} ticks, "
+          f"{wall / ticks * 1e3:.1f} ms a tick, "
+          f"{sum(len(r.generated) for r in done) / wall:.2f} new tok/s), "
+          f"TTFT mean {np.mean(ttft):.3f} s "
           f"max {np.max(ttft):.3f} s, peak memory {peak / 2**30:.3f} GiB "
           f"({base / 2**30:.3f} GiB allocated at the start), "
           f"launches {launches}, by flash shape and scan route "
@@ -1068,7 +1123,7 @@ def serve_lm(torch, m, cfg, max_len: int, long_prompt: bool, counters,
     seqs = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64)))]
     if long_prompt:
         seqs.append(torch.from_numpy(reqs[-1].prompt[None].astype(np.int64)))
-    tol = LOGITS_TOL if depth is None else CUT_LOGITS_TOL
+    tol = logits_tol or (LOGITS_TOL if depth is None else CUT_LOGITS_TOL)
     errs = []
     for toks in seqs:
         gpu_logits = tfm.forward(tree, toks.to(dev), fcfg).cpu()
@@ -1092,7 +1147,7 @@ def serve_lm(torch, m, cfg, max_len: int, long_prompt: bool, counters,
         errs.append(err)
         del gpu_logits, cpu_logits
     return dict(launches=launches, launches_by_class=by_class,
-        wall_s=wall, ttft_mean_s=float(np.mean(ttft)), ttft_max_s=float(np.max(ttft)), peak_gib=peak / 2**30,
+        wall_s=wall, ticks=ticks, ttft_mean_s=float(np.mean(ttft)), ttft_max_s=float(np.max(ttft)), peak_gib=peak / 2**30,
         prompt_tokens=int(lens.sum()), logits_max_abs_err=max(errs),
         path_check=path_check, profile=profile), packed
 
@@ -2522,6 +2577,167 @@ def run_frames(torch, mnv2, nkc, qmm, dev):
     return launches
 
 
+# phase 9: the MoE family, qwen2-moe-a2.7b at full width (24 layers,
+# d_model 2048, 60 experts top-4 of d_ff 1408, a shared expert of 5632,
+# vocab 151,936, an untied head)
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_KERNELS = ("qmatmul_f32", "qmatmul_f32_grouped", "flash_attention")
+# (K, N) of a layer's three expert linears
+EXPERT_LINEARS = {"w_gate": (2048, 1408), "w_up": (2048, 1408),
+                  "w_down": (1408, 2048)}
+# (E, C, K, N, bits) of the grouped kernel's checks: the expert linears at
+# decode (C 8: 4 slots, top-4 of 60, factor 1.25) and at the prefill
+# capacities of 16-256 token prompts (C 16, 24), a ragged C on each route,
+# one expert on each route, and bits 4 and 2
+GROUPED_CASES = ([(60, c, k, n, 8) for c in (8, 16, 24)
+                  for k, n in ((2048, 1408), (1408, 2048))]
+                 + [(60, 13, 2048, 1408, 8), (60, 40, 1408, 2048, 8),
+                    (1, 8, 2048, 1408, 8), (1, 24, 1408, 2048, 8),
+                    (60, 8, 2048, 1408, 4), (60, 24, 1408, 2048, 4),
+                    (60, 8, 1408, 2048, 2), (60, 24, 2048, 1408, 2)])
+
+
+def moe_tree(torch, m, cfg, dev):
+    """``cfg``'s packed tree with random weights from a CUDA generator
+    seeded 0, drawn and frozen at 8 bits one layer at a time into stacked
+    leaves allocated once: the f32 tree (~57 GB for qwen2-moe-a2.7b) never
+    exists whole."""
+    tfm, freeze = m["tfm"], m["freeze"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # the embedding, head and final norm, and no layer
+    tree = tfm.init_params(cfg.replace(n_layers=0), generator=gen)
+    one = cfg.replace(n_layers=1, vocab_size=8)
+
+    def stack(t):
+        if isinstance(t, dict):
+            return {k: stack(v) for k, v in t.items()}
+        return t.new_empty((cfg.n_layers,) + tuple(t.shape[1:]))
+
+    def put(dst, src, i):
+        if isinstance(src, dict):
+            for k, v in src.items():
+                put(dst[k], v, i)
+        else:
+            dst[i].copy_(src[0])
+
+    layers = None
+    for i in range(cfg.n_layers):
+        layer = freeze(tfm.init_params(one, generator=gen), bits=8)["layers"]
+        if layers is None:
+            layers = stack(layer)
+        put(layers, layer, i)
+        del layer
+    tree["layers"] = layers
+    return tree
+
+
+def check_grouped(torch, ops, ref, qmm, dev) -> float:
+    """The grouped ``qmatmul_f32`` against its plain version at
+    ``GROUPED_CASES``, within QMM_TOL; every seventh expert gets no rows
+    (zero x, as dispatch leaves an unrouted expert) and must give zeros, and
+    two calls must give the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    worst = 0.0
+    for e, c, k, n, bits in GROUPED_CASES:
+        packed, scale = expert_weights(torch, ops, gen, dev, e, k, n, bits)
+        x = torch.randn((e, c, k), generator=gen, device=dev)
+        x[1::7] = 0.0
+        got = qmm.qmatmul_f32_grouped(x, packed, scale, bits=bits, k_orig=k)
+        again = qmm.qmatmul_f32_grouped(x, packed, scale, bits=bits,
+                                        k_orig=k)
+        expect = ref.qmatmul_f32_grouped(x, packed, scale, bits=bits,
+                                         k_orig=k)
+        torch.cuda.synchronize()
+        err = (got - expect).abs().max().item()
+        worst = max(worst, err)
+        what = f"E={e} C={c} K={k} N={n} bits={bits}"
+        if not torch.allclose(got, expect, **QMM_TOL):
+            raise AssertionError(f"qmatmul_f32_grouped {what}: max abs err "
+                                 f"{err}")
+        if not torch.equal(again, got):
+            raise AssertionError(f"qmatmul_f32_grouped {what}: two calls "
+                                 "give different bits")
+        if got[1::7].any():
+            raise AssertionError(f"qmatmul_f32_grouped {what}: an expert "
+                                 "with no rows gave non-zeros")
+        del packed, scale, x, got, again, expect
+    torch.cuda.empty_cache()
+    print(f"[check] qmatmul_f32_grouped vs plain at {len(GROUPED_CASES)} "
+          f"(E, C, K, N, bits) cases {GROUPED_CASES}: max abs err "
+          f"{worst:.3e} (tolerance {QMM_TOL}), two calls bit-equal, "
+          "experts with no rows give zeros")
+    return worst
+
+
+def time_grouped(torch, packing, ops, ref, qmm, dev, c: int, bits: int = 8,
+                 copies: int = 2):
+    """One qwen2-moe-a2.7b layer's three expert linears grouped over its 60
+    experts at capacity ``c``, over ``copies`` layer copies (519 MB of 8-bit
+    levels each, > the 50 MB L2), beside the plain version and torch.bmm on
+    pre-dequantised f32 weights."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    layers = []
+    for _ in range(copies):
+        layer = []
+        for k, n in EXPERT_LINEARS.values():
+            packed, scale = expert_weights(torch, ops, gen, dev, 60, k, n,
+                                           bits)
+            x = torch.randn((60, c, k), generator=gen, device=dev)
+            deq = packing.unpack(packed, bits, k).float() * scale[..., None]
+            layer.append((x, packed, scale, k, deq))
+        layers.append(layer)
+
+    def kernel(i):
+        for x, p, s, k, _ in layers[i % copies]:
+            qmm.qmatmul_f32_grouped(x, p, s, bits=bits, k_orig=k)
+
+    def plain(i):
+        for x, p, s, k, _ in layers[i % copies]:
+            ref.qmatmul_f32_grouped(x, p, s, bits=bits, k_orig=k)
+
+    def library(i):
+        for x, _, _, _, deq in layers[i % copies]:
+            torch.bmm(x, deq.transpose(1, 2))
+
+    res = time_versions(torch, kernel, plain, library, copies, 20)
+    nbytes = sum(x.numel() * 4 + p.numel() + s.numel() * 4
+                 + x.shape[0] * c * p.shape[1] * 4
+                 for x, p, s, _, _ in layers[0])
+    flops = sum(2 * 60 * c * n * k for k, n in EXPERT_LINEARS.values())
+    route_bound(res, nbytes, flops, 2)
+    res["work"] = (f"qmatmul_f32_grouped, one layer's 3 expert linears "
+                   f"{list(EXPERT_LINEARS)}, E=60, C={c}, {bits}-bit")
+    print_times(f"qmatmul_f32_grouped {MOE_ARCH} layer x3 E=60 C={c} "
+                f"bits={bits}", "torch.bmm on pre-dequantised f32", res,
+                nbytes, flops)
+    del layers
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_moe_phase(torch, m, cfg, dev):
+    """Phase 9: the grouped kernel checked and timed, then qwen2-moe-a2.7b
+    served at full width (``serve_lm``: 8 requests, the grouped and plain
+    B1 and B2 counters zeroed before and grown after, every distinct call
+    of the profiled serve held against its plain version, and the first 2
+    layers' logits card vs CPU within LOGITS_TOL)."""
+    err = check_grouped(torch, m["ops"], m["ref"], m["qmm"], dev)
+    times = {c: time_grouped(torch, m["packing"], m["ops"], m["ref"],
+                             m["qmm"], dev, c) for c in (8, 24)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters = {"qmatmul_f32": m["qmm"].qmatmul_f32,
+                "qmatmul_f32_grouped": m["qmm"].qmatmul_f32_grouped,
+                "flash_attention": m["fa"].flash_attention}
+    served, tree = serve_lm(torch, m, cfg, 512, False, counters, 2, dev,
+                            make_tree=lambda: moe_tree(torch, m, cfg, dev),
+                            logits_tol=LOGITS_TOL)
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return served, err, times
+
+
 def to_device(torch, tree, dev):
     if isinstance(tree, dict):
         return {k: to_device(torch, v, dev) for k, v in tree.items()}
@@ -2686,7 +2902,21 @@ def main() -> int:
                   paged["launches"]["qmatmul_f32_blockscale"],
                   f"{XR_ARCH} xr": xr["launches"]["qmatmul_f32_blockscale"]}
 
-    # 9. result lines
+    # 9. the MoE family: qwen2-moe-a2.7b, its experts on the grouped kernel
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe, grouped_err, t_grouped = serve_moe_phase(
+        torch, mods, get_config(MOE_ARCH), dev)
+    served[MOE_ARCH] = moe
+    for name in ("qmatmul_f32", "flash_attention"):
+        launches[name] += moe["launches"][name]
+    qmm_err, fa_err = (max(err, moe["path_check"]["max_abs_err"][name])
+                       for err, name in ((qmm_err, "qmatmul_f32"),
+                                         (fa_err, "flash_attention")))
+    grouped_err = max(grouped_err, moe["path_check"]["max_abs_err"][
+        "qmatmul_f32_grouped"])
+
+    # 10. result lines
     by_path = {name: {arch: s["launches"][name] for arch, s in served.items()
                       if name in s["launches"]}
                for name in counters}
@@ -2763,6 +2993,21 @@ def main() -> int:
         library_note="no single PyTorch call computes a selective scan",
         eager_ms=t["eager_ms"], work=t["work"],
         **{k: v for k, v in t_scan.items() if k != "falcon_prefill"}))
+    t = t_grouped[8]
+    kernels.append(dict(
+        name="qmatmul_f32_grouped", route="cuda",
+        source="src/repro_torch/csrc/qmatmul_f32.cu",
+        replaces="src/repro/kernels/qmatmul.py:132",
+        replaces_note="qmatmul_f32 vmapped over the experts by "
+        "src/repro/models/moe.py:97-106: one Pallas launch whose grid "
+        "gains the expert axis",
+        launches=moe["launches"]["qmatmul_f32_grouped"],
+        launches_by_path={MOE_ARCH: moe["launches"]["qmatmul_f32_grouped"]},
+        max_abs_err=grouped_err, ms=t["ms"], plain_ms=t["plain_ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=t["library_ms"], eager_ms=t["eager_ms"], work=t["work"],
+        bytes_ms=t["bytes_ms"], tf32_ops_ms=t["tf32_ops_ms"],
+        bound_f32_ms=t["bound_f32_ms"], prefill_C24=t_grouped[24]))
     t = t_bs["decode"]
     kernels.append(dict(
         name="qmatmul_f32_blockscale", route="cuda",

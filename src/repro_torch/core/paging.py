@@ -1140,8 +1140,9 @@ class KVPageTable:
         a swap) and the engine scatters them over its cache;
       * the partly filled frontier block stays on the device;
       * when a slot is handed to a new request its pooled blocks are
-        dropped (``queue_drop`` / ``flush_drops``, at the next fence, once
-        every fetch in flight has settled) and its host rows zeroed.
+        dropped (``queue_drop`` / ``flush_drops``, at the next fence, on
+        the pool's fetch worker after every fetch queued before it) and
+        its host rows zeroed.
 
     The host image keeps the cache's dtype as CPU tensors, one contiguous
     ``(n_layers, n_kv_heads, block_rows, head_dim)`` block a page (shape
@@ -1317,8 +1318,21 @@ class KVPageTable:
         self._pending_drops.add(int(slot))
 
     def flush_drops(self) -> None:
+        """Invalidate the queued slots' pooled blocks and zero their host
+        rows.  A pooled table runs this as a task on the pool's one fetch
+        worker and joins it: it lands after every fetch any member queued
+        before it, so the drop's place in the pool's event log is fixed
+        by the traffic, not by how far the worker has got with another
+        tenant's pass (ROADMAP C8; the reference invalidates on the
+        calling thread while such a pass may still be running)."""
         if not self._pending_drops:
             return
+        if self.pool is None:
+            self._drop_pending()
+        else:
+            self.pool._exec.submit(self._drop_pending).result()
+
+    def _drop_pending(self) -> None:
         for slot in sorted(self._pending_drops):
             pages = range(slot * self.n_blocks, (slot + 1) * self.n_blocks)
             if self.pool is not None:

@@ -37,7 +37,8 @@ def linear_apply(x: torch.Tensor, p: PackedParam, *,
                  scenario: str = "l1mram",
                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """y = x @ W^T with W stored packed; x (..., K), p.orig_shape (N, K);
-    the result in ``out_dtype`` (default x's)."""
+    or grouped, x (E, C, K) and p.orig_shape (E, N, K) -> (E, C, N); the
+    result in ``out_dtype`` (default x's)."""
     if scenario == "l1mram":
         out = kops.quant_matmul(x, p.packed, p.scale, bits=p.bits,
                                 k_orig=p.orig_shape[-1])
@@ -45,7 +46,7 @@ def linear_apply(x: torch.Tensor, p: PackedParam, *,
         w = p.dequantize(torch.float32)            # full-width buffer
         if scenario in ("l3mram", "l3flash"):
             w = w.clone()                           # the staging hop's copy
-        out = torch.matmul(x.to(torch.float32), w.T)
+        out = torch.matmul(x.to(torch.float32), w.transpose(-1, -2))
     else:
         raise ValueError(f"unknown scenario {scenario!r}")
     return out.to(out_dtype or x.dtype)

@@ -48,8 +48,11 @@ class PackedParam:
 
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:
         lv = self.unpack_levels().to(dtype)
+        # one scale a row: (N,) for (N, K) or a conv's (N, 3, 3, K), (E, N)
+        # for a stack of experts' (E, N, K)
         scale = self.scale.to(dtype).reshape(
-            (-1,) + (1,) * (len(self.orig_shape) - 1))
+            tuple(self.scale.shape)
+            + (1,) * (len(self.orig_shape) - self.scale.ndim))
         return lv * scale
 
 

@@ -64,7 +64,8 @@ __global__ void __launch_bounds__(tcmm::THREADS, tcmm::MIN_BLOCKS)
 bs_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
       const float* __restrict__ scales, float* __restrict__ out, int M, int N, int K,
       int Kp, int nblk, int gps) {
-  tcmm::gemm<BITS, float, true, ALIGNED>(x, packed, scales, out, M, N, K, Kp, nblk, gps);
+  tcmm::gemm<BITS, float, true, ALIGNED>(x, packed, scales, out, M, N, K, Kp, nblk, gps,
+                                         blockIdx.x);
 }
 
 __global__ void bs_tc_reduce(const float* __restrict__ part, const float* __restrict__ scales,

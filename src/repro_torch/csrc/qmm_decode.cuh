@@ -476,20 +476,22 @@ __device__ __forceinline__ void decode(const T* __restrict__ x, const uint8_t* _
   if (tid == 0) counters[blockIdx.x] = 0;     // ready for the next launch
 }
 
-// Launch Kernel (a __global__ wrapping decode() with NC column tiles).
-// part is the (splits, N, M rounded up to 4) f32 scratch and counters one
-// zeroed int a tile (both unused when splits == 1).  The K range a split is
-// rounded up to whole ring stages; the splits launched are those that own a
-// group, no more than asked for.
+// Launch Kernel (a __global__ wrapping decode() with NC column tiles) over
+// ``experts`` problems of one shape along gridDim.y (a grouped Kernel hands
+// each block its expert's pointers).  part is the (experts, splits, N, M
+// rounded up to 4) f32 scratch and counters one zeroed int a tile and expert
+// (both unused when splits == 1).  The K range a split is rounded up to
+// whole ring stages; the splits launched are those that own a group, no
+// more than asked for.
 template <auto Kernel, int BITS, typename T, bool SCALED, int NC>
 cudaError_t launch(const T* x, const uint8_t* packed, const float* scales, float* out,
                    float* part, int* counters, int M, int N, int K, int Kp, int nblk,
-                   int splits, cudaStream_t stream) {
+                   int splits, cudaStream_t stream, int experts = 1) {
   constexpr int kSmemMax = smem_max<BITS, SCALED>();
   static const cudaError_t attr =
       cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
   if (attr != cudaSuccess) return attr;
-  if (splits < 1 || M > MAX_M) return cudaErrorInvalidValue;
+  if (splits < 1 || M > MAX_M || experts < 1 || experts > 65535) return cudaErrorInvalidValue;
   constexpr int GS = stage_groups<BITS>();
   const int groups = (K + BK - 1) / BK;
   const int gps = ((groups + splits - 1) / splits + GS - 1) / GS * GS;
@@ -498,7 +500,7 @@ cudaError_t launch(const T* x, const uint8_t* packed, const float* scales, float
   if (8 * NC * kr > x_words_max<BITS>(8 * NC) || (z > 1 && (part == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
   const int smem = ring_bytes<BITS, SCALED>() + 8 * NC * x_pitch(kr) * 4;
-  const dim3 grid((N + BN - 1) / BN, 1, z);
+  const dim3 grid((N + BN - 1) / BN, experts, z);
   Kernel<<<grid, THREADS, smem, stream>>>(x, packed, scales, out, part, counters, M, N, K, Kp,
                                           nblk, gps);
   return cudaGetLastError();

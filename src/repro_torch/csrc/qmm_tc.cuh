@@ -391,14 +391,16 @@ __device__ __forceinline__ void group_step(int it, int ng, unsigned char* ring, 
   __syncthreads();
 }
 
-// The body of one block: output tile (M tile blockIdx.x, N tile blockIdx.y)
-// over the K groups of split blockIdx.z, gps groups a split.  Unsplit, it
-// writes out (times post[n] for B1); split, it writes its unscaled partial
-// slice out + z * M * N for reduce().
+// The body of one block: output tile (M tile mt, N tile blockIdx.y) over
+// the K groups of split blockIdx.z, gps groups a split.  Unsplit, it writes
+// out (times post[n] for B1); split, it writes its unscaled partial slice
+// out + z * M * N for reduce().  mt is blockIdx.x, except in a grouped
+// launch (csrc/qmatmul_f32.cu), which runs the experts' M tiles one after
+// another along x and hands each block its expert's pointers.
 template <int BITS, typename T, bool SCALED, bool ALIGNED>
 __device__ __forceinline__ void gemm(const T* __restrict__ x, const uint8_t* __restrict__ packed,
                                      const float* __restrict__ scales, float* __restrict__ out,
-                                     int M, int N, int K, int Kp, int nblk, int gps) {
+                                     int M, int N, int K, int Kp, int nblk, int gps, int mt) {
   constexpr int SB = stage_bytes<BITS, T, SCALED>();
   constexpr int XBYTES = BM * x_pitch<T>() * static_cast<int>(sizeof(T));
   constexpr int NA = 4 * passes<T>() * 4;
@@ -409,7 +411,7 @@ __device__ __forceinline__ void gemm(const T* __restrict__ x, const uint8_t* __r
   const uint32_t lt_addr = smem_addr(lt);
   // M tiles vary fastest, so the blocks of one weight tile run together and
   // share its bytes in L2
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int m0 = mt * BM, n0 = blockIdx.y * BN;
   const int groups = (K + BK - 1) / BK;
   const int gb = blockIdx.z * gps;
   const int ng = min(groups, gb + gps) - gb;
@@ -471,7 +473,8 @@ __device__ __forceinline__ void gemm(const T* __restrict__ x, const uint8_t* __r
   }
 }
 
-// out[i] = post * sum_z part[z][i], z in order: the split's second pass
+// out[e][i] = post[e] * sum_z part[e][z][i], z in order: the split's second
+// pass, expert e = blockIdx.y
 template <bool SCALED>
 __device__ __forceinline__ void reduce(const float* __restrict__ part,
                                        const float* __restrict__ scale, float* __restrict__ out,
@@ -479,18 +482,21 @@ __device__ __forceinline__ void reduce(const float* __restrict__ part,
   const size_t mn = static_cast<size_t>(M) * N;
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= mn) return;
+  const size_t e = blockIdx.y;
+  const float* p = part + e * splits * mn + i;
   float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += part[z * mn + i];
-  out[i] = SCALED ? s : s * scale[i % N];
+  for (int z = 0; z < splits; ++z) s += p[z * mn];
+  out[e * mn + i] = SCALED ? s : s * scale[e * N + i % N];
 }
 
 // Launch Kernel (a __global__ wrapping gemm()) and, when split, Reducer (one
-// wrapping reduce()).  part is the (splits, M, N) f32 scratch the wrapper
+// wrapping reduce()) over ``experts`` problems of one shape, whose M tiles
+// run along x.  part is the (experts, splits, M, N) f32 scratch the wrapper
 // allocated, unused when splits == 1.
 template <auto Kernel, auto Reducer, int BITS, typename T, bool SCALED>
 cudaError_t launch(const T* x, const uint8_t* packed, const float* scales, float* out,
                    float* part, int M, int N, int K, int Kp, int nblk, int splits,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int experts = 1) {
   constexpr int kSmem = smem_bytes<BITS, T, SCALED>();
   // once per kernel: more than 48 KB of dynamic shared memory must be asked for
   static const cudaError_t attr =
@@ -500,15 +506,16 @@ cudaError_t launch(const T* x, const uint8_t* packed, const float* scales, float
   if (splits < 1) return cudaErrorInvalidValue;
   const int gps = (groups + splits - 1) / splits;
   // every split must own at least one group, and split output needs scratch
-  if ((splits - 1) * gps >= groups || (splits > 1 && part == nullptr))
+  if ((splits - 1) * gps >= groups || (splits > 1 && part == nullptr) || experts < 1 ||
+      experts > 65535)
     return cudaErrorInvalidValue;
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, splits);
+  const dim3 grid(((M + BM - 1) / BM) * experts, (N + BN - 1) / BN, splits);
   Kernel<<<grid, THREADS, kSmem, stream>>>(x, packed, scales, splits > 1 ? part : out, M, N, K,
                                            Kp, nblk, gps);
   if (splits > 1) {
     const size_t mn = static_cast<size_t>(M) * N;
-    Reducer<<<static_cast<unsigned>((mn + 255) / 256), 256, 0, stream>>>(part, scales, out, M,
-                                                                         N, splits);
+    const dim3 rgrid(static_cast<unsigned>((mn + 255) / 256), experts);
+    Reducer<<<rgrid, 256, 0, stream>>>(part, scales, out, M, N, splits);
   }
   return cudaGetLastError();
 }

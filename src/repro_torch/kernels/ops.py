@@ -1,5 +1,6 @@
 """Public wrappers over the kernels (reference: ``repro/kernels/ops.py``:
-the ``prep_*`` layouts, ``quant_matmul``, ``quant_matmul_blockscale``,
+the ``prep_*`` layouts, ``quant_matmul`` (grouped over experts for a 3-D
+packed weight), ``quant_matmul_blockscale``,
 ``quant_matmul_int8``,
 ``neureka_conv2d`` and ``attention``; ``selective_scan`` has no counterpart
 there, since the reference models call the jnp scan directly).
@@ -48,7 +49,24 @@ def prep_dw3x3(w: torch.Tensor, bits: int
 
 def quant_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                  *, bits: int, k_orig: int) -> torch.Tensor:
-    """Float activations x packed weights -> f32.  x may have leading dims."""
+    """Float activations x packed weights -> f32.  x may have leading dims.
+
+    A 3-D ``packed`` (E, N, Kp) with scale (E, N) is a stack of experts:
+    x must then be (E, C, K), and the grouped kernel gives (E, C, N) in
+    one launch (the reference's vmapped ``quant_matmul``)."""
+    if packed.ndim == 3:
+        e, n = packed.shape[:2]
+        if x.ndim != 3 or x.shape[0] != e or tuple(scale.shape) != (e, n):
+            raise ValueError(
+                f"grouped quant_matmul takes x (E, C, K), packed (E, N, Kp) "
+                f"and scale (E, N); got x {tuple(x.shape)}, packed "
+                f"{tuple(packed.shape)}, scale {tuple(scale.shape)}")
+        return _qmm.qmatmul_f32_grouped(x.contiguous(), packed, scale,
+                                        bits=bits, k_orig=k_orig)
+    if packed.ndim != 2 or scale.ndim != 1:
+        raise ValueError(f"quant_matmul takes packed (N, Kp) and scale (N,) "
+                         f"or a stack of experts, got packed "
+                         f"{tuple(packed.shape)}, scale {tuple(scale.shape)}")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     out = _qmm.qmatmul_f32(x2, packed, scale, bits=bits, k_orig=k_orig)
@@ -61,7 +79,13 @@ def quant_matmul_blockscale(x: torch.Tensor, packed: torch.Tensor,
     """Float activations x *wire-form* packed weights (packed levels +
     per-(row, ``block``) scales) -> f32: the serving path of wire-served
     cold pages (``placement.wire_served_bits``).  x may have leading
-    dims."""
+    dims.  A stack of experts' packed weights is refused (ROADMAP B
+    item 6)."""
+    if packed.ndim != 2:
+        raise NotImplementedError(
+            f"wire-served packed {tuple(packed.shape)}: the grouped "
+            "blockscale kernel for MoE experts under wire-served paging "
+            "is not ported (ROADMAP B item 6)")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     out = _qmm.qmatmul_f32_blockscale(x2, packed, scales, bits=bits,

@@ -3,7 +3,9 @@
 Ports the three kernels of ``repro/kernels/qmatmul.py``:
 
 - ``qmatmul_f32`` (``_qmatmul_f32_kernel``): float activations, f32 out,
-  the LM serving path (``csrc/qmatmul_f32.cu``);
+  the LM serving path (``csrc/qmatmul_f32.cu``), and
+  ``qmatmul_f32_grouped``, the same kernels over a stack of MoE experts in
+  one launch (the reference vmaps ``qmatmul_f32`` over them);
 - ``qmatmul_f32_blockscale`` (``_qmatmul_f32_blockscale_kernel``): the same
   with one scale per (row, 32-wide K block), the page codec's wire form,
   which wire-served cold pages are multiplied from
@@ -91,9 +93,11 @@ def decode_cols(m: int) -> int:
 
 
 def tc_splits(m: int, n: int, k: int, sms: int, geo: TcGeometry,
-              bits: int = 8) -> int:
+              bits: int = 8, experts: int = 1) -> int:
     """How many K splits the tensor-core loops run for an (m, k) x (k, n)
-    product (k > 0) of ``bits``-bit levels on a card with ``sms`` SMs.
+    product (k > 0) of ``bits``-bit levels on a card with ``sms`` SMs, or
+    for ``experts`` such products in one grouped launch (each of their
+    output tiles counts).
 
     Decode (m <= geo.decode_max_m): enough splits of the n / decode_bn tiles
     to give every SM decode_blocks_per_sm blocks, but no more than
@@ -115,13 +119,13 @@ def tc_splits(m: int, n: int, k: int, sms: int, geo: TcGeometry,
         gs = 8 * geo.decode_stage_bytes // (geo.bk * bits)   # a stage's groups
         most = max(gs, geo.decode_x_words // (decode_cols(m) * geo.bk)
                    // gs * gs)
-        tiles = -(-n // geo.decode_bn)
+        tiles = -(-n // geo.decode_bn) * experts
         want = min(-(-geo.decode_blocks_per_sm * sms // tiles),
                    max(1, groups // DECODE_MIN_GROUPS), DECODE_MAX_SPLITS)
         splits = max(want, -(-groups // most))
         per = -(-(-(-groups // splits)) // gs) * gs
         return -(-groups // per)
-    tiles = -(-m // geo.bm) * -(-n // geo.bn)
+    tiles = -(-m // geo.bm) * -(-n // geo.bn) * experts
     if tiles >= sms:
         return 1
     splits = min(geo.blocks_per_sm * sms // tiles,
@@ -149,26 +153,32 @@ def decode_aligned(packed: torch.Tensor) -> bool:
 
 
 def _tc_scratch(library: str, x: torch.Tensor, packed: torch.Tensor,
-                bits: int, n: int):
-    """(aligned, splits, scratch, counters) of one launch.  Split, the
-    scratch is the partial sums, (splits, N, M rounded up to 4) f32 for the
-    decode loop with its counters, (splits, M, N) for M > decode_max_m;
-    unsplit both are None."""
-    m, k = x.shape
+                bits: int, n: int, experts: int = 1):
+    """(aligned, splits, scratch, counters) of one launch of ``experts``
+    problems (x (E, M, K) and packed (E, N, Kp) when E > 1).  Split, the
+    scratch is the partial sums, (E * splits, N, M rounded up to 4) f32 for
+    the decode loop with its counters (one a tile and expert), (E * splits,
+    M, N) for M > decode_max_m; unsplit both are None.  Alignment is read
+    on the 2-D views: an expert's rows start where the previous expert's
+    end, so every row is aligned when the first is and rows are whole
+    chunks."""
+    m, k = x.shape[-2:]
+    x2, p2 = x.reshape(-1, k), packed.reshape(-1, packed.shape[-1])
     geo = tc_geometry(library)
     index = x.device.index
     splits = tc_splits(m, n, k, sm_count(
-        torch.cuda.current_device() if index is None else index), geo, bits)
+        torch.cuda.current_device() if index is None else index), geo, bits,
+        experts)
     if m <= geo.decode_max_m:
         if splits == 1:
-            return int(decode_aligned(packed)), 1, None, None
-        part = torch.empty((splits, n, -(-m // 4) * 4), dtype=torch.float32,
-                           device=x.device)
-        return (int(decode_aligned(packed)), splits, part,
-                tile_counters(x.device, -(-n // geo.decode_bn)))
-    part = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
-    return int(tc_aligned(x, packed, bits, geo)), splits, part, None
+            return int(decode_aligned(p2)), 1, None, None
+        part = torch.empty((experts * splits, n, -(-m // 4) * 4),
+                           dtype=torch.float32, device=x.device)
+        return (int(decode_aligned(p2)), splits, part,
+                tile_counters(x.device, experts * -(-n // geo.decode_bn)))
+    part = (torch.empty((experts * splits, m, n), dtype=torch.float32,
+                        device=x.device) if splits > 1 else None)
+    return int(tc_aligned(x2, p2, bits, geo)), splits, part, None
 
 
 def _ptr(t):
@@ -180,7 +190,7 @@ def _launcher():
     fn = build.library("qmatmul_f32").qmatmul_f32_launch
     fn.argtypes = [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
                    _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
-                   _c_ptr]
+                   _c_int, _c_ptr]
     fn.restype = _c_int
     return fn
 
@@ -203,16 +213,14 @@ def _launcher_int8():
     return fn
 
 
-def qmatmul_f32(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
-                *, bits: int, k_orig: int) -> torch.Tensor:
-    """x (M, K) f32/bf16 @ packed (N, ceil(K/f)) uint8 with scale (N,) f32
-    -> (M, N) f32, where f = 8 // bits."""
-    devices = {x.device.type, packed.device.type, scale.device.type}
-    if devices == {"cpu"}:
-        return ref.qmatmul_f32(x, packed, scale, bits=bits, k_orig=k_orig)
-    if devices != {"cuda"} or len({x.device, packed.device,
-                                   scale.device}) != 1:
-        raise ValueError("qmatmul_f32 needs x, packed and scale on one CUDA "
+def _qmm_f32(name: str, x: torch.Tensor, packed: torch.Tensor,
+             scale: torch.Tensor, bits: int, k_orig: int) -> torch.Tensor:
+    """Check and launch B1 on the card for E stacked problems: x (E, M, K),
+    packed (E, N, Kp), scale (E, N) -> (E, M, N); the 2-D call is E = 1."""
+    tensors = (x, packed, scale)
+    if ({t.device.type for t in tensors} != {"cuda"}
+            or len({t.device for t in tensors}) != 1):
+        raise ValueError(f"{name} needs x, packed and scale on one CUDA "
                          f"device (or all on the CPU), got {x.device}, "
                          f"{packed.device}, {scale.device}")
     if bits not in (2, 4, 8):
@@ -222,34 +230,70 @@ def qmatmul_f32(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     if packed.dtype != torch.uint8 or scale.dtype != torch.float32:
         raise TypeError(f"packed must be uint8 and scale float32, got "
                         f"{packed.dtype} and {scale.dtype}")
-    if x.ndim != 2 or packed.ndim != 2 or scale.ndim != 1:
-        raise ValueError("x must be (M, K), packed (N, Kp) and scale (N,)")
-    m, k = x.shape
-    n, kp = packed.shape
-    f = 8 // bits
-    if k != k_orig or kp != -(-k // f) or scale.shape[0] != n:
+    e, m, k = x.shape
+    _e, n, kp = packed.shape
+    if (k != k_orig or kp != -(-k // (8 // bits)) or _e != e
+            or tuple(scale.shape) != (e, n)):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, packed "
                          f"{tuple(packed.shape)}, scale {tuple(scale.shape)}, "
                          f"bits={bits}, k_orig={k_orig}")
-    if not (x.is_contiguous() and packed.is_contiguous()
-            and scale.is_contiguous()):
-        raise ValueError("qmatmul_f32 needs contiguous x, packed and scale")
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m == 0 or n == 0 or k == 0:
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous x, packed and scale")
+    if e > 65535:
+        raise ValueError(f"{name} takes at most 65535 experts, got {e}")
+    out = torch.empty((e, m, n), dtype=torch.float32, device=x.device)
+    if e == 0 or m == 0 or n == 0 or k == 0:
         return out.zero_()
     aligned, splits, part, counters = _tc_scratch("qmatmul_f32", x, packed,
-                                                  bits, n)
+                                                  bits, n, e)
     rc = _launcher()(x.data_ptr(), int(x.dtype == torch.bfloat16),
                      packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                     _ptr(part), _ptr(counters), m, n, k, kp, bits, aligned,
-                     splits, torch.cuda.current_stream(x.device).cuda_stream)
+                     _ptr(part), _ptr(counters), e, m, n, k, kp, bits,
+                     aligned, splits,
+                     torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"qmatmul_f32 launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    return out
+
+
+def qmatmul_f32(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                *, bits: int, k_orig: int) -> torch.Tensor:
+    """x (M, K) f32/bf16 @ packed (N, ceil(K/f)) uint8 with scale (N,) f32
+    -> (M, N) f32, where f = 8 // bits."""
+    if {x.device.type, packed.device.type, scale.device.type} == {"cpu"}:
+        return ref.qmatmul_f32(x, packed, scale, bits=bits, k_orig=k_orig)
+    if x.ndim != 2 or packed.ndim != 2 or scale.ndim != 1:
+        raise ValueError("x must be (M, K), packed (N, Kp) and scale (N,)")
+    out = _qmm_f32("qmatmul_f32", x[None], packed[None], scale[None], bits,
+                   k_orig)[0]
     qmatmul_f32.launches += 1
     return out
 
 
 qmatmul_f32.launches = 0
+
+
+def qmatmul_f32_grouped(x: torch.Tensor, packed: torch.Tensor,
+                        scale: torch.Tensor, *, bits: int, k_orig: int
+                        ) -> torch.Tensor:
+    """B1 for each of E experts in one launch: x (E, C, K) f32/bf16 @
+    packed (E, N, ceil(K/f)) uint8 with scale (E, N) f32 -> (E, C, N) f32,
+    expert e's rows against expert e's weight (the reference vmaps
+    ``qmatmul_f32`` over the experts).  Every expert is computed, its
+    empty capacity rows included.  Its launches count in its own
+    ``launches``, not in :func:`qmatmul_f32`'s."""
+    if {x.device.type, packed.device.type, scale.device.type} == {"cpu"}:
+        return ref.qmatmul_f32_grouped(x, packed, scale, bits=bits,
+                                       k_orig=k_orig)
+    if x.ndim != 3 or packed.ndim != 3 or scale.ndim != 2:
+        raise ValueError("x must be (E, C, K), packed (E, N, Kp) and scale "
+                         "(E, N)")
+    out = _qmm_f32("qmatmul_f32_grouped", x, packed, scale, bits, k_orig)
+    qmatmul_f32_grouped.launches += 1
+    return out
+
+
+qmatmul_f32_grouped.launches = 0
 
 
 def qmatmul_f32_blockscale(x: torch.Tensor, packed: torch.Tensor,

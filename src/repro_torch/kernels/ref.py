@@ -35,6 +35,16 @@ def qmatmul_f32(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     return torch.matmul(x.to(torch.float32), w.T)
 
 
+def qmatmul_f32_grouped(x: torch.Tensor, packed: torch.Tensor,
+                        scale: torch.Tensor, *, bits: int, k_orig: int
+                        ) -> torch.Tensor:
+    """Per-expert :func:`qmatmul_f32`: x (E, C, K) @ unpack(packed (E, N,
+    ceil(K/f)))^T * scale (E, N) -> (E, C, N) f32, one batched matmul."""
+    w = packing.unpack(packed, bits, k_orig).to(torch.float32)
+    w = w * scale[..., None].to(torch.float32)
+    return torch.bmm(x.to(torch.float32), w.transpose(1, 2))
+
+
 def qmatmul_f32_blockscale(x: torch.Tensor, packed: torch.Tensor,
                            scales: torch.Tensor, *, bits: int, k_orig: int,
                            block: int = 32) -> torch.Tensor:

@@ -4,7 +4,8 @@ Weights are dense (N, K) tensors or packed dicts {"packed": uint8,
 "scale": f32} made by ``parallel/sharding.freeze_for_serving`` (the At-MRAM
 serving path), or, for the cold pages a ``wire_serve`` plan serves straight
 from their wire form, packed levels with per-block scales.  Every matmul
-goes through :func:`linear`, which dispatches between them.
+goes through :func:`linear`, which dispatches between them; a weight with a
+leading expert axis makes it the grouped linear of the MoE experts.
 """
 
 from __future__ import annotations
@@ -30,6 +31,11 @@ def linear(x: torch.Tensor, w, *, engine: Optional[Any] = None,
 
     ``engine`` is a :class:`~repro_torch.core.placement.PlacementPlan` or the
     legacy {"scenario", "mode", "bits"} dict; defaults l1mram / 8-bit.
+
+    Grouped (the MoE experts, which the reference vmaps this function
+    over): W dense (E, N, K) or packed (E, N, Kp) with scale (E, N), x
+    (E, C, K) -> (E, C, N), expert e's rows times expert e's weight, with
+    the same dispatch; packed l1mram weights take the grouped kernel.
     """
     if isinstance(w, dict) and "packed" in w:
         scenario, _mode, bits = placement.linear_dispatch(engine, path)
@@ -45,11 +51,11 @@ def linear(x: torch.Tensor, w, *, engine: Optional[Any] = None,
                                     k_orig=k_orig)
         else:
             p = PackedParam(packed=w["packed"], scale=w["scale"], bits=bits,
-                            orig_shape=(w["packed"].shape[0], k_orig))
+                            orig_shape=(*w["packed"].shape[:-1], k_orig))
             out = scenarios.linear_apply(x, p, scenario=scenario)
         out = out.to(x.dtype)
     else:
-        out = torch.matmul(x, w.T)
+        out = torch.matmul(x, w.transpose(-1, -2))
     if bias is not None:
         out = out + bias
     return out

@@ -1,20 +1,22 @@
-"""Decoder-only LM: init / forward / prefill / decode for the dense, SSM and
-hybrid families (reference: ``repro/models/transformer.py:24-470``).
+"""Decoder-only LM: init / forward / prefill / decode for the dense, MoE, SSM
+and hybrid families (reference: ``repro/models/transformer.py:24-470``).
 
 Parameters keep the reference's tree: nested dicts of tensors with the
 layers stacked on axis 0, so ``interop`` carries a JAX tree over leaf for
 leaf.  The reference scans the stacked layers with ``jax.lax.scan``; here a
 Python loop walks them.  Packed linears go through the Hopper ``qmatmul_f32``
-kernel, ``forward`` / prefill ``step`` attention through the Hopper flash
-kernel and every SSM scan through the Hopper selective-scan kernel
-(``kernels.ops``); decode attention stays in PyTorch ops.
+kernel (the MoE experts' through its grouped launch, ``models/moe.py``),
+``forward`` / prefill ``step`` attention through the Hopper flash kernel and
+every SSM scan through the Hopper selective-scan kernel (``kernels.ops``);
+decode attention stays in PyTorch ops.
 
 The SSM family (falcon-mamba) is attention-free; the hybrid family (hymba)
 runs attention and SSM heads in parallel on the same normalised input,
 mixes sliding-window and global attention layers, and prepends learned meta
-tokens.  The MoE, VLM and encoder-decoder families raise
-``NotImplementedError`` (ROADMAP A9), and so does hymba's
-``segmented_window_scan`` fast path.
+tokens.  The MoE family (qwen2-moe, arctic) replaces the dense MLP with
+top-k routed experts, a shared expert and arctic's dense residual.  The VLM
+and encoder-decoder families raise ``NotImplementedError`` (ROADMAP A9),
+and so does hymba's ``segmented_window_scan`` fast path.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 
@@ -38,7 +41,7 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -101,7 +104,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         return dict(scale=zeros(*lead, d))          # rmsnorm (1 + s)
 
     layers: Params = {}
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family in ("dense", "moe", "hybrid"):
         attn = dict(wq=dense(cfg.q_dim, cfg.d_model),
                     wk=dense(cfg.kv_dim, cfg.d_model),
                     wv=dense(cfg.kv_dim, cfg.d_model),
@@ -115,17 +118,20 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if cfg.family in ("ssm", "hybrid"):
         layers.update(ssm_norm=norm(cfg.d_model), ssm=_ssm_params(
             cfg, dense, normal, zeros, n, dev))
-    if cfg.family != "ssm":
+    def mlp(d_ff):
         if cfg.mlp_act in ("swiglu", "geglu"):
-            mlp = dict(w_gate=dense(cfg.d_ff, cfg.d_model),
-                       w_up=dense(cfg.d_ff, cfg.d_model),
-                       w_down=dense(cfg.d_model, cfg.d_ff))
-        else:
-            mlp = dict(w_up=dense(cfg.d_ff, cfg.d_model),
-                       b_up=zeros(n, cfg.d_ff),
-                       w_down=dense(cfg.d_model, cfg.d_ff),
-                       b_down=zeros(n, cfg.d_model))
-        layers.update(mlp_norm=norm(cfg.d_model), mlp=mlp)
+            return dict(w_gate=dense(d_ff, cfg.d_model),
+                        w_up=dense(d_ff, cfg.d_model),
+                        w_down=dense(cfg.d_model, d_ff))
+        return dict(w_up=dense(d_ff, cfg.d_model), b_up=zeros(n, d_ff),
+                    w_down=dense(cfg.d_model, d_ff),
+                    b_down=zeros(n, cfg.d_model))
+
+    if cfg.family == "moe":
+        layers.update(mlp_norm=norm(cfg.d_model),
+                      moe=_moe_params(cfg, dense, normal, mlp, n))
+    elif cfg.family != "ssm":
+        layers.update(mlp_norm=norm(cfg.d_model), mlp=mlp(cfg.d_ff))
     params: Params = dict(
         embed=normal((cfg.vocab_size, cfg.d_model), 0.02),
         final_norm=norm(cfg.d_model, stacked=False),
@@ -137,6 +143,22 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if cfg.n_meta_tokens:
         params["meta_tokens"] = normal((cfg.n_meta_tokens, cfg.d_model), 0.02)
     return params
+
+
+def _moe_params(cfg: ModelConfig, dense, normal, mlp, n: int) -> Params:
+    """The MoE block's stacked leaves (``transformer.py:78-97``): a router,
+    the experts' (E, F, D) / (E, D, F) weights, and the shared expert and
+    arctic's dense residual as plain MLPs."""
+    e, f, d = cfg.n_experts, cfg.moe_d_ff, cfg.d_model
+    p = dict(router=dense(e, d),
+             w_gate=normal((n, e, f, d), d ** -0.5),
+             w_up=normal((n, e, f, d), d ** -0.5),
+             w_down=normal((n, e, d, f), f ** -0.5))
+    if cfg.shared_d_ff:
+        p["shared"] = mlp(cfg.shared_d_ff)
+    if cfg.dense_residual_d_ff:
+        p["dense"] = mlp(cfg.dense_residual_d_ff)
+    return p
 
 
 def _ssm_params(cfg: ModelConfig, dense, normal, zeros, n: int,
@@ -253,7 +275,13 @@ def _layer_apply(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
     elif "ssm" in p:                                # pure SSM family
         h = L.apply_norm(x, p.get("ssm_norm"), cfg.norm_type)
         x = x + mixer(h)
-    if "mlp" in p:
+    if "moe" in p:
+        h = L.apply_norm(x, p.get("mlp_norm"), cfg.norm_type)
+        x = x + moe_lib.moe_apply(
+            h, p["moe"], n_experts=cfg.n_experts, k=cfg.n_experts_active,
+            capacity_factor=cfg.capacity_factor, act=cfg.mlp_act,
+            groups=max(cfg.moe_groups, 1), engine=engine)
+    elif "mlp" in p:
         h = L.apply_norm(x, p.get("mlp_norm"), cfg.norm_type)
         x = x + L.mlp(h, p["mlp"], cfg.mlp_act, engine=engine,
                       path="layers/mlp")
@@ -320,7 +348,7 @@ def init_serve_cache(cfg: ModelConfig, batch: int, max_len: int,
     dev = resolve_device(device)
     dt = _dtype(cfg)
     cache: Dict[str, Any] = {}
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family in ("dense", "moe", "hybrid"):
         shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.hd)
         cache["kv"] = dict(k=torch.zeros(shape, dtype=dt, device=dev),
                            v=torch.zeros(shape, dtype=dt, device=dev))

@@ -52,7 +52,8 @@ def freeze_for_serving(params: Any, bits: int = 8, plan: Any = None,
     ``bits`` per parameter path.  Every leaf of the result lies on
     ``device`` (default ``cuda``), where the packing also runs, a block of
     output rows at a time.  Carriers and scales are byte-identical to the
-    reference's.
+    reference's; a leaf with leading axes (stacked layers, the MoE experts'
+    (L, E, F, D)) is packed as its rows, with scales of its leading shape.
     """
     dev = resolve_device(device)
 

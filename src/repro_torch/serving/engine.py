@@ -12,12 +12,15 @@ A continuous-batching loop, as in the reference:
     slots of a (bucket, prefix) group prefill in ONE batched call: gather the
     slots' cache rows (the KV rows sliced to the ``kv_span`` the chunk can
     reach, and the SSM state), run a batch step padded to the slot count,
-    scatter the rows back;
+    scatter the rows back.  The MoE family prefills exact-length too, and
+    one slot at a time: expert capacity is shared by every token of a call,
+    so a pad or a co-batched prompt would change a real token's routing;
   * one batched decode step serves every decode-ready slot each tick, with
     per-slot sampling at each request's own temperature; slots that are
     empty or still prefilling park their KV write at the scratch row
     ``max_len - 1``, and a still-prefilling slot's SSM state is saved
-    around the step and put back;
+    around the step and put back.  Under MoE the parked rows route and take
+    expert capacity like real ones, as in the reference;
   * finished sequences free their slot at once, and a reused slot's SSM
     state starts cold; ``preempt`` / ``restore`` hand a slot over
     mid-request, bit-exactly, KV rows and SSM state alike;
@@ -53,8 +56,9 @@ eagerly, so there is nothing to cache beyond the per-layer parameter views.
 Sampling draws from an explicit ``torch.Generator`` on the engine's device
 (the reference splits ``jax.random`` keys; the two agree at temperature 0).
 
-Not ported yet: paging across a mesh (``mesh=``: ROADMAP A11) and the MoE
-family's one-slot-at-a-time prefill (A9).
+Not ported yet: paging across a mesh (``mesh=``: ROADMAP A11) and the
+wire-served paging of a MoE store (``attach_paging(wire_serve=True)``: its
+experts would need the grouped blockscale kernel, ROADMAP B item 6).
 """
 
 from __future__ import annotations
@@ -179,8 +183,9 @@ class ServingEngine:
         self.plan = plan if plan is not None else as_plan(engine)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         # pad-safe bucketing: attention hides pads behind the causal mask and
-        # the pure-SSM mixer masks them into exact state no-ops; hybrid keeps
-        # exact-length single-shot prefill, as in the reference
+        # the pure-SSM mixer masks them into exact state no-ops; hybrid and
+        # MoE (whose capacity routing a pad would contend) keep exact-length
+        # single-shot prefill, as in the reference
         self._bucketed = cfg.family in ("dense", "ssm")
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got "
@@ -267,6 +272,12 @@ class ServingEngine:
                              f"{resident_slots}")
         if self.pager is not None:
             raise ValueError("paging is already attached")
+        if wire_serve and self.cfg.family == "moe":
+            raise NotImplementedError(
+                f"{self.cfg.name}: wire-served paging of a MoE store would "
+                "multiply the experts' cold pages by the blockscale kernel "
+                "grouped over experts, which is not ported (ROADMAP B item "
+                "6)")
         if wire_serve:
             # before the store is built, so that the fetch path and the
             # model's linear dispatch read the same plan
@@ -471,8 +482,9 @@ class ServingEngine:
             self.last_kv_overlap = self._account_fence(
                 ks, demand, self.kv_table.pool, self.kv_table.name, kv=True)
             self._scatter_kv(blocks)
-            # every fetch in flight has settled: retired slots' pooled
-            # blocks can go without a late fetch bringing them back
+            # retired slots' pooled blocks go on the pool's fetch worker,
+            # after every fetch queued before them: no late fetch brings
+            # one back, and the drop's place in the log is the traffic's
             self.kv_table.flush_drops()
         return params
 
@@ -743,7 +755,7 @@ class ServingEngine:
                 bucket = _pow2_floor(avail)
                 n = min(bucket, remaining)
         else:
-            n = bucket = remaining      # exact-length single shot (hybrid)
+            n = bucket = remaining      # exact-length single shot (hybrid, MoE)
         first = req.prefill_pos == 0
         # the prefix is prepended on the first chunk only; the flag stays
         # True for prefix-free models so that it never splits a group
@@ -803,8 +815,22 @@ class ServingEngine:
                            rows: List[Tuple[int, Request, int, int]],
                            started: List[Request]) -> None:
         """One batched prefill call for a (bucket, prefix) group, padded to
-        the slot count (the MoE family's one-row calls come with A9)."""
-        k = self.slots
+        the slot count; under MoE one call a slot, batch 1
+        (``repro/serving/engine.py:1017-1025``): expert capacity is shared
+        by the call's tokens, so padding rows or co-batched prompts could
+        displace a real token's routing."""
+        if self.cfg.family == "moe":
+            for row in rows:
+                self._run_prefill_rows(params, bucket, add_prefix, [row], 1,
+                                       started)
+            return
+        self._run_prefill_rows(params, bucket, add_prefix, rows, self.slots,
+                               started)
+
+    def _run_prefill_rows(self, params: Any, bucket: int, add_prefix: bool,
+                          rows: List[Tuple[int, Request, int, int]], k: int,
+                          started: List[Request]) -> None:
+        """One prefill call over ``rows``, padded to ``k`` batch rows."""
         kv_span = self._kv_span_for(bucket, rows)
         tokens = np.zeros((k, bucket), np.int64)
         slot_idx = np.zeros((k,), np.int64)

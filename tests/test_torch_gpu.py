@@ -23,6 +23,7 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.qmatmul import (int8_plan,  # noqa: E402
                                          qmatmul_f32,
                                          qmatmul_f32_blockscale,
+                                         qmatmul_f32_grouped,
                                          qmatmul_int8)
 from repro_torch.kernels.ssm_scan import selective_scan  # noqa: E402
 from repro_torch.models import mobilenet_v2 as mnv2  # noqa: E402
@@ -110,7 +111,7 @@ def test_flash_kernel_not_causal_folded(cuda, rng):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "falcon-mamba-7b",
-                                  "hymba-1.5b"])
+                                  "hymba-1.5b", "qwen2-moe-a2.7b"])
 def test_serving_on_the_card_matches_the_cpu(cuda, arch):
     cfg = get_config(arch).smoke()
     params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
@@ -667,6 +668,67 @@ def test_f32_kernels_give_the_same_bits_every_call(cuda, rng, kernel, m, k,
     fn, _, x = _f32_inputs(kernel, rng, m, k, n, 8, cuda)
     first = fn(x)
     assert torch.equal(fn(x), first)
+
+
+# --- qmatmul_f32 grouped over MoE experts -----------------------------------
+
+def _experts(rng, e, c, k, n, bits, dev, empty=()):
+    """x (E, C, K) with the experts in ``empty`` given no rows (zero x, as
+    dispatch leaves an unrouted expert), packed (E, N, Kp), scale (E, N)."""
+    x = rng.normal(size=(e, c, k)).astype(np.float32)
+    x[list(empty)] = 0.0
+    w = torch.from_numpy(rng.normal(size=(e * n, k)).astype(np.float32))
+    packed, scale = ops.prep_linear(w * k ** -0.5, bits)
+    return (torch.from_numpy(x).to(dev), packed.reshape(e, n, -1).to(dev),
+            scale.reshape(e, n).to(dev))
+
+
+# (E, C, K, N): qwen2-moe-a2.7b's expert linears at decode (C 8) and
+# prefill (C 16, 24), one expert, and ragged shapes on both routes
+GROUPED_SHAPES = [(60, 8, 2048, 1408), (60, 8, 1408, 2048),
+                  (60, 16, 2048, 1408), (60, 24, 2048, 1408),
+                  (60, 24, 1408, 2048), (1, 8, 2048, 1408),
+                  (1, 24, 1408, 2048), (5, 13, 1001, 515), (3, 40, 129, 65)]
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("e,c,k,n", GROUPED_SHAPES)
+def test_grouped_qmatmul_kernel_matches_plain(cuda, rng, bits, e, c, k, n):
+    x, packed, scale = _experts(rng, e, c, k, n, bits, cuda,
+                                empty=range(1, e, 3))
+    before, plain_before = qmatmul_f32_grouped.launches, qmatmul_f32.launches
+    got = qmatmul_f32_grouped(x, packed, scale, bits=bits, k_orig=k)
+    torch.cuda.synchronize()
+    assert qmatmul_f32_grouped.launches == before + 1
+    assert qmatmul_f32.launches == plain_before
+    expect = ref.qmatmul_f32_grouped(x, packed, scale, bits=bits, k_orig=k)
+    torch.testing.assert_close(got, expect, rtol=1e-4, atol=1e-4)
+    assert not got[1::3].any()                  # empty experts give zeros
+    assert torch.equal(qmatmul_f32_grouped(x, packed, scale, bits=bits,
+                                           k_orig=k), got)
+
+
+@pytest.mark.parametrize("c", [4, 24])
+def test_grouped_qmatmul_equals_the_plain_kernel_per_expert(cuda, rng, c):
+    # the grouped launch computes each expert as the 2-D launch does
+    x, packed, scale = _experts(rng, 6, c, 1024, 640, 4, cuda)
+    got = qmatmul_f32_grouped(x, packed, scale, bits=4, k_orig=1024)
+    for i in range(6):
+        one = qmatmul_f32(x[i], packed[i], scale[i], bits=4, k_orig=1024)
+        torch.testing.assert_close(got[i], one, rtol=1e-5, atol=1e-5)
+
+
+def test_grouped_qmatmul_refuses_what_it_does_not_take(cuda, rng):
+    x, packed, scale = _experts(rng, 3, 8, 64, 32, 8, cuda)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        qmatmul_f32_grouped(x, packed.cpu(), scale, bits=8, k_orig=64)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        qmatmul_f32_grouped(x[:2], packed, scale, bits=8, k_orig=64)
+    with pytest.raises(ValueError, match=r"\(E, C, K\)"):
+        qmatmul_f32_grouped(x[0], packed, scale, bits=8, k_orig=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        qmatmul_f32_grouped(torch.cat([x, x], 2)[:, :, ::2], packed, scale,
+                            bits=8, k_orig=64)
 
 
 # --- qmatmul_int8 and conv3x3_dense on the int8 tensor cores ---------------

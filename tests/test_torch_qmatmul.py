@@ -276,6 +276,24 @@ def test_tc_splits_fill_the_card_in_one_wave(m, k, n, splits):
     assert (got - 1) * per < groups              # every split owns a group
 
 
+@pytest.mark.parametrize("m,k,n,e,splits", [
+    (8, 2048, 1408, 60, 4),      # qwen2-moe experts at decode: 660 tiles;
+    (8, 1408, 2048, 60, 3),      # the x slice (16 columns) alone splits K
+    (4, 1024, 1024, 6, 4),       # 48 tiles: 6 wanted, 4 of 8 groups
+    (4, 1024, 1024, 1, 8),       # one expert: the 2-D call's 8
+    (24, 2048, 1408, 60, 1),     # prefill C 24: 660 tiles, no split
+    (24, 1408, 2048, 1, 11),     # one expert: 16 tiles, 11 of 4 groups
+])
+def test_tc_splits_count_every_experts_tiles(m, k, n, e, splits):
+    """A grouped launch fills the card with all its experts' output tiles:
+    E experts of N columns split K as one problem of E x N (whole tiles)
+    does."""
+    got = tc_splits(m, n, k, 132, GEO, 8, e)
+    assert got == splits
+    bn = GEO.decode_bn if m <= GEO.decode_max_m else GEO.bn
+    assert got == tc_splits(m, -(-n // bn) * bn * e, k, 132, GEO, 8)
+
+
 @pytest.mark.parametrize("bits,splits", [(8, 8), (4, 4), (2, 2)])
 def test_tc_splits_decode_takes_whole_ring_stages(bits, splits):
     """A ring stage holds 128 B of a row: 4, 8 or 16 groups at 8, 4 or 2

@@ -14,6 +14,7 @@ import json
 import os
 import sys
 import threading
+import time
 import types
 
 import pytest
@@ -124,12 +125,14 @@ def _solo(side, models, name, prompts, max_new, kv=False):
     return out
 
 
-def _tenants(side, models, budget, prompts, max_new=5, kv=False):
+def _tenants(side, models, budget, prompts, max_new=5, kv=False,
+             async_io=True):
     """Both tenants under one MultiScheduler and one pool budget; the
     scheduler is closed by the caller."""
     port = side == "port"
     pool = (paging if port else jpaging).SharedPagePool(budget)
-    ms = (MultiScheduler if port else JMultiScheduler)(pool=pool)
+    ms = (MultiScheduler if port else JMultiScheduler)(pool=pool,
+                                                      async_io=async_io)
     for name in ("a", "b"):
         ms.add_model(name, _engine(side, models, name), prefill_chunk=8,
                      kv_paged=kv, kv_block_rows=4)
@@ -162,12 +165,43 @@ def _strip(doc):
     return doc
 
 
+def _replay(ms, bytes_, kv):
+    """The pool's counters predicted from its own log (KV) or pass order."""
+    sizes = {n: paging.page_sizes(ms.model(n).engine.pager.pages)
+             for n in ("a", "b")}
+    if kv:
+        return paging.kv_pass_counters(sizes, bytes_, ms.pool.events)
+    return paging.shared_pass_counters(sizes, bytes_, passes=ms.pass_log)
+
+
+def _counters(ms):
+    return {m: {k: c[k] for k in COUNTERS}
+            for m, c in ms.pool.summary()["models"].items()}
+
+
+POOL_TOTALS = ("live_bytes", "live_wire_bytes", "cached_pages", "evictions",
+               "bytes_streamed_wire", "bytes_streamed_raw")
+
+
 @pytest.mark.parametrize("kv,budget", [(False, "roomy"), (False, "tight"),
                                        (True, "kv-tight")])
 def test_tenants_bit_exact_and_counters_equal_jax(models, kv, budget):
     """Each tenant's tokens equal its solo run and JAX's MultiScheduler's;
     the pool's log equals JAX's event for event; every member's counters
-    and streamed bytes equal JAX's and the replay."""
+    and streamed bytes equal JAX's and the replay.
+
+    Under KV paging the overlapped (async) log is not compared with JAX's:
+    the reference drops a retired slot's pooled blocks on the calling
+    thread while another tenant's pass may still run on the fetch worker,
+    so its async log depends on the worker's timing (ROADMAP C8).  The
+    port drops them on the pool's worker, after every fetch queued before
+    them, which fixes its async log (held against a slowed worker by
+    ``test_kv_drop_log_independent_of_fetch_worker_timing``).  That log is
+    still not the sync one: the async tick begins every tenant's next pass
+    before this tick's compute, so passes and KV batches reach the pool in
+    another order.  So there the port's sync log equals JAX's sync log
+    event for event, with every counter, and the port's async counters
+    equal the replay of its own log."""
     prompts = _prompts(3 if kv else 4)
     max_new = 4 if kv else 5
     bytes_ = _budget(budget, models)
@@ -177,30 +211,37 @@ def test_tenants_bit_exact_and_counters_equal_jax(models, kv, budget):
         solo = _solo("port", models, name, prompts, max_new, kv=kv)
         assert got[name] == solo == jgot[name], name
     assert ms.pass_log == jms.pass_log
-    assert _events(ms.pool) == _events(jms.pool)
-    summ, jsumm = ms.pool.summary(), jms.pool.summary()
-    sizes = {n: paging.page_sizes(ms.model(n).engine.pager.pages)
-             for n in ("a", "b")}
+    pred = _replay(ms, bytes_, kv)
+    assert set(_counters(ms)) == set(pred)
+    for m, c in ms.pool.summary()["models"].items():
+        assert {k: c[k] for k in COUNTERS} == {
+            k: pred[m][k] for k in COUNTERS}, m
+        assert (c["bytes_streamed_wire"], c["bytes_streamed_raw"]) == (
+            pred[m]["bytes_wire"], pred[m]["bytes_raw"])
     if kv:
-        pred = paging.kv_pass_counters(sizes, bytes_, ms.pool.events)
+        sms, sgot = _tenants("port", models, bytes_, prompts, max_new,
+                             kv=kv, async_io=False)
+        jsms, jsgot = _tenants("jax", models, bytes_, prompts, max_new,
+                               kv=kv, async_io=False)
+        assert sgot == got == jsgot
+        assert sms.pass_log == jsms.pass_log
+        pairs = [(sms, jsms)]
+        spred = _replay(sms, bytes_, kv)
+        assert _counters(sms) == {m: {k: spred[m][k] for k in COUNTERS}
+                                  for m in spred}
     else:
-        pred = paging.shared_pass_counters(sizes, bytes_,
-                                           passes=ms.pass_log)
         jpred = jpaging.shared_pass_counters(
             {n: jpaging.page_sizes(jms.model(n).engine.pager.pages)
              for n in ("a", "b")}, bytes_, passes=jms.pass_log)
         assert pred == jpred
-    assert set(summ["models"]) == set(jsumm["models"]) == set(pred)
-    for m in pred:
-        c = summ["models"][m]
-        assert {k: c[k] for k in COUNTERS} == {
-            k: jsumm["models"][m][k] for k in COUNTERS} == {
-            k: pred[m][k] for k in COUNTERS}, m
-        assert (c["bytes_streamed_wire"], c["bytes_streamed_raw"]) == (
-            pred[m]["bytes_wire"], pred[m]["bytes_raw"])
-    for k in ("live_bytes", "live_wire_bytes", "cached_pages", "evictions",
-              "bytes_streamed_wire", "bytes_streamed_raw"):
-        assert summ[k] == jsumm[k], k
+        pairs = [(ms, jms)]
+    for port_ms, jax_ms in pairs:
+        assert _events(port_ms.pool) == _events(jax_ms.pool)
+        assert _counters(port_ms) == _counters(jax_ms)
+        summ, jsumm = port_ms.pool.summary(), jax_ms.pool.summary()
+        for k in POOL_TOTALS:
+            assert summ[k] == jsumm[k], k
+    summ = ms.pool.summary()
     if budget == "roomy":
         assert summ["evictions"] == 0
         assert summ["models"]["a"]["swaps"] == len(
@@ -211,8 +252,41 @@ def test_tenants_bit_exact_and_counters_equal_jax(models, kv, budget):
     if kv:
         assert validate(ms.summary())["models"]["a"]["paging"][
             "kv_swaps"] > 0
+        for port_ms, jax_ms in pairs:
+            port_ms.close()
+            jax_ms.close()
     ms.close()
     jms.close()
+
+
+@pytest.mark.parametrize("delay_s", [0.02, 0.05])
+def test_kv_drop_log_independent_of_fetch_worker_timing(models, monkeypatch,
+                                                        delay_s):
+    """The kv-tight tenancy's pool log and counters do not move when every
+    page and KV block fetch sleeps first: the pooled KV drops run on the
+    pool's fetch worker, ordered after every fetch queued before them
+    (ROADMAP C8)."""
+    prompts, bytes_ = _prompts(3), _budget("kv-tight", models)
+    ms, got = _tenants("port", models, bytes_, prompts, 4, kv=True)
+    log, counters = _events(ms.pool), _counters(ms)
+    ms.close()
+    assert any(kind == "kvdrop" for kind, *_ in log)
+
+    def slowed(fetch):
+        def run(*args, **kw):
+            time.sleep(delay_s)
+            return fetch(*args, **kw)
+        return run
+
+    monkeypatch.setattr(paging.HostPagedStore, "_fetch_page",
+                        slowed(paging.HostPagedStore._fetch_page))
+    monkeypatch.setattr(paging.KVPageTable, "_fetch_block",
+                        slowed(paging.KVPageTable._fetch_block))
+    sms, sgot = _tenants("port", models, bytes_, prompts, 4, kv=True)
+    assert sgot == got
+    assert _events(sms.pool) == log
+    assert _counters(sms) == counters
+    sms.close()
 
 
 def test_pool_refuses_a_private_pager_and_duplicates(models):

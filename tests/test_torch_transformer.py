@@ -146,7 +146,7 @@ def test_init_params_has_the_reference_structure(model):
     assert torch.equal(again["embed"], tparams["embed"])
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-tiny"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         tfm.init_params(tget(arch).smoke(), device="cpu")
