@@ -8,9 +8,9 @@ falcon-mamba-7b and hymba-1.5b, int8 MobileNet-V2 1.0-224 on the N-EUREKA
 operators, qwen3-0.6b again from a paged 4-bit store whose cold half is
 wire-served, both qwen3-0.6b stores once more behind the deadline-aware
 ``Scheduler`` under XR traffic, qwen3-0.6b with its KV cache paged,
-alone and beside falcon-mamba-7b as two tenants of one page pool, and the
-MoE qwen2-moe-a2.7b on the grouped expert kernel -- and fails (non-zero
-exit, no result line) if any phase fails:
+alone and beside falcon-mamba-7b as two tenants of one page pool, the
+MoE qwen2-moe-a2.7b on the grouped expert kernel, and training qwen3-0.6b
+-- and fails (non-zero exit, no result line) if any phase fails:
 
 1. set-up: requires a CUDA device, turns TF32 off, prints the card's name
    and power limit, builds every ``csrc/*.cu`` with nvcc for sm_90a (one
@@ -185,8 +185,34 @@ exit, no result line) if any phase fails:
    set to 0 before and grown after; every distinct call of the profiled
    serve, grouped ones included, against its plain version; the first 2
    layers' logits card vs CPU within ``LOGITS_TOL``);
-10. the ``{"serve": ...}`` and ``{"kernels": [...]}`` lines, the card
-   line, and as the last line ``{"ok": true, "device": {...}}``.
+10. training qwen3-0.6b (``launch/steps.make_train_step`` -> ``lm_loss`` ->
+   ``chunked_attention``; f32 matmuls, TF32 off; no Hopper kernel, as the
+   reference trains through no Pallas kernel).  (a) One step of 2
+   full-width layers (d_model 1024, 16 / 8 heads of 128, d_ff 3072, vocab
+   151,936), batch 2 x 128, on the card against the CPU from the same
+   weights and batch: the loss within 1e-5 relative, every gradient leaf
+   present, finite and non-zero on the card and within 1e-4 of the CPU
+   leaf's largest element, one AdamW step's loss and grad norm within
+   1e-5; C9: each Hopper kernel wrapper raises for an input that requires
+   grad (and launches under ``torch.no_grad``), and ``forward`` over a
+   tree that requires grad raises at the flash kernel.  (b) All 28 layers,
+   ``remat`` on, AdamW at 3e-4, batch 4 x 256, 6 steps through
+   ``Trainer`` on ``SyntheticLMDataset(seed=0)``: the last loss below the
+   first; step time on the host clock (the loss read inside the step),
+   tokens/s and peak device memory printed; the ~7.2 GB checkpoint
+   deleted.  (c) 4 full-width layers, 8 steps, a checkpoint every 3, a
+   failure injected at step 5, against an uninterrupted run, in a
+   subprocess (``python3 chip_smoke.py --train-restart``) with
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and
+   ``torch.use_deterministic_algorithms(True)``: ``restarts`` exactly 1
+   and every leaf of the params and AdamW state bit-equal.  (d) (b)'s
+   trained tree, its leaves set to require grad, frozen at 8 bits (C10:
+   no packed leaf requires grad) and served, 4 requests: the B1 and B2
+   counters, zeroed before, grown after; the first layer's logits card vs
+   CPU within ``LOGITS_TOL``;
+11. the ``{"serve": ...}``, ``{"train": ...}`` and ``{"kernels": [...]}``
+   lines, the card line, and as the last line ``{"ok": true, "device":
+   {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -197,6 +223,7 @@ import contextlib
 import functools
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -2738,6 +2765,476 @@ def serve_moe_phase(torch, m, cfg, dev):
     return served, err, times
 
 
+# phase 10: training (launch/steps.make_train_step -> lm_loss ->
+# chunked_attention, f32 matmuls without TF32); training runs none of the
+# Hopper kernels, which are forward-only (C9), as the reference's runs none
+# of its Pallas kernels
+TRAIN_ARCH = "qwen3-0.6b"
+# (a) card vs CPU, (b) full depth through Trainer, (c) restart equivalence
+# in a subprocess under deterministic algorithms, (d) the trained tree served
+TRAIN_CHECK = dict(layers=2, batch=2, seq=128)
+TRAIN_FULL = dict(steps=6, batch=4, seq=256, lr=3e-4)
+TRAIN_RESTART = dict(layers=4, steps=8, every=3, fail_at=5, batch=2,
+                     seq=128, lr=3e-4)
+TRAIN_SERVE = dict(requests=4, max_new=8, max_len=128)
+TRAIN_LOSS_RTOL = 1e-5     # card vs CPU loss: f32 sums in another order
+TRAIN_GRAD_TOL = 1e-4      # card vs CPU, of each CPU leaf's largest element
+TRAIN_KERNELS = ("qmatmul_f32", "flash_attention")
+TRAIN_CKPT = ROOT / "build" / "train_ckpt"
+# kernel-name fragments of a train step's device time, as the profiler
+# names them (cuBLAS / CUTLASS f32 GEMMs; PyTorch's own kernels)
+PROFILE_TRAIN_KERNELS = (("gemm", "f32 matmuls"),
+                         ("softmax", "softmax"), ("reduce", "reductions"),
+                         ("elementwise", "elementwise"),
+                         ("index", "indexing and sort"),
+                         ("sort", "indexing and sort"),
+                         ("scatter", "indexing and sort"),
+                         ("gather", "indexing and sort"))
+
+
+def forward_only_cases(torch, packing, ops, qmm, fa, ssm, nkc, dev):
+    """(wrapper, call(t), t) for each Hopper kernel wrapper at a small
+    shape, ``t`` the float input that is made to require grad (C9)."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    q, k, x = randn(1, 2, 8, 16), randn(1, 1, 8, 16), randn(4, 64)
+    packed, scale = ops.prep_linear(randn(32, 64), 8)
+    gpacked, gscale = expert_weights(torch, ops, gen, dev, 2, 64, 32, 8)
+    wpacked, wscales = wire_weight(torch, gen, dev, 32, 64, 8)
+    xq, ipacked, mult, bias = neureka_case(torch, packing, ops, gen, dev,
+                                           "pw1x1", (4, 64, 32), 8)
+    scan = scan_inputs(torch, gen, dev, 1, 4, 64, 16, True)
+    dense = neureka_case(torch, packing, ops, gen, dev, "dense3x3",
+                         (8, 8, 16, 16, 1), 8)
+    dw = neureka_case(torch, packing, ops, gen, dev, "dw3x3", (8, 8, 16, 1),
+                      8)
+    return (
+        ("flash_attention", lambda t: fa.flash_attention(t, k, k), q),
+        ("qmatmul_f32", lambda t: qmm.qmatmul_f32(t, packed, scale, bits=8,
+                                                  k_orig=64), x),
+        ("qmatmul_f32_grouped", lambda t: qmm.qmatmul_f32_grouped(
+            t, gpacked, gscale, bits=8, k_orig=64), randn(2, 4, 64)),
+        ("qmatmul_f32_blockscale", lambda t: qmm.qmatmul_f32_blockscale(
+            t, wpacked, wscales, bits=8, k_orig=64), x.clone()),
+        ("qmatmul_int8", lambda t: qmm.qmatmul_int8(
+            xq, ipacked, t, bias, bits=8, k_orig=64), mult),
+        ("selective_scan", lambda t: ssm.selective_scan(t, *scan[1:]),
+         scan[0]),
+        ("conv3x3_dense", lambda t: nkc.conv3x3_dense(
+            dense[0], dense[1], t, dense[3], bits=8, cin=16), dense[2]),
+        ("conv3x3_dw", lambda t: nkc.conv3x3_dw(dw[0], dw[1], t, dw[3],
+                                                bits=8), dw[2]),
+    )
+
+
+def check_forward_only(torch, m, dev):
+    """C9 on the card: each wrapper given an input that requires grad
+    under grad mode raises; under ``torch.no_grad`` it launches.  Returns
+    the wrappers checked."""
+    names = []
+    for name, call, t in forward_only_cases(
+            torch, m["packing"], m["ops"], m["qmm"], m["fa"], m["ssm"],
+            m["nkc"], dev):
+        t.requires_grad_()
+        try:
+            call(t)
+        except RuntimeError as e:
+            if "forward-only" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name} launched on an input that "
+                                 "requires grad (C9)")
+        with torch.no_grad():
+            call(t)
+        names.append(name)
+    torch.cuda.synchronize()
+    return names
+
+
+def train_batch(torch, m, cfg, batch: int, seq: int, step: int, dev):
+    ds = m["SyntheticLMDataset"](cfg.vocab_size, seq, batch, seed=0)
+    return {k: torch.from_numpy(v).to(dev) for k, v in ds.batch(step).items()}
+
+
+def train_check(torch, m, cfg, dev):
+    """(a) One step of ``TRAIN_CHECK['layers']`` full-width layers on the
+    card against the CPU from the same weights (a CPU generator, moved)
+    and batch: the loss within TRAIN_LOSS_RTOL, every gradient leaf
+    present, finite and non-zero on the card and within TRAIN_GRAD_TOL of
+    the CPU's largest element; one ``make_train_step`` step's loss and
+    grad norm as well.  Then C9: each wrapper refuses an input that
+    requires grad, and serving's ``forward`` over a tree that requires grad
+    raises at the flash kernel instead of cutting the gradient."""
+    T, steps = m["tree"], m["steps"]
+    c = TRAIN_CHECK
+    ccfg = cfg.replace(n_layers=c["layers"])
+    cpu = m["tfm"].init_params(ccfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    gpu = T.tree_map(lambda t: t.to(dev), cpu)
+    batch = train_batch(torch, m, ccfg, c["batch"], c["seq"], 0, "cpu")
+    gbatch = {k: v.to(dev) for k, v in batch.items()}
+    t0 = time.perf_counter()
+    lc, gc_ = steps.loss_and_grads(cpu, batch, ccfg)
+    t_cpu = time.perf_counter() - t0
+    lg, gg = steps.loss_and_grads(gpu, gbatch, ccfg)
+    torch.cuda.synchronize()
+    loss_err = abs(lg.item() - lc.item()) / abs(lc.item())
+    if not loss_err <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train loss card {lg.item()} vs CPU "
+                             f"{lc.item()}: relative error {loss_err}")
+    worst, n_leaves = 0.0, 0
+    for (path, a), b in zip(T.flatten_with_paths(gg), T.leaves(gc_)):
+        a = a.cpu()
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"gradient of {'/'.join(path)} is missing, "
+                                 "misshapen or not finite on the card")
+        if not a.abs().max() > 0:
+            raise AssertionError(f"gradient of {'/'.join(path)} is zero on "
+                                 "the card (cut off from autograd?)")
+        err = ((a - b).abs().max() / b.abs().max()).item()
+        if not err <= TRAIN_GRAD_TOL:
+            raise AssertionError(f"gradient of {'/'.join(path)} card vs CPU:"
+                                 f" {err:.3e} of its largest element")
+        worst, n_leaves = max(worst, err), n_leaves + 1
+    opt = m["adamw"]()
+    step = steps.make_train_step(ccfg, opt, lr=TRAIN_FULL["lr"])
+    _, _, mc = step(cpu, opt.init(cpu), batch)
+    _, _, mg = step(gpu, opt.init(gpu), gbatch)
+    step_err = {k: abs(mg[k].item() - mc[k].item()) / abs(mc[k].item())
+                for k in ("loss", "grad_norm")}
+    if not max(step_err.values()) <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"make_train_step card vs CPU: {step_err}")
+    refused = check_forward_only(torch, m, dev)
+    for p in T.leaves(gpu):
+        p.requires_grad_()
+    try:
+        m["tfm"].forward(gpu, gbatch["tokens"], ccfg)
+    except RuntimeError as e:
+        if "forward-only" not in str(e):
+            raise
+    else:
+        raise AssertionError("forward over a tree that requires grad ran "
+                             "through the flash kernel (C9)")
+    print(f"[train] (a) {cfg.name} {c['layers']} layers at full width, "
+          f"batch {c['batch']} x {c['seq']}: loss card {lg.item():.6f} CPU "
+          f"{lc.item():.6f} (relative {loss_err:.2e}, tolerance "
+          f"{TRAIN_LOSS_RTOL}); {n_leaves} gradient leaves present, finite "
+          f"and non-zero, worst {worst:.2e} of the leaf's largest element "
+          f"(tolerance {TRAIN_GRAD_TOL}); one AdamW step's loss / grad norm "
+          f"relative {step_err['loss']:.2e} / {step_err['grad_norm']:.2e}; "
+          f"the CPU's value and grad took {t_cpu:.2f} s; C9: "
+          f"{', '.join(refused)} and forward's flash refuse an input that "
+          "requires grad")
+    return dict(loss_rel_err=loss_err, grad_max_rel_err=worst,
+                grad_leaves=n_leaves, step_rel_err=step_err,
+                forward_only=refused)
+
+
+def train_full(torch, m, cfg, dev):
+    """(b) Full depth, ``remat`` on, AdamW, ``TRAIN_FULL['steps']`` steps
+    through ``Trainer`` on ``SyntheticLMDataset(seed=0)``: the last loss
+    must be below the first.  Returns the readings and the trained
+    params; the checkpoint directory is deleted."""
+    import shutil
+
+    f = TRAIN_FULL
+    if not cfg.remat:
+        raise AssertionError(f"{cfg.name} trains with remat")
+    opt = m["adamw"]()
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+
+    def init_state():
+        p = m["tfm"].init_params(cfg, torch.Generator(device=dev)
+                                 .manual_seed(0), device=dev)
+        return dict(params=p, opt_state=opt.init(p))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step_fn = m["steps"].make_train_step(cfg, opt, lr=f["lr"])
+    trainer = m["Trainer"](
+        m["TrainerConfig"](total_steps=f["steps"],
+                           checkpoint_dir=str(TRAIN_CKPT), log_every=1),
+        step_fn, init_state,
+        m["SyntheticLMDataset"](cfg.vocab_size, f["seq"], f["batch"], seed=0),
+        device=dev)
+    out = trainer.run()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    profile = profile_train_step(torch, step_fn, out, train_batch(
+        torch, m, cfg, f["batch"], f["seq"], f["steps"], dev))
+    ckpt_bytes = sum(p.stat().st_size for p in TRAIN_CKPT.rglob("*.npy"))
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    losses = [r["loss"] for r in out["metrics"]]
+    steps_s = trainer.monitor.history
+    if out["restarts"] or len(losses) != f["steps"]:
+        raise AssertionError(f"full-width training restarted "
+                             f"{out['restarts']} times over {len(losses)} "
+                             "steps")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"full-width training losses {losses}: the "
+                             "last is not below the first")
+    steady = sorted(steps_s[1:])[len(steps_s[1:]) // 2]
+    tokens = f["batch"] * f["seq"]
+    print(f"[train] (b) {cfg.name} at full width ({cfg.n_layers} layers, "
+          f"remat), AdamW lr {f['lr']}, batch {f['batch']} x {f['seq']}, "
+          f"{f['steps']} steps through Trainer: losses "
+          f"{[round(x, 4) for x in losses]}; step time (host clock, loss "
+          f"read inside the step) first {steps_s[0] * 1e3:.1f} ms, median "
+          f"of the rest {steady * 1e3:.1f} ms, each "
+          f"{[round(s * 1e3, 1) for s in steps_s]}; {tokens / steady:.0f} "
+          f"tokens/s; peak device memory {peak / 2**30:.2f} GiB; the "
+          f"checkpoint {ckpt_bytes / 1e9:.2f} GB, run {wall:.1f} s in all "
+          "(init, steps, checkpoint), deleted")
+    return dict(losses=losses, step_s=steps_s, step_ms_median=steady * 1e3,
+                tokens_per_s=tokens / steady, peak_gib=peak / 2**30,
+                checkpoint_gb=ckpt_bytes / 1e9, wall_s=wall,
+                profile=profile), out["params"]
+
+
+def profile_train_step(torch, step_fn, state, batch):
+    """Device time by kernel kind and the device's idle share of one more
+    train step from ``state``'s params and optimizer state, from
+    ``torch.profiler`` (device activity only); the step is thrown away."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, metrics = step_fn(state["params"], state["opt_state"], batch)
+        metrics["loss"].item()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    if not kernels:
+        print("[train] profiler: no device events recorded; device time "
+              "by kernel not measured")
+        return None
+    busy, end, by_kind = 0.0, -1.0, {}
+    for e in kernels:
+        t0_, t1_ = e.time_range.start, e.time_range.end
+        busy += max(0.0, t1_ - max(t0_, end))
+        end = max(end, t1_)
+        kind = next((lab for frag, lab in PROFILE_TRAIN_KERNELS
+                     if frag in e.name.lower()), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + (t1_ - t0_) / 1e3
+    res = dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
+               idle_share=1.0 - busy / wall_us, n_kernels=len(kernels),
+               by_kind_ms={k: round(v, 3) for k, v in sorted(
+                   by_kind.items(), key=lambda kv: -kv[1])})
+    print(f"[train] profiler over one more step: device busy "
+          f"{busy / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms on the host clock "
+          f"(idle share {res['idle_share']:.3f}), {len(kernels)} kernels; "
+          f"by kind (ms) {json.dumps(res['by_kind_ms'])}")
+    return res
+
+
+def restart_leg(torch, m, cfg, dev):
+    """(c) The body of the subprocess: ``TRAIN_RESTART['layers']``
+    full-width layers, a run with a failure injected against an
+    uninterrupted one under deterministic algorithms; ``restarts`` must be
+    exactly 1 (0 for the clean run) and the final params and optimizer
+    state equal bit for bit."""
+    import shutil
+
+    r = TRAIN_RESTART
+    rcfg = cfg.replace(n_layers=r["layers"])
+    opt = m["adamw"]()
+    T = m["tree"]
+
+    def run(name, fail_at):
+        path = TRAIN_CKPT / name
+        shutil.rmtree(path, ignore_errors=True)
+
+        def init_state():
+            p = m["tfm"].init_params(rcfg, torch.Generator(device=dev)
+                                     .manual_seed(0), device=dev)
+            return dict(params=p, opt_state=opt.init(p))
+
+        t0 = time.perf_counter()
+        out = m["Trainer"](
+            m["TrainerConfig"](total_steps=r["steps"],
+                               checkpoint_every=r["every"],
+                               checkpoint_dir=str(path), log_every=100),
+            m["steps"].make_train_step(rcfg, opt, lr=r["lr"]), init_state,
+            m["SyntheticLMDataset"](rcfg.vocab_size, r["seq"], r["batch"],
+                                    seed=0),
+            failure_injector=m["FailureInjector"](fail_at), device=dev).run()
+        out["wall_s"] = time.perf_counter() - t0
+        shutil.rmtree(path, ignore_errors=True)
+        return out
+
+    clean = run("clean", [])
+    crashed = run("crashed", [r["fail_at"]])
+    if clean["restarts"] != 0 or crashed["restarts"] != 1:
+        raise AssertionError(f"restarts: clean {clean['restarts']}, crashed "
+                             f"{crashed['restarts']}; want 0 and 1")
+    unequal = [path for (path, a), b in zip(
+        T.flatten_with_paths(dict(p=clean["params"], o=clean["opt_state"])),
+        T.leaves(dict(p=crashed["params"], o=crashed["opt_state"])))
+        if not torch.equal(a, b)]
+    if unequal:
+        raise AssertionError(f"the restarted run's leaves {unequal[:4]} "
+                             "differ from the uninterrupted run's")
+    return dict(layers=r["layers"], steps=r["steps"], fail_at=r["fail_at"],
+                restarts=crashed["restarts"],
+                steps_run=[x["step"] for x in crashed["metrics"]],
+                leaves_equal=len(T.leaves(clean["params"]))
+                + len(T.leaves(clean["opt_state"])),
+                wall_s=[clean["wall_s"], crashed["wall_s"]])
+
+
+def train_restart(torch):
+    """(c) ``restart_leg`` in a subprocess with ``CUBLAS_WORKSPACE_CONFIG``
+    set, so the deterministic cuBLAS workspace does not touch this
+    process's library timings."""
+    import os
+
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--train-restart"], capture_output=True, text=True,
+                         timeout=600, env=env)
+    if out.returncode != 0:
+        raise AssertionError(f"restart leg exited {out.returncode}:\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])["restart"]
+    print(f"[train] (c) {TRAIN_ARCH} {res['layers']} layers at full width, "
+          f"{res['steps']} steps, a checkpoint every "
+          f"{TRAIN_RESTART['every']}, a failure injected at step "
+          f"{res['fail_at']}, under torch.use_deterministic_algorithms "
+          f"(CUBLAS_WORKSPACE_CONFIG=:4096:8, a subprocess): restarts "
+          f"{res['restarts']}, steps run {res['steps_run']}; all "
+          f"{res['leaves_equal']} leaves of the params and AdamW state equal "
+          f"the uninterrupted run's bit for bit; walls "
+          f"{[round(w, 1) for w in res['wall_s']]} s")
+    return res
+
+
+def train_restart_main() -> int:
+    """The subprocess of (c): ``python3 chip_smoke.py --train-restart``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    from repro_torch.configs import get_config
+
+    res = restart_leg(torch, train_modules(), get_config(TRAIN_ARCH),
+                      torch.device("cuda"))
+    print(json.dumps({"restart": res}))
+    return 0
+
+
+def train_serve(torch, m, cfg, params, dev):
+    """(d) (b)'s trained tree, its leaves set to require grad, frozen at 8
+    bits: no leaf of the packed tree requires grad (C10); 4 requests
+    through ``ServingEngine`` launch B1 and B2 (counters zeroed before);
+    the first layer's logits on the card match the CPU's."""
+    import numpy as np
+
+    T = m["tree"]
+    for p in T.leaves(params):
+        p.requires_grad_()
+    packed = m["freeze"](params, bits=8, device=dev)
+    grad_leaves = [p for p in leaves(packed) if p.requires_grad]
+    if grad_leaves:
+        raise AssertionError(f"{len(grad_leaves)} leaves of the frozen tree "
+                             "require grad (C10)")
+    s = TRAIN_SERVE
+    eng = m["ServingEngine"](cfg, packed, batch_slots=4, max_len=s["max_len"],
+                             device=dev)
+    rng = np.random.default_rng(10)
+    for uid, n in enumerate(rng.integers(16, 65, s["requests"])):
+        eng.submit(m["Request"](uid=uid, prompt=rng.integers(
+            0, cfg.vocab_size, int(n)).astype(np.int32),
+            max_new_tokens=s["max_new"]))
+    counters = {"qmatmul_f32": m["qmm"].qmatmul_f32,
+                "flash_attention": m["fa"].flash_attention}
+    zero_launches(counters)
+    t0 = time.perf_counter()
+    done = eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, _ = read_launches(counters)
+    if (len(done) != s["requests"]
+            or any(len(r.generated) != s["max_new"] for r in done)):
+        raise AssertionError("the trained tree's serve left requests short")
+    for name in TRAIN_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched serving the "
+                                 "trained tree")
+    fcfg = cfg.replace(n_layers=1)
+    tree = dict(packed, layers=first_layers(packed["layers"], 1))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64)))
+    with torch.no_grad():
+        got = m["tfm"].forward(tree, toks.to(dev), fcfg).cpu()
+        want = m["tfm"].forward(to_device(torch, tree, "cpu"), toks, fcfg)
+    err = (got - want).abs().max().item()
+    if not (torch.isfinite(got).all() and torch.allclose(got, want,
+                                                         **LOGITS_TOL)):
+        raise AssertionError(f"trained tree's first-layer logits card vs "
+                             f"CPU: max abs err {err}")
+    print(f"[train] (d) the trained tree (leaves set to require grad) frozen "
+          f"at 8 bits: no packed leaf requires grad; {len(done)} requests, "
+          f"{sum(len(r.generated) for r in done)} new tokens in {wall:.2f} s,"
+          f" launches {launches}; first layer's logits card vs CPU max abs "
+          f"err {err:.3e} (tolerance {LOGITS_TOL})")
+    return dict(launches=launches, wall_s=wall, logits_max_abs_err=err)
+
+
+def train_modules():
+    """The port's modules phase 10 and its subprocess use."""
+    from repro_torch.core import packing, tree
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import neureka_conv as nkc
+    from repro_torch.kernels import qmatmul as qmm
+    from repro_torch.kernels import ssm_scan as ssm
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import freeze_for_serving
+    from repro_torch.runtime import FailureInjector, Trainer, TrainerConfig
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    return dict(packing=packing, tree=tree,
+                SyntheticLMDataset=SyntheticLMDataset, ops=ops, fa=fa,
+                nkc=nkc, qmm=qmm, ssm=ssm, steps=steps, tfm=tfm, adamw=adamw,
+                freeze=freeze_for_serving, FailureInjector=FailureInjector,
+                Trainer=Trainer, TrainerConfig=TrainerConfig,
+                Request=Request, ServingEngine=ServingEngine)
+
+
+def train_phase(torch, cfg, dev):
+    """Phase 10: (a) card vs CPU and C9, (b) full depth through Trainer,
+    (c) restart equivalence in a subprocess, (d) the trained tree served
+    (C10).  Returns the readings."""
+    m = train_modules()
+    t0 = time.perf_counter()
+    check = train_check(torch, m, cfg, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    full, params = train_full(torch, m, cfg, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    served = train_serve(torch, m, cfg, params, dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    restart = train_restart(torch)
+    wall = time.perf_counter() - t0
+    print(f"[train] phase 10 took {wall:.1f} s")
+    return dict(check=check, full=full, restart=restart, serve=served,
+                wall_s=wall)
+
+
 def to_device(torch, tree, dev):
     if isinstance(tree, dict):
         return {k: to_device(torch, v, dev) for k, v in tree.items()}
@@ -2916,7 +3413,16 @@ def main() -> int:
     grouped_err = max(grouped_err, moe["path_check"]["max_abs_err"][
         "qmatmul_f32_grouped"])
 
-    # 10. result lines
+    # 10. training qwen3-0.6b on the card; then its trained tree served
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_phase(torch, get_config(TRAIN_ARCH), dev)
+    for name in TRAIN_KERNELS:
+        launches[name] += train["serve"]["launches"][name]
+    served[f"{TRAIN_ARCH} trained"] = dict(launches=train["serve"]["launches"],
+                                          launches_by_class={})
+
+    # 11. result lines
     by_path = {name: {arch: s["launches"][name] for arch, s in served.items()
                       if name in s["launches"]}
                for name in counters}
@@ -3020,6 +3526,7 @@ def main() -> int:
         bytes_ms=t["bytes_ms"], tf32_ops_ms=t["tf32_ops_ms"],
         bound_f32_ms=t["bound_f32_ms"], prefill_M256=t_bs["prefill"]))
     print(json.dumps({"serve": served}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3029,4 +3536,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(train_restart_main() if sys.argv[1:] == ["--train-restart"]
+             else main())

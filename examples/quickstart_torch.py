@@ -1,8 +1,8 @@
-"""Quickstart on the PyTorch port: steps 2-4 of ``examples/quickstart.py``.
+"""Quickstart on the PyTorch port: the four steps of
+``examples/quickstart.py``.
 
-1. (training arrives with the port's trainer; the weights here are random,
-   from ``init_params`` with a seeded generator),
-2. freeze them into the packed At-MRAM store at 8 and 4 bits,
+1. train a tiny LM (the reduced qwen3 config) for 30 AdamW steps,
+2. freeze it into the packed At-MRAM store at 8 and 4 bits,
 3. serve 6 requests through the deadline-aware ``Scheduler`` over the fused
    dequant path,
 4. show that the NVM scenarios compute the same numbers by different weight
@@ -21,7 +21,10 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
+from repro_torch.data import SyntheticLMDataset
+from repro_torch.launch.steps import make_train_step
 from repro_torch.models import transformer as tfm
+from repro_torch.optim import adamw
 from repro_torch.parallel.sharding import freeze_for_serving
 from repro_torch.serving import Request, Scheduler, ServingEngine, validate
 
@@ -44,6 +47,19 @@ def main(argv=None):
           f"device {dev}")
     gen = torch.Generator(device=dev).manual_seed(0)
     params = tfm.init_params(cfg, gen, device=dev)
+
+    # 1. train
+    opt = adamw()
+    step = make_train_step(cfg, opt, lr=1e-3)
+    opt_state = opt.init(params)
+    ds = SyntheticLMDataset(cfg.vocab_size, 64, 8, seed=0)
+    for i in range(30):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in ds.batch(i).items()}
+        params, opt_state, m = step(params, opt_state, batch)
+        if i % 10 == 0:
+            print(f"  step {i:3d} loss {float(m['loss']):.4f}")
+    print(f"  final loss {float(m['loss']):.4f}")
 
     # 2. freeze into the packed store ("MRAM programming")
     dense_b = _nbytes(params)

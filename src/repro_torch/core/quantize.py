@@ -7,6 +7,10 @@ does, and the divisions are the same f32 divisions on either device, so
 the levels, scales and folded requant parameters are bit-identical to the
 (eager) reference's.
 
+The QAT half (``_ste_round``, ``fake_quant_weights``;
+``repro/core/quantize.py:150-173``) rounds forward and passes the gradient
+straight through backward, as the reference's ``jax.custom_vjp`` does.
+
 The page wire codec (``PAGE_SCALE_BLOCK``, ``quantize_blockwise``,
 ``dequantize_blockwise``; ``repro/core/quantize.py:195-243``) is a copy of
 the reference's host-side numpy code, so its levels and scales are
@@ -106,6 +110,44 @@ def requantize(acc: torch.Tensor, rq: RequantParams) -> torch.Tensor:
     y = torch.floor(y + 0.5)
     y = y + rq.bias.to(torch.float32)
     return torch.clamp(y, 0, 255).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Fake-quant (QAT): straight-through estimators so training can see the
+# quantization grid the serving path will use (``quantize.py:150-173``).
+# ---------------------------------------------------------------------------
+
+class _STERound(torch.autograd.Function):
+    """Round half to even forward; the gradient passes through unchanged
+    (the reference's ``jax.custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+_ste_round = _STERound.apply
+
+
+def fake_quant_weights(w: torch.Tensor, bits: int,
+                       channel_axis: int = 0) -> torch.Tensor:
+    """Differentiable (STE) symmetric per-channel weight fake-quantization."""
+    qmin, qmax = weight_qrange(bits)
+    wm = torch.movedim(w, channel_axis, 0)
+    flat = wm.reshape(wm.shape[0], -1)
+    absmax = flat.abs().amax(dim=1, keepdim=True)
+    scale = torch.where(absmax > 0, absmax / torch.full_like(absmax, qmax),
+                        torch.ones_like(absmax))
+    # minimum / maximum, not clamp: at a bound they split the gradient in
+    # halves, as jnp.clip does; clamp passes all of it
+    q = torch.minimum(torch.maximum(_ste_round(flat / scale),
+                                    torch.full_like(flat, qmin)),
+                      torch.full_like(flat, qmax)) * scale
+    return torch.movedim(q.reshape(wm.shape), 0, channel_axis)
 
 
 # ---------------------------------------------------------------------------

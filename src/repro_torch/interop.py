@@ -13,9 +13,14 @@ here.  Two kinds of tree come across:
   ``meta_tokens`` as they are (:func:`params_from_numpy`);
 - MobileNet-V2's, one entry per N-EUREKA job: the float ``{"w", "bias"}``
   tree of ``init_params`` or the frozen ``{"packed", "mult", "bias"}`` tree
-  of ``freeze_packed`` (:func:`mobilenet_from_numpy`).
+  of ``freeze_packed`` (:func:`mobilenet_from_numpy`);
+- an optimizer state of ``repro/optim/optimizers.py``: AdamW's
+  ``dict(mu, nu, count)`` or Adafactor's ``dict(v=[...], count)``, whose
+  list follows the params' leaves in ``jax.tree_util`` order
+  (:func:`opt_state_from_numpy`).
 
-This module never imports JAX; the caller does the ``jax -> numpy`` step.
+:func:`params_to_numpy` exports any of them back, so tests compare the two
+packages' trees leaf by leaf.  This module never imports JAX; the caller does the ``jax -> numpy`` step.
 """
 
 from __future__ import annotations
@@ -83,11 +88,34 @@ def mobilenet_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
             for name, leaf in tree.items()}
 
 
+def opt_state_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
+    """An optimizer state of numpy arrays (dicts and lists) -> the same
+    tree of tensors on ``device`` (default ``cuda``); ``count`` stays
+    int32."""
+    dev = resolve_device(device)
+    if not isinstance(tree, dict) or "count" not in tree or not (
+            {"mu", "nu"} <= set(tree) or isinstance(tree.get("v"), list)):
+        raise ValueError("not an AdamW dict(mu, nu, count) or Adafactor "
+                         "dict(v=[...], count) state")
+
+    def walk(t: Any) -> Any:
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v) for v in t]
+        return _leaf_to_torch(t, dev)
+
+    return walk(tree)
+
+
 def params_to_numpy(tree: Any) -> Any:
-    """Inverse of :func:`params_from_numpy`: tensors -> numpy arrays on the
-    host (bf16 leaves come back as float32)."""
+    """Inverse of :func:`params_from_numpy` and
+    :func:`opt_state_from_numpy`: tensors -> numpy arrays on the host
+    (bf16 leaves come back as float32)."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
     t = tree.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)

@@ -32,7 +32,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.launch import sm_count, tile_counters
+from repro_torch.kernels.launch import forward_only, sm_count, tile_counters
 
 # head dims the kernel is instantiated for, each with its keys a kv tile
 # (csrc/flash_attention.cu instantiates the same pairs); 4 warps a block of
@@ -163,6 +163,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if devices == {"cpu"}:
         return ref.flash_attention(q, k, v, causal=causal, scale=scale,
                                    window=window, q_offset=q_offset)
+    forward_only("flash_attention", q, k, v)
     if devices != {"cuda"} or len({q.device, k.device, v.device}) != 1:
         raise ValueError("flash_attention needs q, k and v on one CUDA "
                          f"device (or all on the CPU), got {q.device}, "

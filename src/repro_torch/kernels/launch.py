@@ -1,8 +1,9 @@
-"""Per-card launch state that several kernel wrappers share: the card's SM
-count, which the launch plans read, and the zeroed counters of the kernels
-whose last block of a tile adds the split slices (the f32 decode loop,
-``qmatmul_int8`` and ``flash_attention``).  Nothing here touches a card
-when the module is imported.
+"""What several kernel wrappers share: the card's SM count, which the
+launch plans read; the zeroed counters of the kernels whose last block of a
+tile adds the split slices (the f32 decode loop, ``qmatmul_int8`` and
+``flash_attention``); and ``forward_only``, the check every wrapper makes
+before it launches.  Nothing here touches a card when the module is
+imported.
 """
 
 from __future__ import annotations
@@ -10,6 +11,22 @@ from __future__ import annotations
 import functools
 
 import torch
+
+
+def forward_only(name: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would need a gradient through ``name``'s launch.
+
+    The Hopper kernels have no backward: a launch's output has no
+    ``grad_fn``, so ``backward()`` would silently give no gradient to
+    whatever fed it.  Refuse instead, when grad mode is on and a float
+    input requires grad."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.is_floating_point() and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the Hopper kernels are "
+            "forward-only (ROADMAP A10); train through models/transformer."
+            "lm_loss, or call it under torch.no_grad()")
 
 
 @functools.lru_cache(maxsize=None)

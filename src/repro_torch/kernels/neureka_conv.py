@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.launch import forward_only
 from repro_torch.kernels.qmatmul import copy_width, qmatmul_int8
 
 _c_ptr = ctypes.c_void_p
@@ -182,6 +183,7 @@ def _check(name: str, x, packed, mult, bias, bits: int, stride: int,
            channels: int, packed_shape):
     """Device, type, shape and contiguity checks shared by the 3x3 ops."""
     tensors = (x, packed, mult, bias)
+    forward_only(name, *tensors)
     if ({t.device.type for t in tensors} != {"cuda"}
             or len({t.device for t in tensors}) != 1):
         raise ValueError(f"{name} needs x, packed, mult and bias on one CUDA "

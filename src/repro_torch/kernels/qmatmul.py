@@ -37,7 +37,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.launch import sm_count, tile_counters
+from repro_torch.kernels.launch import forward_only, sm_count, tile_counters
 
 _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -218,6 +218,7 @@ def _qmm_f32(name: str, x: torch.Tensor, packed: torch.Tensor,
     """Check and launch B1 on the card for E stacked problems: x (E, M, K),
     packed (E, N, Kp), scale (E, N) -> (E, M, N); the 2-D call is E = 1."""
     tensors = (x, packed, scale)
+    forward_only(name, *tensors)
     if ({t.device.type for t in tensors} != {"cuda"}
             or len({t.device for t in tensors}) != 1):
         raise ValueError(f"{name} needs x, packed and scale on one CUDA "
@@ -306,6 +307,7 @@ def qmatmul_f32_blockscale(x: torch.Tensor, packed: torch.Tensor,
     if {t.device.type for t in tensors} == {"cpu"}:
         return ref.qmatmul_f32_blockscale(x, packed, scales, bits=bits,
                                           k_orig=k_orig, block=block)
+    forward_only("qmatmul_f32_blockscale", *tensors)
     if ({t.device.type for t in tensors} != {"cuda"}
             or len({t.device for t in tensors}) != 1):
         raise ValueError("qmatmul_f32_blockscale needs x, packed and scales "
@@ -460,6 +462,7 @@ def qmatmul_int8(x_q: torch.Tensor, packed: torch.Tensor, mult: torch.Tensor,
     if {t.device.type for t in tensors} == {"cpu"}:
         return ref.qmatmul_int8(x_q, packed, mult, bias, bits=bits,
                                 k_orig=k_orig)
+    forward_only("qmatmul_int8", *tensors)
     if ({t.device.type for t in tensors} != {"cuda"}
             or len({t.device for t in tensors}) != 1):
         raise ValueError("qmatmul_int8 needs x_q, packed, mult and bias on "

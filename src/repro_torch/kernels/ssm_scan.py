@@ -31,6 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.launch import forward_only
 
 # state sizes the kernel is instantiated for
 N_STATES = (4, 8, 16, 32)
@@ -107,6 +108,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if {t.device.type for t in tensors} == {"cpu"}:
         y, h_last = ref.selective_scan(x, dt, A, B, C, D, h0)
         return y, (h_last if h_out is None else h_out.copy_(h_last))
+    forward_only("selective_scan", *tensors)
     if ({t.device.type for t in tensors} != {"cuda"}
             or len({t.device for t in tensors}) != 1):
         raise ValueError("selective_scan needs every input on one CUDA "

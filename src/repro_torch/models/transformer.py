@@ -10,6 +10,13 @@ kernel (the MoE experts' through its grouped launch, ``models/moe.py``),
 every SSM scan through the Hopper selective-scan kernel (``kernels.ops``);
 decode attention stays in PyTorch ops.
 
+Training (``lm_loss``, ``transformer.py:367-380``) runs none of the Hopper
+kernels, which are forward-only: ``forward(train=True)`` computes attention
+with ``models/attention.chunked_attention`` as the reference's training
+path does, and wraps each layer in ``torch.utils.checkpoint`` when
+``cfg.remat`` is set, as ``jax.checkpoint`` wraps the reference's scan
+body.  Only the dense family trains so far (ROADMAP A10).
+
 The SSM family (falcon-mamba) is attention-free; the hybrid family (hymba)
 runs attention and SSM heads in parallel on the same normalised input,
 mixes sliding-window and global attention layers, and prepends learned meta
@@ -21,11 +28,14 @@ and so does hymba's ``segmented_window_scan`` fast path.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import tree as T
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_lib
@@ -61,6 +71,18 @@ def check_family(cfg: ModelConfig) -> None:
                 f"{cfg.name}: {field}={getattr(cfg, field)!r} is not ported "
                 "(ROADMAP C6 / C7); the port computes attention and the "
                 "selective scan in float32 only")
+
+
+TRAINABLE = ("dense",)
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    check_family(cfg)
+    if cfg.family not in TRAINABLE:
+        raise NotImplementedError(
+            f"{cfg.name}: training of the {cfg.family!r} family is not "
+            f"ported yet (ROADMAP A10); the port trains the "
+            f"{', '.join(TRAINABLE)} family")
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +206,10 @@ def _ssm_params(cfg: ModelConfig, dense, normal, zeros, n: int,
     )
 
 
+def count_params(params: Any) -> int:
+    return sum(p.numel() for p in T.leaves(params))
+
+
 def layer_params(params: Params, cfg: ModelConfig) -> List[Params]:
     """The stacked layer tree as one dict of views per layer."""
     def take(tree, i):
@@ -201,7 +227,10 @@ def _attn_apply(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
                 window: Optional[int],
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 cache_pos: Optional[attn_lib.Pos] = None,
-                engine: Optional[Any] = None) -> torch.Tensor:
+                engine: Optional[Any] = None,
+                attend: Optional[Callable] = None) -> torch.Tensor:
+    """``attend`` replaces the flash kernel where no cache is given (the
+    training path's ``chunked_attention``)."""
     b, s, _ = x.shape
     hd = cfg.hd
     q = L.linear(x, p["wq"], engine=engine, path="layers/attn/wq",
@@ -238,8 +267,8 @@ def _attn_apply(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
             o = kops.attention(q, cache["k"], cache["v"], causal=True,
                                window=window, q_offset=start)
     else:
-        o = kops.attention(q, k, v, causal=True, window=window,
-                           q_offset=start)
+        o = (attend or kops.attention)(q, k, v, causal=True, window=window,
+                                       q_offset=start)
     o = o.transpose(1, 2).reshape(b, s, cfg.q_dim)
     return L.linear(o, p["wo"], engine=engine, path="layers/attn/wo")
 
@@ -249,7 +278,8 @@ def _layer_apply(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
                  cache: Optional[Dict[str, Any]] = None,
                  cache_pos: Optional[attn_lib.Pos] = None,
                  lengths: Optional[torch.Tensor] = None,
-                 engine: Optional[Any] = None) -> torch.Tensor:
+                 engine: Optional[Any] = None,
+                 attend: Optional[Callable] = None) -> torch.Tensor:
     """One layer.  ``cache`` is the layer's slice of the serve cache,
     {"kv": {"k", "v"}, "ssm": {"h", "conv"}} as the family has them; the KV
     rows and the SSM state are written in place."""
@@ -266,7 +296,7 @@ def _layer_apply(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
         h = L.apply_norm(x, p.get("attn_norm"), cfg.norm_type)
         a = _attn_apply(h, p["attn"], cfg, window=window,
                         cache=cache.get("kv") if cache is not None else None,
-                        cache_pos=cache_pos, engine=engine)
+                        cache_pos=cache_pos, engine=engine, attend=attend)
         if cfg.family == "hybrid":
             # hymba: attention and SSM heads run in parallel on the same
             # normalised input; their outputs are averaged
@@ -327,13 +357,40 @@ def _prefix(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            engine: Optional[Any] = None) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, n_meta_tokens + S, V)."""
+            engine: Optional[Any] = None, train: bool = False) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, n_meta_tokens + S, V).
+
+    ``train`` selects the training path (``lm_loss``): attention by
+    ``chunked_attention`` in differentiable torch ops instead of the
+    forward-only flash kernel, and with ``cfg.remat`` each layer's
+    activations recomputed in the backward pass instead of kept."""
     check_family(cfg)
     x = _prefix(params, _embed(params, tokens, cfg), cfg)
+    attend = (functools.partial(attn_lib.chunked_attention,
+                                block=cfg.attn_block) if train else None)
     for p, w in zip(layer_params(params, cfg), layer_windows(cfg)):
-        x = _layer_apply(x, p, cfg, window=w, engine=engine)
+        layer = functools.partial(_layer_apply, p=p, cfg=cfg, window=w,
+                                  engine=engine, attend=attend)
+        if train and cfg.remat:
+            x = checkpoint(layer, x, use_reentrant=False)
+        else:
+            x = layer(x)
     return _head(params, x, cfg)
+
+
+def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig, *, engine: Optional[Any] = None
+            ) -> torch.Tensor:
+    """Next-token cross-entropy (``transformer.py:367-380``).  batch:
+    tokens (B, S), labels (B, S), optional loss_mask."""
+    check_trainable(cfg)
+    logits = forward(params, batch["tokens"], cfg, engine=engine, train=True)
+    s = batch["labels"].shape[1]
+    logp = torch.log_softmax(logits[:, -s:, :].to(torch.float32), dim=-1)
+    ll = torch.gather(logp, -1, batch["labels"][..., None].long())[..., 0]
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(ll) if mask is None else mask.to(ll.dtype)
+    return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -400,3 +457,51 @@ def step(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
                          lengths=lengths if s_tokens > 1 else None,
                          engine=engine)
     return _head(params, x[:, -s_tokens:], cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# parameter counts (``transformer.py:477-527``): plain arithmetic on cfg
+# ---------------------------------------------------------------------------
+
+def _mixer_params(cfg: ModelConfig) -> int:
+    d = cfg.d_model
+    n = 0
+    if cfg.family in ("dense", "moe", "hybrid", "vlm", "encdec"):
+        n += d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
+    if cfg.family in ("ssm", "hybrid"):
+        di = cfg.d_inner
+        n += (d * 2 * di + di * cfg.ssm_conv
+              + di * (cfg.dt_rank + 2 * cfg.ssm_state)
+              + cfg.dt_rank * di + di * d)
+    return n
+
+
+def _ffn_params(cfg: ModelConfig, experts: int) -> int:
+    d = cfg.d_model
+    if cfg.family == "moe":
+        n = 3 * d * cfg.moe_d_ff * experts
+        if cfg.shared_d_ff:
+            n += 3 * d * cfg.shared_d_ff
+        if cfg.dense_residual_d_ff:
+            n += 3 * d * cfg.dense_residual_d_ff
+        return n + d * cfg.n_experts                  # router
+    if cfg.family == "ssm":
+        return 0
+    mult = 3 if cfg.mlp_act in ("swiglu", "geglu") else 2
+    return mult * d * cfg.d_ff
+
+
+def _param_count(cfg: ModelConfig, experts: int) -> int:
+    d = cfg.d_model
+    n = cfg.n_layers * (_mixer_params(cfg) + _ffn_params(cfg, experts))
+    n += cfg.vocab_size * d                   # embedding / unembedding
+    return n + cfg.n_encoder_layers * (4 * d * d + 2 * d * cfg.d_ff)
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE counts only active experts)."""
+    return _param_count(cfg, cfg.n_experts_active)
+
+
+def total_param_count(cfg: ModelConfig) -> int:
+    return _param_count(cfg, cfg.n_experts)

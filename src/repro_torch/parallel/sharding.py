@@ -54,13 +54,16 @@ def freeze_for_serving(params: Any, bits: int = 8, plan: Any = None,
     output rows at a time.  Carriers and scales are byte-identical to the
     reference's; a leaf with leading axes (stacked layers, the MoE experts'
     (L, E, F, D)) is packed as its rows, with scales of its leading shape.
+    No leaf of the result requires grad.
     """
     dev = resolve_device(device)
 
     def walk(tree: Any, keys: Tuple[str, ...]) -> Any:
         if isinstance(tree, dict):
             return {k: walk(v, keys + (str(k),)) for k, v in tree.items()}
-        leaf = tree.to(dev)
+        # detached: a serving tree must not carry a trained tree's autograd
+        # state into every tick (nor into the forward-only kernels)
+        leaf = tree.detach().to(dev)
         if keys and keys[-1] in PACKABLE and leaf.ndim >= 2:
             b = plan.bits_for("/".join(keys)) if plan is not None else bits
             packed, scale = _pack_rows(leaf.reshape(-1, leaf.shape[-1]), b)

@@ -1012,3 +1012,93 @@ def test_selective_scan_pads_are_no_ops_on_each_route(cuda, rng, n):
                 B[:, :real], C[:, :real], D, h0, plan=plan)[1]
             torch.cuda.synchronize()
             assert torch.equal(h_pad, h_real), (plan, real)
+
+
+def _forward_only_calls(rng, dev):
+    """{wrapper: (call, the float input that is made to require grad)} at
+    small shapes, for C9."""
+    f32 = lambda *shape: torch.from_numpy(
+        rng.normal(size=shape).astype(np.float32)).to(dev)
+    q, k = f32(1, 2, 8, 16), f32(1, 1, 8, 16)
+    x = f32(4, 64)
+    packed, scale = _packed(rng, 32, 64, 8, dev)
+    xg, gpacked, gscale = _experts(rng, 2, 4, 64, 32, 8, dev)
+    wpacked, wscales = _wire(rng, 32, 64, 8, dev)
+    xq, ipacked, mult, bias = _int8_case(rng, 4, 64, 32, 8, dev)
+    scan = list(_scan_inputs(rng, 1, 4, 64, 16, dev))
+    img = _u8(rng, (8, 8, 16), dev)
+    dpacked = ops.prep_conv3x3(torch.from_numpy(rng.normal(
+        size=(16, 3, 3, 16)).astype(np.float32)), 8)[0].to(dev)
+    dwpacked = ops.prep_dw3x3(torch.from_numpy(rng.normal(
+        size=(16, 3, 3)).astype(np.float32)), 8)[0].to(dev)
+    cmult, cbias = _requant(rng, 16, dev)
+    return {
+        "flash_attention": (lambda t: flash_attention(t, k, k), q),
+        "qmatmul_f32": (lambda t: qmatmul_f32(t, packed, scale, bits=8,
+                                              k_orig=64), x),
+        "qmatmul_f32_grouped": (lambda t: qmatmul_f32_grouped(
+            t, gpacked, gscale, bits=8, k_orig=64), xg),
+        "qmatmul_f32_blockscale": (lambda t: qmatmul_f32_blockscale(
+            t, wpacked, wscales, bits=8, k_orig=64), x),
+        "qmatmul_int8": (lambda t: qmatmul_int8(xq, ipacked, t, bias, bits=8,
+                                                k_orig=64), mult),
+        "selective_scan": (lambda t: selective_scan(t, *scan[1:]), scan[0]),
+        "conv3x3_dense": (lambda t: nkc.conv3x3_dense(
+            img, dpacked, t, cbias, bits=8, cin=16), cmult),
+        "conv3x3_dw": (lambda t: nkc.conv3x3_dw(img, dwpacked, t, cbias,
+                                                bits=8), cmult),
+        "conv1x1": (lambda t: nkc.conv1x1(img, ipacked[:, :16].contiguous(),
+                                          t, bias, bits=8, cin=16), mult),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "qmatmul_f32",
+                                  "qmatmul_f32_grouped",
+                                  "qmatmul_f32_blockscale", "qmatmul_int8",
+                                  "selective_scan", "conv3x3_dense",
+                                  "conv3x3_dw", "conv1x1"])
+def test_kernels_refuse_inputs_that_require_grad(cuda, rng, name):
+    """C9: a launch's output has no grad_fn, so a wrapper given an input
+    that requires grad under grad mode raises instead of cutting the
+    gradient; under no_grad it launches."""
+    call, t = _forward_only_calls(rng, cuda)[name]
+    t.requires_grad_()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        call(t)
+    with torch.no_grad():
+        call(t)
+    torch.cuda.synchronize()
+
+
+def test_train_step_gradients_on_the_card_match_the_cpu(cuda):
+    """One train step of the qwen3-0.6b smoke config on the card against
+    the CPU from the same weights and batch: every gradient leaf present,
+    finite and non-zero, within 1e-5 of the CPU's largest element; the
+    loss within 1e-6, the updated params within 1e-4 (AdamW at lr 1e-3:
+    see tests/test_torch_train.py)."""
+    from repro_torch.core import tree as T
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+
+    cfg = get_config("qwen3-0.6b").smoke()
+    cpu = tfm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = T.tree_map(lambda t: t.to(cuda), cpu)
+    batch = {k: torch.from_numpy(v) for k, v in
+             SyntheticLMDataset(cfg.vocab_size, 64, 4, seed=0).batch(0).items()}
+    lc, gc = steps.loss_and_grads(cpu, batch, cfg)
+    lg, gg = steps.loss_and_grads(
+        gpu, {k: v.to(cuda) for k, v in batch.items()}, cfg)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-6, atol=0)
+    for (path, a), b in zip(T.flatten_with_paths(gg), T.leaves(gc)):
+        assert torch.isfinite(a).all() and a.abs().max() > 0, path
+        assert (a.cpu() - b).abs().max() <= 1e-5 * b.abs().max(), path
+    opt = adamw()
+    step = steps.make_train_step(cfg, opt, lr=1e-3)
+    pc, _, mc = step(cpu, opt.init(cpu), batch)
+    pg, _, mg = step(gpu, opt.init(gpu),
+                     {k: v.to(cuda) for k, v in batch.items()})
+    torch.testing.assert_close(mg["grad_norm"].cpu(), mc["grad_norm"],
+                               rtol=1e-5, atol=0)
+    for a, b in zip(T.leaves(pg), T.leaves(pc)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-4)

@@ -41,5 +41,10 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.core.memsys",
                 "repro_torch.core.perf_model", "repro_torch.models.ssm",
                 "repro_torch.kernels.ssm_scan", "repro_torch.core.paging",
-                "repro_torch.core.faults", "repro_torch.core.weight_store"):
+                "repro_torch.core.faults", "repro_torch.core.weight_store",
+                "repro_torch.optim", "repro_torch.optim.optimizers",
+                "repro_torch.launch.steps", "repro_torch.launch.train",
+                "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
+                "repro_torch.runtime.trainer", "repro_torch.runtime.monitor",
+                "repro_torch.core.tree"):
         assert mod in report["modules"]
