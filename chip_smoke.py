@@ -9,8 +9,10 @@ operators, qwen3-0.6b again from a paged 4-bit store whose cold half is
 wire-served, both qwen3-0.6b stores once more behind the deadline-aware
 ``Scheduler`` under XR traffic, qwen3-0.6b with its KV cache paged,
 alone and beside falcon-mamba-7b as two tenants of one page pool, the
-MoE qwen2-moe-a2.7b on the grouped expert kernel, and training qwen3-0.6b
--- and fails (non-zero exit, no result line) if any phase fails:
+MoE qwen2-moe-a2.7b on the grouped expert kernel, training qwen3-0.6b,
+and then the serving launcher and the XR pipeline example, in process
+through their ``main`` -- and fails (non-zero exit, no result line) if any
+phase fails:
 
 1. set-up: requires a CUDA device, turns TF32 off, prints the card's name
    and power limit, builds every ``csrc/*.cu`` with nvcc for sm_90a (one
@@ -210,7 +212,32 @@ MoE qwen2-moe-a2.7b on the grouped expert kernel, and training qwen3-0.6b
    no packed leaf requires grad) and served, 4 requests: the B1 and B2
    counters, zeroed before, grown after; the first layer's logits card vs
    CPU within ``LOGITS_TOL``;
-11. the ``{"serve": ...}``, ``{"train": ...}`` and ``{"kernels": [...]}``
+11. the launcher and the XR pipeline, each through the ``main`` a user
+   calls, in this process.  (a) ``repro_torch.launch.serve.main`` on
+   full-width qwen3-0.6b at 4 bits, ``--budget-mb`` half of the packed
+   linears of the tree it draws (``packed_sizes``, printed), ``--kv-paged
+   --requests 8 --max-new 16 --deadline-ms 20 --preemptive --token-budget
+   64``: both verify lines (paged against the resident plan, async
+   against sync streaming with the counters and ticks unchanged) must
+   print BIT-EXACT, and a failed verify's ``sys.exit(1)`` fails the
+   phase; every request must get its 16 tokens and the metrics v9
+   document must validate.  (b) ``examples/xr_pipeline_torch.py``'s
+   ``main`` with ``--img 224 --full``: MobileNet-V2 1.0-224 frames, one
+   tenancy tick a frame of full-width qwen3-0.6b (KV-paged) and
+   falcon-mamba-7b through one ``MultiScheduler`` and one pool, every
+   assert of the example (a preemption by the wake request, preemptions
+   equal to restores, the pool on the ``kv_pass_counters`` replay, each
+   tenant's tokens equal to its solo run, the 30 FPS memsys check, the
+   trace valid); the N-EUREKA kernels launched 1 / 17 / 35 times a frame;
+   the frame stage against the CPU on the same frozen tree: index maps,
+   corrected frame and logits equal, gestures within ``GESTURE_RTOL``.
+   The launch counters are set to 0 before each leg and read after (the
+   launcher's own verify serves count: they are part of its main); each
+   kernel is held against its plain version at every distinct call of
+   both legs (B1, B2, B7 as in phase 8, B4-B6 at each job of the frames).
+   The launcher's tick time and tok/s, the frame latency p50 / p99 and
+   the tenancy tick on the host clock are printed as smoke readings;
+12. the ``{"serve": ...}``, ``{"train": ...}`` and ``{"kernels": [...]}``
    lines, the card line, and as the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -3235,6 +3262,419 @@ def train_phase(torch, cfg, dev):
                 wall_s=wall)
 
 
+# phase 11: the serving launcher and the XR pipeline (ROADMAP A12's
+# launchers + A13), each driven in process through the entry point a user
+# calls: (a) ``repro_torch.launch.serve.main`` on full-width qwen3-0.6b at 4
+# bits, half of its packed linears resident, KV-paged, under the deadline
+# scheduler with preemption and a token budget, both verify legs on; (b)
+# ``examples/xr_pipeline_torch.py``'s ``main`` with MobileNet-V2 1.0-224
+# frames beside full-width qwen3-0.6b and falcon-mamba-7b tenants; (c) the
+# launcher's ``--models`` tenancy of the same two at a shared budget above
+# falcon-mamba-7b's page, which (b)'s pool (0.6 of the cold bytes) is
+# below, so that (b) evicts nothing.  Each path's launches are counted over
+# its served run alone, never over the reference runs of its verify legs.
+# A CPU rehearsal adds --smoke to LAUNCH_FLAGS and TENANCY_FLAGS and
+# empties XR_FLAGS
+LAUNCH_ARCH = "qwen3-0.6b"
+LAUNCH_FLAGS = ["--arch", LAUNCH_ARCH, "--bits", "4", "--kv-paged",
+                "--requests", "8", "--max-new", "16", "--deadline-ms", "20",
+                "--preemptive", "--token-budget", "64"]
+LAUNCH_VERIFY = ("verify: paged tokens BIT-EXACT vs resident plan",
+                 "verify: async tokens BIT-EXACT vs sync streaming, "
+                 "counters unchanged by overlap")
+TENANCY_FLAGS = ["--models", ",".join(TENANTS), "--bits", "4", "--kv-paged",
+                 "--requests", "2", "--max-new", "4"]
+TENANCY_VERIFY = tuple(
+    [f"  verify {name}: tokens BIT-EXACT vs solo private pager"
+     for name in TENANTS]
+    + ["  pool counters (incl. wire/raw bytes) MATCH the static "
+       "kv_pass_counters prediction"])
+XR_EXAMPLE = ROOT / "examples" / "xr_pipeline_torch.py"
+XR_FLAGS = ["--img", str(MNV2_IMG), "--full"]
+LAUNCH_KERNELS = ("qmatmul_f32", "flash_attention")
+XR_KERNELS = ("qmatmul_f32", "flash_attention", "selective_scan")
+
+
+class _Tee:
+    """Writes to each of ``outs``: the launcher's lines reach the log and
+    a buffer the phase reads its verify lines from."""
+
+    def __init__(self, *outs):
+        self._outs = outs
+
+    def write(self, s):
+        for out in self._outs:
+            out.write(s)
+        return len(s)
+
+    def flush(self):
+        for out in self._outs:
+            out.flush()
+
+
+@contextlib.contextmanager
+def recording_neureka(torch, ops):
+    """Notes each call the model code makes to the N-EUREKA wrappers
+    (through ``kernels/ops.neureka_conv2d``) as ``(op, job shape, bits)``
+    in ``job_key``'s form; the wrappers run unchanged.  The pointwise jobs
+    reach ``qmatmul_int8`` through ``conv1x1``."""
+    calls = {name: [] for name in NEUREKA_KERNELS}
+    nkc = ops._nkc
+
+    def rec_dense(x, packed, mult, bias, *, bits, cin, stride=1):
+        h, w, _ = x.shape
+        calls["conv3x3_dense"].append(
+            ("dense3x3", (h, w, cin, packed.shape[0], stride), bits))
+        return nkc.conv3x3_dense(x, packed, mult, bias, bits=bits, cin=cin,
+                                 stride=stride)
+
+    def rec_dw(x, packed, mult, bias, *, bits, stride=1, **kw):
+        h, w, c = x.shape
+        calls["conv3x3_dw"].append(("dw3x3", (h, w, c, stride), bits))
+        return nkc.conv3x3_dw(x, packed, mult, bias, bits=bits,
+                              stride=stride, **kw)
+
+    def rec_pw(x, packed, mult, bias, *, bits, cin, stride=1):
+        h, w, _ = x.shape
+        m = -(-h // stride) * -(-w // stride)
+        calls["qmatmul_int8"].append(
+            ("pw1x1", (m, cin, packed.shape[0]), bits))
+        return nkc.conv1x1(x, packed, mult, bias, bits=bits, cin=cin,
+                           stride=stride)
+
+    ops._nkc = _Recorder(nkc, {"conv3x3_dense": rec_dense,
+                               "conv3x3_dw": rec_dw, "conv1x1": rec_pw})
+    try:
+        yield calls
+    finally:
+        ops._nkc = nkc
+    for name in calls:
+        calls[name] = list(dict.fromkeys(calls[name]))
+
+
+def check_neureka_calls(torch, packing, ops, ref, nkc, qmm, dev, calls):
+    """Each N-EUREKA kernel bit-equal to its plain version at every
+    distinct job shape and bits ``recording_neureka`` noted."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    worst = dict.fromkeys(NEUREKA_KERNELS, 0)
+    for name, keys in calls.items():
+        for op, shape, bits in keys:
+            args = neureka_case(torch, packing, ops, gen, dev, op, shape,
+                                bits)
+            kname, kernel, plain = neureka_pair(nkc, qmm, ref, op, shape,
+                                                bits)
+            got, expect = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            diff = (got.int() - expect.int()).abs()
+            worst[kname] = max(worst[kname], int(diff.max().item()))
+            if got.shape != expect.shape or not torch.equal(got, expect):
+                raise AssertionError(
+                    f"{kname} {op} {shape} bits={bits}: "
+                    f"{int((diff > 0).sum().item())} of {got.numel()} "
+                    f"outputs differ from the plain version")
+    print(f"[check] xr pipeline frames, N-EUREKA kernels bit-equal to their "
+          f"plain versions at each distinct job: "
+          f"{ {k: len(v) for k, v in calls.items()} }")
+    return worst
+
+
+def check_frame_launches(launches, frames: int):
+    """The N-EUREKA kernels launched 1 / 17 / 35 times a frame."""
+    for name, n in launches.items():
+        if n != NEUREKA_PER_FRAME[name] * frames:
+            raise AssertionError(f"{name} launched {n} times in {frames} "
+                                 f"frames, want {NEUREKA_PER_FRAME[name]} "
+                                 "a frame")
+
+
+def load_example(path):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def counted_runs(torch, module, attr: str, zero, read, card: bool):
+    """Replaces ``module.attr`` (a function, or a class whose instances
+    start a run) with a wrapper that reads the launch counts (``read()``)
+    around each call: a function's counts are zeroed before it runs and
+    read after it returns; a class's are read when an instance is made,
+    that is when the run before it has ended.  Yields the list of
+    readings, in call order."""
+    real = getattr(module, attr)
+    runs = []
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    if isinstance(real, type):
+        def wrapped(*a, **kw):
+            sync()
+            runs.append(read())
+            return real(*a, **kw)
+    else:
+        def wrapped(*a, **kw):
+            zero()
+            res = real(*a, **kw)
+            sync()
+            runs.append(read())
+            return res
+    setattr(module, attr, wrapped)
+    try:
+        yield runs
+    finally:
+        setattr(module, attr, real)
+
+
+def run_main(torch, main, argv, card: bool):
+    """``main(argv)`` with its standard output also kept: (result, text,
+    wall seconds).  A failed verify's ``sys.exit(1)`` propagates."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        res = main(argv)
+    if card:
+        torch.cuda.synchronize()
+    return res, buf.getvalue(), time.perf_counter() - t0
+
+
+def expect_lines(text: str, lines, what: str):
+    for line in lines:
+        if line not in text.splitlines():
+            raise AssertionError(f"{what}: no line {line!r}")
+
+
+def expect_launched(launches, kernels, what: str):
+    for kname in kernels:
+        if launches[kname] <= 0:
+            raise AssertionError(f"{kname} never launched in {what}")
+
+
+def tenancy_budget_mb(launch_serve, placement, argv) -> float:
+    """A shared budget between the tenants' largest page and their cold
+    bytes: every page fits, the cold set does not, so pages evict one
+    another.  The largest page of ``attach_paging``'s first-fit paging is
+    the largest cold group (its ``page_bytes``).  Each tenant is drawn as
+    the launcher draws it (``_build_model``) and dropped."""
+    args = launch_serve._parser().parse_args(argv)
+    largest = cold = 0
+    for arch in args.models.split(","):
+        _cfg, packed, plan = launch_serve._build_model(arch, args)
+        sizes = placement.packed_sizes(packed)
+        paged = plan.split_names(list(sizes))[1]
+        largest = max([largest] + [sizes[n] for n in paged])
+        cold += sum(sizes[n] for n in paged)
+        del packed
+    return (largest + (cold - largest) // 2) / 2**20
+
+
+def launch_xr_phase(torch, m, dev):
+    """Phase 11 (see the comment above LAUNCH_ARCH)."""
+    launch_serve, mnv2 = m["launch_serve"], m["mnv2"]
+    quantiles = m["serving"].metrics.quantiles
+    t_phase = time.perf_counter()
+    card = dev.type == "cuda"
+    device = ["--device", dev.type]
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    lm = {"qmatmul_f32": m["qmm"].qmatmul_f32,
+          "flash_attention": m["fa"].flash_attention,
+          "selective_scan": m["ssm"].selective_scan}
+    nk = {"conv3x3_dense": m["nkc"].conv3x3_dense,
+          "conv3x3_dw": m["nkc"].conv3x3_dw,
+          "qmatmul_int8": m["qmm"].qmatmul_int8}
+
+    def zero_all():
+        zero_launches(lm)
+        for fn in nk.values():
+            fn.launches = 0
+
+    def read_all():
+        launches, split = read_launches(lm)
+        return ({**launches, **{n: fn.launches for n, fn in nk.items()}},
+                split)
+
+    def free():
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+
+    out = {}
+
+    # (a) the launcher: --budget-mb at half of the 4-bit tree's packed
+    # linears, from the tree it draws (seed 0) for the config it serves
+    # once given a budget
+    flags = LAUNCH_FLAGS + device
+    probe = launch_serve._parser().parse_args(flags + ["--budget-mb", "1"])
+    cfg = launch_serve._config(probe)
+    sizes = m["placement"].packed_sizes(
+        launch_serve._init_packed(cfg, 0, probe))
+    linears = sum(sizes.values())
+    budget_mb = linears / 2 / 2**20
+    metrics = out_dir / "launch_metrics.json"
+    argv = flags + ["--budget-mb", repr(budget_mb), "--metrics-json",
+                    str(metrics)]
+    print(f"[launch] python -m repro_torch.launch.serve {' '.join(argv)}  "
+          f"(packed linears {linears} B at 4 bits, budget half: "
+          f"{budget_mb:.4f} MiB)")
+    # the first _serve is the served run; the others are the verify legs'
+    # references (the resident plan, the sync re-serve)
+    with recording(torch, m["ops"]) as seen_a, \
+            counted_runs(torch, launch_serve, "_serve", zero_all, read_all,
+                         card) as serves:
+        done, text, wall_a = run_main(torch, launch_serve.main, argv, card)
+    (launches_a, split_a), verify_a = serves[0], [r[0] for r in serves[1:]]
+    expect_lines(text, LAUNCH_VERIFY, "launcher")
+    if len(done) != 8 or any(len(r.generated) != 16 for r in done):
+        raise AssertionError("launcher: not every request got its 16 "
+                             "tokens")
+    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.generated):
+        raise AssertionError("launcher: token id out of the vocabulary")
+    expect_launched(launches_a, LAUNCH_KERNELS, "the launcher's served run")
+    launches_a = {k: launches_a[k] for k in lm}
+    doc = m["serving"].validate(json.loads(metrics.read_text()))
+    reading_a = dict(
+        wall_s=wall_a, ticks=doc["ticks"]["count"],
+        tick_ms=doc["ticks"]["latency_ms"],
+        tok_per_s=doc["throughput"]["tok_per_s"],
+        serve_wall_s=doc["throughput"]["wall_s"],
+        deadlines=doc["deadlines"], scheduler=doc["scheduler"],
+        kv_swaps=doc["paging"]["kv_swaps"],
+        exposed_s=doc["paging"]["exposed_s"],
+        hidden_s=doc["paging"]["hidden_s"], budget_mb=budget_mb)
+    print(f"[launch] {LAUNCH_ARCH} (4-bit, half of the linears resident, "
+          f"KV-paged): both verify lines BIT-EXACT; whole main {wall_a:.2f} "
+          f"s (the served run and {len(verify_a)} verify serves); the "
+          f"served run on the host clock (smoke reading, {m['card']}): "
+          f"{json.dumps(reading_a)}; launches of the served run "
+          f"{launches_a}, of the verify serves (not counted) "
+          f"{[{k: r[k] for k in lm} for r in verify_a]}")
+    out["launcher"] = dict(launches=launches_a, launches_by_class=split_a,
+                           reading=reading_a)
+    del done
+    free()
+
+    # (b) the XR pipeline: frames beside two full-width tenants; its solo
+    # legs are the only Scheduler it makes, so the counts read there are
+    # the frames' and the shared tenancy's
+    xr = load_example(XR_EXAMPLE)
+    trace = out_dir / "xr_pipeline_trace.json"
+    argv = device + ["--trace-json", str(trace)] + XR_FLAGS
+    print(f"[xr] python examples/xr_pipeline_torch.py {' '.join(argv)}")
+    zero_all()
+    with recording(torch, m["ops"]) as seen_b, \
+            recording_neureka(torch, m["ops"]) as seen_nk, \
+            counted_runs(torch, xr, "Scheduler", zero_all, read_all,
+                         card) as solos:
+        res, _text, wall_b = run_main(torch, xr.main, argv, card)
+    launches_b, split_b = solos[0]
+    frames_run = 1 + xr.N_FRAMES + res["ticks"]   # warm-up, timed, loop
+    check_frame_launches({n: launches_b[n] for n in nk}, frames_run)
+    expect_launched(launches_b, XR_KERNELS, "the xr pipeline's tenancy")
+    # the frame stage against the CPU: the same frame, the same frozen tree
+    frame = res["frames"][0]
+    img = res["img"]
+    ys, xs = xr.distortion_map(img, img, dev)
+    ys_c, xs_c = xr.distortion_map(img, img, "cpu")
+    if not (torch.equal(ys.cpu(), ys_c) and torch.equal(xs.cpu(), xs_c)):
+        raise AssertionError("distortion index maps differ, card vs CPU")
+    corrected = xr.distortion_correct(frame)
+    corrected_c = xr.distortion_correct(frame.cpu())
+    logits = mnv2.apply(res["frozen"], corrected, weight_bits=8, img=img)
+    logits_c = mnv2.apply(to_device(torch, res["frozen"], "cpu"),
+                          corrected_c, weight_bits=8, img=img)
+    if not (torch.equal(corrected.cpu(), corrected_c)
+            and torch.equal(logits.cpu(), logits_c)):
+        raise AssertionError("frame stage: corrected frame or MobileNet "
+                             "logits differ, card vs CPU")
+    gest, gest_c = xr.post_process(logits).cpu(), xr.post_process(logits_c)
+    g_err = float(((gest - gest_c).abs() / gest_c.abs()).max())
+    if not torch.allclose(gest, gest_c, rtol=xr.GESTURE_RTOL, atol=0):
+        raise AssertionError(f"gestures card vs CPU: rel err {g_err}")
+    tot = res["doc"]["totals"]
+    reading_b = dict(
+        img=img, tenants=res["tenants"], ticks=res["ticks"],
+        frame_ms=quantiles(res["frame_ms"]),
+        tick_ms=quantiles(res["tick_ms"]), loop_s=res["loop_s"],
+        frame_ms_alone=res["frames_ms_alone"], build_s=res["build_s"],
+        solo_s=res["solo_s"], preemptions=tot["preemptions"],
+        restores=tot["restores"], tok_per_s=tot["tok_per_s"],
+        pool={k: res["pool"][k] for k in (
+            "budget_bytes", "evictions", "bytes_streamed_wire")},
+        wall_s=wall_b, gesture_rel_err=g_err)
+    print(f"[xr] MobileNet-V2 1.0-{img} frames beside "
+          f"{' + '.join(res['tenants'].values())}: every assert of the "
+          f"example held; frame stage card vs CPU: index maps, corrected "
+          f"frame and logits equal, gestures within rel "
+          f"{xr.GESTURE_RTOL} (max {g_err:.2e}); host clock (smoke "
+          f"reading, {m['card']}): {json.dumps(reading_b)}; launches of "
+          f"the frames and the shared tenancy, read before the solo legs "
+          f"{launches_b} ({frames_run} frames)")
+    out["xr"] = dict(launches=launches_b, launches_by_class=split_b,
+                     reading=reading_b)
+    del res, frame, logits, logits_c
+    free()
+
+    # (c) the launcher's tenancy at a budget where pages evict each other
+    budget = tenancy_budget_mb(launch_serve, m["placement"],
+                               TENANCY_FLAGS + device)
+    free()
+    metrics = out_dir / "tenancy_metrics.json"
+    argv = TENANCY_FLAGS + device + ["--shared-budget-mb", repr(budget),
+                                     "--metrics-json", str(metrics)]
+    print(f"[tenancy] python -m repro_torch.launch.serve {' '.join(argv)}")
+    with recording(torch, m["ops"]) as seen_c, \
+            counted_runs(torch, launch_serve, "_serve_tenants", zero_all,
+                         read_all, card) as served:
+        _done, text, wall_c = run_main(torch, launch_serve.main, argv, card)
+    launches_c, split_c = served[0]
+    launches_c = {k: launches_c[k] for k in lm}
+    expect_lines(text, TENANCY_VERIFY, "launcher tenancy")
+    expect_launched(launches_c, XR_KERNELS, "the launcher's tenancy")
+    doc = m["serving"].validate(json.loads(metrics.read_text()))
+    pool = doc["shared_pool"]
+    if pool["evictions"] <= 0:
+        raise AssertionError(f"launcher tenancy: no page evicted at "
+                             f"{budget} MiB: {pool}")
+    reading_c = dict(
+        wall_s=wall_c, ticks=doc["ticks"], budget_mb=budget,
+        evictions=pool["evictions"],
+        members={n: {k: c[k] for k in ("swaps", "misses", "pool_hits",
+                                       "evicted")}
+                 for n, c in pool["models"].items()},
+        bytes_streamed_wire=pool["bytes_streamed_wire"])
+    print(f"[tenancy] {' + '.join(TENANTS)} (4-bit, cold halves paged, "
+          f"KV-paged) on one pool of {budget:.3f} MiB: pages evicted "
+          f"{pool['evictions']} times; pool counters MATCH the "
+          f"kv_pass_counters replay; each tenant BIT-EXACT vs its solo "
+          f"private pager; host clock (smoke reading, {m['card']}): "
+          f"{json.dumps(reading_c)}; launches of the shared run {launches_c}")
+    out["tenancy"] = dict(launches=launches_c, launches_by_class=split_c,
+                          reading=reading_c)
+    free()
+
+    calls = {}
+    for seen in (seen_a, seen_b, seen_c):
+        for name, keys in seen.items():
+            calls[name] = list(dict.fromkeys(calls.get(name, []) + keys))
+    out["path_check"] = check_path(torch, m["ops"], m["ref"], m["qmm"],
+                                   m["fa"], m["ssm"], dev,
+                                   "launcher + xr pipeline", calls)
+    out["path_check"]["max_abs_err"].update(check_neureka_calls(
+        torch, m["packing"], m["ops"], m["ref"], m["nkc"], m["qmm"], dev,
+        seen_nk))
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[phase11] launcher + xr pipeline + launcher tenancy took "
+          f"{out['wall_s']:.1f} s")
+    return out
+
+
 def to_device(torch, tree, dev):
     if isinstance(tree, dict):
         return {k: to_device(torch, v, dev) for k, v in tree.items()}
@@ -3422,7 +3862,28 @@ def main() -> int:
     served[f"{TRAIN_ARCH} trained"] = dict(launches=train["serve"]["launches"],
                                           launches_by_class={})
 
-    # 11. result lines
+    # 11. the serving launcher and the XR pipeline, in process
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.launch import serve as launch_serve
+    mods.update(launch_serve=launch_serve, mnv2=mnv2, nkc=nkc, card=card)
+    p11 = launch_xr_phase(torch, mods, dev)
+    served[f"{LAUNCH_ARCH} launcher"] = p11["launcher"]
+    served["xr pipeline"] = p11["xr"]
+    served[f"{'+'.join(TENANTS)} launcher tenancy"] = p11["tenancy"]
+    for name in counters:
+        for part in ("launcher", "xr", "tenancy"):
+            launches[name] += p11[part]["launches"][name]
+    qmm_err, fa_err, scan_err = (
+        max(err, p11["path_check"]["max_abs_err"][name])
+        for err, name in ((qmm_err, "qmatmul_f32"),
+                          (fa_err, "flash_attention"),
+                          (scan_err, "selective_scan")))
+    for name in NEUREKA_KERNELS:
+        nk_err[name] = max(nk_err[name],
+                           p11["path_check"]["max_abs_err"][name])
+
+    # 12. result lines
     by_path = {name: {arch: s["launches"][name] for arch, s in served.items()
                       if name in s["launches"]}
                for name in counters}
@@ -3472,7 +3933,10 @@ def main() -> int:
         entry = dict(name=name, route="cuda",
                      source=f"src/repro_torch/csrc/{source}",
                      replaces=f"src/repro/kernels/{replaces}",
-                     launches=nk_launches[name],
+                     launches=nk_launches[name] + p11["xr"]["launches"][name],
+                     launches_by_path={
+                         "frames": nk_launches[name],
+                         "xr pipeline": p11["xr"]["launches"][name]},
                      launches_per_frame=nk_launches[name] / MNV2_FRAMES,
                      max_abs_err=nk_err[name], ms=t["ms"],
                      plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],

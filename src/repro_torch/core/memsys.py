@@ -2,8 +2,10 @@
 
 A copy of ``repro/core/memsys.py``, which is framework-neutral (it holds no
 array code): the operating points (paper Table I), the interface
-bandwidths, the calibrated energy constants, the N-EUREKA throughput model
-(``neureka_gops``), the per-scenario weight-path costs, ``LayerShape``, the
+bandwidths (``l1_neureka_Bps`` and ``l1_total_Bps`` among them), the
+calibrated energy constants, the N-EUREKA throughput model
+(``neureka_gops``, ``neureka_ideal_gops``), the per-scenario weight-path
+costs, ``LayerShape``, the
 double-buffered ``layer_timing`` and ``network_walk``, and the proactive-
 swap ``overlap_stall`` identity the scheduler uses, the wire bytes of an
 encoded weight page (``encoded_wire_bytes``) and the bytes a tick's KV page
@@ -51,6 +53,16 @@ TABLE_I = [
 def mram_port_Bps(op: OperatingPoint) -> float:
     """Dedicated N-EUREKA<-MRAM port: 256 bit/cluster-cycle (92 Gbit/s @360)."""
     return 256 / 8 * op.cluster_hz
+
+
+def l1_neureka_Bps(op: OperatingPoint) -> float:
+    """N-EUREKA shallow-branch port to L1 TCDM: 256 useful bits/cycle."""
+    return 256 / 8 * op.cluster_hz
+
+
+def l1_total_Bps(op: OperatingPoint) -> float:
+    """Full L1 TCDM: 16 banks x 32 bit/cycle = 184 Gbit/s @ 360 MHz."""
+    return 16 * 32 / 8 * op.cluster_hz
 
 
 def cluster_dma_Bps(op: OperatingPoint) -> float:
@@ -132,6 +144,14 @@ def neureka_gops(op_kind: str, weight_bits: int,
         return f * _DW_GOPS_8B * (8 + _BITSERIAL_OVERHEAD) / (
             weight_bits + _BITSERIAL_OVERHEAD)
     raise ValueError(op_kind)
+
+
+def neureka_ideal_gops(op_kind: str, weight_bits: int) -> float:
+    """Datapath-limited GOp/s at nominal: dense 3x3 from the paper's 738
+    GOp/s at 8 b, the others at the sustained rate over 0.946."""
+    if op_kind == "dense3x3":
+        return 738e9 * (8 + _BITSERIAL_OVERHEAD) / (weight_bits + _BITSERIAL_OVERHEAD)
+    return neureka_gops(op_kind, weight_bits) / 0.946
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,23 @@
 """Sub-byte weight packing — the MRAM density model.
 
-Ports ``pack`` / ``unpack`` of ``repro/core/packing.py``.  Signed levels
-become offset-binary fields, little-endian within a byte, packed along the
-*last* axis (the reduction axis of the matmuls), which is padded to a
-multiple of the packing factor.  The carriers are byte-identical to the
-reference's.
+Ports ``repro/core/packing.py``.  Signed levels become offset-binary
+fields, little-endian within a byte, packed along the *last* axis (the
+reduction axis of the matmuls), which is padded to a multiple of the
+packing factor.  The carriers are byte-identical to the reference's.  The
+capacity helpers (``packed_nbytes``, ``mram_rows``) and the bit-plane view
+(``to_bitplanes`` / ``from_bitplanes``) are the reference's too.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 SUPPORTED_BITS = (2, 4, 8)
+
+# One MRAM row in Siracusa = 256 bits; the memsys model counts row reads
+MRAM_ROW_BITS = 256
 
 
 def packing_factor(bits: int) -> int:
@@ -62,3 +68,42 @@ def unpack(packed: torch.Tensor, bits: int, orig_k: int) -> torch.Tensor:
     levels = _to_signed(fields, bits)
     *lead, kp, _ = levels.shape
     return levels.reshape(*lead, kp * f)[..., :orig_k]
+
+
+def packed_nbytes(shape: Tuple[int, ...], bits: int) -> int:
+    """Bytes occupied by a packed tensor of the given *unpacked* shape."""
+    *lead, k = shape
+    n = 1
+    for d in lead:
+        n *= int(d)
+    return n * packed_last_dim(k, bits)
+
+
+def mram_rows(shape: Tuple[int, ...], bits: int) -> int:
+    """Number of 256-bit MRAM rows the tensor occupies (memsys accounting)."""
+    return -(-packed_nbytes(shape, bits) * 8 // MRAM_ROW_BITS)
+
+
+# ---------------------------------------------------------------------------
+# Bit-plane layout (the bit-serial view): N-EUREKA fetches weights one bit
+# plane at a time in the 3x3 modes, and the memsys cycle model charges
+# ``bits`` planes per weight block.
+# ---------------------------------------------------------------------------
+
+def to_bitplanes(levels: torch.Tensor, bits: int) -> torch.Tensor:
+    """Decompose signed levels into ``bits`` binary planes (offset-binary).
+
+    Returns uint8 (bits, ...) with plane b = bit b of the unsigned
+    offset-binary encoding; levels = sum_b plane_b * 2^b - 2^(bits-1).
+    """
+    u = _to_unsigned(levels, bits)
+    return torch.stack([(u >> b) & 1 for b in range(bits)], dim=0)
+
+
+def from_bitplanes(planes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Inverse of :func:`to_bitplanes` -> int8 signed levels."""
+    weights = (2 ** torch.arange(bits, dtype=torch.int32,
+                                 device=planes.device)).reshape(
+        (bits,) + (1,) * (planes.ndim - 1))
+    u = (planes.to(torch.int32) * weights).sum(dim=0)
+    return (u - (1 << (bits - 1))).to(torch.int8)

@@ -3,9 +3,9 @@ scenarios + §II-B2 virtual paging).
 
 A copy of ``repro/core/placement.py`` (``:111-247`` and ``:332-448``) over
 the port's trees: ``SCENARIOS``, ``ScenarioCost``, ``Placement``, ``HOT`` /
-``COLD``, ``PlacementPlan`` with its store accounting, ``as_plan``,
-``linear_dispatch`` (both also taking a ``core/engine.EngineConfig``),
-``wire_served_bits``, ``path_key``, ``packed_sizes``,
+``COLD``, ``PlacementPlan`` with ``is_uniform``, ``scenarios_used`` and its
+store accounting, ``as_plan`` and ``linear_dispatch`` (both also taking a
+``core/engine.EngineConfig``), ``wire_served_bits``, ``path_key``, ``packed_sizes``,
 ``plan_for_budget`` over a ``WeightStore`` or a plain ``{name: nbytes}``
 mapping, and ``freeze_policy``.  It holds no tensor code.  The reference's
 ``shard_factors`` (per-device sizes of a mesh-sharded store) arrive with
@@ -142,6 +142,15 @@ class PlacementPlan:
 
     def bits_for(self, path: Optional[str]) -> int:
         return self.placement_for(path).weight_bits
+
+    @property
+    def is_uniform(self) -> bool:
+        return not self.rules
+
+    def scenarios_used(self) -> Tuple[str, ...]:
+        """Scenarios the plan can dispatch to, in SCENARIOS order."""
+        used = {self.default.scenario} | {p.scenario for _, p in self.rules}
+        return tuple(s for s in SCENARIOS if s in used)
 
     # -- store accounting ---------------------------------------------------
     def split_names(self, names: Sequence[str]

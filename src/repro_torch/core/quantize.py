@@ -15,8 +15,13 @@ The page wire codec (``PAGE_SCALE_BLOCK``, ``quantize_blockwise``,
 ``dequantize_blockwise``; ``repro/core/quantize.py:195-243``) is a copy of
 the reference's host-side numpy code, so its levels and scales are
 byte-identical: it runs on the host when a paged store is built and at
-every decoding fetch, never on the card.  The activation quantizers arrive
-with the slices that use them.
+every decoding fetch, never on the card.
+
+The activation quantizers (``quantize_activations``,
+``calibrate_activation_scale``; ``quantize.py:79-95``) and the two matmul
+oracles (``int8_matmul_reference``, ``dequant_matmul_reference``;
+``:177-186``) are the reference's too; the percentiles interpolate
+linearly, as ``jnp.percentile`` (and ``torch.quantile``) do by default.
 """
 
 from __future__ import annotations
@@ -40,6 +45,14 @@ class QuantizedTensor:
     values: torch.Tensor
     scale: torch.Tensor
     bits: int
+
+    @property
+    def shape(self):
+        return self.values.shape
+
+    def dequantize(self) -> torch.Tensor:
+        scale = self.scale.reshape((-1,) + (1,) * (self.values.ndim - 1))
+        return self.values.to(torch.float32) * scale
 
 
 def weight_qrange(bits: int) -> Tuple[int, int]:
@@ -65,6 +78,57 @@ def quantize_weights(w: torch.Tensor, bits: int,
     q = torch.clamp(torch.round(flat / scale[:, None]), qmin, qmax)
     return QuantizedTensor(values=q.to(torch.int8).reshape(w.shape),
                            scale=scale, bits=bits)
+
+
+def quantize_activations(x: torch.Tensor,
+                         scale: Union[torch.Tensor, float],
+                         zero_point: Union[torch.Tensor, int] = 0
+                         ) -> torch.Tensor:
+    """Asymmetric uint8 activation quantization with a given scale / zp."""
+    # a tensor divisor: on the card a division by a Python number is a
+    # multiply by its rounded reciprocal
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    q = torch.round(x / scale) + zero_point
+    return torch.clamp(q, 0, 255).to(torch.uint8)
+
+
+def _percentile(flat: torch.Tensor, p: float) -> torch.Tensor:
+    """``jnp.percentile(flat, p)``: linear interpolation between the order
+    statistics at floor and ceil of ``q * (n - 1)``, ``q = p / 100``
+    (``torch.quantile``'s default method), written out in the reference's
+    f32 steps.  ``jnp.percentile`` is jitted, and XLA folds its constants
+    into ``q * (n - 1) = p * ((n - 1) * 0.01)`` and fuses the last multiply
+    into the add: ``fma(high, w, low * (1 - w))``, here an exact f64
+    product and sum rounded once to f32."""
+    f32 = dict(dtype=torch.float32, device=flat.device)
+    a = torch.sort(flat).values
+    n = a.numel()
+    step = (torch.tensor(float(n - 1), **f32)
+            * torch.tensor(0.01, **f32))
+    q = torch.tensor(p, **f32) * step
+    low, high = torch.floor(q), torch.ceil(q)
+    w_high = q - low
+    w_low = 1 - w_high
+    lo_v = a[int(torch.clamp(low, 0, n - 1))]
+    hi_v = a[int(torch.clamp(high, 0, n - 1))]
+    fused = (hi_v.to(torch.float64) * w_high.to(torch.float64)
+             + (lo_v * w_low).to(torch.float64))
+    return fused.to(torch.float32)
+
+
+def calibrate_activation_scale(x: torch.Tensor, percentile: float = 100.0
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pick (scale, zero_point) so that the observed range maps onto
+    [0, 255]: the range's ends are the ``100 - percentile`` and
+    ``percentile`` percentiles, linearly interpolated."""
+    flat = x.reshape(-1).to(torch.float32)
+    lo = _percentile(flat, 100.0 - percentile)
+    hi = _percentile(flat, percentile)
+    lo = torch.minimum(lo, torch.zeros_like(lo))
+    hi = torch.maximum(hi, lo + 1e-8)
+    scale = (hi - lo) / torch.full_like(hi, 255.0)
+    zp = torch.clamp(torch.round(-lo / scale), 0, 255).to(torch.int32)
+    return scale, zp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +212,21 @@ def fake_quant_weights(w: torch.Tensor, bits: int,
                                     torch.full_like(flat, qmin)),
                       torch.full_like(flat, qmax)) * scale
     return torch.movedim(q.reshape(wm.shape), 0, channel_axis)
+
+
+def int8_matmul_reference(x_q: torch.Tensor, w_q: torch.Tensor
+                          ) -> torch.Tensor:
+    """int8 x int8 -> int32 matmul in integer arithmetic (oracle helper)."""
+    # torch has no int32 GEMM: the exact int64 product wrapped to int32 is
+    # the reference's int32 accumulation (both wrap modulo 2^32)
+    return torch.matmul(x_q.to(torch.int64), w_q.to(torch.int64)).to(
+        torch.int32)
+
+
+def dequant_matmul_reference(x: torch.Tensor, qt: QuantizedTensor
+                             ) -> torch.Tensor:
+    """Float activations x quantized weights, computed at full precision."""
+    return torch.matmul(x, qt.dequantize().T)
 
 
 # ---------------------------------------------------------------------------

@@ -2,10 +2,11 @@
 
 Ports ``repro/core/weight_store.py:40-162``: ``PackedParam`` (one packed
 weight matrix, a uint8 carrier of 2/4/8-bit fields, with its per-channel
-f32 scales), ``pack_param``, the store-level ``WeightStore`` (with
-``packed_bytes``; the reference's other accounting helpers have no caller
-in the port), ``freeze`` and the ``default_policy`` / ``uniform_policy``
-freeze policies.
+f32 scales), ``pack_param``, the store-level ``WeightStore`` with its
+capacity accounting (``packed_bytes``, ``passthrough_bytes``,
+``dense_equivalent_bytes``, ``density_gain``, ``fits``) and
+``dequantized_params``, ``freeze`` and the ``default_policy`` /
+``uniform_policy`` freeze policies.
 
 The reference's trees are JAX pytrees; the port's are nested dicts of
 tensors.  :func:`flatten_tree` walks them the way
@@ -27,6 +28,7 @@ from repro_torch.core import packing, quantize
 # Siracusa's weight MRAM (paper §II-B; ``repro/core/weight_store.py:34``):
 # the default resident budget of paging decisions
 SIRACUSA_MRAM_BYTES = 4 * 1024 * 1024
+SIRACUSA_TILE_SRAM_BYTES = 4 * 1024 * 1024
 
 
 @dataclasses.dataclass
@@ -41,6 +43,10 @@ class PackedParam:
     @property
     def nbytes_packed(self) -> int:
         return int(np.prod(self.packed.shape))
+
+    @property
+    def nbytes_dense_bf16(self) -> int:
+        return int(np.prod(self.orig_shape)) * 2
 
     def unpack_levels(self) -> torch.Tensor:
         """Materialize int8 levels (reference / non-fused paths)."""
@@ -72,9 +78,35 @@ class WeightStore:
     params: Dict[str, PackedParam]
     passthrough: Dict[str, Any]
 
+    # -- capacity accounting ------------------------------------------------
     @property
     def packed_bytes(self) -> int:
         return sum(p.nbytes_packed for p in self.params.values())
+
+    @property
+    def passthrough_bytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in map(_as_tensor, self.passthrough.values()))
+
+    @property
+    def dense_equivalent_bytes(self) -> int:
+        """What the same weights would occupy unquantized (bf16)."""
+        return (sum(p.nbytes_dense_bf16 for p in self.params.values())
+                + self.passthrough_bytes)
+
+    def density_gain(self) -> float:
+        """MRAM-style density advantage of the packed store (>= 1)."""
+        denom = max(self.packed_bytes + self.passthrough_bytes, 1)
+        return self.dense_equivalent_bytes / denom
+
+    def fits(self, budget_bytes: int = SIRACUSA_MRAM_BYTES) -> bool:
+        return self.packed_bytes <= budget_bytes
+
+    # -- materialization ----------------------------------------------------
+    def dequantized_params(self, dtype=torch.float32) -> Dict[str, Any]:
+        out = {k: p.dequantize(dtype) for k, p in self.params.items()}
+        out.update(self.passthrough)
+        return out
 
 
 def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, Any]:

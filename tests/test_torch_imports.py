@@ -10,7 +10,8 @@ import pytest
 
 pytest.importorskip("torch")
 
-SRC = Path(__file__).resolve().parents[1] / "src"
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -46,5 +47,36 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.launch.steps", "repro_torch.launch.train",
                 "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
                 "repro_torch.runtime.trainer", "repro_torch.runtime.monitor",
-                "repro_torch.core.tree"):
+                "repro_torch.core.tree", "repro_torch.launch.serve"):
         assert mod in report["modules"]
+
+
+_EXAMPLE_PROBE = """
+import importlib.util, json, sys
+spec = importlib.util.spec_from_file_location("example", sys.argv[1])
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print(json.dumps({"bad": bad, "torch": "torch" in sys.modules}))
+"""
+
+
+@pytest.mark.parametrize("example", sorted(
+    p.name for p in (ROOT / "examples").glob("*_torch.py")))
+def test_port_examples_import_no_jax_and_no_reference(example):
+    """Each of the port's examples (``examples/*_torch.py``) runs on the
+    port alone."""
+    out = subprocess.run([sys.executable, "-c", _EXAMPLE_PROBE,
+                          str(ROOT / "examples" / example)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(SRC)))
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report == {"bad": [], "torch": True}
+
+
+def test_port_examples_listed():
+    names = {p.name for p in (ROOT / "examples").glob("*_torch.py")}
+    assert {"quickstart_torch.py", "train_lm_torch.py",
+            "serve_paged_torch.py", "xr_pipeline_torch.py"} <= names
