@@ -10,9 +10,10 @@ wire-served, both qwen3-0.6b stores once more behind the deadline-aware
 ``Scheduler`` under XR traffic, qwen3-0.6b with its KV cache paged,
 alone and beside falcon-mamba-7b as two tenants of one page pool, the
 MoE qwen2-moe-a2.7b on the grouped expert kernel, training qwen3-0.6b,
-and then the serving launcher and the XR pipeline example, in process
-through their ``main`` -- and fails (non-zero exit, no result line) if any
-phase fails:
+the serving launcher and the XR pipeline example, in process through
+their ``main``, and then the VLM llava-next-34b, the encoder-decoder
+whisper-tiny and hymba-1.5b's segmented window path -- and fails (non-zero
+exit, no result line) if any phase fails:
 
 1. set-up: requires a CUDA device, turns TF32 off, prints the card's name
    and power limit, builds every ``csrc/*.cu`` with nvcc for sm_90a (one
@@ -49,8 +50,9 @@ phase fails:
    attention at their own route, two (matmuls) or three (flash) TF32
    passes at 495 TFLOP/s, with the f32 CUDA-core bound beside it.  Besides
    qwen3-0.6b's layer, falcon-mamba-7b's four linears of a layer are timed
-   at M = 4 and 256; flash at qwen3-0.6b's prefill chunk and hymba-1.5b's
-   longest prompt; the scan at falcon-mamba-7b's and hymba-1.5b's prefill
+   at M = 4 and 256, and so are llava-next-34b's seven; flash at
+   qwen3-0.6b's prefill chunk, hymba-1.5b's longest prompt,
+   llava-next-34b's prefill of phase 12 and whisper-tiny's encoder; the scan at falcon-mamba-7b's and hymba-1.5b's prefill
    and decode; the N-EUREKA kernels at MobileNet-V2 jobs (``NEUREKA_TIMED``:
    ``conv3x3_dw`` at b0.dw, b1.dw and b14.dw, its largest stride-1 and
    stride-2 maps and its smallest one).
@@ -237,9 +239,32 @@ phase fails:
    both legs (B1, B2, B7 as in phase 8, B4-B6 at each job of the frames).
    The launcher's tick time and tok/s, the frame latency p50 / p99 and
    the tenancy tick on the host clock are printed as smoke readings;
-12. the ``{"serve": ...}``, ``{"train": ...}`` and ``{"kernels": [...]}``
-   lines, the card line, and as the last line ``{"ok": true, "device":
-   {...}}``.
+12. the VLM and encoder-decoder families and hymba's segmented window
+   path, at full width with random weights from seeded CUDA generators.
+   (a) llava-next-34b (60 layers, d_model 7,168, 56 / 8 heads of 128,
+   d_ff 20,480, vocab 64,000, untied head), drawn and frozen at 8 bits a
+   layer at a time (``layerwise_tree``): (i) ``launch/steps``'
+   ``make_prefill_step`` on 2 rows of 2,880 patch embeddings (std 0.02)
+   + 16-token prompts, then 16 greedy ``make_decode_step`` steps; (ii)
+   ``ServingEngine`` serves 4 text requests of 16-64 tokens for 16 new
+   tokens each; (iii) 1 row of 64 patches + 16 tokens through the first
+   2 layers, card vs CPU within ``LOGITS_TOL``; peak device memory
+   printed and below the card's.  (b) whisper-tiny (4 + 4 layers,
+   d_model 384, 1,500 frames): ``make_prefill_step`` on 4 rows of random
+   frames + 4-token prompts, then 32 greedy decode steps, the whole model
+   on the CPU and then on the card with the CPU's tokens fed in: logits
+   at every step within ``LOGITS_TOL``, and the card's greedy token the
+   CPU's wherever the CPU's top two logits lie more than twice that
+   tolerance apart.  (c) hymba-1.5b's ``forward`` with
+   ``segmented_window_scan`` on phase 3's 1,035-token prompt (+ 128 meta
+   tokens; the 1,024 window binds) against the unsegmented ``forward``
+   on the card within ``LOGITS_TOL``, both timed on the host clock.  The
+   B1, B2 and B7 counters are zeroed before each leg and must grow after
+   it; every distinct kernel call of (a)-(c) is held against its plain
+   version (``recording``, ``check_path``);
+13. the ``{"serve": ...}``, ``{"train": ...}``, ``{"phase12": ...}`` and
+   ``{"kernels": [...]}`` lines, the card line, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -301,6 +326,11 @@ SERVE_KERNELS = {"dense": ("qmatmul_f32", "flash_attention"),
 LAYER_LINEARS = {"wq": (1024, 2048), "wk": (1024, 1024), "wv": (1024, 1024),
                  "wo": (2048, 1024), "w_gate": (1024, 3072),
                  "w_up": (1024, 3072), "w_down": (3072, 1024)}
+# (K, N) of each packed linear of a llava-next-34b layer: d_model 7,168,
+# 56 / 8 heads of 128, d_ff 20,480
+LLAVA_LINEARS = {"wq": (7168, 7168), "wk": (7168, 1024), "wv": (7168, 1024),
+                 "wo": (7168, 7168), "w_gate": (7168, 20480),
+                 "w_up": (7168, 20480), "w_down": (20480, 7168)}
 # (K, N) of each packed linear of a falcon-mamba-7b layer: d_model 4,096,
 # d_inner 8,192, dt_rank 256, N 16 (x_proj gives dt_rank + 2N)
 FALCON_LINEARS = {"in_proj": (4096, 16384), "x_proj": (8192, 288),
@@ -504,8 +534,17 @@ FLASH_CASES = [
     (2, 4, 2, 100, 24, 64, None, None, True),
     (2, 8, 8, 32, 64, 32, 16, (0, 70), True),
     (1, 2, 2, 64, 280, 16, 40, (256,), False),
+    # llava-next-34b's prefill of phase 12 (a) (i): 2,880 patches + 16
+    # tokens, GQA 7 (56 / 8 heads of 128); timed
+    (2, 56, 8, 2896, 2896, 128, None, None, True),
+    # whisper-tiny, 4 rows: the encoder over 1,500 frames (not causal;
+    # timed), the 4-token prefill's and one decode token's cross-attention
+    (4, 6, 6, 1500, 1500, 64, None, None, False),
+    (4, 6, 6, 4, 1500, 64, None, None, False),
+    (4, 6, 6, 1, 1500, 64, None, None, False),
 ]
-FLASH_TIMED = {"qwen3": 0, "hymba": 4}     # FLASH_CASES rows timed
+# FLASH_CASES rows timed
+FLASH_TIMED = {"qwen3": 0, "hymba": 4, "llava": 8, "whisper": 9}
 
 
 def flash_inputs(torch, gen, dev, case):
@@ -537,9 +576,10 @@ def check_flash(torch, ref, fa, dev) -> float:
             raise AssertionError(f"flash_attention case {case}: two calls "
                                  "differ")
         del q, k, v, expect, got
-    print(f"[check] flash_attention: {len(FLASH_CASES)} cases (GQA 16/8 and "
-          f"25/5, per-row q_offset, causal and not, windows, hymba's long "
-          f"prompt, rows that see no key), max abs err {worst:.3e}, "
+    print(f"[check] flash_attention: {len(FLASH_CASES)} cases (GQA 16/8, "
+          f"25/5 and 56/8, per-row q_offset, causal and not, windows, "
+          f"hymba's long prompt, llava's prefill, whisper's encoder and "
+          f"cross-attention, rows that see no key), max abs err {worst:.3e}, "
           f"tolerance {FLASH_TOL}; each call twice, bit-equal")
     return worst
 
@@ -701,7 +741,9 @@ def time_flash(torch, F, ref, fa, dev, which: str = "qwen3",
     """A timed FLASH_CASES row (qwen3-0.6b's prefill chunk: 4 rows x 16/8
     heads, 64 queries over a 512-row kv span at per-row offsets; hymba-
     1.5b's longest prompt: 4 rows x 25/5 heads, 1,163 queries, window
-    1,024) on ``copies`` input sets in turn (more than the 50 MB L2).  The
+    1,024; llava-next-34b's prefill: 2 rows x 56/8 heads of 128, 2,896
+    queries; whisper-tiny's encoder: 4 rows x 6 heads of 64, 1,500 frames,
+    not causal) on ``copies`` input sets in turn (more than the 50 MB L2).  The
     library call is ``F.scaled_dot_product_attention`` with the same
     boolean mask, on k and v expanded to Hq heads outside the timing."""
     case = FLASH_CASES[FLASH_TIMED[which]]
@@ -715,6 +757,8 @@ def time_flash(torch, F, ref, fa, dev, which: str = "qwen3",
         ve = v.repeat_interleave(hq // hkv, dim=1)
         sets.append((q, k, v, ke, ve))
     off = kw["q_offset"]
+    if off is None:
+        off = torch.full((b,), sk - sq, dtype=torch.int32, device=dev)
     qpos = off[:, None] + torch.arange(sq, device=dev)
     kpos = torch.arange(sk, device=dev)[None, None]
     mask = torch.ones((b, sq, sk), dtype=torch.bool, device=dev)
@@ -1083,6 +1127,18 @@ def read_launches(counters):
     return launches, split
 
 
+def serve_prompts(np, vocab: int, long_prompt: bool):
+    """(rng, lengths, prompts) of ``serve_lm``'s 8 requests: 16-256 tokens,
+    the last 1,000-1,200 with ``long_prompt`` (hymba-1.5b's: 1,035); the
+    rng goes on to draw the forward check's tokens."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 257, 8)
+    if long_prompt:
+        lens[-1] = rng.integers(1000, 1201)
+    prompts = [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens]
+    return rng, lens, prompts
+
+
 def serve_lm(torch, m, cfg, max_len: int, long_prompt: bool, counters,
              depth, dev, make_tree=None, logits_tol=None):
     """Serve 8 greedy requests (prompts of 16-256 tokens, one of 1,000-1,200
@@ -1112,15 +1168,11 @@ def serve_lm(torch, m, cfg, max_len: int, long_prompt: bool, counters,
           f"{time.perf_counter() - t0:.2f} s, {n_packed / 2**30:.3f} GiB "
           f"frozen, peak {init_peak / 2**30:.3f} GiB")
     eng = m["ServingEngine"](cfg, packed, batch_slots=4, max_len=max_len)
-    rng = np.random.default_rng(0)
-    lens = rng.integers(16, 257, 8)
-    if long_prompt:
-        lens[-1] = rng.integers(1000, 1201)
+    rng, lens, prompts = serve_prompts(np, cfg.vocab_size, long_prompt)
     if cfg.family == "ssm" and lens.max() <= eng.prefill_chunk:
         raise AssertionError("no prompt spans two prefill chunks")
-    reqs = [m["Request"](uid=i, prompt=rng.integers(0, cfg.vocab_size, int(n))
-                         .astype(np.int32), max_new_tokens=16)
-            for i, n in enumerate(lens)]
+    reqs = [m["Request"](uid=i, prompt=p, max_new_tokens=16)
+            for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2651,11 +2703,11 @@ GROUPED_CASES = ([(60, c, k, n, 8) for c in (8, 16, 24)
                     (60, 8, 1408, 2048, 2), (60, 24, 2048, 1408, 2)])
 
 
-def moe_tree(torch, m, cfg, dev):
+def layerwise_tree(torch, m, cfg, dev):
     """``cfg``'s packed tree with random weights from a CUDA generator
     seeded 0, drawn and frozen at 8 bits one layer at a time into stacked
-    leaves allocated once: the f32 tree (~57 GB for qwen2-moe-a2.7b) never
-    exists whole."""
+    leaves allocated once: the f32 tree (~57 GB for qwen2-moe-a2.7b, 137 GB
+    for llava-next-34b) never exists whole."""
     tfm, freeze = m["tfm"], m["freeze"]
     gen = torch.Generator(device=dev).manual_seed(0)
     # the embedding, head and final norm, and no layer
@@ -2784,7 +2836,7 @@ def serve_moe_phase(torch, m, cfg, dev):
                 "qmatmul_f32_grouped": m["qmm"].qmatmul_f32_grouped,
                 "flash_attention": m["fa"].flash_attention}
     served, tree = serve_lm(torch, m, cfg, 512, False, counters, 2, dev,
-                            make_tree=lambda: moe_tree(torch, m, cfg, dev),
+                            make_tree=lambda: layerwise_tree(torch, m, cfg, dev),
                             logits_tol=LOGITS_TOL)
     del tree
     gc.collect()
@@ -3675,6 +3727,320 @@ def launch_xr_phase(torch, m, dev):
     return out
 
 
+# phase 12: the VLM and encoder-decoder families and hymba's segmented
+# window path (ROADMAP A9, rest), each at full width through the entry
+# points a user calls (launch/steps, ServingEngine, transformer.forward)
+VLM_ARCH = "llava-next-34b"
+ENCDEC_ARCH = "whisper-tiny"
+SEG_ARCH = "hymba-1.5b"
+VLM = dict(rows=2, prompt=16, new=16, serve_requests=4, serve_new=16,
+           serve_max_len=128, check_patches=64, check_layers=2)
+ENCDEC = dict(rows=4, prompt=4, steps=32)
+PHASE12_KERNELS = {VLM_ARCH: ("qmatmul_f32", "flash_attention"),
+                   ENCDEC_ARCH: ("qmatmul_f32", "flash_attention"),
+                   SEG_ARCH: ("qmatmul_f32", "flash_attention",
+                              "selective_scan")}
+
+
+def counted_leg(torch, counters, kernels, what):
+    """Zeroes the launch counters, runs the block, reads them after a
+    synchronize and fails unless each of ``kernels`` launched; yields a
+    dict that holds ``launches`` and ``launches_by_class`` afterwards."""
+    @contextlib.contextmanager
+    def leg():
+        out = {}
+        zero_launches(counters)
+        yield out
+        torch.cuda.synchronize()
+        out["launches"], out["launches_by_class"] = read_launches(counters)
+        expect_launched(out["launches"], kernels, what)
+    return leg()
+
+
+def merge_calls(into, calls):
+    for name, keys in calls.items():
+        into[name] = list(dict.fromkeys(into.get(name, []) + keys))
+
+
+def vlm_leg(torch, m, cfg, dev, counters, calls):
+    """(a): llava-next-34b at full width, 8 bits, drawn a layer at a time;
+    (i) make_prefill_step on patches + prompts and make_decode_step, (ii)
+    ServingEngine on text prompts, (iii) the first layers card vs CPU."""
+    np, tfm, steps, vlm = m["np"], m["tfm"], m["steps"], m["vlm"]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tree = layerwise_tree(torch, m, cfg, dev)
+    torch.cuda.synchronize()
+    n_packed = sum(t.numel() * t.element_size() for t in leaves(tree))
+    draw_s = time.perf_counter() - t0
+    print(f"[vlm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}; drawn and frozen (8-bit) a "
+          f"layer at a time in {draw_s:.2f} s, {n_packed / 2**30:.3f} GiB "
+          f"resident, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+          "GiB")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows, s, new = VLM["rows"], VLM["prompt"], VLM["new"]
+    start = cfg.n_patches + s
+    patches = torch.randn((rows, cfg.n_patches, cfg.d_model), generator=gen,
+                          device=dev) * 0.02
+    tokens = torch.randint(0, cfg.vocab_size, (rows, s), generator=gen,
+                           device=dev)
+    out = {}
+    # (i) the serve steps: patches + prompt prefill, then greedy decode
+    with counted_leg(torch, counters, PHASE12_KERNELS[cfg.name],
+                     f"{cfg.name} serve steps") as leg, \
+            recording(torch, m["ops"]) as rec:
+        cache = tfm.init_serve_cache(cfg, rows, start + new, device=dev)
+        prefill, decode = (steps.make_prefill_step(cfg),
+                           steps.make_decode_step(cfg))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(tree, patches, tokens, cache)
+        nxt = logits[:, -1].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        got = []
+        t0 = time.perf_counter()
+        for i in range(new):
+            logits, cache = decode(tree, nxt, cache, start + i)
+            nxt = logits[:, -1].argmax(-1)[:, None]
+            got.append(nxt)
+        got = torch.cat(got, 1).cpu()
+        decode_s = (time.perf_counter() - t0) / new
+    merge_calls(calls, rec)
+    if got.shape != (rows, new) or not bool(((got >= 0)
+                                              & (got < cfg.vocab_size)).all()):
+        raise AssertionError(f"{cfg.name}: not every row got its {new} "
+                             "tokens in the vocabulary")
+    kv_gib = sum(t.numel() * 4 for t in cache["kv"].values()) / 2**30
+    del cache, logits
+    print(f"[vlm] {cfg.name} (i) make_prefill_step: {rows} rows of "
+          f"{cfg.n_patches} patches + {s} tokens ({start} positions) in "
+          f"{prefill_s:.3f} s on the host clock after synchronize; "
+          f"{new} make_decode_step steps, {decode_s * 1e3:.2f} ms a step; "
+          f"tokens {got.tolist()}; KV cache {kv_gib:.3f} GiB; launches "
+          f"{leg['launches']}, by flash shape "
+          f"{json.dumps(leg['launches_by_class'])}")
+    out["steps"] = dict(prefill_s=prefill_s, decode_step_ms=decode_s * 1e3,
+                        positions=start, **leg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (ii) the engine on text prompts, as the reference's serves the family
+    rng = np.random.default_rng(12)
+    lens = rng.integers(16, 65, VLM["serve_requests"])
+    reqs = [m["Request"](uid=i, prompt=rng.integers(0, cfg.vocab_size, int(n))
+                         .astype(np.int32),
+                         max_new_tokens=VLM["serve_new"])
+            for i, n in enumerate(lens)]
+    with counted_leg(torch, counters, PHASE12_KERNELS[cfg.name],
+                     f"{cfg.name} engine") as leg, \
+            recording(torch, m["ops"]) as rec:
+        eng = m["ServingEngine"](cfg, tree, batch_slots=4,
+                                 max_len=VLM["serve_max_len"])
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        done, ticks = [], 0
+        while eng.pending:
+            done += eng.step()
+            ticks += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    merge_calls(calls, rec)
+    if len(done) != len(reqs) or any(len(r.generated) != VLM["serve_new"]
+                                     for r in done):
+        raise AssertionError(f"{cfg.name}: not every engine request got its "
+                             f"{VLM['serve_new']} tokens")
+    n_new = sum(len(r.generated) for r in done)
+    print(f"[vlm] {cfg.name} (ii) ServingEngine: {len(done)} text requests "
+          f"(prompts {lens.tolist()}), {n_new} new tokens, wall {wall:.3f} s "
+          f"({ticks} ticks, {wall / ticks * 1e3:.1f} ms a tick, "
+          f"{n_new / wall:.2f} new tok/s), launches {leg['launches']}")
+    out["engine"] = dict(wall_s=wall, ticks=ticks, new_tokens=n_new, **leg)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (iii) the first layers, card vs CPU, on patches + tokens
+    depth = VLM["check_layers"]
+    fcfg = cfg.replace(n_layers=depth)
+    sub = dict(tree, layers=first_layers(tree["layers"], depth))
+    sub_cpu = to_device(torch, sub, "cpu")
+    pat = torch.randn((1, VLM["check_patches"], cfg.d_model), generator=gen,
+                      device=dev) * 0.02
+    toks = torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device=dev)
+    with torch.no_grad():
+        card = vlm.forward(sub, toks, pat, fcfg).cpu()
+        cpu = vlm.forward(sub_cpu, toks.cpu(), pat.cpu(), fcfg)
+    err = (card - cpu).abs().max().item()
+    if not (torch.isfinite(card).all() and card.shape == (
+            1, VLM["check_patches"] + s, cfg.vocab_size)):
+        raise AssertionError(f"{cfg.name}: card logits not finite or "
+                             "misshapen")
+    if not torch.allclose(card, cpu, **LOGITS_TOL):
+        raise AssertionError(f"{cfg.name} card vs CPU logits ({depth} "
+                             f"layers): max abs err {err}")
+    top1 = (card.argmax(-1) == cpu.argmax(-1)).float().mean().item()
+    print(f"[forward] {cfg.name} ({depth} of {cfg.n_layers} layers) "
+          f"{VLM['check_patches']} patches + {s} tokens card vs CPU: max abs "
+          f"err {err:.3e} (tolerance {LOGITS_TOL}), top-1 agreement "
+          f"{top1:.4f}, max |logit| {cpu.abs().max().item():.3f}")
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    print(f"[vlm] {cfg.name}: peak device memory {peak / 2**30:.3f} GiB of "
+          f"{total / 2**30:.3f} GiB")
+    if peak >= total:
+        raise AssertionError(f"{cfg.name}: peak memory {peak} >= {total}")
+    out.update(draw_s=draw_s, resident_gib=n_packed / 2**30,
+               peak_gib=peak / 2**30, logits_max_abs_err=err)
+    del tree, sub, sub_cpu
+    return out
+
+
+def encdec_leg(torch, m, cfg, dev, counters, calls):
+    """(b): whisper-tiny at full width, 8 bits; the CPU's greedy run, then
+    the card's with the CPU's tokens fed in: logits at every step within
+    LOGITS_TOL, and the card's greedy token the CPU's wherever the CPU's
+    top two logits lie further apart than twice that tolerance."""
+    steps, encdec = m["steps"], m["encdec"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tree = m["freeze"](encdec.init_params(cfg, generator=gen), bits=8)
+    tree_cpu = to_device(torch, tree, "cpu")
+    rows, s, n = ENCDEC["rows"], ENCDEC["prompt"], ENCDEC["steps"]
+    frames = torch.randn((rows, cfg.n_audio_frames, cfg.d_model),
+                         generator=gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (rows, s), generator=gen,
+                           device=dev)
+    prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+
+    def run(tree_, frames_, tokens_, dev_, feed=None):
+        cache = encdec.init_serve_cache(cfg, rows, s + n, device=dev_)
+        logits, cache = prefill(tree_, frames_, tokens_, cache)
+        out, fed = [logits[:, -1].cpu()], []
+        for i in range(n):
+            nxt = (feed[i] if feed is not None
+                   else out[-1].argmax(-1)[:, None])
+            fed.append(nxt)
+            logits, cache = decode(tree_, nxt.to(dev_), cache, s + i)
+            out.append(logits[:, -1].cpu())
+        return torch.stack(out, 1), fed, logits
+
+    t0 = time.perf_counter()
+    cpu_logits, fed, _ = run(tree_cpu, frames.cpu(), tokens.cpu(), "cpu")
+    cpu_s = time.perf_counter() - t0
+    with counted_leg(torch, counters, PHASE12_KERNELS[cfg.name],
+                     f"{cfg.name} serve steps") as leg, \
+            recording(torch, m["ops"]) as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_logits, _, last = run(tree, frames, tokens, dev, feed=fed)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    merge_calls(calls, rec)
+    err = (card_logits - cpu_logits).abs().max().item()
+    if not (torch.isfinite(card_logits).all()
+            and last.shape == (rows, 1, cfg.vocab_size)):
+        raise AssertionError(f"{cfg.name}: card logits not finite or "
+                             "misshapen")
+    if not torch.allclose(card_logits, cpu_logits, **LOGITS_TOL):
+        raise AssertionError(f"{cfg.name} card vs CPU logits over {n + 1} "
+                             f"steps: max abs err {err}")
+    top2 = cpu_logits.topk(2, dim=-1).values
+    tol = LOGITS_TOL["atol"] + LOGITS_TOL["rtol"] * top2[..., 0].abs()
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * tol
+    same = card_logits.argmax(-1) == cpu_logits.argmax(-1)
+    if not bool(same[clear].all()):
+        raise AssertionError(f"{cfg.name}: a greedy token differs where the "
+                             "CPU's top two logits are apart")
+    print(f"[encdec] {cfg.name}: {cfg.n_encoder_layers} + {cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, "
+          f"{cfg.n_audio_frames} frames, vocab {cfg.vocab_size}; "
+          f"make_prefill_step on {rows} rows of frames + {s}-token prompts "
+          f"and {n} make_decode_step steps: card {card_s:.3f} s, CPU "
+          f"{cpu_s:.3f} s on the host clock; logits at every step card vs "
+          f"CPU max abs err {err:.3e} (tolerance {LOGITS_TOL}); greedy tokens "
+          f"equal at {int(same[clear].sum())} of {int(clear.sum())} clear "
+          f"positions ({int(same.sum())} of {same.numel()} in all); "
+          f"launches {leg['launches']}, by flash shape "
+          f"{json.dumps(leg['launches_by_class'])}")
+    del tree, tree_cpu
+    return dict(card_s=card_s, cpu_s=cpu_s, logits_max_abs_err=err,
+                clear_positions=int(clear.sum()),
+                tokens_equal=int(same.sum()), positions=same.numel(), **leg)
+
+
+def segmented_leg(torch, m, cfg, dev, counters, calls):
+    """(c): hymba-1.5b's forward with segmented_window_scan on phase 3's
+    long prompt (the window of 1,024 binds), against the unsegmented
+    forward on the card; both timed on the host clock."""
+    np, tfm = m["np"], m["tfm"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tree = m["freeze"](tfm.init_params(cfg, generator=gen), bits=8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, lens, prompts = serve_prompts(np, cfg.vocab_size, True)
+    toks = torch.from_numpy(prompts[-1][None].astype(np.int64)).to(dev)
+    seg = cfg.replace(segmented_window_scan=True)
+    times = {}
+    with torch.no_grad():
+        tfm.forward(tree, toks, cfg)            # warm: builds, allocator
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flat = tfm.forward(tree, toks, cfg)
+        torch.cuda.synchronize()
+        times["unsegmented_s"] = time.perf_counter() - t0
+        with counted_leg(torch, counters, PHASE12_KERNELS[cfg.name],
+                         f"{cfg.name} segmented forward") as leg, \
+                recording(torch, m["ops"]) as rec:
+            t0 = time.perf_counter()
+            got = tfm.forward(tree, toks, seg)
+            torch.cuda.synchronize()
+            times["segmented_s"] = time.perf_counter() - t0
+    merge_calls(calls, rec)
+    err = (got - flat).abs().max().item()
+    positions = cfg.n_meta_tokens + toks.shape[1]
+    if not (torch.isfinite(got).all()
+            and got.shape == (1, positions, cfg.vocab_size)):
+        raise AssertionError(f"{cfg.name}: segmented logits not finite or "
+                             "misshapen")
+    if not torch.allclose(got, flat, **LOGITS_TOL):
+        raise AssertionError(f"{cfg.name} segmented vs unsegmented: max abs "
+                             f"err {err}")
+    windows = sorted({w for w in tfm.layer_windows(cfg) if w})
+    print(f"[segmented] {cfg.name} forward, {cfg.n_layers} layers (windows "
+          f"{windows}), {toks.shape[1]} tokens ({positions} positions): "
+          f"segmented_window_scan {times['segmented_s']:.3f} s, unsegmented "
+          f"{times['unsegmented_s']:.3f} s on the host clock after "
+          f"synchronize; max abs err {err:.3e} (tolerance {LOGITS_TOL}); "
+          f"launches {leg['launches']}, by flash shape and scan route "
+          f"{json.dumps(leg['launches_by_class'])}")
+    del tree, flat, got
+    return dict(logits_max_abs_err=err, positions=positions, **times, **leg)
+
+
+def vlm_encdec_phase(torch, m, dev, counters):
+    """Phase 12 (see the module doc): (a) llava-next-34b, (b) whisper-tiny,
+    (c) hymba-1.5b's segmented window path; then every distinct kernel call
+    of the three held against its plain version."""
+    get_config = m["get_config"]
+    t_phase = time.perf_counter()
+    calls = {}
+    out = {}
+    for arch, leg in ((VLM_ARCH, vlm_leg), (ENCDEC_ARCH, encdec_leg),
+                      (SEG_ARCH, segmented_leg)):
+        out[arch] = leg(torch, m, get_config(arch), dev, counters, calls)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["path_check"] = check_path(torch, m["ops"], m["ref"], m["qmm"],
+                                   m["fa"], m["ssm"], dev, "phase 12", calls)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[phase 12] took {out['wall_s']:.1f} s")
+    return out
+
+
+
 def to_device(torch, tree, dev):
     if isinstance(tree, dict):
         return {k: to_device(torch, v, dev) for k, v in tree.items()}
@@ -3730,6 +4096,11 @@ def main() -> int:
         time_qmatmul(torch, packing, ops, ref, qmm, dev, m=m, copies=2,
                      linears=FALCON_LINEARS,
                      what="qmatmul_f32 falcon-mamba-7b layer x4")
+        for m in (4, 256))
+    t_llava_dec, t_llava = (
+        time_qmatmul(torch, packing, ops, ref, qmm, dev, m=m, copies=2,
+                     linears=LLAVA_LINEARS,
+                     what=f"qmatmul_f32 {VLM_ARCH} layer x7")
         for m in (4, 256))
     t_fa = {which: time_flash(torch, F, ref, fa, dev, which)
             for which in FLASH_TIMED}
@@ -3883,7 +4254,29 @@ def main() -> int:
         nk_err[name] = max(nk_err[name],
                            p11["path_check"]["max_abs_err"][name])
 
-    # 12. result lines
+    # 12. the VLM and encoder-decoder families and hymba's segmented path
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec, vlm
+    mods.update(steps=steps, vlm=vlm, encdec=encdec, get_config=get_config)
+    p12 = vlm_encdec_phase(torch, mods, dev, counters)
+    served[f"{VLM_ARCH} serve steps"] = p12[VLM_ARCH]["steps"]
+    served[f"{VLM_ARCH} engine"] = p12[VLM_ARCH]["engine"]
+    served[f"{ENCDEC_ARCH} serve steps"] = p12[ENCDEC_ARCH]
+    served[f"{SEG_ARCH} segmented forward"] = p12[SEG_ARCH]
+    for path in (f"{VLM_ARCH} serve steps", f"{VLM_ARCH} engine",
+                 f"{ENCDEC_ARCH} serve steps",
+                 f"{SEG_ARCH} segmented forward"):
+        for name in counters:
+            launches[name] += served[path]["launches"][name]
+    qmm_err, fa_err, scan_err = (
+        max(err, p12["path_check"]["max_abs_err"][name])
+        for err, name in ((qmm_err, "qmatmul_f32"),
+                          (fa_err, "flash_attention"),
+                          (scan_err, "selective_scan")))
+
+    # 13. result lines
     by_path = {name: {arch: s["launches"][name] for arch, s in served.items()
                       if name in s["launches"]}
                for name in counters}
@@ -3904,7 +4297,8 @@ def main() -> int:
              bytes_ms=t_dec["bytes_ms"], tf32_ops_ms=t_dec["tf32_ops_ms"],
              bound_f32_ms=t_dec["bound_f32_ms"],
              decode_falcon_M4=t_falcon_dec, prefill_M256=t_pre,
-             prefill_falcon_M256=t_falcon),
+             prefill_falcon_M256=t_falcon, decode_llava_M4=t_llava_dec,
+             prefill_llava_M256=t_llava),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:71",
@@ -3920,7 +4314,8 @@ def main() -> int:
              bytes_ms=t_fa["qwen3"]["bytes_ms"],
              tf32_ops_ms=t_fa["qwen3"]["tf32_ops_ms"],
              bound_f32_ms=t_fa["qwen3"]["bound_f32_ms"],
-             hymba=t_fa["hymba"]),
+             hymba=t_fa["hymba"], llava=t_fa["llava"],
+             whisper=t_fa["whisper"]),
     ]
     for name, source, replaces, timed in (
             ("qmatmul_int8", "qmatmul_int8.cu", "qmatmul.py:218",
@@ -3991,6 +4386,9 @@ def main() -> int:
         bound_f32_ms=t["bound_f32_ms"], prefill_M256=t_bs["prefill"]))
     print(json.dumps({"serve": served}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"phase12": {k: v for k, v in p12.items()
+                                  if k != "path_check"},
+                      "phase12_path_check": p12["path_check"]}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,14 @@ numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``) and load it
 here.  Two kinds of tree come across:
 
 - the LM's, dense or frozen, of any ported family (dense, MoE, SSM,
-  hybrid): layers stacked on axis 0 (``repro/models/transformer.py:134-150``),
+  hybrid, VLM): layers stacked on axis 0 (``repro/models/transformer.py:134-150``),
   packed leaves as ``{"packed", "scale"}`` dicts, the MoE block's router,
   stacked (E, F, D) experts (packed (E, F, D/f) with (E, F) scales), shared
   expert and arctic's ``dense`` residual, and the SSM leaves and hymba's
-  ``meta_tokens`` as they are (:func:`params_from_numpy`);
+  ``meta_tokens`` as they are (:func:`params_from_numpy`); and the
+  encoder-decoder's (``repro/models/encdec.py:50-63``): ``dec_pos``, the
+  stacked ``enc_layers`` and ``dec_layers`` (with ``xattn``),
+  ``enc_final_norm``;
 - MobileNet-V2's, one entry per N-EUREKA job: the float ``{"w", "bias"}``
   tree of ``init_params`` or the frozen ``{"packed", "mult", "bias"}`` tree
   of ``freeze_packed`` (:func:`mobilenet_from_numpy`);
@@ -46,7 +49,9 @@ def _leaf_to_torch(a: Any, dev: torch.device) -> torch.Tensor:
 def params_from_numpy(tree: Any, cfg: ModelConfig,
                       device: DeviceLike = None) -> Any:
     """Nested dicts of numpy arrays -> the same tree of tensors on ``device``
-    (default ``cuda``).  Checks the stacked layer axis against ``cfg``."""
+    (default ``cuda``).  Checks each stacked layer axis against ``cfg``:
+    ``layers`` and ``dec_layers`` against ``n_layers``, ``enc_layers``
+    against ``n_encoder_layers``."""
     dev = resolve_device(device)
 
     def walk(t: Any) -> Any:
@@ -60,10 +65,14 @@ def params_from_numpy(tree: Any, cfg: ModelConfig,
                                                     cfg.d_model):
         raise ValueError(f"embed {tuple(embed.shape)} does not match "
                          f"{cfg.name} ({cfg.vocab_size}, {cfg.d_model})")
-    for t in _leaves(out.get("layers", {}) if isinstance(out, dict) else {}):
-        if t.shape[0] != cfg.n_layers:
-            raise ValueError(f"stacked layer axis {t.shape[0]} != "
-                             f"{cfg.name} n_layers {cfg.n_layers}")
+    stacks = (("layers", "n_layers"), ("dec_layers", "n_layers"),
+              ("enc_layers", "n_encoder_layers"))
+    for key, field in stacks:
+        for t in _leaves(out.get(key, {}) if isinstance(out, dict) else {}):
+            if t.shape[0] != getattr(cfg, field):
+                raise ValueError(f"stacked {key} axis {t.shape[0]} != "
+                                 f"{cfg.name} {field} "
+                                 f"{getattr(cfg, field)}")
     return out
 
 

@@ -10,8 +10,8 @@ kernel into the SSM mixer's prefill, ``forward`` and decode (at S = 1).
 
 The wrapper launches ``csrc/ssm_scan.cu`` for CUDA tensors and raises on
 anything it does not take: the inputs must be float32 (the TPU kernel's
-bf16 input is later work, ROADMAP A9).  For CPU tensors it computes the
-plain PyTorch version (``kernels/ref.py::selective_scan``).
+bf16 input is later work, ROADMAP queue B item 1).  For CPU tensors it
+computes the plain PyTorch version (``kernels/ref.py::selective_scan``).
 ``selective_scan.launches`` counts kernel launches, and
 ``selective_scan.launches_by_route`` the same launches by route.
 
@@ -116,7 +116,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"{[str(t.device) for t in tensors]}")
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("selective_scan takes float32 inputs (bf16 input is "
-                        "not ported yet, ROADMAP A9), got "
+                        "not ported yet, ROADMAP queue B item 1), got "
                         f"{[str(t.dtype) for t in tensors]}")
     if x.ndim != 3 or dt.shape != x.shape or A.ndim != 2:
         raise ValueError(f"need x and dt (Bz, S, Di) and A (Di, N), got "

@@ -37,9 +37,11 @@ cold bytes); each tenant is verified bit-exact against serving it alone on
 a private pager, and the pool's counters against the ``kv_pass_counters``
 replay of its event log.
 
-Refused: ``--mesh`` (mesh-sharded paging, ROADMAP A11), the encdec family
-(as the reference), and any family the port's model does not run yet
-(``transformer.check_family``: vlm, ROADMAP A9).
+Every decoder-only family serves, the VLM (llava-next-34b) with text
+prompts as the reference's engine serves it.  Refused: ``--mesh``
+(mesh-sharded paging, ROADMAP A11) and the encdec family, as the
+reference refuses it; its serve steps are
+``repro_torch.launch.steps.make_prefill_step`` / ``make_decode_step``.
 """
 
 from __future__ import annotations
@@ -119,11 +121,10 @@ def _servable(cfg):
     """Exit, naming why, for a family this launcher does not serve."""
     if cfg.family == "encdec":
         raise SystemExit(f"{cfg.name}: serve launcher covers decoder-only "
-                         "archs; see examples/xr_pipeline.py for enc-dec")
-    try:
-        tfm.check_family(cfg)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
+                         "archs; the enc-dec serve steps are "
+                         "repro_torch.launch.steps.make_prefill_step and "
+                         "make_decode_step")
+    tfm.check_family(cfg)
 
 
 def _config(args):

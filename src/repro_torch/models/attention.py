@@ -6,6 +6,11 @@
     kernel through ``kernels.ops.attention`` instead; this function stays as
     the plain counterpart of the reference's jnp path, and the tests hold
     both against it.
+  * ``windowed_attention`` — the reference's q-blocked causal sliding-window
+    attention (hymba's ``segmented_window_scan`` layers) in plain PyTorch
+    ops.  The model runs it on the CPU; on the card the same layers go to
+    the flash kernel with the window, whose tile walk skips the keys the
+    window hides.
   * ``decode_attention`` — one-token attention over a preallocated cache
     with a per-batch length.  The reference has no Pallas kernel for it, so
     it stays in PyTorch ops.
@@ -77,6 +82,43 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def windowed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       window: int, q_offset: int = 0, bq: int = 512,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """Causal sliding-window attention with q-blocking: each block of ``bq``
+    queries attends only to its visible key span (``window + bq`` keys), so
+    the work is O(S * (window + bq)), not O(S^2).  q: (B, Hq, Sq, D); k, v:
+    (B, Hkv, Sk, D).  The scale goes on q before the scores, and pads go on
+    q only, as in the reference."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    bq = min(bq, sq)
+    pad = (-sq) % bq
+    qg = q.to(torch.float32) * scale
+    if pad:
+        qg = torch.nn.functional.pad(qg, (0, 0, 0, pad))
+    span = min(window + bq, sk)
+    dev = q.device
+    blocks = []
+    for i in range((sq + pad) // bq):
+        qstart = i * bq + q_offset
+        kstart = min(max(qstart + bq - span, 0), max(sk - span, 0))
+        ks = k[:, :, kstart:kstart + span].to(torch.float32)
+        vs = v[:, :, kstart:kstart + span].to(torch.float32)
+        qblk = _fold_gqa(qg[:, :, i * bq:(i + 1) * bq], hkv)
+        s_ = torch.einsum("bhgqd,bhkd->bhgqk", qblk, ks)
+        qpos = qstart + torch.arange(bq, device=dev)[:, None]
+        kpos = kstart + torch.arange(span, device=dev)[None, :]
+        mask = (kpos <= qpos) & (kpos > qpos - window)
+        s_ = torch.where(mask, s_, torch.full_like(s_, NEG_INF))
+        p = torch.softmax(s_, dim=-1)
+        o = torch.einsum("bhgqk,bhkd->bhgqd", p, vs)
+        blocks.append(o.reshape(b, hq, bq, d))
+    out = torch.cat(blocks, dim=2)[:, :, :sq]
+    return out.to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

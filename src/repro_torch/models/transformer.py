@@ -1,5 +1,5 @@
-"""Decoder-only LM: init / forward / prefill / decode for the dense, MoE, SSM
-and hybrid families (reference: ``repro/models/transformer.py:24-470``).
+"""Decoder-only LM: init / forward / prefill / decode for the dense, MoE, SSM,
+hybrid and VLM families (reference: ``repro/models/transformer.py:24-470``).
 
 Parameters keep the reference's tree: nested dicts of tensors with the
 layers stacked on axis 0, so ``interop`` carries a JAX tree over leaf for
@@ -22,8 +22,13 @@ runs attention and SSM heads in parallel on the same normalised input,
 mixes sliding-window and global attention layers, and prepends learned meta
 tokens.  The MoE family (qwen2-moe, arctic) replaces the dense MLP with
 top-k routed experts, a shared expert and arctic's dense residual.  The VLM
-and encoder-decoder families raise ``NotImplementedError`` (ROADMAP A9),
-and so does hymba's ``segmented_window_scan`` fast path.
+family (llava) is the dense LM with patch embeddings prepended as prompt
+positions (``extra_embeds``; ``models/vlm.py``).  With
+``segmented_window_scan`` hymba's sliding-window layers run with a static
+window (``transformer.py:321-347``): on the CPU through the q-blocked
+``attention.windowed_attention``, on the card through the flash kernel with
+the window, whose tile walk skips the hidden keys.  The encoder-decoder
+family (whisper) has its own module, ``models/encdec.py``.
 """
 
 from __future__ import annotations
@@ -51,18 +56,24 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+# the families whose layers attend (and so keep a KV cache)
+ATTENTION_FAMILIES = ("dense", "moe", "hybrid", "vlm")
 
 
 def check_family(cfg: ModelConfig) -> None:
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder family runs in "
+            "repro_torch.models.encdec (serve steps: "
+            "repro_torch.launch.steps.make_prefill_step), not in the "
+            "decoder-only transformer")
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP A9); the port runs the {', '.join(FAMILIES)} families")
-    if cfg.segmented_window_scan:
-        raise NotImplementedError(
-            f"{cfg.name}: segmented_window_scan is not ported yet "
-            "(ROADMAP A9)")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+    check_compute_dtypes(cfg)
+
+
+def check_compute_dtypes(cfg: ModelConfig) -> None:
     # the card's attention and scan kernels compute in f32 only: a config
     # that asks for another compute dtype is refused, not run in f32
     for field in ("attn_dtype", "scan_dtype"):
@@ -89,6 +100,68 @@ def check_trainable(cfg: ModelConfig) -> None:
 # init
 # ---------------------------------------------------------------------------
 
+class Draw:
+    """The reference's initialisers (``transformer.py:33-113``) over one
+    generator: every leaf is drawn in f32 on the generator's device and
+    moved to ``dev`` in ``cfg.dtype``; ``n`` is the stacked layer count of
+    the ``dense`` / ``zeros`` / ``norm`` / ``attn`` / ``mlp`` leaves.  The
+    encoder-decoder family draws its two stacks through it too."""
+
+    def __init__(self, cfg: ModelConfig, g: torch.Generator,
+                 dev: torch.device, n: int):
+        self.cfg, self.g, self.dev, self.n = cfg, g, dev, n
+        self.dt = _dtype(cfg)
+
+    def normal(self, shape, std) -> torch.Tensor:
+        w = torch.randn(shape, generator=self.g, dtype=torch.float32,
+                        device=self.g.device)
+        w.mul_(std)                       # in place: no second f32 copy
+        return w.to(device=self.dev, dtype=self.dt)
+
+    def dense(self, out_d: int, in_d: int) -> torch.Tensor:
+        return self.normal((self.n, out_d, in_d), in_d ** -0.5)
+
+    def zeros(self, *shape) -> torch.Tensor:
+        return torch.zeros(shape, dtype=self.dt, device=self.dev)
+
+    def norm(self, d: int, stacked: bool = True) -> Params:
+        cfg = self.cfg
+        lead = (self.n,) if stacked else ()
+        if cfg.norm_type == "nonparam_ln":
+            return {}
+        if cfg.norm_type == "layernorm":
+            return dict(scale=torch.ones(lead + (d,), dtype=self.dt,
+                                         device=self.dev),
+                        bias=self.zeros(*lead, d))
+        return dict(scale=self.zeros(*lead, d))    # rmsnorm (1 + s)
+
+    def attn(self) -> Params:
+        cfg, n = self.cfg, self.n
+        attn = dict(wq=self.dense(cfg.q_dim, cfg.d_model),
+                    wk=self.dense(cfg.kv_dim, cfg.d_model),
+                    wv=self.dense(cfg.kv_dim, cfg.d_model),
+                    wo=self.dense(cfg.d_model, cfg.q_dim))
+        if cfg.qkv_bias:
+            attn.update(bq=self.zeros(n, cfg.q_dim),
+                        bk=self.zeros(n, cfg.kv_dim),
+                        bv=self.zeros(n, cfg.kv_dim))
+        if cfg.qk_norm:
+            attn.update(q_norm=self.zeros(n, cfg.hd),
+                        k_norm=self.zeros(n, cfg.hd))
+        return attn
+
+    def mlp(self, d_ff: int) -> Params:
+        cfg, n = self.cfg, self.n
+        if cfg.mlp_act in ("swiglu", "geglu"):
+            return dict(w_gate=self.dense(d_ff, cfg.d_model),
+                        w_up=self.dense(d_ff, cfg.d_model),
+                        w_down=self.dense(cfg.d_model, d_ff))
+        return dict(w_up=self.dense(d_ff, cfg.d_model),
+                    b_up=self.zeros(n, d_ff),
+                    w_down=self.dense(cfg.d_model, d_ff),
+                    b_down=self.zeros(n, cfg.d_model))
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None) -> Params:
     """Random parameters with the reference's structure and distributions.
@@ -99,110 +172,70 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     ``interop`` instead.
     """
     check_family(cfg)
-    dev = resolve_device(device)
     g = generator if generator is not None else torch.Generator().manual_seed(0)
-    dt = _dtype(cfg)
-    n = cfg.n_layers
-
-    def normal(shape, std):
-        w = torch.randn(shape, generator=g, dtype=torch.float32,
-                        device=g.device)
-        w.mul_(std)                       # in place: no second f32 copy
-        return w.to(device=dev, dtype=dt)
-
-    def dense(out_d, in_d):                         # stacked over layers
-        return normal((n, out_d, in_d), in_d ** -0.5)
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dt, device=dev)
-
-    def norm(d, stacked=True):
-        lead = (n,) if stacked else ()
-        if cfg.norm_type == "nonparam_ln":
-            return {}
-        if cfg.norm_type == "layernorm":
-            return dict(scale=torch.ones(lead + (d,), dtype=dt, device=dev),
-                        bias=zeros(*lead, d))
-        return dict(scale=zeros(*lead, d))          # rmsnorm (1 + s)
-
+    draw = Draw(cfg, g, resolve_device(device), cfg.n_layers)
     layers: Params = {}
-    if cfg.family in ("dense", "moe", "hybrid"):
-        attn = dict(wq=dense(cfg.q_dim, cfg.d_model),
-                    wk=dense(cfg.kv_dim, cfg.d_model),
-                    wv=dense(cfg.kv_dim, cfg.d_model),
-                    wo=dense(cfg.d_model, cfg.q_dim))
-        if cfg.qkv_bias:
-            attn.update(bq=zeros(n, cfg.q_dim), bk=zeros(n, cfg.kv_dim),
-                        bv=zeros(n, cfg.kv_dim))
-        if cfg.qk_norm:
-            attn.update(q_norm=zeros(n, cfg.hd), k_norm=zeros(n, cfg.hd))
-        layers.update(attn_norm=norm(cfg.d_model), attn=attn)
+    if cfg.family in ATTENTION_FAMILIES:
+        layers.update(attn_norm=draw.norm(cfg.d_model), attn=draw.attn())
     if cfg.family in ("ssm", "hybrid"):
-        layers.update(ssm_norm=norm(cfg.d_model), ssm=_ssm_params(
-            cfg, dense, normal, zeros, n, dev))
-    def mlp(d_ff):
-        if cfg.mlp_act in ("swiglu", "geglu"):
-            return dict(w_gate=dense(d_ff, cfg.d_model),
-                        w_up=dense(d_ff, cfg.d_model),
-                        w_down=dense(cfg.d_model, d_ff))
-        return dict(w_up=dense(d_ff, cfg.d_model), b_up=zeros(n, d_ff),
-                    w_down=dense(cfg.d_model, d_ff),
-                    b_down=zeros(n, cfg.d_model))
-
+        layers.update(ssm_norm=draw.norm(cfg.d_model),
+                      ssm=_ssm_params(cfg, draw))
     if cfg.family == "moe":
-        layers.update(mlp_norm=norm(cfg.d_model),
-                      moe=_moe_params(cfg, dense, normal, mlp, n))
-    elif cfg.family != "ssm":
-        layers.update(mlp_norm=norm(cfg.d_model), mlp=mlp(cfg.d_ff))
+        layers.update(mlp_norm=draw.norm(cfg.d_model),
+                      moe=_moe_params(cfg, draw))
+    elif cfg.family != "ssm":           # dense / hybrid / vlm: a dense MLP
+        layers.update(mlp_norm=draw.norm(cfg.d_model),
+                      mlp=draw.mlp(cfg.d_ff))
     params: Params = dict(
-        embed=normal((cfg.vocab_size, cfg.d_model), 0.02),
-        final_norm=norm(cfg.d_model, stacked=False),
+        embed=draw.normal((cfg.vocab_size, cfg.d_model), 0.02),
+        final_norm=draw.norm(cfg.d_model, stacked=False),
         layers=layers,
     )
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((cfg.vocab_size, cfg.d_model),
-                                   cfg.d_model ** -0.5)
+        params["lm_head"] = draw.normal((cfg.vocab_size, cfg.d_model),
+                                        cfg.d_model ** -0.5)
     if cfg.n_meta_tokens:
-        params["meta_tokens"] = normal((cfg.n_meta_tokens, cfg.d_model), 0.02)
+        params["meta_tokens"] = draw.normal((cfg.n_meta_tokens, cfg.d_model),
+                                            0.02)
     return params
 
 
-def _moe_params(cfg: ModelConfig, dense, normal, mlp, n: int) -> Params:
+def _moe_params(cfg: ModelConfig, draw: Draw) -> Params:
     """The MoE block's stacked leaves (``transformer.py:78-97``): a router,
     the experts' (E, F, D) / (E, D, F) weights, and the shared expert and
     arctic's dense residual as plain MLPs."""
-    e, f, d = cfg.n_experts, cfg.moe_d_ff, cfg.d_model
-    p = dict(router=dense(e, d),
-             w_gate=normal((n, e, f, d), d ** -0.5),
-             w_up=normal((n, e, f, d), d ** -0.5),
-             w_down=normal((n, e, d, f), f ** -0.5))
+    e, f, d, n = cfg.n_experts, cfg.moe_d_ff, cfg.d_model, draw.n
+    p = dict(router=draw.dense(e, d),
+             w_gate=draw.normal((n, e, f, d), d ** -0.5),
+             w_up=draw.normal((n, e, f, d), d ** -0.5),
+             w_down=draw.normal((n, e, d, f), f ** -0.5))
     if cfg.shared_d_ff:
-        p["shared"] = mlp(cfg.shared_d_ff)
+        p["shared"] = draw.mlp(cfg.shared_d_ff)
     if cfg.dense_residual_d_ff:
-        p["dense"] = mlp(cfg.dense_residual_d_ff)
+        p["dense"] = draw.mlp(cfg.dense_residual_d_ff)
     return p
 
 
-def _ssm_params(cfg: ModelConfig, dense, normal, zeros, n: int,
-                dev: torch.device) -> Params:
+def _ssm_params(cfg: ModelConfig, draw: Draw) -> Params:
     """The mixer's stacked leaves (``transformer.py:98-113``): A_log, D and
     dt_bias keep the reference's values and dtypes."""
     di, ns, r, k = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
+    n, dev = draw.n, draw.dev
     # numpy's f32 log, not torch.log: the reference's log(7) is one ulp
     # above the correctly rounded value that torch.log returns, numpy's
     # f32 log gives the reference's
     a_log = torch.from_numpy(np.log(np.arange(1, ns + 1, dtype=np.float32))
                              ).to(dev)
     return dict(
-        in_proj=dense(2 * di, cfg.d_model),
-        conv_w=normal((n, di, k), k ** -0.5),
-        conv_b=zeros(n, di),
-        x_proj=dense(r + 2 * ns, di),
-        dt_proj=dense(di, r),
+        in_proj=draw.dense(2 * di, cfg.d_model),
+        conv_w=draw.normal((n, di, k), k ** -0.5),
+        conv_b=draw.zeros(n, di),
+        x_proj=draw.dense(r + 2 * ns, di),
+        dt_proj=draw.dense(di, r),
         dt_bias=torch.full((n, di), -4.6, dtype=_dtype(cfg), device=dev),
         A_log=a_log.expand(n, di, ns).contiguous(),
         D=torch.ones((n, di), dtype=torch.float32, device=dev),
-        out_proj=dense(cfg.d_model, di),
+        out_proj=draw.dense(cfg.d_model, di),
     )
 
 
@@ -210,13 +243,18 @@ def count_params(params: Any) -> int:
     return sum(p.numel() for p in T.leaves(params))
 
 
-def layer_params(params: Params, cfg: ModelConfig) -> List[Params]:
-    """The stacked layer tree as one dict of views per layer."""
+def unstack(stacked: Params, n: int) -> List[Params]:
+    """A tree of leaves stacked on axis 0 as ``n`` dicts of views."""
     def take(tree, i):
         if isinstance(tree, dict):
             return {k: take(v, i) for k, v in tree.items()}
         return tree[i]
-    return [take(params["layers"], i) for i in range(cfg.n_layers)]
+    return [take(stacked, i) for i in range(n)]
+
+
+def layer_params(params: Params, cfg: ModelConfig) -> List[Params]:
+    """The stacked layer tree as one dict of views per layer."""
+    return unstack(params["layers"], cfg.n_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -347,30 +385,62 @@ def _head(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return logits
 
 
-def _prefix(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Prepend hymba's meta tokens (``transformer.py:306-315``)."""
-    if not cfg.n_meta_tokens:
-        return x
-    meta = params["meta_tokens"][None].expand(
-        x.shape[0], cfg.n_meta_tokens, cfg.d_model).to(x.dtype)
-    return torch.cat([meta, x], dim=1)
+def _prefix(params: Params, x: torch.Tensor, cfg: ModelConfig,
+            extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Prepend VLM patch embeddings and then hymba's meta tokens
+    (``transformer.py:306-315``)."""
+    prefix = []
+    if extra_embeds is not None:
+        prefix.append(extra_embeds.to(device=x.device, dtype=x.dtype))
+    if cfg.n_meta_tokens:
+        prefix.append(params["meta_tokens"][None].expand(
+            x.shape[0], cfg.n_meta_tokens, cfg.d_model).to(x.dtype))
+    return torch.cat(prefix + [x], dim=1) if prefix else x
+
+
+def segmented(cfg: ModelConfig) -> bool:
+    """Whether ``forward`` takes hymba's segmented path (``transformer.py:
+    321-347``): global layers without a window, the sliding-window layers
+    with the static ``cfg.window``."""
+    return bool(cfg.segmented_window_scan and cfg.window is not None
+                and cfg.n_global_layers)
+
+
+def _windowed(q, k, v, *, causal: bool, window: int, q_offset) -> torch.Tensor:
+    return attn_lib.windowed_attention(q, k, v, window=window,
+                                       q_offset=q_offset)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            engine: Optional[Any] = None, train: bool = False) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, n_meta_tokens + S, V).
+            engine: Optional[Any] = None, train: bool = False,
+            extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, P + n_meta_tokens + S, V), with
+    ``extra_embeds`` (B, P, D) (VLM patches) prepended.
 
     ``train`` selects the training path (``lm_loss``): attention by
     ``chunked_attention`` in differentiable torch ops instead of the
     forward-only flash kernel, and with ``cfg.remat`` each layer's
-    activations recomputed in the backward pass instead of kept."""
+    activations recomputed in the backward pass instead of kept.
+
+    With ``segmented_window_scan`` (hymba) the global layers attend without
+    a window and the sliding-window layers with ``cfg.window``: on the card
+    through the flash kernel, on the CPU (and when training) through the
+    q-blocked ``windowed_attention``, as the reference's fast path does."""
     check_family(cfg)
-    x = _prefix(params, _embed(params, tokens, cfg), cfg)
+    x = _prefix(params, _embed(params, tokens, cfg), cfg, extra_embeds)
     attend = (functools.partial(attn_lib.chunked_attention,
                                 block=cfg.attn_block) if train else None)
-    for p, w in zip(layer_params(params, cfg), layer_windows(cfg)):
+    windows = layer_windows(cfg)
+    attends = [attend] * cfg.n_layers
+    if segmented(cfg):
+        win_attend = (_windowed if train or x.device.type == "cpu"
+                      else None)
+        attends = [attend if w != cfg.window else win_attend
+                   for w in windows]
+        windows = [w if w == cfg.window else None for w in windows]
+    for p, w, att in zip(layer_params(params, cfg), windows, attends):
         layer = functools.partial(_layer_apply, p=p, cfg=cfg, window=w,
-                                  engine=engine, attend=attend)
+                                  engine=engine, attend=att)
         if train and cfg.remat:
             x = checkpoint(layer, x, use_reentrant=False)
         else:
@@ -382,9 +452,11 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig, *, engine: Optional[Any] = None
             ) -> torch.Tensor:
     """Next-token cross-entropy (``transformer.py:367-380``).  batch:
-    tokens (B, S), labels (B, S), optional loss_mask."""
+    tokens (B, S), labels (B, S), optional loss_mask, and for the VLM family
+    patches (B, P, D), which carry no labels."""
     check_trainable(cfg)
-    logits = forward(params, batch["tokens"], cfg, engine=engine, train=True)
+    logits = forward(params, batch["tokens"], cfg, engine=engine, train=True,
+                     extra_embeds=batch.get("patches"))
     s = batch["labels"].shape[1]
     logp = torch.log_softmax(logits[:, -s:, :].to(torch.float32), dim=-1)
     ll = torch.gather(logp, -1, batch["labels"][..., None].long())[..., 0]
@@ -405,7 +477,7 @@ def init_serve_cache(cfg: ModelConfig, batch: int, max_len: int,
     dev = resolve_device(device)
     dt = _dtype(cfg)
     cache: Dict[str, Any] = {}
-    if cfg.family in ("dense", "moe", "hybrid"):
+    if cfg.family in ATTENTION_FAMILIES:
         shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.hd)
         cache["kv"] = dict(k=torch.zeros(shape, dtype=dt, device=dev),
                            v=torch.zeros(shape, dtype=dt, device=dev))
@@ -423,17 +495,20 @@ def step(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
          engine: Optional[Any] = None,
          layers: Optional[List[Params]] = None,
          add_prefix: bool = True,
-         lengths: Optional[torch.Tensor] = None
+         lengths: Optional[torch.Tensor] = None,
+         extra_embeds: Optional[torch.Tensor] = None
          ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Serve step: run ``tokens`` (B, S) through the model, reading and
     writing the stacked cache at ``pos`` (scalar, or (B,) per batch row).
     S == 1 is decode, S > 1 prefill.  The cache is updated in place and
     returned.  ``layers`` may pass a cached :func:`layer_params` list.
 
-    On prefill the meta-token prefix is prepended as in :func:`forward`,
-    unless ``add_prefix=False`` (chunks after the first); the logits cover
-    the last S (token) positions only, and ``pos`` must count the prefix
-    (the first decode position is prefix + prompt length).
+    On prefill the prefix -- ``extra_embeds`` (VLM patches), then the meta
+    tokens -- is prepended as in :func:`forward`, unless
+    ``add_prefix=False`` (chunks after the first); the logits cover the
+    last S (token) positions only, and ``pos`` must count the prefix (the
+    first decode position is prefix + prompt length).  The step ignores
+    ``segmented_window_scan``, as the reference's does.
 
     ``lengths`` (B,) is each row's count of real tokens in a right-padded
     prefill chunk; the SSM mixer treats the pads as exact state no-ops.
@@ -442,7 +517,7 @@ def step(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
     s_tokens = tokens.shape[1]
     x = _embed(params, tokens, cfg)
     if s_tokens > 1 and add_prefix:
-        x = _prefix(params, x, cfg)
+        x = _prefix(params, x, cfg, extra_embeds)
     if lengths is not None and s_tokens > 1:
         # the prepended prefix tokens are real positions too
         lengths = lengths + (x.shape[1] - s_tokens)

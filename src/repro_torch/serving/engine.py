@@ -5,7 +5,8 @@ A continuous-batching loop, as in the reference:
 
   * requests join a waiting queue and are admitted into free batch slots;
   * prompts prefill in power-of-two **buckets** (left-aligned, right-padded)
-    for the dense and SSM families: the causal mask keeps the pads invisible
+    for the dense, VLM and SSM families (a VLM request is a text prompt, as
+    in the reference): the causal mask keeps the pads invisible
     to real tokens, and the SSM mixer turns them into exact state no-ops
     given each row's real length.  The hybrid family (hymba) prefills each
     prompt exact-length in one shot, with its meta-token prefix.  All fresh
@@ -186,7 +187,7 @@ class ServingEngine:
         # the pure-SSM mixer masks them into exact state no-ops; hybrid and
         # MoE (whose capacity routing a pad would contend) keep exact-length
         # single-shot prefill, as in the reference
-        self._bucketed = cfg.family in ("dense", "ssm")
+        self._bucketed = cfg.family in ("dense", "vlm", "ssm")
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got "
                              f"{prefill_chunk}")

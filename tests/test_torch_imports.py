@@ -39,6 +39,7 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.kernels.flash_attention",
                 "repro_torch.kernels.neureka_conv",
                 "repro_torch.models.mobilenet_v2", "repro_torch.models.moe",
+                "repro_torch.models.vlm", "repro_torch.models.encdec",
                 "repro_torch.core.memsys",
                 "repro_torch.core.perf_model", "repro_torch.models.ssm",
                 "repro_torch.kernels.ssm_scan", "repro_torch.core.paging",

@@ -5,8 +5,8 @@ Both packages' ``_serve`` / ``_serve_tenants`` are fed one JAX-frozen tree
 (carried across with ``interop``) and one args namespace, and must give
 equal tokens per uid, equal swap / miss (and KV) counters, equal ticks and
 equal pool counters.  The port's ``main`` on the CPU must exit 0 with its
-verify lines BIT-EXACT, and refuse ``--mesh`` (ROADMAP A11), a vlm arch
-(ROADMAP A9) and the encdec family."""
+verify lines BIT-EXACT, and refuse ``--mesh`` (ROADMAP A11) and the encdec
+family.  The VLM family's launcher cases are in ``test_torch_vlm.py``."""
 
 import argparse
 import inspect
@@ -207,8 +207,6 @@ def test_main_multi_bit_exact_on_cpu(capsys):
 
 @pytest.mark.parametrize("argv,names", [
     (["--mesh", "2"], "ROADMAP A11"),
-    (["--arch", "llava-next-34b"], "ROADMAP A9"),
-    (["--models", "qwen3-0.6b,llava-next-34b"], "ROADMAP A9"),
     (["--arch", "whisper-tiny"], "decoder-only"),
 ])
 def test_refusals_exit_non_zero(argv, names):

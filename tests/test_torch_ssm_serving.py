@@ -257,7 +257,95 @@ def test_init_params_has_the_reference_structure(served):
             np.asarray(params["layers"]["ssm"][name]))
 
 
-def test_segmented_window_scan_is_not_ported():
-    cfg = tget("hymba-1.5b").smoke().replace(segmented_window_scan=True)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tfm.init_params(cfg, device="cpu")
+# hymba's segmented_window_scan path (transformer.py:321-347) and its
+# q-blocked windowed_attention (attention.py:99-141), within 1e-4 as the
+# dense LM's parity tests
+
+SEG_TOL = dict(rtol=1e-4, atol=1e-4)
+
+@pytest.mark.parametrize("sq,bq,window", [
+    # ragged S (windows 1, 16 and >= S), S < bq, S not a multiple of bq
+    (37, 16, 1), (37, 16, 16), (37, 16, 64),
+    (20, 512, 16), (20, 512, 20),
+    (100, 32, 16), (100, 32, 5),
+])
+def test_windowed_attention_matches_jax(sq, bq, window):
+    from repro.models import attention as jattn
+    from repro_torch.models import attention as attn
+
+    rng = np.random.default_rng(sq + bq + window)
+    q = rng.standard_normal((2, 4, sq, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 2, sq, 16)).astype(np.float32)
+            for _ in range(2))
+    expect = jattn.windowed_attention(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), window=window, bq=bq)
+    got = attn.windowed_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), window=window, bq=bq)
+    np.testing.assert_allclose(got.numpy(), np.asarray(expect), **SEG_TOL)
+
+
+@pytest.fixture(scope="module")
+def hymba():
+    """hymba's smoke config (window 16, layer 0 global) with the flag set,
+    its JAX params and the 8-bit frozen tree, each carried over."""
+    cfg = get_config("hymba-1.5b").smoke().replace(
+        segmented_window_scan=True)
+    tcfg = tget("hymba-1.5b").smoke().replace(segmented_window_scan=True)
+    params = jtfm.init_params(cfg, jax.random.PRNGKey(4))
+    packed = jfreeze(params, bits=8)
+    trees = {None: (params, interop.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, params), tcfg, device="cpu")),
+        8: (packed, interop.params_from_numpy(
+            jax.tree_util.tree_map(np.asarray, packed), tcfg,
+            device="cpu"))}
+    return cfg, tcfg, trees
+
+
+@pytest.mark.parametrize("bits,s", [(None, 40), (8, 40), (8, 9)])
+def test_segmented_forward_matches_jax(hymba, bits, s):
+    """Against JAX's segmented ``forward``: the window binds at 40 tokens
+    (48 positions with the meta tokens), not at 9."""
+    cfg, tcfg, trees = hymba
+    jtree, ttree = trees[bits]
+    assert tfm.segmented(tcfg)
+    eng = None if bits is None else ENGINE
+    toks = _tokens((2, s), seed=s)
+    expect = jtfm.forward(jtree, jnp.asarray(toks), cfg, engine=eng)
+    got = tfm.forward(ttree, torch.from_numpy(toks).long(), tcfg, engine=eng)
+    np.testing.assert_allclose(got.numpy(), np.asarray(expect), **SEG_TOL)
+
+
+@pytest.mark.parametrize("bits", [None, 8])
+def test_segmented_forward_equals_unsegmented(hymba, bits):
+    """The same model without the flag: the windowed layers then see
+    ``window=cfg.window`` through the flash kernel's plain version."""
+    _cfg, tcfg, trees = hymba
+    _, ttree = trees[bits]
+    toks = torch.from_numpy(_tokens((2, 40), seed=8)).long()
+    seg = tfm.forward(ttree, toks, tcfg, engine=ENGINE if bits else None)
+    flat = tfm.forward(ttree, toks, tcfg.replace(segmented_window_scan=False),
+                       engine=ENGINE if bits else None)
+    np.testing.assert_allclose(seg.numpy(), flat.numpy(), **SEG_TOL)
+
+
+def test_segmented_routes_by_device(hymba, monkeypatch):
+    """On the CPU the sliding-window layer calls ``windowed_attention`` and
+    the global layer the flash wrapper; ``step`` ignores the flag."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import attention as attn
+
+    _cfg, tcfg, trees = hymba
+    _, ttree = trees[8]
+    calls = []
+    real_win, real_fa = attn.windowed_attention, kops.attention
+    monkeypatch.setattr(attn, "windowed_attention", lambda *a, **k: (
+        calls.append(("win", k["window"])) or real_win(*a, **k)))
+    monkeypatch.setattr(kops, "attention", lambda *a, **k: (
+        calls.append(("flash", k.get("window"))) or real_fa(*a, **k)))
+    toks = torch.from_numpy(_tokens((1, 20), seed=9)).long()
+    tfm.forward(ttree, toks, tcfg, engine=ENGINE)
+    assert calls == [("flash", None), ("win", tcfg.window)]
+    calls.clear()
+    cache = tfm.init_serve_cache(tcfg, 1, 64, device="cpu")
+    tfm.step(ttree, toks, cache, 0, tcfg, engine=ENGINE)
+    assert calls == [("flash", 2 ** 30), ("flash", tcfg.window)]
