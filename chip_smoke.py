@@ -11,9 +11,11 @@ wire-served, both qwen3-0.6b stores once more behind the deadline-aware
 alone and beside falcon-mamba-7b as two tenants of one page pool, the
 MoE qwen2-moe-a2.7b on the grouped expert kernel, training qwen3-0.6b,
 the serving launcher and the XR pipeline example, in process through
-their ``main``, and then the VLM llava-next-34b, the encoder-decoder
-whisper-tiny and hymba-1.5b's segmented window path -- and fails (non-zero
-exit, no result line) if any phase fails:
+their ``main``, then the VLM llava-next-34b, the encoder-decoder
+whisper-tiny and hymba-1.5b's segmented window path, and last training
+of the MoE, SSM, hybrid, VLM and encoder-decoder families with
+hymba-1.5b trained at full depth and served -- and fails (non-zero exit,
+no result line) if any phase fails:
 
 1. set-up: requires a CUDA device, turns TF32 off, prints the card's name
    and power limit, builds every ``csrc/*.cu`` with nvcc for sm_90a (one
@@ -212,8 +214,9 @@ exit, no result line) if any phase fails:
    and every leaf of the params and AdamW state bit-equal.  (d) (b)'s
    trained tree, its leaves set to require grad, frozen at 8 bits (C10:
    no packed leaf requires grad) and served, 4 requests: the B1 and B2
-   counters, zeroed before, grown after; the first layer's logits card vs
-   CPU within ``LOGITS_TOL``;
+   counters, zeroed before, grown after, each kernel held against its
+   plain version at every distinct call of the serve; the first layer's
+   logits card vs CPU within ``LOGITS_TOL``;
 11. the launcher and the XR pipeline, each through the ``main`` a user
    calls, in this process.  (a) ``repro_torch.launch.serve.main`` on
    full-width qwen3-0.6b at 4 bits, ``--budget-mb`` half of the packed
@@ -262,9 +265,36 @@ exit, no result line) if any phase fails:
    B1, B2 and B7 counters are zeroed before each leg and must grow after
    it; every distinct kernel call of (a)-(c) is held against its plain
    version (``recording``, ``check_path``);
-13. the ``{"serve": ...}``, ``{"train": ...}``, ``{"phase12": ...}`` and
-   ``{"kernels": [...]}`` lines, the card line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+13. training of the other families (``make_train_step`` ->
+   ``lm_loss`` / ``seq2seq_loss`` -> ``chunked_attention`` and the
+   reference's chunked associative scan, ``models/ssm.selective_scan``; no
+   Hopper kernel, as in phase 10), at full width with random weights.
+   (a) One ``loss_and_grads`` and one ``make_train_step`` step on the card
+   against the CPU from the same weights (a CPU generator, moved) and
+   batch, as phase 10 (a): hymba-1.5b 2 layers at 2 x 128 (+ 128 meta
+   tokens), falcon-mamba-7b 1 layer at 2 x 128, qwen2-moe-a2.7b 1 layer
+   at 2 x 128 (its top-k indices card vs CPU equal in every ``route``
+   call first, else the phase fails with the count), whisper-tiny whole
+   at 2 x 64 tokens over 1,500 frames: the loss within 1e-5 relative,
+   every gradient leaf present, finite, non-zero (hymba's ``ssm_norm``,
+   which the loss never reads, zero on both) and within 1e-4 of the CPU
+   leaf's largest element.  (b) hymba-1.5b at full depth (32 layers,
+   remat), AdamW at 3e-4, batch 4 x 256, 6 steps through ``Trainer``: the
+   last loss below the first; step time, tokens/s and peak memory
+   printed, one more step profiled, the checkpoint deleted.  (d) (b)'s
+   trained tree, its leaves set to require grad, frozen at 8 bits (no
+   packed leaf requires grad) and served, 4 requests: the B1, B2 and B7
+   counters zeroed before and grown after, each kernel held against its
+   plain version at every distinct call of the serve, the first layer's
+   logits card vs CPU within ``LOGITS_TOL``.  (c) 4 ``make_train_step``
+   steps on one batch at full width and cut depth: falcon-mamba-7b 4 of
+   64 layers at 2 x 128, qwen2-moe-a2.7b 2 of 24 at 2 x 128,
+   llava-next-34b 2 of 60 at 1 x 256 text tokens after all 2,880 patches,
+   whisper-tiny whole at 2 x 64: each loss falling; step time, tokens/s
+   and peak memory printed;
+14. the ``{"serve": ...}``, ``{"train": ...}``, ``{"phase12": ...}``,
+   ``{"train_families": ...}`` and ``{"kernels": [...]}`` lines, the card
+   line, and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -2931,50 +2961,61 @@ def check_forward_only(torch, m, dev):
 
 
 def train_batch(torch, m, cfg, batch: int, seq: int, step: int, dev):
-    ds = m["SyntheticLMDataset"](cfg.vocab_size, seq, batch, seed=0)
+    """``SyntheticLMDataset(seed=0)``'s batch ``step``, with the VLM's patch
+    and the encoder-decoder's frame embeddings where the family has them,
+    as the training launcher builds it."""
+    ds = m["SyntheticLMDataset"](cfg.vocab_size, seq, batch, seed=0,
+                                 family=cfg.family, d_model=cfg.d_model,
+                                 n_frames=cfg.n_audio_frames,
+                                 n_patches=cfg.n_patches)
     return {k: torch.from_numpy(v).to(dev) for k, v in ds.batch(step).items()}
 
 
-def train_check(torch, m, cfg, dev):
-    """(a) One step of ``TRAIN_CHECK['layers']`` full-width layers on the
-    card against the CPU from the same weights (a CPU generator, moved)
-    and batch: the loss within TRAIN_LOSS_RTOL, every gradient leaf
-    present, finite and non-zero on the card and within TRAIN_GRAD_TOL of
-    the CPU's largest element; one ``make_train_step`` step's loss and
-    grad norm as well.  Then C9: each wrapper refuses an input that
-    requires grad, and serving's ``forward`` over a tree that requires grad
-    raises at the flash kernel instead of cutting the gradient."""
+def card_vs_cpu(torch, m, ccfg, batch, dev, unread=frozenset()):
+    """One ``loss_and_grads`` and one ``make_train_step`` step of ``ccfg``
+    on the card against the CPU from the same weights (a CPU generator,
+    moved) and ``batch`` (CPU tensors): the loss within TRAIN_LOSS_RTOL,
+    every gradient leaf present, finite and non-zero on the card (zero on
+    both, for a leaf in ``unread``: one the loss never reads) and within
+    TRAIN_GRAD_TOL of the CPU's largest element; the step's loss and grad
+    norm within TRAIN_LOSS_RTOL.  Returns the readings; the card's tree
+    and batch are left in ``out["gpu"]``, ``out["gbatch"]``."""
     T, steps = m["tree"], m["steps"]
-    c = TRAIN_CHECK
-    ccfg = cfg.replace(n_layers=c["layers"])
-    cpu = m["tfm"].init_params(ccfg, torch.Generator().manual_seed(0),
+    cpu = steps._init_fn(ccfg)(ccfg, torch.Generator().manual_seed(0),
                                device="cpu")
     gpu = T.tree_map(lambda t: t.to(dev), cpu)
-    batch = train_batch(torch, m, ccfg, c["batch"], c["seq"], 0, "cpu")
     gbatch = {k: v.to(dev) for k, v in batch.items()}
     t0 = time.perf_counter()
     lc, gc_ = steps.loss_and_grads(cpu, batch, ccfg)
     t_cpu = time.perf_counter() - t0
     lg, gg = steps.loss_and_grads(gpu, gbatch, ccfg)
     torch.cuda.synchronize()
+    what = f"{ccfg.name} ({ccfg.n_layers} layers)"
     loss_err = abs(lg.item() - lc.item()) / abs(lc.item())
     if not loss_err <= TRAIN_LOSS_RTOL:
-        raise AssertionError(f"train loss card {lg.item()} vs CPU "
+        raise AssertionError(f"{what} train loss card {lg.item()} vs CPU "
                              f"{lc.item()}: relative error {loss_err}")
     worst, n_leaves = 0.0, 0
     for (path, a), b in zip(T.flatten_with_paths(gg), T.leaves(gc_)):
-        a = a.cpu()
+        a, name = a.cpu(), "/".join(path)
         if a.shape != b.shape or not torch.isfinite(a).all():
-            raise AssertionError(f"gradient of {'/'.join(path)} is missing, "
+            raise AssertionError(f"{what} gradient of {name} is missing, "
                                  "misshapen or not finite on the card")
+        if name in unread:
+            if a.abs().max() > 0 or b.abs().max() > 0:
+                raise AssertionError(f"{what} gradient of {name}, a leaf "
+                                     "the loss never reads, is not zero")
+            n_leaves += 1
+            continue
         if not a.abs().max() > 0:
-            raise AssertionError(f"gradient of {'/'.join(path)} is zero on "
+            raise AssertionError(f"{what} gradient of {name} is zero on "
                                  "the card (cut off from autograd?)")
         err = ((a - b).abs().max() / b.abs().max()).item()
         if not err <= TRAIN_GRAD_TOL:
-            raise AssertionError(f"gradient of {'/'.join(path)} card vs CPU:"
-                                 f" {err:.3e} of its largest element")
+            raise AssertionError(f"{what} gradient of {name} card vs CPU: "
+                                 f"{err:.3e} of its largest element")
         worst, n_leaves = max(worst, err), n_leaves + 1
+    del gc_, gg
     opt = m["adamw"]()
     step = steps.make_train_step(ccfg, opt, lr=TRAIN_FULL["lr"])
     _, _, mc = step(cpu, opt.init(cpu), batch)
@@ -2982,7 +3023,29 @@ def train_check(torch, m, cfg, dev):
     step_err = {k: abs(mg[k].item() - mc[k].item()) / abs(mc[k].item())
                 for k in ("loss", "grad_norm")}
     if not max(step_err.values()) <= TRAIN_LOSS_RTOL:
-        raise AssertionError(f"make_train_step card vs CPU: {step_err}")
+        raise AssertionError(f"{what} make_train_step card vs CPU: "
+                             f"{step_err}")
+    return dict(loss_card=lg.item(), loss_cpu=lc.item(),
+                loss_rel_err=loss_err, grad_max_rel_err=worst,
+                grad_leaves=n_leaves, step_rel_err=step_err, cpu_s=t_cpu,
+                gpu=gpu, gbatch=gbatch)
+
+
+def train_check(torch, m, cfg, dev):
+    """(a) :func:`card_vs_cpu` on ``TRAIN_CHECK['layers']`` full-width
+    layers.  Then C9: each wrapper refuses an input that requires grad, and
+    serving's ``forward`` over a tree that requires grad raises at the
+    flash kernel instead of cutting the gradient."""
+    c = TRAIN_CHECK
+    ccfg = cfg.replace(n_layers=c["layers"])
+    res = card_vs_cpu(torch, m, ccfg, train_batch(
+        torch, m, ccfg, c["batch"], c["seq"], 0, "cpu"), dev)
+    gpu, gbatch = res.pop("gpu"), res.pop("gbatch")
+    loss_err, worst, n_leaves, step_err, t_cpu = (res[k] for k in (
+        "loss_rel_err", "grad_max_rel_err", "grad_leaves", "step_rel_err",
+        "cpu_s"))
+    lg, lc = res["loss_card"], res["loss_cpu"]
+    T = m["tree"]
     refused = check_forward_only(torch, m, dev)
     for p in T.leaves(gpu):
         p.requires_grad_()
@@ -2995,8 +3058,8 @@ def train_check(torch, m, cfg, dev):
         raise AssertionError("forward over a tree that requires grad ran "
                              "through the flash kernel (C9)")
     print(f"[train] (a) {cfg.name} {c['layers']} layers at full width, "
-          f"batch {c['batch']} x {c['seq']}: loss card {lg.item():.6f} CPU "
-          f"{lc.item():.6f} (relative {loss_err:.2e}, tolerance "
+          f"batch {c['batch']} x {c['seq']}: loss card {lg:.6f} CPU "
+          f"{lc:.6f} (relative {loss_err:.2e}, tolerance "
           f"{TRAIN_LOSS_RTOL}); {n_leaves} gradient leaves present, finite "
           f"and non-zero, worst {worst:.2e} of the leaf's largest element "
           f"(tolerance {TRAIN_GRAD_TOL}); one AdamW step's loss / grad norm "
@@ -3009,14 +3072,13 @@ def train_check(torch, m, cfg, dev):
                 forward_only=refused)
 
 
-def train_full(torch, m, cfg, dev):
-    """(b) Full depth, ``remat`` on, AdamW, ``TRAIN_FULL['steps']`` steps
-    through ``Trainer`` on ``SyntheticLMDataset(seed=0)``: the last loss
-    must be below the first.  Returns the readings and the trained
-    params; the checkpoint directory is deleted."""
+def train_full(torch, m, cfg, dev, f=TRAIN_FULL, tag="[train] (b)"):
+    """(b) Full depth, ``remat`` on, AdamW, ``f['steps']`` steps through
+    ``Trainer`` on ``SyntheticLMDataset(seed=0)``: the last loss must be
+    below the first.  Returns the readings and the trained params; the
+    checkpoint directory is deleted."""
     import shutil
 
-    f = TRAIN_FULL
     if not cfg.remat:
         raise AssertionError(f"{cfg.name} trains with remat")
     opt = m["adamw"]()
@@ -3055,7 +3117,7 @@ def train_full(torch, m, cfg, dev):
                              "last is not below the first")
     steady = sorted(steps_s[1:])[len(steps_s[1:]) // 2]
     tokens = f["batch"] * f["seq"]
-    print(f"[train] (b) {cfg.name} at full width ({cfg.n_layers} layers, "
+    print(f"{tag} {cfg.name} at full width ({cfg.n_layers} layers, "
           f"remat), AdamW lr {f['lr']}, batch {f['batch']} x {f['seq']}, "
           f"{f['steps']} steps through Trainer: losses "
           f"{[round(x, 4) for x in losses]}; step time (host clock, loss "
@@ -3210,11 +3272,14 @@ def train_restart_main() -> int:
     return 0
 
 
-def train_serve(torch, m, cfg, params, dev):
+def train_serve(torch, m, cfg, params, dev, kernels=TRAIN_KERNELS,
+                max_len=TRAIN_SERVE["max_len"], tag="[train] (d)"):
     """(d) (b)'s trained tree, its leaves set to require grad, frozen at 8
     bits: no leaf of the packed tree requires grad (C10); 4 requests
-    through ``ServingEngine`` launch B1 and B2 (counters zeroed before);
-    the first layer's logits on the card match the CPU's."""
+    through ``ServingEngine`` launch each of ``kernels`` (counters zeroed
+    before), each held against its plain version at every distinct call
+    of the serve (``recording``, ``check_path``); the first layer's logits
+    on the card match the CPU's."""
     import numpy as np
 
     T = m["tree"]
@@ -3226,7 +3291,7 @@ def train_serve(torch, m, cfg, params, dev):
         raise AssertionError(f"{len(grad_leaves)} leaves of the frozen tree "
                              "require grad (C10)")
     s = TRAIN_SERVE
-    eng = m["ServingEngine"](cfg, packed, batch_slots=4, max_len=s["max_len"],
+    eng = m["ServingEngine"](cfg, packed, batch_slots=4, max_len=max_len,
                              device=dev)
     rng = np.random.default_rng(10)
     for uid, n in enumerate(rng.integers(16, 65, s["requests"])):
@@ -3234,20 +3299,25 @@ def train_serve(torch, m, cfg, params, dev):
             0, cfg.vocab_size, int(n)).astype(np.int32),
             max_new_tokens=s["max_new"]))
     counters = {"qmatmul_f32": m["qmm"].qmatmul_f32,
-                "flash_attention": m["fa"].flash_attention}
+                "flash_attention": m["fa"].flash_attention,
+                "selective_scan": m["ssm"].selective_scan}
+    counters = {name: counters[name] for name in kernels}
     zero_launches(counters)
-    t0 = time.perf_counter()
-    done = eng.run_until_done()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, _ = read_launches(counters)
+    with recording(torch, m["ops"]) as calls:
+        t0 = time.perf_counter()
+        done = eng.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches, split = read_launches(counters)
     if (len(done) != s["requests"]
             or any(len(r.generated) != s["max_new"] for r in done)):
         raise AssertionError("the trained tree's serve left requests short")
-    for name in TRAIN_KERNELS:
+    for name in kernels:
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched serving the "
                                  "trained tree")
+    path_check = check_path(torch, m["ops"], m["ref"], m["qmm"], m["fa"],
+                            m["ssm"], dev, f"{cfg.name} trained", calls)
     fcfg = cfg.replace(n_layers=1)
     tree = dict(packed, layers=first_layers(packed["layers"], 1))
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64)))
@@ -3259,24 +3329,26 @@ def train_serve(torch, m, cfg, params, dev):
                                                          **LOGITS_TOL)):
         raise AssertionError(f"trained tree's first-layer logits card vs "
                              f"CPU: max abs err {err}")
-    print(f"[train] (d) the trained tree (leaves set to require grad) frozen "
+    print(f"{tag} the trained tree (leaves set to require grad) frozen "
           f"at 8 bits: no packed leaf requires grad; {len(done)} requests, "
           f"{sum(len(r.generated) for r in done)} new tokens in {wall:.2f} s,"
           f" launches {launches}; first layer's logits card vs CPU max abs "
           f"err {err:.3e} (tolerance {LOGITS_TOL})")
-    return dict(launches=launches, wall_s=wall, logits_max_abs_err=err)
+    return dict(launches=launches, launches_by_class=split, wall_s=wall,
+                logits_max_abs_err=err, path_check=path_check)
 
 
 def train_modules():
     """The port's modules phase 10 and its subprocess use."""
     from repro_torch.core import packing, tree
     from repro_torch.data import SyntheticLMDataset
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import neureka_conv as nkc
     from repro_torch.kernels import qmatmul as qmm
     from repro_torch.kernels import ssm_scan as ssm
     from repro_torch.launch import steps
+    from repro_torch.models import moe
     from repro_torch.models import transformer as tfm
     from repro_torch.optim import adamw
     from repro_torch.parallel.sharding import freeze_for_serving
@@ -3284,8 +3356,9 @@ def train_modules():
     from repro_torch.serving.engine import Request, ServingEngine
 
     return dict(packing=packing, tree=tree,
-                SyntheticLMDataset=SyntheticLMDataset, ops=ops, fa=fa,
-                nkc=nkc, qmm=qmm, ssm=ssm, steps=steps, tfm=tfm, adamw=adamw,
+                SyntheticLMDataset=SyntheticLMDataset, ops=ops, ref=ref,
+                fa=fa, nkc=nkc, qmm=qmm, ssm=ssm, steps=steps, moe=moe,
+                tfm=tfm, adamw=adamw,
                 freeze=freeze_for_serving, FailureInjector=FailureInjector,
                 Trainer=Trainer, TrainerConfig=TrainerConfig,
                 Request=Request, ServingEngine=ServingEngine)
@@ -3311,6 +3384,178 @@ def train_phase(torch, cfg, dev):
     wall = time.perf_counter() - t0
     print(f"[train] phase 10 took {wall:.1f} s")
     return dict(check=check, full=full, restart=restart, serve=served,
+                wall_s=wall)
+
+
+# phase 13: training of the MoE, SSM, hybrid, VLM and encoder-decoder
+# families (launch/steps.make_train_step -> lm_loss / seq2seq_loss ->
+# chunked_attention and the reference's chunked associative scan,
+# models/ssm.selective_scan); no Hopper kernel, as in phase 10
+FAMILY_ARCH = "hymba-1.5b"
+# (a) card vs CPU: (arch, layers (None: all), batch, text positions)
+FAMILY_CHECKS = (("hymba-1.5b", 2, 2, 128), ("falcon-mamba-7b", 1, 2, 128),
+                 ("qwen2-moe-a2.7b", 1, 2, 128), ("whisper-tiny", None, 2, 64))
+# (b) hymba-1.5b at full width and full depth through Trainer
+FAMILY_FULL = dict(steps=6, batch=4, seq=256, lr=3e-4)
+# (c) make_train_step at full width and cut depth: (arch, layers (None:
+# all), batch, text positions); llava-next-34b with all 2,880 patches
+FAMILY_STEPS = (("falcon-mamba-7b", 4, 2, 128), ("qwen2-moe-a2.7b", 2, 2, 128),
+                ("llava-next-34b", 2, 1, 256), ("whisper-tiny", None, 2, 64))
+FAMILY_STEP_COUNT = 4
+# (d) hymba's prompts of 16-64 tokens + 128 meta tokens + 8 new
+FAMILY_SERVE_LEN = 256
+FAMILY_KERNELS = ("qmatmul_f32", "flash_attention", "selective_scan")
+# leaves the loss never reads, whose gradient is zero in both packages:
+# hymba's SSM heads take the attention's normalised input
+UNREAD_LEAVES = {"hybrid": frozenset({"layers/ssm_norm/scale"})}
+
+
+def cut(cfg, layers):
+    return cfg if layers is None else cfg.replace(n_layers=layers)
+
+
+@contextlib.contextmanager
+def recorded_routes(m):
+    """Notes the top-k indices of every ``moe.route`` call in the block
+    (on the host), in call order."""
+    routes, real = [], m["moe"].route
+
+    def route(*a, **kw):
+        gates, idx = real(*a, **kw)
+        routes.append(idx.detach().cpu())
+        return gates, idx
+
+    m["moe"].route = route
+    try:
+        yield routes
+    finally:
+        m["moe"].route = real
+
+
+def family_check(torch, m, dev, arch: str, layers, batch: int, seq: int):
+    """(a) :func:`card_vs_cpu` on ``layers`` full-width layers of ``arch``;
+    for the MoE family the card's top-k indices must first equal the
+    CPU's in every ``route`` call (a near-tie that flips one fails here,
+    with the count, rather than in the gradients)."""
+    ccfg = cut(m["get_config"](arch), layers)
+    batch_ = train_batch(torch, m, ccfg, batch, seq, 0, "cpu")
+    t0 = time.perf_counter()
+    with recorded_routes(m) as routes:
+        res = card_vs_cpu(torch, m, ccfg, batch_, dev,
+                          UNREAD_LEAVES.get(ccfg.family, frozenset()))
+    del res["gpu"], res["gbatch"]
+    if ccfg.family == "moe":
+        # each device's loss_and_grads, then each make_train_step: the
+        # CPU's calls come first in each pair
+        half = len(routes) // 4
+        if not half or len(routes) != 4 * half:
+            raise AssertionError(f"{arch}: {len(routes)} route calls")
+        cpu_r = routes[:half] + routes[2 * half:3 * half]
+        card_r = routes[half:2 * half] + routes[3 * half:]
+        flips = sum(int((a != b).any(-1).sum()) for a, b in zip(cpu_r,
+                                                                card_r))
+        if flips:
+            raise AssertionError(
+                f"{arch}: {flips} tokens' top-{ccfg.n_experts_active} "
+                "experts differ card vs CPU (a near-tie in the router "
+                "logits); the gradient tolerance is not loosened for it")
+        res["route_calls"] = len(cpu_r)
+        res["tokens_routed"] = sum(int(r.shape[0]) for r in cpu_r)
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"[families] (a) {arch} {ccfg.n_layers} layers at full width, "
+          f"batch {batch} x {seq}: loss card {res['loss_card']:.6f} CPU "
+          f"{res['loss_cpu']:.6f} (relative {res['loss_rel_err']:.2e}, "
+          f"tolerance {TRAIN_LOSS_RTOL}); {res['grad_leaves']} gradient "
+          f"leaves present and finite, worst {res['grad_max_rel_err']:.2e} "
+          f"of the leaf's largest element (tolerance {TRAIN_GRAD_TOL}); one "
+          f"AdamW step's loss / grad norm relative "
+          f"{res['step_rel_err']['loss']:.2e} / "
+          f"{res['step_rel_err']['grad_norm']:.2e}"
+          + (f"; top-k equal card vs CPU in all {res['route_calls']} "
+             f"route calls ({res['tokens_routed']} tokens)"
+             if "route_calls" in res else "")
+          + f"; {res['wall_s']:.1f} s")
+    return res
+
+
+def family_steps(torch, m, dev, arch: str, layers, batch: int, seq: int):
+    """(c) ``FAMILY_STEP_COUNT`` AdamW steps of ``make_train_step`` on
+    ``layers`` full-width layers of ``arch`` (weights from a seeded CUDA
+    generator), each on ``SyntheticLMDataset(seed=0)``'s batch 0, so that
+    the loss's fall measures the steps, not the spread between batches:
+    every loss finite and the last below the first.  Step times on the
+    host clock, the loss read inside each step."""
+    cfg = cut(m["get_config"](arch), layers)
+    steps = m["steps"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = steps._init_fn(cfg)(cfg, torch.Generator(device=dev)
+                                 .manual_seed(0), device=dev)
+    n_params = sum(p.numel() for p in m["tree"].leaves(params))
+    opt = m["adamw"]()
+    state = opt.init(params)
+    step_fn = steps.make_train_step(cfg, opt, lr=FAMILY_FULL["lr"])
+    losses, times = [], []
+    b = train_batch(torch, m, cfg, batch, seq, 0, dev)
+    for _ in range(FAMILY_STEP_COUNT):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, b)
+        losses.append(metrics["loss"].item())
+        times.append(time.perf_counter() - t1)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del params, state, b
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch} training losses {losses}: the last is "
+                             "not below the first")
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    positions = seq + cfg.n_patches + cfg.n_meta_tokens
+    res = dict(layers=cfg.n_layers, of_layers=m["get_config"](arch).n_layers,
+               params=n_params, batch=batch, seq=seq, positions=positions,
+               losses=losses, step_s=times, step_ms_median=steady * 1e3,
+               tokens_per_s=batch * seq / steady, peak_gib=peak / 2**30,
+               wall_s=wall)
+    print(f"[families] (c) {arch} at full width, {cfg.n_layers} of "
+          f"{res['of_layers']} layers ({n_params / 1e9:.3f} B parameters, "
+          f"remat {cfg.remat}), AdamW lr {FAMILY_FULL['lr']}, batch {batch} "
+          f"x {seq} text tokens ({positions} positions a row), "
+          f"{FAMILY_STEP_COUNT} make_train_step steps on one batch: losses "
+          f"{[round(x, 4) for x in losses]}; step time (host clock) first "
+          f"{times[0] * 1e3:.1f} ms, median of the rest {steady * 1e3:.1f} "
+          f"ms; {res['tokens_per_s']:.0f} text tokens/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB; {wall:.1f} s with init")
+    return res
+
+
+def family_train_phase(torch, dev, get_config):
+    """Phase 13: (a) card vs CPU for hymba-1.5b, falcon-mamba-7b,
+    qwen2-moe-a2.7b and whisper-tiny, (b) hymba-1.5b at full depth through
+    Trainer, (c) the other families' steps at full width and cut depth,
+    (d) (b)'s trained tree served (B1, B2 and B7 launched and checked
+    against their plain versions).  Returns the readings."""
+    m = dict(train_modules(), get_config=get_config)
+    t0 = time.perf_counter()
+    check = {}
+    for arch, layers, batch, seq in FAMILY_CHECKS:
+        check[arch] = family_check(torch, m, dev, arch, layers, batch, seq)
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg = get_config(FAMILY_ARCH)
+    full, params = train_full(torch, m, cfg, dev, FAMILY_FULL,
+                              "[families] (b)")
+    served = train_serve(torch, m, cfg, params, dev, FAMILY_KERNELS,
+                         FAMILY_SERVE_LEN, "[families] (d)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut_steps = {arch: family_steps(torch, m, dev, arch, layers, batch, seq)
+                 for arch, layers, batch, seq in FAMILY_STEPS}
+    wall = time.perf_counter() - t0
+    print(f"[families] phase 13 took {wall:.1f} s")
+    return dict(check=check, full=full, steps=cut_steps, serve=served,
                 wall_s=wall)
 
 
@@ -4230,8 +4475,11 @@ def main() -> int:
     train = train_phase(torch, get_config(TRAIN_ARCH), dev)
     for name in TRAIN_KERNELS:
         launches[name] += train["serve"]["launches"][name]
-    served[f"{TRAIN_ARCH} trained"] = dict(launches=train["serve"]["launches"],
-                                          launches_by_class={})
+    served[f"{TRAIN_ARCH} trained"] = train["serve"]
+    qmm_err, fa_err = (
+        max(err, train["serve"]["path_check"]["max_abs_err"][name])
+        for err, name in ((qmm_err, "qmatmul_f32"),
+                          (fa_err, "flash_attention")))
 
     # 11. the serving launcher and the XR pipeline, in process
     gc.collect()
@@ -4276,7 +4524,21 @@ def main() -> int:
                           (fa_err, "flash_attention"),
                           (scan_err, "selective_scan")))
 
-    # 13. result lines
+    # 13. training of the MoE, SSM, hybrid, VLM and encoder-decoder
+    # families; hymba-1.5b's trained tree served
+    gc.collect()
+    torch.cuda.empty_cache()
+    p13 = family_train_phase(torch, dev, get_config)
+    served[f"{FAMILY_ARCH} trained"] = p13["serve"]
+    for name in FAMILY_KERNELS:
+        launches[name] += p13["serve"]["launches"][name]
+    qmm_err, fa_err, scan_err = (
+        max(err, p13["serve"]["path_check"]["max_abs_err"][name])
+        for err, name in ((qmm_err, "qmatmul_f32"),
+                          (fa_err, "flash_attention"),
+                          (scan_err, "selective_scan")))
+
+    # 14. result lines
     by_path = {name: {arch: s["launches"][name] for arch, s in served.items()
                       if name in s["launches"]}
                for name in counters}
@@ -4389,6 +4651,7 @@ def main() -> int:
     print(json.dumps({"phase12": {k: v for k, v in p12.items()
                                   if k != "path_check"},
                       "phase12_path_check": p12["path_check"]}))
+    print(json.dumps({"train_families": p13}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 """Architecture registry (reference: ``repro/configs/__init__.py``).
 
 ``get_config(name)`` / ``ARCHS`` are the public API.  The ten arch configs
-are plain values copied from the reference; the port runs the dense, SSM
-and hybrid families so far (``models/transformer.py`` raises for the
-others).
+are plain values copied from the reference; the port serves and trains
+every family (the decoder-only ones in ``models/transformer.py``, the
+encoder-decoder in ``models/encdec.py``).
 """
 
 from repro_torch.configs.qwen3_0_6b import CONFIG as _qwen3

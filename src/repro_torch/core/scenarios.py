@@ -11,8 +11,10 @@ Ports ``repro/core/scenarios.py:39-81`` (``linear_apply``, ``plan_apply``,
             store-and-forward staging hop); the reference's
             ``optimization_barrier`` becomes an explicit materialised
             copy (``clone``; eager PyTorch has no fusion to prevent).
-  l3flash — served like l3mram here; host paging arrives with the paging
-            slice.
+  l3flash — weights are not resident: the serving loop re-stages each
+            page from host memory every inference through
+            ``core/paging.HostPagedStore``; a linear given its pages is
+            served like l3mram.
 
 All four give the same numbers; they differ in bytes moved.  The full-width
 product of l2mram / l3mram goes to ``torch.matmul``, as the reference leaves

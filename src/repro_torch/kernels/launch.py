@@ -25,8 +25,9 @@ def forward_only(name: str, *tensors: torch.Tensor) -> None:
             for t in tensors):
         raise RuntimeError(
             f"{name}: an input requires grad, but the Hopper kernels are "
-            "forward-only (ROADMAP A10); train through models/transformer."
-            "lm_loss, or call it under torch.no_grad()")
+            "forward-only (ROADMAP A10); train through launch/steps."
+            "make_train_step (lm_loss, seq2seq_loss), or call it under "
+            "torch.no_grad()")
 
 
 @functools.lru_cache(maxsize=None)

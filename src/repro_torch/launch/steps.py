@@ -1,9 +1,11 @@
 """The train and serve steps (reference: ``repro/launch/steps.py:40-140``).
 
-``make_train_step`` takes the gradient of ``lm_loss``, clips it to a global
-norm of 1.0 and applies the optimizer, as the reference's does; it returns
-a plain function (no ``jit``).  ``make_prefill_step`` / ``make_decode_step``
-build the serve steps of every family: the decoder-only LM's
+``make_train_step`` takes the gradient of the family's loss
+(``encdec.seq2seq_loss`` for the encoder-decoder, ``transformer.lm_loss``
+for the rest), clips it to a global norm of 1.0 and applies the optimizer,
+as the reference's does; it returns a plain function (no ``jit``).
+``make_prefill_step`` / ``make_decode_step`` build the serve steps of
+every family: the decoder-only LM's
 ``transformer.step``, the VLM's with patch embeddings prepended, and the
 encoder-decoder's ``encode`` -> ``precompute_cross_kv`` -> ``encdec.step``.
 They run under ``torch.no_grad``.  The reference's spec builders
@@ -31,11 +33,9 @@ DEFAULT_SERVE_PLAN = PlacementPlan.uniform()
 
 
 def _loss_fn(cfg: ModelConfig) -> Callable:
+    _init_fn(cfg)                       # refuse an unknown family now
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: training of the 'encdec' family (seq2seq_loss) is "
-            "not ported yet (ROADMAP A10)")
-    tfm.check_trainable(cfg)
+        return encdec.seq2seq_loss
     return tfm.lm_loss
 
 
@@ -50,14 +50,17 @@ def _init_fn(cfg: ModelConfig) -> Callable:
 def loss_and_grads(params: Any, batch: Dict[str, torch.Tensor],
                    cfg: ModelConfig, engine: Optional[Any] = None
                    ) -> Tuple[torch.Tensor, Any]:
-    """(loss, grads): ``jax.value_and_grad(lm_loss)`` on detached copies
-    of the leaves, so ``params`` is left as it was."""
+    """(loss, grads): ``jax.value_and_grad`` of the family's loss on
+    detached copies of the leaves, so ``params`` is left as it was.  A leaf
+    the loss never reads (hymba's ``ssm_norm``: its SSM heads take the
+    attention's normalised input) gets zeros, as under JAX."""
     loss_fn = _loss_fn(cfg)
     with torch.enable_grad():
         leaves = [p.detach().requires_grad_() for p in T.leaves(params)]
         loss = loss_fn(T.unflatten(params, leaves), batch, cfg,
                        engine=engine)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
     return loss.detach(), T.unflatten(params, list(grads))
 
 
@@ -67,7 +70,7 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm"})``; ``batch`` holds tensors on the params'
     device."""
-    _loss_fn(cfg)                       # refuse the untrained families now
+    _loss_fn(cfg)                       # refuse an unknown family now
 
     def train_step(params, opt_state, batch):
         loss, grads = loss_and_grads(params, batch, cfg, engine=engine)

@@ -9,8 +9,9 @@
 It runs on the CUDA card unless ``--device cpu`` asks for the CPU.  The
 loop is the fault-tolerant ``Trainer``: step-indexed data, async atomic
 checkpoints (in a fresh temporary directory unless ``--ckpt-dir`` names
-one), the straggler monitor and automatic restart.  Only the dense family
-trains so far (ROADMAP A10).
+one), the straggler monitor and automatic restart.  Every family trains:
+the VLM's batches carry patch embeddings, the encoder-decoder's frame
+embeddings (the stub frontends' inputs).
 """
 
 from __future__ import annotations
@@ -59,7 +60,9 @@ def main(argv=None):
         return dict(params=params, opt_state=opt.init(params))
 
     dataset = SyntheticLMDataset(cfg.vocab_size, args.seq, args.batch,
-                                 family=cfg.family)
+                                 family=cfg.family, d_model=cfg.d_model,
+                                 n_frames=cfg.n_audio_frames,
+                                 n_patches=cfg.n_patches)
     injector = (FailureInjector([args.inject_failure_at])
                 if args.inject_failure_at >= 0 else None)
     with tempfile.TemporaryDirectory(prefix="repro_train_") as tmp:

@@ -13,13 +13,15 @@ the reference's, so ``interop`` carries a JAX tree over and one
 
 Packed linears go through the Hopper ``qmatmul_f32`` kernel.  The reference
 computes every attention of this module with the jnp
-``chunked_attention``; the port sends the encoder's self-attention, the
-decoder's prefill self-attention and every cross-attention through its
-flash kernel (``kernels.ops.attention``; not causal for the encoder and
-the cross-attention), as the decoder-only families' prefill does, and
-decode self-attention through ``attention.decode_attention`` in torch ops.
-The kernels are forward-only; training of this family (``seq2seq_loss``)
-is ROADMAP A10's and is not ported.
+``chunked_attention``; the port's serving sends the encoder's
+self-attention, the decoder's prefill self-attention and every
+cross-attention through its flash kernel (``kernels.ops.attention``; not
+causal for the encoder and the cross-attention), as the decoder-only
+families' prefill does, and decode self-attention through
+``attention.decode_attention`` in torch ops.  The kernels are
+forward-only, so training (``seq2seq_loss``) runs ``encode`` and
+``decode`` with ``train=True``: every attention through
+``attention.chunked_attention``, as the reference's ``_mha`` does.
 
 The serve path follows the reference where it is odd: prefill
 self-attention attends over the chunk's own keys at offset 0, not over the
@@ -103,9 +105,10 @@ def _merge(o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def _mha(x: torch.Tensor, kv_src: torch.Tensor, p: Params, cfg: ModelConfig,
          *, causal: bool, engine: Optional[Any] = None,
-         path: Optional[str] = None) -> torch.Tensor:
-    """Attention of ``x``'s queries over ``kv_src``'s keys and values, through
-    the flash kernel (``encdec.py:66-85``)."""
+         path: Optional[str] = None, train: bool = False) -> torch.Tensor:
+    """Attention of ``x``'s queries over ``kv_src``'s keys and values
+    (``encdec.py:66-85``), through the flash kernel, or with ``train``
+    through ``chunked_attention`` in differentiable torch ops."""
     sub = L._subpath
     q = _heads(L.linear(x, p["wq"], engine=engine, path=sub(path, "wq")),
                cfg.n_heads, cfg.hd)
@@ -113,62 +116,84 @@ def _mha(x: torch.Tensor, kv_src: torch.Tensor, p: Params, cfg: ModelConfig,
                cfg.n_kv_heads, cfg.hd)
     v = _heads(L.linear(kv_src, p["wv"], engine=engine, path=sub(path, "wv")),
                cfg.n_kv_heads, cfg.hd)
-    o = kops.attention(q, k, v, causal=causal,
-                       q_offset=k.shape[2] - q.shape[2] if causal else 0)
+    q_offset = k.shape[2] - q.shape[2] if causal else 0
+    if train:
+        o = attn_lib.chunked_attention(q, k, v, causal=causal,
+                                       q_offset=q_offset,
+                                       block=cfg.attn_block)
+    else:
+        o = kops.attention(q, k, v, causal=causal, q_offset=q_offset)
     return L.linear(_merge(o, cfg), p["wo"], engine=engine,
                     path=sub(path, "wo"))
 
 
 def enc_layer_apply(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
-                    engine: Optional[Any] = None) -> torch.Tensor:
+                    engine: Optional[Any] = None,
+                    train: bool = False) -> torch.Tensor:
     h = L.apply_norm(x, p.get("attn_norm"), cfg.norm_type)
     x = x + _mha(h, h, p["attn"], cfg, causal=False, engine=engine,
-                 path="enc_layers/attn")
+                 path="enc_layers/attn", train=train)
     h = L.apply_norm(x, p.get("mlp_norm"), cfg.norm_type)
     return x + L.mlp(h, p["mlp"], cfg.mlp_act, engine=engine,
                      path="enc_layers/mlp")
 
 
 def dec_train_layer_apply(x: torch.Tensor, enc_out: torch.Tensor, p: Params,
-                          cfg: ModelConfig, *, engine: Optional[Any] = None
-                          ) -> torch.Tensor:
+                          cfg: ModelConfig, *, engine: Optional[Any] = None,
+                          train: bool = False) -> torch.Tensor:
     """One decoder layer without a cache: causal self-attention,
     cross-attention over the encoder states, MLP (``encdec.py:98-113``)."""
     h = L.apply_norm(x, p.get("attn_norm"), cfg.norm_type)
     x = x + _mha(h, h, p["attn"], cfg, causal=True, engine=engine,
-                 path="dec_layers/attn")
+                 path="dec_layers/attn", train=train)
     h = L.apply_norm(x, p.get("xattn_norm"), cfg.norm_type)
     x = x + _mha(h, enc_out, p["xattn"], cfg, causal=False, engine=engine,
-                 path="dec_layers/xattn")
+                 path="dec_layers/xattn", train=train)
     h = L.apply_norm(x, p.get("mlp_norm"), cfg.norm_type)
     return x + L.mlp(h, p["mlp"], cfg.mlp_act, engine=engine,
                      path="dec_layers/mlp")
 
 
 def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig, *,
-           engine: Optional[Any] = None) -> torch.Tensor:
-    """frames (B, T, D) stub embeddings -> encoder states (B, T, D)."""
+           engine: Optional[Any] = None, train: bool = False
+           ) -> torch.Tensor:
+    """frames (B, T, D) stub embeddings -> encoder states (B, T, D);
+    ``train`` attends in differentiable torch ops (see :func:`_mha`)."""
     check_family(cfg)
     dt = tfm._dtype(cfg)
     x = frames.to(dt) + _sinusoid(frames.shape[1], cfg.d_model,
                                   frames.device).to(dt)[None]
     for p in tfm.unstack(params["enc_layers"], cfg.n_encoder_layers):
-        x = enc_layer_apply(x, p, cfg, engine=engine)
+        x = enc_layer_apply(x, p, cfg, engine=engine, train=train)
     return L.apply_norm(x, params.get("enc_final_norm"), cfg.norm_type)
 
 
 def decode(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
-           cfg: ModelConfig, *, engine: Optional[Any] = None) -> torch.Tensor:
-    """tokens (B, S) + encoder states -> logits (B, S, V)."""
+           cfg: ModelConfig, *, engine: Optional[Any] = None,
+           train: bool = False) -> torch.Tensor:
+    """tokens (B, S) + encoder states -> logits (B, S, V); ``train`` as in
+    :func:`encode`."""
     check_family(cfg)
     dt = tfm._dtype(cfg)
     s = tokens.shape[1]
     x = L.embed(tokens, params["embed"]).to(dt) + params["dec_pos"][
         None, :s].to(dt)
     for p in tfm.unstack(params["dec_layers"], cfg.n_layers):
-        x = dec_train_layer_apply(x, enc_out, p, cfg, engine=engine)
+        x = dec_train_layer_apply(x, enc_out, p, cfg, engine=engine,
+                                  train=train)
     x = L.apply_norm(x, params.get("final_norm"), cfg.norm_type)
     return L.unembed(x, params["embed"])
+
+
+def seq2seq_loss(params: Params, batch: Dict[str, torch.Tensor],
+                 cfg: ModelConfig, *, engine: Optional[Any] = None
+                 ) -> torch.Tensor:
+    """Next-token cross-entropy of the decoder over the encoded
+    ``batch["frames"]`` (``encdec.py:144-151``); batch: frames (B, T, D),
+    tokens (B, S), labels (B, S), optional loss_mask."""
+    enc_out = encode(params, batch["frames"], cfg, engine=engine, train=True)
+    return tfm.token_nll(decode(params, batch["tokens"], enc_out, cfg,
+                                engine=engine, train=True), batch)
 
 
 # -- serving: decoder KV cache + precomputed cross-attention KV -------------

@@ -2,15 +2,20 @@
 ``repro/models/ssm.py:20-200``).
 
 The reference scans the sequence with a chunked associative scan in jnp;
-the port routes every scan through ``kernels.ops.selective_scan``: the
-Hopper kernel on the card (prefill, ``forward`` and decode at S = 1), its
-plain version on the CPU, a loop of ``ref.ssm_decode_step`` that is one
+the port's serving routes every scan through ``kernels.ops.selective_scan``:
+the Hopper kernel on the card (prefill, ``forward`` and decode at S = 1),
+its plain version on the CPU, a loop of ``ref.ssm_decode_step`` that is one
 step at decode.  Decode carries (h, conv window) per row.
+
+Training takes the reference's chunked associative scan instead
+(:func:`selective_scan`, ``ssm.py:40-101``), in differentiable torch ops:
+the Hopper kernel is forward-only (ROADMAP C9), as the reference's training
+path runs none of its Pallas kernels.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,12 +51,98 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _combine(a: Tuple[torch.Tensor, torch.Tensor],
+             b: Tuple[torch.Tensor, torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(a, b) then (a', b'): (a * a', a' * b + b'), the reference's ``comb``."""
+    return a[0] * b[0], b[0] * a[1] + b[1]
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """even[0], odd[0], even[1], ... along axis 1 (even may be one longer)."""
+    n = odd.shape[1]
+    pairs = torch.stack([even[:, :n], odd], dim=2).flatten(1, 2)
+    if even.shape[1] > n:
+        return torch.cat([pairs, even[:, n:]], dim=1)
+    return pairs
+
+
+def _associative_scan(a: torch.Tensor, b: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan of :func:`_combine` along axis 1 by
+    ``jax.lax.associative_scan``'s odd / even recursion (log depth): pairs
+    are combined, the half-length sequence is scanned, and the even
+    elements are the odd results combined with the next input.  The same
+    tree of products as the reference, so the same rounding."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    odd = _associative_scan(*_combine((a[:, 0:-1:2], b[:, 0:-1:2]),
+                                      (a[:, 1::2], b[:, 1::2])))
+    if n % 2 == 0:
+        odd_prev = (odd[0][:, :-1], odd[1][:, :-1])
+    else:
+        odd_prev = odd
+    even = _combine(odd_prev, (a[:, 2::2], b[:, 2::2]))
+    even = (torch.cat([a[:, :1], even[0]], dim=1),
+            torch.cat([b[:, :1], even[1]], dim=1))
+    return _interleave(even[0], odd[0]), _interleave(even[1], odd[1])
+
+
+def _ssm_chunk_scan(dA: torch.Tensor, dBx: torch.Tensor, h0: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = dA_t * h_{t-1} + dBx_t within one chunk (``ssm.py:40-53``).
+
+    dA, dBx: (B, T, Di, N); h0: (B, Di, N).  Returns (h_all, h_last)."""
+    aa, bb = _associative_scan(dA, dBx)
+    h_all = aa * h0[:, None] + bb
+    return h_all, h_all[:, -1]
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None, chunk: int = 256,
+                   compute_dtype: torch.dtype = torch.float32
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's training scan (``ssm.py:56-101``) in differentiable
+    torch ops: the sequence in chunks of ``chunk`` (the last zero-padded),
+    an associative scan within a chunk, the state carried across chunks in
+    f32, ``y = einsum(h_all, C) + x * D``.
+
+    x, dt: (Bz, S, Di); A: (Di, N); B, C: (Bz, S, N); D: (Di,).  Returns
+    (y (Bz, S, Di) f32, h_last (Bz, Di, N) f32).  ``compute_dtype`` other
+    than f32 is refused (ROADMAP C7)."""
+    if compute_dtype != torch.float32:
+        raise NotImplementedError(
+            f"scan compute dtype {compute_dtype} is not ported (ROADMAP C7); "
+            "the port scans in float32 only")
+    bsz, s, di = x.shape
+    n = A.shape[1]
+    h = (torch.zeros((bsz, di, n), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.to(torch.float32))
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        x, dt, B, C = (F.pad(t, (0, 0, 0, pad)) for t in (x, dt, B, C))
+    ys = []
+    for start in range(0, s + pad, chunk):
+        xk, dtk, bk, ck = (t[:, start:start + chunk].to(torch.float32)
+                           for t in (x, dt, B, C))
+        dA = torch.exp(dtk[..., None] * A[None, None])       # (B,T,Di,N)
+        dBx = dtk[..., None] * bk[:, :, None, :] * xk[..., None]
+        h_all, h = _ssm_chunk_scan(dA, dBx, h)
+        ys.append(torch.einsum("btdn,btn->btd", h_all, ck))
+    y = torch.cat(ys, dim=1)[:, :s]
+    return y + x[:, :s].to(torch.float32) * D[None, None], h
+
+
 def mamba_mixer(x: torch.Tensor, p: Dict[str, Any], *, d_inner: int,
                 ssm_state: int, dt_rank: int, conv_k: int = 4,
                 shard_inner: bool = False,
                 state: Optional[Dict[str, torch.Tensor]] = None,
                 lengths: Optional[torch.Tensor] = None,
-                engine: Optional[Any] = None, in_place: bool = False
+                engine: Optional[Any] = None, in_place: bool = False,
+                scan: Optional[Callable] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Full Mamba-1 mixer.  x: (B, S, D) -> (B, S, D).
 
@@ -69,10 +160,13 @@ def mamba_mixer(x: torch.Tensor, p: Dict[str, Any], *, d_inner: int,
     serve cache's layer slice; the scan writes h_last over h0) and returns
     ``state``; otherwise the new state is a fresh dict.
 
+    ``scan`` replaces ``kops.selective_scan`` with the same arguments
+    (x, dt, A, B, C, D, h0): the training path, which carries no state,
+    passes :func:`selective_scan` with the reference's ``chunk``.
+
     ``shard_inner`` is the reference's multi-device constraint of d_inner
     onto the model axis (ROADMAP A11); it is accepted and ignored here.
-    The reference's ``chunk`` picks the jnp scan's chunk, which the kernel
-    does not need; its ``scan_dtype`` picks the scan's compute type, and the
+    The reference's ``scan_dtype`` picks the scan's compute type, and the
     port scans in f32 only: ``transformer.check_family`` refuses a config
     with another ``scan_dtype`` (ROADMAP C7).
     """
@@ -117,9 +211,12 @@ def mamba_mixer(x: torch.Tensor, p: Dict[str, Any], *, d_inner: int,
     A = -torch.exp(p["A_log"].to(torch.float32))                # (Di, N)
 
     h0 = state["h"] if state is not None else None
-    y, h_last = kops.selective_scan(xc.contiguous(), dt.contiguous(), A, B, C,
-                                    p["D"], h0,
-                                    h_out=h0 if in_place else None)
+    if scan is not None:
+        y, h_last = scan(xc, dt, A, B, C, p["D"], h0)
+    else:
+        y, h_last = kops.selective_scan(xc.contiguous(), dt.contiguous(), A,
+                                        B, C, p["D"], h0,
+                                        h_out=h0 if in_place else None)
     new_state = None
     if state is not None and in_place:
         state["conv"].copy_(new_conv)

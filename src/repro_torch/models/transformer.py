@@ -12,10 +12,11 @@ decode attention stays in PyTorch ops.
 
 Training (``lm_loss``, ``transformer.py:367-380``) runs none of the Hopper
 kernels, which are forward-only: ``forward(train=True)`` computes attention
-with ``models/attention.chunked_attention`` as the reference's training
-path does, and wraps each layer in ``torch.utils.checkpoint`` when
-``cfg.remat`` is set, as ``jax.checkpoint`` wraps the reference's scan
-body.  Only the dense family trains so far (ROADMAP A10).
+with ``models/attention.chunked_attention`` and the SSM scan with the
+reference's chunked associative scan (``models/ssm.selective_scan``), as
+the reference's training path does, and wraps each layer in
+``torch.utils.checkpoint`` when ``cfg.remat`` is set, as ``jax.checkpoint``
+wraps the reference's scan body.  Every family of this module trains.
 
 The SSM family (falcon-mamba) is attention-free; the hybrid family (hymba)
 runs attention and SSM heads in parallel on the same normalised input,
@@ -82,18 +83,6 @@ def check_compute_dtypes(cfg: ModelConfig) -> None:
                 f"{cfg.name}: {field}={getattr(cfg, field)!r} is not ported "
                 "(ROADMAP C6 / C7); the port computes attention and the "
                 "selective scan in float32 only")
-
-
-TRAINABLE = ("dense",)
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    check_family(cfg)
-    if cfg.family not in TRAINABLE:
-        raise NotImplementedError(
-            f"{cfg.name}: training of the {cfg.family!r} family is not "
-            f"ported yet (ROADMAP A10); the port trains the "
-            f"{', '.join(TRAINABLE)} family")
 
 
 # ---------------------------------------------------------------------------
@@ -317,10 +306,12 @@ def _layer_apply(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
                  cache_pos: Optional[attn_lib.Pos] = None,
                  lengths: Optional[torch.Tensor] = None,
                  engine: Optional[Any] = None,
-                 attend: Optional[Callable] = None) -> torch.Tensor:
+                 attend: Optional[Callable] = None,
+                 scan: Optional[Callable] = None) -> torch.Tensor:
     """One layer.  ``cache`` is the layer's slice of the serve cache,
     {"kv": {"k", "v"}, "ssm": {"h", "conv"}} as the family has them; the KV
-    rows and the SSM state are written in place."""
+    rows and the SSM state are written in place.  ``attend`` and ``scan``
+    replace the flash and scan kernels (the training path's)."""
     ssm_state = cache.get("ssm") if cache is not None else None
 
     def mixer(h):
@@ -328,7 +319,7 @@ def _layer_apply(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
             h, p["ssm"], d_inner=cfg.d_inner, ssm_state=cfg.ssm_state,
             dt_rank=cfg.dt_rank, conv_k=cfg.ssm_conv,
             shard_inner=cfg.ssm_shard_inner, state=ssm_state,
-            lengths=lengths, engine=engine, in_place=True)[0]
+            lengths=lengths, engine=engine, in_place=True, scan=scan)[0]
 
     if "attn" in p:
         h = L.apply_norm(x, p.get("attn_norm"), cfg.norm_type)
@@ -418,8 +409,9 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     ``extra_embeds`` (B, P, D) (VLM patches) prepended.
 
     ``train`` selects the training path (``lm_loss``): attention by
-    ``chunked_attention`` in differentiable torch ops instead of the
-    forward-only flash kernel, and with ``cfg.remat`` each layer's
+    ``chunked_attention`` and the SSM scan by ``ssm.selective_scan`` (chunks
+    of ``cfg.ssm_chunk``), in differentiable torch ops, instead of the
+    forward-only flash and scan kernels, and with ``cfg.remat`` each layer's
     activations recomputed in the backward pass instead of kept.
 
     With ``segmented_window_scan`` (hymba) the global layers attend without
@@ -430,6 +422,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     x = _prefix(params, _embed(params, tokens, cfg), cfg, extra_embeds)
     attend = (functools.partial(attn_lib.chunked_attention,
                                 block=cfg.attn_block) if train else None)
+    scan = (functools.partial(ssm_lib.selective_scan, chunk=cfg.ssm_chunk)
+            if train else None)
     windows = layer_windows(cfg)
     attends = [attend] * cfg.n_layers
     if segmented(cfg):
@@ -440,7 +434,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
         windows = [w if w == cfg.window else None for w in windows]
     for p, w, att in zip(layer_params(params, cfg), windows, attends):
         layer = functools.partial(_layer_apply, p=p, cfg=cfg, window=w,
-                                  engine=engine, attend=att)
+                                  engine=engine, attend=att, scan=scan)
         if train and cfg.remat:
             x = checkpoint(layer, x, use_reentrant=False)
         else:
@@ -454,11 +448,16 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
     """Next-token cross-entropy (``transformer.py:367-380``).  batch:
     tokens (B, S), labels (B, S), optional loss_mask, and for the VLM family
     patches (B, P, D), which carry no labels."""
-    check_trainable(cfg)
     logits = forward(params, batch["tokens"], cfg, engine=engine, train=True,
                      extra_embeds=batch.get("patches"))
-    s = batch["labels"].shape[1]
-    logp = torch.log_softmax(logits[:, -s:, :].to(torch.float32), dim=-1)
+    return token_nll(logits[:, -batch["labels"].shape[1]:], batch)
+
+
+def token_nll(logits: torch.Tensor, batch: Dict[str, torch.Tensor]
+              ) -> torch.Tensor:
+    """Mean negative log-likelihood of ``batch["labels"]`` (B, S) under
+    ``logits`` (B, S, V), over ``batch["loss_mask"]`` where there is one."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     ll = torch.gather(logp, -1, batch["labels"][..., None].long())[..., 0]
     mask = batch.get("loss_mask")
     mask = torch.ones_like(ll) if mask is None else mask.to(ll.dtype)

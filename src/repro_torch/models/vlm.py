@@ -6,9 +6,8 @@ CLIP tower, the anyres tiling and the projector.  The language backbone is
 the decoder LM of ``models/transformer.py``; the patches are prepended to
 the token embeddings as ordinary prompt positions (``extra_embeds``), so
 they enter the KV cache like prompt tokens and the first decode position is
-``n_patches + prompt_len``.  Training (``vlm_loss``) is refused with the
-rest of the VLM family's training (``transformer.check_trainable``,
-ROADMAP A10).
+``n_patches + prompt_len``.  Training (``vlm_loss``) is the LM's
+``lm_loss``, which scores the text positions only.
 """
 
 from __future__ import annotations

@@ -278,8 +278,9 @@ def test_training_and_the_decoder_only_paths_refuse(model):
     from repro_torch import optim
     from repro_torch.models import transformer as tfm
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        steps.make_train_step(tcfg, optim.adamw())
+    # training is no longer refused: it takes seq2seq_loss
+    assert steps._loss_fn(tcfg) is encdec.seq2seq_loss
+    steps.make_train_step(tcfg, optim.adamw())
     with pytest.raises(NotImplementedError, match="models.encdec"):
         tfm.init_params(tcfg, device="cpu")
     assert steps._init_fn(tcfg) is encdec.init_params

@@ -1102,3 +1102,36 @@ def test_train_step_gradients_on_the_card_match_the_cpu(cuda):
                                rtol=1e-5, atol=0)
     for a, b in zip(T.leaves(pg), T.leaves(pc)):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-4)
+
+
+def test_training_scan_on_the_card_matches_the_cpu(cuda, rng):
+    """The training scan (``models/ssm.selective_scan``, differentiable
+    torch ops) at falcon-mamba-7b's width, (2, 64, 8,192, 16) with the
+    reference's chunk of 256, on the card against the CPU: y, h_last and
+    every input's gradient within 1e-5 of the CPU's largest element, and
+    the Hopper scan kernel never launched."""
+    from repro_torch.models import ssm
+
+    b, s, di, n = 2, 64, 8192, 16
+    args = [rng.normal(size=(b, s, di)),
+            np.abs(rng.normal(size=(b, s, di))) * 0.1,
+            -np.exp(rng.normal(size=(di, n))), rng.normal(size=(b, s, n)),
+            rng.normal(size=(b, s, n)), rng.normal(size=(di,)),
+            rng.normal(size=(b, di, n))]
+    ry, rh = rng.normal(size=(b, s, di)), rng.normal(size=(b, di, n))
+    launches = selective_scan.launches
+    out = {}
+    for dev in ("cpu", cuda):
+        xs = [torch.tensor(a, dtype=torch.float32, device=dev,
+                           requires_grad=True) for a in args]
+        y, h = ssm.selective_scan(*xs)
+        (torch.sum(y * torch.tensor(ry, dtype=torch.float32, device=dev))
+         + torch.sum(h * torch.tensor(rh, dtype=torch.float32, device=dev))
+         ).backward()
+        out[str(dev)] = [t.detach().cpu() for t in [y, h]] + [
+            t.grad.cpu() for t in xs]
+    torch.cuda.synchronize()
+    assert selective_scan.launches == launches
+    for i, (a, b_) in enumerate(zip(out["cuda"], out["cpu"])):
+        assert torch.isfinite(a).all(), i
+        assert (a - b_).abs().max() <= 1e-5 * b_.abs().max(), i

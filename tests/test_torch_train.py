@@ -15,8 +15,11 @@ Tolerances, both sides in f32 (they differ in summation order only):
 - after 1-3 Adafactor steps (no such sign step) the params within 1e-6;
 - ``fake_quant_weights``' values bit for bit, its gradient as the model's.
 
-Also: the C9 check that the Hopper kernel wrappers make, and C10
-(``freeze_for_serving`` detaches).
+Also: the C9 check that the Hopper kernel wrappers make, C10
+(``freeze_for_serving`` detaches), one train step of every smoke config
+(the port's ``test_arch_smoke``), and the C6 / C7 refusal of a bf16
+compute dtype in training.  The other families' parity is
+``test_torch_train_families.py``'s.
 """
 
 import functools
@@ -237,18 +240,55 @@ def test_training_path_does_not_reach_the_flash_wrapper(model, monkeypatch):
     assert len(calls) == tcfg.n_layers
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "falcon-mamba-7b",
-                                  "hymba-1.5b", "llava-next-34b",
-                                  "whisper-tiny"])
-def test_families_not_yet_trained_raise(arch):
-    tcfg = tget(arch).smoke()
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_arch_smoke_trains(arch):
+    """The port's counterpart of ``tests/test_arch_smoke.py``: each smoke
+    config takes one ``_loss_fn`` and one AdamW ``make_train_step`` on the
+    CPU; the loss, the grad norm and the params stay finite and the params
+    move."""
+    tcfg = ARCHS[arch].smoke()
+    params = steps._init_fn(tcfg)(tcfg, torch.Generator().manual_seed(0),
+                                  device="cpu")
+    rng = np.random.default_rng(0)
+    b, s = 2, 32
+    batch = dict(tokens=torch.from_numpy(rng.integers(0, tcfg.vocab_size,
+                                                      (b, s))),
+                 labels=torch.from_numpy(rng.integers(0, tcfg.vocab_size,
+                                                      (b, s))))
+    if tcfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.normal(size=(
+            b, tcfg.n_audio_frames, tcfg.d_model)).astype(np.float32))
+    if tcfg.family == "vlm":
+        batch["patches"] = torch.from_numpy(rng.normal(size=(
+            b, tcfg.n_patches, tcfg.d_model)).astype(np.float32))
+    with torch.no_grad():
+        loss = steps._loss_fn(tcfg)(params, batch, tcfg)
+    assert torch.isfinite(loss), arch
+    opt = optim.adamw()
+    new, _, metrics = steps.make_train_step(tcfg, opt)(
+        params, opt.init(params), batch)
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(
+        metrics["grad_norm"])
+    assert all(torch.isfinite(p).all() for p in T.leaves(new)), arch
+    assert any(not torch.equal(a, b)
+               for a, b in zip(T.leaves(params), T.leaves(new))), arch
+
+
+@pytest.mark.parametrize("arch,field", [
+    ("qwen3-0.6b", "attn_dtype"), ("hymba-1.5b", "attn_dtype"),
+    ("hymba-1.5b", "scan_dtype"), ("falcon-mamba-7b", "scan_dtype"),
+    ("whisper-tiny", "attn_dtype")])
+def test_training_refuses_bf16_compute(arch, field):
+    """C6 / C7: ``check_compute_dtypes`` refuses a bf16 attention or scan
+    compute dtype in training too, not only in serving."""
+    tcfg = tget(arch).smoke().replace(**{field: "bfloat16"})
+    with pytest.raises(NotImplementedError, match="ROADMAP C6 / C7"):
         steps.make_train_step(tcfg, optim.adamw())
-    if tcfg.family in tfm.FAMILIES:
-        params = tfm.init_params(tcfg, device="cpu")
-        _, tb = _batch(0)
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            tfm.lm_loss(params, tb, tcfg)
+    params = steps._init_fn(tget(arch).smoke())(
+        tget(arch).smoke(), device="cpu")
+    _, tb = _batch(0)
+    with pytest.raises(NotImplementedError, match="ROADMAP C6 / C7"):
+        steps.loss_and_grads(params, tb, tcfg)
 
 
 def test_forward_only_check():

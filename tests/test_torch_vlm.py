@@ -177,13 +177,20 @@ def test_serve_steps_greedy_tokens(model, frozen):
 
 
 def test_vlm_loss_is_refused(model):
-    _, tcfg, _ = model
-    params = vlm.init_params(tcfg, device="cpu")
-    batch = dict(tokens=torch.zeros((1, 4), dtype=torch.long),
-                 labels=torch.zeros((1, 4), dtype=torch.long),
-                 patches=torch.zeros((1, tcfg.n_patches, tcfg.d_model)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        vlm.vlm_loss(params, batch, tcfg)
+    """No longer refused: ``vlm_loss`` trains, and equals the reference's
+    on the same weights and batch (text positions scored, patches not)."""
+    cfg, tcfg, params = model
+    rng = np.random.default_rng(3)
+    batch = dict(tokens=rng.integers(0, 256, (1, 4)).astype(np.int32),
+                 labels=rng.integers(0, 256, (1, 4)).astype(np.int32),
+                 patches=rng.normal(size=(1, tcfg.n_patches, tcfg.d_model)
+                                    ).astype(np.float32))
+    want = jvlm.vlm_loss(params, {k: jnp.asarray(v) for k, v in
+                                  batch.items()}, cfg)
+    got = vlm.vlm_loss(_carry(params, tcfg),
+                       {k: torch.from_numpy(v) for k, v in batch.items()},
+                       tcfg)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
 
 
 # -- the serving engine, text prompts (the reference's own cases) ----------
