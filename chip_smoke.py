@@ -12,10 +12,12 @@ alone and beside falcon-mamba-7b as two tenants of one page pool, the
 MoE qwen2-moe-a2.7b on the grouped expert kernel, training qwen3-0.6b,
 the serving launcher and the XR pipeline example, in process through
 their ``main``, then the VLM llava-next-34b, the encoder-decoder
-whisper-tiny and hymba-1.5b's segmented window path, and last training
-of the MoE, SSM, hybrid, VLM and encoder-decoder families with
-hymba-1.5b trained at full depth and served -- and fails (non-zero exit,
-no result line) if any phase fails:
+whisper-tiny and hymba-1.5b's segmented window path, training of the
+MoE, SSM, hybrid, VLM and encoder-decoder families with hymba-1.5b
+trained (16 of its 32 layers) and served, and last the launcher's ``main`` on
+gemma-7b (head dim 256), qwen2.5-3b, olmo-1b and llava-next-34b and the
+MoE store's cold expert pages wire-served -- and fails (non-zero exit, no
+result line) if any phase fails:
 
 1. set-up: requires a CUDA device, turns TF32 off, prints the card's name
    and power limit, builds every ``csrc/*.cu`` with nvcc for sm_90a (one
@@ -54,7 +56,13 @@ no result line) if any phase fails:
    qwen3-0.6b's layer, falcon-mamba-7b's four linears of a layer are timed
    at M = 4 and 256, and so are llava-next-34b's seven; flash at
    qwen3-0.6b's prefill chunk, hymba-1.5b's longest prompt,
-   llava-next-34b's prefill of phase 12 and whisper-tiny's encoder; the scan at falcon-mamba-7b's and hymba-1.5b's prefill
+   llava-next-34b's prefill of phase 12, whisper-tiny's encoder and
+   gemma-7b's prefill chunk at head dim 256; the grouped
+   ``qmatmul_f32_blockscale_grouped`` (B3 over a stack of experts' int8
+   wire-form pages) against its plain version at qwen2-moe-a2.7b's expert
+   shapes (E 60, C 8 and 24, a ragged C, one expert; experts with no rows
+   give zeros, two calls bit-equal) and timed at one layer's three expert
+   linears at C 8 and 24 beside ``torch.bmm`` on pre-dequantised f32; the scan at falcon-mamba-7b's and hymba-1.5b's prefill
    and decode; the N-EUREKA kernels at MobileNet-V2 jobs (``NEUREKA_TIMED``:
    ``conv3x3_dw`` at b0.dw, b1.dw and b14.dw, its largest stride-1 and
    stride-2 maps and its smallest one).
@@ -156,7 +164,12 @@ no result line) if any phase fails:
    2-47 tokens, 8 new tokens each, a third of them on each XR stream) at
    its defaults (4 slots, max_len 128, prefill chunk 16, ``budget_frac``
    0.5, ``shared_budget_frac`` 0.6, KV blocks of 16 rows, ``async_io``).
-   (a) Phase 3's 8-bit qwen3-0.6b tree with its cold half
+   Each tenant is phase 3's 8-bit tree cut to its first layers at full
+   width (``TENANCY_LAYERS``: 8 of qwen3-0.6b's 28, 16 of
+   falcon-mamba-7b's 64, cut so that the script, build included, ends
+   within 1,200 s; the checks hold at any depth, and phase 11 (c) pages
+   falcon-mamba-7b's full-depth leaves beside qwen3-0.6b's KV blocks).
+   (a) That qwen3-0.6b tree with its cold half
    (``attach_paging``) and its KV cache (``attach_kv_paging(16)``) joined
    to one ``SharedPagePool`` (0.6 of the cold bytes), 24 requests through
    ``Scheduler``: the tokens must equal per uid those of a resident
@@ -185,8 +198,9 @@ no result line) if any phase fails:
    plain version and ``torch.bmm`` on pre-dequantised f32 weights.  Then
    qwen2-moe-a2.7b at full width (24 layers, d_model 2048, 60 experts
    top-4 of d_ff 1408, a shared expert of 5632, vocab 151,936) with
-   random weights from a seeded CUDA ``torch.Generator``, drawn and frozen
-   at 8 bits one layer at a time, served as in phases 3-4 (8 requests;
+   random weights from a seeded CUDA ``torch.Generator``, each weight
+   frozen at 8 bits as it is drawn (``init_params(bits=)``, the
+   launcher's draw), served as in phases 3-4 (8 requests;
    the grouped and plain ``qmatmul_f32`` and ``flash_attention`` counters
    set to 0 before and grown after; every distinct call of the profiled
    serve, grouped ones included, against its plain version; the first 2
@@ -245,8 +259,8 @@ no result line) if any phase fails:
 12. the VLM and encoder-decoder families and hymba's segmented window
    path, at full width with random weights from seeded CUDA generators.
    (a) llava-next-34b (60 layers, d_model 7,168, 56 / 8 heads of 128,
-   d_ff 20,480, vocab 64,000, untied head), drawn and frozen at 8 bits a
-   layer at a time (``layerwise_tree``): (i) ``launch/steps``'
+   d_ff 20,480, vocab 64,000, untied head), each weight frozen at 8 bits
+   as it is drawn (``frozen_tree``): (i) ``launch/steps``'
    ``make_prefill_step`` on 2 rows of 2,880 patch embeddings (std 0.02)
    + 16-token prompts, then 16 greedy ``make_decode_step`` steps; (ii)
    ``ServingEngine`` serves 4 text requests of 16-64 tokens for 16 new
@@ -270,16 +284,17 @@ no result line) if any phase fails:
    reference's chunked associative scan, ``models/ssm.selective_scan``; no
    Hopper kernel, as in phase 10), at full width with random weights.
    (a) One ``loss_and_grads`` and one ``make_train_step`` step on the card
-   against the CPU from the same weights (a CPU generator, moved) and
-   batch, as phase 10 (a): hymba-1.5b 2 layers at 2 x 128 (+ 128 meta
+   against the CPU from the same weights (drawn on the card, copied to
+   the CPU) and batch, as phase 10 (a): hymba-1.5b 2 layers at 2 x 128 (+ 128 meta
    tokens), falcon-mamba-7b 1 layer at 2 x 128, qwen2-moe-a2.7b 1 layer
    at 2 x 128 (its top-k indices card vs CPU equal in every ``route``
    call first, else the phase fails with the count), whisper-tiny whole
    at 2 x 64 tokens over 1,500 frames: the loss within 1e-5 relative,
    every gradient leaf present, finite, non-zero (hymba's ``ssm_norm``,
    which the loss never reads, zero on both) and within 1e-4 of the CPU
-   leaf's largest element.  (b) hymba-1.5b at full depth (32 layers,
-   remat), AdamW at 3e-4, batch 4 x 256, 6 steps through ``Trainer``: the
+   leaf's largest element.  (b) hymba-1.5b at 16 of its 32 layers (cut
+   so that the script ends within 1,200 s; remat), AdamW at 3e-4, batch
+   4 x 256, 6 steps through ``Trainer``: the
    last loss below the first; step time, tokens/s and peak memory
    printed, one more step profiled, the checkpoint deleted.  (d) (b)'s
    trained tree, its leaves set to require grad, frozen at 8 bits (no
@@ -292,9 +307,28 @@ no result line) if any phase fails:
    llava-next-34b 2 of 60 at 1 x 256 text tokens after all 2,880 patches,
    whisper-tiny whole at 2 x 64: each loss falling; step time, tokens/s
    and peak memory printed;
-14. the ``{"serve": ...}``, ``{"train": ...}``, ``{"phase12": ...}``,
-   ``{"train_families": ...}`` and ``{"kernels": [...]}`` lines, the card
-   line, and as the last line ``{"ok": true, "device": {...}}``.
+14. the launcher at full width through its ``main``, in this process:
+   ``--arch gemma-7b`` (head dim 256 on the flash kernel), ``qwen2.5-3b``,
+   ``olmo-1b`` and ``llava-next-34b`` (``--requests 4 --max-new 8``), each
+   ``--bits 8 --kv-paged`` (so both verify legs run): both verify lines
+   BIT-EXACT, every request its tokens in the vocabulary, the B1 and B2
+   launches of the served run (its first ``_serve``) grown, peak device
+   memory below the card's, tok/s printed.  Then gemma-7b, qwen2.5-3b and
+   olmo-1b cut to 2 layers at full width, ``forward`` logits of 64 tokens
+   card vs CPU within ``LOGITS_TOL``.  Then qwen2-moe-a2.7b cut to 2 of
+   its 24 layers at full width, each weight frozen at 4 bits as drawn,
+   its experts' three linears int8-paged (1.17 GB of wire bytes a pass)
+   and the rest pinned, ``attach_paging(wire_serve=True)``: 4 requests of
+   8 new tokens, phase 6's checks (tokens in the vocabulary, swaps and
+   misses, nothing decoded on the host, the device memory down by the
+   cold bytes, tokens equal to a resident engine on the same wire-form
+   bytes), ``pager.wire_served`` the expert groups, and
+   ``qmatmul_f32_blockscale_grouped`` launched.  Every distinct B1, B2 and
+   grouped B3 call of the phase is held against its plain version;
+15. the ``{"serve": ...}``, ``{"train": ...}``, ``{"phase12": ...}``,
+   ``{"train_families": ...}``, ``{"phase14": ...}`` and ``{"kernels":
+   [...]}`` lines, the card line, and as the last line ``{"ok": true,
+   "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -572,9 +606,12 @@ FLASH_CASES = [
     (4, 6, 6, 1500, 1500, 64, None, None, False),
     (4, 6, 6, 4, 1500, 64, None, None, False),
     (4, 6, 6, 1, 1500, 64, None, None, False),
+    # gemma-7b's prefill chunk at head dim 256 (16 heads, no GQA), offsets
+    # as in the qwen3 row; timed
+    (4, 16, 16, 64, 512, 256, None, (0, 64, 192, 448), True),
 ]
 # FLASH_CASES rows timed
-FLASH_TIMED = {"qwen3": 0, "hymba": 4, "llava": 8, "whisper": 9}
+FLASH_TIMED = {"qwen3": 0, "hymba": 4, "llava": 8, "whisper": 9, "gemma": 12}
 
 
 def flash_inputs(torch, gen, dev, case):
@@ -609,7 +646,8 @@ def check_flash(torch, ref, fa, dev) -> float:
     print(f"[check] flash_attention: {len(FLASH_CASES)} cases (GQA 16/8, "
           f"25/5 and 56/8, per-row q_offset, causal and not, windows, "
           f"hymba's long prompt, llava's prefill, whisper's encoder and "
-          f"cross-attention, rows that see no key), max abs err {worst:.3e}, "
+          f"cross-attention, gemma's chunk at head dim 256, rows that see "
+          f"no key), max abs err {worst:.3e}, "
           f"tolerance {FLASH_TOL}; each call twice, bit-equal")
     return worst
 
@@ -773,7 +811,9 @@ def time_flash(torch, F, ref, fa, dev, which: str = "qwen3",
     1.5b's longest prompt: 4 rows x 25/5 heads, 1,163 queries, window
     1,024; llava-next-34b's prefill: 2 rows x 56/8 heads of 128, 2,896
     queries; whisper-tiny's encoder: 4 rows x 6 heads of 64, 1,500 frames,
-    not causal) on ``copies`` input sets in turn (more than the 50 MB L2).  The
+    not causal; gemma-7b's chunk: 4 rows x 16 heads of 256, 64 queries
+    over 512 keys) on ``copies`` input sets in turn (more than the 50 MB
+    L2).  The
     library call is ``F.scaled_dot_product_attention`` with the same
     boolean mask, on k and v expanded to Hq heads outside the timing."""
     case = FLASH_CASES[FLASH_TIMED[which]]
@@ -961,7 +1001,8 @@ def recording(torch, ops):
     Yields {kernel name: [call key, ...]}; per-row query offsets are kept as
     device tensors until the block ends, so nothing syncs."""
     calls = {"qmatmul_f32": [], "qmatmul_f32_grouped": [],
-             "qmatmul_f32_blockscale": [], "flash_attention": [],
+             "qmatmul_f32_blockscale": [],
+             "qmatmul_f32_blockscale_grouped": [], "flash_attention": [],
              "selective_scan": []}
     qmm, fa, ssm = ops._qmm, ops._fa, ops._ssm
 
@@ -982,6 +1023,13 @@ def recording(torch, ops):
         return qmm.qmatmul_f32_blockscale(x, packed, scales, bits=bits,
                                           k_orig=k_orig, block=block)
 
+    def rec_gbs(x, packed, scales, *, bits, k_orig, block=32):
+        calls["qmatmul_f32_blockscale_grouped"].append(
+            (x.shape[0], x.shape[1], k_orig, packed.shape[1], bits))
+        return qmm.qmatmul_f32_blockscale_grouped(x, packed, scales,
+                                                  bits=bits, k_orig=k_orig,
+                                                  block=block)
+
     def rec_fa(q, k, v, **kw):
         off = kw.get("q_offset")
         calls["flash_attention"].append((
@@ -998,7 +1046,8 @@ def recording(torch, ops):
 
     ops._qmm = _Recorder(qmm, {"qmatmul_f32": rec_qmm,
                                "qmatmul_f32_grouped": rec_grouped,
-                               "qmatmul_f32_blockscale": rec_bs})
+                               "qmatmul_f32_blockscale": rec_bs,
+                               "qmatmul_f32_blockscale_grouped": rec_gbs})
     ops._fa = _Recorder(fa, {"flash_attention": rec_fa})
     ops._ssm = _Recorder(ssm, {"selective_scan": rec_scan})
     try:
@@ -1023,6 +1072,40 @@ def wire_weight(torch, gen, dev, n: int, k: int, bits: int):
     levels, scales = quantize.quantize_blockwise(w.cpu().numpy(), bits)
     packed = packing.pack(torch.from_numpy(levels), bits)
     return packed.to(dev), torch.from_numpy(scales).to(dev)
+
+
+def wire_form(torch, w, bits: int):
+    """The page codec's blockwise wire form of an (rows, k) f32 weight,
+    computed on its device as ``quantize.quantize_blockwise`` computes it
+    on the host: (levels packed at ``bits``, scales (rows, k / 32))."""
+    from repro_torch.core import packing, quantize
+
+    rows, k = w.shape
+    nblk = -(-k // 32)
+    qmin, qmax = quantize.weight_qrange(bits)
+    groups = torch.nn.functional.pad(w, (0, nblk * 32 - k)).reshape(
+        rows, nblk, 32)
+    absmax = groups.abs().amax(-1)
+    scales = torch.where(absmax > 0, absmax / torch.tensor(
+        float(qmax), device=w.device), torch.ones_like(absmax))
+    levels = torch.clamp(torch.round(groups / scales[..., None]), qmin,
+                         qmax).to(torch.int8).reshape(rows, -1)[:, :k]
+    return packing.pack(levels, bits), scales
+
+
+def expert_wire_weights(torch, ops, gen, dev, e: int, k: int, n: int,
+                        bits: int = 4, page_bits: int = 8):
+    """(packed (E, N, Kp), scales (E, N, K / 32)) of E random (n, k) expert
+    weights frozen at ``bits`` and re-encoded as a wire-served cold page
+    (``core/paging.encode_host_param``): dequantised, then blockwise
+    quantised at ``page_bits``."""
+    from repro_torch.core import packing
+
+    packed, scale = expert_weights(torch, ops, gen, dev, e, k, n, bits)
+    dense = (packing.unpack(packed.reshape(e * n, -1), bits, k).float()
+             * scale.reshape(-1, 1))
+    wp, scales = wire_form(torch, dense, page_bits)
+    return wp.reshape(e, n, -1), scales.reshape(e, n, -1)
 
 
 def expert_weights(torch, ops, gen, dev, e: int, k: int, n: int, bits: int):
@@ -1082,6 +1165,17 @@ def check_path(torch, ops, ref, qmm, fa, ssm, dev, arch: str, calls):
                                         k_orig=k),
              QMM_TOL, f"M={m} K={k} N={n} bits={bits}")
     del wires
+    for e, c, k, n, bits in calls.get("qmatmul_f32_blockscale_grouped", ()):
+        packed, scales = expert_wire_weights(torch, ops, gen, dev, e, k, n,
+                                             page_bits=bits)
+        x = torch.randn((e, c, k), generator=gen, device=dev)
+        hold("qmatmul_f32_blockscale_grouped",
+             qmm.qmatmul_f32_blockscale_grouped(x, packed, scales, bits=bits,
+                                                k_orig=k),
+             ref.qmatmul_f32_blockscale_grouped(x, packed, scales, bits=bits,
+                                                k_orig=k),
+             QMM_TOL, f"E={e} C={c} K={k} N={n} bits={bits}")
+        del packed, scales, x
     for qs, ks, causal, scale, window, offs in calls["flash_attention"]:
         q = torch.randn(qs, generator=gen, device=dev)
         k = torch.randn(ks, generator=gen, device=dev)
@@ -1110,16 +1204,20 @@ def check_path(torch, ops, ref, qmm, fa, ssm, dev, arch: str, calls):
 
     def span(vals):
         return f"{min(vals)}-{max(vals)}" if vals else "-"
-    qc, gc_, bc, fc, sc = (calls.get(k, []) for k in (
+    qc, gc_, bc, gbc, fc, sc = (calls.get(k, []) for k in (
         "qmatmul_f32", "qmatmul_f32_grouped", "qmatmul_f32_blockscale",
-        "flash_attention", "selective_scan"))
+        "qmatmul_f32_blockscale_grouped", "flash_attention",
+        "selective_scan"))
     print(f"[check] {arch} path, kernels vs plain at each distinct call of "
           f"the serve: qmatmul_f32 {len(qc)} (M {span([c[0] for c in qc])}, "
           f"(K, N) {sorted({c[1:3] for c in qc})}), qmatmul_f32_grouped "
           f"{len(gc_)} ((E, C) {sorted({c[:2] for c in gc_})}, (K, N) "
           f"{sorted({c[2:4] for c in gc_})}), qmatmul_f32_blockscale "
           f"{len(bc)} (M {span([c[0] for c in bc])}, (K, N) "
-          f"{sorted({c[1:3] for c in bc})}), flash_attention "
+          f"{sorted({c[1:3] for c in bc})}), "
+          f"qmatmul_f32_blockscale_grouped {len(gbc)} ((E, C) "
+          f"{sorted({c[:2] for c in gbc})}, (K, N) "
+          f"{sorted({c[2:4] for c in gbc})}), flash_attention "
           f"{len(fc)} (q {sorted({c[0] for c in fc})}, k "
           f"{sorted({c[1] for c in fc})}, windows "
           f"{sorted({c[4] for c in fc if c[4] is not None})}), "
@@ -1296,6 +1394,39 @@ PAGED_KERNELS = ("qmatmul_f32", "qmatmul_f32_blockscale", "flash_attention")
 PAGED_FAULTS = dict(seed=3, fail_rate=0.2, bitflip_rate=0.2)
 
 
+def host_cold(m, packed, plan, cold, bits: int):
+    """After ``attach_paging``, the caller's cold leaves go to the host too,
+    so that the card holds the pinned groups and nothing of the cold ones.
+    Returns (the tree with the cold leaves on the host, their packed and
+    scale bytes on the card); the caller drops its old tree before
+    ``check_freed``."""
+    pg = m["paging"]
+    on_card = pg.packed_tree_store(packed, plan).params
+    want = sum(t.numel() * t.element_size() for n in cold
+               for t in (on_card[n].packed, on_card[n].scale))
+    return pg.thread_packed(packed, {
+        n: m["PackedParam"](packed=on_card[n].packed.cpu(),
+                            scale=on_card[n].scale.cpu(), bits=bits,
+                            orig_shape=on_card[n].orig_shape)
+        for n in cold}), want
+
+
+def check_freed(torch, before: int, want: int, groups: int) -> int:
+    """The card's memory, ``before`` allocated ahead of ``attach_paging``,
+    must have fallen by the cold groups' ``want`` bytes; returns the bytes
+    freed."""
+    gc.collect()
+    torch.cuda.synchronize()
+    freed = before - torch.cuda.memory_allocated()
+    # the allocator rounds a block up by less than 1 MiB + 512 B
+    if not want <= freed <= want + groups * 2 * (2**20 + 512):
+        raise AssertionError(f"attach_paging and the release of the cold "
+                             f"leaves freed {freed} B of device memory, "
+                             f"want {want} B (the cold groups' packed "
+                             f"and scale bytes)")
+    return freed
+
+
 def serve_paged(torch, m, cfg, dev):
     """Serve the 8 greedy requests of ``serve_lm`` from a paged 4-bit store
     with wire-serve on; check the counters, the tokens against a resident
@@ -1374,28 +1505,8 @@ def serve_paged(torch, m, cfg, dev):
     eng.attach_paging(wire_serve=True)
     attach_s = time.perf_counter() - t0
     pager = eng.pager
-    # the caller's cold leaves go to the host too: from here on the card
-    # holds the pinned half of the store and nothing of the cold half, so
-    # the device memory falls by the cold groups' bytes
-    on_card = pg.packed_tree_store(packed, plan).params
-    cold_tensors = [t for n in cold
-                    for t in (on_card[n].packed, on_card[n].scale)]
-    want = sum(t.numel() * t.element_size() for t in cold_tensors)
-    packed = pg.thread_packed(packed, {
-        n: m["PackedParam"](packed=on_card[n].packed.cpu(),
-                            scale=on_card[n].scale.cpu(), bits=4,
-                            orig_shape=on_card[n].orig_shape)
-        for n in cold})
-    del on_card, cold_tensors
-    gc.collect()
-    torch.cuda.synchronize()
-    freed = before - torch.cuda.memory_allocated()
-    # the allocator rounds a block up by less than 1 MiB + 512 B
-    if not want <= freed <= want + len(cold) * 2 * (2**20 + 512):
-        raise AssertionError(f"attach_paging and the release of the cold "
-                             f"leaves freed {freed} B of device memory, "
-                             f"want {want} B (the cold groups' packed "
-                             f"and scale bytes)")
+    packed, want = host_cold(m, packed, plan, cold, 4)
+    freed = check_freed(torch, before, want, len(cold))
     print(f"[paged] device memory fell by {freed} B after attach_paging and "
           f"the release of the caller's cold leaves (cold packed + scale "
           f"{want} B; plan.paged_bytes {plan.paged_bytes(sizes)} B)")
@@ -1929,8 +2040,14 @@ def serve_xr_phase(torch, m, cfg, resident_tree, paged, dev):
 TENANCY = dict(slots=4, max_new=8, max_len=128, prefill_chunk=16,
                budget_frac=0.5, shared_budget_frac=0.6, kv_block=16, seed=0)
 TENANTS = ("qwen3-0.6b", "falcon-mamba-7b")
+# each tenant's first layers of phase 3's tree, at full width: phase 8's
+# checks hold at any depth, and full depth took ~107 s of the 1,200 s the
+# whole script must finish in, its kernels' build included (PERF.md
+# sections 6-7); phase 11 (c) keeps falcon-mamba-7b's full-depth pages
+# beside qwen3-0.6b's KV blocks in one pool
+TENANCY_LAYERS = {"qwen3-0.6b": 8, "falcon-mamba-7b": 16}
 KV_REQUESTS = 24                 # part (a): ~0.1-0.2 s a paged qwen3 tick
-TENANT_REQUESTS = 8              # part (b): ~1.6 s of CRC a falcon pass
+TENANT_REQUESTS = 8              # part (b): ~0.4 s of CRC a falcon pass
 KV_KERNELS = ("qmatmul_f32", "flash_attention", "selective_scan")
 
 
@@ -2733,38 +2850,14 @@ GROUPED_CASES = ([(60, c, k, n, 8) for c in (8, 16, 24)
                     (60, 8, 1408, 2048, 2), (60, 24, 2048, 1408, 2)])
 
 
-def layerwise_tree(torch, m, cfg, dev):
+def frozen_tree(torch, m, cfg, dev, bits: int = 8):
     """``cfg``'s packed tree with random weights from a CUDA generator
-    seeded 0, drawn and frozen at 8 bits one layer at a time into stacked
-    leaves allocated once: the f32 tree (~57 GB for qwen2-moe-a2.7b, 137 GB
-    for llava-next-34b) never exists whole."""
-    tfm, freeze = m["tfm"], m["freeze"]
-    gen = torch.Generator(device=dev).manual_seed(0)
-    # the embedding, head and final norm, and no layer
-    tree = tfm.init_params(cfg.replace(n_layers=0), generator=gen)
-    one = cfg.replace(n_layers=1, vocab_size=8)
-
-    def stack(t):
-        if isinstance(t, dict):
-            return {k: stack(v) for k, v in t.items()}
-        return t.new_empty((cfg.n_layers,) + tuple(t.shape[1:]))
-
-    def put(dst, src, i):
-        if isinstance(src, dict):
-            for k, v in src.items():
-                put(dst[k], v, i)
-        else:
-            dst[i].copy_(src[0])
-
-    layers = None
-    for i in range(cfg.n_layers):
-        layer = freeze(tfm.init_params(one, generator=gen), bits=8)["layers"]
-        if layers is None:
-            layers = stack(layer)
-        put(layers, layer, i)
-        del layer
-    tree["layers"] = layers
-    return tree
+    seeded 0, drawn by ``init_params(bits=)``, which packs each weight as it
+    is drawn: the launcher's draw, equal to ``freeze_for_serving`` of the
+    whole f32 draw (~57 GB for qwen2-moe-a2.7b, 137 GB for llava-next-34b),
+    which never exists."""
+    return m["tfm"].init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                device=dev, bits=bits)
 
 
 def check_grouped(torch, ops, ref, qmm, dev) -> float:
@@ -2851,6 +2944,104 @@ def time_grouped(torch, packing, ops, ref, qmm, dev, c: int, bits: int = 8,
     return res
 
 
+# (E, C, K, N) of the grouped blockscale kernel's checks: qwen2-moe-a2.7b's
+# expert linears at decode (C 8) and at prefill capacity (C 24), a ragged C
+# on each route and one expert on each, their weights 4-bit levels
+# re-encoded as the page codec's int8 wire form (phase 14's cold pages)
+GROUPED_BS_CASES = ([(60, c, k, n) for c in (8, 24)
+                     for k, n in ((2048, 1408), (1408, 2048))]
+                    + [(60, 13, 2048, 1408), (60, 40, 1408, 2048),
+                       (1, 8, 2048, 1408), (1, 24, 1408, 2048)])
+
+
+def check_grouped_blockscale(torch, ops, ref, qmm, dev) -> float:
+    """``qmatmul_f32_blockscale_grouped`` against its plain version at
+    ``GROUPED_BS_CASES``, within QMM_TOL (B3's 1e-4); every seventh expert
+    gets no rows and must give zeros, and two calls must give the same
+    bits."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    worst = 0.0
+    for e, c, k, n in GROUPED_BS_CASES:
+        packed, scales = expert_wire_weights(torch, ops, gen, dev, e, k, n)
+        x = torch.randn((e, c, k), generator=gen, device=dev)
+        x[1::7] = 0.0
+        got = qmm.qmatmul_f32_blockscale_grouped(x, packed, scales, bits=8,
+                                                 k_orig=k)
+        again = qmm.qmatmul_f32_blockscale_grouped(x, packed, scales, bits=8,
+                                                   k_orig=k)
+        expect = ref.qmatmul_f32_blockscale_grouped(x, packed, scales,
+                                                    bits=8, k_orig=k)
+        torch.cuda.synchronize()
+        err = (got - expect).abs().max().item()
+        worst = max(worst, err)
+        what = f"E={e} C={c} K={k} N={n}"
+        if not torch.allclose(got, expect, **QMM_TOL):
+            raise AssertionError(f"qmatmul_f32_blockscale_grouped {what}: "
+                                 f"max abs err {err}")
+        if not torch.equal(again, got):
+            raise AssertionError(f"qmatmul_f32_blockscale_grouped {what}: "
+                                 "two calls give different bits")
+        if got[1::7].any():
+            raise AssertionError(f"qmatmul_f32_blockscale_grouped {what}: "
+                                 "an expert with no rows gave non-zeros")
+        del packed, scales, x, got, again, expect
+    torch.cuda.empty_cache()
+    print(f"[check] qmatmul_f32_blockscale_grouped vs plain at "
+          f"{len(GROUPED_BS_CASES)} (E, C, K, N) cases {GROUPED_BS_CASES} "
+          f"(4-bit levels in the int8 wire form): max abs err {worst:.3e} "
+          f"(tolerance {QMM_TOL}), two calls bit-equal, experts with no "
+          "rows give zeros")
+    return worst
+
+
+def time_grouped_blockscale(torch, ops, ref, qmm, dev, c: int,
+                            copies: int = 2):
+    """One qwen2-moe-a2.7b layer's three expert linears as wire-served cold
+    pages (int8 levels, per-32 scales: 584 MB a layer, > the 50 MB L2),
+    grouped over its 60 experts at capacity ``c``, over ``copies`` layer
+    copies, beside the plain version and torch.bmm on pre-dequantised f32
+    weights."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    layers = []
+    for _ in range(copies):
+        layer = []
+        for k, n in EXPERT_LINEARS.values():
+            packed, scales = expert_wire_weights(torch, ops, gen, dev, 60, k,
+                                                 n)
+            x = torch.randn((60, c, k), generator=gen, device=dev)
+            deq = ref.blockscale_weight(packed, scales, 8, k, 32)
+            layer.append((x, packed, scales, k, deq))
+        layers.append(layer)
+
+    def kernel(i):
+        for x, p, s, k, _ in layers[i % copies]:
+            qmm.qmatmul_f32_blockscale_grouped(x, p, s, bits=8, k_orig=k)
+
+    def plain(i):
+        for x, p, s, k, _ in layers[i % copies]:
+            ref.qmatmul_f32_blockscale_grouped(x, p, s, bits=8, k_orig=k)
+
+    def library(i):
+        for x, _, _, _, deq in layers[i % copies]:
+            torch.bmm(x, deq.transpose(1, 2))
+
+    res = time_versions(torch, kernel, plain, library, copies, 20)
+    nbytes = sum(x.numel() * 4 + p.numel() + s.numel() * 4
+                 + x.shape[0] * c * p.shape[1] * 4
+                 for x, p, s, _, _ in layers[0])
+    flops = sum(2 * 60 * c * n * k for k, n in EXPERT_LINEARS.values())
+    route_bound(res, nbytes, flops, 2)
+    res["work"] = (f"qmatmul_f32_blockscale_grouped, one layer's 3 expert "
+                   f"linears {list(EXPERT_LINEARS)}, E=60, C={c}, int8 wire "
+                   f"form")
+    print_times(f"qmatmul_f32_blockscale_grouped {MOE_ARCH} layer x3 E=60 "
+                f"C={c} int8 wire form", "torch.bmm on pre-dequantised f32",
+                res, nbytes, flops)
+    del layers
+    torch.cuda.empty_cache()
+    return res
+
+
 def serve_moe_phase(torch, m, cfg, dev):
     """Phase 9: the grouped kernel checked and timed, then qwen2-moe-a2.7b
     served at full width (``serve_lm``: 8 requests, the grouped and plain
@@ -2866,7 +3057,7 @@ def serve_moe_phase(torch, m, cfg, dev):
                 "qmatmul_f32_grouped": m["qmm"].qmatmul_f32_grouped,
                 "flash_attention": m["fa"].flash_attention}
     served, tree = serve_lm(torch, m, cfg, 512, False, counters, 2, dev,
-                            make_tree=lambda: layerwise_tree(torch, m, cfg, dev),
+                            make_tree=lambda: frozen_tree(torch, m, cfg, dev),
                             logits_tol=LOGITS_TOL)
     del tree
     gc.collect()
@@ -2973,17 +3164,18 @@ def train_batch(torch, m, cfg, batch: int, seq: int, step: int, dev):
 
 def card_vs_cpu(torch, m, ccfg, batch, dev, unread=frozenset()):
     """One ``loss_and_grads`` and one ``make_train_step`` step of ``ccfg``
-    on the card against the CPU from the same weights (a CPU generator,
-    moved) and ``batch`` (CPU tensors): the loss within TRAIN_LOSS_RTOL,
+    on the card against the CPU from the same weights (drawn on the card
+    from a CUDA generator and copied to the CPU, which draws far slower)
+    and ``batch`` (CPU tensors): the loss within TRAIN_LOSS_RTOL,
     every gradient leaf present, finite and non-zero on the card (zero on
     both, for a leaf in ``unread``: one the loss never reads) and within
     TRAIN_GRAD_TOL of the CPU's largest element; the step's loss and grad
     norm within TRAIN_LOSS_RTOL.  Returns the readings; the card's tree
     and batch are left in ``out["gpu"]``, ``out["gbatch"]``."""
     T, steps = m["tree"], m["steps"]
-    cpu = steps._init_fn(ccfg)(ccfg, torch.Generator().manual_seed(0),
-                               device="cpu")
-    gpu = T.tree_map(lambda t: t.to(dev), cpu)
+    gpu = steps._init_fn(ccfg)(ccfg, torch.Generator(device=dev)
+                               .manual_seed(0), device=dev)
+    cpu = T.tree_map(lambda t: t.cpu(), gpu)
     gbatch = {k: v.to(dev) for k, v in batch.items()}
     t0 = time.perf_counter()
     lc, gc_ = steps.loss_and_grads(cpu, batch, ccfg)
@@ -3073,10 +3265,11 @@ def train_check(torch, m, cfg, dev):
 
 
 def train_full(torch, m, cfg, dev, f=TRAIN_FULL, tag="[train] (b)"):
-    """(b) Full depth, ``remat`` on, AdamW, ``f['steps']`` steps through
-    ``Trainer`` on ``SyntheticLMDataset(seed=0)``: the last loss must be
-    below the first.  Returns the readings and the trained params; the
-    checkpoint directory is deleted."""
+    """(b) ``cfg``'s depth (qwen3-0.6b's 28 layers in phase 10, 16 of
+    hymba-1.5b's 32 in phase 13), ``remat`` on, AdamW, ``f['steps']``
+    steps through ``Trainer`` on ``SyntheticLMDataset(seed=0)``: the last
+    loss must be below the first.  Returns the readings and the trained
+    params; the checkpoint directory is deleted."""
     import shutil
 
     if not cfg.remat:
@@ -3395,8 +3588,10 @@ FAMILY_ARCH = "hymba-1.5b"
 # (a) card vs CPU: (arch, layers (None: all), batch, text positions)
 FAMILY_CHECKS = (("hymba-1.5b", 2, 2, 128), ("falcon-mamba-7b", 1, 2, 128),
                  ("qwen2-moe-a2.7b", 1, 2, 128), ("whisper-tiny", None, 2, 64))
-# (b) hymba-1.5b at full width and full depth through Trainer
-FAMILY_FULL = dict(steps=6, batch=4, seq=256, lr=3e-4)
+# (b) hymba-1.5b at full width through Trainer, 16 of its 32 layers (full
+# depth took ~40 s more of the 1,200 s the whole script must finish in;
+# PERF.md sections 6-7)
+FAMILY_FULL = dict(steps=6, batch=4, seq=256, lr=3e-4, layers=16)
 # (c) make_train_step at full width and cut depth: (arch, layers (None:
 # all), batch, text positions); llava-next-34b with all 2,880 patches
 FAMILY_STEPS = (("falcon-mamba-7b", 4, 2, 128), ("qwen2-moe-a2.7b", 2, 2, 128),
@@ -3532,7 +3727,7 @@ def family_steps(torch, m, dev, arch: str, layers, batch: int, seq: int):
 
 def family_train_phase(torch, dev, get_config):
     """Phase 13: (a) card vs CPU for hymba-1.5b, falcon-mamba-7b,
-    qwen2-moe-a2.7b and whisper-tiny, (b) hymba-1.5b at full depth through
+    qwen2-moe-a2.7b and whisper-tiny, (b) hymba-1.5b (16 layers) through
     Trainer, (c) the other families' steps at full width and cut depth,
     (d) (b)'s trained tree served (B1, B2 and B7 launched and checked
     against their plain versions).  Returns the readings."""
@@ -3543,7 +3738,7 @@ def family_train_phase(torch, dev, get_config):
         check[arch] = family_check(torch, m, dev, arch, layers, batch, seq)
         gc.collect()
         torch.cuda.empty_cache()
-    cfg = get_config(FAMILY_ARCH)
+    cfg = cut(get_config(FAMILY_ARCH), FAMILY_FULL["layers"])
     full, params = train_full(torch, m, cfg, dev, FAMILY_FULL,
                               "[families] (b)")
     served = train_serve(torch, m, cfg, params, dev, FAMILY_KERNELS,
@@ -4008,20 +4203,20 @@ def merge_calls(into, calls):
 
 
 def vlm_leg(torch, m, cfg, dev, counters, calls):
-    """(a): llava-next-34b at full width, 8 bits, drawn a layer at a time;
+    """(a): llava-next-34b at full width, 8 bits, each weight frozen as drawn;
     (i) make_prefill_step on patches + prompts and make_decode_step, (ii)
     ServingEngine on text prompts, (iii) the first layers card vs CPU."""
     np, tfm, steps, vlm = m["np"], m["tfm"], m["steps"], m["vlm"]
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    tree = layerwise_tree(torch, m, cfg, dev)
+    tree = frozen_tree(torch, m, cfg, dev)
     torch.cuda.synchronize()
     n_packed = sum(t.numel() * t.element_size() for t in leaves(tree))
     draw_s = time.perf_counter() - t0
     print(f"[vlm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab_size}; drawn and frozen (8-bit) a "
-          f"layer at a time in {draw_s:.2f} s, {n_packed / 2**30:.3f} GiB "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}; drawn and frozen (8-bit) "
+          f"weight by weight in {draw_s:.2f} s, {n_packed / 2**30:.3f} GiB "
           f"resident, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} "
           "GiB")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -4286,6 +4481,287 @@ def vlm_encdec_phase(torch, m, dev, counters):
 
 
 
+# phase 14: the launcher at full width on the dense archs and the VLM that
+# no earlier phase serves through it (gemma-7b's head dim 256 on the flash
+# kernel), each beside a 2-layer cut card vs CPU, then a MoE store's cold
+# expert pages wire-served through the grouped blockscale kernel.  A CPU
+# rehearsal appends --smoke to LAUNCH14_FLAGS and passes a get_config that
+# gives smoke configs
+LAUNCH14 = (("gemma-7b", []), ("qwen2.5-3b", []), ("olmo-1b", []),
+            (VLM_ARCH, ["--requests", "4", "--max-new", "8"]))
+LAUNCH14_FLAGS = ["--bits", "8", "--kv-paged"]
+LAUNCH14_KERNELS = ("qmatmul_f32", "flash_attention")
+CUT14 = dict(archs=("gemma-7b", "qwen2.5-3b", "olmo-1b"), layers=2,
+             tokens=64)
+# qwen2-moe-a2.7b cut to 2 of its 24 layers at full width, drawn at 4 bits:
+# the experts' three linears of both layers int8-paged and wire-served
+# (1.17 GB of CRC'd wire bytes a pass), every other packed group pinned
+WIRE_MOE = dict(layers=2, bits=4, requests=4, new=8, max_len=256)
+WIRE_MOE_KERNELS = ("qmatmul_f32", "qmatmul_f32_blockscale_grouped",
+                    "flash_attention")
+
+
+def expert_wire_plan(pl, sizes):
+    """The experts' (w_gate, w_up, w_down) groups int8-paged, the rest
+    pinned, at WIRE_MOE's bits."""
+    bits = WIRE_MOE["bits"]
+    hot = pl.Placement("l1mram", bits, "resident")
+    cold = pl.Placement("l1mram", bits, "paged", 8)
+    experts = {n for n in sizes if n.startswith("layers/moe/w_")}
+    return pl.PlacementPlan(default=cold, rules=tuple(
+        (n, hot) for n in sorted(sizes) if n not in experts)), sorted(experts)
+
+
+def launcher_leg(torch, m, dev, arch, extra, lm, calls):
+    """One ``main`` of the launcher on ``arch``: both verify lines
+    BIT-EXACT, every request its tokens, the launches of the served run
+    (its first ``_serve``), tok/s and the peak device memory."""
+    launch_serve = m["launch_serve"]
+    card = dev.type == "cuda"
+    metrics = ROOT / "build" / f"launch_{arch}_metrics.json"
+    argv = (["--arch", arch] + LAUNCH14_FLAGS + extra
+            + ["--device", dev.type, "--metrics-json", str(metrics)])
+    args = launch_serve._parser().parse_args(argv)
+    cfg = launch_serve._config(args)
+    print(f"[launch14] python -m repro_torch.launch.serve {' '.join(argv)}")
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    with recording(torch, m["ops"]) as seen, \
+            counted_runs(torch, launch_serve, "_serve",
+                         lambda: zero_launches(lm),
+                         lambda: read_launches(lm), card) as serves:
+        done, text, wall = run_main(torch, launch_serve.main, argv, card)
+    merge_calls(calls, seen)
+    launches, split = serves[0]
+    expect_lines(text, LAUNCH_VERIFY, f"launcher --arch {arch}")
+    if len(done) != args.requests or any(len(r.generated) != args.max_new
+                                         for r in done):
+        raise AssertionError(f"launcher --arch {arch}: not every request "
+                             f"got its {args.max_new} tokens")
+    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.generated):
+        raise AssertionError(f"launcher --arch {arch}: token id out of the "
+                             "vocabulary")
+    expect_launched(launches, LAUNCH14_KERNELS,
+                    f"the launcher's served run of {arch}")
+    doc = m["serving"].validate(json.loads(metrics.read_text()))
+    reading = dict(
+        wall_s=wall, ticks=doc["ticks"]["count"],
+        tick_ms=doc["ticks"]["latency_ms"],
+        tok_per_s=doc["throughput"]["tok_per_s"],
+        serve_wall_s=doc["throughput"]["wall_s"],
+        requests=args.requests, max_new=args.max_new, layers=cfg.n_layers,
+        d_model=cfg.d_model, head_dim=cfg.hd)
+    if card:
+        peak = torch.cuda.max_memory_allocated()
+        total = torch.cuda.get_device_properties(dev).total_memory
+        if peak >= total:
+            raise AssertionError(f"launcher --arch {arch}: peak memory "
+                                 f"{peak} >= {total}")
+        reading.update(peak_gib=peak / 2**30, device_gib=total / 2**30)
+    print(f"[launch14] {arch} (8-bit, KV-paged, {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, head dim {cfg.hd}): both verify lines "
+          f"BIT-EXACT; whole main {wall:.2f} s; host clock (smoke reading, "
+          f"{m['card']}): {json.dumps(reading)}; launches of the served run "
+          f"{launches}, by flash shape {json.dumps(split)}")
+    return dict(launches=launches, launches_by_class=split, reading=reading)
+
+
+def cut_leg(torch, m, dev, arch, calls):
+    """``arch`` cut to CUT14's layers at full width, each weight frozen at
+    8 bits as drawn: ``forward`` logits of 64 tokens on the card against
+    the CPU's plain path on the same tree, within LOGITS_TOL."""
+    cfg = m["get_config"](arch)
+    cfg = cfg.replace(n_layers=min(cfg.n_layers, CUT14["layers"]))
+    tree = frozen_tree(torch, m, cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    toks = torch.randint(0, cfg.vocab_size, (1, CUT14["tokens"]),
+                         generator=gen, device=dev)
+    with torch.no_grad(), recording(torch, m["ops"]) as seen:
+        card = m["tfm"].forward(tree, toks, cfg).cpu()
+    merge_calls(calls, seen)
+    cpu = m["tfm"].forward(to_device(torch, tree, "cpu"), toks.cpu(), cfg)
+    err = (card - cpu).abs().max().item()
+    if not (torch.isfinite(card).all()
+            and card.shape == (1, CUT14["tokens"], cfg.vocab_size)):
+        raise AssertionError(f"{arch}: card logits not finite or misshapen")
+    if not torch.allclose(card, cpu, **LOGITS_TOL):
+        raise AssertionError(f"{arch} card vs CPU logits ({cfg.n_layers} "
+                             f"layers): max abs err {err}")
+    top1 = (card.argmax(-1) == cpu.argmax(-1)).float().mean().item()
+    print(f"[forward] {arch} ({cfg.n_layers} layers at full width, d_model "
+          f"{cfg.d_model}, head dim {cfg.hd}) {CUT14['tokens']} tokens card "
+          f"vs CPU: max abs err {err:.3e} (tolerance {LOGITS_TOL}), top-1 "
+          f"agreement {top1:.4f}, max |logit| {cpu.abs().max().item():.3f}")
+    return err
+
+
+def wire_moe_leg(torch, m, dev, calls):
+    """qwen2-moe-a2.7b cut to WIRE_MOE's layers at full width, drawn at 4
+    bits, its experts' linears int8-paged and served from their wire form
+    (``attach_paging(wire_serve=True)``): phase 6's checks (each request its
+    tokens in the vocabulary, swaps and misses the ticks times
+    ``pass_counters``, nothing decoded on the host, the device memory down
+    by the cold bytes once the caller's cold leaves go to the host, the
+    tokens of a resident engine on the same wire-form bytes), the
+    wire-served set the expert groups, and the grouped blockscale kernel
+    launched."""
+    np, pl, pg = m["np"], m["placement"], m["paging"]
+    card = dev.type == "cuda"
+    cfg = m["get_config"](MOE_ARCH)
+    depth = cfg.n_layers
+    cfg = cfg.replace(n_layers=min(depth, WIRE_MOE["layers"]))
+    t0 = time.perf_counter()
+    packed = frozen_tree(torch, m, cfg, dev, bits=WIRE_MOE["bits"])
+    sizes = pl.packed_sizes(packed)
+    plan, cold = expert_wire_plan(pl, sizes)
+    draw_s = time.perf_counter() - t0
+    rng = np.random.default_rng(14)
+    lens = rng.integers(16, 65, WIRE_MOE["requests"])
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+
+    def serve(eng):
+        for i, p in enumerate(prompts):
+            eng.submit(m["Request"](uid=i, prompt=p,
+                                    max_new_tokens=WIRE_MOE["new"]))
+        ticks = 0
+        while eng.pending:
+            eng.step()
+            ticks += 1
+        if card:
+            torch.cuda.synchronize()
+        done = eng.finished
+        if len(done) != len(prompts) or any(
+                len(r.generated) != WIRE_MOE["new"] for r in done):
+            raise AssertionError(f"{cfg.name} wire-served: not every request "
+                                 f"got its {WIRE_MOE['new']} tokens")
+        if any(not 0 <= t < cfg.vocab_size for r in done
+               for t in r.generated):
+            raise AssertionError(f"{cfg.name} wire-served: token id out of "
+                                 "the vocabulary")
+        return {r.uid: r.generated for r in done}, ticks
+
+    eng = m["ServingEngine"](cfg, packed, batch_slots=4,
+                             max_len=WIRE_MOE["max_len"], plan=plan,
+                             device=dev)
+    before = None
+    if card:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng.attach_paging(wire_serve=True)
+    attach_s = time.perf_counter() - t0
+    pager = eng.pager
+    if set(pager.wire_served) != set(cold):
+        raise AssertionError(f"wire-served {sorted(pager.wire_served)}, want "
+                             f"the expert groups {cold}")
+    packed, want = host_cold(m, packed, plan, cold, WIRE_MOE["bits"])
+    freed = check_freed(torch, before, want, len(cold)) if card else None
+    wire_pass = sum(p.wire_nbytes for p in pager.pages)
+    counters = {"qmatmul_f32": m["qmm"].qmatmul_f32,
+                "qmatmul_f32_grouped": m["qmm"].qmatmul_f32_grouped,
+                "qmatmul_f32_blockscale_grouped":
+                    m["qmm"].qmatmul_f32_blockscale_grouped,
+                "flash_attention": m["fa"].flash_attention}
+    zero_launches(counters)
+    t0 = time.perf_counter()
+    with recording(torch, m["ops"]) as seen:
+        tokens, ticks = serve(eng)
+    wall = time.perf_counter() - t0
+    launches, split = read_launches(counters)
+    merge_calls(calls, seen)
+    expect_launched(launches, WIRE_MOE_KERNELS,
+                    f"the wire-served {cfg.name} serve")
+    summary = eng.paging_summary()
+    per_pass = pg.pass_counters(len(pager.pages), 2)
+    if (summary["swap_count"], summary["miss_count"]) != (
+            ticks * per_pass["swaps"], ticks * per_pass["misses"]):
+        raise AssertionError(f"swap / miss {summary['swap_count']} / "
+                             f"{summary['miss_count']} over {ticks} ticks, "
+                             f"want {per_pass} a tick")
+    if summary["decode_s"] != 0.0 or summary["decode_skipped_bytes"] <= 0:
+        raise AssertionError(f"wire-serve decoded on the host: {summary}")
+    view = {n: m["PackedParam"](packed=p.packed.to(dev),
+                                scale=p.scale.to(dev), bits=p.bits,
+                                orig_shape=p.orig_shape)
+            for n, p in pager.template_view().items()}
+    wire_tree = pg.thread_packed(packed, {**pager.resident, **view})
+    pager.close()
+    resident = m["ServingEngine"](cfg, wire_tree, batch_slots=4,
+                                  max_len=WIRE_MOE["max_len"],
+                                  plan=plan.replace(wire_serve=True),
+                                  device=dev)
+    r_tokens, _ = serve(resident)
+    if r_tokens != tokens:
+        bad = [u for u in tokens if tokens[u] != r_tokens[u]]
+        raise AssertionError(f"wire-served {cfg.name} tokens differ from the "
+                             f"resident wire-form engine's for uids {bad}")
+    reading = dict(
+        layers=cfg.n_layers, draw_s=draw_s, attach_s=attach_s,
+        pages=[list(p.param_names) for p in pager.pages],
+        wire_bytes_a_pass=wire_pass, cold_device_bytes=want,
+        freed_bytes=freed, ticks=ticks, wall_s=wall,
+        tick_ms=wall / ticks * 1e3, crc_ms=summary["crc_s"] / ticks * 1e3,
+        copy_ms=summary["copy_s"] / ticks * 1e3,
+        swaps=summary["swap_count"], misses=summary["miss_count"],
+        bytes_streamed_wire=summary["bytes_streamed_wire"],
+        decode_skipped_bytes=summary["decode_skipped_bytes"])
+    print(f"[wire-moe] {cfg.name} ({cfg.n_layers} of {depth} layers at full "
+          f"width, {WIRE_MOE['bits']}-bit, experts int8-paged and "
+          f"wire-served {cold}): {len(prompts)} requests (prompts "
+          f"{lens.tolist()}), tokens equal per uid to a resident engine on "
+          f"the same wire-form bytes; device memory fell by {freed} B (cold "
+          f"{want} B); host clock (smoke reading, {m['card']}): "
+          f"{json.dumps(reading)}; launches {launches}")
+    del eng, resident, wire_tree, packed
+    return dict(launches=launches, launches_by_class=split, reading=reading)
+
+
+def launcher_archs_phase(torch, m, dev):
+    """Phase 14 (see the comment above LAUNCH14)."""
+    t_phase = time.perf_counter()
+    card = dev.type == "cuda"
+    (ROOT / "build").mkdir(exist_ok=True)
+    lm = {"qmatmul_f32": m["qmm"].qmatmul_f32,
+          "flash_attention": m["fa"].flash_attention}
+
+    def free():
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+
+    calls, out = {}, {}
+    for arch, extra in LAUNCH14:
+        out[arch] = launcher_leg(torch, m, dev, arch, extra, lm, calls)
+        free()
+    out["cut_logits_max_abs_err"] = {}
+    for arch in CUT14["archs"]:
+        out["cut_logits_max_abs_err"][arch] = cut_leg(torch, m, dev, arch,
+                                                      calls)
+        free()
+    out["wire_moe"] = wire_moe_leg(torch, m, dev, calls)
+    free()
+    out["path_check"] = check_path(torch, m["ops"], m["ref"], m["qmm"],
+                                   m["fa"], m["ssm"], dev, "phase 14", calls)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[phase14] launcher at full width + 2-layer cuts + wire-served "
+          f"MoE experts took {out['wall_s']:.1f} s")
+    return out
+
+
+def phase_clock(phase_s):
+    """``mark(name)`` closes the running phase (its wall seconds into
+    ``phase_s``) and starts ``name``'s."""
+    state = {"name": None, "t0": time.perf_counter()}
+
+    def mark(name):
+        now = time.perf_counter()
+        if state["name"] is not None:
+            phase_s[state["name"]] = now - state["t0"]
+        state.update(name=name, t0=now)
+    return mark
+
+
 def to_device(torch, tree, dev):
     if isinstance(tree, dict):
         return {k: to_device(torch, v, dev) for k, v in tree.items()}
@@ -4323,6 +4799,9 @@ def main() -> int:
     from repro_torch.serving import trace
     from repro_torch.serving.engine import Request, ServingEngine
 
+    phase_s = {}          # wall seconds by phase, the build included in 1
+    mark = phase_clock(phase_s)
+    mark("1")
     # 1. set-up
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4332,6 +4811,7 @@ def main() -> int:
           f"  devices {torch.cuda.device_count()}")
     phase_build(build)
 
+    mark("2")
     # 2. kernels against their plain versions, then timed
     qmm_err = check_qmatmul(torch, ops, ref, qmm, dev)
     fa_err = check_flash(torch, ref, fa, dev)
@@ -4349,6 +4829,9 @@ def main() -> int:
         for m in (4, 256))
     t_fa = {which: time_flash(torch, F, ref, fa, dev, which)
             for which in FLASH_TIMED}
+    gbs_err = check_grouped_blockscale(torch, ops, ref, qmm, dev)
+    t_gbs = {c: time_grouped_blockscale(torch, ops, ref, qmm, dev, c)
+             for c in (8, 24)}
     jobs = {j.name: j for j in mobilenet_v2_jobs(8, MNV2_IMG)}
     nk_err = check_neureka(torch, packing, ops, ref, nkc, qmm, dev,
                            list(jobs.values()))
@@ -4371,6 +4854,7 @@ def main() -> int:
     gc.collect()                  # drop the timing graphs and their pools
     torch.cuda.empty_cache()
 
+    mark("3-4")
     # 3-4. serve full-width qwen3-0.6b, falcon-mamba-7b and hymba-1.5b,
     # each with its card-vs-CPU logits check
     mods = dict(np=np, tfm=tfm, freeze=freeze_for_serving, Request=Request,
@@ -4399,11 +4883,13 @@ def main() -> int:
                           (fa_err, "flash_attention"),
                           (scan_err, "selective_scan")))
 
+    mark("5")
     # 5. MobileNet-V2 1.0-224 frames on the N-EUREKA kernels
     gc.collect()
     torch.cuda.empty_cache()
     nk_launches = run_frames(torch, mnv2, nkc, qmm, dev)
 
+    mark("6")
     # 6. paged serving: qwen3-0.6b at 4 bits, the cold half wire-served
     gc.collect()
     torch.cuda.empty_cache()
@@ -4418,6 +4904,7 @@ def main() -> int:
     fa_err = max(fa_err,
                  paged["path_check"]["max_abs_err"]["flash_attention"])
 
+    mark("7")
     # 7. the scheduled XR serve, resident and paged
     gc.collect()
     torch.cuda.empty_cache()
@@ -4433,13 +4920,20 @@ def main() -> int:
     bs_err = max(bs_err,
                  xr["path_check"]["max_abs_err"]["qmatmul_f32_blockscale"])
 
+    mark("8")
     # 8. KV paging and tenancy over one page pool
     gc.collect()
     torch.cuda.empty_cache()
     mods.update(memsys=memsys)
+    trees = {TENANTS[0]: xr_tree, TENANTS[1]: falcon_tree}
     kvt = serve_kv_tenancy_phase(
-        torch, mods, {name: get_config(name) for name in TENANTS},
-        {TENANTS[0]: xr_tree, TENANTS[1]: falcon_tree}, dev)
+        torch, mods,
+        {name: cut(get_config(name), TENANCY_LAYERS[name])
+         for name in TENANTS},
+        {name: dict(trees[name], layers=first_layers(
+            trees[name]["layers"], TENANCY_LAYERS[name]))
+         for name in TENANTS}, dev)
+    del trees
     del xr_tree, falcon_tree
     for path, part in ((f"{TENANTS[0]} kv-paged", "kv"),
                        (f"{'+'.join(TENANTS)} tenancy", "tenancy")):
@@ -4455,6 +4949,7 @@ def main() -> int:
                   paged["launches"]["qmatmul_f32_blockscale"],
                   f"{XR_ARCH} xr": xr["launches"]["qmatmul_f32_blockscale"]}
 
+    mark("9")
     # 9. the MoE family: qwen2-moe-a2.7b, its experts on the grouped kernel
     gc.collect()
     torch.cuda.empty_cache()
@@ -4469,6 +4964,7 @@ def main() -> int:
     grouped_err = max(grouped_err, moe["path_check"]["max_abs_err"][
         "qmatmul_f32_grouped"])
 
+    mark("10")
     # 10. training qwen3-0.6b on the card; then its trained tree served
     gc.collect()
     torch.cuda.empty_cache()
@@ -4481,6 +4977,7 @@ def main() -> int:
         for err, name in ((qmm_err, "qmatmul_f32"),
                           (fa_err, "flash_attention")))
 
+    mark("11")
     # 11. the serving launcher and the XR pipeline, in process
     gc.collect()
     torch.cuda.empty_cache()
@@ -4502,6 +4999,7 @@ def main() -> int:
         nk_err[name] = max(nk_err[name],
                            p11["path_check"]["max_abs_err"][name])
 
+    mark("12")
     # 12. the VLM and encoder-decoder families and hymba's segmented path
     gc.collect()
     torch.cuda.empty_cache()
@@ -4524,6 +5022,7 @@ def main() -> int:
                           (fa_err, "flash_attention"),
                           (scan_err, "selective_scan")))
 
+    mark("13")
     # 13. training of the MoE, SSM, hybrid, VLM and encoder-decoder
     # families; hymba-1.5b's trained tree served
     gc.collect()
@@ -4538,7 +5037,28 @@ def main() -> int:
                           (fa_err, "flash_attention"),
                           (scan_err, "selective_scan")))
 
-    # 14. result lines
+    mark("14")
+    # 14. the launcher at full width on gemma-7b, qwen2.5-3b, olmo-1b and
+    # llava-next-34b, their 2-layer cuts card vs CPU, and qwen2-moe's cold
+    # expert pages wire-served through the grouped blockscale kernel
+    gc.collect()
+    torch.cuda.empty_cache()
+    p14 = launcher_archs_phase(torch, mods, dev)
+    for arch, _extra in LAUNCH14:
+        served[f"{arch} launcher"] = p14[arch]
+        for name in LAUNCH14_KERNELS:
+            launches[name] += p14[arch]["launches"][name]
+    served[f"{MOE_ARCH} wire-served experts"] = p14["wire_moe"]
+    for name in ("qmatmul_f32", "flash_attention"):
+        launches[name] += p14["wire_moe"]["launches"][name]
+    qmm_err, fa_err = (max(err, p14["path_check"]["max_abs_err"][name])
+                       for err, name in ((qmm_err, "qmatmul_f32"),
+                                         (fa_err, "flash_attention")))
+    gbs_err = max(gbs_err, p14["path_check"]["max_abs_err"][
+        "qmatmul_f32_blockscale_grouped"])
+
+    mark("15")
+    # 15. result lines
     by_path = {name: {arch: s["launches"][name] for arch, s in served.items()
                       if name in s["launches"]}
                for name in counters}
@@ -4577,7 +5097,7 @@ def main() -> int:
              tf32_ops_ms=t_fa["qwen3"]["tf32_ops_ms"],
              bound_f32_ms=t_fa["qwen3"]["bound_f32_ms"],
              hymba=t_fa["hymba"], llava=t_fa["llava"],
-             whisper=t_fa["whisper"]),
+             whisper=t_fa["whisper"], gemma=t_fa["gemma"]),
     ]
     for name, source, replaces, timed in (
             ("qmatmul_int8", "qmatmul_int8.cu", "qmatmul.py:218",
@@ -4646,12 +5166,35 @@ def main() -> int:
         library_ms=t["library_ms"], eager_ms=t["eager_ms"], work=t["work"],
         bytes_ms=t["bytes_ms"], tf32_ops_ms=t["tf32_ops_ms"],
         bound_f32_ms=t["bound_f32_ms"], prefill_M256=t_bs["prefill"]))
+    t = t_gbs[8]
+    gbs_launches = p14["wire_moe"]["launches"][
+        "qmatmul_f32_blockscale_grouped"]
+    kernels.append(dict(
+        name="qmatmul_f32_blockscale_grouped", route="cuda",
+        source="src/repro_torch/csrc/qmatmul_blockscale.cu",
+        replaces="src/repro/kernels/qmatmul.py:170",
+        replaces_note="qmatmul_f32_blockscale vmapped over the experts by "
+        "src/repro/models/moe.py:97-106 when a MoE store's cold expert "
+        "pages are wire-served: one Pallas launch whose grid gains the "
+        "expert axis",
+        launches=gbs_launches,
+        launches_by_path={f"{MOE_ARCH} wire-served experts": gbs_launches},
+        max_abs_err=gbs_err, ms=t["ms"], plain_ms=t["plain_ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=t["library_ms"], eager_ms=t["eager_ms"], work=t["work"],
+        bytes_ms=t["bytes_ms"], tf32_ops_ms=t["tf32_ops_ms"],
+        bound_f32_ms=t["bound_f32_ms"], prefill_C24=t_gbs[24]))
+    print(f"[phases] wall seconds by phase (host clock): "
+          f"{json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     print(json.dumps({"serve": served}))
     print(json.dumps({"train": train}))
     print(json.dumps({"phase12": {k: v for k, v in p12.items()
                                   if k != "path_check"},
                       "phase12_path_check": p12["path_check"]}))
     print(json.dumps({"train_families": p13}))
+    print(json.dumps({"phase14": {k: v for k, v in p14.items()
+                                  if k != "path_check"},
+                      "phase14_path_check": p14["path_check"]}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

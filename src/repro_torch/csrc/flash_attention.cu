@@ -46,6 +46,17 @@
 //     K rows at column t, V rows 2t at column g, P rows at 2t) hits distinct
 //     banks; the next tile's copy runs under this tile's MMAs, one barrier a
 //     tile;
+//   - head dim 256 (gemma-7b) keeps the same block of 64 rows and 32-key
+//     tiles: q, two (k, v) stages and P take 205 KB of shared memory, one
+//     block an SM.  Its output accumulator is 128 registers a thread, so
+//     PV runs in four passes over P of 64 output columns each (a fresh
+//     fragment of 32 registers, folded into o as above, the same
+//     arithmetic in the same order), and the slices' combine reads one
+//     row's slice at a time (ROWS); ptxas then fits the kernel in 255 registers
+//     without spills.  16-key tiles fit so too (136 KB) but halve the MMAs
+//     a barrier, so the tile stays at 32 keys; the plan gives this block
+//     longer kv slices than at D <= 128 (kernels/flash_attention.py,
+//     WIDE_SLICE_WORK);
 //   - the online softmax stays in registers: row max and sum over the quad by
 //     two xor-shuffles, exponentials as ex2 of log2(e)-scaled scores, masked
 //     scores weighted 0 (a row that has seen no key keeps l = 0 and o = 0);
@@ -83,6 +94,7 @@ __host__ __device__ constexpr int smem_bytes() {
   // q tile, 2 x (k, v) tiles, each warp's 16 rows of P
   return ((16 * WARPS + 4 * BK) * pitch<D>() + 16 * WARPS * p_pitch<BK>()) * 4;
 }
+static_assert(smem_bytes<256, 32>() <= 232448, "a block takes at most 227 KB");
 
 struct Args {
   const float* q;
@@ -128,6 +140,8 @@ flash_fwd_tc(const Args a) {
   constexpr int NDT = D / 8;         // k steps of S, 8-wide column tiles of PV
   constexpr int CPR = D / 4;         // 16 B chunks a row
   constexpr int PP = p_pitch<BK>();
+  constexpr int PV_TILES = D > 128 ? 8 : NDT;
+  static_assert(NDT % PV_TILES == 0, "PV passes cover the output's columns");
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                  // BR x P
   float* kvs = smem + BR * P;        // stage s: k at 2s BK P, v at (2s + 1) BK P
@@ -281,33 +295,39 @@ flash_fwd_tc(const Args a) {
           make_float2(s[n][2], s[n][3]);
     }
     __syncwarp();
-    float pv[NDT][4];
+    // PV_TILES of the output's 8-wide column tiles a pass over P: all of
+    // them up to D = 128; at D = 256 four passes of 8, so that the fresh
+    // fragment holds 32 registers beside o's 128
 #pragma unroll
-    for (int n = 0; n < NDT; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+    for (int c0 = 0; c0 < NDT; c0 += PV_TILES) {
+      float pv[PV_TILES][4];
+#pragma unroll
+      for (int n = 0; n < PV_TILES; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
 #pragma unroll(D >= 128 ? 2 : BK / 8)
-    for (int kk = 0; kk < NKT; ++kk) {
-      const float2 p0 = *reinterpret_cast<const float2*>(ps + g * PP + 8 * kk + 2 * t4);
-      const float2 p1 = *reinterpret_cast<const float2*>(ps + (g + 8) * PP + 8 * kk + 2 * t4);
-      uint32_t ph[4], pl[4];
-      tf32_split(p0.x, ph[0], pl[0]);
-      tf32_split(p1.x, ph[1], pl[1]);
-      tf32_split(p0.y, ph[2], pl[2]);
-      tf32_split(p1.y, ph[3], pl[3]);
+      for (int kk = 0; kk < NKT; ++kk) {
+        const float2 p0 = *reinterpret_cast<const float2*>(ps + g * PP + 8 * kk + 2 * t4);
+        const float2 p1 = *reinterpret_cast<const float2*>(ps + (g + 8) * PP + 8 * kk + 2 * t4);
+        uint32_t ph[4], pl[4];
+        tf32_split(p0.x, ph[0], pl[0]);
+        tf32_split(p1.x, ph[1], pl[1]);
+        tf32_split(p0.y, ph[2], pl[2]);
+        tf32_split(p1.y, ph[3], pl[3]);
 #pragma unroll
-      for (int n = 0; n < NDT; ++n) {
-        const float* vp = vs + (8 * kk + 2 * t4) * P + 8 * n + g;
-        uint32_t bh0, bl0, bh1, bl1;
-        tf32_split(vp[0], bh0, bl0);
-        tf32_split(vp[P], bh1, bl1);
-        mma3(pv[n], ph, pl, bh0, bh1, bl0, bl1);
+        for (int n = 0; n < PV_TILES; ++n) {
+          const float* vp = vs + (8 * kk + 2 * t4) * P + 8 * (c0 + n) + g;
+          uint32_t bh0, bl0, bh1, bl1;
+          tf32_split(vp[0], bh0, bl0);
+          tf32_split(vp[P], bh1, bl1);
+          mma3(pv[n], ph, pl, bh0, bh1, bl0, bl1);
+        }
       }
-    }
 #pragma unroll
-    for (int n = 0; n < NDT; ++n) {
-      o[n][0] = fmaf(o[n][0], alpha[0], pv[n][0]);
-      o[n][1] = fmaf(o[n][1], alpha[0], pv[n][1]);
-      o[n][2] = fmaf(o[n][2], alpha[1], pv[n][2]);
-      o[n][3] = fmaf(o[n][3], alpha[1], pv[n][3]);
+      for (int n = 0; n < PV_TILES; ++n) {
+        o[c0 + n][0] = fmaf(o[c0 + n][0], alpha[0], pv[n][0]);
+        o[c0 + n][1] = fmaf(o[c0 + n][1], alpha[0], pv[n][1]);
+        o[c0 + n][2] = fmaf(o[c0 + n][2], alpha[1], pv[n][2]);
+        o[c0 + n][3] = fmaf(o[c0 + n][3], alpha[1], pv[n][3]);
+      }
     }
   }
   tcmm::cp_wait<0>();
@@ -333,8 +353,7 @@ flash_fwd_tc(const Args a) {
     __syncthreads();
     if (!last) return;
     __threadfence();
-    // slices outer, the lane's two rows inner, so that each slice's loads
-    // of both rows are in flight together
+    // slices outer, the lane's two rows inner
     const size_t row = static_cast<size_t>(tile) * a.splits * BR + wr + g;
     float base[2];
 #pragma unroll
@@ -350,24 +369,32 @@ flash_fwd_tc(const Args a) {
     }
 #pragma unroll
     for (int n = 0; n < NDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    // ROWS of the lane's two rows a load batch: both up to D = 128, so that
+    // their loads are in flight together; at D = 256 one, since both rows'
+    // loads would take 128 registers beside o's 128
+    constexpr int ROWS = D > 128 ? 1 : 2;
     for (int z = s_lo; z <= s_hi; ++z) {
-      float2 ml[2], p[2][NDT];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const size_t zr = row + 8 * i + static_cast<size_t>(z) * BR;
-        ml[i] = __ldcg(reinterpret_cast<const float2*>(pml + 2 * zr));
+      for (int i0 = 0; i0 < 2; i0 += ROWS) {
+        float2 ml[ROWS], p[ROWS][NDT];
 #pragma unroll
-        for (int n = 0; n < NDT; ++n)
-          p[i][n] = __ldcg(reinterpret_cast<const float2*>(po + zr * D + 8 * n + 2 * t4));
-      }
+        for (int r = 0; r < ROWS; ++r) {
+          const size_t zr = row + 8 * (i0 + r) + static_cast<size_t>(z) * BR;
+          ml[r] = __ldcg(reinterpret_cast<const float2*>(pml + 2 * zr));
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float w = ex2(ml[i].x - base[i]);
-        l[i] = fmaf(w, ml[i].y, l[i]);
+          for (int n = 0; n < NDT; ++n)
+            p[r][n] = __ldcg(reinterpret_cast<const float2*>(po + zr * D + 8 * n + 2 * t4));
+        }
 #pragma unroll
-        for (int n = 0; n < NDT; ++n) {
-          o[n][2 * i] = fmaf(w, p[i][n].x, o[n][2 * i]);
-          o[n][2 * i + 1] = fmaf(w, p[i][n].y, o[n][2 * i + 1]);
+        for (int r = 0; r < ROWS; ++r) {
+          const int i = i0 + r;
+          const float w = ex2(ml[r].x - base[i]);
+          l[i] = fmaf(w, ml[r].y, l[i]);
+#pragma unroll
+          for (int n = 0; n < NDT; ++n) {
+            o[n][2 * i] = fmaf(w, p[r][n].x, o[n][2 * i]);
+            o[n][2 * i + 1] = fmaf(w, p[r][n].y, o[n][2 * i + 1]);
+          }
         }
       }
     }
@@ -441,6 +468,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     case 32032: return launch<32, 32>(a, B, s);
     case 64032: return launch<64, 32>(a, B, s);
     case 128032: return launch<128, 32>(a, B, s);
+    case 256032: return launch<256, 32>(a, B, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -27,6 +27,18 @@
 //   group's scale.  Larger M takes the tensor-core main loop of
 //   csrc/qmm_tc.cuh, whose K stage of 32 is exactly one scale group, promoted
 //   the same way.  Both mask k >= K.
+//
+// Grouped over experts (kernels/qmatmul.py :: qmatmul_f32_blockscale_grouped;
+//   replaces the vmapped qmatmul_f32_blockscale of src/repro/models/moe.py ::
+//   expert_ffn when a MoE store's cold expert pages are wire-served, one
+//   Pallas launch whose grid gains the expert axis): E problems of one
+//   shape, x (E, M, K) against packed (E, N, Kp) and scales (E, N, nblk), in
+//   one launch of the same loops, as csrc/qmatmul_f32.cu groups B1.  The
+//   decode kernel takes the expert from blockIdx.y (the plain call is
+//   E = 1), the tensor-core kernel's grouped instantiation from blockIdx.x
+//   over the expert's M tiles, and each block offsets its operands by the
+//   expert's strides.  Every expert is computed, its empty capacity rows
+//   included (an expert with no rows gives zeros).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,33 +51,51 @@ namespace {
 constexpr int BLOCK = 32;        // weights per scale (PAGE_SCALE_BLOCK)
 static_assert(tcmm::BK == BLOCK, "a K stage must be one scale group");
 
+// decode: expert blockIdx.y, its N tiles along x, its K splits along z
 template <int BITS, bool ALIGNED, int NC>
 __global__ void __launch_bounds__(dcmm::THREADS, dcmm::MIN_BLOCKS)
 bs_dec(const float* __restrict__ x, const uint8_t* __restrict__ packed,
        const float* __restrict__ scales, float* __restrict__ out, float* __restrict__ part,
        int* __restrict__ counters, int M, int N, int K, int Kp, int nblk, int gps) {
-  dcmm::decode<BITS, float, true, ALIGNED, NC>(x, packed, scales, out, part, counters, M, N, K,
-                                               Kp, nblk, gps);
+  const dcmm::Expert<float> ex(x, packed, scales, out, part, counters, blockIdx.y, M, N, K, Kp,
+                               static_cast<size_t>(N) * nblk,
+                               static_cast<size_t>(gridDim.z) * N * ((M + 3) & ~3), gridDim.x);
+  dcmm::decode<BITS, float, true, ALIGNED, NC>(ex.x, ex.packed, ex.scale, ex.out, ex.part,
+                                               ex.counters, M, N, K, Kp, nblk, gps);
 }
 
 template <int BITS, int NC>
 cudaError_t launch_dec(const float* x, const uint8_t* packed, const float* scales, float* out,
-                       float* part, int* counters, int M, int N, int K, int Kp, int nblk,
-                       int aligned, int splits, cudaStream_t stream) {
+                       float* part, int* counters, int E, int M, int N, int K, int Kp,
+                       int nblk, int aligned, int splits, cudaStream_t stream) {
   if (aligned)
     return dcmm::launch<bs_dec<BITS, true, NC>, BITS, float, true, NC>(
-        x, packed, scales, out, part, counters, M, N, K, Kp, nblk, splits, stream);
+        x, packed, scales, out, part, counters, M, N, K, Kp, nblk, splits, stream, E);
   return dcmm::launch<bs_dec<BITS, false, NC>, BITS, float, true, NC>(
-      x, packed, scales, out, part, counters, M, N, K, Kp, nblk, splits, stream);
+      x, packed, scales, out, part, counters, M, N, K, Kp, nblk, splits, stream, E);
 }
 
-template <int BITS, bool ALIGNED>
+// M > 16: N tiles along y, K splits along z.  Grouped (E > 1), expert
+// blockIdx.x / (its M tiles); the plain call keeps its own instantiation,
+// the M tile blockIdx.x and no offsets.
+template <int BITS, bool ALIGNED, bool GROUPED>
 __global__ void __launch_bounds__(tcmm::THREADS, tcmm::MIN_BLOCKS)
 bs_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
       const float* __restrict__ scales, float* __restrict__ out, int M, int N, int K,
       int Kp, int nblk, int gps) {
-  tcmm::gemm<BITS, float, true, ALIGNED>(x, packed, scales, out, M, N, K, Kp, nblk, gps,
-                                         blockIdx.x);
+  if constexpr (GROUPED) {
+    // out is the split scratch when gridDim.z > 1: (E, splits, M, N)
+    const int mtiles = (M + tcmm::BM - 1) / tcmm::BM;
+    const int e = blockIdx.x / mtiles;
+    const dcmm::Expert<float> ex(x, packed, scales, out, nullptr, nullptr, e, M, N, K, Kp,
+                                 static_cast<size_t>(N) * nblk, 0, 0);
+    tcmm::gemm<BITS, float, true, ALIGNED>(ex.x, ex.packed, ex.scale,
+                                           out + static_cast<size_t>(e) * gridDim.z * M * N,
+                                           M, N, K, Kp, nblk, gps, blockIdx.x - e * mtiles);
+  } else {
+    tcmm::gemm<BITS, float, true, ALIGNED>(x, packed, scales, out, M, N, K, Kp, nblk, gps,
+                                           blockIdx.x);
+  }
 }
 
 __global__ void bs_tc_reduce(const float* __restrict__ part, const float* __restrict__ scales,
@@ -73,35 +103,49 @@ __global__ void bs_tc_reduce(const float* __restrict__ part, const float* __rest
   tcmm::reduce<true>(part, scales, out, M, N, splits);
 }
 
+template <int BITS, bool ALIGNED>
+cudaError_t launch_tc(const float* x, const uint8_t* packed, const float* scales, float* out,
+                      float* part, int E, int M, int N, int K, int Kp, int nblk, int splits,
+                      cudaStream_t stream) {
+  if (E > 1)
+    return tcmm::launch<bs_tc<BITS, ALIGNED, true>, bs_tc_reduce, BITS, float, true>(
+        x, packed, scales, out, part, M, N, K, Kp, nblk, splits, stream, E);
+  return tcmm::launch<bs_tc<BITS, ALIGNED, false>, bs_tc_reduce, BITS, float, true>(
+      x, packed, scales, out, part, M, N, K, Kp, nblk, splits, stream);
+}
+
 template <int BITS>
 int launch(const float* x, const uint8_t* packed, const float* scales, float* out,
-           float* part, int* counters, int M, int N, int K, int Kp, int nblk, int aligned,
-           int splits, cudaStream_t stream) {
+           float* part, int* counters, int E, int M, int N, int K, int Kp, int nblk,
+           int aligned, int splits, cudaStream_t stream) {
   if (M <= dcmm::MAX_M) {
     const int cols = 2 * M;               // x's hi and lo parts
     if (cols <= 8)
-      return static_cast<int>(launch_dec<BITS, 1>(x, packed, scales, out, part, counters, M, N,
-                                                  K, Kp, nblk, aligned, splits, stream));
+      return static_cast<int>(launch_dec<BITS, 1>(x, packed, scales, out, part, counters, E, M,
+                                                  N, K, Kp, nblk, aligned, splits, stream));
     if (cols <= 16)
-      return static_cast<int>(launch_dec<BITS, 2>(x, packed, scales, out, part, counters, M, N,
-                                                  K, Kp, nblk, aligned, splits, stream));
-    return static_cast<int>(launch_dec<BITS, 4>(x, packed, scales, out, part, counters, M, N,
-                                                K, Kp, nblk, aligned, splits, stream));
+      return static_cast<int>(launch_dec<BITS, 2>(x, packed, scales, out, part, counters, E, M,
+                                                  N, K, Kp, nblk, aligned, splits, stream));
+    return static_cast<int>(launch_dec<BITS, 4>(x, packed, scales, out, part, counters, E, M,
+                                                N, K, Kp, nblk, aligned, splits, stream));
   }
   if (aligned)
-    return static_cast<int>(tcmm::launch<bs_tc<BITS, true>, bs_tc_reduce, BITS, float, true>(
-        x, packed, scales, out, part, M, N, K, Kp, nblk, splits, stream));
-  return static_cast<int>(tcmm::launch<bs_tc<BITS, false>, bs_tc_reduce, BITS, float, true>(
-      x, packed, scales, out, part, M, N, K, Kp, nblk, splits, stream));
+    return static_cast<int>(launch_tc<BITS, true>(x, packed, scales, out, part, E, M, N, K, Kp,
+                                                  nblk, splits, stream));
+  return static_cast<int>(launch_tc<BITS, false>(x, packed, scales, out, part, E, M, N, K, Kp,
+                                                 nblk, splits, stream));
 }
 
 }  // namespace
 
-// part, counters and aligned: as for qmatmul_f32_launch
+// E problems of one shape in one launch (the MoE experts; E = 1 for the
+// plain call): x (E, M, K), packed (E, N, Kp), scales (E, N, nblk), out
+// (E, M, N); part, counters and aligned: as for qmatmul_f32_launch
 extern "C" int qmatmul_blockscale_launch(const void* x, const void* packed,
                                          const void* scales, void* out, void* part,
-                                         void* counters, int M, int N, int K, int Kp, int nblk,
-                                         int bits, int aligned, int splits, void* stream) {
+                                         void* counters, int E, int M, int N, int K, int Kp,
+                                         int nblk, int bits, int aligned, int splits,
+                                         void* stream) {
   const float* xp = static_cast<const float*>(x);
   const uint8_t* wp = static_cast<const uint8_t*>(packed);
   const float* sp = static_cast<const float*>(scales);
@@ -110,9 +154,9 @@ extern "C" int qmatmul_blockscale_launch(const void* x, const void* packed,
   int* cp = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bits) {
-    case 2: return launch<2>(xp, wp, sp, op, pp, cp, M, N, K, Kp, nblk, aligned, splits, s);
-    case 4: return launch<4>(xp, wp, sp, op, pp, cp, M, N, K, Kp, nblk, aligned, splits, s);
-    case 8: return launch<8>(xp, wp, sp, op, pp, cp, M, N, K, Kp, nblk, aligned, splits, s);
+    case 2: return launch<2>(xp, wp, sp, op, pp, cp, E, M, N, K, Kp, nblk, aligned, splits, s);
+    case 4: return launch<4>(xp, wp, sp, op, pp, cp, E, M, N, K, Kp, nblk, aligned, splits, s);
+    case 8: return launch<8>(xp, wp, sp, op, pp, cp, E, M, N, K, Kp, nblk, aligned, splits, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -51,37 +51,14 @@
 
 namespace {
 
-// Expert e's operands of a grouped launch: x (E, M, K), packed (E, N, Kp),
-// scale (E, N), out (E, M, N), and the split scratch, part (E, splits, ...)
-// of part_stride floats an expert, counters (E, tiles); E = 1 is the plain
-// 2-D call.
-template <typename T>
-struct Expert {
-  const T* x;
-  const uint8_t* packed;
-  const float* scale;
-  float* out;
-  float* part;
-  int* counters;
-  __device__ __forceinline__ Expert(const T* x0, const uint8_t* w0, const float* s0, float* o0,
-                                    float* p0, int* c0, size_t e, int M, int N, int K, int Kp,
-                                    size_t part_stride, int tiles)
-      : x(x0 + e * M * K),
-        packed(w0 + e * N * Kp),
-        scale(s0 + e * N),
-        out(o0 + e * M * N),
-        part(p0 == nullptr ? p0 : p0 + e * part_stride),
-        counters(c0 == nullptr ? c0 : c0 + e * tiles) {}
-};
-
 // decode: expert blockIdx.y, its N tiles along x, its K splits along z
 template <int BITS, typename T, bool ALIGNED, int NC>
 __global__ void __launch_bounds__(dcmm::THREADS, dcmm::MIN_BLOCKS)
 qmm_dec(const T* __restrict__ x, const uint8_t* __restrict__ packed,
         const float* __restrict__ scale, float* __restrict__ out, float* __restrict__ part,
         int* __restrict__ counters, int M, int N, int K, int Kp, int nblk, int gps) {
-  const Expert<T> ex(x, packed, scale, out, part, counters, blockIdx.y, M, N, K, Kp,
-                     static_cast<size_t>(gridDim.z) * N * ((M + 3) & ~3), gridDim.x);
+  const dcmm::Expert<T> ex(x, packed, scale, out, part, counters, blockIdx.y, M, N, K, Kp, N,
+                           static_cast<size_t>(gridDim.z) * N * ((M + 3) & ~3), gridDim.x);
   dcmm::decode<BITS, T, false, ALIGNED, NC>(ex.x, ex.packed, ex.scale, ex.out, ex.part,
                                             ex.counters, M, N, K, Kp, nblk, gps);
 }
@@ -114,7 +91,8 @@ qmm_tc(const T* __restrict__ x, const uint8_t* __restrict__ packed,
     // out is the split scratch when gridDim.z > 1: (E, splits, M, N)
     const int mtiles = (M + tcmm::BM - 1) / tcmm::BM;
     const int e = blockIdx.x / mtiles;
-    const Expert<T> ex(x, packed, scale, out, nullptr, nullptr, e, M, N, K, Kp, 0, 0);
+    const dcmm::Expert<T> ex(x, packed, scale, out, nullptr, nullptr, e, M, N, K, Kp, N, 0,
+                             0);
     tcmm::gemm<BITS, T, false, ALIGNED>(ex.x, ex.packed, ex.scale,
                                         out + static_cast<size_t>(e) * gridDim.z * M * N, M, N,
                                         K, Kp, nblk, gps, blockIdx.x - e * mtiles);

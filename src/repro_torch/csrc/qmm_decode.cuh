@@ -506,4 +506,29 @@ cudaError_t launch(const T* x, const uint8_t* packed, const float* scales, float
   return cudaGetLastError();
 }
 
+// Expert e's operands of a grouped launch (csrc/qmatmul_f32.cu and
+// csrc/qmatmul_blockscale.cu: the MoE experts; E = 1 is the plain 2-D
+// call): x (E, M, K), packed (E, N, Kp), scales of scale_stride floats an
+// expert (B1's (E, N), B3's (E, N, nblk)), out (E, M, N), and the split
+// scratch, part (E, splits, ...) of part_stride floats an expert, counters
+// (E, tiles).
+template <typename T>
+struct Expert {
+  const T* x;
+  const uint8_t* packed;
+  const float* scale;
+  float* out;
+  float* part;
+  int* counters;
+  __device__ __forceinline__ Expert(const T* x0, const uint8_t* w0, const float* s0, float* o0,
+                                    float* p0, int* c0, size_t e, int M, int N, int K, int Kp,
+                                    size_t scale_stride, size_t part_stride, int tiles)
+      : x(x0 + e * M * K),
+        packed(w0 + e * N * Kp),
+        scale(s0 + e * scale_stride),
+        out(o0 + e * M * N),
+        part(p0 == nullptr ? p0 : p0 + e * part_stride),
+        counters(c0 == nullptr ? c0 : c0 + e * tiles) {}
+};
+
 }  // namespace dcmm

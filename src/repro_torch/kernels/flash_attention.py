@@ -38,18 +38,24 @@ from repro_torch.kernels.launch import forward_only, sm_count, tile_counters
 # (csrc/flash_attention.cu instantiates the same pairs); 4 warps a block of
 # 16 (query, head) rows each.  Of the tiles swept at qwen3-0.6b's D = 128
 # (32 or 64 keys, 4 or 8 warps) and hymba-1.5b's D = 64, 32 keys and 4 warps
-# gave the least flash time over each serve's calls (PERF.md section 6)
-BLOCK_KEYS = {16: 64, 32: 32, 64: 32, 128: 32}
+# gave the least flash time over each serve's calls (PERF.md section 6).
+# gemma-7b's D = 256 keeps 32 keys (205 KB of shared memory, one block an
+# SM; csrc/flash_attention.cu says how it fits its registers)
+BLOCK_KEYS = {16: 64, 32: 32, 64: 32, 128: 32, 256: 32}
 HEAD_DIMS = tuple(BLOCK_KEYS)
 WARPS = 4
 ROWS_PER_WARP = 16            # one m16 MMA tile of (query, head) rows
 # the kv split of a short span (at most SHORT_TILES kv tiles): about one
 # block an SM over the row tiles.  Of a longer one: slices of at least
-# SLICE_WORK keys x head dim (the same work a row at every head dim), and as
-# many as give BLOCKS_PER_SM blocks an SM with the row tiles (slices wholly
-# masked for a row tile exit at once)
+# SLICE_WORK keys x head dim (the same work a row at every head dim up to
+# 128), and as many as give BLOCKS_PER_SM blocks an SM with the row tiles
+# (slices wholly masked for a row tile exit at once).  Above D = 128 a block
+# has an SM alone and its q tile and slice write-out cost twice as much:
+# slices of WIDE_SLICE_WORK (4 tiles at D = 256) took 0.0584 ms at gemma-7b's
+# chunk, of SLICE_WORK (1 tile) 0.1128 (PERF.md section 6)
 SHORT_TILES = 8
 SLICE_WORK = 8192
+WIDE_SLICE_WORK = 4 * SLICE_WORK
 BLOCKS_PER_SM = 16
 
 _c_ptr = ctypes.c_void_p
@@ -78,11 +84,12 @@ def flash_plan(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
     at most SHORT_TILES kv tiles (256 keys at D >= 32) in as many slices as
     give about one block an SM (qwen3-0.6b's serving chunks: 32 or 64 row
     tiles, 2-4 slices), a longer one in slices of at least SLICE_WORK / d
-    keys (64 at D = 128, 128 at hymba-1.5b's D = 64), longer where the row
-    tiles alone give BLOCKS_PER_SM blocks an SM (hymba-1.5b's long prompt:
-    1,820 row tiles, two slices).  Of the splits ``tools/attn_scan_ab.py
-    --sweep`` times at both models' serving call shapes, this rule takes the
-    fastest or one within 4 % of it at each (PERF.md section 6)."""
+    keys (64 at D = 128, 128 at hymba-1.5b's D = 64; WIDE_SLICE_WORK / d,
+    128, at gemma-7b's D = 256), longer where the row tiles alone give
+    BLOCKS_PER_SM blocks an SM (hymba-1.5b's long prompt: 1,820 row tiles,
+    two slices).  Of the splits ``tools/attn_scan_ab.py --sweep`` times at
+    both models' serving call shapes and gemma-7b's chunk, this rule takes
+    the fastest or one within 4 % of it at each (PERF.md section 6)."""
     if d not in BLOCK_KEYS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     bk = BLOCK_KEYS[d]
@@ -94,7 +101,8 @@ def flash_plan(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
             split_tiles = -(-kv_tiles // min(kv_tiles, max(1, sms // tiles)))
         else:
             want = -(-BLOCKS_PER_SM * sms // tiles)
-            split_tiles = max(SLICE_WORK // (d * bk),
+            work = SLICE_WORK if d <= 128 else WIDE_SLICE_WORK
+            split_tiles = max(work // (d * bk),
                               -(-kv_tiles // min(kv_tiles, want)))
     if split_tiles < 1:
         raise ValueError(f"split_tiles must be >= 1, got {split_tiles}")

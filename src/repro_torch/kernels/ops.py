@@ -1,6 +1,6 @@
 """Public wrappers over the kernels (reference: ``repro/kernels/ops.py``:
-the ``prep_*`` layouts, ``quant_matmul`` (grouped over experts for a 3-D
-packed weight), ``quant_matmul_blockscale``,
+the ``prep_*`` layouts, ``quant_matmul`` and ``quant_matmul_blockscale``
+(each grouped over experts for a 3-D packed weight),
 ``quant_matmul_int8``,
 ``neureka_conv2d`` and ``attention``; ``selective_scan`` has no counterpart
 there, since the reference models call the jnp scan directly).
@@ -79,13 +79,29 @@ def quant_matmul_blockscale(x: torch.Tensor, packed: torch.Tensor,
     """Float activations x *wire-form* packed weights (packed levels +
     per-(row, ``block``) scales) -> f32: the serving path of wire-served
     cold pages (``placement.wire_served_bits``).  x may have leading
-    dims.  A stack of experts' packed weights is refused (ROADMAP B
-    item 6)."""
-    if packed.ndim != 2:
-        raise NotImplementedError(
-            f"wire-served packed {tuple(packed.shape)}: the grouped "
-            "blockscale kernel for MoE experts under wire-served paging "
-            "is not ported (ROADMAP B item 6)")
+    dims.
+
+    A 3-D ``packed`` (E, N, Kp) with scales (E, N, nblk) is a stack of
+    experts' wire-form pages: x must then be (E, C, K), and the grouped
+    kernel gives (E, C, N) in one launch (the reference's vmapped
+    ``quant_matmul_blockscale``)."""
+    if packed.ndim == 3:
+        e, n = packed.shape[:2]
+        if (x.ndim != 3 or x.shape[0] != e or scales.ndim != 3
+                or tuple(scales.shape[:2]) != (e, n)):
+            raise ValueError(
+                f"grouped quant_matmul_blockscale takes x (E, C, K), packed "
+                f"(E, N, Kp) and scales (E, N, nblk); got x "
+                f"{tuple(x.shape)}, packed {tuple(packed.shape)}, scales "
+                f"{tuple(scales.shape)}")
+        return _qmm.qmatmul_f32_blockscale_grouped(
+            x.contiguous(), packed, scales, bits=bits, k_orig=k_orig,
+            block=block)
+    if packed.ndim != 2 or scales.ndim != 2:
+        raise ValueError(f"quant_matmul_blockscale takes packed (N, Kp) and "
+                         f"scales (N, nblk) or a stack of experts, got "
+                         f"packed {tuple(packed.shape)}, scales "
+                         f"{tuple(scales.shape)}")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     out = _qmm.qmatmul_f32_blockscale(x2, packed, scales, bits=bits,

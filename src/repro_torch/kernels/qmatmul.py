@@ -9,7 +9,9 @@ Ports the three kernels of ``repro/kernels/qmatmul.py``:
 - ``qmatmul_f32_blockscale`` (``_qmatmul_f32_blockscale_kernel``): the same
   with one scale per (row, 32-wide K block), the page codec's wire form,
   which wire-served cold pages are multiplied from
-  (``csrc/qmatmul_blockscale.cu``);
+  (``csrc/qmatmul_blockscale.cu``), and
+  ``qmatmul_f32_blockscale_grouped``, the same kernels over a stack of MoE
+  experts' wire-form pages in one launch;
 - ``qmatmul_int8`` (``_qmatmul_int8_kernel``): uint8 activations, int32
   accumulators and the NORMQUANT requant to uint8, N-EUREKA's pointwise
   path (``csrc/qmatmul_int8.cu``), on the int8 tensor cores with the block
@@ -198,9 +200,7 @@ def _launcher():
 @functools.lru_cache(maxsize=None)
 def _launcher_blockscale():
     fn = build.library("qmatmul_blockscale").qmatmul_blockscale_launch
-    fn.argtypes = [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int,
-                   _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
-                   _c_ptr]
+    fn.argtypes = [_c_ptr] * 6 + [_c_int] * 9 + [_c_ptr]
     fn.restype = _c_int
     return fn
 
@@ -213,10 +213,13 @@ def _launcher_int8():
     return fn
 
 
-def _qmm_f32(name: str, x: torch.Tensor, packed: torch.Tensor,
+def _qmm_f32(wrapper, x: torch.Tensor, packed: torch.Tensor,
              scale: torch.Tensor, bits: int, k_orig: int) -> torch.Tensor:
     """Check and launch B1 on the card for E stacked problems: x (E, M, K),
-    packed (E, N, Kp), scale (E, N) -> (E, M, N); the 2-D call is E = 1."""
+    packed (E, N, Kp), scale (E, N) -> (E, M, N); the 2-D call is E = 1.
+    ``wrapper.launches`` counts the launch; an empty problem launches
+    nothing and counts nothing."""
+    name = wrapper.__name__
     tensors = (x, packed, scale)
     forward_only(name, *tensors)
     if ({t.device.type for t in tensors} != {"cuda"}
@@ -254,6 +257,7 @@ def _qmm_f32(name: str, x: torch.Tensor, packed: torch.Tensor,
                      torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    wrapper.launches += 1
     return out
 
 
@@ -265,10 +269,8 @@ def qmatmul_f32(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         return ref.qmatmul_f32(x, packed, scale, bits=bits, k_orig=k_orig)
     if x.ndim != 2 or packed.ndim != 2 or scale.ndim != 1:
         raise ValueError("x must be (M, K), packed (N, Kp) and scale (N,)")
-    out = _qmm_f32("qmatmul_f32", x[None], packed[None], scale[None], bits,
-                   k_orig)[0]
-    qmatmul_f32.launches += 1
-    return out
+    return _qmm_f32(qmatmul_f32, x[None], packed[None], scale[None], bits,
+                    k_orig)[0]
 
 
 qmatmul_f32.launches = 0
@@ -289,12 +291,62 @@ def qmatmul_f32_grouped(x: torch.Tensor, packed: torch.Tensor,
     if x.ndim != 3 or packed.ndim != 3 or scale.ndim != 2:
         raise ValueError("x must be (E, C, K), packed (E, N, Kp) and scale "
                          "(E, N)")
-    out = _qmm_f32("qmatmul_f32_grouped", x, packed, scale, bits, k_orig)
-    qmatmul_f32_grouped.launches += 1
-    return out
+    return _qmm_f32(qmatmul_f32_grouped, x, packed, scale, bits, k_orig)
 
 
 qmatmul_f32_grouped.launches = 0
+
+
+def _qmm_blockscale(wrapper, x: torch.Tensor, packed: torch.Tensor,
+                    scales: torch.Tensor, bits: int, k_orig: int,
+                    block: int) -> torch.Tensor:
+    """Check and launch B3 on the card for E stacked problems: x (E, M, K),
+    packed (E, N, Kp), scales (E, N, nblk) -> (E, M, N); the 2-D call is
+    E = 1.  ``wrapper.launches`` counts the launch; an empty problem
+    launches nothing and counts nothing."""
+    name = wrapper.__name__
+    tensors = (x, packed, scales)
+    forward_only(name, *tensors)
+    if ({t.device.type for t in tensors} != {"cuda"}
+            or len({t.device for t in tensors}) != 1):
+        raise ValueError(f"{name} needs x, packed and scales on one CUDA "
+                         "device (or all on the CPU), got "
+                         f"{[str(t.device) for t in tensors]}")
+    if bits not in (2, 4, 8):
+        raise ValueError(f"bits must be 2, 4 or 8, got {bits}")
+    if block != 32:
+        raise ValueError(f"the blockscale kernel takes block=32, got {block}")
+    if (x.dtype, packed.dtype, scales.dtype) != (
+            torch.float32, torch.uint8, torch.float32):
+        raise TypeError(f"{name} takes float32 x, uint8 packed and float32 "
+                        f"scales, got {x.dtype}, {packed.dtype}, "
+                        f"{scales.dtype}")
+    e, m, k = x.shape
+    _e, n, kp = packed.shape
+    nblk = -(-k // block)
+    if (k != k_orig or kp != -(-k // (8 // bits)) or _e != e
+            or tuple(scales.shape) != (e, n, nblk)):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, packed "
+                         f"{tuple(packed.shape)}, scales "
+                         f"{tuple(scales.shape)}, bits={bits}, "
+                         f"k_orig={k_orig}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous x, packed and scales")
+    if e > 65535:
+        raise ValueError(f"{name} takes at most 65535 experts, got {e}")
+    out = torch.empty((e, m, n), dtype=torch.float32, device=x.device)
+    if e == 0 or m == 0 or n == 0 or k == 0:
+        return out.zero_()
+    aligned, splits, part, counters = _tc_scratch("qmatmul_blockscale", x,
+                                                  packed, bits, n, e)
+    rc = _launcher_blockscale()(
+        x.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        _ptr(part), _ptr(counters), e, m, n, k, kp, nblk, bits, aligned,
+        splits, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    wrapper.launches += 1
+    return out
 
 
 def qmatmul_f32_blockscale(x: torch.Tensor, packed: torch.Tensor,
@@ -303,57 +355,41 @@ def qmatmul_f32_blockscale(x: torch.Tensor, packed: torch.Tensor,
     """x (M, K) f32 @ packed (N, ceil(K/f)) uint8 with per-(row, block)
     scales (N, ceil(K/block)) f32 -> (M, N) f32, f = 8 // bits.  The kernel
     takes ``block == 32`` (``quantize.PAGE_SCALE_BLOCK``) only."""
-    tensors = (x, packed, scales)
-    if {t.device.type for t in tensors} == {"cpu"}:
+    if {x.device.type, packed.device.type, scales.device.type} == {"cpu"}:
         return ref.qmatmul_f32_blockscale(x, packed, scales, bits=bits,
                                           k_orig=k_orig, block=block)
-    forward_only("qmatmul_f32_blockscale", *tensors)
-    if ({t.device.type for t in tensors} != {"cuda"}
-            or len({t.device for t in tensors}) != 1):
-        raise ValueError("qmatmul_f32_blockscale needs x, packed and scales "
-                         "on one CUDA device (or all on the CPU), got "
-                         f"{[str(t.device) for t in tensors]}")
-    if bits not in (2, 4, 8):
-        raise ValueError(f"bits must be 2, 4 or 8, got {bits}")
-    if block != 32:
-        raise ValueError(f"the blockscale kernel takes block=32, got {block}")
-    if (x.dtype, packed.dtype, scales.dtype) != (
-            torch.float32, torch.uint8, torch.float32):
-        raise TypeError("qmatmul_f32_blockscale takes float32 x, uint8 "
-                        f"packed and float32 scales, got {x.dtype}, "
-                        f"{packed.dtype}, {scales.dtype}")
     if x.ndim != 2 or packed.ndim != 2 or scales.ndim != 2:
         raise ValueError("x must be (M, K), packed (N, Kp) and scales "
                          "(N, nblk)")
-    m, k = x.shape
-    n, kp = packed.shape
-    nblk = -(-k // block)
-    if (k != k_orig or kp != -(-k // (8 // bits))
-            or tuple(scales.shape) != (n, nblk)):
-        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, packed "
-                         f"{tuple(packed.shape)}, scales "
-                         f"{tuple(scales.shape)}, bits={bits}, "
-                         f"k_orig={k_orig}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("qmatmul_f32_blockscale needs contiguous x, packed "
-                         "and scales")
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m == 0 or n == 0 or k == 0:
-        return out.zero_()
-    aligned, splits, part, counters = _tc_scratch("qmatmul_blockscale", x,
-                                                  packed, bits, n)
-    rc = _launcher_blockscale()(
-        x.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        _ptr(part), _ptr(counters), m, n, k, kp, nblk, bits, aligned, splits,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"qmatmul_f32_blockscale launch failed: CUDA "
-                           f"error {rc}")
-    qmatmul_f32_blockscale.launches += 1
-    return out
+    return _qmm_blockscale(qmatmul_f32_blockscale, x[None], packed[None],
+                           scales[None], bits, k_orig, block)[0]
 
 
 qmatmul_f32_blockscale.launches = 0
+
+
+def qmatmul_f32_blockscale_grouped(x: torch.Tensor, packed: torch.Tensor,
+                                   scales: torch.Tensor, *, bits: int,
+                                   k_orig: int, block: int = 32
+                                   ) -> torch.Tensor:
+    """B3 for each of E experts in one launch: x (E, C, K) f32 @ packed
+    (E, N, ceil(K/f)) uint8 with per-(row, block) scales (E, N,
+    ceil(K/block)) f32 -> (E, C, N) f32, expert e's rows against expert e's
+    wire-form weight (the reference vmaps ``qmatmul_f32_blockscale`` over
+    the experts of a wire-served MoE page).  Every expert is computed, its
+    empty capacity rows included.  Its launches count in its own
+    ``launches``, not in :func:`qmatmul_f32_blockscale`'s."""
+    if {x.device.type, packed.device.type, scales.device.type} == {"cpu"}:
+        return ref.qmatmul_f32_blockscale_grouped(
+            x, packed, scales, bits=bits, k_orig=k_orig, block=block)
+    if x.ndim != 3 or packed.ndim != 3 or scales.ndim != 3:
+        raise ValueError("x must be (E, C, K), packed (E, N, Kp) and scales "
+                         "(E, N, nblk)")
+    return _qmm_blockscale(qmatmul_f32_blockscale_grouped, x, packed,
+                           scales, bits, k_orig, block)
+
+
+qmatmul_f32_blockscale_grouped.launches = 0
 
 
 class Int8Plan(NamedTuple):

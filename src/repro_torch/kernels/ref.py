@@ -52,13 +52,33 @@ def qmatmul_f32_blockscale(x: torch.Tensor, packed: torch.Tensor,
     (row, ``block``) scales (N, ceil(K/block)))^T -> f32, the levels
     expanded with their block scales before the reduction
     (``repro/kernels/ref.py:28-44``)."""
+    return torch.matmul(x.to(torch.float32),
+                        blockscale_weight(packed, scales, bits, k_orig,
+                                           block).T)
+
+
+def qmatmul_f32_blockscale_grouped(x: torch.Tensor, packed: torch.Tensor,
+                                   scales: torch.Tensor, *, bits: int,
+                                   k_orig: int, block: int = 32
+                                   ) -> torch.Tensor:
+    """Per-expert :func:`qmatmul_f32_blockscale`: x (E, C, K) @ (unpack(
+    packed (E, N, ceil(K/f))) x scales (E, N, ceil(K/block)))^T -> (E, C,
+    N) f32, one batched matmul."""
+    w = blockscale_weight(packed, scales, bits, k_orig, block)
+    return torch.bmm(x.to(torch.float32), w.transpose(1, 2))
+
+
+def blockscale_weight(packed: torch.Tensor, scales: torch.Tensor, bits: int,
+                       k_orig: int, block: int) -> torch.Tensor:
+    """(..., N, K) f32: the wire-form levels times their block scales."""
     levels = packing.unpack(packed, bits, k_orig).to(torch.float32)
-    n, k = levels.shape
-    nblk = scales.shape[1]
+    *lead, n, k = levels.shape
+    nblk = scales.shape[-1]
     lp = torch.nn.functional.pad(levels, (0, nblk * block - k))
-    w = (lp.reshape(n, nblk, block)
-         * scales[:, :, None].to(torch.float32)).reshape(n, nblk * block)
-    return torch.matmul(x.to(torch.float32), w[:, :k].T)
+    w = (lp.reshape(*lead, n, nblk, block)
+         * scales[..., None].to(torch.float32)).reshape(*lead, n,
+                                                        nblk * block)
+    return w[..., :k]
 
 
 def requant_f32(acc: torch.Tensor, mult: torch.Tensor,

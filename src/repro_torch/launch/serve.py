@@ -61,7 +61,6 @@ from repro_torch.core.paging import (SharedPagePool, kv_pass_counters,
 from repro_torch.core.placement import (Placement, PlacementPlan,
                                         packed_sizes, plan_for_budget)
 from repro_torch.models import transformer as tfm
-from repro_torch.parallel.sharding import freeze_for_serving
 from repro_torch.serving import (MultiScheduler, Request, Scheduler,
                                  ServingEngine, Tracer)
 from repro_torch.serving.trace import validate as validate_trace
@@ -143,13 +142,12 @@ def _config(args):
 
 def _init_packed(cfg, seed: int, args):
     """Random params from a ``torch.Generator`` seeded ``seed`` on the
-    device, frozen at ``--bits`` there; the float tree is dropped."""
+    device, frozen at ``--bits`` there as each weight is drawn: the same
+    tree as ``freeze_for_serving`` of the whole f32 draw, which never
+    exists (137 GB at llava-next-34b's full width)."""
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = tfm.init_params(cfg, gen, device=dev)
-    packed = freeze_for_serving(params, bits=args.bits, device=dev)
-    del params
-    return packed
+    return tfm.init_params(cfg, gen, device=dev, bits=args.bits)
 
 
 def _build_model(arch: str, args, packed=None):

@@ -49,6 +49,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import sharding
 
 Params = Dict[str, Any]
 
@@ -94,21 +95,38 @@ class Draw:
     generator: every leaf is drawn in f32 on the generator's device and
     moved to ``dev`` in ``cfg.dtype``; ``n`` is the stacked layer count of
     the ``dense`` / ``zeros`` / ``norm`` / ``attn`` / ``mlp`` leaves.  The
-    encoder-decoder family draws its two stacks through it too."""
+    encoder-decoder family draws its two stacks through it too.
+
+    With ``bits``, each drawn weight named ``name`` is frozen the moment it
+    is drawn (``sharding.freeze_leaf``, the rule ``freeze_for_serving``
+    applies leaf by leaf), before the next one is drawn: the f32 tree never
+    exists whole, and no two stacked f32 weights are alive at once."""
 
     def __init__(self, cfg: ModelConfig, g: torch.Generator,
-                 dev: torch.device, n: int):
+                 dev: torch.device, n: int, bits: Optional[int] = None):
         self.cfg, self.g, self.dev, self.n = cfg, g, dev, n
         self.dt = _dtype(cfg)
+        self.bits = bits
 
-    def normal(self, shape, std) -> torch.Tensor:
+    def normal(self, shape, std, name: str = "") -> Any:
         w = torch.randn(shape, generator=self.g, dtype=torch.float32,
                         device=self.g.device)
         w.mul_(std)                       # in place: no second f32 copy
-        return w.to(device=self.dev, dtype=self.dt)
+        w = w.to(device=self.dev, dtype=self.dt)
+        if self.bits is None:
+            return w
+        return sharding.freeze_leaf(name, w, self.bits, self.dev)
 
-    def dense(self, out_d: int, in_d: int) -> torch.Tensor:
-        return self.normal((self.n, out_d, in_d), in_d ** -0.5)
+    def weights(self, **specs: Tuple[Tuple[int, ...], float]) -> Params:
+        """Each ``key=(shape, std)`` drawn in order under its key, which
+        names it for ``freeze_leaf``; each is frozen before the next is
+        drawn."""
+        return {key: self.normal(shape, std, key)
+                for key, (shape, std) in specs.items()}
+
+    def dense(self, out_d: int, in_d: int) -> Tuple[Tuple[int, ...], float]:
+        """A stacked (out_d, in_d) weight's (shape, std) for ``weights``."""
+        return (self.n, out_d, in_d), in_d ** -0.5
 
     def zeros(self, *shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=self.dt, device=self.dev)
@@ -126,10 +144,10 @@ class Draw:
 
     def attn(self) -> Params:
         cfg, n = self.cfg, self.n
-        attn = dict(wq=self.dense(cfg.q_dim, cfg.d_model),
-                    wk=self.dense(cfg.kv_dim, cfg.d_model),
-                    wv=self.dense(cfg.kv_dim, cfg.d_model),
-                    wo=self.dense(cfg.d_model, cfg.q_dim))
+        attn = self.weights(wq=self.dense(cfg.q_dim, cfg.d_model),
+                            wk=self.dense(cfg.kv_dim, cfg.d_model),
+                            wv=self.dense(cfg.kv_dim, cfg.d_model),
+                            wo=self.dense(cfg.d_model, cfg.q_dim))
         if cfg.qkv_bias:
             attn.update(bq=self.zeros(n, cfg.q_dim),
                         bk=self.zeros(n, cfg.kv_dim),
@@ -142,27 +160,36 @@ class Draw:
     def mlp(self, d_ff: int) -> Params:
         cfg, n = self.cfg, self.n
         if cfg.mlp_act in ("swiglu", "geglu"):
-            return dict(w_gate=self.dense(d_ff, cfg.d_model),
-                        w_up=self.dense(d_ff, cfg.d_model),
-                        w_down=self.dense(cfg.d_model, d_ff))
-        return dict(w_up=self.dense(d_ff, cfg.d_model),
+            return self.weights(w_gate=self.dense(d_ff, cfg.d_model),
+                                w_up=self.dense(d_ff, cfg.d_model),
+                                w_down=self.dense(cfg.d_model, d_ff))
+        return dict(**self.weights(w_up=self.dense(d_ff, cfg.d_model),
+                                   w_down=self.dense(cfg.d_model, d_ff)),
                     b_up=self.zeros(n, d_ff),
-                    w_down=self.dense(cfg.d_model, d_ff),
                     b_down=self.zeros(n, cfg.d_model))
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device: DeviceLike = None) -> Params:
+                device: DeviceLike = None, bits: Optional[int] = None
+                ) -> Params:
     """Random parameters with the reference's structure and distributions.
 
     Weights are drawn on the generator's device (default: a CPU generator
     seeded 0) and moved to ``device`` (default ``cuda``).  The draws differ
     from ``jax.random``'s, so parity tests carry JAX weights over through
     ``interop`` instead.
+
+    With ``bits`` the tree comes out frozen for serving, each weight packed
+    as soon as it is drawn (:class:`Draw`): it equals
+    ``freeze_for_serving(init_params(cfg, g), bits=bits)`` bit for bit,
+    leaf for leaf, from a generator in the same state, while the device
+    holds at most one f32 weight and its packed form beside the packed tree
+    so far (llava-next-34b: a 35.2 GB f32 leaf at most, where the whole f32
+    tree is 137 GB).
     """
     check_family(cfg)
     g = generator if generator is not None else torch.Generator().manual_seed(0)
-    draw = Draw(cfg, g, resolve_device(device), cfg.n_layers)
+    draw = Draw(cfg, g, resolve_device(device), cfg.n_layers, bits)
     layers: Params = {}
     if cfg.family in ATTENTION_FAMILIES:
         layers.update(attn_norm=draw.norm(cfg.d_model), attn=draw.attn())
@@ -176,16 +203,16 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         layers.update(mlp_norm=draw.norm(cfg.d_model),
                       mlp=draw.mlp(cfg.d_ff))
     params: Params = dict(
-        embed=draw.normal((cfg.vocab_size, cfg.d_model), 0.02),
+        **draw.weights(embed=((cfg.vocab_size, cfg.d_model), 0.02)),
         final_norm=draw.norm(cfg.d_model, stacked=False),
         layers=layers,
     )
     if not cfg.tie_embeddings:
-        params["lm_head"] = draw.normal((cfg.vocab_size, cfg.d_model),
-                                        cfg.d_model ** -0.5)
+        params.update(draw.weights(lm_head=((cfg.vocab_size, cfg.d_model),
+                                            cfg.d_model ** -0.5)))
     if cfg.n_meta_tokens:
-        params["meta_tokens"] = draw.normal((cfg.n_meta_tokens, cfg.d_model),
-                                            0.02)
+        params.update(draw.weights(
+            meta_tokens=((cfg.n_meta_tokens, cfg.d_model), 0.02)))
     return params
 
 
@@ -194,10 +221,10 @@ def _moe_params(cfg: ModelConfig, draw: Draw) -> Params:
     the experts' (E, F, D) / (E, D, F) weights, and the shared expert and
     arctic's dense residual as plain MLPs."""
     e, f, d, n = cfg.n_experts, cfg.moe_d_ff, cfg.d_model, draw.n
-    p = dict(router=draw.dense(e, d),
-             w_gate=draw.normal((n, e, f, d), d ** -0.5),
-             w_up=draw.normal((n, e, f, d), d ** -0.5),
-             w_down=draw.normal((n, e, d, f), f ** -0.5))
+    p = draw.weights(router=draw.dense(e, d),
+                     w_gate=((n, e, f, d), d ** -0.5),
+                     w_up=((n, e, f, d), d ** -0.5),
+                     w_down=((n, e, d, f), f ** -0.5))
     if cfg.shared_d_ff:
         p["shared"] = draw.mlp(cfg.shared_d_ff)
     if cfg.dense_residual_d_ff:
@@ -216,15 +243,15 @@ def _ssm_params(cfg: ModelConfig, draw: Draw) -> Params:
     a_log = torch.from_numpy(np.log(np.arange(1, ns + 1, dtype=np.float32))
                              ).to(dev)
     return dict(
-        in_proj=draw.dense(2 * di, cfg.d_model),
-        conv_w=draw.normal((n, di, k), k ** -0.5),
+        **draw.weights(in_proj=draw.dense(2 * di, cfg.d_model),
+                       conv_w=((n, di, k), k ** -0.5),
+                       x_proj=draw.dense(r + 2 * ns, di),
+                       dt_proj=draw.dense(di, r),
+                       out_proj=draw.dense(cfg.d_model, di)),
         conv_b=draw.zeros(n, di),
-        x_proj=draw.dense(r + 2 * ns, di),
-        dt_proj=draw.dense(di, r),
         dt_bias=torch.full((n, di), -4.6, dtype=_dtype(cfg), device=dev),
         A_log=a_log.expand(n, di, ns).contiguous(),
         D=torch.ones((n, di), dtype=torch.float32, device=dev),
-        out_proj=draw.dense(cfg.d_model, di),
     )
 
 

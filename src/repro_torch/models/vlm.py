@@ -24,8 +24,9 @@ Params = Dict[str, Any]
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device: DeviceLike = None) -> Params:
-    return tfm.init_params(cfg, generator, device)
+                device: DeviceLike = None, bits: Optional[int] = None
+                ) -> Params:
+    return tfm.init_params(cfg, generator, device, bits)
 
 
 def forward(params: Params, tokens: torch.Tensor, patches: torch.Tensor,

@@ -1,8 +1,9 @@
 """Freezing a parameter tree for At-MRAM serving (reference:
 ``repro/parallel/sharding.py:32-33`` and ``:246-270``).
 
-Only ``PACKABLE`` and ``freeze_for_serving`` are ported; the sharding rules
-arrive with the multi-device slice (ROADMAP A11).
+Only ``PACKABLE`` and ``freeze_for_serving`` (with its per-leaf rule,
+``freeze_leaf``) are ported; the sharding rules arrive with the
+multi-device slice (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -44,6 +45,29 @@ def _pack_rows(flat: torch.Tensor, bits: int
     return packed, scale
 
 
+def packable(name: str, leaf: torch.Tensor) -> bool:
+    """Whether a leaf called ``name`` is packed for serving: a PACKABLE
+    matmul weight with at least two dims (stacked ones included)."""
+    return name in PACKABLE and leaf.ndim >= 2
+
+
+def freeze_leaf(name: str, leaf: torch.Tensor, bits: int,
+                device: DeviceLike = None) -> Any:
+    """One leaf frozen as :func:`freeze_for_serving` freezes it: detached
+    and on ``device``, and when :func:`packable` packed at ``bits`` by its
+    rows into {"packed", "scale"} (scales of its leading shape).  The draw
+    of ``models/transformer.init_params(bits=)`` freezes each weight through
+    it as it is drawn."""
+    # detached: a serving tree must not carry a trained tree's autograd
+    # state into every tick (nor into the forward-only kernels)
+    leaf = leaf.detach().to(resolve_device(device))
+    if not packable(name, leaf):
+        return leaf
+    packed, scale = _pack_rows(leaf.reshape(-1, leaf.shape[-1]), bits)
+    return dict(packed=packed.reshape(*leaf.shape[:-1], -1),
+                scale=scale.reshape(leaf.shape[:-1]))
+
+
 def freeze_for_serving(params: Any, bits: int = 8, plan: Any = None,
                        device: DeviceLike = None) -> Any:
     """Quantize+pack every PACKABLE matmul leaf into {"packed", "scale"}.
@@ -61,14 +85,9 @@ def freeze_for_serving(params: Any, bits: int = 8, plan: Any = None,
     def walk(tree: Any, keys: Tuple[str, ...]) -> Any:
         if isinstance(tree, dict):
             return {k: walk(v, keys + (str(k),)) for k, v in tree.items()}
-        # detached: a serving tree must not carry a trained tree's autograd
-        # state into every tick (nor into the forward-only kernels)
-        leaf = tree.detach().to(dev)
-        if keys and keys[-1] in PACKABLE and leaf.ndim >= 2:
-            b = plan.bits_for("/".join(keys)) if plan is not None else bits
-            packed, scale = _pack_rows(leaf.reshape(-1, leaf.shape[-1]), b)
-            return dict(packed=packed.reshape(*leaf.shape[:-1], -1),
-                        scale=scale.reshape(leaf.shape[:-1]))
-        return leaf
+        name = keys[-1] if keys else ""
+        b = (plan.bits_for("/".join(keys))
+             if plan is not None and packable(name, tree) else bits)
+        return freeze_leaf(name, tree, b, dev)
 
     return walk(params, ())

@@ -57,9 +57,7 @@ eagerly, so there is nothing to cache beyond the per-layer parameter views.
 Sampling draws from an explicit ``torch.Generator`` on the engine's device
 (the reference splits ``jax.random`` keys; the two agree at temperature 0).
 
-Not ported yet: paging across a mesh (``mesh=``: ROADMAP A11) and the
-wire-served paging of a MoE store (``attach_paging(wire_serve=True)``: its
-experts would need the grouped blockscale kernel, ROADMAP B item 6).
+Not ported yet: paging across a mesh (``mesh=``: ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -255,7 +253,8 @@ class ServingEngine:
         injection with CRC-verified retry.  ``wire_serve=True`` serves
         int8-re-encoded cold pages straight from their wire form: the fetch
         skips the host decode and ``linear`` sends those params to the
-        blockscale kernel.  With ``pool`` (a
+        blockscale kernel (a MoE store's expert pages to its grouped
+        launch).  With ``pool`` (a
         :class:`~repro_torch.core.paging.SharedPagePool`) the store joins
         the pool's shared budget under ``name`` instead of keeping a
         private cache: the tenancy path.
@@ -273,12 +272,6 @@ class ServingEngine:
                              f"{resident_slots}")
         if self.pager is not None:
             raise ValueError("paging is already attached")
-        if wire_serve and self.cfg.family == "moe":
-            raise NotImplementedError(
-                f"{self.cfg.name}: wire-served paging of a MoE store would "
-                "multiply the experts' cold pages by the blockscale kernel "
-                "grouped over experts, which is not ported (ROADMAP B item "
-                "6)")
         if wire_serve:
             # before the store is built, so that the fetch path and the
             # model's linear dispatch read the same plan

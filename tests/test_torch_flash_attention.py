@@ -46,6 +46,28 @@ def test_flash_attention_matches_reference_kernel(rng, sq, sk, causal, window):
         np.testing.assert_allclose(got.numpy(), np.asarray(expect), **TOL)
 
 
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (64, 64, True, None), (37, 80, True, 16), (50, 50, False, None),
+])
+def test_head_dim_256_matches_reference_kernel(rng, sq, sk, causal, window):
+    """gemma-7b's head dim: the folded form against the reference Pallas
+    kernel in interpret mode and its oracle, causal, windowed and not."""
+    q = rng.normal(size=(2, sq, 256)).astype(np.float32)
+    k = rng.normal(size=(2, sk, 256)).astype(np.float32)
+    v = rng.normal(size=(2, sk, 256)).astype(np.float32)
+    pallas = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    causal=causal, window=window, bq=16, bk=16,
+                    interpret=True)
+    oracle = jref.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=causal,
+                                  window=window)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), causal=causal, window=window)
+    assert got.shape == (2, sq, 256)
+    for expect in (pallas, oracle):
+        np.testing.assert_allclose(got.numpy(), np.asarray(expect), **TOL)
+
+
 def _gqa(rng, b=2, hq=4, hkv=2, sq=8, sk=32, d=16):
     q = rng.normal(size=(b, hq, sq, d)).astype(np.float32)
     k = rng.normal(size=(b, hkv, sk, d)).astype(np.float32)
@@ -269,6 +291,8 @@ EMULATED = [
     (2, 4, 2, 100, 24, 64, None, (-76, -76), True, None),
     (2, 2, 2, 32, 64, 32, 16, (0, 70), True, None),
     (1, 2, 2, 64, 280, 16, 40, (256,), False, None),
+    # gemma-7b's prefill chunk (head dim 256, no GQA), two of its 16 heads
+    (4, 2, 2, 64, 512, 256, None, (0, 64, 192, 448), True, None),
 ]
 
 
@@ -277,7 +301,8 @@ EMULATED = [
     map(str, c[:6])) + f"-w{c[6]}-{'c' if c[8] else 'nc'}")
 def test_split_tf32_emulation_holds_the_tolerance(case, split):
     """Three TF32 passes a multiply-add, the kernel's tile order, split and
-    combine: within FLASH_TOL (3e-5) of the plain version at every case."""
+    combine: within FLASH_TOL (3e-5) of the plain version at every case;
+    the largest error is printed."""
     b, hq, hkv, sq, sk, d, window, offsets, causal, tiles = case
     q, k, v = _case(np.random.default_rng(sq + sk), b, hq, hkv, sq, sk, d)
     plan = fa.flash_plan(b, hq, hkv, sq, sk, d, SMS)
@@ -290,6 +315,9 @@ def test_split_tf32_emulation_holds_the_tolerance(case, split):
     expect = _plain(q, k, v, offsets, causal, window)
     done = ~np.isnan(got)
     assert done.any()
+    # the error each case shows (pytest -s prints it)
+    print(f"{split} ({plan.splits} slices): max abs err "
+          f"{np.abs(got[done] - expect[done]).max():.3e}")
     np.testing.assert_allclose(got[done], expect[done], **TOL)
 
 
@@ -379,7 +407,12 @@ def test_default_plans():
         (64, 256): 2}
     prompt = fa.flash_plan(4, 25, 5, 153, 256, 64, SMS)
     assert prompt.kv_tiles == fa.SHORT_TILES and prompt.splits == 1
-    for p in (qwen, hymba, mid, prompt, *short.values()):
+    # gemma-7b's chunk at D = 256: 32-key tiles, one row tile a (row, head),
+    # its 512-key span in 4 slices of 128 keys (WIDE_SLICE_WORK / 256)
+    gemma = fa.flash_plan(4, 16, 16, 64, 512, 256, SMS)
+    assert (gemma.block_keys, gemma.row_tiles, gemma.kv_tiles) == (32, 1, 16)
+    assert gemma.split_tiles * gemma.block_keys == 128 and gemma.splits == 4
+    for p in (qwen, hymba, mid, prompt, gemma, *short.values()):
         assert p.splits * p.split_tiles >= p.kv_tiles
         assert (p.splits - 1) * p.split_tiles < p.kv_tiles
     with pytest.raises(ValueError, match="head dim"):

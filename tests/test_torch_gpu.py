@@ -23,6 +23,7 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.qmatmul import (int8_plan,  # noqa: E402
                                          qmatmul_f32,
                                          qmatmul_f32_blockscale,
+                                         qmatmul_f32_blockscale_grouped,
                                          qmatmul_f32_grouped,
                                          qmatmul_int8)
 from repro_torch.kernels.ssm_scan import selective_scan  # noqa: E402
@@ -84,6 +85,10 @@ def test_qmatmul_kernel_bf16_input(cuda, rng, bits, m, k, n):
     (2, 4, 2, 37, 37, 16, None, None),
     (3, 1, 1, 17, 80, 64, None, None),
     (1, 2, 1, 1, 64, 32, 16, None),
+    # head dim 256 (gemma-7b): its prefill chunk, a window, a ragged span
+    (4, 16, 16, 64, 512, 256, None, (0, 64, 192, 448)),
+    (2, 4, 4, 40, 300, 256, 64, None),
+    (1, 2, 2, 13, 13, 256, None, None),
 ])
 def test_flash_kernel_matches_plain(cuda, rng, b, hq, hkv, sq, sk, d, window,
                                     offsets):
@@ -405,6 +410,62 @@ def test_blockscale_kernel_matches_plain(cuda, rng, bits, m, k, n):
     expect = ref.qmatmul_f32_blockscale(x, packed, scales, bits=bits,
                                         k_orig=k)
     torch.testing.assert_close(got, expect, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("e,c,k,n", [(60, 8, 2048, 1408), (60, 24, 1408, 2048),
+                                     (5, 17, 1001, 65), (1, 4, 70, 130)])
+def test_grouped_blockscale_kernel_matches_plain(cuda, rng, bits, e, c, k, n):
+    """B3 over a stack of experts' wire-form pages (qwen2-moe-a2.7b's expert
+    linears at decode and prefill capacity, a ragged K and C on each route,
+    one expert), within 1e-4 of the plain version; an expert with no rows
+    gives zeros, and two calls give the same bits."""
+    x = torch.from_numpy(rng.normal(size=(e, c, k)).astype(np.float32)).to(
+        cuda)
+    x[::3] = 0.0
+    packed, scales = _wire(rng, e * n, k, bits, cuda)
+    packed, scales = packed.reshape(e, n, -1), scales.reshape(e, n, -1)
+    before = qmatmul_f32_blockscale_grouped.launches
+    got = qmatmul_f32_blockscale_grouped(x, packed, scales, bits=bits,
+                                         k_orig=k)
+    again = qmatmul_f32_blockscale_grouped(x, packed, scales, bits=bits,
+                                           k_orig=k)
+    torch.cuda.synchronize()
+    assert qmatmul_f32_blockscale_grouped.launches == before + 2
+    expect = ref.qmatmul_f32_blockscale_grouped(x, packed, scales, bits=bits,
+                                                k_orig=k)
+    torch.testing.assert_close(got, expect, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, again)
+    assert not got[::3].any()
+    assert torch.equal(ops.quant_matmul_blockscale(x, packed, scales,
+                                                   bits=bits, k_orig=k), got)
+
+
+@pytest.mark.parametrize("e,m", [(0, 4), (3, 0), (1, 0)])
+def test_empty_qmatmul_calls_launch_nothing(cuda, e, m):
+    """An empty problem (no experts or no rows) gives zeros of its shape and
+    adds nothing to any B1 / B3 wrapper's count."""
+    k, n, bits = 96, 40, 4
+    x = torch.zeros((e, m, k), device=cuda)
+    packed = wpacked = torch.full((e, n, k // 2), 0x77, dtype=torch.uint8,
+                                  device=cuda)
+    scale = torch.ones((e, n), device=cuda)
+    scales = torch.ones((e, n, k // 32), device=cuda)
+    wrappers = (qmatmul_f32, qmatmul_f32_grouped, qmatmul_f32_blockscale,
+                qmatmul_f32_blockscale_grouped)
+    before = [w.launches for w in wrappers]
+    outs = [qmatmul_f32_grouped(x, packed, scale, bits=bits, k_orig=k),
+            qmatmul_f32_blockscale_grouped(x, wpacked, scales, bits=bits,
+                                           k_orig=k)]
+    if e == 1:
+        outs += [qmatmul_f32(x[0], packed[0], scale[0], bits=bits,
+                             k_orig=k)[None],
+                 qmatmul_f32_blockscale(x[0], wpacked[0], scales[0],
+                                        bits=bits, k_orig=k)[None]]
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == before
+    for out in outs:
+        assert tuple(out.shape) == (e, m, n) and not out.any()
 
 
 def test_blockscale_kernel_refuses_what_it_does_not_take(cuda, rng):

@@ -19,6 +19,8 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.configs import get_config as jget  # noqa: E402
+from repro.core import faults as jfaults  # noqa: E402
+from repro.core import placement as jplacement  # noqa: E402
 from repro.kernels import qmatmul as jqmm  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models import transformer as jtfm  # noqa: E402
@@ -29,9 +31,11 @@ from repro.serving import ServingEngine as JEngine  # noqa: E402
 
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
-from repro_torch.core import placement  # noqa: E402
+from repro_torch.core import faults as tfaults  # noqa: E402
+from repro_torch.core import packing, paging, placement, quantize  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.qmatmul import qmatmul_f32_grouped  # noqa: E402
+from repro_torch.kernels.qmatmul import (  # noqa: E402
+    qmatmul_f32_blockscale_grouped, qmatmul_f32_grouped)
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.parallel.sharding import freeze_for_serving  # noqa: E402
@@ -231,8 +235,14 @@ def test_quant_matmul_rejects_shapes_that_disagree():
     with pytest.raises(ValueError, match="packed"):
         ops.quant_matmul(torch.zeros((4, 8)), packed[None], scale, bits=8,
                          k_orig=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP B item 6"):
+    with pytest.raises(ValueError, match=r"\(E, C, K\)"):
+        ops.quant_matmul_blockscale(torch.zeros((2, 4, 8)), packed,
+                                    torch.ones((3, 16, 1)), bits=8, k_orig=8)
+    with pytest.raises(ValueError, match=r"\(E, N, nblk\)"):
         ops.quant_matmul_blockscale(torch.zeros((3, 4, 8)), packed,
+                                    torch.ones((3, 16)), bits=8, k_orig=8)
+    with pytest.raises(ValueError, match="scales"):
+        ops.quant_matmul_blockscale(torch.zeros((4, 8)), packed[0],
                                     torch.ones((3, 16, 1)), bits=8, k_orig=8)
 
 
@@ -367,12 +377,154 @@ def test_kv_paging_a_moe_engine_keeps_its_tokens(model):
             == _serve("port", model, prompts))
 
 
-def test_wire_served_paging_of_a_moe_store_is_refused(model):
-    *_, tcfg, _tp, tpacked = model
-    sizes = placement.packed_sizes(tpacked)
-    plan = placement.plan_for_budget(sizes, sum(sizes.values()) // 2)
-    eng = ServingEngine(tcfg, tpacked, batch_slots=2, max_len=64, plan=plan,
+FAST = dict(backoff_s=1e-5, backoff_cap_s=1e-4)     # tests/test_faults.py:32
+CHAOS = dict(seed=3, fail_rate=0.2, bitflip_rate=0.2, **FAST)
+WIRE_KEYS = ("swap_count", "miss_count", "n_pages", "bytes_streamed_wire",
+             "bytes_streamed_raw", "decode_skipped_bytes")
+EXPERT_GROUPS = {"layers/moe/w_gate", "layers/moe/w_up", "layers/moe/w_down"}
+
+
+@pytest.fixture(scope="module")
+def wire_store(model):
+    """The smoke store frozen at 4 bits by JAX and carried over, for
+    wire-served paging (int8 pages of a 4-bit store)."""
+    jcfg, params, _packed, tcfg, _tp, _tpk = model
+    packed = jfreeze(params, bits=4)
+    return packed, interop.params_from_numpy(_np(packed), tcfg, device="cpu")
+
+
+def _expert_wire_plan(pl, sizes):
+    """The experts' three linears int8-paged (wire-served) and every other
+    packed group pinned, in either package."""
+    hot = pl.Placement("l1mram", 4, "resident")
+    cold = pl.Placement("l1mram", 4, "paged", 8)
+    return pl.PlacementPlan(default=cold, rules=tuple(
+        (n, hot) for n in sorted(sizes) if n not in EXPERT_GROUPS))
+
+
+def _wire_serve(side, model, store, faults=None):
+    jcfg, *_r, tcfg, _tp, _tpk = model
+    port = side == "port"
+    pl = placement if port else jplacement
+    tree = store[1] if port else store[0]
+    plan = _expert_wire_plan(pl, pl.packed_sizes(tree))
+    eng = (ServingEngine(tcfg, tree, batch_slots=2, max_len=64, plan=plan,
+                         device="cpu") if port else
+           JEngine(jcfg, tree, batch_slots=2, max_len=64, plan=plan))
+    fplan = None if faults is None else (
+        tfaults if port else jfaults).FaultPlan(**faults)
+    eng.attach_paging(wire_serve=True, faults=fplan)
+    make = Request if port else JRequest
+    for uid, p in enumerate(_prompts([8, 8, 8, 8], seed=9)):
+        eng.submit(make(uid=uid, prompt=p, max_new_tokens=5))
+    toks = {r.uid: r.generated for r in eng.run_until_done()}
+    out = (toks, eng.paging_summary(), eng.faults_summary(),
+           set(eng.pager.wire_served), eng.pager.decode_s)
+    eng.pager.close()
+    return out
+
+
+@pytest.mark.parametrize("chaos", [False, True])
+def test_wire_served_paging_of_a_moe_store_matches_jax(model, wire_store,
+                                                       chaos):
+    """``attach_paging(wire_serve=True)`` on a MoE store: its cold expert
+    pages arrive in wire form and the grouped blockscale linear multiplies
+    them (the reference's vmapped ``quant_matmul_blockscale``).  Tokens,
+    swaps, misses, wire and raw bytes, the fault counters and the
+    wire-served set equal the JAX engine's."""
+    faults = CHAOS if chaos else None
+    toks, pg, fs, served, decode_s = _wire_serve("port", model, wire_store,
+                                                 faults)
+    jtoks, jpg, jfs, jserved, jdecode_s = _wire_serve("jax", model,
+                                                      wire_store, faults)
+    assert toks == jtoks
+    assert all(len(t) == 5 for t in toks.values()) and len(toks) == 4
+    assert {k: pg[k] for k in WIRE_KEYS} == {k: jpg[k] for k in WIRE_KEYS}
+    assert pg["swap_count"] > 0 and pg["decode_skipped_bytes"] > 0
+    assert served == jserved == EXPERT_GROUPS
+    assert decode_s == 0.0 == jdecode_s       # no fetch decode ran
+    assert fs == jfs
+    if chaos:
+        assert fs["injected"] > 0
+        assert fs["checksum_failures"] == fs["refetches"]
+
+
+def test_wire_served_moe_equals_a_resident_engine_on_the_wire_tree(
+        model, wire_store):
+    """The pager changes where the expert bytes come from, not what is
+    computed: an engine holding the cold expert groups already in wire form,
+    with no pager, serves the same tokens; its experts' linears take the
+    grouped blockscale path (``ops.quant_matmul_blockscale`` on a stack of
+    experts)."""
+    *_r, tcfg, _tp, _tpk = model
+    tree = wire_store[1]
+    plan = _expert_wire_plan(placement, placement.packed_sizes(tree))
+    toks = _wire_serve("port", model, wire_store)[0]
+    eng = ServingEngine(tcfg, tree, batch_slots=2, max_len=64, plan=plan,
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP B item 6"):
-        eng.attach_paging(wire_serve=True)
-    assert eng.pager is None
+    eng.attach_paging(wire_serve=True)
+    wire_tree = paging.thread_packed(tree, {**eng.pager.resident,
+                                            **eng.pager.template_view()})
+    eng.pager.close()
+    assert wire_tree["layers"]["moe"]["w_gate"]["scale"].ndim == 4
+    calls = []
+    real = ops._qmm.qmatmul_f32_blockscale_grouped
+
+    def rec(x, packed, scales, **kw):
+        calls.append(tuple(x.shape))
+        return real(x, packed, scales, **kw)
+
+    ops._qmm.qmatmul_f32_blockscale_grouped = rec
+    try:
+        resident = ServingEngine(tcfg, wire_tree, batch_slots=2, max_len=64,
+                                 plan=plan.replace(wire_serve=True),
+                                 device="cpu")
+        for uid, p in enumerate(_prompts([8, 8, 8, 8], seed=9)):
+            resident.submit(Request(uid=uid, prompt=p, max_new_tokens=5))
+        got = {r.uid: r.generated for r in resident.run_until_done()}
+    finally:
+        ops._qmm.qmatmul_f32_blockscale_grouped = real
+    assert got == toks
+    # three expert linears a layer, 2 layers, every prefill and decode step
+    assert calls and len(calls) % 6 == 0
+    assert {c[0] for c in calls} == {tcfg.n_experts}
+
+
+def _vmapped_blockscale(x, packed, scales, bits, k):
+    return jax.vmap(lambda xx, pp, ss: jqmm.qmatmul_f32_blockscale(
+        xx, pp, ss, bits=bits, k_orig=k, interpret=True))(
+        jnp.asarray(x), jnp.asarray(packed), jnp.asarray(scales))
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("c,k", [(8, 64), (24, 64), (8, 83)])
+def test_grouped_blockscale_plain_equals_vmapped_pallas(bits, c, k):
+    """``ops.quant_matmul_blockscale`` on a stack of experts (wire form:
+    levels at ``bits`` and per-32 scales) against the reference's Pallas
+    kernel vmapped over the experts in interpret mode, within B3's 1e-4;
+    an expert with no rows gives zeros; the CPU launches nothing."""
+    rng = np.random.default_rng(bits * 100 + c + k + 1)
+    e, n = 5, 48
+    x = rng.normal(size=(e, c, k)).astype(np.float32)
+    x[3] = 0.0                              # an expert that got no rows
+    w = rng.normal(size=(e * n, k)).astype(np.float32) * k ** -0.5
+    levels, scales = quantize.quantize_blockwise(w, bits)
+    packed = packing.pack(torch.from_numpy(levels), bits).reshape(e, n, -1)
+    scales = torch.from_numpy(scales).reshape(e, n, -1)
+    expect = _vmapped_blockscale(x, packed.numpy(), scales.numpy(), bits, k)
+    got = ops.quant_matmul_blockscale(_t(x), packed, scales, bits=bits,
+                                      k_orig=k)
+    assert got.shape == (e, c, n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(expect),
+                               rtol=1e-4, atol=1e-4)
+    assert not got[3].any()
+    np.testing.assert_array_equal(
+        got.numpy(), ref.qmatmul_f32_blockscale_grouped(
+            _t(x), packed, scales, bits=bits, k_orig=k).numpy())
+    # each expert is the 2-D plain version on its own rows
+    for i in range(e):
+        np.testing.assert_array_equal(
+            got[i].numpy(), ref.qmatmul_f32_blockscale(
+                _t(x[i]), packed[i], scales[i], bits=bits,
+                k_orig=k).numpy())
+    assert qmatmul_f32_blockscale_grouped.launches == 0
