@@ -14,10 +14,11 @@ the serving launcher and the XR pipeline example, in process through
 their ``main``, then the VLM llava-next-34b, the encoder-decoder
 whisper-tiny and hymba-1.5b's segmented window path, training of the
 MoE, SSM, hybrid, VLM and encoder-decoder families with hymba-1.5b
-trained (16 of its 32 layers) and served, and last the launcher's ``main`` on
+trained (16 of its 32 layers) and served, the launcher's ``main`` on
 gemma-7b (head dim 256), qwen2.5-3b, olmo-1b and llava-next-34b and the
-MoE store's cold expert pages wire-served -- and fails (non-zero exit, no
-result line) if any phase fails:
+MoE store's cold expert pages wire-served, and last hymba-1.5b and paged
+qwen3-0.6b in bfloat16 on the kernels' bf16 routes -- and fails (non-zero
+exit, no result line) if any phase fails:
 
 1. set-up: requires a CUDA device, turns TF32 off, prints the card's name
    and power limit, builds every ``csrc/*.cu`` with nvcc for sm_90a (one
@@ -27,9 +28,11 @@ result line) if any phase fails:
    (``flash_fwd_tc``), the scan's two routes (``scan_step``,
    ``scan_chunked``), the int8 MMA kernels (``qmm_int8_direct``,
    ``qmm_int8_staged``, ``dense3x3_mma``) or the depthwise kernel
-   (``dw3x3_vec``, every instantiation) spill, or if ``cuobjdump
-   --dump-sass`` finds no ``IMMA`` in an int8 MMA kernel or no TF32
-   ``HMMA`` in the flash kernel;
+   (``dw3x3_vec``, every instantiation) spill, each with its bf16
+   instantiations and the flash kernel's bf16 route (``flash_fwd_bf16``),
+   or if ``cuobjdump --dump-sass`` finds no ``IMMA`` in an int8 MMA
+   kernel, no TF32 ``HMMA`` in the flash kernel or no bf16
+   ``HMMA.16816.F32.BF16`` in its bf16 route;
 2. each Hopper kernel against its plain PyTorch version on the card, at the
    shapes its path gives it: ``qmatmul_f32``, ``flash_attention`` and
    ``selective_scan`` within the stated tolerances (flash at each tile the
@@ -325,10 +328,31 @@ result line) if any phase fails:
    bytes), ``pager.wire_served`` the expert groups, and
    ``qmatmul_f32_blockscale_grouped`` launched.  Every distinct B1, B2 and
    grouped B3 call of the phase is held against its plain version;
-15. the ``{"serve": ...}``, ``{"train": ...}``, ``{"phase12": ...}``,
-   ``{"train_families": ...}``, ``{"phase14": ...}`` and ``{"kernels":
-   [...]}`` lines, the card line, and as the last line ``{"ok": true,
-   "device": {...}}``.
+15. the bf16 contracts (B2, B7, B3, and B1 at bf16 x) on the model path,
+   the configs replaced as the reference's dry-run replaces them: (a)
+   hymba-1.5b at full width and depth, 8 bits, ``dtype``, ``attn_dtype``
+   and ``scan_dtype`` bf16, drawn by ``init_params(bits=8)``, serving
+   phase 4's 8 requests (the 1,035-token prompt among them) through
+   ``ServingEngine``; (b) qwen3-0.6b's phase-6 store (4 bits, the cold
+   half wire-served as int8 pages) at ``dtype="bfloat16"``, 8 requests.
+   Each serve's launches are read by dtype: every B1, B2, B3 and B7
+   launch of it takes its bf16 route (B7 both routes), and each kernel is
+   held against its plain version at every distinct call (B1 / B3
+   ``QMM_TOL``, B2 ``flash_bf16_bound``, B7 ``SCAN_BF16_TOL``).  Beside
+   each, the f32 config serves the same weights: the share of greedy
+   tokens that agree, and ``launch/steps.make_prefill_step`` (2 x 64
+   tokens) and ``make_decode_step`` at both dtypes with the largest logit
+   difference at the first decode step.  Then B2's bf16 route at every
+   head dim with P rounded and P kept f32-accurate, and with an f32
+   output, and the grouped B3 at bf16 x on
+   qwen2-moe-a2.7b's expert shape (E = 60, C = 8); each bf16 route timed
+   beside its plain version and library call, its bound the bytes at
+   bf16 over 3.35 TB/s or the operations at 989 TFLOP/s (B7: the SFUs);
+16. the ``{"serve": ...}``, ``{"train": ...}``, ``{"phase12": ...}``,
+   ``{"train_families": ...}``, ``{"phase14": ...}``, ``{"bf16": ...}``
+   and ``{"kernels": [...]}`` lines (a ``[bf16]`` entry for each bf16
+   route), the card line, and as the last line ``{"ok": true, "device":
+   {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -352,6 +376,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core rate
 TF32_FLOPS_PER_S = 495e12        # H100 SXM dense TF32 tensor-core rate
+BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 
 QMM_TOL = dict(rtol=1e-4, atol=1e-4)      # f32 accumulate, reordered sums
 FLASH_TOL = dict(rtol=3e-5, atol=3e-5)    # the reference kernel test's
@@ -401,18 +426,22 @@ FALCON_LINEARS = {"in_proj": (4096, 16384), "x_proj": (8192, 288),
                   "dt_proj": (256, 8192), "out_proj": (8192, 4096)}
 # the tensor-core kernels of the f32 matmuls: decode, M <= 16
 # (csrc/qmm_decode.cuh), and M > 16 (csrc/qmm_tc.cuh); the flash kernel; the
-# scan's two routes (csrc/ssm_scan.cu)
-TC_KERNELS = ("qmm_dec", "bs_dec", "qmm_tc", "bs_tc", "flash_fwd_tc")
+# scan's two routes (csrc/ssm_scan.cu); each name covers its bf16
+# instantiations too, the flash kernel's bf16 route its own name
+TC_KERNELS = ("qmm_dec", "bs_dec", "qmm_tc", "bs_tc", "flash_fwd_tc",
+              "flash_fwd_bf16")
 SCAN_KERNELS = ("scan_step", "scan_chunked")
 # the depthwise kernel's instantiations (csrc/neureka_conv.cu)
 DW_KERNELS = ("dw3x3_vec",)
 # the kernels whose SASS must hold their tensor-core op: {function name
 # fragment: (library, the op's tokens)}; the int8 MMA kernels
-# (csrc/int8_mma.cuh) IMMA, the flash kernel a TF32 HMMA
+# (csrc/int8_mma.cuh) IMMA, the flash kernel a TF32 HMMA, its bf16 route a
+# bf16 HMMA with f32 accumulators
 MMA_OPS = {"qmm_int8_direct": ("qmatmul_int8", ("IMMA",)),
            "qmm_int8_staged": ("qmatmul_int8", ("IMMA",)),
            "dense3x3_mma": ("neureka_conv", ("IMMA",)),
-           "flash_fwd_tc": ("flash_attention", ("HMMA", "TF32"))}
+           "flash_fwd_tc": ("flash_attention", ("HMMA", "TF32")),
+           "flash_fwd_bf16": ("flash_attention", ("HMMA.16816.F32.BF16",))}
 
 
 def card_line() -> str:
@@ -652,14 +681,20 @@ def check_flash(torch, ref, fa, dev) -> float:
     return worst
 
 
-def route_bound(res, nbytes: float, flops: float, passes: int):
+def route_bound(res, nbytes: float, flops: float, passes: int,
+                bf16: bool = False):
     """The f32 matmuls and flash attention run on the tensor cores,
     ``passes`` TF32 MMAs for each f32 multiply-add: ``bound_ms`` is that
     route's bound (the bytes bind at decode, the operations at prefill),
     with both figures beside it (``bytes_ms``, ``tf32_ops_ms``) and the f32
-    CUDA-core bound in ``bound_f32_ms``."""
-    res["tf32_passes"] = passes
+    CUDA-core bound in ``bound_f32_ms``.  With ``bf16`` operands the bound
+    is the operations at the dense bf16 tensor-core rate, or the bytes."""
     res["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    if bf16:
+        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops,
+                                                    BF16_FLOPS_PER_S)
+        return
+    res["tf32_passes"] = passes
     res["tf32_ops_ms"] = passes * flops / TF32_FLOPS_PER_S * 1e3
     res["bound_f32_ms"], res["bound_f32_by"] = bound_ms(nbytes, flops)
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, passes * flops,
@@ -668,10 +703,13 @@ def route_bound(res, nbytes: float, flops: float, passes: int):
 
 def time_qmatmul(torch, packing, ops, ref, qmm, dev, m: int,
                  bits: int = 8, copies: int = 8, linears=LAYER_LINEARS,
-                 what: str = "qmatmul_f32 layer x7"):
+                 what: str = "qmatmul_f32 layer x7", dtype=None):
     """One layer's packed linears (qwen3-0.6b's seven by default) at M rows,
     over ``copies`` layer copies (8 x 15.7 MB of 8-bit qwen3 weights, or
-    2 x 105 MB of falcon-mamba's, > the 50 MB L2)."""
+    2 x 105 MB of falcon-mamba's, > the 50 MB L2); x and the library's
+    dequantised weights in ``dtype`` (f32, or bf16 for the bf16 route)."""
+    dtype = dtype or torch.float32
+    elem, bf16 = dtype.itemsize, dtype == torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(3)
     layers = []
     for _ in range(copies):
@@ -679,9 +717,9 @@ def time_qmatmul(torch, packing, ops, ref, qmm, dev, m: int,
         for k, n in linears.values():
             w = torch.randn((n, k), generator=gen, device=dev) * k ** -0.5
             packed, scale = ops.prep_linear(w, bits)
-            x = torch.randn((m, k), generator=gen, device=dev)
+            x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
             deq = packing.unpack(packed, bits, k).float() * scale[:, None]
-            layer.append((x, packed, scale, k, deq))
+            layer.append((x, packed, scale, k, deq.to(dtype)))
         layers.append(layer)
 
     def kernel(i):
@@ -697,14 +735,16 @@ def time_qmatmul(torch, packing, ops, ref, qmm, dev, m: int,
             torch.matmul(x, deq.T)
 
     res = time_versions(torch, kernel, plain, library, copies, 40)
-    nbytes = sum(m * k * 4 + p.numel() + s.numel() * 4 + m * n * 4
+    nbytes = sum(m * k * elem + p.numel() + s.numel() * 4 + m * n * 4
                  for (x, p, s, k, _), (_, n) in zip(layers[0],
                                                     linears.values()))
     flops = sum(2 * m * n * k for k, n in linears.values())
-    route_bound(res, nbytes, flops, 2)
-    res["work"] = f"{what} {list(linears)}, M={m}, {bits}-bit"
-    print_times(f"{what} M={m} bits={bits}",
-                "torch.matmul on pre-dequantised f32", res, nbytes, flops)
+    route_bound(res, nbytes, flops, 2, bf16)
+    x_dt = " bf16 x" if bf16 else ""
+    res["work"] = f"{what} {list(linears)}, M={m}{x_dt}, {bits}-bit"
+    print_times(f"{what} M={m}{x_dt} bits={bits}",
+                f"torch.matmul on pre-dequantised {dtype}", res, nbytes,
+                flops)
     return res
 
 
@@ -746,19 +786,22 @@ def check_blockscale(torch, ref, qmm, dev, linears) -> float:
 
 
 def time_blockscale(torch, packing, ref, qmm, dev, m: int, linears,
-                    copies: int = 8):
+                    copies: int = 8, dtype=None):
     """One layer's cold linears in wire form (int8 levels, per-32 scales) at
-    M rows, over ``copies`` layer copies (8 x 9.4 MB > the 50 MB L2)."""
+    M rows, over ``copies`` layer copies (8 x 9.4 MB > the 50 MB L2); x and
+    the library's dequantised weights in ``dtype`` (f32 or bf16)."""
+    dtype = dtype or torch.float32
+    elem, bf16 = dtype.itemsize, dtype == torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(12)
     layers = []
     for _ in range(copies):
         layer = []
         for k, n in linears:
             packed, scales = wire_weight(torch, gen, dev, n, k, 8)
-            x = torch.randn((m, k), generator=gen, device=dev)
+            x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
             deq = (packing.unpack(packed, 8, k).float().reshape(n, -1, 32)
                    * scales[:, :, None]).reshape(n, k)
-            layer.append((x, packed, scales, k, deq))
+            layer.append((x, packed, scales, k, deq.to(dtype)))
         layers.append(layer)
 
     def kernel(i):
@@ -774,24 +817,26 @@ def time_blockscale(torch, packing, ref, qmm, dev, m: int, linears,
             torch.matmul(x, deq.T)
 
     res = time_versions(torch, kernel, plain, library, copies, 40)
-    nbytes = sum(m * k * 4 + p.numel() + s.numel() * 4 + m * n * 4
+    nbytes = sum(m * k * elem + p.numel() + s.numel() * 4 + m * n * 4
                  for (x, p, s, k, _), (_, n) in zip(layers[0], linears))
     flops = sum(2 * m * n * k for k, n in linears)
-    route_bound(res, nbytes, flops, 2)
+    route_bound(res, nbytes, flops, 2, bf16)
     res["work"] = (f"one layer's {len(linears)} cold linears {linears}, "
-                   f"M={m}, int8 wire form")
+                   f"M={m}{' bf16 x' if bf16 else ''}, int8 wire form")
     print_times(f"qmatmul_f32_blockscale {res['work']}",
-                "torch.matmul on pre-dequantised f32", res, nbytes, flops)
+                f"torch.matmul on pre-dequantised {dtype}", res, nbytes,
+                flops)
     return res
 
 
-def flash_work(case):
+def flash_work(case, elem: int = 4):
     """(bytes, flops) that one call needs with this case's data: q read and
     the output written once, each kv head's keys that its batch row's
-    queries can see read once, 4 D flops a visible (query, key) pair."""
+    queries can see read once (``elem`` bytes an element: 4 f32, 2 bf16),
+    4 D flops a visible (query, key) pair."""
     b, hq, hkv, sq, sk, d, window, offs, causal = case
     offs = offs if offs is not None else (sk - sq,) * b
-    nbytes, pairs = 2 * b * hq * sq * d * 4 + b * 4, 0
+    nbytes, pairs = 2 * b * hq * sq * d * elem + b * 4, 0
     for o in offs:
         lo_all, hi_all = sk, 0
         for i in range(sq):
@@ -800,12 +845,12 @@ def flash_work(case):
             if hi > lo:
                 pairs += hq * (hi - lo)
                 lo_all, hi_all = min(lo_all, lo), max(hi_all, hi)
-        nbytes += 2 * hkv * max(0, hi_all - lo_all) * d * 4
+        nbytes += 2 * hkv * max(0, hi_all - lo_all) * d * elem
     return nbytes, 4 * d * pairs
 
 
 def time_flash(torch, F, ref, fa, dev, which: str = "qwen3",
-               copies: int = 4):
+               copies: int = 4, dtype=None, p_dtype=None):
     """A timed FLASH_CASES row (qwen3-0.6b's prefill chunk: 4 rows x 16/8
     heads, 64 queries over a 512-row kv span at per-row offsets; hymba-
     1.5b's longest prompt: 4 rows x 25/5 heads, 1,163 queries, window
@@ -815,13 +860,20 @@ def time_flash(torch, F, ref, fa, dev, which: str = "qwen3",
     over 512 keys) on ``copies`` input sets in turn (more than the 50 MB
     L2).  The
     library call is ``F.scaled_dot_product_attention`` with the same
-    boolean mask, on k and v expanded to Hq heads outside the timing."""
+    boolean mask, on k and v expanded to Hq heads outside the timing.
+    q, k and v in ``dtype`` (f32, or bf16 for the bf16 route, P rounded
+    to ``p_dtype`` there)."""
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
     case = FLASH_CASES[FLASH_TIMED[which]]
     b, hq, hkv, sq, sk, d, window, offs, causal = case
     gen = torch.Generator(device=dev).manual_seed(4)
     sets = []
     for _ in range(copies):
         q, k, v, kw = flash_inputs(torch, gen, dev, case)
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        if p_dtype is not None:
+            kw = dict(kw, p_dtype=p_dtype)
         # the library call takes equal head counts: expand outside timing
         ke = k.repeat_interleave(hq // hkv, dim=1)
         ve = v.repeat_interleave(hq // hkv, dim=1)
@@ -850,13 +902,14 @@ def time_flash(torch, F, ref, fa, dev, which: str = "qwen3",
         F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask[:, None])
 
     res = time_versions(torch, kernel, plain, library, copies, 20)
-    nbytes, flops = flash_work(case)
-    route_bound(res, nbytes, flops, 3)
+    nbytes, flops = flash_work(case, dtype.itemsize)
+    route_bound(res, nbytes, flops, 3, bf16)
+    route = f" bf16, P in {p_dtype or torch.float32}" if bf16 else ""
     res["work"] = (f"{which}: B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} D={d} "
-                   f"window={window} offsets={offs}")
+                   f"window={window} offsets={offs}{route}")
     print_times(f"flash_attention {res['work']}",
-                "F.scaled_dot_product_attention, same mask", res, nbytes,
-                flops)
+                f"F.scaled_dot_product_attention at {dtype}, same mask", res,
+                nbytes, flops)
     return res
 
 
@@ -953,17 +1006,23 @@ def check_scan(torch, ref, ssm, dev) -> float:
     return worst
 
 
-def time_scan(torch, ref, ssm, dev, which: str, n: int = 16):
+def time_scan(torch, ref, ssm, dev, which: str, n: int = 16, dtype=None):
     """One layer's scan at a SCAN_TIMED shape, from h0, inputs rotated over
-    more than 50 MB.  No PyTorch call computes a selective scan, so there
-    is no library time."""
+    more than 50 MB; x, dt, B, C and y in ``dtype`` (f32, or bf16 for the
+    bf16 route), A, D and h f32.  No PyTorch call computes a selective
+    scan, so there is no library time."""
+    dtype = dtype or torch.float32
     bsz, s, di = SCAN_TIMED[which]
     gen = torch.Generator(device=dev).manual_seed(9)
-    nbytes = 4 * (3 * bsz * s * di + 2 * bsz * s * n + di * n + di
-                  + 2 * bsz * di * n)
+    nbytes = (dtype.itemsize * (3 * bsz * s * di + 2 * bsz * s * n)
+              + 4 * (di * n + di + 2 * bsz * di * n))
     copies = int(max(2, -(-L2_COLD_BYTES // nbytes)))
-    sets = [scan_inputs(torch, gen, dev, bsz, s, di, n, True)
-            for _ in range(copies)]
+    sets = []
+    for _ in range(copies):
+        x, dt, A, B, C, D, h0 = scan_inputs(torch, gen, dev, bsz, s, di, n,
+                                            True)
+        sets.append((x.to(dtype), dt.to(dtype), A, B.to(dtype), C.to(dtype),
+                     D, h0))
     res = time_versions(torch, lambda i: ssm.selective_scan(*sets[i % copies]),
                         lambda i: ref.selective_scan(*sets[i % copies]),
                         None, copies, 20)
@@ -972,7 +1031,8 @@ def time_scan(torch, ref, ssm, dev, which: str, n: int = 16):
     res["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
     res["exp_ms"] = exps / MUFU_PER_S * 1e3
     res["route"] = ssm.scan_plan(s, n).route
-    res["work"] = f"{which}: Bz={bsz} S={s} Di={di} N={n}, from h0"
+    res["work"] = (f"{which}: Bz={bsz} S={s} Di={di} N={n}, from h0"
+                   f"{', bf16 x, dt, B, C' if dtype == torch.bfloat16 else ''}")
     print_times(f"selective_scan {res['work']} ({res['route']} route)",
                 "none: no single PyTorch call computes a selective scan",
                 res, nbytes, exps, "exp")
@@ -1035,14 +1095,16 @@ def recording(torch, ops):
         calls["flash_attention"].append((
             tuple(q.shape), tuple(k.shape), kw.get("causal", True),
             kw.get("scale"), kw.get("window"),
-            off.clone() if isinstance(off, torch.Tensor) else off))
+            off.clone() if isinstance(off, torch.Tensor) else off,
+            kw.get("p_dtype"), kw.get("out_dtype")))
         return fa.flash_attention(q, k, v, **kw)
 
-    def rec_scan(x, dt, A, B, C, D, h0=None, *, h_out=None):
+    def rec_scan(x, dt, A, B, C, D, h0=None, *, h_out=None, y_dtype=None):
         calls["selective_scan"].append((
             tuple(x.shape), A.shape[1], h0 is not None,
             h_out is not None and h_out is h0))
-        return ssm.selective_scan(x, dt, A, B, C, D, h0, h_out=h_out)
+        return ssm.selective_scan(x, dt, A, B, C, D, h0, h_out=h_out,
+                                  y_dtype=y_dtype)
 
     ops._qmm = _Recorder(qmm, {"qmatmul_f32": rec_qmm,
                                "qmatmul_f32_grouped": rec_grouped,
@@ -1057,7 +1119,7 @@ def recording(torch, ops):
     calls["flash_attention"] = [
         key[:5] + (tuple(key[5].reshape(-1).tolist())
                    if isinstance(key[5], torch.Tensor) else key[5],)
-        for key in calls["flash_attention"]]
+        + key[6:] for key in calls["flash_attention"]]
     for name in calls:
         calls[name] = list(dict.fromkeys(calls[name]))
 
@@ -1116,37 +1178,52 @@ def expert_weights(torch, ops, gen, dev, e: int, k: int, n: int, bits: int):
     return packed.reshape(e, n, -1), scale.reshape(e, n)
 
 
-def check_path(torch, ops, ref, qmm, fa, ssm, dev, arch: str, calls):
+def check_path(torch, ops, ref, qmm, fa, ssm, dev, arch: str, calls,
+               dtype=None):
     """Each LM kernel against its plain version at every distinct call of
     one serve (``recording``), on random inputs with the distributions the
     other checks use; the tolerances are theirs.  A scan call that wrote
-    h_last over h0 is also repeated so, and must equal the fresh output."""
+    h_last over h0 is also repeated so, and must equal the fresh output.
+    ``dtype=torch.bfloat16`` (a bf16 serve): B2's q, k, v, B3's x and B7's
+    x, dt, B, C in bf16, each kernel on its bf16 route, B2 held to
+    ``flash_bf16_bound`` at the call's P dtype and B7's y to SCAN_BF16_TOL
+    (B1 takes each call's own x dtype either way)."""
     gen = torch.Generator(device=dev).manual_seed(10)
     worst = dict.fromkeys(calls, 0.0)
+    share = {}           # B2 at bf16: the largest err / flash_bf16_bound
+    dtype = dtype or torch.float32
+    scan_y_tol = SCAN_TOL if dtype == torch.float32 else SCAN_BF16_TOL
 
     def hold(name, got, expect, tol, what):
         torch.cuda.synchronize()
+        got, expect = got.float(), expect.float()
         err = (got - expect).abs().max().item() if got.numel() else 0.0
         worst[name] = max(worst[name], err)
-        if not torch.allclose(got, expect, **tol):
+        if callable(tol):
+            ratio = ((got - expect).abs() / tol(expect)).max().item()
+            share[name] = max(share.get(name, 0.0), ratio)
+            ok = ratio <= 1
+        else:
+            ok = torch.allclose(got, expect, **tol)
+        if not ok:
             raise AssertionError(f"{arch} {name} {what}: max abs err {err}")
 
     weights = {}
-    for m, k, n, bits, dtype in calls["qmatmul_f32"]:
+    for m, k, n, bits, x_dtype in calls["qmatmul_f32"]:
         if (k, n, bits) not in weights:
             w = torch.randn((n, k), generator=gen, device=dev) * k ** -0.5
             weights[k, n, bits] = ops.prep_linear(w, bits)
             del w
         packed, scale = weights[k, n, bits]
-        x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+        x = torch.randn((m, k), generator=gen, device=dev).to(x_dtype)
         hold("qmatmul_f32",
              qmm.qmatmul_f32(x, packed, scale, bits=bits, k_orig=k),
              ref.qmatmul_f32(x, packed, scale, bits=bits, k_orig=k),
              QMM_TOL, f"M={m} K={k} N={n} bits={bits}")
     del weights
-    for e, c, k, n, bits, dtype in calls.get("qmatmul_f32_grouped", ()):
+    for e, c, k, n, bits, x_dtype in calls.get("qmatmul_f32_grouped", ()):
         packed, scale = expert_weights(torch, ops, gen, dev, e, k, n, bits)
-        x = torch.randn((e, c, k), generator=gen, device=dev).to(dtype)
+        x = torch.randn((e, c, k), generator=gen, device=dev).to(x_dtype)
         got = qmm.qmatmul_f32_grouped(x, packed, scale, bits=bits, k_orig=k)
         hold("qmatmul_f32_grouped", got,
              ref.qmatmul_f32_grouped(x, packed, scale, bits=bits, k_orig=k),
@@ -1157,7 +1234,7 @@ def check_path(torch, ops, ref, qmm, fa, ssm, dev, arch: str, calls):
         if (k, n, bits) not in wires:
             wires[k, n, bits] = wire_weight(torch, gen, dev, n, k, bits)
         packed, scales = wires[k, n, bits]
-        x = torch.randn((m, k), generator=gen, device=dev)
+        x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
         hold("qmatmul_f32_blockscale",
              qmm.qmatmul_f32_blockscale(x, packed, scales, bits=bits,
                                         k_orig=k),
@@ -1168,7 +1245,7 @@ def check_path(torch, ops, ref, qmm, fa, ssm, dev, arch: str, calls):
     for e, c, k, n, bits in calls.get("qmatmul_f32_blockscale_grouped", ()):
         packed, scales = expert_wire_weights(torch, ops, gen, dev, e, k, n,
                                              page_bits=bits)
-        x = torch.randn((e, c, k), generator=gen, device=dev)
+        x = torch.randn((e, c, k), generator=gen, device=dev).to(dtype)
         hold("qmatmul_f32_blockscale_grouped",
              qmm.qmatmul_f32_blockscale_grouped(x, packed, scales, bits=bits,
                                                 k_orig=k),
@@ -1176,22 +1253,28 @@ def check_path(torch, ops, ref, qmm, fa, ssm, dev, arch: str, calls):
                                                 k_orig=k),
              QMM_TOL, f"E={e} C={c} K={k} N={n} bits={bits}")
         del packed, scales, x
-    for qs, ks, causal, scale, window, offs in calls["flash_attention"]:
-        q = torch.randn(qs, generator=gen, device=dev)
-        k = torch.randn(ks, generator=gen, device=dev)
-        v = torch.randn(ks, generator=gen, device=dev)
+    for (qs, ks, causal, scale, window, offs, p_dtype,
+         out_dtype) in calls["flash_attention"]:
+        q = torch.randn(qs, generator=gen, device=dev).to(dtype)
+        k = torch.randn(ks, generator=gen, device=dev).to(dtype)
+        v = torch.randn(ks, generator=gen, device=dev).to(dtype)
         off = (torch.tensor(offs, dtype=torch.int32, device=dev)
                if isinstance(offs, tuple) else offs)
-        kw = dict(causal=causal, scale=scale, window=window, q_offset=off)
+        kw = dict(causal=causal, scale=scale, window=window, q_offset=off,
+                  p_dtype=p_dtype or torch.float32, out_dtype=out_dtype)
+        tol = FLASH_TOL if dtype == torch.float32 else (
+            lambda e, pr=p_dtype == torch.bfloat16: flash_bf16_bound(e, pr))
         hold("flash_attention", fa.flash_attention(q, k, v, **kw),
-             ref.flash_attention(q, k, v, **kw), FLASH_TOL,
-             f"q {qs} k {ks} window {window} q_offset {offs}")
+             ref.flash_attention(q, k, v, **kw), tol,
+             f"q {qs} k {ks} window {window} q_offset {offs} P {p_dtype}")
     for (bsz, s, di), n, has_h0, in_place in calls["selective_scan"]:
-        args = scan_inputs(torch, gen, dev, bsz, s, di, n, has_h0)
+        args = list(scan_inputs(torch, gen, dev, bsz, s, di, n, has_h0))
+        for i in (0, 1, 3, 4):                 # x, dt, B, C
+            args[i] = args[i].to(dtype)
         y, h = ssm.selective_scan(*args)
         y_ref, h_ref = ref.selective_scan(*args)
         what = f"({bsz}, {s}, {di}) N={n} h0={has_h0}"
-        hold("selective_scan", y, y_ref, SCAN_TOL, what + " y")
+        hold("selective_scan", y, y_ref, scan_y_tol, what + " y")
         hold("selective_scan", h, h_ref, SCAN_TOL, what + " h_last")
         if in_place:
             cache = args[-1].clone()
@@ -1208,7 +1291,8 @@ def check_path(torch, ops, ref, qmm, fa, ssm, dev, arch: str, calls):
         "qmatmul_f32", "qmatmul_f32_grouped", "qmatmul_f32_blockscale",
         "qmatmul_f32_blockscale_grouped", "flash_attention",
         "selective_scan"))
-    print(f"[check] {arch} path, kernels vs plain at each distinct call of "
+    print(f"[check] {arch} path{'' if dtype == torch.float32 else ' (bf16)'}"
+          f", kernels vs plain at each distinct call of "
           f"the serve: qmatmul_f32 {len(qc)} (M {span([c[0] for c in qc])}, "
           f"(K, N) {sorted({c[1:3] for c in qc})}), qmatmul_f32_grouped "
           f"{len(gc_)} ((E, C) {sorted({c[:2] for c in gc_})}, (K, N) "
@@ -1223,9 +1307,10 @@ def check_path(torch, ops, ref, qmm, fa, ssm, dev, arch: str, calls):
           f"{sorted({c[4] for c in fc if c[4] is not None})}), "
           f"selective_scan {len(sc)} ((Bz, S, Di) "
           f"{sorted({c[0] for c in sc})}, {sum(c[3] for c in sc)} written "
-          f"over h0); max abs err {json.dumps(worst)}")
+          f"over h0); max abs err {json.dumps(worst)}"
+          f"{'; err / bound ' + json.dumps(share) if share else ''}")
     return dict(cases={k: len(v) for k, v in calls.items()},
-                max_abs_err=worst)
+                max_abs_err=worst, share_of_bound=share)
 
 
 # the wrappers that also split their launches, with the attribute that
@@ -2995,12 +3080,14 @@ def check_grouped_blockscale(torch, ops, ref, qmm, dev) -> float:
 
 
 def time_grouped_blockscale(torch, ops, ref, qmm, dev, c: int,
-                            copies: int = 2):
+                            copies: int = 2, dtype=None):
     """One qwen2-moe-a2.7b layer's three expert linears as wire-served cold
     pages (int8 levels, per-32 scales: 584 MB a layer, > the 50 MB L2),
     grouped over its 60 experts at capacity ``c``, over ``copies`` layer
-    copies, beside the plain version and torch.bmm on pre-dequantised f32
-    weights."""
+    copies, beside the plain version and torch.bmm on pre-dequantised
+    weights; x and those weights in ``dtype`` (f32 or bf16)."""
+    dtype = dtype or torch.float32
+    elem, bf16 = dtype.itemsize, dtype == torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(14)
     layers = []
     for _ in range(copies):
@@ -3008,8 +3095,8 @@ def time_grouped_blockscale(torch, ops, ref, qmm, dev, c: int,
         for k, n in EXPERT_LINEARS.values():
             packed, scales = expert_wire_weights(torch, ops, gen, dev, 60, k,
                                                  n)
-            x = torch.randn((60, c, k), generator=gen, device=dev)
-            deq = ref.blockscale_weight(packed, scales, 8, k, 32)
+            x = torch.randn((60, c, k), generator=gen, device=dev).to(dtype)
+            deq = ref.blockscale_weight(packed, scales, 8, k, 32).to(dtype)
             layer.append((x, packed, scales, k, deq))
         layers.append(layer)
 
@@ -3026,17 +3113,18 @@ def time_grouped_blockscale(torch, ops, ref, qmm, dev, c: int,
             torch.bmm(x, deq.transpose(1, 2))
 
     res = time_versions(torch, kernel, plain, library, copies, 20)
-    nbytes = sum(x.numel() * 4 + p.numel() + s.numel() * 4
+    nbytes = sum(x.numel() * elem + p.numel() + s.numel() * 4
                  + x.shape[0] * c * p.shape[1] * 4
                  for x, p, s, _, _ in layers[0])
     flops = sum(2 * 60 * c * n * k for k, n in EXPERT_LINEARS.values())
-    route_bound(res, nbytes, flops, 2)
+    route_bound(res, nbytes, flops, 2, bf16)
+    x_dt = " bf16 x," if bf16 else ""
     res["work"] = (f"qmatmul_f32_blockscale_grouped, one layer's 3 expert "
-                   f"linears {list(EXPERT_LINEARS)}, E=60, C={c}, int8 wire "
-                   f"form")
+                   f"linears {list(EXPERT_LINEARS)}, E=60, C={c},{x_dt} int8 "
+                   f"wire form")
     print_times(f"qmatmul_f32_blockscale_grouped {MOE_ARCH} layer x3 E=60 "
-                f"C={c} int8 wire form", "torch.bmm on pre-dequantised f32",
-                res, nbytes, flops)
+                f"C={c}{x_dt} int8 wire form",
+                f"torch.bmm on pre-dequantised {dtype}", res, nbytes, flops)
     del layers
     torch.cuda.empty_cache()
     return res
@@ -4749,6 +4837,411 @@ def launcher_archs_phase(torch, m, dev):
     return out
 
 
+# phase 15: the bf16 contracts of B2 (flash_attention), B7 (selective_scan)
+# and B3 (qmatmul_f32_blockscale), with B1 at bf16 x, on the model path:
+# the configs replaced as the reference's dry-run replaces them
+# (launch/steps.py:207, cfg.replace(dtype="bfloat16")), plus a bf16
+# attention and scan compute dtype for hymba-1.5b
+BF16_ARCH = "hymba-1.5b"
+BF16_PAGED_ARCH = "qwen3-0.6b"
+BF16_HYBRID = dict(dtype="bfloat16", attn_dtype="bfloat16",
+                   scan_dtype="bfloat16")
+BF16_KERNELS = {BF16_ARCH: ("qmatmul_f32", "flash_attention",
+                            "selective_scan"),
+                BF16_PAGED_ARCH: ("qmatmul_f32", "qmatmul_f32_blockscale",
+                                  "flash_attention")}
+# the bf16 routes against their plain versions, which widen the same bf16
+# inputs to f32: B1 / B3 keep QMM_TOL (bf16 x is exact in TF32, one pass);
+# B7's y is rounded to bf16 by both after an f32 difference within
+# SCAN_TOL, which may move it one ulp (2^-8 of |y|), and its f32 h_last
+# keeps SCAN_TOL.  B2: see flash_bf16_bound
+SCAN_BF16_TOL = dict(rtol=2 ** -7, atol=5e-4)
+# B2's bf16 route against its plain version on the same bf16 inputs: both
+# round the output to bf16 after f32 values far closer than its ulp, so
+# they may land one ulp apart: 2^-7 of |o| at most, FLASH_BF16_ATOL where
+# o is near 0.  With P rounded to bf16 (a bf16 attn_dtype) the kernel rounds
+# each weight at its running max, the plain version at the row's final
+# max; each rounding moves a weight by up to 2^-9 of itself, so o by about
+# 2^-9 of the row's typical |o|: FLASH_BF16_ROW of the row's largest |o| on
+# top.  The kernel's arithmetic emulated in numpy at the serves' shapes
+# (tests/test_torch_flash_attention.py) comes to 0.53 of this bound at most
+FLASH_BF16_ATOL = 1e-5
+FLASH_BF16_ROW = 2 ** -7
+
+
+def flash_bf16_bound(expect, p_rounded: bool):
+    """The elementwise bound on |B2 bf16 - plain| (the comment above):
+    2^-7 of |expect| plus FLASH_BF16_ATOL, plus FLASH_BF16_ROW of each
+    row's largest |expect| where P is rounded to bf16."""
+    bound = expect.abs() * 2 ** -7 + FLASH_BF16_ATOL
+    if p_rounded:
+        bound = bound + FLASH_BF16_ROW * expect.abs().amax(-1, keepdim=True)
+    return bound
+# card vs CPU logits of a bf16 model's first BF16_CUT_LAYERS layers: both
+# round every activation to bf16, in another order of sums, so a rounding
+# may land one bf16 ulp (2^-8 of its magnitude) apart and carry through
+# the layers: BF16_CUT_ULPS ulps of the largest logit
+BF16_CUT_LAYERS = 4
+BF16_CUT_ULPS = 8
+# FLASH_CASES rows that phase 15 also holds at bf16, each with P rounded
+# and P f32-accurate: head dims 16, 32, 64 (rows that see no key), 128
+# (qwen3-0.6b's chunk) and 256 (gemma-7b's)
+BF16_FLASH_EXTRA = (7, 6, 5, 0, 12)
+# the bf16 routes timed, each at its serve's P: qwen3-0.6b's chunk at a bf16
+# dtype (attention computed in f32, P kept f32-accurate), hymba-1.5b's long
+# prompt at a bf16 attn_dtype (P rounded to bf16); B7 at hymba's prefill and
+# decode; B3 at one layer's cold linears of the paged serve at decode (M =
+# 4; phase 6's linears) and grouped at E = 60, C = 8; B1 at qwen3-0.6b's
+# layer at decode
+BF16_TIMED_FLASH = {"qwen3": "float32", "hymba": "bfloat16"}
+BF16_TIMED_SCAN = ("hymba_prefill", "hymba_decode")
+
+
+def widen_bf16(torch, tree):
+    """``tree`` with its bf16 leaves in f32 (the packed levels and their
+    f32 scales as they are): the same weights for the f32 config."""
+    if isinstance(tree, dict):
+        return {k: widen_bf16(torch, v) for k, v in tree.items()}
+    return tree.float() if tree.dtype == torch.bfloat16 else tree
+
+
+def check_bf16_extra(torch, ops, ref, qmm, fa, dev):
+    """B2's bf16 route at every head dim (FLASH_CASES rows BF16_FLASH_EXTRA)
+    with P rounded to bf16 and with P kept f32-accurate, and writing f32 (a
+    bf16 attention in an f32 model) at D = 128; the grouped B3 at bf16 x on
+    qwen2-moe-a2.7b's expert shapes (E = 60, C = 8): each against its plain
+    version, B2 to ``flash_bf16_bound``."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    bf = torch.bfloat16
+    worst = {"flash_attention": 0.0,
+             "qmatmul_f32_blockscale_grouped": 0.0}
+    share = {}
+
+    cases = [(FLASH_CASES[i], p, None) for i in BF16_FLASH_EXTRA
+             for p in (torch.float32, bf)]
+    cases.append((FLASH_CASES[0], bf, torch.float32))
+    for case, p_dtype, out_dtype in cases:
+        q, k, v, kw = flash_inputs(torch, gen, dev, case)
+        q, k, v = q.to(bf), k.to(bf), v.to(bf)
+        kw.update(out_dtype=out_dtype, p_dtype=p_dtype)
+        got = fa.flash_attention(q, k, v, **kw)
+        if got.dtype != (out_dtype or bf):
+            raise AssertionError(f"flash_attention bf16 wrote {got.dtype}")
+        expect = ref.flash_attention(q, k, v, **kw).float()
+        torch.cuda.synchronize()
+        err = (got.float() - expect).abs()
+        ratio = (err / flash_bf16_bound(expect, p_dtype == bf)).max().item()
+        key = f"D={case[5]} P={str(p_dtype)[6:]}"
+        share[key] = max(share.get(key, 0.0), ratio)
+        worst["flash_attention"] = max(worst["flash_attention"],
+                                       err.max().item())
+        if ratio > 1:
+            raise AssertionError(f"flash_attention bf16 case {case} P "
+                                 f"{p_dtype} out {out_dtype or bf}: max abs "
+                                 f"err {err.max().item()}, {ratio:.3f} of "
+                                 "the bound")
+        if not torch.equal(got, fa.flash_attention(q, k, v, **kw)):
+            raise AssertionError(f"flash_attention bf16 case {case}: two "
+                                 "calls differ")
+        del q, k, v, got, expect, err
+    for k, n in EXPERT_LINEARS.values():
+        packed, scales = expert_wire_weights(torch, ops, gen, dev, 60, k, n)
+        x = torch.randn((60, 8, k), generator=gen, device=dev).to(bf)
+        got = qmm.qmatmul_f32_blockscale_grouped(x, packed, scales, bits=8,
+                                                 k_orig=k)
+        expect = ref.qmatmul_f32_blockscale_grouped(x, packed, scales,
+                                                    bits=8, k_orig=k)
+        torch.cuda.synchronize()
+        err = (got - expect).abs().max().item()
+        worst["qmatmul_f32_blockscale_grouped"] = max(
+            worst["qmatmul_f32_blockscale_grouped"], err)
+        if not torch.allclose(got, expect, **QMM_TOL):
+            raise AssertionError(f"qmatmul_f32_blockscale_grouped bf16 E=60 "
+                                 f"C=8 K={k} N={n}: max abs err {err}")
+        del packed, scales, x, got, expect
+    torch.cuda.empty_cache()
+    print(f"[check] bf16 routes beyond the serves: flash_attention at D = "
+          f"{[FLASH_CASES[i][5] for i in BF16_FLASH_EXTRA]}, P rounded and "
+          f"P f32-accurate, and f32 out at D = 128 (flash_bf16_bound, two "
+          f"calls bit-equal; err / bound {json.dumps(share)}), "
+          f"qmatmul_f32_blockscale_grouped at bf16 x, E=60 C=8, "
+          f"{list(EXPERT_LINEARS)} (tolerance {QMM_TOL}); max abs err "
+          f"{json.dumps(worst)}")
+    return dict(worst, flash_share_of_bound=share)
+
+
+def time_bf16_activations(torch, F, cfg, dev):
+    """One layer's activations of ``cfg`` (hymba-1.5b) at bf16 as
+    ``models/layers.py`` computes them there, op by op in bf16 as XLA
+    rounds them (the mixer's silu of the conv output and of z, softplus of
+    dt, on (B, S, d_inner); the MLP's silu on (B, S, d_ff)), beside
+    PyTorch's fused ops on the same inputs (what the port runs at f32): at
+    decode (4 rows of one token) and over the 1,163-token prompt.  Eager
+    times (the serve enqueues them one by one) and graph-replay device
+    times, a layer."""
+    from repro_torch.models import layers
+    gen = torch.Generator(device=dev).manual_seed(20)
+    out = {}
+    for leg, (b, s) in (("decode", (4, 1)), ("prefill", (1, 1163))):
+        xs = [torch.randn((b, s, w), generator=gen, device=dev).to(
+            torch.bfloat16) for w in (cfg.d_inner,) * 3 + (cfg.d_ff,)]
+        zero = torch.zeros((), dtype=torch.bfloat16, device=dev)
+
+        def ours(i):
+            layers.silu(xs[0]), layers.softplus(xs[1])
+            layers.silu(xs[2]), layers.silu(xs[3])
+
+        def fused(i):
+            F.silu(xs[0]), torch.logaddexp(xs[1], zero)
+            F.silu(xs[2]), F.silu(xs[3])
+        res = dict(eager_ms=cuda_ms(torch, ours, 50),
+                   fused_eager_ms=cuda_ms(torch, fused, 50),
+                   ms=graph_ms(torch, ours, 1),
+                   fused_ms=graph_ms(torch, fused, 1),
+                   work=f"B={b} S={s} d_inner={cfg.d_inner} d_ff={cfg.d_ff}")
+        out[leg] = res
+        print(f"[time] bf16 activations of one {cfg.name} layer {leg} "
+              f"({res['work']}): op by op as XLA (models/layers.py) eager "
+              f"{res['eager_ms']:.4f} ms, device {res['ms']:.4f} ms; fused "
+              f"ops eager {res['fused_eager_ms']:.4f} ms, device "
+              f"{res['fused_ms']:.4f} ms; x {cfg.n_layers} layers the "
+              f"difference is "
+              f"{(res['eager_ms'] - res['fused_eager_ms']) * cfg.n_layers:.3f}"
+              f" ms eager a step")
+        del xs
+    return out
+
+
+def dtype_launches(counters):
+    """{wrapper: its launches_by_dtype}."""
+    return {name: dict(fn.launches_by_dtype) for name, fn in counters.items()}
+
+
+def bf16_serve_leg(torch, m, cfg, tree, dev, counters, *, max_len: int,
+                   long_prompt: bool, plan=None, make_tree32=None):
+    """Serve ``serve_lm``'s 8 greedy requests (16 new tokens) on the bf16
+    ``cfg`` through ``ServingEngine`` (with ``plan``, paged and wire-served
+    through ``attach_paging(wire_serve=True)``), every call noted; the
+    arch's kernels must launch, all at bf16.  Then the same requests on the
+    f32 config with the same weights (``make_tree32()``: the tree and plan
+    an f32 engine serves them from, resident), and the share of greedy
+    tokens that agree; and one ``launch/steps.make_prefill_step`` (2 rows
+    of 64 tokens) and ``make_decode_step`` call at each dtype, with the
+    largest logit difference at the first decode step; and the bf16
+    ``forward`` of the first BF16_CUT_LAYERS layers, card vs CPU."""
+    np, steps = m["np"], m["steps"]
+    arch = cfg.name
+    cfg32 = cfg.replace(dtype="float32", attn_dtype="float32",
+                        scan_dtype="float32")
+    rng, lens, prompts = serve_prompts(np, cfg.vocab_size, long_prompt)
+    wire = {}
+
+    def serve(c, t, p, paged):
+        eng = m["ServingEngine"](c, t, batch_slots=4, max_len=max_len,
+                                 plan=p)
+        if paged:
+            eng.attach_paging(wire_serve=True)
+        for i, pr in enumerate(prompts):
+            eng.submit(m["Request"](uid=i, prompt=pr, max_new_tokens=16))
+        done = []
+        while eng.pending:
+            done += eng.step()
+        torch.cuda.synchronize()
+        if len(done) != 8 or any(len(r.generated) != 16 for r in done):
+            raise AssertionError(f"{arch}: not every request got its 16 "
+                                 "tokens")
+        if any(not 0 <= t_ < cfg.vocab_size for r in done
+               for t_ in r.generated):
+            raise AssertionError(f"{arch}: token id out of the vocabulary")
+        if eng.pager is not None:
+            # the tree the serve multiplied: the cold groups in the wire
+            # form the pager copied, the pinned ones as they are
+            view = {n: m["PackedParam"](packed=q.packed.to(dev),
+                                        scale=q.scale.to(dev), bits=q.bits,
+                                        orig_shape=q.orig_shape)
+                    for n, q in eng.pager.template_view().items()}
+            wire["tree"] = m["paging"].thread_packed(
+                t, {**eng.pager.resident, **view})
+            eng.pager.close()
+        return {r.uid: list(r.generated) for r in done}
+
+    zero_launches(counters)
+    for fn in counters.values():
+        fn.launches_by_dtype.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with recording(torch, m["ops"]) as calls:
+        tokens = serve(cfg, tree, plan, plan is not None)
+    wall = time.perf_counter() - t0
+    launches, by_class = read_launches(counters)
+    by_dtype = dtype_launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+    for name in BF16_KERNELS[arch]:
+        n_bf = by_dtype[name].get("bfloat16", 0)
+        if n_bf <= 0 or n_bf != launches[name]:
+            raise AssertionError(f"{arch} bf16 serve: {name} launched "
+                                 f"{by_dtype[name]} by dtype, "
+                                 f"{launches[name]} in all; every launch "
+                                 "must take its bf16 route")
+    if "selective_scan" in BF16_KERNELS[arch] and set(
+            by_class.get("selective_scan", {})) != {"step", "chunked"}:
+        raise AssertionError(f"{arch} bf16 serve: scan routes "
+                             f"{by_class.get('selective_scan')}")
+    new = sum(len(v) for v in tokens.values())
+    print(f"[bf16] {arch} ({cfg.dtype} weights and activations, attention "
+          f"{cfg.attn_dtype}, scan {cfg.scan_dtype}"
+          f"{', paged, cold half wire-served' if plan is not None else ''}):"
+          f" 8 requests, prompts {lens.tolist()}, {new} new tokens, wall "
+          f"{wall:.3f} s ({new / wall:.2f} new tok/s), peak "
+          f"{peak / 2**30:.3f} GiB; launches {launches}, by dtype "
+          f"{json.dumps(by_dtype)}, by flash shape and scan route "
+          f"{json.dumps(by_class)}")
+    if any(c[-1] != torch.bfloat16 for c in calls["qmatmul_f32"]):
+        raise AssertionError(f"{arch}: B1 took f32 x in a bf16 serve")
+    path_check = check_path(torch, m["ops"], m["ref"], m["qmm"], m["fa"],
+                            m["ssm"], dev, arch, calls,
+                            dtype=torch.bfloat16)
+
+    tree32, plan32, step_tree, step_tree32, step_plan = make_tree32(
+        wire.pop("tree", None))
+    t0 = time.perf_counter()
+    tokens32 = serve(cfg32, tree32, plan32, False)
+    wall32 = time.perf_counter() - t0
+    agree = np.mean([a == b for u in tokens for a, b in zip(tokens[u],
+                                                           tokens32[u])])
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))).to(dev)
+    logits = {}
+    for c, t in ((cfg, step_tree), (cfg32, step_tree32)):
+        cache = m["tfm"].init_serve_cache(c, 2, cfg.n_meta_tokens + 72)
+        pre, cache = steps.make_prefill_step(c, step_plan)(t, toks, cache)
+        nxt = logits.get("next", pre[:, -1].float().argmax(-1,
+                                                           keepdim=True))
+        logits["next"] = nxt
+        dec, _ = steps.make_decode_step(c, step_plan)(
+            t, nxt, cache, cfg.n_meta_tokens + 64)
+        if not torch.isfinite(dec.float()).all():
+            raise AssertionError(f"{arch} {c.dtype} decode logits not finite")
+        logits[c.dtype] = (pre.float(), dec.float())
+    pre_err = (logits["bfloat16"][0] - logits["float32"][0]).abs().max()
+    dec_err = (logits["bfloat16"][1] - logits["float32"][1]).abs().max()
+    top = logits["float32"][1].abs().max().item()
+
+    # the bf16 forward of the first layers, card vs the CPU's plain path
+    depth = min(BF16_CUT_LAYERS, cfg.n_layers)
+    fcfg = cfg.replace(n_layers=depth)
+    ftree = dict(step_tree, layers=first_layers(step_tree["layers"], depth))
+    card = m["tfm"].forward(ftree, toks[:1], fcfg,
+                            engine=step_plan).float().cpu()
+    host = m["tfm"].forward(to_device(torch, ftree, "cpu"), toks[:1].cpu(),
+                            fcfg, engine=step_plan).float()
+    cut_err = (card - host).abs().max().item()
+    cut_tol = BF16_CUT_ULPS * host.abs().max().item() * 2.0 ** -8
+    if not (torch.isfinite(card).all() and card.shape == host.shape
+            and cut_err <= cut_tol):
+        raise AssertionError(f"{arch} bf16 card vs CPU logits, "
+                             f"{depth} layers: max abs err "
+                             f"{cut_err} (tolerance {cut_tol})")
+    cut_top1 = (card.argmax(-1) == host.argmax(-1)).float().mean().item()
+    print(f"[forward] {arch} bf16 ({depth} of {cfg.n_layers} "
+          f"layers) 64 tokens card vs CPU: max abs err {cut_err:.4e} "
+          f"(tolerance {BF16_CUT_ULPS} bf16 ulps of the largest logit, "
+          f"{cut_tol:.4e}), top-1 agreement {cut_top1:.4f}")
+    print(f"[bf16] {arch} beside the f32 serve of the same weights (f32 "
+          f"wall {wall32:.3f} s): greedy tokens agree at {agree:.4f} of "
+          f"{new} positions; make_prefill_step (2 x 64) then "
+          f"make_decode_step: largest logit difference bf16 vs f32 "
+          f"{pre_err.item():.4f} at prefill, {dec_err.item():.4f} at the "
+          f"first decode step (largest |logit| {top:.3f})")
+    return dict(launches=launches, launches_by_class=by_class,
+                launches_by_dtype=by_dtype, wall_s=wall, wall_f32_s=wall32,
+                peak_gib=peak / 2**30, prompt_tokens=int(lens.sum()),
+                token_agreement=float(agree),
+                first_decode_max_logit_diff=dec_err.item(),
+                prefill_max_logit_diff=pre_err.item(),
+                max_abs_logit=top, cut_logits_max_abs_err=cut_err,
+                cut_top1=cut_top1, path_check=path_check)
+
+
+def bf16_phase(torch, m, dev, get_config):
+    """(a) hymba-1.5b at full width and depth, 8 bits, dtype, attn_dtype
+    and scan_dtype bf16 (B1 at bf16 x, B2's bf16 route at D = 64 with the
+    window, B7's bf16 chunked and step routes); (b) qwen3-0.6b's phase-6
+    store (4 bits, the cold half wire-served as int8 pages) at a bf16
+    dtype (B3 at bf16 x, B2 at D = 128); each served beside the f32 config
+    of the same weights.  Then the bf16 routes at the shapes no serve
+    reaches, and each timed."""
+    tfm, pl = m["tfm"], m["placement"]
+    counters = {"qmatmul_f32": m["qmm"].qmatmul_f32,
+                "qmatmul_f32_blockscale": m["qmm"].qmatmul_f32_blockscale,
+                "flash_attention": m["fa"].flash_attention,
+                "selective_scan": m["ssm"].selective_scan}
+    out = {}
+    cfg = get_config(BF16_ARCH).replace(**BF16_HYBRID)
+    t0 = time.perf_counter()
+    tree = frozen_tree(torch, m, cfg, dev)
+    print(f"[bf16] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, drawn bf16 and packed at 8 bits as drawn "
+          f"(init_params(bits=8)) in {time.perf_counter() - t0:.2f} s")
+
+    def hybrid32(_wire):
+        t32 = widen_bf16(torch, tree)
+        return t32, None, tree, t32, None
+    out[BF16_ARCH] = bf16_serve_leg(torch, m, cfg, tree, dev, counters,
+                                    max_len=2048, long_prompt=True,
+                                    make_tree32=hybrid32)
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config(BF16_PAGED_ARCH).replace(dtype="bfloat16")
+    tree = frozen_tree(torch, m, cfg, dev, bits=4)
+    sizes = pl.packed_sizes(tree)
+    plan = pl.plan_for_budget(
+        sizes, sum(sizes.values()) // 2, sizes_bits=4,
+        hot=pl.Placement("l1mram", 4, "resident"),
+        cold=pl.Placement("l1mram", 4, "paged", 8))
+    cold_linears = [LAYER_LINEARS[n.split("/")[-1]]
+                    for n in plan.split_names(sorted(sizes))[1]]
+
+    def paged32(wire):
+        # the weights the paged serve multiplied, resident: the cold groups
+        # in their int8 wire form, no pager (as phase 6's resident leg)
+        wire_plan = plan.replace(wire_serve=True)
+        wire32 = widen_bf16(torch, wire)
+        return wire32, wire_plan, wire, wire32, wire_plan
+    out[BF16_PAGED_ARCH] = bf16_serve_leg(
+        torch, m, cfg, tree, dev, counters, max_len=512, long_prompt=False,
+        plan=plan, make_tree32=paged32)
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out["activations"] = time_bf16_activations(
+        torch, m["F"], get_config(BF16_ARCH), dev)
+    out["extra_check"] = check_bf16_extra(torch, m["ops"], m["ref"],
+                                          m["qmm"], m["fa"], dev)
+    bf = torch.bfloat16
+    out["times"] = times = {
+        f"flash_{which}": time_flash(torch, m["F"], m["ref"], m["fa"], dev,
+                                     which, dtype=bf,
+                                     p_dtype=getattr(torch, p_dtype))
+        for which, p_dtype in BF16_TIMED_FLASH.items()}
+    for which in BF16_TIMED_SCAN:
+        times[f"scan_{which}"] = time_scan(torch, m["ref"], m["ssm"], dev,
+                                           which, dtype=bf)
+    times["blockscale_decode"] = time_blockscale(
+        torch, m["packing"], m["ref"], m["qmm"], dev, 4, cold_linears,
+        dtype=bf)
+    times["blockscale_grouped"] = time_grouped_blockscale(
+        torch, m["ops"], m["ref"], m["qmm"], dev, 8, copies=1, dtype=bf)
+    times["qmatmul_decode"] = time_qmatmul(
+        torch, m["packing"], m["ops"], m["ref"], m["qmm"], dev, 4, dtype=bf)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_clock(phase_s):
     """``mark(name)`` closes the running phase (its wall seconds into
     ``phase_s``) and starts ``name``'s."""
@@ -5058,7 +5551,15 @@ def main() -> int:
         "qmatmul_f32_blockscale_grouped"])
 
     mark("15")
-    # 15. result lines
+    # 15. the bf16 contracts on the model path: hymba-1.5b with dtype,
+    # attn_dtype and scan_dtype bf16, qwen3-0.6b paged at a bf16 dtype
+    gc.collect()
+    torch.cuda.empty_cache()
+    mods.update(F=F, paging=paging, PackedParam=PackedParam)
+    p15 = bf16_phase(torch, mods, dev, get_config)
+
+    mark("16")
+    # 16. result lines
     by_path = {name: {arch: s["launches"][name] for arch, s in served.items()
                       if name in s["launches"]}
                for name in counters}
@@ -5184,6 +5685,40 @@ def main() -> int:
         library_ms=t["library_ms"], eager_ms=t["eager_ms"], work=t["work"],
         bytes_ms=t["bytes_ms"], tf32_ops_ms=t["tf32_ops_ms"],
         bound_f32_ms=t["bound_f32_ms"], prefill_C24=t_gbs[24]))
+    # the bf16 routes (phase 15): launches of its two serves, errors at
+    # every distinct call and beyond, times
+    legs = (BF16_ARCH, BF16_PAGED_ARCH)
+    t15 = p15["times"]
+    for name, source, replaces, t, more in (
+            ("flash_attention", "flash_attention.cu", "flash_attention.py:71",
+             t15["flash_qwen3"], dict(hymba=t15["flash_hymba"])),
+            ("selective_scan", "ssm_scan.cu", "ssm_scan.py:64",
+             t15["scan_hymba_prefill"],
+             dict(hymba_decode=t15["scan_hymba_decode"],
+                  library_note="no single PyTorch call computes a "
+                  "selective scan")),
+            ("qmatmul_f32_blockscale", "qmatmul_blockscale.cu",
+             "qmatmul.py:170", t15["blockscale_decode"],
+             dict(grouped_E60_C8=t15["blockscale_grouped"],
+                  grouped_max_abs_err=p15["extra_check"][
+                      "qmatmul_f32_blockscale_grouped"])),
+            ("qmatmul_f32", "qmatmul_f32.cu", "qmatmul.py:132",
+             t15["qmatmul_decode"], {})):
+        by_leg = {f"{a} bf16": p15[a]["launches_by_dtype"].get(
+            name, {}).get("bfloat16", 0) for a in legs}
+        err = max(p15[a]["path_check"]["max_abs_err"].get(name, 0.0)
+                  for a in legs)
+        if name == "flash_attention":
+            err = max(err, p15["extra_check"]["flash_attention"])
+        kernels.append(dict(
+            name=f"{name}[bf16]", route="cuda", dtype="bfloat16",
+            source=f"src/repro_torch/csrc/{source}",
+            replaces=f"src/repro/kernels/{replaces}",
+            launches=sum(by_leg.values()), launches_by_path=by_leg,
+            max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"], eager_ms=t["eager_ms"],
+            work=t["work"], bytes_ms=t["bytes_ms"], **more))
     print(f"[phases] wall seconds by phase (host clock): "
           f"{json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     print(json.dumps({"serve": served}))
@@ -5195,6 +5730,8 @@ def main() -> int:
     print(json.dumps({"phase14": {k: v for k, v in p14.items()
                                   if k != "path_check"},
                       "phase14_path_check": p14["path_check"]}))
+    print(json.dumps({"bf16": {k: v for k, v in p15.items()
+                               if k != "times"}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

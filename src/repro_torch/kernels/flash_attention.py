@@ -8,10 +8,17 @@ kernel's folded ``(B*H, S, D)`` interface is the case Hq == Hkv with
 ``q_offset=None``.
 
 The wrapper launches ``csrc/flash_attention.cu`` for CUDA tensors and raises
-on anything it does not take.  For CPU tensors it computes the plain PyTorch
-version (``kernels/ref.py``).  ``flash_attention.launches`` counts kernel
-launches, and ``flash_attention.launches_by_shape`` the same launches by
-(Sq, Sk).
+on anything it does not take.  It takes float32 or bfloat16 q, k and v (one
+dtype for all three) and writes the output in q's dtype, as the Pallas
+kernel does: bf16 inputs launch the kernel's bf16 route (``flash_fwd_bf16``,
+bf16 MMAs with f32 accumulation), never the f32 one.  That route rounds P
+to bf16 before PV where the caller asks (``p_dtype=torch.bfloat16``, the
+reference's bf16 ``attn_dtype``), and else keeps it to f32 accuracy as a
+bf16 hi and lo part, as the Pallas kernel keeps p in f32.
+For CPU tensors it computes the plain PyTorch version (``kernels/ref.py``).
+``flash_attention.launches`` counts kernel launches,
+``flash_attention.launches_by_shape`` the same launches by (Sq, Sk) and
+``flash_attention.launches_by_dtype`` by q's dtype.
 
 The launch plan is pure Python, here, so that the CPU tests hold it: a block
 owns ``16 * WARPS`` (query, head) rows of one (batch row, kv head), query-
@@ -32,7 +39,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.launch import forward_only, sm_count, tile_counters
+from repro_torch.kernels.launch import (count_dtype, forward_only, sm_count,
+                                        tile_counters)
 
 # head dims the kernel is instantiated for, each with its keys a kv tile
 # (csrc/flash_attention.cu instantiates the same pairs); 4 warps a block of
@@ -143,7 +151,7 @@ def slice_tiles(plan: FlashPlan, lo: int, hi: int, split: int) -> range:
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = build.library("flash_attention").flash_attention_launch
-    fn.argtypes = ([_c_ptr] * 7 + [_c_int] * 6 + [ctypes.c_float]
+    fn.argtypes = ([_c_ptr] * 7 + [_c_int] * 9 + [ctypes.c_float]
                    + [_c_int] * 6 + [_c_ptr])
     fn.restype = _c_int
     return fn
@@ -153,8 +161,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
                     window: Optional[int] = None,
                     q_offset: ref.QOffset = None,
-                    plan: Optional[FlashPlan] = None) -> torch.Tensor:
-    """q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D) f32 -> (B, Hq, Sq, D) f32.
+                    plan: Optional[FlashPlan] = None,
+                    out_dtype: Optional[torch.dtype] = None,
+                    p_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D) -> (B, Hq, Sq, D) in q's dtype;
+    all three float32, or all three bfloat16 (the bf16 route).  The bf16
+    route also writes f32 (``out_dtype=torch.float32``: a model whose
+    activations are f32 but whose attention computes in bf16), and rounds
+    the probabilities to bf16 before PV at ``p_dtype=torch.bfloat16`` (the
+    reference's bf16 ``attn_dtype``); at f32 they stay f32-accurate.
 
     Also takes the folded (B*H, S, D) form.  ``q_offset`` (scalar or (B,))
     is the first query's position in the kv sequence; ``None`` means
@@ -166,18 +181,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.ndim == 3:
         return flash_attention(q[:, None], k[:, None], v[:, None],
                                causal=causal, scale=scale, window=window,
-                               q_offset=q_offset, plan=plan)[:, 0]
+                               q_offset=q_offset, plan=plan,
+                               out_dtype=out_dtype, p_dtype=p_dtype)[:, 0]
+    out_dtype = out_dtype or q.dtype
+    if out_dtype not in (q.dtype, torch.float32):
+        raise TypeError(f"flash_attention writes q's dtype or float32, not "
+                        f"{out_dtype}")
     devices = {q.device.type, k.device.type, v.device.type}
     if devices == {"cpu"}:
         return ref.flash_attention(q, k, v, causal=causal, scale=scale,
-                                   window=window, q_offset=q_offset)
+                                   window=window, q_offset=q_offset,
+                                   out_dtype=out_dtype, p_dtype=p_dtype)
     forward_only("flash_attention", q, k, v)
     if devices != {"cuda"} or len({q.device, k.device, v.device}) != 1:
         raise ValueError("flash_attention needs q, k and v on one CUDA "
                          f"device (or all on the CPU), got {q.device}, "
                          f"{k.device}, {v.device}")
-    if {q.dtype, k.dtype, v.dtype} != {torch.float32}:
-        raise TypeError("flash_attention takes float32 q, k and v")
+    dtypes = {q.dtype, k.dtype, v.dtype}
+    if dtypes not in ({torch.float32}, {torch.bfloat16}):
+        raise TypeError("flash_attention takes float32 or bfloat16 q, k and "
+                        f"v of one dtype, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if p_dtype not in (torch.float32, torch.bfloat16) or (
+            p_dtype == torch.bfloat16 and q.dtype != torch.bfloat16):
+        raise TypeError(f"flash_attention rounds P to bf16 on its bf16 route "
+                        f"only, got p_dtype {p_dtype} for {q.dtype} q")
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"need q (B,Hq,Sq,D) and k, v (B,Hkv,Sk,D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -198,7 +226,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "their storage must be 16-byte aligned")
     off = ref.query_offsets(q_offset, b, sq, sk, q.device)
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=out_dtype)
     if out.numel() == 0:
         return out
     if sk == 0:
@@ -217,7 +245,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      off.data_ptr(), out.data_ptr(),
                      None if part is None else part.data_ptr(),
                      None if counters is None else counters.data_ptr(),
-                     b, hq, hkv, sq, sk, d, float(scale), int(causal),
+                     b, hq, hkv, sq, sk, d, int(q.dtype == torch.bfloat16),
+                     int(out_dtype == torch.float32),
+                     int(p_dtype == torch.bfloat16), float(scale),
+                     int(causal),
                      -1 if window is None else int(window),
                      plan.block_keys, plan.row_tiles, plan.split_tiles,
                      plan.splits,
@@ -229,8 +260,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     shape = f"Sq={sq} Sk={sk}"
     by_shape = flash_attention.launches_by_shape
     by_shape[shape] = by_shape.get(shape, 0) + 1
+    count_dtype(flash_attention, q)
     return out
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_shape = {}
+flash_attention.launches_by_dtype = {}

@@ -30,6 +30,14 @@ def forward_only(name: str, *tensors: torch.Tensor) -> None:
             "torch.no_grad()")
 
 
+def count_dtype(wrapper, x: torch.Tensor) -> None:
+    """One more launch of ``wrapper`` at x's dtype, in its
+    ``launches_by_dtype`` ({"float32": n, "bfloat16": n})."""
+    by = wrapper.launches_by_dtype
+    dtype = str(x.dtype).removeprefix("torch.")
+    by[dtype] = by.get(dtype, 0) + 1
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count

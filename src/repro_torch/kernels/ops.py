@@ -141,20 +141,41 @@ def neureka_conv2d(x: torch.Tensor, packed: torch.Tensor, mult: torch.Tensor,
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
                    h0: Optional[torch.Tensor] = None, *,
-                   h_out: Optional[torch.Tensor] = None
+                   h_out: Optional[torch.Tensor] = None,
+                   y_dtype: Optional[torch.dtype] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mamba-1 selective scan -> (y f32, h_last), h_last written into
-    ``h_out`` when given; see
+    """Mamba-1 selective scan -> (y in x's dtype or ``y_dtype``, h_last),
+    h_last written into ``h_out`` when given; see
     :func:`repro_torch.kernels.ssm_scan.selective_scan`."""
-    return _ssm.selective_scan(x, dt, A, B, C, D, h0, h_out=h_out)
+    return _ssm.selective_scan(x, dt, A, B, C, D, h0, h_out=h_out,
+                               y_dtype=y_dtype)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, scale: Optional[float] = None,
               window: Optional[int] = None,
-              q_offset: QOffset = None) -> torch.Tensor:
+              q_offset: QOffset = None,
+              compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(B, Hq, Sq, D) x (B, Hkv, Sk, D) attention, or the folded (B*H, S, D)
-    form; see :func:`repro_torch.kernels.flash_attention.flash_attention`."""
+    form, out in q's dtype; see
+    :func:`repro_torch.kernels.flash_attention.flash_attention`.
+
+    ``compute_dtype`` (the config's ``attn_dtype``) other than f32 rounds
+    where the reference's ``chunked_attention`` rounds: q is scaled in f32
+    and rounded to it, k and v are rounded to it, and so is P before PV
+    (the kernel's bf16 route and the plain version alike); the output comes
+    back in q's dtype, unrounded where that is f32.
+    At f32 q, k and v go to the kernel as they are: bf16 ones (a bf16
+    ``dtype``) take its bf16 route with the scale applied to the f32
+    scores and P kept f32-accurate, as the reference keeps p in f32."""
+    if compute_dtype != torch.float32:
+        d = q.shape[-1]
+        scale = scale if scale is not None else 1.0 / (d ** 0.5)
+        return _fa.flash_attention(
+            (q.to(torch.float32) * scale).to(compute_dtype).contiguous(),
+            k.to(compute_dtype).contiguous(), v.to(compute_dtype).contiguous(),
+            causal=causal, scale=1.0, window=window, q_offset=q_offset,
+            out_dtype=q.dtype, p_dtype=compute_dtype)
     return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                causal=causal, scale=scale, window=window,
                                q_offset=q_offset)

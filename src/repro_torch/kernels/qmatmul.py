@@ -18,8 +18,9 @@ Ports the three kernels of ``repro/kernels/qmatmul.py``:
   tile and K split that ``int8_plan`` chooses per shape.
 
 Packed 2/4/8-bit weights stay packed in device memory; the kernels unpack
-them in registers next to the multiply-adds.  The two f32 kernels run on the
-tensor cores at f32 accuracy (x split into TF32 hi and lo parts): M <= 16
+them in registers next to the multiply-adds.  The two f32 kernels take float32
+or bfloat16 x and run on the tensor cores at f32 accuracy (f32 x split into
+TF32 hi and lo parts, bf16 x exact in TF32 in one part): M <= 16
 (decode) through the weight-streaming loop of ``csrc/qmm_decode.cuh``, larger
 M through the main loop of ``csrc/qmm_tc.cuh``; the shape decisions around
 them (how far to split K, which copy width the rows allow) are made here, by
@@ -27,7 +28,8 @@ them (how far to split K, which copy width the rows allow) are made here, by
 built library reports (``tc_geometry``).  Each wrapper launches
 its kernel for CUDA tensors and raises on anything it does not take.  For
 CPU tensors it computes the plain PyTorch version (``kernels/ref.py``).
-Each wrapper's ``launches`` attribute counts its kernel launches.
+Each wrapper's ``launches`` attribute counts its kernel launches, and the
+float wrappers' ``launches_by_dtype`` the same launches by x's dtype.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.launch import forward_only, sm_count, tile_counters
+from repro_torch.kernels.launch import (count_dtype, forward_only, sm_count,
+                                        tile_counters)
 
 _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -200,7 +203,7 @@ def _launcher():
 @functools.lru_cache(maxsize=None)
 def _launcher_blockscale():
     fn = build.library("qmatmul_blockscale").qmatmul_blockscale_launch
-    fn.argtypes = [_c_ptr] * 6 + [_c_int] * 9 + [_c_ptr]
+    fn.argtypes = [_c_ptr, _c_int] + [_c_ptr] * 5 + [_c_int] * 9 + [_c_ptr]
     fn.restype = _c_int
     return fn
 
@@ -258,6 +261,7 @@ def _qmm_f32(wrapper, x: torch.Tensor, packed: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     wrapper.launches += 1
+    count_dtype(wrapper, x)
     return out
 
 
@@ -274,6 +278,7 @@ def qmatmul_f32(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
 
 
 qmatmul_f32.launches = 0
+qmatmul_f32.launches_by_dtype = {}
 
 
 def qmatmul_f32_grouped(x: torch.Tensor, packed: torch.Tensor,
@@ -295,6 +300,7 @@ def qmatmul_f32_grouped(x: torch.Tensor, packed: torch.Tensor,
 
 
 qmatmul_f32_grouped.launches = 0
+qmatmul_f32_grouped.launches_by_dtype = {}
 
 
 def _qmm_blockscale(wrapper, x: torch.Tensor, packed: torch.Tensor,
@@ -316,11 +322,11 @@ def _qmm_blockscale(wrapper, x: torch.Tensor, packed: torch.Tensor,
         raise ValueError(f"bits must be 2, 4 or 8, got {bits}")
     if block != 32:
         raise ValueError(f"the blockscale kernel takes block=32, got {block}")
-    if (x.dtype, packed.dtype, scales.dtype) != (
-            torch.float32, torch.uint8, torch.float32):
-        raise TypeError(f"{name} takes float32 x, uint8 packed and float32 "
-                        f"scales, got {x.dtype}, {packed.dtype}, "
-                        f"{scales.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if (packed.dtype, scales.dtype) != (torch.uint8, torch.float32):
+        raise TypeError(f"{name} takes uint8 packed and float32 scales, got "
+                        f"{packed.dtype} and {scales.dtype}")
     e, m, k = x.shape
     _e, n, kp = packed.shape
     nblk = -(-k // block)
@@ -340,21 +346,23 @@ def _qmm_blockscale(wrapper, x: torch.Tensor, packed: torch.Tensor,
     aligned, splits, part, counters = _tc_scratch("qmatmul_blockscale", x,
                                                   packed, bits, n, e)
     rc = _launcher_blockscale()(
-        x.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        x.data_ptr(), int(x.dtype == torch.bfloat16), packed.data_ptr(),
+        scales.data_ptr(), out.data_ptr(),
         _ptr(part), _ptr(counters), e, m, n, k, kp, nblk, bits, aligned,
         splits, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     wrapper.launches += 1
+    count_dtype(wrapper, x)
     return out
 
 
 def qmatmul_f32_blockscale(x: torch.Tensor, packed: torch.Tensor,
                            scales: torch.Tensor, *, bits: int, k_orig: int,
                            block: int = 32) -> torch.Tensor:
-    """x (M, K) f32 @ packed (N, ceil(K/f)) uint8 with per-(row, block)
-    scales (N, ceil(K/block)) f32 -> (M, N) f32, f = 8 // bits.  The kernel
-    takes ``block == 32`` (``quantize.PAGE_SCALE_BLOCK``) only."""
+    """x (M, K) f32/bf16 @ packed (N, ceil(K/f)) uint8 with per-(row,
+    block) scales (N, ceil(K/block)) f32 -> (M, N) f32, f = 8 // bits.  The
+    kernel takes ``block == 32`` (``quantize.PAGE_SCALE_BLOCK``) only."""
     if {x.device.type, packed.device.type, scales.device.type} == {"cpu"}:
         return ref.qmatmul_f32_blockscale(x, packed, scales, bits=bits,
                                           k_orig=k_orig, block=block)
@@ -366,13 +374,14 @@ def qmatmul_f32_blockscale(x: torch.Tensor, packed: torch.Tensor,
 
 
 qmatmul_f32_blockscale.launches = 0
+qmatmul_f32_blockscale.launches_by_dtype = {}
 
 
 def qmatmul_f32_blockscale_grouped(x: torch.Tensor, packed: torch.Tensor,
                                    scales: torch.Tensor, *, bits: int,
                                    k_orig: int, block: int = 32
                                    ) -> torch.Tensor:
-    """B3 for each of E experts in one launch: x (E, C, K) f32 @ packed
+    """B3 for each of E experts in one launch: x (E, C, K) f32/bf16 @ packed
     (E, N, ceil(K/f)) uint8 with per-(row, block) scales (E, N,
     ceil(K/block)) f32 -> (E, C, N) f32, expert e's rows against expert e's
     wire-form weight (the reference vmaps ``qmatmul_f32_blockscale`` over
@@ -390,6 +399,7 @@ def qmatmul_f32_blockscale_grouped(x: torch.Tensor, packed: torch.Tensor,
 
 
 qmatmul_f32_blockscale_grouped.launches = 0
+qmatmul_f32_blockscale_grouped.launches_by_dtype = {}
 
 
 class Int8Plan(NamedTuple):

@@ -179,15 +179,18 @@ def ssm_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
-                   h0: Optional[torch.Tensor] = None):
+                   h0: Optional[torch.Tensor] = None,
+                   y_dtype: Optional[torch.dtype] = None):
     """Mamba-1 selective scan, one :func:`ssm_decode_step` after another (the
     semantics of ``repro/models/ssm.py::selective_scan``), so the serving
     decode (S = 1) is exactly one decode step.
 
     x, dt: (Bz, S, Di); A: (Di, N); B, C: (Bz, S, N); D: (Di,); h0: (Bz, Di,
-    N) or None for a zero state.  Returns (y (Bz, S, Di) f32, h_last (Bz,
-    Di, N) f32).  A step with dt = 0 multiplies h by exp(0) = 1 and adds 0,
-    so it leaves h unchanged.
+    N) or None for a zero state.  Returns (y (Bz, S, Di) in x's dtype,
+    h_last (Bz, Di, N) f32): bf16 inputs are widened to f32, the scan runs
+    in f32 and y is cast to x's dtype, as the TPU kernel writes it (or to
+    ``y_dtype``).  A step with dt = 0 multiplies h by exp(0) = 1 and adds
+    0, so it leaves h unchanged.
     """
     bsz, s, di = x.shape
     n = A.shape[1]
@@ -197,7 +200,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     for t in range(s):
         y[:, t], h = ssm_decode_step(x[:, t], dt[:, t], A, B[:, t], C[:, t],
                                      D, h)
-    return y, h
+    return y.to(y_dtype or x.dtype), h
 
 
 def query_offsets(q_offset: QOffset, batch: int, sq: int, sk: int,
@@ -223,17 +226,25 @@ def query_offsets(q_offset: QOffset, batch: int, sq: int, sk: int,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
                     window: Optional[int] = None,
-                    q_offset: QOffset = None) -> torch.Tensor:
+                    q_offset: QOffset = None,
+                    out_dtype: Optional[torch.dtype] = None,
+                    p_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Masked softmax attention with the GQA fold.
 
     q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) with Hq % Hkv == 0, or the
     reference kernel's folded (B*H, S, D) form.  ``q_offset`` is a scalar or
-    a (B,) vector of the first query's position per batch row.
+    a (B,) vector of the first query's position per batch row.  bf16 inputs
+    are widened to f32 and the output cast to q's dtype, as the TPU kernel
+    does, or to ``out_dtype``.  ``p_dtype`` other than f32 rounds the
+    probabilities to it before PV, as the reference's ``chunked_attention``
+    at that compute dtype rounds them (over one block of keys): p = exp(s -
+    max s) rounded, l the sum of the unrounded p, out = (p V) / l.
     """
     if q.ndim == 3:
         return flash_attention(q[:, None], k[:, None], v[:, None],
                                causal=causal, scale=scale, window=window,
-                               q_offset=q_offset)[:, 0]
+                               q_offset=q_offset, out_dtype=out_dtype,
+                               p_dtype=p_dtype)[:, 0]
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
@@ -249,6 +260,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window is not None:
         mask &= kpos[None, None] > qpos[..., None] - window
     logits = logits.masked_fill(~mask[:, None, None], NEG_INF)
-    p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32))
-    return out.reshape(b, hq, sq, d).to(q.dtype)
+    if p_dtype == torch.float32:
+        p = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32))
+    else:
+        p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        out = torch.einsum("bhgqk,bhkd->bhgqd",
+                           p.to(p_dtype).to(torch.float32),
+                           v.to(torch.float32))
+        out = out / torch.clamp(p.sum(dim=-1), min=1e-30)[..., None]
+    return out.reshape(b, hq, sq, d).to(out_dtype or q.dtype)

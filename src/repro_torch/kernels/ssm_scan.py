@@ -9,11 +9,13 @@ jnp chunked scan of ``repro/models/ssm.py`` instead.  The port wires the
 kernel into the SSM mixer's prefill, ``forward`` and decode (at S = 1).
 
 The wrapper launches ``csrc/ssm_scan.cu`` for CUDA tensors and raises on
-anything it does not take: the inputs must be float32 (the TPU kernel's
-bf16 input is later work, ROADMAP queue B item 1).  For CPU tensors it
-computes the plain PyTorch version (``kernels/ref.py::selective_scan``).
-``selective_scan.launches`` counts kernel launches, and
-``selective_scan.launches_by_route`` the same launches by route.
+anything it does not take.  x, dt, B and C are float32, or all four
+bfloat16 (the TPU kernel's bf16 contract: the kernel reads them as bf16,
+computes in f32 and writes y in x's dtype); A, D, h0 and h_out are float32.
+For CPU tensors it computes the plain PyTorch version
+(``kernels/ref.py::selective_scan``).  ``selective_scan.launches`` counts
+kernel launches, ``selective_scan.launches_by_route`` the same launches by
+route and ``selective_scan.launches_by_dtype`` by x's dtype.
 
 The kernel has two routes, chosen by S (``scan_plan``, pure Python so that
 the CPU tests hold it): ``step`` for decode (S <= ``STEP_MAX_S``), one pass
@@ -31,7 +33,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.launch import forward_only
+from repro_torch.kernels.launch import count_dtype, forward_only
 
 # state sizes the kernel is instantiated for
 N_STATES = (4, 8, 16, 32)
@@ -84,7 +86,7 @@ _c_int = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = build.library("ssm_scan").ssm_scan_launch
-    fn.argtypes = [_c_ptr] * 9 + [_c_int] * 9 + [_c_ptr]
+    fn.argtypes = [_c_ptr] * 9 + [_c_int] * 11 + [_c_ptr]
     fn.restype = _c_int
     return fn
 
@@ -93,10 +95,14 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
                    h0: Optional[torch.Tensor] = None, *,
                    h_out: Optional[torch.Tensor] = None,
-                   plan: Optional[ScanPlan] = None
+                   plan: Optional[ScanPlan] = None,
+                   y_dtype: Optional[torch.dtype] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x, dt (Bz, S, Di); A (Di, N); B, C (Bz, S, N); D (Di,); h0 (Bz, Di, N)
-    or None -> (y (Bz, S, Di) f32, h_last (Bz, Di, N) f32).
+    or None -> (y (Bz, S, Di) in x's dtype, h_last (Bz, Di, N) f32).  x,
+    dt, B and C are all float32 or all bfloat16; A, D, h0 and h_out float32.
+    ``y_dtype=torch.float32`` writes bf16 inputs' y in f32 (a model whose
+    activations are f32 but whose scan reads bf16).
 
     B and C may be strided views (slices of the ``x_proj`` output); they are
     made contiguous here.  The other inputs must be contiguous.  ``h_out``
@@ -104,9 +110,14 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     and is returned as it; without it h_last is a new tensor.  ``plan``
     overrides ``scan_plan``'s (for sweeps).
     """
+    y_dtype = y_dtype or x.dtype
+    if y_dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"selective_scan writes y in x's dtype or float32, "
+                        f"not {y_dtype}")
     tensors = [x, dt, A, B, C, D] + [t for t in (h0, h_out) if t is not None]
     if {t.device.type for t in tensors} == {"cpu"}:
-        y, h_last = ref.selective_scan(x, dt, A, B, C, D, h0)
+        y, h_last = ref.selective_scan(x, dt, A, B, C, D, h0,
+                                       y_dtype=y_dtype)
         return y, (h_last if h_out is None else h_out.copy_(h_last))
     forward_only("selective_scan", *tensors)
     if ({t.device.type for t in tensors} != {"cuda"}
@@ -114,9 +125,11 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError("selective_scan needs every input on one CUDA "
                          "device (or all on the CPU), got "
                          f"{[str(t.device) for t in tensors]}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("selective_scan takes float32 inputs (bf16 input is "
-                        "not ported yet, ROADMAP queue B item 1), got "
+    streamed = (x, dt, B, C)
+    if ({t.dtype for t in streamed} not in ({torch.float32}, {torch.bfloat16})
+            or any(t.dtype != torch.float32 for t in [A, D] + tensors[6:])):
+        raise TypeError("selective_scan takes x, dt, B and C all float32 or "
+                        "all bfloat16, and float32 A, D, h0 and h_out, got "
                         f"{[str(t.dtype) for t in tensors]}")
     if x.ndim != 3 or dt.shape != x.shape or A.ndim != 2:
         raise ValueError(f"need x and dt (Bz, S, Di) and A (Di, N), got "
@@ -144,17 +157,20 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     B, C = B.contiguous(), C.contiguous()
     A, B, C, h0 = (t if t is None or t.data_ptr() % 16 == 0 else t.clone()
                    for t in (A, B, C, h0))
-    y = torch.empty((bsz, s, di), dtype=torch.float32, device=x.device)
+    y = torch.empty((bsz, s, di), dtype=y_dtype, device=x.device)
     h_last = (torch.empty((bsz, di, n), dtype=torch.float32, device=x.device)
               if h_out is None else h_out)
     if bsz == 0 or di == 0:
         return y, h_last
     plan = plan or scan_plan(s, n)
-    vec = di % 4 == 0 and (x.data_ptr() | dt.data_ptr()) % 16 == 0
+    bf16 = x.dtype == torch.bfloat16
+    vec = (di * x.element_size() % 16 == 0
+           and (x.data_ptr() | dt.data_ptr()) % 16 == 0)
     rc = _launcher()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                      C.data_ptr(), D.data_ptr(),
                      None if h0 is None else h0.data_ptr(),
                      y.data_ptr(), h_last.data_ptr(), bsz, s, di, n,
+                     int(bf16), int(y_dtype == torch.float32),
                      0 if plan.route == "step" else 1, plan.lanes,
                      plan.block, plan.chunk, int(vec),
                      torch.cuda.current_stream(x.device).cuda_stream)
@@ -164,11 +180,13 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     selective_scan.launches += 1
     by_route = selective_scan.launches_by_route
     by_route[plan.route] = by_route.get(plan.route, 0) + 1
+    count_dtype(selective_scan, x)
     return y, h_last
 
 
 selective_scan.launches = 0
 selective_scan.launches_by_route = {}
+selective_scan.launches_by_dtype = {}
 
 
 def hbm_bytes_per_token(di: int, n: int, itemsize: int = 2) -> Tuple[int, int]:

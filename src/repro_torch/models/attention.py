@@ -17,6 +17,15 @@
   * ``init_cache`` / ``update_cache`` — ``update_cache`` writes into the
     cache tensors in place (the reference returns new arrays); it saves a
     full cache copy per layer and step.
+
+The three attention functions take the reference's ``compute_dtype`` (the
+config's ``attn_dtype``) and round where it rounds: q is scaled in f32 and
+then rounded to it, k and v are rounded to it, and so is P before PV; the
+products are summed in f32 and the output is cast to q's dtype.  The
+reference's bf16 einsums with ``preferred_element_type=float32`` multiply
+bf16 operands into f32 sums, so here the rounded operands are widened back
+to f32 and multiplied in f32 (a product of two bf16 values is exact in f32);
+a bf16 ``torch.matmul`` would round its output instead.
 """
 
 from __future__ import annotations
@@ -36,10 +45,18 @@ def _fold_gqa(q: torch.Tensor, n_kv: int) -> torch.Tensor:
     return q.reshape(b, n_kv, hq // n_kv, s, d)
 
 
+def _operand(t: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """``t`` rounded to ``compute_dtype``, as f32 for an f32-accumulated
+    product (a no-op at f32)."""
+    return t.to(compute_dtype).to(torch.float32)
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: Optional[int] = None,
                       q_offset: Pos = 0, block: int = 1024,
-                      scale: Optional[float] = None) -> torch.Tensor:
+                      scale: Optional[float] = None,
+                      compute_dtype: torch.dtype = torch.float32
+                      ) -> torch.Tensor:
     """Blocked online-softmax GQA attention.
 
     q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D); Hq % Hkv == 0.  ``q_offset``
@@ -49,7 +66,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
-    qg = _fold_gqa(q, hkv).to(torch.float32) * scale       # (B,Hkv,G,Sq,D)
+    qg = _operand(_fold_gqa(q, hkv).to(torch.float32) * scale,
+                  compute_dtype)                           # (B,Hkv,G,Sq,D)
     dev = q.device
     off = torch.as_tensor(q_offset, device=dev)
     ar = torch.arange(sq, device=dev)
@@ -63,8 +81,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     acc = torch.zeros((b, hkv, g, sq, d), dtype=torch.float32, device=dev)
     block = min(block, sk)
     for start in range(0, sk, block):
-        kblk = k[:, :, start:start + block].to(torch.float32)
-        vblk = v[:, :, start:start + block].to(torch.float32)
+        kblk = _operand(k[:, :, start:start + block], compute_dtype)
+        vblk = _operand(v[:, :, start:start + block], compute_dtype)
         kpos = start + torch.arange(kblk.shape[2], device=dev)
         s_blk = torch.einsum("bhgqd,bhkd->bhgqk", qg, kblk)
         mask = torch.ones_like(kpos, dtype=torch.bool)
@@ -77,8 +95,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = torch.exp(s_blk - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bhkd->bhgqd",
-                                                    p, vblk)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqk,bhkd->bhgqd", _operand(p, compute_dtype), vblk)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, hq, sq, d).to(q.dtype)
@@ -86,7 +104,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def windowed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        window: int, q_offset: int = 0, bq: int = 512,
-                       scale: Optional[float] = None) -> torch.Tensor:
+                       scale: Optional[float] = None,
+                       compute_dtype: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
     """Causal sliding-window attention with q-blocking: each block of ``bq``
     queries attends only to its visible key span (``window + bq`` keys), so
     the work is O(S * (window + bq)), not O(S^2).  q: (B, Hq, Sq, D); k, v:
@@ -97,7 +117,7 @@ def windowed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     bq = min(bq, sq)
     pad = (-sq) % bq
-    qg = q.to(torch.float32) * scale
+    qg = _operand(q.to(torch.float32) * scale, compute_dtype)
     if pad:
         qg = torch.nn.functional.pad(qg, (0, 0, 0, pad))
     span = min(window + bq, sk)
@@ -106,8 +126,8 @@ def windowed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for i in range((sq + pad) // bq):
         qstart = i * bq + q_offset
         kstart = min(max(qstart + bq - span, 0), max(sk - span, 0))
-        ks = k[:, :, kstart:kstart + span].to(torch.float32)
-        vs = v[:, :, kstart:kstart + span].to(torch.float32)
+        ks = _operand(k[:, :, kstart:kstart + span], compute_dtype)
+        vs = _operand(v[:, :, kstart:kstart + span], compute_dtype)
         qblk = _fold_gqa(qg[:, :, i * bq:(i + 1) * bq], hkv)
         s_ = torch.einsum("bhgqd,bhkd->bhgqk", qblk, ks)
         qpos = qstart + torch.arange(bq, device=dev)[:, None]
@@ -115,7 +135,7 @@ def windowed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask = (kpos <= qpos) & (kpos > qpos - window)
         s_ = torch.where(mask, s_, torch.full_like(s_, NEG_INF))
         p = torch.softmax(s_, dim=-1)
-        o = torch.einsum("bhgqk,bhkd->bhgqd", p, vs)
+        o = torch.einsum("bhgqk,bhkd->bhgqd", _operand(p, compute_dtype), vs)
         blocks.append(o.reshape(b, hq, bq, d))
     out = torch.cat(blocks, dim=2)[:, :, :sq]
     return out.to(q.dtype)
@@ -124,7 +144,9 @@ def windowed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: Pos, *,
                      window: Optional[int] = None,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     compute_dtype: torch.dtype = torch.float32
+                     ) -> torch.Tensor:
     """One-token attention over a preallocated cache.
 
     q: (B, Hq, 1, D); caches: (B, Hkv, Smax, D); cache_len: scalar or (B,)
@@ -133,8 +155,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     b, hq, _, d = q.shape
     hkv, smax = k_cache.shape[1], k_cache.shape[2]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
-    qg = _fold_gqa(q, hkv).to(torch.float32) * scale
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k_cache.to(torch.float32))
+    qg = _operand(_fold_gqa(q, hkv).to(torch.float32) * scale, compute_dtype)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg,
+                     _operand(k_cache, compute_dtype))
     kpos = torch.arange(smax, device=q.device)
     cl = torch.as_tensor(cache_len, device=q.device)
     if cl.ndim == 1:                                   # per-batch lengths
@@ -144,7 +167,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         mask = mask & (kpos > cl - 1 - window)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v_cache.to(torch.float32))
+    out = torch.einsum("bhgqk,bhkd->bhgqd", _operand(p, compute_dtype),
+                       _operand(v_cache, compute_dtype))
     return out.reshape(b, hq, 1, d).to(q.dtype)
 
 

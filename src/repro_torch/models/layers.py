@@ -10,6 +10,7 @@ leading expert axis makes it the grouped linear of the MoE experts.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import torch
@@ -120,6 +121,38 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+# The reference's activations in a narrower dtype than f32 (a bf16 config):
+# XLA computes jax.nn.silu, jax.nn.gelu and jax.nn.softplus op by op, each
+# op's result rounded to the input's dtype, where PyTorch's fused F.silu /
+# F.gelu / logaddexp round once; these follow XLA's ops in x's dtype (each
+# bit-equal to the reference's on the CPU).  f32 keeps PyTorch's fused ops.
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x * logistic(x), logistic as 1 / (1 + exp(-x))."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(approximate=True)``: x * 0.5 (1 + tanh(sqrt(2 / pi)
+    (x + 0.044715 x^3))), the constants rounded to x's dtype as JAX does."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    c0, c1 = (torch.tensor(v, dtype=x.dtype, device=x.device)
+              for v in ((2 / math.pi) ** 0.5, 0.044715))
+    return x * (0.5 * (1 + torch.tanh(c0 * (x + c1 * (x * x * x)))))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (``jnp.logaddexp(x, 0)``): at f32 ``logaddexp``,
+    else its expansion max(x, 0) + log1p(exp(-|x|))."""
+    if x.dtype == torch.float32:
+        return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                              device=x.device))
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
 def mlp(x: torch.Tensor, p: Dict[str, Any], act: str,
         engine: Optional[Any] = None,
         path: Optional[str] = None) -> torch.Tensor:
@@ -129,12 +162,10 @@ def mlp(x: torch.Tensor, p: Dict[str, Any], act: str,
         g = linear(x, p["w_gate"], engine=engine,
                    path=_subpath(path, "w_gate"))
         u = linear(x, p["w_up"], engine=engine, path=_subpath(path, "w_up"))
-        h = (F.silu(g) if act == "swiglu"
-             else F.gelu(g, approximate="tanh")) * u
+        h = (silu(g) if act == "swiglu" else gelu_tanh(g)) * u
     elif act == "gelu":
-        h = F.gelu(linear(x, p["w_up"], engine=engine,
-                          path=_subpath(path, "w_up"), bias=p.get("b_up")),
-                   approximate="tanh")
+        h = gelu_tanh(linear(x, p["w_up"], engine=engine,
+                             path=_subpath(path, "w_up"), bias=p.get("b_up")))
     else:
         raise ValueError(f"unknown mlp act {act!r}")
     return linear(h, p["w_down"], engine=engine,

@@ -136,8 +136,7 @@ def expert_ffn(buf: torch.Tensor, p: Dict[str, Any], act: str = "swiglu",
         return layers.mlp(buf, pe, act, engine=engine, path="layers/moe")
     g = torch.matmul(buf, p["w_gate"].transpose(-1, -2))
     u = torch.matmul(buf, p["w_up"].transpose(-1, -2))
-    h = (F.silu(g) if act == "swiglu"
-         else F.gelu(g, approximate="tanh")) * u
+    h = (layers.silu(g) if act == "swiglu" else layers.gelu_tanh(g)) * u
     return torch.matmul(h, p["w_down"].transpose(-1, -2))
 
 

@@ -46,11 +46,6 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     return y.to(x.dtype), new_state
 
 
-def softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``: log(1 + e^x) as ``logaddexp(x, 0)``."""
-    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
-
-
 def _combine(a: Tuple[torch.Tensor, torch.Tensor],
              b: Tuple[torch.Tensor, torch.Tensor]
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -110,12 +105,10 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     f32, ``y = einsum(h_all, C) + x * D``.
 
     x, dt: (Bz, S, Di); A: (Di, N); B, C: (Bz, S, N); D: (Di,).  Returns
-    (y (Bz, S, Di) f32, h_last (Bz, Di, N) f32).  ``compute_dtype`` other
-    than f32 is refused (ROADMAP C7)."""
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            f"scan compute dtype {compute_dtype} is not ported (ROADMAP C7); "
-            "the port scans in float32 only")
+    (y (Bz, S, Di) f32, h_last (Bz, Di, N) f32).  ``compute_dtype`` (the
+    config's ``scan_dtype``) is the reference's: x, dt, B and C are read in
+    it, dA is rounded to it, dBx and the chunk's scan are computed in it,
+    y sums h_all times C in f32 and the carried state stays f32."""
     bsz, s, di = x.shape
     n = A.shape[1]
     h = (torch.zeros((bsz, di, n), dtype=torch.float32, device=x.device)
@@ -126,12 +119,15 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         x, dt, B, C = (F.pad(t, (0, 0, 0, pad)) for t in (x, dt, B, C))
     ys = []
     for start in range(0, s + pad, chunk):
-        xk, dtk, bk, ck = (t[:, start:start + chunk].to(torch.float32)
+        xk, dtk, bk, ck = (t[:, start:start + chunk].to(compute_dtype)
                            for t in (x, dt, B, C))
-        dA = torch.exp(dtk[..., None] * A[None, None])       # (B,T,Di,N)
+        dA = torch.exp(dtk.to(torch.float32)[..., None]
+                       * A[None, None]).to(compute_dtype)    # (B,T,Di,N)
         dBx = dtk[..., None] * bk[:, :, None, :] * xk[..., None]
-        h_all, h = _ssm_chunk_scan(dA, dBx, h)
-        ys.append(torch.einsum("btdn,btn->btd", h_all, ck))
+        h_all, h = _ssm_chunk_scan(dA, dBx, h.to(compute_dtype))
+        ys.append(torch.einsum("btdn,btn->btd", h_all.to(torch.float32),
+                               ck.to(torch.float32)))
+        h = h.to(torch.float32)
     y = torch.cat(ys, dim=1)[:, :s]
     return y + x[:, :s].to(torch.float32) * D[None, None], h
 
@@ -142,7 +138,8 @@ def mamba_mixer(x: torch.Tensor, p: Dict[str, Any], *, d_inner: int,
                 state: Optional[Dict[str, torch.Tensor]] = None,
                 lengths: Optional[torch.Tensor] = None,
                 engine: Optional[Any] = None, in_place: bool = False,
-                scan: Optional[Callable] = None
+                scan: Optional[Callable] = None,
+                scan_dtype: torch.dtype = torch.float32
                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Full Mamba-1 mixer.  x: (B, S, D) -> (B, S, D).
 
@@ -166,9 +163,20 @@ def mamba_mixer(x: torch.Tensor, p: Dict[str, Any], *, d_inner: int,
 
     ``shard_inner`` is the reference's multi-device constraint of d_inner
     onto the model axis (ROADMAP A11); it is accepted and ignored here.
-    The reference's ``scan_dtype`` picks the scan's compute type, and the
-    port scans in f32 only: ``transformer.check_family`` refuses a config
-    with another ``scan_dtype`` (ROADMAP C7).
+
+    ``scan_dtype`` is the reference's scan compute dtype (``ssm.py:85-96``),
+    used where the reference uses it, off the decode branch.  The training
+    ``scan`` carries it itself.  The serving scan reads x, dt, B and C in a
+    bf16 ``scan_dtype``: that feeds the kernel's bf16 route (its plain
+    version on the CPU), the Pallas kernel's bf16 contract, bf16 inputs
+    widened to f32 inside, so it is more exact than the reference's bf16
+    jnp scan (which also rounds dA, dBx and h to bf16); the two agree
+    within the reference's own bf16 scan tolerance (0.05,
+    ``tests/test_ssm_kernel.py:46``).  y comes back in the activations'
+    dtype, and x * D is taken at their precision, as the reference adds
+    it.  At a bf16 ``dtype`` x, dt, B and C are bf16 already and take the
+    bf16 route whatever ``scan_dtype`` says.  Decode computes in f32 from
+    its inputs, as the reference's ``ssm_decode_step`` does.
     """
     del shard_inner, d_inner
     decode = state is not None and x.shape[1] == 1
@@ -193,15 +201,16 @@ def mamba_mixer(x: torch.Tensor, p: Dict[str, Any], *, d_inner: int,
                    + torch.arange(kk - 1, device=xs.device)[None])
             new_conv = torch.gather(
                 ext, 1, idx[..., None].expand(-1, -1, ext.shape[2]))
-    xc = F.silu(xc)
+    xc = layers.silu(xc)
 
     dbc = layers.linear(xc, p["x_proj"], engine=engine,
                         path="layers/ssm/x_proj")                  # (B,S,R+2N)
     dt_in = dbc[..., :dt_rank]
     B = dbc[..., dt_rank:dt_rank + ssm_state]
     C = dbc[..., dt_rank + ssm_state:]
-    dt = softplus(layers.linear(dt_in, p["dt_proj"], engine=engine,
-                                path="layers/ssm/dt_proj") + p["dt_bias"])
+    dt = layers.softplus(layers.linear(dt_in, p["dt_proj"], engine=engine,
+                                       path="layers/ssm/dt_proj")
+                         + p["dt_bias"])
     if (not decode) and lengths is not None:
         # dt = 0 at pads: the scan's exact identity step
         smask = (torch.arange(dt.shape[1], device=dt.device)[None, :]
@@ -214,9 +223,17 @@ def mamba_mixer(x: torch.Tensor, p: Dict[str, Any], *, d_inner: int,
     if scan is not None:
         y, h_last = scan(xc, dt, A, B, C, p["D"], h0)
     else:
-        y, h_last = kops.selective_scan(xc.contiguous(), dt.contiguous(), A,
-                                        B, C, p["D"], h0,
-                                        h_out=h0 if in_place else None)
+        xs_, dt_, B_, C_ = xc, dt, B, C
+        if not decode and scan_dtype != torch.float32:
+            xs_, dt_, B_, C_ = (t.to(scan_dtype) for t in (xc, dt, B, C))
+        y, h_last = kops.selective_scan(xs_.contiguous(), dt_.contiguous(), A,
+                                        B_, C_, p["D"], h0,
+                                        h_out=h0 if in_place else None,
+                                        y_dtype=xc.dtype)
+        if xs_.dtype != xc.dtype:
+            # the reference adds x * D with x at the activations' precision
+            # (ssm.py:100), the kernel with the x it scanned
+            y = y + (xc.to(torch.float32) - xs_.to(torch.float32)) * p["D"]
     new_state = None
     if state is not None and in_place:
         state["conv"].copy_(new_conv)
@@ -224,7 +241,7 @@ def mamba_mixer(x: torch.Tensor, p: Dict[str, Any], *, d_inner: int,
     elif state is not None:
         new_state = dict(h=h_last, conv=new_conv)
 
-    y = y.to(x.dtype) * F.silu(z)
+    y = y.to(x.dtype) * layers.silu(z)
     out = layers.linear(y, p["out_proj"], engine=engine,
                         path="layers/ssm/out_proj")
     return out, new_state

@@ -58,6 +58,12 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def compute_dtypes(cfg: ModelConfig) -> Tuple[torch.dtype, torch.dtype]:
+    """(attention, scan) compute dtypes: ``cfg.attn_dtype`` and
+    ``cfg.scan_dtype`` (``float32`` or ``bfloat16``)."""
+    return getattr(torch, cfg.attn_dtype), getattr(torch, cfg.scan_dtype)
+
+
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 # the families whose layers attend (and so keep a KV cache)
 ATTENTION_FAMILIES = ("dense", "moe", "hybrid", "vlm")
@@ -72,18 +78,6 @@ def check_family(cfg: ModelConfig) -> None:
             "decoder-only transformer")
     if cfg.family not in FAMILIES:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
-    check_compute_dtypes(cfg)
-
-
-def check_compute_dtypes(cfg: ModelConfig) -> None:
-    # the card's attention and scan kernels compute in f32 only: a config
-    # that asks for another compute dtype is refused, not run in f32
-    for field in ("attn_dtype", "scan_dtype"):
-        if getattr(cfg, field) != "float32":
-            raise NotImplementedError(
-                f"{cfg.name}: {field}={getattr(cfg, field)!r} is not ported "
-                "(ROADMAP C6 / C7); the port computes attention and the "
-                "selective scan in float32 only")
 
 
 # ---------------------------------------------------------------------------
@@ -284,8 +278,10 @@ def _attn_apply(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
                 engine: Optional[Any] = None,
                 attend: Optional[Callable] = None) -> torch.Tensor:
     """``attend`` replaces the flash kernel where no cache is given (the
-    training path's ``chunked_attention``)."""
+    training path's ``chunked_attention``).  Every branch computes in
+    ``cfg.attn_dtype``, as the reference's ``_attn_apply`` does."""
     b, s, _ = x.shape
+    adt = compute_dtypes(cfg)[0]
     hd = cfg.hd
     q = L.linear(x, p["wq"], engine=engine, path="layers/attn/wq",
                  bias=p.get("bq"))
@@ -313,16 +309,17 @@ def _attn_apply(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
         if s == 1:                      # decode: plain PyTorch ops
             o = attn_lib.decode_attention(q, cache["k"], cache["v"],
                                           cache_len=start + 1,
-                                          window=window)
+                                          window=window, compute_dtype=adt)
         else:                           # prefill into the cache
             # attend over the updated cache at the chunk's offset so that
             # earlier chunks' keys are visible; rows past the chunk are
             # causally masked, so unwritten cache rows are inert
             o = kops.attention(q, cache["k"], cache["v"], causal=True,
-                               window=window, q_offset=start)
+                               window=window, q_offset=start,
+                               compute_dtype=adt)
     else:
         o = (attend or kops.attention)(q, k, v, causal=True, window=window,
-                                       q_offset=start)
+                                       q_offset=start, compute_dtype=adt)
     o = o.transpose(1, 2).reshape(b, s, cfg.q_dim)
     return L.linear(o, p["wo"], engine=engine, path="layers/attn/wo")
 
@@ -346,7 +343,8 @@ def _layer_apply(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
             h, p["ssm"], d_inner=cfg.d_inner, ssm_state=cfg.ssm_state,
             dt_rank=cfg.dt_rank, conv_k=cfg.ssm_conv,
             shard_inner=cfg.ssm_shard_inner, state=ssm_state,
-            lengths=lengths, engine=engine, in_place=True, scan=scan)[0]
+            lengths=lengths, engine=engine, in_place=True, scan=scan,
+            scan_dtype=compute_dtypes(cfg)[1])[0]
 
     if "attn" in p:
         h = L.apply_norm(x, p.get("attn_norm"), cfg.norm_type)
@@ -424,9 +422,11 @@ def segmented(cfg: ModelConfig) -> bool:
                 and cfg.n_global_layers)
 
 
-def _windowed(q, k, v, *, causal: bool, window: int, q_offset) -> torch.Tensor:
+def _windowed(q, k, v, *, causal: bool, window: int, q_offset,
+              compute_dtype: torch.dtype) -> torch.Tensor:
     return attn_lib.windowed_attention(q, k, v, window=window,
-                                       q_offset=q_offset)
+                                       q_offset=q_offset,
+                                       compute_dtype=compute_dtype)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -449,7 +449,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     x = _prefix(params, _embed(params, tokens, cfg), cfg, extra_embeds)
     attend = (functools.partial(attn_lib.chunked_attention,
                                 block=cfg.attn_block) if train else None)
-    scan = (functools.partial(ssm_lib.selective_scan, chunk=cfg.ssm_chunk)
+    scan = (functools.partial(ssm_lib.selective_scan, chunk=cfg.ssm_chunk,
+                              compute_dtype=compute_dtypes(cfg)[1])
             if train else None)
     windows = layer_windows(cfg)
     attends = [attend] * cfg.n_layers

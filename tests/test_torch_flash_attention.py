@@ -175,16 +175,26 @@ def _rz(x64):
     return np.where(over, np.nextafter(f, np.float32(0)), f)
 
 
-def _mma(acc, a, b, passes):
-    """acc (R, C) f32 += a (R, K) @ b (K, C) as 8-wide k steps of TF32
-    MMAs: three passes (lo.hi, hi.lo, hi.hi), or hi.hi alone (1)."""
+def _bf16(x):
+    """f32 -> bf16 (as f32), round to nearest even (``__float2bfloat16_rn``,
+    PyTorch's cast)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    u = u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1))
+    return (u & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def _mma(acc, a, b, passes, step=8):
+    """acc (R, C) f32 += a (R, K) @ b (K, C) as ``step``-wide k steps of
+    MMAs: three TF32 passes (lo.hi, hi.lo, hi.hi), or hi.hi alone (1; bf16
+    operands are exact in TF32, and their m16n8k16 MMA is one pass of
+    16-wide steps)."""
     (ah, al), (bh, bl) = _split(a), _split(b)
     terms = [(al, bh), (ah, bl), (ah, bh)] if passes == 3 else [(ah, bh)]
-    for k0 in range(0, a.shape[1], 8):
+    for k0 in range(0, a.shape[1], step):
         for x, y in terms:
             acc = _rz(acc.astype(np.float64)
-                      + x[:, k0:k0 + 8].astype(np.float64)
-                      @ y[k0:k0 + 8].astype(np.float64))
+                      + x[:, k0:k0 + step].astype(np.float64)
+                      @ y[k0:k0 + step].astype(np.float64))
     return acc
 
 
@@ -197,10 +207,16 @@ def _fma(a, b, c):
 
 
 def emulate_flash(q, k, v, offsets, causal, window, plan, *, passes=3,
-                  row_tiles=None, order=None):
+                  row_tiles=None, order=None, bf16=False, p_round=True):
     """The kernel's output for q (B, Hq, Sq, D), k, v (B, Hkv, Sk, D) and
     per-row ``offsets``, at ``plan``; rows of the row tiles not emulated
-    stay NaN.  ``order`` permutes the order in which the slices finish."""
+    stay NaN.  ``order`` permutes the order in which the slices finish.
+    ``bf16``: the bf16 route (``flash_fwd_bf16``) on bf16-valued q, k, v:
+    one 16-deep MMA pass, o rescaled by alpha before PV accumulates into
+    it, P rounded to bf16 (``p_round``) or else a bf16 hi and lo part (lo
+    first, a 16-key step at a time), the output rounded to bf16."""
+    step = 16 if bf16 else 8
+    passes = 1 if bf16 else passes
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g, bk, rows = hq // hkv, plan.block_keys, plan.rows
@@ -231,7 +247,7 @@ def emulate_flash(q, k, v, offsets, causal, window, plan, *, passes=3,
                         keys = t * bk + np.arange(bk)
                         kt, vt = kpad[keys], vpad[keys]
                         x = _mma(np.zeros((rows, bk), np.float32), qr, kt.T,
-                                 passes) * sl2
+                                 passes, step) * sl2
                         vis = np.broadcast_to(keys < sk, x.shape).copy()
                         if causal:
                             vis &= keys[None] <= qpos[:, None]
@@ -243,9 +259,20 @@ def emulate_flash(q, k, v, offsets, causal, window, plan, *, passes=3,
                         alpha = _ex2(m - base)
                         p = _ex2(x - base[:, None])
                         l_ = _fma(l_, alpha, p.sum(1, dtype=np.float32))
-                        pv = _mma(np.zeros((rows, d), np.float32), p, vt,
-                                  passes)
-                        o = _fma(o, alpha[:, None], pv)
+                        if bf16 and p_round:
+                            o = _mma(o * alpha[:, None], _bf16(p), vt, 1, 16)
+                        elif bf16:
+                            p_hi = _bf16(p)
+                            p_lo = _bf16(p - p_hi)
+                            o = o * alpha[:, None]
+                            for k0 in range(0, bk, 16):
+                                for part in (p_lo, p_hi):
+                                    o = _mma(o, part[:, k0:k0 + 16],
+                                             vt[k0:k0 + 16], 1, 16)
+                        else:
+                            pv = _mma(np.zeros((rows, d), np.float32), p, vt,
+                                      passes)
+                            o = _fma(o, alpha[:, None], pv)
                         m = mn
                     parts[s] = (m, l_, o)
                 if len(live) == 1:
@@ -263,7 +290,7 @@ def emulate_flash(q, k, v, offsets, causal, window, plan, *, passes=3,
                            )[:, None]
                 res[m == NEG] = v[bb, hk].sum(0, dtype=np.float32) / sk
                 out[bb, h[real], qi[real]] = res[real]
-    return out
+    return _bf16(out) if bf16 else out
 
 
 def _case(rng, b, hq, hkv, sq, sk, d):
@@ -319,6 +346,49 @@ def test_split_tf32_emulation_holds_the_tolerance(case, split):
     print(f"{split} ({plan.splits} slices): max abs err "
           f"{np.abs(got[done] - expect[done]).max():.3e}")
     np.testing.assert_allclose(got[done], expect[done], **TOL)
+
+
+def flash_bf16_bound(expect, p_rounded):
+    """chip_smoke.py's bound on |B2 bf16 - plain|, elementwise: both round
+    the output to bf16 and may land one ulp apart (2^-7 of |o|, 1e-5 near
+    0); with P rounded to bf16 the kernel rounds each weight at its running
+    max, the plain version at the row's final max, which moves o by about
+    2^-9 of the row's typical |o|: 2^-7 of the row's largest |o| on top."""
+    bound = np.abs(expect) * 2 ** -7 + 1e-5
+    if p_rounded:
+        bound = bound + 2 ** -7 * np.abs(expect).max(-1, keepdims=True)
+    return bound
+
+
+@pytest.mark.parametrize("p_round", [True, False], ids=["P-bf16", "P-split"])
+@pytest.mark.parametrize("case", EMULATED, ids=lambda c: "x".join(
+    map(str, c[:6])) + f"-w{c[6]}-{'c' if c[8] else 'nc'}")
+def test_bf16_route_emulation_holds_the_tolerance(case, p_round):
+    """The bf16 route's arithmetic (``flash_fwd_bf16``: bf16 MMAs of 16
+    head dims or keys, P rounded to bf16 in registers or kept as a bf16 hi
+    and lo part, the output in bf16) at the kernel's plan, within
+    ``flash_bf16_bound`` of the plain version on the same bf16 inputs at
+    the same P dtype; the largest share of the bound is printed (0.53 with
+    P rounded; with P split the two differ by one output ulp at most, up
+    to 0.98 of the bound)."""
+    b, hq, hkv, sq, sk, d, window, offsets, causal, tiles = case
+    q, k, v = (_bf16(a) for a in _case(np.random.default_rng(sq + sk), b,
+                                        hq, hkv, sq, sk, d))
+    plan = fa.flash_plan(b, hq, hkv, sq, sk, d, SMS)
+    got = emulate_flash(q, k, v, offsets, causal, window, plan,
+                        row_tiles=tiles, bf16=True, p_round=p_round)
+    expect = ref.flash_attention(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+        causal=causal, window=window,
+        q_offset=torch.tensor(offsets, dtype=torch.int32),
+        p_dtype=torch.bfloat16 if p_round else torch.float32
+    ).float().numpy()
+    rows = ~np.isnan(got).any(-1)
+    assert rows.any()
+    share = (np.abs(got[rows] - expect[rows])
+             / flash_bf16_bound(expect[rows], p_round)).max()
+    print(f"bf16 ({plan.splits} slices): max err / bound {share:.3f}")
+    assert share <= 1
 
 
 def test_one_tf32_pass_misses_the_tolerance():

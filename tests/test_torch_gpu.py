@@ -370,8 +370,49 @@ def test_selective_scan_kernel_strided_b_c_and_types(cuda, rng):
     y_ref, h_ref = ref.selective_scan(x, dt, A, B, C, D, h0)
     torch.testing.assert_close(y, y_ref, rtol=5e-4, atol=5e-4)
     torch.testing.assert_close(h, h_ref, rtol=5e-4, atol=5e-4)
-    with pytest.raises(TypeError, match="float32"):
-        selective_scan(x.bfloat16(), dt, A, B, C, D, h0)
+    # bf16 x, dt and strided B, C take the kernel's bf16 route: y in bf16
+    xb, dtb, dbcb = x.bfloat16(), dt.bfloat16(), dbc.bfloat16()
+    Bb, Cb = dbcb[..., 8:24], dbcb[..., 24:]
+    before = dict(selective_scan.launches_by_dtype)
+    y, h = selective_scan(xb, dtb, A, Bb, Cb, D, h0)
+    assert (selective_scan.launches_by_dtype["bfloat16"]
+            == before.get("bfloat16", 0) + 1)
+    y_ref, h_ref = ref.selective_scan(xb, dtb, A, Bb, Cb, D, h0)
+    assert y.dtype == y_ref.dtype == torch.bfloat16
+    torch.testing.assert_close(y, y_ref, **SCAN_BF16_TOL)
+    torch.testing.assert_close(h, h_ref, rtol=5e-4, atol=5e-4)
+    with pytest.raises(TypeError, match="all float32 or all bfloat16"):
+        selective_scan(xb, dt, A, B, C, D, h0)
+
+
+# bf16 inputs: the kernel and the plain version widen the same bf16 values
+# and scan in f32, so h_last holds the f32 tolerance; y is rounded to bf16
+# by both, and a 5e-4 difference before that rounding may move it by one
+# bf16 ulp (2^-8 of |y|), so y holds two ulps
+SCAN_BF16_TOL = dict(rtol=2 ** -7, atol=5e-4)
+
+
+# hymba-1.5b's and falcon-mamba-7b's prefill and decode shapes, a ragged S,
+# a Di whose rows are not whole 16 B (the plain-load ring), N 4 / 8 / 32
+@pytest.mark.parametrize("bsz,s,di,n", [
+    (4, 1163, 3200, 16), (4, 1, 3200, 16), (4, 64, 8192, 16),
+    (4, 1, 8192, 16), (2, 37, 200, 16), (2, 33, 70, 8), (3, 45, 68, 32),
+    (2, 20, 12, 4), (2, 1, 12, 4)])
+def test_selective_scan_kernel_bf16_matches_plain(cuda, rng, bsz, s, di, n):
+    """B7's bf16 route (bf16 x, dt, B, C; f32 A, D, h0) against its plain
+    version, which widens the same inputs to f32."""
+    x, dt, A, B, C, D, h0 = _scan_inputs(rng, bsz, s, di, n, cuda)
+    args = (x.bfloat16(), dt.bfloat16(), A, B.bfloat16(), C.bfloat16(), D, h0)
+    y, h = selective_scan(*args)
+    y_ref, h_ref = ref.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16
+    torch.testing.assert_close(y, y_ref, **SCAN_BF16_TOL)
+    torch.testing.assert_close(h, h_ref, rtol=5e-4, atol=5e-4)
+    cache = h0.clone()
+    y_ip, h_ip = selective_scan(*args[:-1], cache, h_out=cache)
+    torch.cuda.synchronize()
+    assert torch.equal(y_ip, y) and torch.equal(h_ip, h)
 
 
 @pytest.mark.parametrize("s", [64, 1])
@@ -385,6 +426,196 @@ def test_selective_scan_kernel_writes_the_state_over_h0(cuda, rng, s):
     torch.cuda.synchronize()
     assert h_ip is cache
     assert torch.equal(y_ip, y) and torch.equal(h_ip, h)
+
+
+def flash_bf16_bound(expect, p_rounded):
+    """chip_smoke.py's bound on |B2 bf16 - plain|, elementwise: both round
+    the output to bf16 and may land one ulp apart (2^-7 of |o|, 1e-5 near
+    0); with P rounded to bf16 the kernel rounds each weight at its running
+    max, the plain version at the row's final max, which moves o by about
+    2^-9 of the row's typical |o|: 2^-7 of the row's largest |o| on top."""
+    bound = expect.abs() * 2 ** -7 + 1e-5
+    if p_rounded:
+        bound = bound + 2 ** -7 * expect.abs().amax(-1, keepdim=True)
+    return bound
+
+
+def assert_flash_bf16_close(got, expect, p_rounded):
+    got, expect = got.float(), expect.float()
+    ratio = ((got - expect).abs() / flash_bf16_bound(expect, p_rounded)).max()
+    assert ratio <= 1, f"max err {ratio.item():.3f} of the bound"
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,window,offsets,causal", [
+    (4, 16, 8, 64, 512, 128, None, (0, 64, 192, 448), True),   # qwen3 chunk
+    (4, 25, 5, 1163, 2048, 64, 1024, (0, 0, 0, 0), True),       # hymba prompt
+    (4, 16, 16, 64, 512, 256, None, (0, 64, 192, 448), True),   # gemma chunk
+    (2, 4, 2, 100, 24, 64, None, None, True),    # rows that see no key
+    (2, 8, 8, 32, 64, 32, 16, (0, 70), True),
+    (1, 2, 2, 64, 280, 16, 40, (256,), False),
+    (2, 6, 3, 45, 300, 32, None, (10, 255), True),
+    (3, 4, 4, 17, 80, 16, None, None, True)])
+@pytest.mark.parametrize("p_dtype", ["float32", "bfloat16"])
+def test_flash_kernel_bf16_matches_plain(cuda, rng, b, hq, hkv, sq, sk, d,
+                                         window, offsets, causal, p_dtype):
+    """B2's bf16 route at every head dim (16, 32, 64, 128, 256), split and
+    unsplit plans, windows and rows that see no key, with P rounded to bf16
+    and P kept f32-accurate, against the plain version on the same bf16
+    inputs at the same P dtype; two calls give the same bits."""
+    def t(shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = t((b, hq, sq, d)), t((b, hkv, sk, d)), t((b, hkv, sk, d))
+    off = (None if offsets is None
+           else torch.tensor(offsets, dtype=torch.int32, device=cuda))
+    kw = dict(causal=causal, window=window, q_offset=off,
+              p_dtype=getattr(torch, p_dtype))
+    before = dict(fa.flash_attention.launches_by_dtype)
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches_by_dtype["bfloat16"]
+            == before.get("bfloat16", 0) + 1)
+    assert got.dtype == torch.bfloat16
+    assert_flash_bf16_close(got, ref.flash_attention(q, k, v, **kw),
+                            p_dtype == "bfloat16")
+    assert torch.equal(got, flash_attention(q, k, v, **kw))
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_attention(q, k.float(), v, **kw)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 256])
+@pytest.mark.parametrize("k,n", [(1024, 2048), (1001, 65)])
+def test_blockscale_kernel_bf16_input(cuda, rng, bits, m, k, n):
+    """B3 at bf16 x (both loops): bf16 x is exact in TF32 and the plain
+    version widens the same values, so it holds the f32 tolerance."""
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    packed, scales = _wire(rng, n, k, bits, cuda)
+    before = dict(qmatmul_f32_blockscale.launches_by_dtype)
+    got = qmatmul_f32_blockscale(x, packed, scales, bits=bits, k_orig=k)
+    torch.cuda.synchronize()
+    assert (qmatmul_f32_blockscale.launches_by_dtype["bfloat16"]
+            == before.get("bfloat16", 0) + 1)
+    expect = ref.qmatmul_f32_blockscale(x, packed, scales, bits=bits,
+                                        k_orig=k)
+    torch.testing.assert_close(got, expect, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("e,c,k,n", [(60, 8, 2048, 1408), (60, 24, 1408, 2048),
+                                     (5, 17, 1001, 65)])
+def test_grouped_blockscale_kernel_bf16_input(cuda, rng, bits, e, c, k, n):
+    """The grouped B3 at bf16 x, qwen2-moe-a2.7b's expert shapes among
+    them."""
+    x = torch.from_numpy(rng.normal(size=(e, c, k)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    packed, scales = _wire(rng, e * n, k, bits, cuda)
+    packed, scales = packed.reshape(e, n, -1), scales.reshape(e, n, -1)
+    got = qmatmul_f32_blockscale_grouped(x, packed, scales, bits=bits,
+                                         k_orig=k)
+    expect = ref.qmatmul_f32_blockscale_grouped(x, packed, scales, bits=bits,
+                                                k_orig=k)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, expect, rtol=1e-4, atol=1e-4)
+
+
+def test_bf16_engine_prefills_and_decodes_on_the_card(cuda):
+    """The bf16 qwen3-0.6b smoke engine and serve steps on the card: the
+    prefill and decode logits against the CPU's plain path on the same
+    weights, and an engine serve through the kernels' bf16 routes."""
+    cfg = get_config("qwen3-0.6b").smoke().replace(dtype="bfloat16")
+    packed = freeze_for_serving(tfm.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda),
+        bits=8, device=cuda)
+    def to_cpu(tree):
+        return ({k: to_cpu(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree.cpu())
+    packed_cpu = to_cpu(packed)
+    from repro_torch.launch import steps
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 12)))
+    logits = {}
+    for dev, tree in ((cuda, packed), (torch.device("cpu"), packed_cpu)):
+        cache = tfm.init_serve_cache(cfg, 2, 32, device=dev)
+        pre, cache = steps.make_prefill_step(cfg)(tree, toks.to(dev), cache)
+        nxt = pre[:, -1].argmax(-1, keepdim=True)
+        dec, _ = steps.make_decode_step(cfg)(tree, nxt.cpu().to(dev), cache,
+                                             12)
+        logits[dev.type] = (pre.float().cpu(), dec.float().cpu(), nxt.cpu())
+    (gp, gd, gn), (cp, cd, cn) = logits["cuda"], logits["cpu"]
+    assert torch.isfinite(gp).all() and torch.isfinite(gd).all()
+    # bf16 activations through 2 layers, card vs CPU order: a few ulps
+    torch.testing.assert_close(gp, cp, rtol=0, atol=2 ** -4)
+    if torch.equal(gn, cn):
+        torch.testing.assert_close(gd, cd, rtol=0, atol=2 ** -4)
+    before = {name: dict(w.launches_by_dtype) for name, w in (
+        ("flash", fa.flash_attention), ("qmm", qmatmul_f32))}
+    eng = ServingEngine(cfg, packed, batch_slots=2, max_len=48, device=cuda)
+    for uid in range(3):
+        eng.submit(Request(uid=uid, prompt=np.arange(5 + uid,
+                                                     dtype=np.int32),
+                           max_new_tokens=6))
+    done = []
+    while eng.pending:
+        done += eng.step()
+    torch.cuda.synchronize()
+    assert sorted(r.uid for r in done) == [0, 1, 2]
+    assert all(len(r.generated) == 6 and all(0 <= t < cfg.vocab_size
+                                             for t in r.generated)
+               for r in done)
+    for name, w in (("flash", fa.flash_attention), ("qmm", qmatmul_f32)):
+        assert (w.launches_by_dtype.get("bfloat16", 0)
+                > before[name].get("bfloat16", 0)), name
+
+
+@pytest.mark.parametrize("attn_dtype", ["float32", "bfloat16"])
+def test_bf16_model_attention_matches_chunked_attention(cuda, monkeypatch,
+                                                        attn_dtype):
+    """The bf16 qwen3-0.6b smoke model's prefill on the card, its attention
+    computed in ``attn_dtype``: every call of the flash kernel's bf16 route
+    against ``models/attention.chunked_attention`` (the reference's, held
+    to JAX on the CPU) on the same inputs at that compute dtype, to
+    ``flash_bf16_bound``: at f32 the kernel keeps P f32-accurate as the
+    reference keeps p, at bf16 it rounds P as the reference rounds it."""
+    from repro_torch.launch import steps
+    from repro_torch.models import attention
+    cfg = get_config("qwen3-0.6b").smoke().replace(dtype="bfloat16",
+                                                   attn_dtype=attn_dtype)
+    packed = freeze_for_serving(tfm.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda),
+        bits=8, device=cuda)
+    real, seen = ops.attention, []
+
+    def held(q, k, v, *, causal, window, q_offset, compute_dtype):
+        got = real(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                   compute_dtype=compute_dtype)
+        off = (q_offset.cpu() if isinstance(q_offset, torch.Tensor)
+               else q_offset)
+        expect = attention.chunked_attention(
+            q.cpu(), k.cpu(), v.cpu(), causal=causal, window=window,
+            q_offset=off, compute_dtype=compute_dtype)
+        assert got.dtype == expect.dtype == torch.bfloat16
+        assert_flash_bf16_close(got.cpu(), expect,
+                                compute_dtype == torch.bfloat16)
+        seen.append(tuple(q.shape))
+        return got
+
+    monkeypatch.setattr(tfm.kops, "attention", held)
+    before = fa.flash_attention.launches_by_dtype.get("bfloat16", 0)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 12))).to(cuda)
+    cache = tfm.init_serve_cache(cfg, 2, 32, device=cuda)
+    logits, cache = steps.make_prefill_step(cfg)(packed, toks[:, :8], cache)
+    # a second chunk at per-row offsets over the cache
+    logits, _ = tfm.step(packed, toks[:, 8:], cache,
+                         torch.tensor([8, 5], dtype=torch.int32,
+                                      device=cuda), cfg, add_prefix=False)
+    torch.cuda.synchronize()
+    assert len(seen) == 2 * cfg.n_layers
+    assert (fa.flash_attention.launches_by_dtype["bfloat16"]
+            == before + len(seen))
+    assert torch.isfinite(logits.float()).all()
 
 
 def _wire(rng, n, k, bits, dev):

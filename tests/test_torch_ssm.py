@@ -32,7 +32,7 @@ from repro_torch.kernels import ops, ref, ssm_scan  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.parallel import sharding  # noqa: E402
-from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 
 Y_TOL = dict(rtol=5e-4, atol=5e-4)
 H_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -146,9 +146,18 @@ def test_decode_step_continues_the_scan():
     assert torch.equal(y1[:, 0], y_step) and torch.equal(h1, h_step)
 
 
-# C7: the reference scans prefill and forward in cfg.scan_dtype; the port's
-# scan kernel computes in f32 only, so its entry points refuse any other
-# value instead of running it in f32.
+# C7 (closed): the reference scans prefill and forward in cfg.scan_dtype;
+# so does the port.  Its serving scan at scan_dtype="bfloat16" is the
+# Pallas kernel's bf16 contract (bf16 x, dt, B, C widened to f32 inside),
+# more exact than the reference's bf16 jnp scan, which also rounds dA, dBx
+# and h to bf16: the two are held to the reference's own bf16 scan
+# tolerance (SCAN_BF16_TOL, tests/test_ssm_kernel.py:46; on these inputs
+# the logits differ by 2.0e-3, about what bf16 moves the reference's own,
+# 1.9e-3).  The training scan computes in the scan dtype as the
+# reference's does, and its logits agree within SCAN_MIRROR_TOL (2.3e-6 on
+# these inputs).
+SCAN_BF16_TOL = dict(rtol=0.05, atol=0.05)
+SCAN_MIRROR_TOL = dict(rtol=0, atol=1e-4)
 
 @pytest.fixture(scope="module")
 def falcon_smoke():
@@ -167,19 +176,68 @@ def test_reference_scan_dtype_moves_the_logits(falcon_smoke):
 
 
 @pytest.mark.parametrize("entry", ["init_params", "forward", "engine"])
-def test_scan_dtype_other_than_f32_is_refused(falcon_smoke, entry):
+def test_scan_dtype_bf16_matches_jax(falcon_smoke, entry):
+    """init_params (bit-equal to the f32 config's tree: the scan dtype is
+    not a parameter dtype), forward (logits, serving and training scans)
+    and the serving engine (prefill and decode logits through ``step``,
+    and the SSM state) at scan_dtype="bfloat16" against JAX."""
     cfg, params = falcon_smoke
     tcfg = tget("falcon-mamba-7b").smoke()
     bcfg = tcfg.replace(scan_dtype="bfloat16")
+    jcfg = cfg.replace(scan_dtype="bfloat16")
     tparams = interop.params_from_numpy(
         jax.tree_util.tree_map(np.asarray, params), tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="scan_dtype.*ROADMAP C6 / C7"):
-        if entry == "init_params":
-            tfm.init_params(bcfg, device="cpu")
-        elif entry == "forward":
-            tfm.forward(tparams, torch.zeros((2, 16), dtype=torch.long), bcfg)
-        else:
-            ServingEngine(bcfg, tparams, device="cpu")
+    if entry == "init_params":
+        got = tfm.init_params(bcfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+        want = tfm.init_params(tcfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        for a, b in zip(jax.tree_util.tree_leaves(got),
+                        jax.tree_util.tree_leaves(want)):
+            assert torch.equal(a, b)
+        assert jax.tree_util.tree_structure(
+            jax.tree_util.tree_map(lambda t: 0, got)) == \
+            jax.tree_util.tree_structure(jax.tree_util.tree_map(
+                lambda t: 0, jtfm.init_params(jcfg, jax.random.PRNGKey(0))))
+    elif entry == "forward":
+        toks = np.random.default_rng(1).integers(0, 256, (2, 16))
+        expect = np.asarray(jtfm.forward(params, jnp.asarray(toks, jnp.int32),
+                                         jcfg))
+        got = tfm.forward(tparams, torch.from_numpy(toks), bcfg)
+        np.testing.assert_allclose(got.numpy(), expect, **SCAN_BF16_TOL)
+        with torch.no_grad():
+            mirror = tfm.forward(tparams, torch.from_numpy(toks), bcfg,
+                                 train=True)
+        np.testing.assert_allclose(mirror.numpy(), expect, **SCAN_MIRROR_TOL)
+    else:
+        packed = jfreeze(params, bits=8)
+        tpacked = interop.params_from_numpy(
+            jax.tree_util.tree_map(np.asarray, packed), tcfg, device="cpu")
+        eng = ServingEngine(bcfg, tpacked, batch_slots=2, max_len=32,
+                            device="cpu")
+        jc = jtfm.init_serve_cache(jcfg, 2, 32)
+        toks = np.random.default_rng(2).integers(0, 256, (2, 12)).astype(
+            np.int32)
+        for part, pos in ((toks, 0), (toks[:, -1:], 12), (toks[:, :1], 13)):
+            jl, jc = jtfm.step(packed, jnp.asarray(part), jc, jnp.int32(pos),
+                               jcfg)
+            tl, eng.cache = tfm.step(tpacked, torch.from_numpy(part).long(),
+                                     eng.cache, pos, bcfg)
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                                       **SCAN_BF16_TOL)
+        np.testing.assert_allclose(eng.cache["ssm"]["h"].numpy(),
+                                   np.asarray(jc["ssm"]["h"]),
+                                   **SCAN_BF16_TOL)
+        # and the engine serves requests at this config to the end
+        eng = ServingEngine(bcfg, tpacked, batch_slots=2, max_len=32,
+                            device="cpu")
+        for uid in range(3):
+            eng.submit(Request(uid=uid, prompt=toks[uid % 2, :5 + uid],
+                               max_new_tokens=4))
+        done = []
+        while eng.pending:
+            done += eng.step()
+        assert sorted(len(r.generated) for r in done) == [4, 4, 4]
 
 
 @pytest.fixture(scope="module")

@@ -262,11 +262,35 @@ def test_associative_scan_matches_jax_bit_for_bit(rng):
         np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
 
 
-def test_training_scan_refuses_bf16():
-    args = [torch.zeros(1, 4, 2), torch.zeros(1, 4, 2), torch.zeros(2, 3),
-            torch.zeros(1, 4, 3), torch.zeros(1, 4, 3), torch.zeros(2)]
-    with pytest.raises(NotImplementedError, match="ROADMAP C7"):
-        ssm.selective_scan(*args, compute_dtype=torch.bfloat16)
+# the training scan at a bf16 compute dtype (ROADMAP C7, closed): dA, dBx
+# and the chunk's scan in bf16 as the reference computes them; XLA keeps
+# some bf16 products in f32 inside its fusions, so y agrees within one bf16
+# ulp of its largest element (1.8e-3 of it on these inputs; h_last equal)
+BF16_SCAN_TOL = 2 ** -8
+
+
+@pytest.mark.parametrize("s,chunk,h0", [(32, 8, True), (37, 8, False)])
+def test_training_scan_at_bf16_matches_reference(rng, s, chunk, h0):
+    """``ssm.selective_scan(compute_dtype=bfloat16)`` against the
+    reference's, on f32 and on bf16 inputs."""
+    args = _scan_inputs(rng, 2, s, 16, 4, h0)
+    for dt_in in (jnp.float32, jnp.bfloat16):
+        jargs = [None if a is None else jnp.asarray(a, dt_in if i in (0, 1, 3, 4)
+                                                   else jnp.float32)
+                 for i, a in enumerate(args)]
+        jy, jh = jax.jit(lambda *xs: jssm.selective_scan(
+            *xs, chunk=chunk, compute_dtype=jnp.bfloat16))(*jargs)
+        targs = [None if a is None else torch.from_numpy(
+            np.array(a.astype(jnp.float32))).to(
+                torch.bfloat16 if a.dtype == jnp.bfloat16 else torch.float32)
+            for a in jargs]
+        ty, th = ssm.selective_scan(*targs, chunk=chunk,
+                                    compute_dtype=torch.bfloat16)
+        for got, want in ((ty, jy), (th, jh)):
+            want = np.asarray(want, np.float32)
+            np.testing.assert_allclose(
+                got.float().numpy(), want, rtol=0,
+                atol=BF16_SCAN_TOL * np.abs(want).max(), err_msg=str(dt_in))
 
 
 # ---------------------------------------------------------------------------

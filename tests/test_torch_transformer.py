@@ -154,9 +154,18 @@ def test_unported_families_raise(arch):
         tfm.init_params(tget(arch).smoke(), device="cpu")
 
 
-# C6: the reference computes decode, chunked and windowed attention in
-# cfg.attn_dtype; the port's attention kernels compute in f32 only, so its
-# entry points refuse any other value instead of running it in f32.
+# C6 (closed): the reference computes decode, chunked and windowed
+# attention in cfg.attn_dtype; so does the port, on every entry point.
+# Held against JAX at attn_dtype="bfloat16".  The training path's
+# chunked_attention rounds where the reference's does (q * scale, k, v and
+# P to bf16, f32 sums): its logits agree within ATTN_MIRROR_TOL (2.4e-7 on
+# these inputs).  The serving forward on the CPU takes the flash kernel's
+# plain version, which keeps P in f32 (the Pallas kernel's contract), so
+# there the logits agree within ATTN_BF16_TOL (1.6e-3 on these inputs,
+# where bf16 compute moves the reference's by 3.8e-3).
+ATTN_MIRROR_TOL = dict(rtol=1e-5, atol=1e-5)
+ATTN_BF16_TOL = dict(rtol=0, atol=2.5e-3)
+
 
 @pytest.fixture(scope="module")
 def bf16_attention_logits(model):
@@ -173,18 +182,77 @@ def test_reference_attn_dtype_moves_the_logits(bf16_attention_logits):
     assert np.abs(bf16 - f32).max() > TOL["atol"]
 
 
+def _greedy_agrees(cfg, jparams, prompts, want, got, tol):
+    """Greedy tokens ``got`` equal the reference's ``want`` up to the first
+    position where the reference's top-2 logit margin is within 2 tol (where
+    either token is a fair pick); from there on the two may diverge."""
+    for uid, prompt in enumerate(prompts):
+        for i, (w, g) in enumerate(zip(want[uid], got[uid])):
+            if w == g:
+                continue
+            seq = np.concatenate([prompt, np.asarray(want[uid][:i],
+                                                     np.int32)])[None]
+            last = np.asarray(jtfm.forward(jparams, jnp.asarray(seq), cfg),
+                              np.float32)[0, -1]
+            top2 = np.sort(last)[-2:]
+            assert top2[1] - top2[0] <= 2 * tol, (uid, i, w, g)
+            break
+        assert len(got[uid]) == len(want[uid])
+
+
 @pytest.mark.parametrize("entry", ["init_params", "forward", "engine"])
-def test_attn_dtype_other_than_f32_is_refused(model, entry):
+def test_attn_dtype_bf16_matches_jax(model, bf16_attention_logits, entry):
+    """init_params (the tree does not depend on attn_dtype: bit-equal to the
+    f32 config's, the reference's structure), forward (logits) and the
+    serving engine (greedy tokens, 8-bit store) at attn_dtype="bfloat16"
+    against JAX."""
     cfg, tcfg, params = model
     bcfg = tcfg.replace(attn_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="attn_dtype.*ROADMAP C6"):
-        if entry == "init_params":
-            tfm.init_params(bcfg, device="cpu")
-        elif entry == "forward":
-            tfm.forward(_carry(params, tcfg),
-                        torch.from_numpy(_tokens((2, 16))).long(), bcfg)
-        else:
-            ServingEngine(bcfg, _carry(params, tcfg), device="cpu")
+    jcfg = cfg.replace(attn_dtype="bfloat16")
+    if entry == "init_params":
+        got = tfm.init_params(bcfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+        want = tfm.init_params(tcfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        for a, b in zip(jax.tree_util.tree_leaves(got),
+                        jax.tree_util.tree_leaves(want)):
+            assert torch.equal(a, b)
+        shapes = {jax.tree_util.keystr(p): (tuple(x.shape), str(x.dtype))
+                  for p, x in jax.tree_util.tree_leaves_with_path(
+                      jtfm.init_params(jcfg, jax.random.PRNGKey(0)))}
+        assert {jax.tree_util.keystr(p): (tuple(x.shape),
+                                          str(x.dtype).replace("torch.", ""))
+                for p, x in jax.tree_util.tree_leaves_with_path(got)} == shapes
+    elif entry == "forward":
+        toks = torch.from_numpy(_tokens((2, 16))).long()
+        got = tfm.forward(_carry(params, tcfg), toks, bcfg)
+        np.testing.assert_allclose(got.numpy(), bf16_attention_logits[1],
+                                   **ATTN_BF16_TOL)
+        with torch.no_grad():
+            mirror = tfm.forward(_carry(params, tcfg), toks, bcfg, train=True)
+        np.testing.assert_allclose(mirror.numpy(), bf16_attention_logits[1],
+                                   **ATTN_MIRROR_TOL)
+    else:
+        from repro.serving import Request as JRequest
+        from repro.serving import ServingEngine as JEngine
+        from repro_torch.serving.engine import Request
+        packed = jfreeze(params, bits=8)
+        prompts = [_tokens((1, n), 10 + n)[0] for n in (7, 12)]
+        jeng = JEngine(jcfg, packed, batch_slots=2, max_len=32,
+                       engine=_engine("l1mram", 8))
+        teng = ServingEngine(bcfg, _carry(packed, tcfg), batch_slots=2,
+                             max_len=32, engine=_engine("l1mram", 8),
+                             device="cpu")
+        for uid, p in enumerate(prompts):
+            jeng.submit(JRequest(uid=uid, prompt=p, max_new_tokens=5))
+            teng.submit(Request(uid=uid, prompt=p, max_new_tokens=5))
+        want = {r.uid: r.generated for r in jeng.run_until_done()}
+        done = []
+        while teng.pending:
+            done += teng.step()
+        got = {r.uid: r.generated for r in done}
+        _greedy_agrees(jcfg, packed, prompts, want, got,
+                       ATTN_BF16_TOL["atol"])
 
 
 def test_other_dense_archs_match(model):
