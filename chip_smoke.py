@@ -16,9 +16,11 @@ whisper-tiny and hymba-1.5b's segmented window path, training of the
 MoE, SSM, hybrid, VLM and encoder-decoder families with hymba-1.5b
 trained (16 of its 32 layers) and served, the launcher's ``main`` on
 gemma-7b (head dim 256), qwen2.5-3b, olmo-1b and llava-next-34b and the
-MoE store's cold expert pages wire-served, and last hymba-1.5b and paged
-qwen3-0.6b in bfloat16 on the kernels' bf16 routes -- and fails (non-zero
-exit, no result line) if any phase fails:
+MoE store's cold expert pages wire-served, hymba-1.5b and paged
+qwen3-0.6b in bfloat16 on the kernels' bf16 routes, and last paged
+qwen3-0.6b sharded over four links of one mesh, through the launcher's
+``--mesh 4`` and ``attach_paging(mesh=)`` -- and fails (non-zero exit, no
+result line) if any phase fails:
 
 1. set-up: requires a CUDA device, turns TF32 off, prints the card's name
    and power limit, builds every ``csrc/*.cu`` with nvcc for sm_90a (one
@@ -135,8 +137,11 @@ exit, no result line) if any phase fails:
    request (priority 1, 10 ms; 2-8 prompt tokens, 2 new) every 6 ms --
    served by ``serving.Scheduler`` on the bench's virtual clock (1 ms a
    tick) with its defaults (4 slots, max_len 128, prefill chunk 16, token
-   budget 96, ``est_tick_s`` pinned).  (a) Phase 3's 8-bit qwen3-0.6b tree,
-   60 requests, under both legs of the bench: run-to-completion, and
+   budget 96, ``est_tick_s`` pinned), on the first ``XR_LAYERS`` (14) of
+   qwen3-0.6b's 28 layers at full width (cut so that the script ends
+   within 1,200 s; the decisions on this clock hold at any depth).  (a)
+   Phase 3's 8-bit qwen3-0.6b tree, 60 requests, under both legs of the
+   bench: run-to-completion, and
    continuous (token budget, preemption, reject-mode admission; traced).
    It fails unless every uid's tokens are equal across the legs, the
    continuous leg preempted, the trackers' miss rate is <= 0.05 and the
@@ -348,11 +353,30 @@ exit, no result line) if any phase fails:
    qwen2-moe-a2.7b's expert shape (E = 60, C = 8); each bf16 route timed
    beside its plain version and library call, its bound the bytes at
    bf16 over 3.35 TB/s or the operations at 989 TFLOP/s (B7: the SFUs);
-16. the ``{"serve": ...}``, ``{"train": ...}``, ``{"phase12": ...}``,
-   ``{"train_families": ...}``, ``{"phase14": ...}``, ``{"bf16": ...}``
-   and ``{"kernels": [...]}`` lines (a ``[bf16]`` entry for each bf16
-   route), the card line, and as the last line ``{"ok": true, "device":
-   {...}}``.
+16. mesh-sharded paging (``launch/mesh.make_test_mesh((1, 4))``: four
+   links, each a fetch worker and copy stream, all on the one card).  (a)
+   ``repro_torch.launch.serve.main`` on full-width qwen3-0.6b at 4 bits,
+   ``--kv-paged --requests 4 --max-new 8 --mesh 4``, ``--budget-mb`` 0.4 of
+   the linears' per-link charge (``packed_sizes(shard_factors=)``; the
+   phase fails unless half or more of the linear bytes stay paged, and on
+   "serving unsharded"): the async, sync and mesh verify lines BIT-EXACT,
+   the ledger on its prediction, the metrics' ``mesh`` section with
+   ``predicted_ok`` and ``ledger_ok`` true, ``sharded_params`` > 0 and
+   ``n_devices`` 4, ``paging.devices`` the ledger's rows.  (b) phase 6's
+   store (the cold half wire-served as int8 pages) and 8 requests through
+   ``attach_paging(wire_serve=True, mesh=)``, on one link, on four, and on
+   four with per-link pools of 2/3 of a link's page bytes: every serve's
+   tokens equal phase 6's, the counters ``predict()``, nothing decoded on
+   the host, the wire bytes of four links those of one.  B1 and B2
+   launched in (a)'s mesh run, B1, B2 and B3 in (b)'s; every distinct
+   call of both held against its plain version.  Printed with the card
+   line: per-link wire bytes, CRC and copy seconds, exposed and hidden page
+   wait a tick, tick p50 on four links and on one;
+17. the ``{"serve": ...}``, ``{"train": ...}``, ``{"phase12": ...}``,
+   ``{"train_families": ...}``, ``{"phase14": ...}``, ``{"bf16": ...}``,
+   ``{"mesh": ...}`` and ``{"kernels": [...]}`` lines (a ``[bf16]`` entry
+   for each bf16 route), the card line, and as the last line ``{"ok":
+   true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -1520,7 +1544,8 @@ def serve_paged(torch, m, cfg, dev):
     tree; time B3 and split the paged tick into CRC, copy and compute.
     Returns the readings, B3's error and times, and the paged store (the
     tree with its cold leaves on the host, the plan) with the resident
-    wire-form tree and plan, for phase 7."""
+    wire-form tree and plan, for phase 7, and the served tokens, for
+    phase 16."""
     np, tfm, pl, pg = m["np"], m["tfm"], m["placement"], m["paging"]
     qmm, fa = m["qmm"], m["fa"]
     t0 = time.perf_counter()
@@ -1761,7 +1786,7 @@ def serve_paged(torch, m, cfg, dev):
         overlap=overlap, faults=fsum, logits_max_abs_err=err,
         path_check=path_check, profile=profile), bs_err, t_bs, dict(
             packed=packed, plan=plan, wire_tree=wire_tree,
-            wire_plan=wire_plan)
+            wire_plan=wire_plan, tokens=tokens)
 
 
 # the scheduled XR serve: the XR traffic and the two scheduling legs of
@@ -1776,7 +1801,11 @@ XR_TRACKERS = ("hand_tracking", "gaze")
 XR = dict(requests=60, slots=4, max_len=128, prefill_chunk=16,
           token_budget=96, tick_s=1e-3, period_ms=6.0, assist_new=24, seed=0)
 XR_ARCH = "qwen3-0.6b"
-XR_PAGED_REQUESTS = 24           # parts (c)-(d): ~0.2 s a paged tick
+# the first 14 of qwen3-0.6b's 28 layers, at full width, so that the script,
+# phase 16 and the build included, ends within 1,200 s (PERF.md sections
+# 4 and 7); on the virtual clock the decisions do not depend on the depth
+XR_LAYERS = 14
+XR_PAGED_REQUESTS = 24           # parts (c)-(d): ~0.1 s a paged tick
 XR_GATE = dict(miss_rate=0.05, assistant_tok_ratio=0.90)
 
 
@@ -5242,6 +5271,287 @@ def bf16_phase(torch, m, dev, get_config):
     return out
 
 
+# phase 16: mesh-sharded paged serving (ROADMAP A11 (a)).  A mesh's links
+# all stream to the one card: N fetch workers (each CRC-checking its own
+# shard's pages) and N copy streams feeding one device, joined at the
+# tick's fence.  (a) The launcher's main on full-width qwen3-0.6b at 4 bits,
+# KV-paged, --mesh 4, with a budget at which at least half of the packed
+# linear bytes stay paged under the sharded charge (plan_for_budget's
+# shard_factors charge a sharded param a quarter a link: at phase 11's
+# half-of-the-linears budget everything would be resident and the launcher
+# would serve unsharded).  (b) Phase 6's store (4 bits, the cold half
+# wire-served as int8 pages) through attach_paging(wire_serve=True,
+# mesh=make_test_mesh((1, 4))): pool-less, and with a per-link budget that
+# holds only part of a link's pages (a one-member pool never evicts its own
+# pages, so the rest re-swap every pass); phase 6's requests, tokens equal
+# to phase 6's single-link serve, counters equal to predict()
+MESH_ARCH = "qwen3-0.6b"
+MESH_LINKS = 4
+MESH_FLAGS = ["--arch", MESH_ARCH, "--bits", "4", "--kv-paged",
+              "--requests", "4", "--max-new", "8", "--mesh", str(MESH_LINKS)]
+MESH_VERIFY = LAUNCH_VERIFY + (
+    "verify: mesh tokens BIT-EXACT vs single-device paged run, byte ledger "
+    "obeys the sharding algebra",)
+# the launcher's budget: this share of the linears' per-link charge
+MESH_BUDGET_SHARE = 0.4
+# (b)'s per-link pool: this share of a link's page bytes
+MESH_POOL_SHARE = 2 / 3
+MESH_KERNELS = ("qmatmul_f32", "flash_attention")
+MESH_WIRE_KERNELS = ("qmatmul_f32", "qmatmul_f32_blockscale",
+                     "flash_attention")
+
+
+@contextlib.contextmanager
+def captured_serves(torch, launch_serve, zero, read, card: bool):
+    """Wraps the launcher's ``_serve``: each call's launches (zeroed before
+    it, read after it), its ticks' latency and page-wait quantiles, its
+    paging summary and whether it ran on a mesh, in call order."""
+    real = launch_serve._serve
+    runs = []
+
+    def wrapped(*a, **kw):
+        zero()
+        done, sched, eng = real(*a, **kw)
+        if card:
+            torch.cuda.synchronize()
+        launches, split = read()
+        doc = sched.metrics.summary(paging=eng.paging_summary())
+        runs.append(dict(launches=launches, split=split,
+                         mesh=kw.get("mesh") is not None,
+                         ticks=doc["ticks"], paging=doc["paging"]))
+        return done, sched, eng
+
+    launch_serve._serve = wrapped
+    try:
+        yield runs
+    finally:
+        launch_serve._serve = real
+
+
+def link_rows(rows):
+    """Per-link wire bytes, CRC and copy seconds of ``paging.devices``."""
+    return [dict(link=r["device"], wire_bytes=r["bytes_streamed_wire"],
+                 crc_s=r["crc_s"], copy_s=r["copy_s"]) for r in rows]
+
+
+def mesh_phase(torch, m, dev, cfg, store):
+    """Phase 16 (see the comment above MESH_ARCH).  ``store`` is phase 6's
+    paged store (its tree with the cold leaves on the host, its plan, its
+    served tokens)."""
+    np, pl, pg = m["np"], m["placement"], m["paging"]
+    launch_serve, qmm, fa = m["launch_serve"], m["qmm"], m["fa"]
+    t_phase = time.perf_counter()
+    card = dev.type == "cuda"
+    lm = {"qmatmul_f32": qmm.qmatmul_f32,
+          "qmatmul_f32_blockscale": qmm.qmatmul_f32_blockscale,
+          "flash_attention": fa.flash_attention}
+    mesh = m["mesh"].make_test_mesh((1, MESH_LINKS), ("data", "model"),
+                                    device=dev)
+    links = [str(link) for link in mesh.links]
+    print(f"[mesh] {MESH_LINKS} links {links}, all on the one physical "
+          f"device {dev} ({torch.cuda.get_device_name(dev) if card else dev}"
+          f"): {MESH_LINKS} fetch workers and copy streams")
+    out = {}
+
+    # (a) the launcher: the budget from the tree it draws, charged per link
+    flags = MESH_FLAGS + ["--device", dev.type]
+    probe = launch_serve._parser().parse_args(flags + ["--budget-mb", "1"])
+    packed = launch_serve._init_packed(launch_serve._config(probe), 0, probe)
+    factors = launch_serve._mesh_shard_factors(packed, mesh)
+    sizes = pl.packed_sizes(packed)
+    per_link = pl.packed_sizes(packed, shard_factors=factors)
+    budget_mb = sum(per_link.values()) * MESH_BUDGET_SHARE / 2**20
+    plan = pl.plan_for_budget(
+        sizes, int(budget_mb * 2**20),
+        hot=pl.Placement("l1mram", 4, "resident"),
+        cold=pl.Placement("l3flash", 4, "paged"), sizes_bits=4,
+        shard_factors=factors)
+    del packed
+    paged_share = plan.paged_bytes(sizes) / sum(sizes.values())
+    print(f"[mesh] (a) packed linears {sum(sizes.values())} B at 4 bits, "
+          f"{sum(per_link.values())} B charged a link ({len(factors)} of "
+          f"{len(sizes)} groups shard {MESH_LINKS} ways); --budget-mb "
+          f"{budget_mb:.4f} pins {plan.split_names(sorted(sizes))[0]}, "
+          f"pages {paged_share:.3f} of the linear bytes")
+    if paged_share < 0.5:
+        raise AssertionError(f"the mesh budget pages only {paged_share:.3f} "
+                             "of the linear bytes, want half or more")
+    metrics = ROOT / "build" / "mesh_metrics.json"
+    metrics.parent.mkdir(exist_ok=True)
+    argv = flags + ["--budget-mb", repr(budget_mb), "--metrics-json",
+                    str(metrics)]
+    print(f"[mesh] python -m repro_torch.launch.serve {' '.join(argv)}")
+
+    def zero():
+        zero_launches(lm)
+
+    def read():
+        return read_launches(lm)
+
+    with recording(torch, m["ops"]) as seen_a, \
+            captured_serves(torch, launch_serve, zero, read, card) as runs:
+        done, text, wall_a = run_main(torch, launch_serve.main, argv, card)
+    if "nothing paged under this plan" in text or \
+            "serving unsharded" in text:
+        raise AssertionError("the launcher served unsharded")
+    expect_lines(text, MESH_VERIFY, "mesh launcher")
+    if not any(line.startswith(f"mesh 1x{MESH_LINKS}: ") and line.endswith(
+            "global ledger MATCHES the static kv_pass_counters prediction")
+            for line in text.splitlines()):
+        raise AssertionError("mesh launcher: the ledger does not match its "
+                             "prediction")
+    if len(done) != 4 or any(len(r.generated) != 8 for r in done):
+        raise AssertionError("mesh launcher: not every request got its 8 "
+                             "tokens")
+    doc = m["serving"].validate(json.loads(metrics.read_text()))
+    md = doc["mesh"]
+    if not (md["bit_exact"] and md["predicted_ok"] and md["ledger_ok"]
+            and md["sharded_params"] > 0 and md["n_devices"] == MESH_LINKS):
+        raise AssertionError(f"mesh section {json.dumps(md)}")
+    if doc["paging"]["devices"] != md["ledger"]["per_device"]:
+        raise AssertionError("paging.devices differs from the ledger's rows")
+    served, single = runs[0], runs[-1]
+    if not served["mesh"] or single["mesh"]:
+        raise AssertionError("the launcher's first serve is not the mesh "
+                             "run, or its last not the single-link one")
+    expect_launched(served["launches"], MESH_KERNELS,
+                    "the launcher's mesh run")
+
+    def reading(run):
+        nt = run["ticks"]["count"]
+        return dict(ticks=nt, tick_ms=run["ticks"]["latency_ms"],
+                    exposed_ms_a_tick=run["paging"]["exposed_s"] / nt * 1e3,
+                    hidden_ms_a_tick=run["paging"]["hidden_s"] / nt * 1e3,
+                    crc_s=run["paging"]["crc_s"],
+                    copy_s=run["paging"]["copy_s"],
+                    wire_bytes=run["paging"]["bytes_streamed_wire"])
+
+    out["launcher"] = dict(
+        launches={k: served["launches"][k] for k in MESH_KERNELS},
+        launches_by_class=served["split"], wall_s=wall_a,
+        budget_mb=budget_mb, paged_share=paged_share,
+        sharded_params=md["sharded_params"], predicted=md["predicted"],
+        single_device=md["single_device"],
+        per_link_max_wire=md["per_link_max_wire"],
+        mesh=dict(reading(served),
+                  links=link_rows(served["paging"]["devices"])),
+        one_link=reading(single))
+    print(f"[mesh] (a) the launcher's main, every verify line BIT-EXACT, "
+          f"the ledger on its prediction ({wall_a:.2f} s with its "
+          f"{len(runs) - 1} verify serves); readings ({m['card']}): "
+          f"{json.dumps(out['launcher'])}")
+
+    # (b) phase 6's wire-served store on four links
+    rng = np.random.default_rng(0)          # serve_lm's requests
+    lens = rng.integers(16, 257, 8)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+    plan = store["plan"]
+    cold = plan.split_names(sorted(pl.packed_sizes(store["packed"])))[1]
+    full = pg.packed_tree_store(store["packed"], plan)
+    page_bytes = max(-(-full.params[n].nbytes_packed // MESH_LINKS)
+                     for n in cold)
+    del full
+
+    def serve(mesh=None, budget=None):
+        eng = m["ServingEngine"](cfg, store["packed"], batch_slots=4,
+                                 max_len=512, plan=plan)
+        eng.attach_paging(wire_serve=True, mesh=mesh,
+                          page_bytes=page_bytes if mesh else None,
+                          shard_budget_bytes=budget)
+        for i, p in enumerate(prompts):
+            eng.submit(m["Request"](uid=i, prompt=p, max_new_tokens=16))
+        ticks = []
+        zero()
+        while eng.pending:
+            t = time.perf_counter()
+            eng.step()
+            ticks.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        launches, split = read()
+        tokens = {r.uid: r.generated for r in eng.finished}
+        if tokens != store["tokens"]:
+            bad = [u for u in tokens if tokens[u] != store["tokens"].get(u)]
+            raise AssertionError(f"wire-served store on "
+                                 f"{'a mesh' if mesh else 'one link'}: "
+                                 f"tokens differ from phase 6's for uids "
+                                 f"{bad}")
+        summary = eng.paging_summary()
+        pager = eng.pager
+        nt = len(ticks)
+        got = dict(ticks=nt, tick_ms=m["serving"].metrics.quantiles(
+                       [t * 1e3 for t in ticks]),
+                   exposed_ms_a_tick=summary["exposed_s"] / nt * 1e3,
+                   hidden_ms_a_tick=summary["hidden_s"] / nt * 1e3,
+                   crc_s=summary["crc_s"], copy_s=summary["copy_s"],
+                   wire_bytes=summary["bytes_streamed_wire"],
+                   decode_s=summary["decode_s"],
+                   decode_skipped_bytes=summary["decode_skipped_bytes"])
+        if mesh is not None:
+            pred = pager.predict()
+            if (pred["swaps"], pred["misses"], pred["bytes_wire"],
+                    pred["bytes_raw"]) != (
+                    summary["swap_count"], summary["miss_count"],
+                    summary["bytes_streamed_wire"],
+                    summary["bytes_streamed_raw"]):
+                raise AssertionError(f"mesh counters {summary} differ from "
+                                     f"predict() {pred}")
+            if summary["decode_s"] != 0.0 or \
+                    summary["decode_skipped_bytes"] <= 0:
+                raise AssertionError(f"wire-serve decoded on the host: "
+                                     f"{summary}")
+            got.update(predicted=pred, links=link_rows(summary["devices"]),
+                       pages_a_link=[len(s.pages) for s in pager.stores],
+                       page_bytes_a_link=[sum(p.nbytes for p in s.pages)
+                                          for s in pager.stores],
+                       shard_axes=sorted(pager.shard_axes))
+        pager.close()
+        return got, launches, split
+
+    one, _, _ = serve()
+    with recording(torch, m["ops"]) as seen_b:
+        four, launches_b, split_b = serve(mesh)
+    expect_launched(launches_b, MESH_WIRE_KERNELS,
+                    "the wire-served store on four links")
+    if four["wire_bytes"] != one["wire_bytes"]:
+        raise AssertionError(f"four links moved {four['wire_bytes']} wire "
+                             f"B, one link {one['wire_bytes']}")
+    budget = int(max(four["page_bytes_a_link"]) * MESH_POOL_SHARE
+                 ) * MESH_LINKS
+    pooled, _, _ = serve(mesh, budget)
+    pred = pooled["predicted"]
+    if pred["pool_hits"] <= 0 or pred["swaps"] <= sum(
+            pooled["pages_a_link"]):
+        raise AssertionError(f"the per-link pools ({budget // MESH_LINKS} B "
+                             f"each) hold all or none of a link's pages: "
+                             f"{pred}")
+    out["wire"] = dict(launches={k: launches_b[k] for k in lm},
+                       launches_by_class=split_b, page_bytes=page_bytes,
+                       one_link=one, mesh=four,
+                       pooled=dict(pooled, budget_bytes=budget))
+    print(f"[mesh] (b) phase 6's wire-served store, tokens equal to phase "
+          f"6's single-link serve on one link, on {MESH_LINKS} links and on "
+          f"{MESH_LINKS} links with {budget // MESH_LINKS} B pools; counters "
+          f"on predict(); readings ({m['card']}): {json.dumps(out['wire'])}")
+    for what, part in (("(a) launcher", out["launcher"]),
+                       ("(b) wire-served", out["wire"])):
+        print(f"[mesh] {what}: tick p50 {part['mesh']['tick_ms']['p50']:.2f}"
+              f" ms on {MESH_LINKS} links, "
+              f"{part['one_link']['tick_ms']['p50']:.2f} ms on one; exposed "
+              f"/ hidden page wait a tick "
+              f"{part['mesh']['exposed_ms_a_tick']:.2f} / "
+              f"{part['mesh']['hidden_ms_a_tick']:.2f} ms on {MESH_LINKS} "
+              f"links, {part['one_link']['exposed_ms_a_tick']:.2f} / "
+              f"{part['one_link']['hidden_ms_a_tick']:.2f} on one; per link "
+              f"{json.dumps(part['mesh']['links'])} ({m['card']})")
+    calls = {k: list(dict.fromkeys(seen_a[k] + seen_b[k])) for k in seen_a}
+    out["path_check"] = check_path(torch, m["ops"], m["ref"], qmm, fa,
+                                   m["ssm"], dev, f"{MESH_ARCH} mesh", calls)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[mesh] phase 16 took {out['wall_s']:.1f} s")
+    return out
+
+
 def phase_clock(phase_s):
     """``mark(name)`` closes the running phase (its wall seconds into
     ``phase_s``) and starts ``name``'s."""
@@ -5402,8 +5712,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mods.update(serving=serving, trace=trace)
-    xr = serve_xr_phase(torch, mods, get_config(XR_ARCH), xr_tree,
-                        paged_store, dev)
+    xr = serve_xr_phase(
+        torch, mods, cut(get_config(XR_ARCH), XR_LAYERS),
+        dict(xr_tree, layers=first_layers(xr_tree["layers"], XR_LAYERS)),
+        {k: dict(paged_store[k], layers=first_layers(
+            paged_store[k]["layers"], XR_LAYERS)) if k in (
+                "packed", "wire_tree") else v
+         for k, v in paged_store.items()}, dev)
+    # phase 16 serves the same store on four links
+    mesh_store = {k: paged_store[k] for k in ("packed", "plan", "tokens")}
     del paged_store
     served[f"{XR_ARCH} xr"] = xr
     for name in ("qmatmul_f32", "flash_attention"):
@@ -5559,7 +5876,28 @@ def main() -> int:
     p15 = bf16_phase(torch, mods, dev, get_config)
 
     mark("16")
-    # 16. result lines
+    # 16. mesh-sharded paged serving: the launcher's --mesh 4 at full width,
+    # and phase 6's wire-served store on four links
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.launch import mesh as mesh_mod
+    mods.update(mesh=mesh_mod)
+    p16 = mesh_phase(torch, mods, dev, get_config(PAGED_ARCH), mesh_store)
+    del mesh_store
+    for leg in ("launcher", "wire"):
+        served[f"{MESH_ARCH} mesh {leg}"] = p16[leg]
+        for name in ("qmatmul_f32", "flash_attention"):
+            launches[name] += p16[leg]["launches"][name]
+    b3_by_path[f"{PAGED_ARCH} mesh wire"] = p16["wire"]["launches"][
+        "qmatmul_f32_blockscale"]
+    qmm_err, fa_err, bs_err = (
+        max(err, p16["path_check"]["max_abs_err"][name])
+        for err, name in ((qmm_err, "qmatmul_f32"),
+                          (fa_err, "flash_attention"),
+                          (bs_err, "qmatmul_f32_blockscale")))
+
+    mark("17")
+    # 17. result lines
     by_path = {name: {arch: s["launches"][name] for arch, s in served.items()
                       if name in s["launches"]}
                for name in counters}
@@ -5732,6 +6070,9 @@ def main() -> int:
                       "phase14_path_check": p14["path_check"]}))
     print(json.dumps({"bf16": {k: v for k, v in p15.items()
                                if k != "times"}}))
+    print(json.dumps({"mesh": {k: v for k, v in p16.items()
+                               if k != "path_check"},
+                      "mesh_path_check": p16["path_check"]}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

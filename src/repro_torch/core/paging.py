@@ -1,4 +1,4 @@
-"""Software-assisted virtual weight paging (paper §II-B2), on one device.
+"""Software-assisted virtual weight paging (paper §II-B2).
 
 Ports the single-device part of ``repro/core/paging.py``: ``Page``,
 ``page_sizes``, ``page_crc`` and ``build_pages`` (``:56-208``); the static
@@ -8,9 +8,11 @@ schedule (``PageScheduleEntry``, ``StallModel``, ``make_schedule``,
 images (``HostParam``, ``encode_host_param``, ``page_roundtrip_param``,
 ``page_crc_of_buffers``, ``retry_fetch``, ``:572-739``); ``HostPagedStore``,
 ``PageStream`` and ``AsyncPageStream`` (``:741-1229``); ``pass_counters``
-(``:1231-1259``); KV-cache paging (``KVPageTable``, ``KVPageStream``,
-``kv_pass_counters``, ``:1696-2176``); ``thread_packed`` and
-``packed_tree_store`` (``:2179-2229``).
+(``:1231-1259``); mesh-sharded paging (``shard_packed_param``,
+``store_shard_axes``, ``ShardedPoolLedger``, ``ShardedPagedStore``,
+``JoinedPageStream``, ``:1262-1691``); KV-cache paging (``KVPageTable``,
+``KVPageStream``, ``kv_pass_counters``, ``:1696-2176``); ``thread_packed``
+and ``packed_tree_store`` (``:2179-2229``).
 
 Packed weights whose plan placement is ``paged`` live on the host in their
 page *wire* encoding ("background flash"); every pass streams them to the
@@ -43,7 +45,11 @@ With a :class:`~repro_torch.serving.trace.Tracer` on ``store.tracer``
 (weights) or ``kv_block`` span on the ``io`` track, and every injected
 fault and retry, pool eviction and KV drop an instant there.
 
-Not ported here: the mesh-sharded stores (ROADMAP A11).
+A :class:`ShardedPagedStore` fans one store out over a mesh's "model"
+links (``launch/mesh.py``): each link a :class:`HostPagedStore` with its
+own fetch worker, copy stream and, under a budget, its own pool of
+``budget // n`` bytes, streaming only its shard of each sharded param; the
+fence concatenates the shards on the compute device.
 """
 
 from __future__ import annotations
@@ -1113,6 +1119,445 @@ def pass_counters(n_pages: int, resident_slots: int = 2) -> Dict[str, int]:
         if e.evicts is not None:
             live.discard(e.evicts)
     return dict(swaps=swaps, misses=misses)
+
+
+# ---------------------------------------------------------------------------
+# Mesh-sharded paging: one engine, N memory links
+# ---------------------------------------------------------------------------
+
+def shard_packed_param(p: PackedParam, axis: int, n: int, i: int
+                       ) -> PackedParam:
+    """Shard ``i`` of ``n`` of a packed param, sliced along dense ``axis``
+    (a view of ``p``'s tensors).
+
+    ``axis`` must be a NON-LAST dim of ``orig_shape``
+    (:func:`repro_torch.parallel.sharding.shard_axis` picks only such):
+    the packed carrier shares every leading dim with the dense shape and
+    the per-channel scales span ``orig_shape[:-1]``, so one slice covers
+    payload and scales alike.  The page wire codec works per row (blocks
+    along the last axis, channel scales on the ``(rows, k)`` view), so
+    encoding a shard gives the shard of the encoding, and the per-link
+    fetches concatenate back into the single-link bytes exactly."""
+    size = int(p.orig_shape[axis])
+    if axis >= len(p.orig_shape) - 1:
+        raise ValueError(f"cannot shard the packed last axis {axis} of "
+                         f"shape {tuple(p.orig_shape)}")
+    if size % n != 0:
+        raise ValueError(f"axis {axis} of {tuple(p.orig_shape)} does not "
+                         f"split into {n} shards")
+    step = size // n
+    sl = [slice(None)] * len(p.orig_shape)
+    sl[axis] = slice(step * i, step * (i + 1))
+    orig = list(p.orig_shape)
+    orig[axis] = step
+    return PackedParam(packed=p.packed[tuple(sl)],
+                       scale=p.scale[tuple(sl[:-1])], bits=p.bits,
+                       orig_shape=tuple(orig))
+
+
+def store_shard_axes(store: WeightStore, plan: Optional[PlacementPlan],
+                     mesh: Any) -> Dict[str, Tuple[int, int]]:
+    """{param name: (axis, n_shards)} for every param the mesh's "model"
+    axis tensor-shards under the sharding rules.  With a ``plan``, its
+    PAGED params only (the resident set stays whole on the compute
+    device); without one the whole store, the form ``plan_for_budget``'s
+    ``shard_factors`` wants before a plan exists."""
+    from repro_torch.parallel.sharding import shard_axis
+    out: Dict[str, Tuple[int, int]] = {}
+    for name, p in store.params.items():
+        if plan is not None and not plan.placement_for(name).paged:
+            continue
+        ax = shard_axis(tuple(name.split("/")), tuple(p.orig_shape), mesh)
+        if ax is not None:
+            out[name] = ax
+    return out
+
+
+class ShardedPoolLedger:
+    """N per-link page pools under ONE device-bytes budget.
+
+    The Siracusa reading: the cluster and N-EUREKA each stream their own
+    At-MRAM slice over their own memory port, under one byte budget.  Each
+    link gets ``budget // n`` of it as a private :class:`SharedPagePool`,
+    and the ledger sums the per-link ``(device, wire, raw)`` counters into
+    the global view.  ``budget_bytes=None`` is the pool-less default:
+    every pass re-swaps every page on every link.
+
+    :meth:`predict` sums the per-link :func:`kv_pass_counters` replays
+    (the links are independent); the sums equal the runtime counters, the
+    contract the single-link pool keeps."""
+
+    def __init__(self, budget_bytes: Optional[int], n_devices: int,
+                 name: str = "default"):
+        if n_devices < 1:
+            raise ValueError(f"n_devices must be >= 1, got {n_devices}")
+        self.name = name
+        self.n_devices = int(n_devices)
+        self.budget_bytes = (None if budget_bytes is None
+                             else int(budget_bytes))
+        self.pools: Optional[List[SharedPagePool]] = None
+        if budget_bytes is not None:
+            per = max(1, int(budget_bytes) // n_devices)
+            self.pools = [SharedPagePool(per) for _ in range(n_devices)]
+        self.stores: List[HostPagedStore] = []
+        self.labels: List[str] = []
+        self.pass_count = 0              # pool-less passes begun (predict)
+        self._lock = threading.Lock()
+        self.counters: Dict[str, Dict[str, float]] = {}
+        self._tracer = None
+
+    def register(self, store: HostPagedStore, label: str) -> None:
+        """Add the next link's store; ``label`` names the link in the
+        per-device rows."""
+        with self._lock:
+            self.stores.append(store)
+            self.labels.append(label)
+
+    def pool_for(self, device_index: int) -> Optional[SharedPagePool]:
+        return None if self.pools is None else self.pools[device_index]
+
+    def add_stall(self, name: str, exposed_s: float,
+                  hidden_s: float = 0.0) -> None:
+        """Book a joined pass's stall split (the engine fences ONE joined
+        stream, so the split arrives aggregated)."""
+        with self._lock:
+            c = self.counters.setdefault(name, dict(exposed_s=0.0,
+                                                    hidden_s=0.0))
+            c["exposed_s"] += float(exposed_s)
+            c["hidden_s"] += float(hidden_s)
+
+    @property
+    def tracer(self):
+        return self._tracer
+
+    @tracer.setter
+    def tracer(self, tracer) -> None:
+        self._tracer = tracer
+        for pool in self.pools or ():
+            pool.tracer = tracer
+
+    def predict(self, resident_slots: int = 2) -> Dict[str, int]:
+        """The global counters' prediction: per-link replays, summed."""
+        total = dict(swaps=0, misses=0, pool_hits=0, evicted=0, dropped=0,
+                     bytes_wire=0, bytes_raw=0)
+        for i, store in enumerate(self.stores):
+            pool = self.pool_for(i)
+            if pool is not None:
+                sizes = {m: page_sizes(s.pages)
+                         for m, s in pool.members.items()}
+                events, budget = pool.events, pool.budget_bytes
+            else:
+                sizes = {store.name: page_sizes(store.pages)}
+                events = [("pass", store.name)] * self.pass_count
+                budget = None
+            pred = kv_pass_counters(sizes, budget, events,
+                                    resident_slots=resident_slots)
+            for c in pred.values():
+                for k in total:
+                    total[k] += int(c.get(k, 0))
+        return total
+
+    def summary(self) -> Dict[str, Any]:
+        """The global byte ledger and the per-link rows it sums; each row
+        also carries its link's fetch worker's ``crc_s`` and ``copy_s``."""
+        per_device = []
+        for i, store in enumerate(self.stores):
+            d = dict(device=self.labels[i], n_pages=len(store.pages),
+                     swap_count=store.swap_count,
+                     miss_count=store.miss_count,
+                     bytes_streamed_wire=store.bytes_streamed_wire,
+                     bytes_streamed_raw=store.bytes_streamed_raw)
+            pool = self.pool_for(i)
+            if pool is not None:
+                d.update(budget_bytes=pool.budget_bytes,
+                         live_bytes=pool.live_bytes,
+                         cached_pages=len(pool._cache))
+            d.update(crc_s=store.crc_s, copy_s=store.copy_s)
+            per_device.append(d)
+        with self._lock:
+            stalls = {m: dict(c) for m, c in self.counters.items()}
+        return dict(
+            budget_bytes=self.budget_bytes,
+            n_devices=self.n_devices,
+            swap_count=sum(d["swap_count"] for d in per_device),
+            miss_count=sum(d["miss_count"] for d in per_device),
+            bytes_streamed_wire=sum(d["bytes_streamed_wire"]
+                                    for d in per_device),
+            bytes_streamed_raw=sum(d["bytes_streamed_raw"]
+                                   for d in per_device),
+            per_device=per_device, stalls=stalls)
+
+    def close(self, wait: bool = True) -> None:
+        if self.pools is not None:
+            for pool in self.pools:
+                pool.close(wait=wait)     # closes the member stores too
+        else:
+            for store in self.stores:
+                store.close(wait=wait)
+
+
+class ShardedPagedStore:
+    """One paged store fanned out over the mesh's "model" links: each link
+    streams ONLY its shard (it stands in for :class:`HostPagedStore` in
+    the engine's begin / fence pipeline).
+
+    Routing, by :func:`store_shard_axes`:
+
+      * a tensor-shardable paged param is split by
+        :func:`shard_packed_param`; link ``i`` holds shard ``i`` in its own
+        host image and page cache, so each link moves about 1/N of its
+        bytes;
+      * a replicated paged param, the plan's resident set and the
+        passthrough leaves live on link 0 only: paged once, so the global
+        byte ledger for them equals the single-link one.
+
+    Each link is a :class:`HostPagedStore` with its own fetch worker and,
+    on a card, its own copy stream.  :meth:`begin_pass` starts one
+    :class:`AsyncPageStream` a link; the :class:`JoinedPageStream` it
+    returns fences all of them and concatenates the shards back into
+    full-shape params on the compute device (link 0's), bit-identical to
+    a single-link fetch."""
+
+    def __init__(self, store: WeightStore, page_bytes: int, mesh: Any,
+                 plan: Optional[PlacementPlan] = None,
+                 budget_bytes: Optional[int] = None,
+                 name: str = "default", faults: FaultsArg = None):
+        axis_names = tuple(getattr(mesh, "axis_names", ()))
+        if "model" not in axis_names:
+            raise ValueError(f"mesh axes {axis_names} have no 'model' "
+                             f"axis to shard the paged store on")
+        n = int(mesh.shape["model"])
+        if n < 2:
+            raise ValueError("a model axis of size 1 shards nothing: use "
+                             "HostPagedStore")
+        # the model axis's links in the mesh's first row; the store itself
+        # is not kept (it may hold the card's copy of every cold group)
+        self.devices: Tuple = tuple(
+            np.asarray(mesh.devices, dtype=object).reshape(-1, n)[0])
+        self.n_shards = n
+        self.name = name
+        self.shard_axes = store_shard_axes(store, plan, mesh)
+        self.ledger = ShardedPoolLedger(budget_bytes, n, name=name)
+        self.stores: List[HostPagedStore] = []
+        self._tracer = None
+        for i, link in enumerate(self.devices):
+            params: Dict[str, PackedParam] = {}
+            for pname, p in store.params.items():
+                ax = self.shard_axes.get(pname)
+                if ax is not None:
+                    params[pname] = shard_packed_param(p, ax[0], n, i)
+                elif i == 0:
+                    params[pname] = p     # replicated / resident: link 0
+            sub = HostPagedStore(
+                WeightStore(params=params, passthrough=(
+                    dict(store.passthrough) if i == 0 else {})),
+                page_bytes, device=link.device, plan=plan,
+                pool=self.ledger.pool_for(i), name=f"{name}@dev{i}",
+                faults=faults)
+            self.stores.append(sub)
+            self.ledger.register(sub, str(link))
+
+    # -- the HostPagedStore surface, summed over the links -----------------
+    @property
+    def device(self) -> torch.device:
+        """The compute device: link 0's, where the join lands."""
+        return self.stores[0].device
+
+    @property
+    def resident(self) -> Dict[str, PackedParam]:
+        return self.stores[0].resident
+
+    @property
+    def pages(self) -> List[Page]:
+        return [p for s in self.stores for p in s.pages]
+
+    @property
+    def swap_count(self) -> int:
+        return sum(s.swap_count for s in self.stores)
+
+    @property
+    def miss_count(self) -> int:
+        return sum(s.miss_count for s in self.stores)
+
+    @property
+    def bytes_streamed_wire(self) -> int:
+        return sum(s.bytes_streamed_wire for s in self.stores)
+
+    @property
+    def bytes_streamed_raw(self) -> int:
+        return sum(s.bytes_streamed_raw for s in self.stores)
+
+    @property
+    def decode_s(self) -> float:
+        return sum(s.decode_s for s in self.stores)
+
+    @property
+    def crc_s(self) -> float:
+        return sum(s.crc_s for s in self.stores)
+
+    @property
+    def copy_s(self) -> float:
+        return sum(s.copy_s for s in self.stores)
+
+    @property
+    def decode_skipped_bytes(self) -> int:
+        return sum(s.decode_skipped_bytes for s in self.stores)
+
+    @property
+    def wire_served(self) -> set:
+        return set().union(*(s.wire_served for s in self.stores))
+
+    @property
+    def fault_counters(self) -> Dict[str, int]:
+        from repro_torch.core.faults import merge_fault_counters
+        return merge_fault_counters([s.fault_counters
+                                     for s in self.stores])
+
+    @property
+    def pool(self) -> Optional[ShardedPoolLedger]:
+        """The engine's ``pager.pool`` hook: the ledger when a global
+        budget was given (it answers ``add_stall``), else None, as a
+        pool-less single-link store."""
+        return self.ledger if self.ledger.pools is not None else None
+
+    @property
+    def tracer(self):
+        return self._tracer
+
+    @tracer.setter
+    def tracer(self, tracer) -> None:
+        self._tracer = tracer
+        for s in self.stores:
+            s.tracer = tracer
+        self.ledger.tracer = tracer
+
+    def device_summaries(self) -> List[Dict[str, Any]]:
+        """The per-link rows of the metrics v9 ``paging.devices``."""
+        return self.ledger.summary()["per_device"]
+
+    def template_view(self) -> Dict[str, PackedParam]:
+        """Full-shape host leaves of every paged param: link 0's view,
+        with each sharded param's links concatenated along its axis."""
+        per_dev = [s.template_view() for s in self.stores]
+        view = dict(per_dev[0])
+        for pname, (ax, _n) in self.shard_axes.items():
+            view[pname] = _join([pv[pname] for pv in per_dev], ax)
+        return view
+
+    def begin_pass(self, resident_slots: int = 2) -> "JoinedPageStream":
+        self.ledger.pass_count += 1
+        return JoinedPageStream(self, resident_slots)
+
+    def predict(self, resident_slots: int = 2) -> Dict[str, int]:
+        return self.ledger.predict(resident_slots)
+
+    def close(self, wait: bool = True) -> None:
+        self.ledger.close(wait=wait)
+
+    def __enter__(self) -> "ShardedPagedStore":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False
+
+
+def _join(parts: Sequence[PackedParam], axis: int,
+          device: Optional[torch.device] = None) -> PackedParam:
+    """One param's shards concatenated along ``axis`` (on ``device``, else
+    where the shards lie)."""
+    def cat(ts):
+        if device is not None:
+            ts = [t.to(device) for t in ts]
+        return torch.cat(ts, dim=axis)
+
+    orig = list(parts[0].orig_shape)
+    orig[axis] = sum(int(p.orig_shape[axis]) for p in parts)
+    return PackedParam(packed=cat([p.packed for p in parts]),
+                       scale=cat([p.scale for p in parts]),
+                       bits=parts[0].bits, orig_shape=tuple(orig))
+
+
+class JoinedPageStream:
+    """One overlapped pass over EVERY link of a :class:`ShardedPagedStore`
+    (it stands in for :class:`AsyncPageStream` at the engine's fence).
+
+    Construction begins one :class:`AsyncPageStream` a link: the N links
+    stream at once, each on its own fetch worker (and pool), so each
+    link's order stays deterministic on its own.  :meth:`fence` fences
+    every link, giving each the time that remains of ``timeout_s``, and
+    concatenates the shards into full-shape params on the compute device
+    (``torch.cat`` on the stream current there; each link's worker waited
+    on its copy event before its pages were handed over, so no host round
+    trip is added).  It records ONE exposed / hidden split with
+    :class:`AsyncPageStream`'s algebra, the ready time being the LAST
+    link's: the tick cannot start before the slowest port delivers.
+
+    A ``timeout_s`` expiry raises the link's
+    :class:`~repro_torch.core.faults.PageFetchTimeout` with every link
+    still resumable (a fenced link keeps its result, the late one its
+    futures), so a deferred tick re-fences the same pass.  :meth:`close`
+    closes every link's pass (each releases its own pool guard), so an
+    early exit leaves no pass orphaned."""
+
+    def __init__(self, sharded: ShardedPagedStore,
+                 resident_slots: int = 2):
+        self._sharded = sharded
+        self._result: Optional[Dict[str, PackedParam]] = None
+        self._closed = False
+        self.swap_s = 0.0
+        self.window_s = 0.0
+        self.exposed_s = 0.0
+        self.hidden_s = 0.0
+        self._t_begin = time.perf_counter()
+        self._streams = [s.begin_pass(resident_slots)
+                         for s in sharded.stores]
+
+    @property
+    def done(self) -> bool:
+        return self._result is not None or self._closed
+
+    def fence(self, timeout_s: Optional[float] = None
+              ) -> Dict[str, PackedParam]:
+        if self._closed:
+            raise RuntimeError("fence() after close(): the pass was "
+                               "cancelled")
+        if self._result is not None:
+            return self._result
+        t_fence = time.perf_counter()
+        per_dev = []
+        for ps in self._streams:
+            remaining = (None if timeout_s is None else
+                         max(0.0, timeout_s - (time.perf_counter()
+                                               - t_fence)))
+            per_dev.append(ps.fence(timeout_s=remaining))
+        target = self._sharded.device
+        dev: Dict[str, PackedParam] = dict(per_dev[0])
+        for name, (ax, _n) in self._sharded.shard_axes.items():
+            dev[name] = _join([pd[name] for pd in per_dev], ax, target)
+        t_join = time.perf_counter()
+        readys = [ps._t_ready for ps in self._streams
+                  if ps._t_ready is not None]
+        t_ready = max(readys) if readys else t_join
+        self.window_s = t_fence - self._t_begin
+        self.exposed_s = t_join - t_fence
+        self.hidden_s = min(t_ready - self._t_begin, self.window_s)
+        self.swap_s = self.hidden_s + self.exposed_s
+        self._result = dev
+        return dev
+
+    def close(self) -> None:
+        for ps in self._streams:
+            ps.close()
+        if self._result is None:
+            self._closed = True
+
+    def __enter__(self) -> "JoinedPageStream":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,10 @@ the port's trees: ``SCENARIOS``, ``ScenarioCost``, ``Placement``, ``HOT`` /
 store accounting, ``as_plan`` and ``linear_dispatch`` (both also taking a
 ``core/engine.EngineConfig``), ``wire_served_bits``, ``path_key``, ``packed_sizes``,
 ``plan_for_budget`` over a ``WeightStore`` or a plain ``{name: nbytes}``
-mapping, and ``freeze_policy``.  It holds no tensor code.  The reference's
-``shard_factors`` (per-device sizes of a mesh-sharded store) arrive with
-the multi-device slice (ROADMAP A11); passing them raises.
+mapping, and ``freeze_policy``.  It holds no tensor code.  Both
+``packed_sizes`` and ``plan_for_budget`` take the reference's
+``shard_factors`` (``:339-360, 378-420``): a param a mesh shards ``n``
+ways charges ``ceil(bytes / n)`` to each device.
 
 ``PlacementPlan.mode`` and the legacy dict's ``"mode"`` key are accepted and
 carried for compatibility, but the port ignores them: the device of the
@@ -261,13 +262,19 @@ def packed_sizes(tree: Any, shard_factors: Optional[Mapping[str, int]]
                  = None) -> Dict[str, int]:
     """{param path: packed bytes} for every packed leaf group of a serving
     tree (the {"packed", "scale"} dicts of ``freeze_for_serving``), the
-    dispatch surface to feed :func:`plan_for_budget`."""
-    if shard_factors:
-        raise NotImplementedError("per-device sizes of a sharded store "
-                                  "arrive with ROADMAP A11")
-    return {key[:-len("/packed")]: leaf.numel()
-            for key, leaf in flatten_tree(tree).items()
-            if key.endswith("/packed")}
+    dispatch surface to feed :func:`plan_for_budget`.
+
+    ``shard_factors`` ({name: n_shards}, e.g. from
+    :func:`repro_torch.core.paging.store_shard_axes`) divides a sharded
+    param's bytes by its shard count, rounding up: the footprint a
+    mesh-sharded pager pays on each link."""
+    sizes = {key[:-len("/packed")]: leaf.numel()
+             for key, leaf in flatten_tree(tree).items()
+             if key.endswith("/packed")}
+    for name, factor in (shard_factors or {}).items():
+        if name in sizes and factor > 1:
+            sizes[name] = max(1, -(-sizes[name] // factor))
+    return sizes
 
 
 def plan_for_budget(store: StoreSizes,
@@ -288,12 +295,14 @@ def plan_for_budget(store: StoreSizes,
     ``uses`` (default 1).  Ties break by larger size, then name.  Returns a
     plan with one exact-path ``hot`` rule per pinned parameter and ``cold``
     as default.
+
+    ``shard_factors`` ({name: n_shards}) marks the params a mesh shards:
+    each device pins only ``1/n`` of such a param, so its resident charge
+    against the per-device budget is divided by ``n``, rounding up.
     """
-    if shard_factors:
-        raise NotImplementedError("shard_factors (per-device budgets of a "
-                                  "sharded store) arrive with ROADMAP A11")
     sizes = _sizes_of(store)
     uses = uses or {}
+    shard_factors = shard_factors or {}
     bits_of = ({n: p.bits for n, p in store.params.items()}
                if isinstance(store, WeightStore) else {})
 
@@ -306,11 +315,17 @@ def plan_for_budget(store: StoreSizes,
     def score(name: str) -> float:
         return _at_bits(name, wire_bits) * float(uses.get(name, 1.0))
 
+    def _resident(name: str) -> int:
+        """Per-device resident charge: a sharded param pins 1/n a link."""
+        factor = int(shard_factors.get(name, 1))
+        nb = _at_bits(name, hot.weight_bits)
+        return max(1, -(-nb // factor)) if factor > 1 else nb
+
     order = sorted(sizes, key=lambda n: (-score(n), -sizes[n], n))
     rules: List[Tuple[str, Placement]] = []
     used = 0
     for name in order:
-        resident_nb = _at_bits(name, hot.weight_bits)
+        resident_nb = _resident(name)
         if used + resident_nb <= budget_bytes:
             rules.append((name, hot))
             used += resident_nb

@@ -37,10 +37,23 @@ cold bytes); each tenant is verified bit-exact against serving it alone on
 a private pager, and the pool's counters against the ``kv_pass_counters``
 replay of its event log.
 
+Mesh-sharded paging: ``--mesh N`` (or ``DxM``) builds a ("data",
+"model") mesh (``launch/mesh.make_test_mesh``) whose links all stream to
+the one device, and shards the paged store over the model axis: each link
+streams ONLY its shard's pages on its own fetch worker and copy stream
+(``core/paging.ShardedPagedStore``), the tick's fence joins them, and the
+``ShardedPoolLedger`` sums the per-link byte counters into one global
+ledger.  The greedy plan charges a sharded param 1/N a link
+(``shard_factors``).  A third verify leg serves the same plan on one link
+and asserts tokens and ticks BIT-EXACT, global wire / raw bytes equal to
+the single link's, and every link strictly below the single link when
+anything shards; the ledger must MATCH its static per-link
+``kv_pass_counters`` prediction.  With ``--models`` the mesh is ignored,
+as the reference ignores it there.
+
 Every decoder-only family serves, the VLM (llava-next-34b) with text
-prompts as the reference's engine serves it.  Refused: ``--mesh``
-(mesh-sharded paging, ROADMAP A11) and the encdec family, as the
-reference refuses it; its serve steps are
+prompts as the reference's engine serves it.  Refused: the encdec family,
+as the reference refuses it; its serve steps are
 ``repro_torch.launch.steps.make_prefill_step`` / ``make_decode_step``.
 """
 
@@ -57,7 +70,8 @@ from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.core.paging import (SharedPagePool, kv_pass_counters,
                                      packed_tree_store, page_roundtrip_param,
-                                     page_sizes, thread_packed)
+                                     page_sizes, store_shard_axes,
+                                     thread_packed)
 from repro_torch.core.placement import (Placement, PlacementPlan,
                                         packed_sizes, plan_for_budget)
 from repro_torch.models import transformer as tfm
@@ -89,14 +103,50 @@ def _fetch_timeout_s(args):
             else args.fetch_timeout_ms / 1e3)
 
 
+def _build_serve_mesh(spec, device):
+    """--mesh's ("data", "model") mesh of links on ``device``: "N" puts
+    all N links on the model axis ((1, N)), "DxM" is an explicit (data,
+    model) grid.  Never clamped: the links share the one device."""
+    if spec is None:
+        return None
+    from repro_torch.launch.mesh import make_test_mesh
+    parts = spec.lower().split("x")
+    try:
+        dims = [int(p) for p in parts]
+    except ValueError:
+        raise SystemExit(f"--mesh wants N or DxM, got {spec!r}")
+    if len(dims) == 1:
+        shape = (1, dims[0])
+    elif len(dims) == 2:
+        shape = tuple(dims)
+    else:
+        raise SystemExit(f"--mesh wants N or DxM, got {spec!r}")
+    if any(d < 1 for d in shape):
+        raise SystemExit(f"--mesh dims must be >= 1, got {spec!r}")
+    return make_test_mesh(shape, ("data", "model"), device=device)
+
+
+def _mesh_shard_factors(packed, mesh):
+    """{param name: n_shards} under the mesh's sharding rules: what
+    plan_for_budget charges a link (computed before the plan, so over
+    every packed group; bits do not move it, the shard axis is never the
+    packed last dim)."""
+    if mesh is None or "model" not in tuple(mesh.axis_names) \
+            or int(mesh.shape["model"]) < 2:
+        return None
+    store = packed_tree_store(packed, None)
+    return {name: n
+            for name, (_ax, n) in store_shard_axes(store, None, mesh).items()}
+
+
 def _serve(cfg, packed, plan, args, paged: bool,
            async_io: bool = None, kv_paged: bool = False, tracer=None,
-           faults=None):
+           faults=None, mesh=None):
     eng = ServingEngine(cfg, packed, batch_slots=args.slots,
                         max_len=args.max_len, plan=plan, seed=args.seed,
                         device=args.device)
     if paged:
-        eng.attach_paging(faults=faults)
+        eng.attach_paging(faults=faults, mesh=mesh)
     if kv_paged:
         eng.attach_kv_paging(args.kv_block, faults=faults)
     sched = Scheduler(eng, prefill_chunk=args.prefill_chunk,
@@ -114,6 +164,48 @@ def _serve(cfg, packed, plan, args, paged: bool,
         sched.submit(req, stream="xr" if req.uid % 2 == 0 else "background")
     done = sched.run_until_done()
     return done, sched, eng
+
+
+def _verify_mesh(cfg, packed, plan, args, eng, sched, got, mesh_doc):
+    """The third verify leg: the mesh changes where pages live and which
+    link moves them, never what the step computes.  The single-link paged
+    run of the same plan must give the same tokens in as many ticks, and
+    the byte ledgers obey the sharding algebra: global wire / raw bytes
+    EQUAL to the single link's (each shard's rows cross one link,
+    replicated params page once on link 0), and each link STRICTLY below
+    it when anything shards.  Fills ``mesh_doc``; returns whether all
+    held."""
+    uref, usched, ueng = _serve(cfg, packed, plan, args, paged=True,
+                                kv_paged=args.kv_paged,
+                                faults=_fault_plan(args))
+    exact = ({r.uid: r.generated for r in uref} == got
+             and usched.ticks == sched.ticks)
+    single_wire = ueng.pager.bytes_streamed_wire
+    single_raw = ueng.pager.bytes_streamed_raw
+    pager = eng.pager
+    link_max = max(d["bytes_streamed_wire"]
+                   for d in mesh_doc["ledger"]["per_device"])
+    ledger_ok = (pager.bytes_streamed_wire == single_wire
+                 and pager.bytes_streamed_raw == single_raw
+                 and (not pager.shard_axes or link_max < single_wire))
+    print("verify: mesh tokens "
+          + ("BIT-EXACT vs single-device paged run" if exact
+             else "MISMATCH vs single-device paged run")
+          + (", byte ledger obeys the sharding algebra" if ledger_ok else
+             f", ledger VIOLATION (global {pager.bytes_streamed_wire}"
+             f"/{pager.bytes_streamed_raw} B vs single {single_wire}"
+             f"/{single_raw} B, link max {link_max} B)"))
+    mesh_doc.update(
+        bit_exact=exact, ledger_ok=ledger_ok,
+        per_link_max_wire=int(link_max),
+        single_device=dict(bytes_streamed_wire=int(single_wire),
+                           bytes_streamed_raw=int(single_raw),
+                           swaps=int(ueng.pager.swap_count),
+                           ticks=int(usched.ticks)))
+    for part in (ueng.pager, ueng.kv_table):
+        if part is not None:
+            part.close()
+    return exact and ledger_ok
 
 
 def _servable(cfg):
@@ -401,8 +493,15 @@ def _parser():
     ap.add_argument("--kv-block", type=int, default=16,
                     help="KV page size in cache rows")
     ap.add_argument("--mesh", default=None, metavar="N|DxM",
-                    help="mesh-sharded paging: not ported (ROADMAP A11); "
-                         "the launcher exits")
+                    help="shard the paged store over a ('data', 'model') "
+                         "mesh: N links on the model axis (or an explicit "
+                         "DxM grid), all streaming to the one device, "
+                         "each only its shard's pages on its own fetch "
+                         "worker and copy stream, joined at the tick "
+                         "fence under one global byte ledger.  A third "
+                         "verify leg serves the same plan on one link and "
+                         "asserts tokens bit-exact plus the ledger "
+                         "identities")
     io = ap.add_mutually_exclusive_group()
     io.add_argument("--async-io", dest="async_io", action="store_true",
                     default=True,
@@ -438,9 +537,6 @@ def _parser():
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if args.mesh is not None:
-        raise SystemExit("--mesh: mesh-sharded paging is not ported yet "
-                         "(ROADMAP A11); serve on one device without it")
     resolve_device(args.device)                  # raises without a card
 
     if args.models is not None:
@@ -450,6 +546,11 @@ def main(argv=None):
     _servable(cfg)
 
     packed = _init_packed(cfg, 0, args)
+    mesh = _build_serve_mesh(args.mesh, args.device)
+    shard_factors = _mesh_shard_factors(packed, mesh)
+    mesh_active = shard_factors is not None
+    if args.mesh is not None and not mesh_active:
+        print("--mesh: the model axis has one link; serving unsharded")
     if args.budget_mb is not None:
         # greedy hot-set plan over exactly the packed leaves the serving
         # dispatch reads (embed and norms never page)
@@ -458,17 +559,21 @@ def main(argv=None):
             sizes, int(args.budget_mb * 1024 * 1024),
             hot=Placement("l1mram", args.bits, "resident"),
             cold=Placement("l3flash", args.bits, "paged", args.page_bits),
-            sizes_bits=args.bits)
+            sizes_bits=args.bits, shard_factors=shard_factors)
         print(plan.summary(sizes))
         paged = plan.paged_bytes(sizes) > 0
     else:
         plan = PlacementPlan.uniform(args.scenario, bits=args.bits)
         paged = False
+    if mesh_active and not paged:
+        print("--mesh: nothing paged under this plan; serving unsharded")
+        mesh_active = False
+    mesh = mesh if mesh_active else None
 
     tracer = Tracer() if args.trace_json else None
     done, sched, eng = _serve(cfg, packed, plan, args, paged,
                               kv_paged=args.kv_paged, tracer=tracer,
-                              faults=_fault_plan(args))
+                              faults=_fault_plan(args), mesh=mesh)
     total_tokens = sum(len(r.generated) for r in done)
     place = ("mixed:" + "+".join(plan.scenarios_used())
              if not plan.is_uniform else plan.default.scenario)
@@ -491,6 +596,26 @@ def main(argv=None):
         if wire:
             print(f"page wire ({enc}): {wire} B streamed for {raw} B raw "
                   f"(x{raw / wire:.2f} compression vs fp32 dense)")
+    mesh_doc = None
+    if mesh is not None:
+        # the ledger's contract: the per-link counters, summed, equal the
+        # static per-link kv_pass_counters replay
+        pred = eng.pager.predict(eng.page_resident_slots)
+        led = eng.pager.ledger.summary()
+        pred_ok = (led["swap_count"] == pred["swaps"]
+                   and led["miss_count"] == pred["misses"]
+                   and led["bytes_streamed_wire"] == pred["bytes_wire"]
+                   and led["bytes_streamed_raw"] == pred["bytes_raw"])
+        shape_s = "x".join(str(int(mesh.shape[a])) for a in mesh.axis_names)
+        link_wire = [d["bytes_streamed_wire"] for d in led["per_device"]]
+        print(f"mesh {shape_s}: {eng.pager.n_shards} links on "
+              f"{eng.pager.device}, {len(eng.pager.shard_axes)} params "
+              f"sharded; per-link wire {link_wire} B; global ledger "
+              + ("MATCHES" if pred_ok else "DIVERGES FROM")
+              + " the static kv_pass_counters prediction")
+        mesh_doc = dict(shape=shape_s, n_devices=eng.pager.n_shards,
+                        sharded_params=len(eng.pager.shard_axes),
+                        ledger=led, predicted=pred, predicted_ok=pred_ok)
     if args.kv_paged:
         pg = summary["paging"]
         print(f"kv paging: {pg['kv_block_rows']}-row blocks, "
@@ -519,7 +644,7 @@ def main(argv=None):
                  f"/{sc['budget_tokens_per_tick']} tok/tick"
                  if args.token_budget else ""))
 
-    ok = True
+    ok = mesh_doc is None or mesh_doc["predicted_ok"]
     if (paged or args.kv_paged) and not args.no_verify:
         # the resident reference serves with fully resident weights AND a
         # fully resident KV cache: the pre-paging engine the paged runs
@@ -530,21 +655,22 @@ def main(argv=None):
             paged=False)
         got = {r.uid: r.generated for r in done}
         want = {r.uid: r.generated for r in ref}
-        ok = got == want
+        ok = ok and got == want
         lossy = (paged and args.page_bits is not None
                  and args.page_bits != args.bits)
         ref_name = ("resident plan (codec round-tripped cold weights)"
                     if lossy else "resident plan")
         print("verify: paged tokens "
-              + (f"BIT-EXACT vs {ref_name}" if ok
+              + (f"BIT-EXACT vs {ref_name}" if got == want
                  else f"MISMATCH vs {ref_name}"))
         if args.async_io:
             # the overlapped pipeline must change WHEN pages move, never
             # what the step computes: re-serve on the blocking sync path
+            # (on a mesh, on the same links)
             sref, ssched, seng = _serve(cfg, packed, plan, args,
                                         paged=paged, async_io=False,
                                         kv_paged=args.kv_paged,
-                                        faults=_fault_plan(args))
+                                        faults=_fault_plan(args), mesh=mesh)
             sync_tokens = {r.uid: r.generated for r in sref}
             sync_ok = got == sync_tokens
             ctr_ok = (seng.swap_count == eng.swap_count
@@ -562,6 +688,9 @@ def main(argv=None):
                 seng.pager.close()
             if seng.kv_table is not None:
                 seng.kv_table.close()
+        if mesh is not None:
+            ok = _verify_mesh(cfg, packed, plan, args, eng, sched, got,
+                              mesh_doc) and ok
 
     print(sched.metrics.to_json(paging=eng.paging_summary(),
                                 trace=sched.trace_summary(),
@@ -570,7 +699,8 @@ def main(argv=None):
         sched.metrics.write(args.metrics_json,
                             paging=eng.paging_summary(),
                             trace=sched.trace_summary(),
-                            faults=sched.faults_summary())
+                            faults=sched.faults_summary(),
+                            **({"mesh": mesh_doc} if mesh_doc else {}))
         print(f"metrics written to {args.metrics_json}")
     if tracer is not None:
         _write_trace(tracer, args.trace_json)

@@ -8,9 +8,15 @@ as the reference's does; it returns a plain function (no ``jit``).
 every family: the decoder-only LM's
 ``transformer.step``, the VLM's with patch embeddings prepended, and the
 encoder-decoder's ``encode`` -> ``precompute_cross_kv`` -> ``encdec.step``.
-They run under ``torch.no_grad``.  The reference's spec builders
-(``param_specs``, ``*_specs``, ``build_cell``) serve the XLA dry-run
-tooling (ROADMAP A12) and are not ported.
+They run under ``torch.no_grad``.
+
+``param_specs``, ``serve_param_specs`` and ``cache_specs``
+(``:52-60, 143-157``) give a config's parameter, packed-store and cache
+trees as ``meta`` tensors, PyTorch's counterpart of ``jax.eval_shape``:
+every shape of a full-width config (arctic-480b's ~484 B parameters
+among them) without allocating it, for the sharding rules.  The other
+spec functions (``*_input_specs``, ``build_cell``) serve the XLA dry-run
+tooling (ROADMAP A12 (d)) and are not ported.
 """
 
 from __future__ import annotations
@@ -19,12 +25,14 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import packing
 from repro_torch.core import tree as T
 from repro_torch.core.placement import PlacementPlan
 from repro_torch.models import encdec
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import Optimizer, clip_by_global_norm
+from repro_torch.parallel import sharding
 
 
 # the serve steps' placement when the caller gives none (the reference's
@@ -126,3 +134,38 @@ def make_decode_step(cfg: ModelConfig, engine: Optional[Any] = None
     def decode(params, token, cache, pos):
         return step(params, token, cache, pos, cfg, engine=engine)
     return decode
+
+
+def param_specs(cfg: ModelConfig) -> Any:
+    """The parameter tree as ``meta`` tensors: every leaf's shape and
+    dtype, nothing drawn or allocated."""
+    return _init_fn(cfg)(cfg, device="meta")
+
+
+def serve_param_specs(cfg: ModelConfig, bits: int = 8,
+                      plan: Optional[PlacementPlan] = None) -> Any:
+    """The packed At-MRAM store as ``meta`` tensors: each packable leaf a
+    {"packed" uint8, "scale" f32} dict, as ``freeze_for_serving`` gives
+    it; ``plan`` sets the bits per parameter path."""
+    def walk(tree: Any, keys: Tuple[str, ...]) -> Any:
+        if isinstance(tree, dict):
+            return {k: walk(v, keys + (str(k),)) for k, v in tree.items()}
+        if not sharding.packable(keys[-1], tree):
+            return tree
+        b = plan.bits_for("/".join(keys)) if plan is not None else bits
+        lead, k = tuple(tree.shape[:-1]), int(tree.shape[-1])
+        return dict(
+            packed=torch.empty(lead + (packing.packed_last_dim(k, b),),
+                               dtype=torch.uint8, device="meta"),
+            scale=torch.empty(lead, dtype=torch.float32, device="meta"))
+
+    return walk(param_specs(cfg), ())
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Any:
+    """The serve cache of ``batch`` rows of ``max_len`` as ``meta``
+    tensors."""
+    _init_fn(cfg)
+    init = (encdec.init_serve_cache if cfg.family == "encdec"
+            else tfm.init_serve_cache)
+    return init(cfg, batch, max_len, device="meta")

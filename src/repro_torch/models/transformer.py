@@ -103,10 +103,13 @@ class Draw:
         self.bits = bits
 
     def normal(self, shape, std, name: str = "") -> Any:
-        w = torch.randn(shape, generator=self.g, dtype=torch.float32,
-                        device=self.g.device)
-        w.mul_(std)                       # in place: no second f32 copy
-        w = w.to(device=self.dev, dtype=self.dt)
+        if self.dev.type == "meta":       # shapes only: nothing is drawn
+            w = torch.empty(shape, dtype=self.dt, device=self.dev)
+        else:
+            w = torch.randn(shape, generator=self.g, dtype=torch.float32,
+                            device=self.g.device)
+            w.mul_(std)                   # in place: no second f32 copy
+            w = w.to(device=self.dev, dtype=self.dt)
         if self.bits is None:
             return w
         return sharding.freeze_leaf(name, w, self.bits, self.dev)

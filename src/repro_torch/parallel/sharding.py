@@ -1,18 +1,40 @@
-"""Freezing a parameter tree for At-MRAM serving (reference:
-``repro/parallel/sharding.py:32-33`` and ``:246-270``).
+"""Sharding rules and the freeze for At-MRAM serving (reference:
+``repro/parallel/sharding.py``).
 
-Only ``PACKABLE`` and ``freeze_for_serving`` (with its per-leaf rule,
-``freeze_leaf``) are ported; the sharding rules arrive with the
-multi-device slice (ROADMAP A11).
+Plan (the reference's, per mesh ("data", "model") or ("pod", "data",
+"model")):
+
+  * batch dims            -> ("pod", "data")      (pure DP across pods)
+  * weight out-features   -> "model"              (tensor parallel)
+  * weight in-features    -> "data"               (FSDP / ZeRO-3)
+  * MoE expert dim        -> "model" when divisible (EP), else the expert
+                             hidden dim F -> "model" (TP-in-expert)
+  * KV cache sequence     -> "model"              (sequence-parallel decode)
+  * SSM channel dims      -> "model" (+"data" when divisible by both)
+  * anything indivisible  -> replicated on that axis (rule checks divide)
+
+The rules (``:36-228``: ``dp_axes``, ``dp_size``, ``_param_pspec``,
+``param_shardings``, ``opt_state_shardings``, ``shard_axis``,
+``batch_pspec``, ``cache_shardings``) read only a mesh's ``axis_names``
+and ``shape`` (``launch/mesh.Mesh``).  The port has no ``NamedSharding``:
+the tree functions return trees of :class:`PartitionSpec`, entry for
+entry the reference's ``NamedSharding.spec``.  The ``ShapeDtypeStruct``
+helpers (``sds``, ``with_shardings``, ``serve_spec_like``) are not
+ported; ``launch/steps.serve_param_specs`` builds the packed specs.
+
+``PACKABLE`` and ``freeze_for_serving`` (with its per-leaf rule,
+``freeze_leaf``; ``:32-33``, ``:246-270``) freeze a tree for serving.
 """
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+import math
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core import packing, quantize
+from repro_torch.core import tree as T
 from repro_torch.core.device import DeviceLike, resolve_device
 
 # parameter leaves that get packed for At-MRAM serving.  Routers stay at
@@ -20,6 +42,194 @@ from repro_torch.core.device import DeviceLike, resolve_device
 # sensitive (same reasoning as norm/bias params living in SRAM on-chip).
 PACKABLE = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
             "in_proj", "out_proj", "x_proj", "dt_proj"}
+
+
+class PartitionSpec(tuple):
+    """One leaf's spec: per dim an axis name, a tuple of axis names or
+    None (replicated), as ``jax.sharding.PartitionSpec``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def _axis_size(mesh: Any, axis: str) -> int:
+    return mesh.shape[axis] if axis in mesh.axis_names else 1
+
+
+def dp_axes(mesh: Any) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def dp_size(mesh: Any) -> int:
+    return math.prod(_axis_size(mesh, a) for a in dp_axes(mesh))
+
+
+def _div(n: int, mesh: Any, axis) -> bool:
+    if isinstance(axis, tuple):
+        size = math.prod(_axis_size(mesh, a) for a in axis)
+    else:
+        size = _axis_size(mesh, axis)
+    return n % size == 0 and n >= size
+
+
+def _maybe(n: int, mesh: Any, axis):
+    return axis if _div(n, mesh, axis) else None
+
+
+def _param_pspec(path: Tuple[str, ...], shape: Tuple[int, ...],
+                 mesh: Any) -> PartitionSpec:
+    last = path[-1]
+    in_layers = any(k in ("layers", "enc_layers", "dec_layers")
+                    for k in path)
+    # packed-serving leaves: (..., 'w_x', 'packed'|'scale')
+    if last in ("packed", "scale") and len(path) >= 2:
+        base = _param_pspec(path[:-1], shape if last == "packed"
+                            else shape + (1,), mesh)
+        if last == "scale":
+            return P(*base[:-1])
+        return base
+
+    if last in ("embed", "lm_head"):
+        return P(_maybe(shape[0], mesh, "model"),
+                 _maybe(shape[1], mesh, "data"))
+    if last in ("meta_tokens", "dec_pos"):
+        return P()
+
+    dims = shape[1:] if in_layers else shape       # strip stacked L dim
+    lead: Tuple = (None,) if in_layers else ()
+
+    if len(dims) <= 1:
+        return P(*(lead + (None,) * len(dims)))
+
+    if last == "conv_w":                           # (di, K)
+        return P(*(lead + (_maybe(dims[0], mesh, "model"), None)))
+    if last == "A_log":                            # (di, N)
+        return P(*(lead + (_maybe(dims[0], mesh, "model"), None)))
+
+    if len(dims) == 3:                             # MoE experts (E, F, D)
+        e, a, b = dims
+        if _div(e, mesh, "model"):
+            return P(*(lead + ("model", None, _maybe(b, mesh, "data"))))
+        if last == "w_down":                       # (E, D, F): F -> model
+            return P(*(lead + (None, _maybe(a, mesh, "data"),
+                               _maybe(b, mesh, "model"))))
+        return P(*(lead + (None, _maybe(a, mesh, "model"),
+                           _maybe(b, mesh, "data"))))
+
+    if len(dims) == 2:                             # (out, in)
+        return P(*(lead + (_maybe(dims[0], mesh, "model"),
+                           _maybe(dims[1], mesh, "data"))))
+
+    return P(*(lead + (None,) * len(dims)))
+
+
+def param_shardings(params_tree: Any, mesh: Any) -> Any:
+    """Tree of PartitionSpecs matching ``params_tree`` (tensors, ``meta``
+    tensors included)."""
+    return T.unflatten(params_tree, [
+        _param_pspec(path, tuple(leaf.shape), mesh)
+        for path, leaf in T.flatten_with_paths(params_tree)])
+
+
+def opt_state_shardings(opt_state: Any, mesh: Any, params_tree: Any) -> Any:
+    """Optimizer-state specs: moments mirror their parameter; factored
+    Adafactor vectors and scalars fall back to shape rules.
+
+    Moments are matched by tree path first (the state's path ends with the
+    parameter's; two same-shape params can carry different specs), then,
+    for a leaf no path matches, by shape when every param of that shape
+    agrees."""
+    by_path: Dict[Tuple[str, ...], Tuple[Tuple[int, ...],
+                                         PartitionSpec]] = {}
+    by_shape: Dict[Tuple[int, ...], List[PartitionSpec]] = {}
+    for keys, leaf in T.flatten_with_paths(params_tree):
+        shape = tuple(leaf.shape)
+        spec = _param_pspec(keys, shape, mesh)
+        by_path[keys] = (shape, spec)
+        by_shape.setdefault(shape, []).append(spec)
+
+    def resolve(keys: Tuple[str, ...], shape: Tuple[int, ...]
+                ) -> PartitionSpec:
+        # longest matching path suffix wins
+        for start in range(len(keys)):
+            hit = by_path.get(keys[start:])
+            if hit is not None and hit[0] == shape:
+                return hit[1]
+        specs = by_shape.get(shape)
+        if specs is not None and all(s == specs[0] for s in specs):
+            return specs[0]                        # unambiguous shape
+        if len(shape) == 0:
+            return P()
+        # factored vectors: shard the largest shardable dim on model
+        spec: List[Optional[str]] = [None] * len(shape)
+        for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
+            if _div(shape[i], mesh, "model"):
+                spec[i] = "model"
+                break
+        return P(*spec)
+
+    return T.unflatten(opt_state, [
+        resolve(keys, tuple(leaf.shape))
+        for keys, leaf in T.flatten_with_paths(opt_state)])
+
+
+def shard_axis(path_keys: Sequence[str], shape: Tuple[int, ...],
+               mesh: Any) -> Optional[Tuple[int, int]]:
+    """(axis, n_shards) the plan tensor-shards this param on, or None: the
+    first NON-LAST dim :func:`_param_pspec` pins to the "model" axis,
+    where it divides evenly.  The last (in-features / packed) dim never
+    shards: the page wire codec's scales span whole rows, so only leading
+    slices keep shard-then-encode equal to encode-then-shard."""
+    n = _axis_size(mesh, "model")
+    if n <= 1:
+        return None
+    spec = _param_pspec(tuple(path_keys), tuple(shape), mesh)
+    for ax, entry in enumerate(spec):
+        if ax >= len(shape) - 1:
+            break
+        if entry == "model" and shape[ax] % n == 0 and shape[ax] >= n:
+            return (ax, n)
+    return None
+
+
+def batch_pspec(batch: int, mesh: Any, extra_dims: int = 1
+                ) -> PartitionSpec:
+    axes = dp_axes(mesh)
+    if not axes or batch % dp_size(mesh) != 0:
+        return P(*((None,) * (1 + extra_dims)))
+    return P(axes, *((None,) * extra_dims))
+
+
+def cache_shardings(cache_tree: Any, mesh: Any, batch: int) -> Any:
+    """KV cache (L, B, H, S, hd): B -> dp, S -> model.  SSM state h
+    (L, B, di, N): di -> model; conv (L, B, K-1, di): di -> model."""
+    bspec = (dp_axes(mesh) if batch % dp_size(mesh) == 0
+             and dp_size(mesh) > 1 else None)
+
+    def per_leaf(keys: Tuple[str, ...], leaf: Any) -> PartitionSpec:
+        nd = len(leaf.shape)
+        if keys[-1] in ("k", "v") and nd == 5:        # (L,B,H,S,hd)
+            return P(None, bspec, None,
+                     _maybe(leaf.shape[3], mesh, "model"), None)
+        if keys[-1] in ("xk", "xv") and nd == 5:      # cross-attn KV
+            return P(None, bspec, None, None, None)
+        if keys[-1] == "h" and nd == 4:               # (L,B,di,N)
+            return P(None, bspec, _maybe(leaf.shape[2], mesh, "model"),
+                     None)
+        if keys[-1] == "conv" and nd == 4:            # (L,B,K-1,di)
+            return P(None, bspec, None,
+                     _maybe(leaf.shape[3], mesh, "model"))
+        return P(*((None,) * nd))
+
+    return T.unflatten(cache_tree, [
+        per_leaf(keys, leaf)
+        for keys, leaf in T.flatten_with_paths(cache_tree)])
 
 
 # rows quantized at once: the f32 temporaries of one block stay near 256 MB

@@ -33,6 +33,8 @@ A continuous-batching loop, as in the reference:
     With ``pool=`` the store joins a
     :class:`~repro_torch.core.paging.SharedPagePool`, one device-bytes
     budget shared with other tenants (:mod:`repro_torch.serving.tenancy`);
+    with ``mesh=`` the store is sharded over the mesh's "model" links
+    (``ShardedPagedStore``), each link streaming only its shard;
   * with :meth:`attach_kv_paging`, the completed ``block_rows``-row blocks
     of every slot's KV cache live on the host (``KVPageTable``), written
     back once when the frontier crosses them; each tick the live slots'
@@ -56,8 +58,6 @@ The reference compiles one program per (bucket, kv span); PyTorch runs
 eagerly, so there is nothing to cache beyond the per-layer parameter views.
 Sampling draws from an explicit ``torch.Generator`` on the engine's device
 (the reference splits ``jax.random`` keys; the two agree at temperature 0).
-
-Not ported yet: paging across a mesh (``mesh=``: ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -71,7 +71,8 @@ import torch
 from repro_torch.core.device import DeviceLike, device_of, resolve_device
 from repro_torch.core.faults import merge_fault_counters
 from repro_torch.core.paging import (HostPagedStore, KVPageTable,
-                                     packed_tree_store, thread_packed)
+                                     ShardedPagedStore, packed_tree_store,
+                                     thread_packed)
 from repro_torch.core.placement import PlacementPlan, as_plan
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
@@ -208,7 +209,8 @@ class ServingEngine:
         # §II-B2 weight paging (attach_paging).  paging_stall_s holds the
         # EXPOSED wait (what blocked a tick), paging_hidden_s the stream
         # time hidden behind the caller's compute
-        self.pager: Optional[HostPagedStore] = None
+        # a HostPagedStore, or a ShardedPagedStore on a mesh
+        self.pager: Optional[Any] = None
         self.page_resident_slots = 2
         self.paging_stall_s = 0.0
         self.paging_hidden_s = 0.0
@@ -259,19 +261,41 @@ class ServingEngine:
         the pool's shared budget under ``name`` instead of keeping a
         private cache: the tenancy path.
 
+        ``mesh`` (a ``launch/mesh.Mesh`` whose "model" axis has size > 1)
+        shards the paged store over the mesh's model links instead
+        (:class:`~repro_torch.core.paging.ShardedPagedStore`): each link
+        streams only its shard's pages on its own fetch worker and copy
+        stream, the tick's fence joins them, and ``shard_budget_bytes``, if
+        given, splits one byte budget into per-link pools under a
+        :class:`~repro_torch.core.paging.ShardedPoolLedger`.  Every link
+        must stream to the engine's device.  A mesh whose model axis has
+        size 1 takes the single-link path unchanged.  ``mesh`` and ``pool``
+        are mutually exclusive (the ledger owns its pools).
+
         After this call ``self.params`` holds the resident groups on the
         device and the cold groups' HOST (CPU tensor) view: on a card, a
         step that computed with it instead of the streamed pages would make
-        the kernel wrappers raise.  ``mesh=`` (sharded paging, ROADMAP A11)
-        is not ported."""
-        if mesh is not None or shard_budget_bytes is not None:
-            raise NotImplementedError("mesh-sharded paging arrives with "
-                                      "ROADMAP A11")
+        the kernel wrappers raise."""
         if resident_slots < 1:
             raise ValueError(f"resident_slots must be >= 1, got "
                              f"{resident_slots}")
         if self.pager is not None:
             raise ValueError("paging is already attached")
+        mesh_wide = (mesh is not None
+                     and "model" in tuple(getattr(mesh, "axis_names", ()))
+                     and int(mesh.shape["model"]) > 1)
+        if mesh_wide:
+            if pool is not None:
+                raise ValueError("mesh= and pool= are mutually exclusive: "
+                                 "the sharded ledger owns its per-link "
+                                 "pools")
+            links = {link.device for link in mesh.devices.reshape(-1)}
+            if any(d.type != self.device.type
+                   or (d.index or 0) != (self.device.index or 0)
+                   for d in links):
+                raise ValueError(f"the mesh's links stream to "
+                                 f"{sorted(map(str, links))}, the engine "
+                                 f"computes on {self.device}")
         if wire_serve:
             # before the store is built, so that the fetch path and the
             # model's linear dispatch read the same plan
@@ -284,10 +308,15 @@ class ServingEngine:
                              "stream: use the engine without paging")
         if page_bytes is None:
             page_bytes = max(store.params[n].nbytes_packed for n in paged)
-        self.pager = HostPagedStore(store, page_bytes, device=self.device,
-                                    plan=self.plan, pool=pool,
-                                    name=name if name is not None
-                                    else "default", faults=faults)
+        name = name if name is not None else "default"
+        if mesh_wide:
+            self.pager = ShardedPagedStore(
+                store, page_bytes, mesh, plan=self.plan,
+                budget_bytes=shard_budget_bytes, name=name, faults=faults)
+        else:
+            self.pager = HostPagedStore(store, page_bytes,
+                                        device=self.device, plan=self.plan,
+                                        pool=pool, name=name, faults=faults)
         self.page_resident_slots = resident_slots
         host_view = self.pager.template_view()
         self.params = thread_packed(self.params,
@@ -600,8 +629,10 @@ class ServingEngine:
             kv_preempt_drops=0 if kv is None else kv.preempt_drops,
             kv_exposed_s=self.kv_stall_s, kv_hidden_s=self.kv_hidden_s,
             kv_block_rows=0 if kv is None else kv.block_rows,
-            # the per-device rows of a mesh-sharded store (ROADMAP A11)
-            devices=[])
+            # metrics v9: the per-link rows of a mesh-sharded store, []
+            # on one link
+            devices=(pg.device_summaries()
+                     if isinstance(pg, ShardedPagedStore) else []))
 
     def faults_summary(self) -> Dict[str, int]:
         """Fault-path counters summed over the engine's paging components

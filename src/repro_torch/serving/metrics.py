@@ -41,8 +41,12 @@ end-to-end latency (arrival -> last token) is within ``deadline_ms``.
 Requests without a deadline never count toward the miss rate; truncated
 requests (retired by KV-cache exhaustion, partial service) are excluded
 from it and counted on their own.  Requests the admission controller
-rejected appear only in ``scheduler.rejected``.  ``devices`` stays empty
-until mesh-sharded paging is ported.
+rejected appear only in ``scheduler.rejected``.  ``devices`` (v9) holds
+the per-link rows of a mesh-sharded paged run (``--mesh``): one a link,
+with ``device``, ``n_pages``, ``swap_count``, ``miss_count`` and the wire /
+raw bytes of that link alone, so the global ``paging`` counters are their
+sum (``ShardedPoolLedger``); the port's rows add the link's ``crc_s`` and
+``copy_s``.  A run on one link reports ``devices: []``.
 
 :func:`multi_summary` assembles the multi-model (tenancy) shape: per-model
 sections under ``models``, the shared pool's stats under ``shared_pool``,

@@ -5,8 +5,8 @@ Both packages' ``_serve`` / ``_serve_tenants`` are fed one JAX-frozen tree
 (carried across with ``interop``) and one args namespace, and must give
 equal tokens per uid, equal swap / miss (and KV) counters, equal ticks and
 equal pool counters.  The port's ``main`` on the CPU must exit 0 with its
-verify lines BIT-EXACT, and refuse ``--mesh`` (ROADMAP A11) and the encdec
-family.  The VLM family's launcher cases are in ``test_torch_vlm.py``."""
+verify lines BIT-EXACT (``--mesh`` too), and refuse the encdec family.
+The VLM family's launcher cases are in ``test_torch_vlm.py``."""
 
 import argparse
 import inspect
@@ -205,9 +205,23 @@ def test_main_multi_bit_exact_on_cpu(capsys):
             "kv_pass_counters prediction") in out
 
 
+def test_mesh_serves(capsys):
+    """``--mesh 2`` shards the paged store over two links and passes all
+    three verify legs (the parity with the reference's launcher is in
+    ``test_torch_mesh_paging.py``)."""
+    serve.main(["--smoke", "--device", "cpu", "--budget-mb", "0.05",
+                "--requests", "2", "--max-new", "3", "--mesh", "2"])
+    out = capsys.readouterr().out
+    assert "mesh 1x2: 2 links on cpu" in out
+    assert ("verify: mesh tokens BIT-EXACT vs single-device paged run, "
+            "byte ledger obeys the sharding algebra") in out
+    with pytest.raises(SystemExit, match="N or DxM"):
+        serve.main(["--smoke", "--device", "cpu", "--mesh", "2x2x2"])
+
+
 @pytest.mark.parametrize("argv,names", [
-    (["--mesh", "2"], "ROADMAP A11"),
-    (["--arch", "whisper-tiny"], "decoder-only"),
+    pytest.param(["--arch", "whisper-tiny"], "decoder-only",
+                 id="argv1-decoder-only"),
 ])
 def test_refusals_exit_non_zero(argv, names):
     with pytest.raises(SystemExit) as exc:

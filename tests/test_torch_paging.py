@@ -170,8 +170,13 @@ def test_packed_sizes_and_plans_equal(served):
     leaf = np.zeros((64, 64), np.float32)
     for name in sizes:
         assert fp(name, torch.from_numpy(leaf)) == jfp(name, leaf)
-    with pytest.raises(NotImplementedError, match="A11"):
-        placement.plan_for_budget(sizes, shard_factors={"a": 2})
+    # shard_factors (a mesh's per-link charge) plan as the reference's do
+    factors = {n: 2 + i % 3 for i, n in enumerate(sorted(sizes))}
+    for budget in (0, 5_000, sum(sizes.values()) // 3):
+        assert _plan_tuple(placement.plan_for_budget(
+            sizes, budget, shard_factors=factors)) == _plan_tuple(
+            jplacement.plan_for_budget(sizes, budget,
+                                       shard_factors=factors))
 
 
 @pytest.mark.parametrize("bits,wire", [(4, True), (8, False)])
@@ -483,8 +488,16 @@ def test_attach_paging_raises_where_the_port_stops(served):
     plan = _wire_plans()(placement, sizes)
     eng = ServingEngine(served["tcfg"], served[4][1], plan=plan,
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        eng.attach_paging(mesh=object())
+    from repro_torch.launch.mesh import make_test_mesh
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        eng.attach_paging(mesh=make_test_mesh((1, 2), device="cpu"),
+                          pool=paging.SharedPagePool(1 << 20))
+    meshed = ServingEngine(served["tcfg"], served[4][1], plan=plan,
+                           device="cpu")
+    meshed.attach_paging(mesh=make_test_mesh((1, 2), device="cpu"))
+    assert isinstance(meshed.pager, paging.ShardedPagedStore)
+    assert meshed.pager.n_shards == 2 and meshed.pager.shard_axes
+    meshed.pager.close()
     pooled = ServingEngine(served["tcfg"], served[4][1], plan=plan,
                            device="cpu")
     pool = paging.SharedPagePool(1 << 30)
