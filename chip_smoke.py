@@ -17,10 +17,11 @@ MoE, SSM, hybrid, VLM and encoder-decoder families with hymba-1.5b
 trained (16 of its 32 layers) and served, the launcher's ``main`` on
 gemma-7b (head dim 256), qwen2.5-3b, olmo-1b and llava-next-34b and the
 MoE store's cold expert pages wire-served, hymba-1.5b and paged
-qwen3-0.6b in bfloat16 on the kernels' bf16 routes, and last paged
-qwen3-0.6b sharded over four links of one mesh, through the launcher's
-``--mesh 4`` and ``attach_paging(mesh=)`` -- and fails (non-zero exit, no
-result line) if any phase fails:
+qwen3-0.6b in bfloat16 on the kernels' bf16 routes, paged qwen3-0.6b
+sharded over four links of one mesh, through the launcher's ``--mesh 4``
+and ``attach_paging(mesh=)``, and last full-width qwen3-0.6b trained on a
+mesh of four ``torch.distributed`` ranks of the one card -- and fails
+(non-zero exit, no result line) if any phase fails:
 
 1. set-up: requires a CUDA device, turns TF32 off, prints the card's name
    and power limit, builds every ``csrc/*.cu`` with nvcc for sm_90a (one
@@ -372,11 +373,42 @@ result line) if any phase fails:
    call of both held against its plain version.  Printed with the card
    line: per-link wire bytes, CRC and copy seconds, exposed and hidden page
    wait a tick, tick p50 on four links and on one;
-17. the ``{"serve": ...}``, ``{"train": ...}``, ``{"phase12": ...}``,
+17. multi-rank training (``parallel/distributed.run_ranks``: 4 processes
+   of one ``gloo`` group, each on the one card, TF32 off and
+   deterministic algorithms on; the collectives go through the host, and
+   gloo's send / receive of CUDA tensors, which it cannot take, is staged
+   through pinned host buffers; no Hopper kernel, as in phases 10 and
+   13).  (a) qwen3-0.6b at full width and 8 of its 28 layers (cut so that
+   the script ends within 1,200 s: at 28 the phase took 222-272 s, the
+   host's collectives binding), on a (2, 2)
+   ("data", "model") rank mesh, AdamW at 3e-4, batch 4 x 256, 3 steps of
+   ``make_distributed_train_step`` against rank 0's 3 steps of the
+   single-rank ``make_train_step`` from the same weights and batches:
+   every loss within 1e-4, every step's global gradient norm within a
+   relative 1e-4, every gathered leaf within rtol = atol = 2e-3 and its
+   change from the start within 5 % of one rank's change in norm (a first
+   AdamW step moves an element by about lr whatever its gradient, below
+   the leaf tolerance), each rank's bytes held between steps equal to the specs' (each
+   leaf over its shard count), every shard on the card; (b) the same with
+   Adafactor, 2 steps; (c) ``int8_allreduce`` / ``compressed_allreduce_
+   mean`` of (4, 1 << 20) f32 rows, one a rank: the int32 totals and the
+   scale equal the CPU's arithmetic on the same rows, the mean within
+   absmax / 127, 8 rounds of error feedback not growing the error; (d)
+   ``pipelined_apply`` of ``tanh(x @ w)`` over 4 stages at width 1,024, 8
+   microbatches, within 2e-4 of the sequential layers; (e) (a)'s state
+   saved from (2, 2) and restored onto (4, 1) and (1, 4), every rank's
+   blocks bit-equal, and ``Trainer(shardings=)`` at 2 layers under
+   Adafactor, 4 steps with a failure injected at step 2, ending on the
+   uninterrupted run's bits.
+   A rank that fails or outlives ``DIST_TIMEOUT_S`` fails the phase.
+   Printed with the card line: step times on 4 ranks and on one, the
+   gathers' and the all-reduce's bytes and seconds a step, each rank's
+   peak device memory and the single rank's, the staged collectives;
+18. the ``{"serve": ...}``, ``{"train": ...}``, ``{"phase12": ...}``,
    ``{"train_families": ...}``, ``{"phase14": ...}``, ``{"bf16": ...}``,
-   ``{"mesh": ...}`` and ``{"kernels": [...]}`` lines (a ``[bf16]`` entry
-   for each bf16 route), the card line, and as the last line ``{"ok":
-   true, "device": {...}}``.
+   ``{"mesh": ...}``, ``{"dist_train": ...}`` and ``{"kernels": [...]}``
+   lines (a ``[bf16]`` entry for each bf16 route), the card line, and as
+   the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -5552,6 +5584,475 @@ def mesh_phase(torch, m, dev, cfg, store):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: multi-rank training (ROADMAP A11 (b)).  DIST_WORLD ranks, the
+# processes of one gloo process group (parallel/distributed.run_ranks), all
+# on the one card: the collectives go through the host.  Training runs no
+# Hopper kernel, as in phases 10 and 13.
+# ---------------------------------------------------------------------------
+
+DIST_ARCH = "qwen3-0.6b"
+DIST_WORLD = 4
+# (a) AdamW and (b) Adafactor on a (2, 2) ("data", "model") mesh, each
+# against one rank's make_train_step from the same weights and batches.
+# 8 of qwen3-0.6b's 28 layers: at 28 the phase took 222-272 s on an H100
+# (the collectives through the host bind), and the script keeps within
+# its 1,200 s
+DIST_TRAIN = dict(mesh=(2, 2), layers=8, batch=4, seq=256, lr=3e-4,
+                  steps={"adamw": 3, "adafactor": 2})
+# the reference's tolerances (tests/test_multidevice.py:144-149)
+DIST_LOSS_TOL = 1e-4
+DIST_LEAF_TOL = dict(rtol=2e-3, atol=2e-3)
+# a first AdamW step moves an element by about lr whatever its gradient,
+# below DIST_LEAF_TOL: each step's global gradient norm (before the clip)
+# is also held to one rank's, relative, and each leaf's change over the
+# steps to one rank's change, in norm
+DIST_GNORM_RTOL = 1e-4
+DIST_DELTA_RTOL = 0.05
+# (c) the int8 compressed all-reduce of one row a rank, error feedback
+DIST_COMPRESS = dict(shape=(DIST_WORLD, 1 << 20), rounds=8)
+# (d) GPipe: tanh(x @ w) a stage, one stage a rank
+DIST_PIPE = dict(width=1024, batch=64, microbatches=8, tol=2e-4)
+# (e) (a)'s state saved from (2, 2) and restored onto these meshes; then
+# Trainer(shardings=) at cut depth with a failure injected, under Adafactor
+# (its checkpoints a third of AdamW's bytes: each save is a gather)
+DIST_ELASTIC = ((4, 1), (1, 4))
+DIST_TRAINER = dict(layers=2, steps=4, every=2, fail_at=2, opt="adafactor")
+DIST_TIMEOUT_S = 900
+DIST_CKPT = ROOT / "build" / "dist_ckpt"
+
+
+def dist_modules():
+    """The port's modules a rank of phase 17 uses."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch import dist_steps, steps
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adafactor, adamw
+    from repro_torch.parallel import compress, distributed, pipeline
+    from repro_torch.parallel import sharding
+    from repro_torch.runtime import FailureInjector, Trainer, TrainerConfig
+
+    return dict(dist=dist, CheckpointManager=CheckpointManager,
+                get_config=get_config, tree=tree,
+                SyntheticLMDataset=SyntheticLMDataset, steps=steps,
+                make_rank_mesh=make_rank_mesh, tfm=tfm,
+                opts=dict(adamw=adamw, adafactor=adafactor),
+                compress=compress, D=distributed, DS=dist_steps,
+                pipeline=pipeline,
+                shd=sharding, FailureInjector=FailureInjector,
+                Trainer=Trainer, TrainerConfig=TrainerConfig)
+
+
+def dist_sharded_state(torch, m, cfg, opt, mesh, dev):
+    """``cfg``'s weights drawn from seed 0 on ``dev`` (the same on every
+    rank) and ``opt``'s state, whole, their specs on ``mesh``, and their
+    shard trees."""
+    shd, D = m["shd"], m["D"]
+    params = m["tfm"].init_params(cfg, torch.Generator(device=dev)
+                                  .manual_seed(0), device=dev)
+    state = opt.init(params)
+    specs = (shd.param_shardings(params, mesh),
+             shd.opt_state_shardings(state, mesh, params))
+    return (params, state), specs, (D.shard_tree(params, specs[0], mesh),
+                                    D.shard_tree(state, specs[1], mesh))
+
+
+def dist_train_leg(torch, m, cfg, name, dev):
+    """(a) / (b): ``name``'s steps on the (2, 2) rank mesh against one
+    rank's.  Rank 0 runs the single-rank steps first (the others wait);
+    then every rank runs the sharded steps.  Checks each loss, every
+    gathered leaf, the bytes a rank holds and the tensors' device.
+    Returns the readings and the sharded state."""
+    import gc as gc_
+
+    dist, D, T = m["dist"], m["D"], m["tree"]
+    f = DIST_TRAIN
+    rank = dist.get_rank()
+    mesh = m["make_rank_mesh"](f["mesh"], ("data", "model"), dev)
+    opt = m["opts"][name]()
+    whole, specs, (sp, so) = dist_sharded_state(torch, m, cfg, opt, mesh,
+                                                dev)
+    want = (m["D"].spec_bytes(whole[0], specs[0], mesh)
+            + m["D"].spec_bytes(whole[1], specs[1], mesh))
+    ds = m["SyntheticLMDataset"](cfg.vocab_size, f["seq"], f["batch"],
+                                 seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                ds.batch(i).items()} for i in range(f["steps"][name])]
+    single = dict(losses=[], grad_norms=[], step_s=[])
+    ref_params = start = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if rank == 0:
+        step1 = m["steps"].make_train_step(cfg, opt, lr=f["lr"])
+        p, o = whole
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, met = step1(p, o, b)
+            single["losses"].append(float(met["loss"]))
+            torch.cuda.synchronize()
+            single["step_s"].append(time.perf_counter() - t0)
+            single["grad_norms"].append(float(met["grad_norm"]))
+        ref_params = p
+        start = [x.cpu() for x in T.leaves(whole[0])]   # off the card
+        del o
+        single["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del whole
+    gc_.collect()
+    torch.cuda.empty_cache()
+    D.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    step = m["DS"].make_distributed_train_step(cfg, opt, mesh, lr=f["lr"])
+    sharded = dict(losses=[], grad_norms=[], step_s=[], comm=[])
+    for b in batches:
+        D.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sp, so, met = step(sp, so, b)
+        sharded["losses"].append(float(met["loss"]))
+        torch.cuda.synchronize()
+        sharded["step_s"].append(time.perf_counter() - t0)
+        sharded["grad_norms"].append(float(met["grad_norm"]))
+        sharded["comm"].append(met["comm"])
+    sharded["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    held = D.held_bytes(sp) + D.held_bytes(so)
+    if held != want:
+        raise AssertionError(f"rank {rank} holds {held} B of {name}'s "
+                             f"params and state; the specs give {want}")
+    off = [leaf.to_local().device.type for leaf in T.leaves(dict(p=sp,
+                                                                 o=so))
+           if leaf.to_local().device.type != dev.type]
+    if off:
+        raise AssertionError(f"rank {rank}: {len(off)} shards off "
+                             f"{dev.type} ({set(off)})")
+    # every leaf gathered (a collective); rank 0 holds it, and its change
+    # from the start, against its own
+    worst, worst_delta, n_leaves = 0.0, 0.0, 0
+    ref_flat = T.leaves(ref_params) if rank == 0 else None
+    for i, leaf in enumerate(T.leaves(sp)):
+        got = D.gather(leaf)
+        if rank == 0:
+            want_leaf = ref_flat[i]
+            if not torch.allclose(got, want_leaf, **DIST_LEAF_TOL):
+                raise AssertionError(
+                    f"{name}: param leaf {i} after {len(batches)} steps on "
+                    f"{DIST_WORLD} ranks vs one: max abs err "
+                    f"{(got - want_leaf).abs().max().item()}")
+            worst = max(worst, (got - want_leaf).abs().max().item())
+            x0 = start[i].to(dev)
+            moved = torch.linalg.vector_norm(want_leaf - x0).item()
+            apart = torch.linalg.vector_norm(got - want_leaf).item()
+            if not apart <= DIST_DELTA_RTOL * moved:
+                raise AssertionError(
+                    f"{name}: param leaf {i} moved {moved} from the start on "
+                    f"one rank; the {DIST_WORLD} ranks' result is {apart} "
+                    "away from it")
+            worst_delta = max(worst_delta, apart / max(moved, 1e-30))
+            n_leaves += 1
+            del x0
+        del got
+    if rank == 0:
+        errs = [abs(a - b) for a, b in zip(sharded["losses"],
+                                           single["losses"])]
+        if not max(errs) < DIST_LOSS_TOL:
+            raise AssertionError(f"{name} losses on {DIST_WORLD} ranks "
+                                 f"{sharded['losses']} vs one "
+                                 f"{single['losses']}")
+        gerrs = [abs(a - b) / b for a, b in zip(sharded["grad_norms"],
+                                                single["grad_norms"])]
+        if not max(gerrs) <= DIST_GNORM_RTOL:
+            raise AssertionError(f"{name} gradient norms on {DIST_WORLD} "
+                                 f"ranks {sharded['grad_norms']} vs one "
+                                 f"{single['grad_norms']}")
+        single.update(loss_abs_err=errs, leaf_max_abs_err=worst,
+                      gnorm_rel_err=max(gerrs), delta_rel_err=worst_delta,
+                      leaves=n_leaves)
+    del ref_params, start
+    gc_.collect()
+    torch.cuda.empty_cache()
+    return dict(single=single if rank == 0 else None, sharded=sharded,
+                held_bytes=held, spec_bytes=want), (sp, so)
+
+
+def dist_compress_leg(torch, m, dev):
+    """(c) ``int8_allreduce`` / ``compressed_allreduce_mean`` of one row a
+    rank: the int32 totals and the scale equal the CPU's arithmetic on the
+    same rows, the mean is within absmax / 127 of the exact one, and 8
+    rounds of error feedback do not grow the error."""
+    C, D = m["compress"], m["D"]
+    mesh = m["make_rank_mesh"]((DIST_WORLD,), ("data",), dev)
+    group = mesh.group("data")
+    r = mesh.coordinate()["data"]
+    g = torch.randn(DIST_COMPRESS["shape"], device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    total, scale = C.int8_allreduce(g[r], group)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    host = g.cpu()
+    scale_c = torch.clamp(host.abs().max() / torch.tensor(127.0), min=1e-12)
+    total_c = torch.clamp(torch.round(host / scale_c), -127, 127).to(
+        torch.int32).sum(0, dtype=torch.int32)
+    if not (torch.equal(total.cpu(), total_c)
+            and torch.equal(scale.cpu(), scale_c)):
+        raise AssertionError(
+            "int8 all-reduce: the card's int32 totals differ from the CPU's "
+            f"in {(total.cpu() != total_c).sum().item()} places (scale "
+            f"{scale.item()} vs {scale_c.item()})")
+    expect = g.mean(0)
+    bound = host.abs().max().item() / 127 + 1e-6
+    err = (C.compressed_allreduce_mean(g[r], group) - expect).abs().max()
+    if not err.item() <= bound:
+        raise AssertionError(f"compressed mean max abs err {err.item()} "
+                             f"above absmax / 127 = {bound}")
+    res = torch.zeros_like(g[r])
+    acc = torch.zeros_like(g[r])
+    errs = []
+    for it in range(DIST_COMPRESS["rounds"]):
+        out, new_r = C.with_error_feedback(dict(g=g[r]), dict(g=res), group)
+        acc += out["g"]
+        res = new_r["g"]
+        errs.append((acc / (it + 1) - expect).abs().max().item())
+    if not errs[-1] <= errs[0] + 1e-9:
+        raise AssertionError(f"error feedback grew the error: {errs}")
+    return dict(shape=list(DIST_COMPRESS["shape"]), max_abs_err=err.item(),
+                bound=bound, feedback_errs=errs, int8_allreduce_s=wall,
+                int32_bytes=total.numel() * 4)
+
+
+def dist_pipe_leg(torch, m, dev):
+    """(d) ``pipelined_apply`` of ``tanh(x @ w)`` over a stage a rank,
+    the stage weights a DTensor sharded over "stage", against the
+    sequential layers on the card."""
+    D, P = m["D"], m["pipeline"]
+    f = DIST_PIPE
+    mesh = m["make_rank_mesh"]((DIST_WORLD,), ("stage",), dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    w = f["width"]
+    ws = torch.randn((DIST_WORLD, w, w), generator=gen, device=dev) / w**0.5
+    x = torch.randn((f["batch"], w), generator=gen, device=dev)
+    layer = lambda x, w: torch.tanh(x @ w)
+    fn = P.pipelined_apply(layer, mesh, "stage", f["microbatches"])
+    sharded_ws = D.shard(ws, m["shd"].P("stage"), mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(x, sharded_ws)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ref = x
+    for i in range(DIST_WORLD):
+        ref = layer(ref, ws[i])
+    err = (out - ref).abs().max().item()
+    if not torch.allclose(out, ref, rtol=f["tol"], atol=f["tol"]):
+        raise AssertionError(f"pipeline vs sequential max abs err {err}")
+    return dict(max_abs_err=err, wall_s=wall,
+                bubble=P.bubble_fraction(DIST_WORLD, f["microbatches"]))
+
+
+def dist_elastic_leg(torch, m, sp, so, dev, ckpt):
+    """(e) (a)'s sharded params and AdamW state saved from (2, 2) and
+    restored onto each of DIST_ELASTIC: every rank's restored block equal
+    bit for bit to that block of the (2, 2) state gathered whole."""
+    import shutil
+
+    D, T, shd = m["D"], m["tree"], m["shd"]
+    rank = m["dist"].get_rank()
+    mgr = m["CheckpointManager"](ckpt, async_save=False)
+    tmpl = dict(params=sp, opt_state=so)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(0, tmpl)
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    restored, restore_s = [], []
+    for shape in DIST_ELASTIC:
+        mesh = m["make_rank_mesh"](shape, ("data", "model"), dev)
+        shardings = dict(
+            params=D.named_shardings(shd.param_shardings(sp, mesh), sp,
+                                     mesh),
+            opt_state=D.named_shardings(shd.opt_state_shardings(so, mesh,
+                                                                sp), so,
+                                        mesh))
+        t0 = time.perf_counter()
+        step, st = mgr.restore(tmpl, shardings=shardings)
+        torch.cuda.synchronize()
+        restore_s.append(time.perf_counter() - t0)
+        restored.append(T.leaves(st))
+    n = 0
+    for i, leaf in enumerate(T.leaves(tmpl)):
+        whole = D.gather(leaf)
+        for shape, flat in zip(DIST_ELASTIC, restored):
+            b = flat[i]
+            if not torch.equal(b.to_local(), D.block_of(whole, b.device_mesh,
+                                                      b.placements)):
+                raise AssertionError(f"rank {rank}: leaf {i} restored onto "
+                                     f"{shape} differs from the saved state")
+        n += 1
+    D.barrier()
+    if rank == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return dict(leaves=n, meshes=[list(s) for s in DIST_ELASTIC],
+                save_s=save_s, restore_s=restore_s)
+
+
+def dist_trainer_leg(torch, m, cfg, dev, ckpt):
+    """(e) ``Trainer(shardings=)`` with the sharded step at
+    DIST_TRAINER['layers'] full-width layers: a run with a failure injected
+    against an uninterrupted one; restarts 0 and 1, and every rank's
+    blocks of the final params and state equal bit for bit."""
+    import shutil
+
+    D, T, shd = m["D"], m["tree"], m["shd"]
+    f, g = DIST_TRAINER, DIST_TRAIN
+    tcfg = cfg.replace(n_layers=f["layers"])
+    mesh = m["make_rank_mesh"](g["mesh"], ("data", "model"), dev)
+    opt = m["opts"][f["opt"]]()
+
+    def init_state():
+        _, _, (p, o) = dist_sharded_state(torch, m, tcfg, opt, mesh, dev)
+        return dict(params=p, opt_state=o)
+
+    tmpl = init_state()
+    specs = dict(params=shd.param_shardings(tmpl["params"], mesh),
+                 opt_state=shd.opt_state_shardings(tmpl["opt_state"], mesh,
+                                                   tmpl["params"]))
+    shardings = {k: D.named_shardings(specs[k], tmpl[k], mesh)
+                 for k in tmpl}
+    del tmpl
+    runs = {}
+    for name, fail in (("clean", []), ("crashed", [f["fail_at"]])):
+        path = Path(ckpt) / name
+        t0 = time.perf_counter()
+        out = m["Trainer"](
+            m["TrainerConfig"](total_steps=f["steps"],
+                               checkpoint_every=f["every"],
+                               checkpoint_dir=str(path), log_every=100),
+            m["DS"].make_distributed_train_step(tcfg, opt, mesh, lr=g["lr"]),
+            init_state, m["SyntheticLMDataset"](tcfg.vocab_size, g["seq"],
+                                                g["batch"], seed=0),
+            failure_injector=m["FailureInjector"](fail), device=dev,
+            shardings=shardings).run()
+        out["wall_s"] = time.perf_counter() - t0
+        runs[name] = out
+    D.barrier()
+    if m["dist"].get_rank() == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if runs["clean"]["restarts"] != 0 or runs["crashed"]["restarts"] != 1:
+        raise AssertionError(f"restarts clean {runs['clean']['restarts']}, "
+                             f"crashed {runs['crashed']['restarts']}")
+    a, b = (T.leaves(dict(p=runs[k]["params"], o=runs[k]["opt_state"]))
+            for k in ("clean", "crashed"))
+    unequal = [i for i, (x, y) in enumerate(zip(a, b))
+               if not torch.equal(x.to_local(), y.to_local())]
+    if unequal:
+        raise AssertionError(f"the restarted run's leaves {unequal[:4]} "
+                             "differ from the uninterrupted run's")
+    return dict(layers=f["layers"], opt=f["opt"], steps=f["steps"],
+                fail_at=f["fail_at"],
+                restarts=runs["crashed"]["restarts"], leaves_equal=len(a),
+                steps_run=[x["step"] for x in runs["crashed"]["metrics"]],
+                wall_s=[runs[k]["wall_s"] for k in ("clean", "crashed")])
+
+
+def dist_rank(ckpt: str, layers: int, device: str = "cuda"):
+    """One rank of phase 17 (``run_ranks`` starts it): (a)-(e) in turn at
+    ``layers`` full-width layers, under deterministic algorithms (the
+    restart leg's bit-equality needs them; every rank is a fresh process,
+    so no other phase is touched).  Returns the rank's readings."""
+    import os
+
+    import torch
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    m = dist_modules()
+    dev = torch.device(device)
+    cfg = m["get_config"](DIST_ARCH).replace(n_layers=layers)
+    t0 = time.perf_counter()
+    out = dict(rank=m["dist"].get_rank(), layers=cfg.n_layers)
+    out["adamw"], (sp, so) = dist_train_leg(torch, m, cfg, "adamw", dev)
+    out["elastic"] = dist_elastic_leg(torch, m, sp, so, dev,
+                                      str(Path(ckpt) / "elastic"))
+    del sp, so
+    out["adafactor"], _ = dist_train_leg(torch, m, cfg, "adafactor", dev)
+    out["compress"] = dist_compress_leg(torch, m, dev)
+    out["pipeline"] = dist_pipe_leg(torch, m, dev)
+    out["trainer"] = dist_trainer_leg(torch, m, cfg, dev,
+                                      str(Path(ckpt) / "trainer"))
+    out["staged"] = dict(m["D"].STAGED)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def dist_train_phase(torch, card: str, layers: int = DIST_TRAIN["layers"]):
+    """Phase 17: :func:`dist_rank` on DIST_WORLD ranks of the one card.
+    A rank that fails or outlives DIST_TIMEOUT_S fails the phase."""
+    from repro_torch.parallel.distributed import run_ranks
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(dist_rank, DIST_WORLD, str(DIST_CKPT), layers,
+                      timeout_s=DIST_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for name in ("adamw", "adafactor"):
+        s, d = r0[name]["single"], r0[name]["sharded"]
+        c = d["comm"][-1]
+        print(f"[dist] ({'a' if name == 'adamw' else 'b'}) {DIST_ARCH} "
+              f"{r0['layers']} layers at full width, {name}, batch "
+              f"{DIST_TRAIN['batch']} x {DIST_TRAIN['seq']}, on a "
+              f"{DIST_TRAIN['mesh']} mesh of {DIST_WORLD} gloo ranks vs one "
+              f"rank: losses {[round(x, 6) for x in d['losses']]} vs "
+              f"{[round(x, 6) for x in s['losses']]} (abs err "
+              f"{max(s['loss_abs_err']):.2e}, tolerance {DIST_LOSS_TOL}); "
+              f"gradient norms {[round(x, 6) for x in d['grad_norms']]} "
+              f"(relative err {s['gnorm_rel_err']:.2e}, tolerance "
+              f"{DIST_GNORM_RTOL}); {s['leaves']} leaves within "
+              f"{DIST_LEAF_TOL} (worst {s['leaf_max_abs_err']:.2e}), each "
+              f"leaf's change within {DIST_DELTA_RTOL} of one rank's in norm "
+              f"(worst {s['delta_rel_err']:.2e}); step {d['step_s'][-1]:.3f} s "
+              f"on {DIST_WORLD} ranks, {s['step_s'][-1]:.3f} s on one; the "
+              f"last step's gathers {c['gather_bytes'] / 1e9:.3f} GB in "
+              f"{c['gather_s']:.3f} s, all-reduce "
+              f"{c['reduce_bytes'] / 1e9:.3f} GB in {c['reduce_s']:.3f} s "
+              f"(a rank, host clock); held bytes "
+              f"{[r[name]['held_bytes'] for r in ranks]} = the specs'; peak "
+              f"device memory a rank "
+              f"{[round(r[name]['sharded']['peak_gib'], 2) for r in ranks]}"
+              f" GiB, one rank's {s['peak_gib']:.2f} GiB; {card}")
+    c, p, e, t = (r0[k] for k in ("compress", "pipeline", "elastic",
+                                  "trainer"))
+    print(f"[dist] (c) int8 all-reduce of {c['shape']} f32 rows, one a "
+          f"rank: int32 totals and scale equal the CPU's, mean max abs err "
+          f"{c['max_abs_err']:.3e} <= absmax / 127 = {c['bound']:.3e}; "
+          f"error feedback over {len(c['feedback_errs'])} rounds "
+          f"{c['feedback_errs'][0]:.3e} -> {c['feedback_errs'][-1]:.3e}; "
+          f"{c['int32_bytes'] / 1e6:.1f} MB of int32 in "
+          f"{c['int8_allreduce_s']:.3f} s; (d) pipeline of {DIST_WORLD} "
+          f"stages x {DIST_PIPE['microbatches']} microbatches at width "
+          f"{DIST_PIPE['width']}: max abs err {p['max_abs_err']:.2e} "
+          f"(tolerance {DIST_PIPE['tol']}), {p['wall_s']:.3f} s, bubble "
+          f"{p['bubble']:.3f}; (e) {e['leaves']} leaves of (a)'s state "
+          f"saved from {DIST_TRAIN['mesh']} in {e['save_s']:.1f} s, restored "
+          f"onto {e['meshes']} in {[round(x, 1) for x in e['restore_s']]} s,"
+          f" bit-equal; Trainer ({t['opt']}) at {t['layers']} layers, "
+          f"failure at step "
+          f"{t['fail_at']}: restarts {t['restarts']}, steps run "
+          f"{t['steps_run']}, {t['leaves_equal']} leaves bit-equal to the "
+          f"uninterrupted run's; staged through the host "
+          f"{ranks[0]['staged']}; phase {wall:.1f} s; {card}")
+    return dict(ranks=ranks, wall_s=wall, card=card)
+
+
 def phase_clock(phase_s):
     """``mark(name)`` closes the running phase (its wall seconds into
     ``phase_s``) and starts ``name``'s."""
@@ -5897,7 +6398,13 @@ def main() -> int:
                           (bs_err, "qmatmul_f32_blockscale")))
 
     mark("17")
-    # 17. result lines
+    # 17. multi-rank training: 4 gloo ranks on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    p17 = dist_train_phase(torch, card)
+
+    mark("18")
+    # 18. result lines
     by_path = {name: {arch: s["launches"][name] for arch, s in served.items()
                       if name in s["launches"]}
                for name in counters}
@@ -6073,6 +6580,7 @@ def main() -> int:
     print(json.dumps({"mesh": {k: v for k, v in p16.items()
                                if k != "path_check"},
                       "mesh_path_check": p16["path_check"]}))
+    print(json.dumps({"dist_train": p17}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -20,8 +20,20 @@ the other.
     the fault-tolerant trainer (``runtime/trainer.py``).
 
 ``restore`` puts each leaf on ``device`` (default: the device of the
-template's leaf); re-sharding onto a mesh (``shardings=``) waits for the
-multi-device slice (ROADMAP A11).
+template's leaf), or with ``shardings=`` (``NamedSharding`` s of a rank
+mesh, ``parallel/distributed.py``) keeps each rank's block of it: the
+elastic restore onto another mesh than the one that saved (reference
+``:91-121``).
+
+A tree of DTensors (a rank mesh's state) is saved whole: ``save``
+gathers each leaf on every rank on the calling thread (the gather is a
+collective, so it cannot run on the writer thread), and rank 0 alone
+writes, in the same format, so a checkpoint of any mesh, or of either
+package, restores onto any other.  Once a manager has saved such a tree,
+``wait`` puts a barrier behind rank 0's write, and ``latest_step``,
+``all_steps`` and ``restore`` wait first, so no rank looks before the
+write has landed.  Every rank calls the same manager methods in the same
+order.
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ import torch
 
 from repro_torch.core import tree as T
 from repro_torch.core.device import DeviceLike
+from repro_torch.parallel import distributed
 
 
 class CheckpointRestoreError(RuntimeError):
@@ -101,25 +114,40 @@ def save_pytree(tree: Any, directory: str | Path) -> None:
 def restore_pytree(tree_like: Any, directory: str | Path,
                    shardings: Any = None, device: DeviceLike = None) -> Any:
     """Restore into the structure and dtypes of ``tree_like`` (a tree of
-    tensors); each leaf goes to ``device``, default its template's."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto a mesh (shardings=) is not ported yet "
-            "(ROADMAP A11); pass device=")
+    tensors or DTensors); each leaf goes to ``device``, default its
+    template's.  ``shardings`` (``tree_like``'s structure, a
+    ``parallel/distributed.NamedSharding`` a leaf) re-shards: each leaf is
+    this rank's block of it on its mesh, read from the file alone."""
     directory = Path(directory)
     with open(directory / "manifest.json") as f:
         manifest = json.load(f)
+    flat = _flatten(tree_like)
+    shard_flat = ([None] * len(flat) if shardings is None
+                  else T.leaves(shardings))
+    if len(shard_flat) != len(flat):
+        raise ValueError(f"{len(shard_flat)} shardings for {len(flat)} "
+                         "leaves")
     out = []
-    for key, leaf in _flatten(tree_like):
+    for (key, leaf), sh in zip(flat, shard_flat):
         if key not in manifest:
             raise KeyError(f"checkpoint missing leaf {key!r}")
-        arr = np.load(directory / manifest[key]["file"])
+        arr = np.load(directory / manifest[key]["file"],
+                      mmap_mode=None if sh is None else "r")
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"shape mismatch for {key}: "
                              f"{arr.shape} vs {tuple(leaf.shape)}")
-        out.append(torch.from_numpy(arr).to(
-            device=leaf.device if device is None else device,
-            dtype=leaf.dtype))
+        if sh is None:
+            out.append(torch.from_numpy(arr).to(
+                device=leaf.device if device is None else device,
+                dtype=leaf.dtype))
+            continue
+        mesh = sh.mesh
+        places = distributed.placements(sh.spec, mesh)
+        block = np.array(distributed.block_of(arr, mesh.device_mesh, places))
+        out.append(distributed.placed(
+            torch.from_numpy(block).to(device=mesh.devices.flat[0].device,
+                                       dtype=leaf.dtype),
+            mesh.device_mesh, places, arr.shape))
     return T.unflatten(tree_like, out)
 
 
@@ -132,13 +160,23 @@ class CheckpointManager:
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
         self._last_error: Optional[BaseException] = None
+        self._ranked = False        # saved a rank mesh's tree: barriers
 
     # -- write ---------------------------------------------------------------
     def save(self, step: int, tree: Any, block: bool = False) -> None:
-        # snapshot into fresh host memory before returning: the caller may
-        # overwrite its tensors (in place, or on the card) right after
-        host_tree = T.tree_map(_snapshot, tree)
+        # the gather is a collective: every rank takes part.  Rank 0, which
+        # writes, snapshots into fresh host memory before returning: the
+        # caller may overwrite its tensors (in place, or on the card) right
+        # after
+        self._ranked |= any(isinstance(leaf, distributed.DTensor)
+                            for leaf in T.leaves(tree))
+        whole = distributed.gather_tree(tree)
+        lead = distributed.is_lead()
+        host_tree = T.tree_map(_snapshot, whole) if lead else None
+        del whole
         self.wait()                     # one writer at a time
+        if not lead:
+            return
 
         def _write():
             try:
@@ -158,6 +196,8 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._ranked:
+            distributed.barrier()       # rank 0's write has landed
         self._raise_if_failed()
 
     def _raise_if_failed(self):
@@ -166,12 +206,17 @@ class CheckpointManager:
             raise e
 
     def _gc(self) -> None:
-        steps = self.all_steps()
+        steps = self._steps_on_disk()
         for s in steps[:-self.keep_n] if self.keep_n else []:
             shutil.rmtree(self.root / f"step_{s:08d}", ignore_errors=True)
 
     # -- read ----------------------------------------------------------------
     def all_steps(self) -> List[int]:
+        if self._ranked:
+            self.wait()
+        return self._steps_on_disk()
+
+    def _steps_on_disk(self) -> List[int]:
         return sorted(int(p.name.split("_")[1]) for p in self.root.glob("step_*")
                       if p.is_dir() and not p.name.endswith(".tmp"))
 
@@ -182,6 +227,8 @@ class CheckpointManager:
     def restore(self, tree_like: Any, step: Optional[int] = None,
                 shardings: Any = None, device: DeviceLike = None
                 ) -> Tuple[int, Any]:
+        if self._ranked:
+            self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise CheckpointRestoreError(

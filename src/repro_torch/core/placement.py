@@ -252,6 +252,14 @@ def wire_served_bits(engine: Any, path: Optional[str]) -> Optional[int]:
     return None
 
 
+def dp_axes_of(engine: Any) -> Tuple[str, ...]:
+    """Data-parallel axes threaded alongside the engine (the training
+    path, ``placement.py:324``): plans carry none, legacy dicts may."""
+    if isinstance(engine, Mapping):
+        return tuple(engine.get("dp_axes") or ())
+    return ()
+
+
 def path_key(path: Sequence[Any]) -> str:
     """Canonical flat path string of a sequence of tree keys: the vocabulary
     PlacementPlan rules match against."""

@@ -56,17 +56,19 @@ def _init_fn(cfg: ModelConfig) -> Callable:
 
 
 def loss_and_grads(params: Any, batch: Dict[str, torch.Tensor],
-                   cfg: ModelConfig, engine: Optional[Any] = None
+                   cfg: ModelConfig, engine: Optional[Any] = None,
+                   denom: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Any]:
     """(loss, grads): ``jax.value_and_grad`` of the family's loss on
     detached copies of the leaves, so ``params`` is left as it was.  A leaf
     the loss never reads (hymba's ``ssm_norm``: its SSM heads take the
-    attention's normalised input) gets zeros, as under JAX."""
+    attention's normalised input) gets zeros, as under JAX.  ``denom``
+    replaces the loss's token count (``transformer.token_nll``)."""
     loss_fn = _loss_fn(cfg)
     with torch.enable_grad():
         leaves = [p.detach().requires_grad_() for p in T.leaves(params)]
         loss = loss_fn(T.unflatten(params, leaves), batch, cfg,
-                       engine=engine)
+                       engine=engine, denom=denom)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
     return loss.detach(), T.unflatten(params, list(grads))

@@ -188,14 +188,15 @@ def decode(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
 
 
 def seq2seq_loss(params: Params, batch: Dict[str, torch.Tensor],
-                 cfg: ModelConfig, *, engine: Optional[Any] = None
-                 ) -> torch.Tensor:
+                 cfg: ModelConfig, *, engine: Optional[Any] = None,
+                 denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Next-token cross-entropy of the decoder over the encoded
     ``batch["frames"]`` (``encdec.py:144-151``); batch: frames (B, T, D),
-    tokens (B, S), labels (B, S), optional loss_mask."""
+    tokens (B, S), labels (B, S), optional loss_mask.  ``denom``: see
+    ``transformer.token_nll``."""
     enc_out = encode(params, batch["frames"], cfg, engine=engine, train=True)
     return tfm.token_nll(decode(params, batch["tokens"], enc_out, cfg,
-                                engine=engine, train=True), batch)
+                                engine=engine, train=True), batch, denom)
 
 
 # -- serving: decoder KV cache + precomputed cross-attention KV -------------

@@ -29,11 +29,12 @@ reference's numbers anyway:
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.placement import dp_axes_of
 from repro_torch.models import layers
 
 Aux = Dict[str, torch.Tensor]
@@ -149,27 +150,40 @@ def moe_apply(x: torch.Tensor, p: Dict[str, Any], *, n_experts: int, k: int,
     shared-expert MLP under p["shared"] and arctic's dense-residual MLP
     under p["dense"].  ``groups > 1`` (when it divides the tokens) routes
     and dispatches each group of T / groups tokens on its own, with its own
-    capacity, one group after another; the reference shards the groups
-    over data-parallel axes, which the port refuses (ROADMAP A11)."""
+    capacity, one group after another.  With ``engine["dp_axes"]`` set
+    (the training path, ``moe.py:133-166``) the dense experts of all the
+    groups run as the reference's two einsums, ``gecd,efd->gecf`` and
+    ``gecf,edf->gecd``; the reference's sharding constraints there are
+    layout hints with no value.  The sharded train step gives each rank
+    its own ``groups / dp`` groups
+    (``launch/dist_steps.make_distributed_train_step``)."""
     lead = x.shape[:-1]
     d = x.shape[-1]
     xf = x.reshape(-1, d)
     t = xf.shape[0]
 
     if groups > 1 and t % groups == 0:
-        if isinstance(engine, Mapping) and engine.get("dp_axes"):
-            raise NotImplementedError(
-                "data-parallel grouped MoE dispatch (dp_axes "
-                f"{tuple(engine['dp_axes'])}) arrives with ROADMAP A11")
         tg = t // groups
         cap = capacity(tg, n_experts, k, capacity_factor)
-        ys = []
+        routed = []
         for xg in xf.reshape(groups, tg, d):
             gates, idx = route(xg, p["router"], k)
-            buf, aux = dispatch(xg, gates, idx, n_experts, cap)
-            ys.append(combine(expert_ffn(buf, p, act=act, engine=engine),
-                              aux, tg))
-        y = torch.cat(ys).to(x.dtype)
+            routed.append(dispatch(xg, gates, idx, n_experts, cap))
+        if dp_axes_of(engine):
+            if isinstance(p["w_gate"], dict):
+                raise ValueError("the dp_axes dispatch (training) takes "
+                                 "dense experts, as the reference's")
+            buf = torch.stack([b for b, _ in routed])
+            g_ = torch.einsum("gecd,efd->gecf", buf, p["w_gate"])
+            u_ = torch.einsum("gecd,efd->gecf", buf, p["w_up"])
+            h_ = (layers.silu(g_) if act == "swiglu"
+                  else layers.gelu_tanh(g_)) * u_
+            outs = torch.einsum("gecf,edf->gecd", h_, p["w_down"])
+        else:
+            outs = [expert_ffn(b, p, act=act, engine=engine)
+                    for b, _ in routed]
+        y = torch.cat([combine(eo, aux, tg) for eo, (_, aux) in
+                       zip(outs, routed)]).to(x.dtype)
     else:
         gates, idx = route(xf, p["router"], k)
         cap = capacity(t, n_experts, k, capacity_factor)

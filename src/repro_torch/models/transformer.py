@@ -474,25 +474,32 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
-            cfg: ModelConfig, *, engine: Optional[Any] = None
-            ) -> torch.Tensor:
+            cfg: ModelConfig, *, engine: Optional[Any] = None,
+            denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Next-token cross-entropy (``transformer.py:367-380``).  batch:
     tokens (B, S), labels (B, S), optional loss_mask, and for the VLM family
-    patches (B, P, D), which carry no labels."""
+    patches (B, P, D), which carry no labels.  ``denom``: see
+    :func:`token_nll`."""
     logits = forward(params, batch["tokens"], cfg, engine=engine, train=True,
                      extra_embeds=batch.get("patches"))
-    return token_nll(logits[:, -batch["labels"].shape[1]:], batch)
+    return token_nll(logits[:, -batch["labels"].shape[1]:], batch, denom)
 
 
-def token_nll(logits: torch.Tensor, batch: Dict[str, torch.Tensor]
-              ) -> torch.Tensor:
+def token_nll(logits: torch.Tensor, batch: Dict[str, torch.Tensor],
+              denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean negative log-likelihood of ``batch["labels"]`` (B, S) under
-    ``logits`` (B, S, V), over ``batch["loss_mask"]`` where there is one."""
+    ``logits`` (B, S, V), over ``batch["loss_mask"]`` where there is one.
+    ``denom`` replaces the count of those tokens: a rank of the sharded
+    train step divides its rows' sum by the whole batch's count, so that
+    the ranks' losses add up to the batch's mean
+    (``launch/dist_steps.make_distributed_train_step``)."""
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     ll = torch.gather(logp, -1, batch["labels"][..., None].long())[..., 0]
     mask = batch.get("loss_mask")
     mask = torch.ones_like(ll) if mask is None else mask.to(ll.dtype)
-    return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    if denom is None:
+        denom = torch.clamp(torch.sum(mask), min=1.0)
+    return -torch.sum(ll * mask) / denom
 
 
 # ---------------------------------------------------------------------------

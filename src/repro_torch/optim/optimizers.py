@@ -40,6 +40,12 @@ def _device(tree: Any) -> torch.device:
     return flat[0].device if flat else torch.device("cpu")
 
 
+def _local_mean(x: torch.Tensor, dims=None, keepdim: bool = False
+                ) -> torch.Tensor:
+    return (torch.mean(x) if dims is None
+            else torch.mean(x, dim=dims, keepdim=keepdim))
+
+
 def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
     # a tensor operand: PyTorch's CUDA division by a Python number
     # multiplies by its rounded reciprocal, which is not an f32 division
@@ -122,17 +128,24 @@ def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
             (), dtype=torch.int32, device=_device(params)))
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, mean=None):
+        """``mean``, one a leaf, is ``mean(x, dims=None, keepdim=False)``:
+        the mean over ``dims`` (all of them when None) of the whole leaf
+        whose block is ``x``, the block's ``vr`` / ``vc`` its rows and
+        columns (the sharded step's ``launch/dist_steps.whole_mean``).
+        By default each leaf is whole and the means are its own."""
         count = state["count"] + 1
         beta = 1.0 - count.to(F32) ** -decay_rate
+        flat = T.leaves(params)
+        means = [_local_mean] * len(flat) if mean is None else mean
 
-        def upd(g, s, p):
+        def upd(g, s, p, mean):
             g = g.to(F32)
             g2 = g * g + eps
             if _factored(p):
-                vr = beta * s["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
-                vc = beta * s["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
-                denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
+                vr = beta * s["vr"] + (1 - beta) * mean(g2, (-1,))
+                vc = beta * s["vc"] + (1 - beta) * mean(g2, (-2,))
+                denom = torch.clamp(mean(vr, (-1,), True),
                                     min=eps)[..., None]
                 v_est = (vr[..., None] * vc[..., None, :]) / denom
                 step = g * torch.rsqrt(v_est + eps)
@@ -142,15 +155,15 @@ def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
                 step = g * torch.rsqrt(v + eps)
                 new_s = dict(v=v)
             # update clipping (RMS of step <= clip_threshold)
-            rms = torch.sqrt(torch.mean(torch.square(step)) + eps)
+            rms = torch.sqrt(mean(torch.square(step)) + eps)
             step = step / torch.clamp(rms / _f32(clip_threshold, rms),
                                       min=1.0)
             if weight_decay:
                 step = step + weight_decay * p.to(F32)
             return (p.to(F32) - lr * step).to(p.dtype), new_s
 
-        results = [upd(g, s, p) for g, s, p in zip(
-            T.leaves(grads), state["v"], T.leaves(params))]
+        results = [upd(g, s, p, m) for g, s, p, m in zip(
+            T.leaves(grads), state["v"], flat, means)]
         return (T.unflatten(params, [r[0] for r in results]),
                 dict(v=[r[1] for r in results], count=count))
 

@@ -1,0 +1,420 @@
+"""Ranks: the processes of one ``torch.distributed`` group, their
+collectives, and trees placed on a mesh of them.
+
+The reference has no module for this: it places a tree with
+``jax.device_put(tree, NamedSharding)`` and lets GSPMD run the program on
+it.  The port's counterpart of a device is a rank, one process of a
+``torch.distributed`` process group (``launch/mesh.make_rank_mesh``).
+
+* :func:`run_ranks` starts the processes (``spawn``) and one ``gloo``
+  group through a ``file://`` rendezvous in a fresh temporary directory,
+  and returns each rank's result.
+* :func:`all_reduce`, :func:`all_gather` and :func:`ring_shift` are the
+  collectives (under ``gloo`` the ring shift of a CUDA tensor is staged
+  through pinned host memory), :func:`barrier` and :func:`is_lead` the
+  checkpoint's.
+* :func:`placements`, :func:`shard_tree`, :func:`gather_tree` and
+  :func:`local_rows` are ``device_put``, its inverse and the batch's
+  ``batch_pspec`` rows.  A placed leaf is a DTensor that holds this rank's
+  block only.  DTensors are storage and placement here, never compute:
+  plain model code run on DTensors fails inside DTensor's sharding
+  propagation (an embedding placed as ``P("model", "data")`` under a
+  batch-sharded token DTensor), so the train step on these trees
+  (``launch/dist_steps.py``) computes on plain tensors.
+
+Ranks on several cards under NCCL are ROADMAP A11 (b) item 6.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import datetime
+import math
+import os
+import queue
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
+
+from repro_torch.core import tree as T
+from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.parallel import sharding as shd
+
+# ring shifts of CUDA tensors staged through pinned host memory in this
+# process (:func:`ring_shift`)
+STAGED: collections.Counter = collections.Counter()
+
+
+# ---------------------------------------------------------------------------
+# processes
+# ---------------------------------------------------------------------------
+
+def _rank_main(rank: int, world: int, init: str, device: str,
+               timeout_s: float, fn: Callable, args: Tuple,
+               results: Any) -> None:
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", dev.index or 0)
+            torch.cuda.set_device(dev)
+            torch.zeros(1, device=dev)          # the context, before the mesh
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        dist.init_process_group(
+            "gloo", init_method=init, world_size=world, rank=rank,
+            timeout=datetime.timedelta(seconds=timeout_s))
+        try:
+            out = fn(*args)
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+        raise SystemExit(1)
+    results.put((rank, True, out))
+
+
+def run_ranks(fn: Callable, world: int, *args: Any, device: DeviceLike = None,
+              timeout_s: float = 300.0) -> List[Any]:
+    """``fn(*args)`` on ``world`` new processes (``spawn``), each a rank
+    of one ``gloo`` process group, each set up on ``device`` (default
+    ``cuda``, every rank on the one card; raises without one).  Returns
+    the ranks' results in rank order.  Raises ``RuntimeError`` with the
+    tracebacks if any rank fails, and ``TimeoutError`` if the ranks
+    outlive ``timeout_s``; either way every rank is stopped.  ``fn`` and
+    ``args`` are pickled: ``fn`` is a module-level function."""
+    import torch.multiprocessing as mp
+
+    dev = resolve_device(device)
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    out: Dict[int, Any] = {}
+    errors: Dict[int, str] = {}
+    with tempfile.TemporaryDirectory(prefix="ranks-") as tmp:
+        init = "file://" + os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=_rank_main, daemon=True,
+                             args=(r, world, init, str(dev), timeout_s, fn,
+                                   args, results))
+                 for r in range(world)]
+        deadline = time.monotonic() + timeout_s
+        try:
+            for p in procs:
+                p.start()
+            grace = None        # after a failure, the others' reports
+            while len(out) + len(errors) < world:
+                now = time.monotonic()
+                if grace is not None and now > grace:
+                    break
+                try:
+                    rank, ok, val = results.get(timeout=0.2)
+                except queue.Empty:
+                    if now > deadline:
+                        raise TimeoutError(
+                            f"{world} ranks outlived {timeout_s} s; ranks "
+                            f"{sorted(set(range(world)) - set(out))} had "
+                            "not finished")
+                    dead = [r for r, p in enumerate(procs) if r not in out
+                            and r not in errors
+                            and p.exitcode not in (None, 0)]
+                    if dead and grace is None:
+                        grace = now + 2.0   # its own report may be queued
+                    continue
+                (out if ok else errors)[rank] = val
+                if not ok and grace is None:
+                    grace = time.monotonic() + 2.0
+            for r, p in enumerate(procs):
+                if r not in out and r not in errors and p.exitcode:
+                    errors[r] = f"exited {p.exitcode} with no report"
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+            for p in procs:
+                p.join(10)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    if errors:
+        raise RuntimeError("rank(s) failed:\n" + "\n".join(
+            f"--- rank {r}:\n{msg}" for r, msg in sorted(errors.items())))
+    return [out[r] for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# collectives
+# ---------------------------------------------------------------------------
+
+def all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM, group=None
+               ) -> torch.Tensor:
+    """``t`` reduced in place over ``group``; returns ``t``."""
+    if dist.get_world_size(group) > 1:
+        dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def all_gather(t: torch.Tensor, group=None) -> List[torch.Tensor]:
+    """Every rank's ``t`` of ``group`` (all of one shape), in group rank
+    order."""
+    src = t.contiguous()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    return parts
+
+
+def ring_shift(t: torch.Tensor, group) -> torch.Tensor:
+    """``ppermute`` over the ring ``i -> i + 1`` of ``group``: this rank's
+    ``t`` goes to the next rank, and the previous rank's is returned.
+
+    gloo's send / receive of a CUDA tensor hands the device pointer to a
+    socket ("writev ... Bad address" on the card), so under gloo a CUDA
+    ``t`` goes through a pinned host buffer, on every call (``STAGED``).
+    Its all-reduce and all-gather take CUDA tensors, and go through the
+    host inside gloo."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return t
+    me = dist.get_rank(group)
+    nxt = dist.get_global_rank(group, (me + 1) % n)
+    prev = dist.get_global_rank(group, (me - 1) % n)
+    src = t.contiguous()
+    if src.is_cuda and dist.get_backend(group) == "gloo":
+        src = torch.empty(src.shape, dtype=src.dtype,
+                          pin_memory=True).copy_(src)
+        STAGED["send_recv"] += 1
+    got = torch.empty_like(src)
+    for work in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, src, nxt, group),
+            dist.P2POp(dist.irecv, got, prev, group)]):
+        work.wait()
+    return got.to(t.device)
+
+
+def barrier() -> None:
+    """Every rank of the default group reaches this point; a no-op on one
+    process."""
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+
+
+def is_lead() -> bool:
+    """Rank 0, or the one process when no group is up."""
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
+
+
+# ---------------------------------------------------------------------------
+# placement
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (``jax.sharding.NamedSharding``): what
+    ``checkpoint`` restores onto and what ``Trainer(shardings=)`` takes."""
+    mesh: Any
+    spec: shd.PartitionSpec
+
+
+def named_shardings(spec_tree: Any, tree_like: Any, mesh: Any) -> Any:
+    """``tree_like``'s structure with each leaf's spec on ``mesh``."""
+    return T.unflatten(tree_like, [NamedSharding(mesh, s) for s in
+                                   spec_leaves(tree_like, spec_tree)])
+
+
+def spec_leaves(tree_like: Any, spec_tree: Any) -> List[shd.PartitionSpec]:
+    """The specs of ``spec_tree`` in ``tree_like``'s leaf order (a spec is
+    a tuple, which ``core/tree`` would walk into)."""
+    if tree_like is None:
+        return []
+    if isinstance(tree_like, dict):
+        return [s for k in sorted(tree_like)
+                for s in spec_leaves(tree_like[k], spec_tree[k])]
+    if isinstance(tree_like, (list, tuple)):
+        return [s for v, sv in zip(tree_like, spec_tree)
+                for s in spec_leaves(v, sv)]
+    return [spec_tree]
+
+
+def placements(spec: Sequence[Any], mesh: Any) -> Tuple[Any, ...]:
+    """One DTensor placement a mesh dim: ``Shard(d)`` for each axis that
+    ``spec`` names at tensor dim ``d``, ``Replicate()`` elsewhere.  An
+    entry naming a tuple of axes shards that dim over each, the first named
+    outermost (JAX's layout; DTensor splits mesh dims in mesh order, so the
+    tuple must follow it).  An axis the mesh lacks has size 1."""
+    out: List[Any] = [Replicate()] * len(mesh.axis_names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        names = entry if isinstance(entry, tuple) else (entry,)
+        where = [mesh.axis_names.index(a) for a in names
+                 if a in mesh.axis_names]
+        if where != sorted(where):
+            raise ValueError(f"spec entry {entry} runs against the mesh's "
+                             f"axis order {mesh.axis_names}")
+        for i in where:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"axis {mesh.axis_names[i]} shards two "
+                                 f"dims of spec {spec}")
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def _index(shape: Sequence[int], dmesh, places: Sequence[Any],
+           coord: Sequence[int]) -> Tuple[slice, ...]:
+    """The slices of the block at mesh coordinate ``coord`` of a whole
+    tensor of ``shape`` under ``places`` (mesh dims split in mesh order,
+    as DTensor does)."""
+    index = [slice(0, n) for n in shape]
+    for i, p in enumerate(places):
+        if isinstance(p, Shard):
+            sl = index[p.dim]
+            size = (sl.stop - sl.start) // dmesh.size(i)
+            index[p.dim] = slice(sl.start + coord[i] * size,
+                                 sl.start + (coord[i] + 1) * size)
+    return tuple(index)
+
+
+def block_of(t: Any, dmesh, places: Sequence[Any]) -> Any:
+    """This rank's block of the whole ``t`` (a tensor or a numpy array)
+    under ``places``: a view."""
+    if not len(t.shape):
+        return t
+    return t[_index(t.shape, dmesh, places, dmesh.get_coordinate())]
+
+
+def whole_of(local: torch.Tensor, dmesh, places: Sequence[Any]
+           ) -> torch.Tensor:
+    """The whole tensor from every rank's block: the innermost mesh dim
+    first."""
+    for i in reversed(range(len(places))):
+        p = places[i]
+        if isinstance(p, Shard) and dmesh.size(i) > 1:
+            local = torch.cat(all_gather(local, dmesh.get_group(i)),
+                              dim=p.dim)
+    return local
+
+
+def placed(local: torch.Tensor, dmesh, places: Sequence[Any],
+            shape: Sequence[int]) -> DTensor:
+    local = local.contiguous()
+    whole = torch.empty(tuple(shape), device="meta")
+    return DTensor.from_local(local, dmesh, places, run_check=False,
+                              shape=whole.shape, stride=whole.stride())
+
+
+def shard(t: torch.Tensor, spec: Sequence[Any], mesh: Any) -> DTensor:
+    """``t`` (whole on every rank) placed by ``spec``: a DTensor holding
+    this rank's block only (a copy, so ``t`` may be freed)."""
+    t = t.to(mesh.devices.flat[0].device)
+    dt = distribute_tensor(t, mesh.device_mesh, placements(spec, mesh),
+                           src_data_rank=None)
+    local = dt.to_local()
+    if local.untyped_storage().nbytes() > local.numel() * local.element_size():
+        dt = placed(local.clone(), dt.device_mesh, dt.placements, t.shape)
+    return dt
+
+
+def shard_tree(tree: Any, spec_tree: Any, mesh: Any) -> Any:
+    """``jax.device_put(tree, shardings)``: every leaf a DTensor of its
+    spec's block."""
+    return T.unflatten(tree, [shard(leaf, spec, mesh) for leaf, spec in zip(
+        T.leaves(tree), spec_leaves(tree, spec_tree))])
+
+
+def gather(leaf: Any) -> torch.Tensor:
+    """A DTensor's whole value on every rank (its ``full_tensor()``, an
+    all-gather a sharding mesh dim); any other leaf as it is."""
+    if not isinstance(leaf, DTensor):
+        return leaf
+    return whole_of(leaf.to_local(), leaf.device_mesh, leaf.placements)
+
+
+def _gather_many(leaves: List[DTensor]) -> List[torch.Tensor]:
+    """The whole values of DTensors of one mesh and dtype through ONE
+    all-gather of every rank's blocks, laid end to end: each rank receives
+    what a gather leaf by leaf would, in one call, not two a leaf."""
+    dmesh = leaves[0].device_mesh
+    if dmesh.size() != dist.get_world_size():
+        return [gather(leaf) for leaf in leaves]
+    local = [leaf.to_local() for leaf in leaves]
+    parts = all_gather(torch.cat([x.reshape(-1) for x in local]))
+    wholes = [torch.empty(leaf.shape, dtype=leaf.dtype, device=x.device)
+              for leaf, x in zip(leaves, local)]
+    ranks = dmesh.mesh
+    for r, part in enumerate(parts):
+        coord = [int(c) for c in (ranks == r).nonzero()[0]]
+        off = 0
+        for leaf, x, whole in zip(leaves, local, wholes):
+            block = part[off:off + x.numel()].view(x.shape)
+            whole[_index(whole.shape, dmesh, leaf.placements,
+                         coord)] = block
+            off += x.numel()
+    return wholes
+
+
+def gather_tree(tree: Any) -> Any:
+    """Every DTensor leaf's whole value on every rank (:func:`gather`), the
+    sharded leaves of each mesh and dtype in one all-gather."""
+    flat = T.leaves(tree)
+    out = [gather(leaf) if isinstance(leaf, DTensor) and not any(
+        isinstance(p, Shard) for p in leaf.placements) else leaf
+        for leaf in flat]
+    groups: Dict[Tuple[int, torch.dtype], List[int]] = {}
+    for i, leaf in enumerate(flat):
+        if isinstance(leaf, DTensor) and any(isinstance(p, Shard)
+                                             for p in leaf.placements):
+            groups.setdefault((id(leaf.device_mesh), leaf.dtype),
+                              []).append(i)
+    for idx in groups.values():
+        for i, whole in zip(idx, _gather_many([flat[i] for i in idx])):
+            out[i] = whole
+    return T.unflatten(tree, out)
+
+
+def held_bytes(tree: Any) -> int:
+    """Bytes this rank holds of a tree's DTensor leaves."""
+    return sum(leaf.to_local().numel() * leaf.to_local().element_size()
+               for leaf in T.leaves(tree) if isinstance(leaf, DTensor))
+
+
+def spec_bytes(tree: Any, spec_tree: Any, mesh: Any) -> int:
+    """What a rank should hold of ``tree`` placed by ``spec_tree``: each
+    leaf's bytes over its shard count, rounded up."""
+    total = 0
+    for leaf, spec in zip(T.leaves(tree), spec_leaves(tree, spec_tree)):
+        n = math.prod(mesh.device_mesh.size(i) for i, p in
+                      enumerate(placements(spec, mesh))
+                      if isinstance(p, Shard))
+        total += -(-leaf.numel() * leaf.element_size() // n)
+    return total
+
+
+def _row_block(batch: int, mesh: Any) -> Optional[Tuple[int, int]]:
+    """(this rank's row block, the number of blocks) as ``batch_pspec``
+    splits ``batch`` rows, or None where the rows are replicated."""
+    entry = shd.batch_pspec(batch, mesh)[0]
+    if entry is None:
+        return None
+    coord = mesh.coordinate()
+    idx, n = 0, 1
+    for a in entry:
+        idx, n = idx * mesh.shape[a] + coord[a], n * mesh.shape[a]
+    return idx, n
+
+
+def local_rows(batch: Dict[str, torch.Tensor], mesh: Any
+               ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of every batch tensor (rows first): over the dp
+    axes where they divide the batch, else all of them (the reference's
+    ``_maybe``)."""
+    b = next(iter(batch.values())).shape[0]
+    block = _row_block(b, mesh)
+    if block is None:
+        return batch
+    idx, n = block
+    rows = b // n
+    return {k: v[idx * rows:(idx + 1) * rows] for k, v in batch.items()}

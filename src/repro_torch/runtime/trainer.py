@@ -15,6 +15,14 @@ read on the host, so it holds the step's device work, as the reference's
 
 As in the reference, every ``RuntimeError`` out of a step counts as a
 failure and is retried up to ``max_restarts`` times; a CUDA error is one.
+
+On a rank mesh (``shardings=``, reference ``:40-68``) every rank runs the
+same loop: ``init_state`` gives the rank's sharded state
+(``parallel/distributed.shard_tree``), a restart restores onto the
+current mesh's shardings, each rank takes ``dataset.batch(step)`` (the
+same on every rank, so nothing is broadcast) and the sharded step keeps
+its rows (``distributed.local_rows``).  A failure injected on a step
+fails every rank on it, so every rank restarts from the same checkpoint.
 """
 
 from __future__ import annotations
@@ -45,10 +53,13 @@ class Trainer:
                  init_state: Callable[[], Dict[str, Any]],
                  dataset: SyntheticLMDataset,
                  failure_injector: Optional[FailureInjector] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 shardings: Optional[Dict[str, Any]] = None):
         """``init_state() -> {"params": ..., "opt_state": ...}`` on
         ``device`` (default ``cuda``), where the batches go too;
         ``train_step(params, opt_state, batch) -> (params, opt, metrics)``.
+        ``shardings``: the state's ``NamedSharding`` tree on the current
+        rank mesh, which a restart restores onto.
         """
         self.cfg = cfg
         self.train_step = train_step
@@ -56,6 +67,7 @@ class Trainer:
         self.dataset = dataset
         self.injector = failure_injector
         self.device = resolve_device(device)
+        self.shardings = shardings
         self.ckpt = CheckpointManager(cfg.checkpoint_dir, keep_n=cfg.keep_n)
         self.monitor = StragglerMonitor()
         self.metrics_log = []
@@ -67,8 +79,8 @@ class Trainer:
         state = self.init_state()
         start_step = 0
         if self.ckpt.latest_step() is not None:
-            start_step, state = self.ckpt.restore(dict(state),
-                                                  device=self.device)
+            start_step, state = self.ckpt.restore(
+                dict(state), shardings=self.shardings, device=self.device)
             start_step += 1
         return start_step, state
 

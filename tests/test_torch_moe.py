@@ -171,13 +171,25 @@ def test_moe_apply_dense_residual_as_arctic(model):
 
 
 def test_grouped_moe_refuses_data_parallel_axes(model):
+    """Under ``dp_axes`` the grouped dispatch runs the reference's expert
+    einsums (the sharded train step's path) and gives the reference's
+    values; packed experts, which the reference's branch cannot take,
+    are refused there."""
+    from repro.launch.mesh import make_test_mesh as jmesh
+
     *_, tcfg, tparams, _tp = model
     tp = interop.params_from_numpy(_np(_layer0(model[1])), tcfg,
                                    device="cpu")
-    x = torch.zeros((4, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        moe.moe_apply(x, tp, n_experts=8, k=2, groups=2,
-                      engine=dict(dp_axes=("data",)))
+    x = _x(8, tcfg.d_model, seed=4)
+    kw = dict(n_experts=8, k=2, groups=2, engine=dict(dp_axes=("data",)))
+    with jmesh((1, 1), ("data", "model")):
+        want = jmoe.moe_apply(jnp.asarray(x), _layer0(model[1]), **kw)
+    np.testing.assert_allclose(moe.moe_apply(_t(x), tp, **kw).numpy(),
+                               np.asarray(want), **TOL)
+    packed = interop.params_from_numpy(_np(_layer0(model[2])), tcfg,
+                                       device="cpu")
+    with pytest.raises(ValueError, match="dense experts"):
+        moe.moe_apply(_t(x), packed, **kw)
 
 
 def test_router_aux_loss_equals_the_reference(model):

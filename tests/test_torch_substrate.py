@@ -135,7 +135,8 @@ def test_restore_to_a_device_and_refuse_shardings(tmp_path):
     save_pytree(tt, tmp_path / "ck")
     out = restore_pytree(tt, tmp_path / "ck", device="cpu")
     assert all(t.device.type == "cpu" for t in T.leaves(out))
-    with pytest.raises(NotImplementedError, match="A11"):
+    # a shardings tree must give every leaf its NamedSharding
+    with pytest.raises(ValueError, match="shardings for"):
         restore_pytree(tt, tmp_path / "ck", shardings=dict(a=None))
     with pytest.raises(ValueError, match="shape mismatch"):
         restore_pytree(dict(tt, a=torch.zeros(5)), tmp_path / "ck")

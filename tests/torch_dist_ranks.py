@@ -1,0 +1,250 @@
+"""Rank bodies of the port's multi-rank tests
+(``test_torch_dist_train.py``, ``test_torch_dist_parallel.py``).
+
+``parallel/distributed.run_ranks`` pickles a rank's function by module
+and name, and each rank imports its module: these import no JAX, so a
+rank starts in a few seconds.
+"""
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch import interop, optim
+from repro_torch.configs import get_config as tget
+from repro_torch.core import tree as T
+from repro_torch.launch import mesh as tmesh
+from repro_torch.launch import dist_steps as DS
+from repro_torch.launch import steps
+from repro_torch.parallel import distributed as D
+
+ARCH, MOE_ARCH, CKPT_ARCH = "qwen3-0.6b", "qwen2-moe-a2.7b", "olmo-1b"
+MOE_GROUPS = (2, 4)
+# steps a case runs: after the first, the losses see the updates
+N_STEPS = dict(adamw=3, adafactor=2, masked=3, moe=3)
+
+
+def _cfg(get):
+    return get(ARCH).smoke().replace(d_model=64, n_heads=4, n_kv_heads=2,
+                                     head_dim=16, vocab_size=256)
+
+
+def _moe_cfg(get, groups):
+    return get(MOE_ARCH).smoke().replace(moe_groups=groups)
+
+
+def _batch(masked: bool = False):
+    """The reference's (4, 32) batch from seed 0; ``masked`` adds a
+    loss_mask that keeps 5 of 32 tokens a row in the first data shard's
+    rows and all of them in the second's."""
+    rng = np.random.default_rng(0)
+    b = dict(tokens=rng.integers(0, 256, (4, 32)),
+             labels=rng.integers(0, 256, (4, 32)))
+    if masked:
+        mask = np.ones((4, 32), np.float32)
+        mask[:2, 5:] = 0.0
+        b["loss_mask"] = mask
+    return b
+
+
+def _tbatch(b):
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in b.items()}
+
+
+def _sharded_run(cfg, opt, params, batch, mesh, n_steps):
+    """``n_steps`` of the sharded step from ``params`` (whole): losses,
+    the global gradient norms, the bytes this rank holds against the
+    specs', and the params gathered (numpy, rank 0)."""
+    from repro_torch.parallel import sharding as shd
+
+    state = opt.init(params)
+    pspec = shd.param_shardings(params, mesh)
+    ospec = shd.opt_state_shardings(state, mesh, params)
+    sp, so = D.shard_tree(params, pspec, mesh), D.shard_tree(state, ospec,
+                                                             mesh)
+    want = D.spec_bytes(params, pspec, mesh) + D.spec_bytes(state, ospec,
+                                                            mesh)
+    step = DS.make_distributed_train_step(cfg, opt, mesh)
+    losses, gnorms = [], []
+    for _ in range(n_steps):
+        sp, so, met = step(sp, so, batch)
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+    held = D.held_bytes(sp) + D.held_bytes(so)
+    whole = D.gather_tree(sp)
+    return dict(losses=losses, grad_norms=gnorms, held=held, want=want,
+                local=[leaf.to_local().shape for leaf in T.leaves(sp)],
+                params=(interop.params_to_numpy(whole)
+                        if torch.distributed.get_rank() == 0 else None))
+
+
+def _ranks_4(params_np, jax_ckpt, tmp):
+    """Every 4-rank case: the steps on (2, 2), the restores, the Trainer
+    restart."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.runtime import FailureInjector, Trainer, TrainerConfig
+
+    rank = torch.distributed.get_rank()
+    cfg = _cfg(tget)
+    mesh = tmesh.make_rank_mesh((2, 2), ("data", "model"), device="cpu")
+    params = interop.params_from_numpy(params_np, cfg, device="cpu")
+    out = dict(
+        adamw=_sharded_run(cfg, optim.adamw(), params,
+                           _tbatch(_batch()), mesh, N_STEPS["adamw"]),
+        adafactor=_sharded_run(cfg, optim.adafactor(), params,
+                               _tbatch(_batch()), mesh,
+                               N_STEPS["adafactor"]),
+        masked=_sharded_run(cfg, optim.adamw(), params,
+                            _tbatch(_batch(masked=True)), mesh,
+                            N_STEPS["masked"]),
+        rows=[v.tolist() for v in D.local_rows(
+            dict(r=torch.arange(4)), mesh).values()])
+
+    # a JAX checkpoint onto (2, 2); that state saved from (2, 2), restored
+    # onto (4, 1)
+    ocfg = tget(CKPT_ARCH).smoke()
+    tmpl = dict(params=steps.param_specs(ocfg))
+    named = lambda m: dict(params=D.named_shardings(
+        shd.param_shardings(tmpl["params"], m), tmpl["params"], m))
+    step, st = CheckpointManager(jax_ckpt).restore(tmpl,
+                                                   shardings=named(mesh))
+    from_jax = D.gather_tree(st["params"])
+    mgr = CheckpointManager(Path(tmp) / "port", async_save=False)
+    mgr.save(step, st)
+    mesh41 = tmesh.make_rank_mesh((4, 1), ("data", "model"), device="cpu")
+    step41, st41 = mgr.restore(tmpl, shardings=named(mesh41))
+    on41 = D.gather_tree(st41["params"])
+    out["restore"] = dict(
+        step=step, step41=step41,
+        blocks=[leaf.to_local().shape for leaf in T.leaves(st["params"])],
+        blocks41=[leaf.to_local().shape for leaf in T.leaves(st41["params"])],
+        from_jax=(interop.params_to_numpy(from_jax) if rank == 0 else None),
+        on41=interop.params_to_numpy(on41) if rank == 0 else None,
+        port_dir=str(mgr.root / f"step_{step:08d}"))
+
+    # Trainer(shardings=): a failure injected at step 2 against none
+    opt = optim.adamw()
+
+    def init_state():
+        p = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+        o = opt.init(p)
+        return dict(params=D.shard_tree(p, shd.param_shardings(p, mesh),
+                                        mesh),
+                    opt_state=D.shard_tree(o, shd.opt_state_shardings(
+                        o, mesh, p), mesh))
+
+    st0 = init_state()
+    shardings = dict(
+        params=D.named_shardings(shd.param_shardings(st0["params"], mesh),
+                                 st0["params"], mesh),
+        opt_state=D.named_shardings(shd.opt_state_shardings(
+            st0["opt_state"], mesh, st0["params"]), st0["opt_state"], mesh))
+    runs = []
+    for name, fail in (("clean", []), ("crashed", [2])):
+        runs.append(Trainer(
+            TrainerConfig(total_steps=4, checkpoint_every=1,
+                          checkpoint_dir=str(Path(tmp) / name),
+                          log_every=100),
+            DS.make_distributed_train_step(cfg, opt, mesh), init_state,
+            SyntheticLMDataset(cfg.vocab_size, 16, 4, seed=0),
+            failure_injector=FailureInjector(fail), device="cpu",
+            shardings=shardings).run())
+    a, b = (T.leaves(dict(p=r["params"], o=r["opt_state"])) for r in runs)
+    out["trainer"] = dict(
+        restarts=[r["restarts"] for r in runs],
+        steps=[[m["step"] for m in r["metrics"]] for r in runs],
+        sharded=all(isinstance(x, D.DTensor) for x in a + b),
+        equal=all(torch.equal(x.to_local(), y.to_local())
+                  for x, y in zip(a, b)), leaves=len(a))
+    return out
+
+
+def _ranks_moe(params_np):
+    """The MoE step on (2, 1) at each of MOE_GROUPS."""
+    mesh = tmesh.make_rank_mesh((2, 1), ("data", "model"), device="cpu")
+    out = {}
+    for groups in MOE_GROUPS:
+        cfg = _moe_cfg(tget, groups)
+        params = interop.params_from_numpy(params_np, cfg, device="cpu")
+        out[groups] = _sharded_run(cfg, optim.adamw(), params,
+                                   _tbatch(_batch()), mesh, N_STEPS["moe"])
+    return out
+
+
+def _fail_on_rank_1():
+    if torch.distributed.get_rank() == 1:
+        raise ValueError("boom")
+    torch.distributed.barrier()
+
+
+def _sleep(s):
+    import time
+    time.sleep(s)
+
+
+# -- test_torch_dist_parallel.py ---------------------------------------------
+
+PLACE_MESHES = (((2, 2), ("data", "model")),
+                ((2, 2, 1), ("pod", "data", "model")))
+COMPRESS_ROUNDS = 8
+
+
+def _ranks_parallel(archs, g, ws, x, n_micro):
+    """Placement on both PLACE_MESHES, the int8 all-reduce and error
+    feedback of ``g``'s rows (one a rank), the pipeline of ``ws`` over
+    ``x``."""
+    from repro_torch.models import encdec, transformer as tfm
+    from repro_torch.parallel import compress as C
+    from repro_torch.parallel import pipeline as PP
+    from repro_torch.parallel import sharding as shd
+
+    rank = torch.distributed.get_rank()
+    out = dict(blocks={}, round_trip={}, pod_rows=None)
+    for shape, axes in PLACE_MESHES:
+        mesh = tmesh.make_rank_mesh(shape, axes, device="cpu")
+        for arch in archs:
+            specs = steps.param_specs(tget(arch))
+            places = [D.placements(s, mesh) for s in D.spec_leaves(
+                specs, shd.param_shardings(specs, mesh))]
+            out["blocks"][(shape, arch)] = [
+                tuple(D.block_of(leaf, mesh.device_mesh, p).shape)
+                for leaf, p in zip(T.leaves(specs), places)]
+            cfg = tget(arch).smoke()
+            init = (encdec.init_params if cfg.family == "encdec"
+                    else tfm.init_params)
+            t = init(cfg, torch.Generator().manual_seed(0), device="cpu")
+            placed = D.shard_tree(t, shd.param_shardings(t, mesh), mesh)
+            out["round_trip"][(shape, arch)] = all(
+                torch.equal(a, b) for a, b in zip(
+                    T.leaves(D.gather_tree(placed)), T.leaves(t)))
+        if "pod" in axes:
+            rows = D.shard(torch.arange(24.0).reshape(8, 3),
+                           shd.P(("pod", "data"), None), mesh)
+            out["pod_rows"] = rows.to_local()[:, 0].tolist()
+
+    mesh = tmesh.make_rank_mesh((4,), ("data",), device="cpu")
+    group = mesh.group("data")
+    row = torch.from_numpy(g[rank])
+    total, scale = C.int8_allreduce(row, group)
+    out["total"], out["scale"] = total.numpy(), scale.numpy()
+    out["mean"] = C.compressed_allreduce_mean(row, group).numpy()
+    res = C.init_residual(dict(g=row))
+    feedback = []
+    for _ in range(COMPRESS_ROUNDS):
+        new_g, res = C.with_error_feedback(dict(g=row), res, group)
+        feedback.append((new_g["g"].numpy(), res["g"].numpy()))
+    out["feedback"] = feedback
+
+    mesh = tmesh.make_rank_mesh((4,), ("stage",), device="cpu")
+    fn = PP.pipelined_apply(lambda x, w: torch.tanh(x @ w), mesh, "stage",
+                            n_micro)
+    wt = torch.from_numpy(ws)
+    out["pipe"] = fn(torch.from_numpy(x), wt).numpy()
+    out["pipe_dtensor"] = fn(torch.from_numpy(x),
+                             D.shard(wt, shd.P("stage"), mesh)).numpy()
+    return out
