@@ -14,14 +14,16 @@ the serving launcher and the XR pipeline example, in process through
 their ``main``, then the VLM llava-next-34b, the encoder-decoder
 whisper-tiny and hymba-1.5b's segmented window path, training of the
 MoE, SSM, hybrid, VLM and encoder-decoder families with hymba-1.5b
-trained (16 of its 32 layers) and served, the launcher's ``main`` on
+trained (8 of its 32 layers) and served, the launcher's ``main`` on
 gemma-7b (head dim 256), qwen2.5-3b, olmo-1b and llava-next-34b and the
 MoE store's cold expert pages wire-served, hymba-1.5b and paged
 qwen3-0.6b in bfloat16 on the kernels' bf16 routes, paged qwen3-0.6b
 sharded over four links of one mesh, through the launcher's ``--mesh 4``
-and ``attach_paging(mesh=)``, and last full-width qwen3-0.6b trained on a
-mesh of four ``torch.distributed`` ranks of the one card -- and fails
-(non-zero exit, no result line) if any phase fails:
+and ``attach_paging(mesh=)``, the MoE store in bfloat16, and last
+full-width qwen3-0.6b trained on a mesh of four ``torch.distributed``
+ranks of the one card a layer at a time, and the reference's own train
+cell (bf16, Adafactor, ``moe_groups`` 0) of qwen2-moe-a2.7b on two ranks
+-- and fails (non-zero exit, no result line) if any phase fails:
 
 1. set-up: requires a CUDA device, turns TF32 off, prints the card's name
    and power limit, builds every ``csrc/*.cu`` with nvcc for sm_90a (one
@@ -76,7 +78,8 @@ mesh of four ``torch.distributed`` ranks of the one card -- and fails
    launch gaps drop out; the same calls enqueued eagerly from Python are
    printed beside them;
 3. serving, three times: full-width qwen3-0.6b (28 layers, d_model 1024),
-   falcon-mamba-7b (64 layers, d_model 4096, d_inner 8192) and hymba-1.5b
+   falcon-mamba-7b (32 of its 64 layers, ``SERVE_LAYERS``, d_model 4096,
+   d_inner 8192) and hymba-1.5b
    (32 layers, d_model 1600, 128 meta tokens, window 1024 with 3 global
    layers), each with random weights from a seeded CUDA ``torch.Generator``,
    frozen at 8 bits, ``ServingEngine(batch_slots=4)`` on the card answering
@@ -107,7 +110,8 @@ mesh of four ``torch.distributed`` ranks of the one card -- and fails
    job k's operator, and the per-job times summed by operator must equal
    the per-kernel sums;
 6. paged serving (§II-B2 virtual paging with wire-serve): full-width
-   qwen3-0.6b with random weights from a seeded CUDA ``torch.Generator``,
+   qwen3-0.6b, its first ``PAGED_LAYERS`` (14) of 28 layers, with random
+   weights from a seeded CUDA ``torch.Generator``,
    frozen at 4 bits; ``plan_for_budget`` pins half the store's bytes on the
    card and int8-pages the rest; ``attach_paging(wire_serve=True)`` keeps
    the cold groups on the host, pinned, and every tick streams them to the
@@ -138,7 +142,7 @@ mesh of four ``torch.distributed`` ranks of the one card -- and fails
    request (priority 1, 10 ms; 2-8 prompt tokens, 2 new) every 6 ms --
    served by ``serving.Scheduler`` on the bench's virtual clock (1 ms a
    tick) with its defaults (4 slots, max_len 128, prefill chunk 16, token
-   budget 96, ``est_tick_s`` pinned), on the first ``XR_LAYERS`` (14) of
+   budget 96, ``est_tick_s`` pinned), on the first ``XR_LAYERS`` (4) of
    qwen3-0.6b's 28 layers at full width (cut so that the script ends
    within 1,200 s; the decisions on this clock hold at any depth).  (a)
    Phase 3's 8-bit qwen3-0.6b tree, 60 requests, under both legs of the
@@ -174,7 +178,7 @@ mesh of four ``torch.distributed`` ranks of the one card -- and fails
    its defaults (4 slots, max_len 128, prefill chunk 16, ``budget_frac``
    0.5, ``shared_budget_frac`` 0.6, KV blocks of 16 rows, ``async_io``).
    Each tenant is phase 3's 8-bit tree cut to its first layers at full
-   width (``TENANCY_LAYERS``: 8 of qwen3-0.6b's 28, 16 of
+   width (``TENANCY_LAYERS``: 4 of qwen3-0.6b's 28, 8 of
    falcon-mamba-7b's 64, cut so that the script, build included, ends
    within 1,200 s; the checks hold at any depth, and phase 11 (c) pages
    falcon-mamba-7b's full-depth leaves beside qwen3-0.6b's KV blocks).
@@ -239,7 +243,14 @@ mesh of four ``torch.distributed`` ranks of the one card -- and fails
    no packed leaf requires grad) and served, 4 requests: the B1 and B2
    counters, zeroed before, grown after, each kernel held against its
    plain version at every distinct call of the serve; the first layer's
-   logits card vs CPU within ``LOGITS_TOL``;
+   logits card vs CPU within ``LOGITS_TOL``.  (e) ``dtype="bfloat16"``
+   (bf16 weights, f32 optimizer state, no master copy): (i) (a)'s check
+   at bf16, the loss within 1e-3 relative, each gradient leaf within 3e-2
+   of the CPU leaf's largest element (``TRAIN_BF16_TOL``: both round every
+   bf16 op, in their own orders), one AdamW step's loss and grad norm
+   within 5e-3; (ii) (b) at bf16 from (b)'s weights cast to bf16, on (b)'s
+   batches: the last loss below the first, each step's loss printed
+   beside (b)'s f32 loss, step time, tokens/s and peak memory;
 11. the launcher and the XR pipeline, each through the ``main`` a user
    calls, in this process.  (a) ``repro_torch.launch.serve.main`` on
    full-width qwen3-0.6b at 4 bits, ``--budget-mb`` half of the packed
@@ -294,18 +305,22 @@ mesh of four ``torch.distributed`` ranks of the one card -- and fails
    Hopper kernel, as in phase 10), at full width with random weights.
    (a) One ``loss_and_grads`` and one ``make_train_step`` step on the card
    against the CPU from the same weights (drawn on the card, copied to
-   the CPU) and batch, as phase 10 (a): hymba-1.5b 2 layers at 2 x 128 (+ 128 meta
-   tokens), falcon-mamba-7b 1 layer at 2 x 128, qwen2-moe-a2.7b 1 layer
-   at 2 x 128 (its top-k indices card vs CPU equal in every ``route``
-   call first, else the phase fails with the count), whisper-tiny whole
-   at 2 x 64 tokens over 1,500 frames: the loss within 1e-5 relative,
+   the CPU) and batch, as phase 10 (a): hymba-1.5b 2 layers at 1 x 128
+   (+ 128 meta tokens), falcon-mamba-7b 1 layer at 1 x 128,
+   qwen2-moe-a2.7b 1 layer at 1 x 128 (its top-k indices card vs CPU
+   equal in every ``route`` call first, else the phase fails with the
+   count), whisper-tiny whole at 1 x 64 tokens over 1,500 frames (one
+   row each: at two the CPU side took 115 s): the loss within 1e-5
+   relative,
    every gradient leaf present, finite, non-zero (hymba's ``ssm_norm``,
    which the loss never reads, zero on both) and within 1e-4 of the CPU
-   leaf's largest element.  (b) hymba-1.5b at 16 of its 32 layers (cut
+   leaf's largest element.  (b) hymba-1.5b at 8 of its 32 layers (cut
    so that the script ends within 1,200 s; remat), AdamW at 3e-4, batch
    4 x 256, 6 steps through ``Trainer``: the
    last loss below the first; step time, tokens/s and peak memory
-   printed, one more step profiled, the checkpoint deleted.  (d) (b)'s
+   printed, one more step profiled, the checkpoint deleted; (b') the
+   same at ``dtype="bfloat16"`` from (b)'s weights cast to bf16, 3 steps,
+   the same readings.  (d) (b)'s
    trained tree, its leaves set to require grad, frozen at 8 bits (no
    packed leaf requires grad) and served, 4 requests: the B1, B2 and B7
    counters zeroed before and grown after, each kernel held against its
@@ -336,7 +351,8 @@ mesh of four ``torch.distributed`` ranks of the one card -- and fails
    grouped B3 call of the phase is held against its plain version;
 15. the bf16 contracts (B2, B7, B3, and B1 at bf16 x) on the model path,
    the configs replaced as the reference's dry-run replaces them: (a)
-   hymba-1.5b at full width and depth, 8 bits, ``dtype``, ``attn_dtype``
+   hymba-1.5b at full width and 16 of its 32 layers, 8 bits, ``dtype``,
+   ``attn_dtype``
    and ``scan_dtype`` bf16, drawn by ``init_params(bits=8)``, serving
    phase 4's 8 requests (the 1,035-token prompt among them) through
    ``ServingEngine``; (b) qwen3-0.6b's phase-6 store (4 bits, the cold
@@ -348,10 +364,16 @@ mesh of four ``torch.distributed`` ranks of the one card -- and fails
    each, the f32 config serves the same weights: the share of greedy
    tokens that agree, and ``launch/steps.make_prefill_step`` (2 x 64
    tokens) and ``make_decode_step`` at both dtypes with the largest logit
-   difference at the first decode step.  Then B2's bf16 route at every
-   head dim with P rounded and P kept f32-accurate, and with an f32
-   output, and the grouped B3 at bf16 x on
-   qwen2-moe-a2.7b's expert shape (E = 60, C = 8); each bf16 route timed
+   difference at the first decode step; (c) qwen2-moe-a2.7b at full
+   width cut to 2 of its 24 layers, 8 bits, ``dtype="bfloat16"``, 4
+   requests: every grouped B1 launch on its bf16 x route; then phase
+   14's wire-served MoE leg at ``dtype="bfloat16"`` (1 layer, 4 bits,
+   the experts int8-paged): every grouped B3 launch on its bf16 x route,
+   its calls held against the plain version.  Then B2's bf16
+   route at every head dim with P rounded and P kept f32-accurate, and
+   with an f32 output, and the grouped B3 at bf16 x on qwen2-moe-a2.7b's
+   expert shape (E = 60, C = 8), and the grouped B1 at bf16 x timed there
+   beside ``torch.bmm`` at bf16; each bf16 route timed
    beside its plain version and library call, its bound the bytes at
    bf16 over 3.35 TB/s or the operations at 989 TFLOP/s (B7: the SFUs);
 16. mesh-sharded paging (``launch/mesh.make_test_mesh((1, 4))``: four
@@ -382,7 +404,9 @@ mesh of four ``torch.distributed`` ranks of the one card -- and fails
    the script ends within 1,200 s: at 28 the phase took 222-272 s, the
    host's collectives binding), on a (2, 2)
    ("data", "model") rank mesh, AdamW at 3e-4, batch 4 x 256, 3 steps of
-   ``make_distributed_train_step`` against rank 0's 3 steps of the
+   ``make_distributed_train_step`` (each layer's leaves gathered by one
+   all-gather just before its use and again in its remat backward, its
+   gradient reduced as its backward ends) against rank 0's 3 steps of the
    single-rank ``make_train_step`` from the same weights and batches:
    every loss within 1e-4, every step's global gradient norm within a
    relative 1e-4, every gathered leaf within rtol = atol = 2e-3 and its
@@ -399,15 +423,25 @@ mesh of four ``torch.distributed`` ranks of the one card -- and fails
    saved from (2, 2) and restored onto (4, 1) and (1, 4), every rank's
    blocks bit-equal, and ``Trainer(shardings=)`` at 2 layers under
    Adafactor, 4 steps with a failure injected at step 2, ending on the
-   uninterrupted run's bits.
-   A rank that fails or outlives ``DIST_TIMEOUT_S`` fails the phase.
-   Printed with the card line: step times on 4 ranks and on one, the
-   gathers' and the all-reduce's bytes and seconds a step, each rank's
-   peak device memory and the single rank's, the staged collectives;
+   uninterrupted run's bits.  (f) the reference's train cell with a MoE:
+   qwen2-moe-a2.7b at full width and 1 of its 24 layers, ``moe_groups``
+   0, ``dtype="bfloat16"``, Adafactor, batch 4 x 128, 1 step on a (2, 1)
+   mesh of 2 ranks, each step against rank 0's single-rank step from the
+   same (gathered) state: the router's top-k indices of the gathered
+   tokens equal in every ``route`` call (else the phase fails with the
+   count), the loss and global gradient norm within
+   ``DIST_BF16_LOSS_RTOL`` / ``DIST_BF16_GNORM_RTOL``, every leaf within
+   ``DIST_LEAF_TOL``; the routed experts' duplicated work (ROADMAP C22)
+   timed.  A rank that fails or outlives ``DIST_TIMEOUT_S`` fails the
+   phase.  Printed with the card line: step times on the ranks and on
+   one, the gathers' and the reduces' bytes and seconds a step, the most
+   layers alive at once, each rank's peak device memory and the single
+   rank's, the staged collectives;
 18. the ``{"serve": ...}``, ``{"train": ...}``, ``{"phase12": ...}``,
    ``{"train_families": ...}``, ``{"phase14": ...}``, ``{"bf16": ...}``,
    ``{"mesh": ...}``, ``{"dist_train": ...}`` and ``{"kernels": [...]}``
-   lines (a ``[bf16]`` entry for each bf16 route), the card line, and as
+   lines (a ``[bf16]`` entry for each bf16 route, the grouped B1's
+   among them), the card line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -460,6 +494,10 @@ L2_COLD_BYTES = 64e6             # rotate timing inputs over more than L2
 SERVE_PATHS = (("qwen3-0.6b", 512, False, None),
                ("falcon-mamba-7b", 512, False, 2),
                ("hymba-1.5b", 2048, True, 4))
+# served depth where cut: falcon-mamba-7b's first 32 of its 64 layers at
+# full width (d_inner 8192; a serve's checks hold at any depth; cut for the
+# script's time, as PAGED_LAYERS)
+SERVE_LAYERS = {"falcon-mamba-7b": 32}
 SERVE_KERNELS = {"dense": ("qmatmul_f32", "flash_attention"),
                  "moe": ("qmatmul_f32", "qmatmul_f32_grouped",
                          "flash_attention"),
@@ -1531,6 +1569,10 @@ def serve_lm(torch, m, cfg, max_len: int, long_prompt: bool, counters,
 # on the card, the cold half int8-paged and served from its wire form
 # (benchmarks/serving_load.py --wire-serve at budget_frac 0.5)
 PAGED_ARCH = "qwen3-0.6b"
+# the store's first 14 of qwen3-0.6b's 28 layers at full width (its checks
+# hold at any depth; cut so that the script ends within 1,000 s on a fast
+# machine and 1,200 s on one ~25 % slower): phases 6, 7, 15 (b) and 16
+PAGED_LAYERS = 14
 PAGED_KERNELS = ("qmatmul_f32", "qmatmul_f32_blockscale", "flash_attention")
 PAGED_FAULTS = dict(seed=3, fail_rate=0.2, bitflip_rate=0.2)
 
@@ -1833,10 +1875,11 @@ XR_TRACKERS = ("hand_tracking", "gaze")
 XR = dict(requests=60, slots=4, max_len=128, prefill_chunk=16,
           token_budget=96, tick_s=1e-3, period_ms=6.0, assist_new=24, seed=0)
 XR_ARCH = "qwen3-0.6b"
-# the first 14 of qwen3-0.6b's 28 layers, at full width, so that the script,
-# phase 16 and the build included, ends within 1,200 s (PERF.md sections
-# 4 and 7); on the virtual clock the decisions do not depend on the depth
-XR_LAYERS = 14
+# the first 4 of qwen3-0.6b's 28 layers (14 before phase 17 (f) and the
+# bf16 legs came), at full width, so that the script, the build included,
+# ends within 1,000 s of its 1,200 on a fast machine (PERF.md sections 4
+# and 7); on the virtual clock the decisions do not depend on the depth
+XR_LAYERS = 4
 XR_PAGED_REQUESTS = 24           # parts (c)-(d): ~0.1 s a paged tick
 XR_GATE = dict(miss_rate=0.05, assistant_tok_ratio=0.90)
 
@@ -2191,7 +2234,7 @@ TENANTS = ("qwen3-0.6b", "falcon-mamba-7b")
 # whole script must finish in, its kernels' build included (PERF.md
 # sections 6-7); phase 11 (c) keeps falcon-mamba-7b's full-depth pages
 # beside qwen3-0.6b's KV blocks in one pool
-TENANCY_LAYERS = {"qwen3-0.6b": 8, "falcon-mamba-7b": 16}
+TENANCY_LAYERS = {"qwen3-0.6b": 4, "falcon-mamba-7b": 8}
 KV_REQUESTS = 24                 # part (a): ~0.1-0.2 s a paged qwen3 tick
 TENANT_REQUESTS = 8              # part (b): ~0.4 s of CRC a falcon pass
 KV_KERNELS = ("qmatmul_f32", "flash_attention", "selective_scan")
@@ -3045,20 +3088,24 @@ def check_grouped(torch, ops, ref, qmm, dev) -> float:
 
 
 def time_grouped(torch, packing, ops, ref, qmm, dev, c: int, bits: int = 8,
-                 copies: int = 2):
+                 copies: int = 2, dtype=None):
     """One qwen2-moe-a2.7b layer's three expert linears grouped over its 60
     experts at capacity ``c``, over ``copies`` layer copies (519 MB of 8-bit
     levels each, > the 50 MB L2), beside the plain version and torch.bmm on
-    pre-dequantised f32 weights."""
+    pre-dequantised f32 weights (``dtype=torch.bfloat16``: x in bf16, the
+    grouped B1's bf16 x route, beside ``torch.bmm`` at bf16 on
+    pre-dequantised bf16 weights; the bound is the bytes at bf16 x)."""
     gen = torch.Generator(device=dev).manual_seed(12)
+    dtype = dtype or torch.float32
     layers = []
     for _ in range(copies):
         layer = []
         for k, n in EXPERT_LINEARS.values():
             packed, scale = expert_weights(torch, ops, gen, dev, 60, k, n,
                                            bits)
-            x = torch.randn((60, c, k), generator=gen, device=dev)
-            deq = packing.unpack(packed, bits, k).float() * scale[..., None]
+            x = torch.randn((60, c, k), generator=gen, device=dev).to(dtype)
+            deq = (packing.unpack(packed, bits, k).float()
+                   * scale[..., None]).to(dtype)
             layer.append((x, packed, scale, k, deq))
         layers.append(layer)
 
@@ -3075,16 +3122,17 @@ def time_grouped(torch, packing, ops, ref, qmm, dev, c: int, bits: int = 8,
             torch.bmm(x, deq.transpose(1, 2))
 
     res = time_versions(torch, kernel, plain, library, copies, 20)
-    nbytes = sum(x.numel() * 4 + p.numel() + s.numel() * 4
+    nbytes = sum(x.numel() * x.element_size() + p.numel() + s.numel() * 4
                  + x.shape[0] * c * p.shape[1] * 4
                  for x, p, s, _, _ in layers[0])
     flops = sum(2 * 60 * c * n * k for k, n in EXPERT_LINEARS.values())
-    route_bound(res, nbytes, flops, 2)
+    route_bound(res, nbytes, flops, 2, dtype == torch.bfloat16)
+    tag = "" if dtype == torch.float32 else f", {str(dtype)[6:]} x"
     res["work"] = (f"qmatmul_f32_grouped, one layer's 3 expert linears "
-                   f"{list(EXPERT_LINEARS)}, E=60, C={c}, {bits}-bit")
+                   f"{list(EXPERT_LINEARS)}, E=60, C={c}, {bits}-bit{tag}")
     print_times(f"qmatmul_f32_grouped {MOE_ARCH} layer x3 E=60 C={c} "
-                f"bits={bits}", "torch.bmm on pre-dequantised f32", res,
-                nbytes, flops)
+                f"bits={bits}{tag}", f"torch.bmm on pre-dequantised "
+                f"{str(dtype)[6:]}", res, nbytes, flops)
     del layers
     torch.cuda.empty_cache()
     return res
@@ -3230,6 +3278,13 @@ TRAIN_LOSS_RTOL = 1e-5     # card vs CPU loss: f32 sums in another order
 TRAIN_GRAD_TOL = 1e-4      # card vs CPU, of each CPU leaf's largest element
 TRAIN_KERNELS = ("qmatmul_f32", "flash_attention")
 TRAIN_CKPT = ROOT / "build" / "train_ckpt"
+# (e) at dtype="bfloat16" (ROADMAP A10): bf16 weights, f32 optimizer state,
+# no master copy.  (i) card vs CPU at TRAIN_CHECK's size: both round every
+# bf16 op, in their own summation orders, so the CPU tests' bf16 gradient
+# tolerance (tests/test_torch_train.py's BF16_GRAD_TOL), the loss and a
+# step's loss and global gradient norm within the relative tolerances
+# below; (ii) TRAIN_FULL from (b)'s weights cast to bf16, on (b)'s batches
+TRAIN_BF16_TOL = dict(loss=1e-3, grad=3e-2, step=5e-3)
 # kernel-name fragments of a train step's device time, as the profiler
 # names them (cuBLAS / CUTLASS f32 GEMMs; PyTorch's own kernels)
 PROFILE_TRAIN_KERNELS = (("gemm", "f32 matmuls"),
@@ -3311,16 +3366,21 @@ def train_batch(torch, m, cfg, batch: int, seq: int, step: int, dev):
     return {k: torch.from_numpy(v).to(dev) for k, v in ds.batch(step).items()}
 
 
-def card_vs_cpu(torch, m, ccfg, batch, dev, unread=frozenset()):
+def card_vs_cpu(torch, m, ccfg, batch, dev, unread=frozenset(), tol=None):
     """One ``loss_and_grads`` and one ``make_train_step`` step of ``ccfg``
     on the card against the CPU from the same weights (drawn on the card
     from a CUDA generator and copied to the CPU, which draws far slower)
     and ``batch`` (CPU tensors): the loss within TRAIN_LOSS_RTOL,
     every gradient leaf present, finite and non-zero on the card (zero on
     both, for a leaf in ``unread``: one the loss never reads) and within
-    TRAIN_GRAD_TOL of the CPU's largest element; the step's loss and grad
-    norm within TRAIN_LOSS_RTOL.  Returns the readings; the card's tree
-    and batch are left in ``out["gpu"]``, ``out["gbatch"]``."""
+    TRAIN_GRAD_TOL of the CPU's largest element; the card's step's loss and
+    grad norm within TRAIN_LOSS_RTOL of the CPU's (the loss and gradient
+    norm of its ``loss_and_grads``, which is what the CPU's step computes)
+    (``tol``: other ``loss``, ``grad`` and
+    ``step`` tolerances, a bf16 config's).  Returns the readings; the
+    card's tree and batch are left in ``out["gpu"]``, ``out["gbatch"]``."""
+    tol = tol or dict(loss=TRAIN_LOSS_RTOL, grad=TRAIN_GRAD_TOL,
+                      step=TRAIN_LOSS_RTOL)
     T, steps = m["tree"], m["steps"]
     gpu = steps._init_fn(ccfg)(ccfg, torch.Generator(device=dev)
                                .manual_seed(0), device=dev)
@@ -3333,7 +3393,7 @@ def card_vs_cpu(torch, m, ccfg, batch, dev, unread=frozenset()):
     torch.cuda.synchronize()
     what = f"{ccfg.name} ({ccfg.n_layers} layers)"
     loss_err = abs(lg.item() - lc.item()) / abs(lc.item())
-    if not loss_err <= TRAIN_LOSS_RTOL:
+    if not loss_err <= tol["loss"]:
         raise AssertionError(f"{what} train loss card {lg.item()} vs CPU "
                              f"{lc.item()}: relative error {loss_err}")
     worst, n_leaves = 0.0, 0
@@ -3351,19 +3411,24 @@ def card_vs_cpu(torch, m, ccfg, batch, dev, unread=frozenset()):
         if not a.abs().max() > 0:
             raise AssertionError(f"{what} gradient of {name} is zero on "
                                  "the card (cut off from autograd?)")
+        a, b = a.float(), b.float()
         err = ((a - b).abs().max() / b.abs().max()).item()
-        if not err <= TRAIN_GRAD_TOL:
+        if not err <= tol["grad"]:
             raise AssertionError(f"{what} gradient of {name} card vs CPU: "
                                  f"{err:.3e} of its largest element")
         worst, n_leaves = max(worst, err), n_leaves + 1
+    # the CPU's step: make_train_step's loss and grad norm are
+    # loss_and_grads' loss and clip_by_global_norm's norm of its gradients
+    # (launch/steps.py), so the CPU's are taken from the values above, not
+    # from a second CPU pass
+    mc = dict(loss=lc, grad_norm=m["clip_by_global_norm"](gc_, 1.0)[1])
     del gc_, gg
     opt = m["adamw"]()
     step = steps.make_train_step(ccfg, opt, lr=TRAIN_FULL["lr"])
-    _, _, mc = step(cpu, opt.init(cpu), batch)
     _, _, mg = step(gpu, opt.init(gpu), gbatch)
     step_err = {k: abs(mg[k].item() - mc[k].item()) / abs(mc[k].item())
                 for k in ("loss", "grad_norm")}
-    if not max(step_err.values()) <= TRAIN_LOSS_RTOL:
+    if not max(step_err.values()) <= tol["step"]:
         raise AssertionError(f"{what} make_train_step card vs CPU: "
                              f"{step_err}")
     return dict(loss_card=lg.item(), loss_cpu=lc.item(),
@@ -3413,22 +3478,30 @@ def train_check(torch, m, cfg, dev):
                 forward_only=refused)
 
 
-def train_full(torch, m, cfg, dev, f=TRAIN_FULL, tag="[train] (b)"):
+def train_full(torch, m, cfg, dev, f=TRAIN_FULL, tag="[train] (b)",
+               beside=None, profile=True):
     """(b) ``cfg``'s depth (qwen3-0.6b's 28 layers in phase 10, 16 of
     hymba-1.5b's 32 in phase 13), ``remat`` on, AdamW, ``f['steps']``
     steps through ``Trainer`` on ``SyntheticLMDataset(seed=0)``: the last
-    loss must be below the first.  Returns the readings and the trained
-    params; the checkpoint directory is deleted."""
+    loss must be below the first.  The weights are drawn at f32 from seed
+    0 and cast to ``cfg``'s dtypes, so that a bf16 run (10 (e), 13 (b'))
+    starts from (b)'s weights, on (b)'s batches; ``beside``, (b)'s f32
+    losses, is printed beside its losses.  Returns the readings and the
+    trained params; the checkpoint directory is deleted."""
     import shutil
 
     if not cfg.remat:
         raise AssertionError(f"{cfg.name} trains with remat")
     opt = m["adamw"]()
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    draw = cfg.replace(dtype="float32")
+    dtypes = [x.dtype for x in m["tree"].leaves(m["steps"].param_specs(cfg))]
 
     def init_state():
-        p = m["tfm"].init_params(cfg, torch.Generator(device=dev)
+        p = m["tfm"].init_params(draw, torch.Generator(device=dev)
                                  .manual_seed(0), device=dev)
+        p = m["tree"].unflatten(p, [x.to(d) for x, d in zip(
+            m["tree"].leaves(p), dtypes)])
         return dict(params=p, opt_state=opt.init(p))
 
     torch.cuda.synchronize()
@@ -3445,7 +3518,8 @@ def train_full(torch, m, cfg, dev, f=TRAIN_FULL, tag="[train] (b)"):
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     profile = profile_train_step(torch, step_fn, out, train_batch(
-        torch, m, cfg, f["batch"], f["seq"], f["steps"], dev))
+        torch, m, cfg, f["batch"], f["seq"], f["steps"], dev)) \
+        if profile else None
     ckpt_bytes = sum(p.stat().st_size for p in TRAIN_CKPT.rglob("*.npy"))
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
     losses = [r["loss"] for r in out["metrics"]]
@@ -3460,9 +3534,12 @@ def train_full(torch, m, cfg, dev, f=TRAIN_FULL, tag="[train] (b)"):
     steady = sorted(steps_s[1:])[len(steps_s[1:]) // 2]
     tokens = f["batch"] * f["seq"]
     print(f"{tag} {cfg.name} at full width ({cfg.n_layers} layers, "
-          f"remat), AdamW lr {f['lr']}, batch {f['batch']} x {f['seq']}, "
-          f"{f['steps']} steps through Trainer: losses "
-          f"{[round(x, 4) for x in losses]}; step time (host clock, loss "
+          f"remat, dtype {cfg.dtype}), AdamW lr {f['lr']}, batch "
+          f"{f['batch']} x {f['seq']}, {f['steps']} steps through Trainer: "
+          f"losses {[round(x, 4) for x in losses]}"
+          + (f" beside (b)'s f32 losses at the same steps "
+             f"{[round(x, 4) for x in beside[:len(losses)]]}"
+             if beside else "") + "; step time (host clock, loss "
           f"read inside the step) first {steps_s[0] * 1e3:.1f} ms, median "
           f"of the rest {steady * 1e3:.1f} ms, each "
           f"{[round(s * 1e3, 1) for s in steps_s]}; {tokens / steady:.0f} "
@@ -3680,6 +3757,41 @@ def train_serve(torch, m, cfg, params, dev, kernels=TRAIN_KERNELS,
                 logits_max_abs_err=err, path_check=path_check)
 
 
+def train_bf16(torch, m, cfg, dev, beside):
+    """(e) ``cfg`` at ``dtype="bfloat16"``: (i) :func:`card_vs_cpu` on
+    TRAIN_CHECK's layers and batch at TRAIN_BF16_TOL; (ii)
+    :func:`train_full` at full depth from (b)'s weights cast to bf16, its
+    losses printed beside (b)'s f32 ``beside``."""
+    bcfg = cfg.replace(dtype="bfloat16")
+    c = TRAIN_CHECK
+    ccfg = bcfg.replace(n_layers=c["layers"])
+    t0 = time.perf_counter()
+    res = card_vs_cpu(torch, m, ccfg, train_batch(
+        torch, m, ccfg, c["batch"], c["seq"], 0, "cpu"), dev,
+        tol=TRAIN_BF16_TOL)
+    del res["gpu"], res["gbatch"]
+    bad = [p for p in m["tree"].leaves(m["steps"].param_specs(ccfg))
+           if p.dtype != torch.bfloat16]
+    print(f"[train] (e) (i) {cfg.name} {c['layers']} layers at full width, "
+          f"dtype bfloat16 ({len(bad)} leaves not bf16), batch "
+          f"{c['batch']} x {c['seq']}: loss card {res['loss_card']:.6f} CPU "
+          f"{res['loss_cpu']:.6f} (relative {res['loss_rel_err']:.2e}, "
+          f"tolerance {TRAIN_BF16_TOL['loss']}); {res['grad_leaves']} "
+          f"gradient leaves present, finite and non-zero, worst "
+          f"{res['grad_max_rel_err']:.2e} of the leaf's largest element "
+          f"(tolerance {TRAIN_BF16_TOL['grad']}); one AdamW step's loss / "
+          f"grad norm relative {res['step_rel_err']['loss']:.2e} / "
+          f"{res['step_rel_err']['grad_norm']:.2e} (tolerance "
+          f"{TRAIN_BF16_TOL['step']}); {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    full, params = train_full(torch, m, bcfg, dev, TRAIN_FULL,
+                              "[train] (e) (ii)", beside=beside,
+                              profile=False)
+    del params
+    return dict(check=res, full=full)
+
+
 def train_modules():
     """The port's modules phase 10 and its subprocess use."""
     from repro_torch.core import packing, tree
@@ -3692,7 +3804,7 @@ def train_modules():
     from repro_torch.launch import steps
     from repro_torch.models import moe
     from repro_torch.models import transformer as tfm
-    from repro_torch.optim import adamw
+    from repro_torch.optim import adamw, clip_by_global_norm
     from repro_torch.parallel.sharding import freeze_for_serving
     from repro_torch.runtime import FailureInjector, Trainer, TrainerConfig
     from repro_torch.serving.engine import Request, ServingEngine
@@ -3700,7 +3812,7 @@ def train_modules():
     return dict(packing=packing, tree=tree,
                 SyntheticLMDataset=SyntheticLMDataset, ops=ops, ref=ref,
                 fa=fa, nkc=nkc, qmm=qmm, ssm=ssm, steps=steps, moe=moe,
-                tfm=tfm, adamw=adamw,
+                tfm=tfm, adamw=adamw, clip_by_global_norm=clip_by_global_norm,
                 freeze=freeze_for_serving, FailureInjector=FailureInjector,
                 Trainer=Trainer, TrainerConfig=TrainerConfig,
                 Request=Request, ServingEngine=ServingEngine)
@@ -3723,10 +3835,13 @@ def train_phase(torch, cfg, dev):
     gc.collect()
     torch.cuda.empty_cache()
     restart = train_restart(torch)
+    bf16 = train_bf16(torch, m, cfg, dev, full["losses"])
+    gc.collect()
+    torch.cuda.empty_cache()
     wall = time.perf_counter() - t0
     print(f"[train] phase 10 took {wall:.1f} s")
     return dict(check=check, full=full, restart=restart, serve=served,
-                wall_s=wall)
+                bf16=bf16, wall_s=wall)
 
 
 # phase 13: training of the MoE, SSM, hybrid, VLM and encoder-decoder
@@ -3734,13 +3849,18 @@ def train_phase(torch, cfg, dev):
 # chunked_attention and the reference's chunked associative scan,
 # models/ssm.selective_scan); no Hopper kernel, as in phase 10
 FAMILY_ARCH = "hymba-1.5b"
-# (a) card vs CPU: (arch, layers (None: all), batch, text positions)
-FAMILY_CHECKS = (("hymba-1.5b", 2, 2, 128), ("falcon-mamba-7b", 1, 2, 128),
-                 ("qwen2-moe-a2.7b", 1, 2, 128), ("whisper-tiny", None, 2, 64))
-# (b) hymba-1.5b at full width through Trainer, 16 of its 32 layers (full
-# depth took ~40 s more of the 1,200 s the whole script must finish in;
-# PERF.md sections 6-7)
-FAMILY_FULL = dict(steps=6, batch=4, seq=256, lr=3e-4, layers=16)
+# (a) card vs CPU: (arch, layers (None: all), batch, text positions); one
+# row each (at two rows the CPU side took 115 s of the phase; the check
+# holds at any row count)
+FAMILY_CHECKS = (("hymba-1.5b", 2, 1, 128), ("falcon-mamba-7b", 1, 1, 128),
+                 ("qwen2-moe-a2.7b", 1, 1, 128), ("whisper-tiny", None, 1, 64))
+# (b) hymba-1.5b at full width through Trainer, 8 of its 32 layers (16
+# before (b') came; full depth took ~40 s more than 16 of the time the
+# whole script must finish in; PERF.md sections 6-7)
+FAMILY_FULL = dict(steps=6, batch=4, seq=256, lr=3e-4, layers=8)
+# (b') the same at dtype="bfloat16" (ROADMAP A10), from (b)'s weights cast
+# to bf16, 3 steps
+FAMILY_BF16 = dict(FAMILY_FULL, steps=3)
 # (c) make_train_step at full width and cut depth: (arch, layers (None:
 # all), batch, text positions); llava-next-34b with all 2,880 patches
 FAMILY_STEPS = (("falcon-mamba-7b", 4, 2, 128), ("qwen2-moe-a2.7b", 2, 2, 128),
@@ -3789,13 +3909,13 @@ def family_check(torch, m, dev, arch: str, layers, batch: int, seq: int):
                           UNREAD_LEAVES.get(ccfg.family, frozenset()))
     del res["gpu"], res["gbatch"]
     if ccfg.family == "moe":
-        # each device's loss_and_grads, then each make_train_step: the
-        # CPU's calls come first in each pair
-        half = len(routes) // 4
-        if not half or len(routes) != 4 * half:
+        # the CPU's loss_and_grads, the card's, then the card's
+        # make_train_step: the CPU's calls against each of the card's
+        third = len(routes) // 3
+        if not third or len(routes) != 3 * third:
             raise AssertionError(f"{arch}: {len(routes)} route calls")
-        cpu_r = routes[:half] + routes[2 * half:3 * half]
-        card_r = routes[half:2 * half] + routes[3 * half:]
+        cpu_r = routes[:third] * 2
+        card_r = routes[third:]
         flips = sum(int((a != b).any(-1).sum()) for a, b in zip(cpu_r,
                                                                 card_r))
         if flips:
@@ -3876,7 +3996,7 @@ def family_steps(torch, m, dev, arch: str, layers, batch: int, seq: int):
 
 def family_train_phase(torch, dev, get_config):
     """Phase 13: (a) card vs CPU for hymba-1.5b, falcon-mamba-7b,
-    qwen2-moe-a2.7b and whisper-tiny, (b) hymba-1.5b (16 layers) through
+    qwen2-moe-a2.7b and whisper-tiny, (b) hymba-1.5b (8 layers) through
     Trainer, (c) the other families' steps at full width and cut depth,
     (d) (b)'s trained tree served (B1, B2 and B7 launched and checked
     against their plain versions).  Returns the readings."""
@@ -3895,12 +4015,18 @@ def family_train_phase(torch, dev, get_config):
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    full_bf16, params = train_full(
+        torch, m, cfg.replace(dtype="bfloat16"), dev, FAMILY_BF16,
+        "[families] (b')", beside=full["losses"], profile=False)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     cut_steps = {arch: family_steps(torch, m, dev, arch, layers, batch, seq)
                  for arch, layers, batch, seq in FAMILY_STEPS}
     wall = time.perf_counter() - t0
     print(f"[families] phase 13 took {wall:.1f} s")
-    return dict(check=check, full=full, steps=cut_steps, serve=served,
-                wall_s=wall)
+    return dict(check=check, full=full, full_bf16=full_bf16,
+                steps=cut_steps, serve=served, wall_s=wall)
 
 
 # phase 11: the serving launcher and the XR pipeline (ROADMAP A12's
@@ -4744,8 +4870,10 @@ def cut_leg(torch, m, dev, arch, calls):
     return err
 
 
-def wire_moe_leg(torch, m, dev, calls):
-    """qwen2-moe-a2.7b cut to WIRE_MOE's layers at full width, drawn at 4
+def wire_moe_leg(torch, m, dev, calls, dtype: str = "float32",
+                 layers: int = WIRE_MOE["layers"]):
+    """qwen2-moe-a2.7b cut to WIRE_MOE's layers at full width (at
+    ``dtype``: phase 15 (c) serves it at bf16), drawn at 4
     bits, its experts' linears int8-paged and served from their wire form
     (``attach_paging(wire_serve=True)``): phase 6's checks (each request its
     tokens in the vocabulary, swaps and misses the ticks times
@@ -4758,7 +4886,7 @@ def wire_moe_leg(torch, m, dev, calls):
     card = dev.type == "cuda"
     cfg = m["get_config"](MOE_ARCH)
     depth = cfg.n_layers
-    cfg = cfg.replace(n_layers=min(depth, WIRE_MOE["layers"]))
+    cfg = cfg.replace(n_layers=min(depth, layers), dtype=dtype)
     t0 = time.perf_counter()
     packed = frozen_tree(torch, m, cfg, dev, bits=WIRE_MOE["bits"])
     sizes = pl.packed_sizes(packed)
@@ -4813,11 +4941,14 @@ def wire_moe_leg(torch, m, dev, calls):
                     m["qmm"].qmatmul_f32_blockscale_grouped,
                 "flash_attention": m["fa"].flash_attention}
     zero_launches(counters)
+    for fn in counters.values():
+        fn.launches_by_dtype.clear()
     t0 = time.perf_counter()
     with recording(torch, m["ops"]) as seen:
         tokens, ticks = serve(eng)
     wall = time.perf_counter() - t0
     launches, split = read_launches(counters)
+    by_dtype = dtype_launches(counters)
     merge_calls(calls, seen)
     expect_launched(launches, WIRE_MOE_KERNELS,
                     f"the wire-served {cfg.name} serve")
@@ -4856,14 +4987,17 @@ def wire_moe_leg(torch, m, dev, calls):
         bytes_streamed_wire=summary["bytes_streamed_wire"],
         decode_skipped_bytes=summary["decode_skipped_bytes"])
     print(f"[wire-moe] {cfg.name} ({cfg.n_layers} of {depth} layers at full "
-          f"width, {WIRE_MOE['bits']}-bit, experts int8-paged and "
+          f"width, dtype {dtype}, {WIRE_MOE['bits']}-bit, experts int8-paged "
+          f"and "
           f"wire-served {cold}): {len(prompts)} requests (prompts "
           f"{lens.tolist()}), tokens equal per uid to a resident engine on "
           f"the same wire-form bytes; device memory fell by {freed} B (cold "
           f"{want} B); host clock (smoke reading, {m['card']}): "
-          f"{json.dumps(reading)}; launches {launches}")
+          f"{json.dumps(reading)}; launches {launches}, by dtype "
+          f"{json.dumps(by_dtype)}")
     del eng, resident, wire_tree, packed
-    return dict(launches=launches, launches_by_class=split, reading=reading)
+    return dict(launches=launches, launches_by_class=split,
+                launches_by_dtype=by_dtype, reading=reading)
 
 
 def launcher_archs_phase(torch, m, dev):
@@ -4905,12 +5039,21 @@ def launcher_archs_phase(torch, m, dev):
 # attention and scan compute dtype for hymba-1.5b
 BF16_ARCH = "hymba-1.5b"
 BF16_PAGED_ARCH = "qwen3-0.6b"
+# (a) hymba-1.5b at 16 of its 32 layers (the window still binds on the
+# 1,035-token prompt; cut for the script's time, as PAGED_LAYERS)
+BF16_HYMBA_LAYERS = 16
 BF16_HYBRID = dict(dtype="bfloat16", attn_dtype="bfloat16",
                    scan_dtype="bfloat16")
 BF16_KERNELS = {BF16_ARCH: ("qmatmul_f32", "flash_attention",
                             "selective_scan"),
                 BF16_PAGED_ARCH: ("qmatmul_f32", "qmatmul_f32_blockscale",
-                                  "flash_attention")}
+                                  "flash_attention"),
+                MOE_ARCH: ("qmatmul_f32", "qmatmul_f32_grouped",
+                           "flash_attention")}
+# (c) the bf16 MoE serve: qwen2-moe-a2.7b at full width, cut to phase 14's
+# 2 of its 24 layers, 8 bits, dtype bf16, 4 requests; then wire-served at
+# 1 layer (the host encodes and CRCs ~0.6 GB of wire pages a layer)
+BF16_MOE = dict(layers=2, requests=4, wire_layers=1)
 # the bf16 routes against their plain versions, which widen the same bf16
 # inputs to f32: B1 / B3 keep QMM_TOL (bf16 x is exact in TF32, one pass);
 # B7's y is rounded to bf16 by both after an f32 difference within
@@ -4944,6 +5087,12 @@ def flash_bf16_bound(expect, p_rounded: bool):
 # the layers: BF16_CUT_ULPS ulps of the largest logit
 BF16_CUT_LAYERS = 4
 BF16_CUT_ULPS = 8
+# a bf16 MoE's router reads bf16 inputs that card and CPU round in their
+# own orders, so a near-tie may pick another expert for a token: the cut
+# runs one layer (a token's experts then reach no other token) and holds
+# the logits of the tokens whose top-k agree; at most this many of the 64
+# may differ
+BF16_MOE_FLIPS = 4
 # FLASH_CASES rows that phase 15 also holds at bf16, each with P rounded
 # and P f32-accurate: head dims 16, 32, 64 (rows that see no key), 128
 # (qwen3-0.6b's chunk) and 256 (gemma-7b's)
@@ -5079,8 +5228,10 @@ def dtype_launches(counters):
 
 
 def bf16_serve_leg(torch, m, cfg, tree, dev, counters, *, max_len: int,
-                   long_prompt: bool, plan=None, make_tree32=None):
-    """Serve ``serve_lm``'s 8 greedy requests (16 new tokens) on the bf16
+                   long_prompt: bool, plan=None, make_tree32=None,
+                   requests: int = 8):
+    """Serve the first ``requests`` of ``serve_lm``'s 8 greedy requests (16
+    new tokens) on the bf16
     ``cfg`` through ``ServingEngine`` (with ``plan``, paged and wire-served
     through ``attach_paging(wire_serve=True)``), every call noted; the
     arch's kernels must launch, all at bf16.  Then the same requests on the
@@ -5095,6 +5246,7 @@ def bf16_serve_leg(torch, m, cfg, tree, dev, counters, *, max_len: int,
     cfg32 = cfg.replace(dtype="float32", attn_dtype="float32",
                         scan_dtype="float32")
     rng, lens, prompts = serve_prompts(np, cfg.vocab_size, long_prompt)
+    lens, prompts = lens[:requests], prompts[:requests]
     wire = {}
 
     def serve(c, t, p, paged):
@@ -5108,7 +5260,8 @@ def bf16_serve_leg(torch, m, cfg, tree, dev, counters, *, max_len: int,
         while eng.pending:
             done += eng.step()
         torch.cuda.synchronize()
-        if len(done) != 8 or any(len(r.generated) != 16 for r in done):
+        if len(done) != requests or any(len(r.generated) != 16
+                                        for r in done):
             raise AssertionError(f"{arch}: not every request got its 16 "
                                  "tokens")
         if any(not 0 <= t_ < cfg.vocab_size for r in done
@@ -5153,12 +5306,15 @@ def bf16_serve_leg(torch, m, cfg, tree, dev, counters, *, max_len: int,
     print(f"[bf16] {arch} ({cfg.dtype} weights and activations, attention "
           f"{cfg.attn_dtype}, scan {cfg.scan_dtype}"
           f"{', paged, cold half wire-served' if plan is not None else ''}):"
-          f" 8 requests, prompts {lens.tolist()}, {new} new tokens, wall "
+          f" {requests} requests, prompts {lens.tolist()}, {new} new "
+          f"tokens, wall "
           f"{wall:.3f} s ({new / wall:.2f} new tok/s), peak "
           f"{peak / 2**30:.3f} GiB; launches {launches}, by dtype "
           f"{json.dumps(by_dtype)}, by flash shape and scan route "
           f"{json.dumps(by_class)}")
-    if any(c[-1] != torch.bfloat16 for c in calls["qmatmul_f32"]):
+    if any(c[-1] != torch.bfloat16 for name in ("qmatmul_f32",
+                                                 "qmatmul_f32_grouped")
+           for c in calls[name]):
         raise AssertionError(f"{arch}: B1 took f32 x in a bf16 serve")
     path_check = check_path(torch, m["ops"], m["ref"], m["qmm"], m["fa"],
                             m["ssm"], dev, arch, calls,
@@ -5188,15 +5344,28 @@ def bf16_serve_leg(torch, m, cfg, tree, dev, counters, *, max_len: int,
     dec_err = (logits["bfloat16"][1] - logits["float32"][1]).abs().max()
     top = logits["float32"][1].abs().max().item()
 
-    # the bf16 forward of the first layers, card vs the CPU's plain path
-    depth = min(BF16_CUT_LAYERS, cfg.n_layers)
+    # the bf16 forward of the first layers, card vs the CPU's plain path;
+    # a MoE's at one layer, its tokens whose top-k experts differ card vs
+    # CPU (a near-tie of bf16 router inputs) counted and left out
+    depth = 1 if cfg.n_experts else min(BF16_CUT_LAYERS, cfg.n_layers)
     fcfg = cfg.replace(n_layers=depth)
     ftree = dict(step_tree, layers=first_layers(step_tree["layers"], depth))
-    card = m["tfm"].forward(ftree, toks[:1], fcfg,
-                            engine=step_plan).float().cpu()
-    host = m["tfm"].forward(to_device(torch, ftree, "cpu"), toks[:1].cpu(),
-                            fcfg, engine=step_plan).float()
-    cut_err = (card - host).abs().max().item()
+    with recorded_routes(m) as routes:
+        card = m["tfm"].forward(ftree, toks[:1], fcfg,
+                                engine=step_plan).float().cpu()
+        host = m["tfm"].forward(to_device(torch, ftree, "cpu"),
+                                toks[:1].cpu(), fcfg,
+                                engine=step_plan).float()
+    keep = torch.ones(card.shape[1], dtype=torch.bool)
+    if routes:
+        half = len(routes) // 2
+        for a, b in zip(routes[:half], routes[half:]):
+            keep &= ~(a != b).any(-1)
+    flips = int((~keep).sum())
+    if flips > BF16_MOE_FLIPS:
+        raise AssertionError(f"{arch} bf16 card vs CPU: {flips} tokens' "
+                             "top-k experts differ")
+    cut_err = (card - host)[:, keep].abs().max().item()
     cut_tol = BF16_CUT_ULPS * host.abs().max().item() * 2.0 ** -8
     if not (torch.isfinite(card).all() and card.shape == host.shape
             and cut_err <= cut_tol):
@@ -5207,7 +5376,10 @@ def bf16_serve_leg(torch, m, cfg, tree, dev, counters, *, max_len: int,
     print(f"[forward] {arch} bf16 ({depth} of {cfg.n_layers} "
           f"layers) 64 tokens card vs CPU: max abs err {cut_err:.4e} "
           f"(tolerance {BF16_CUT_ULPS} bf16 ulps of the largest logit, "
-          f"{cut_tol:.4e}), top-1 agreement {cut_top1:.4f}")
+          f"{cut_tol:.4e})"
+          + (f" over the {int(keep.sum())} tokens whose top-k experts "
+             f"agree ({flips} differ, at most {BF16_MOE_FLIPS} allowed)"
+             if routes else "") + f", top-1 agreement {cut_top1:.4f}")
     print(f"[bf16] {arch} beside the f32 serve of the same weights (f32 "
           f"wall {wall32:.3f} s): greedy tokens agree at {agree:.4f} of "
           f"{new} positions; make_prefill_step (2 x 64) then "
@@ -5221,24 +5393,68 @@ def bf16_serve_leg(torch, m, cfg, tree, dev, counters, *, max_len: int,
                 first_decode_max_logit_diff=dec_err.item(),
                 prefill_max_logit_diff=pre_err.item(),
                 max_abs_logit=top, cut_logits_max_abs_err=cut_err,
-                cut_top1=cut_top1, path_check=path_check)
+                cut_route_flips=flips, cut_top1=cut_top1,
+                path_check=path_check)
+
+
+def bf16_moe_leg(torch, m, dev, get_config, counters):
+    """(c) qwen2-moe-a2.7b at full width, BF16_MOE's layers, 8 bits,
+    ``dtype="bfloat16"``, served through :func:`bf16_serve_leg` beside the
+    f32 config of the same weights: every grouped B1 launch on its bf16 x
+    route, each distinct call held against its plain version; then
+    :func:`wire_moe_leg` at bf16: every grouped B3 launch on its bf16 x
+    route, each distinct call held likewise."""
+    counters = dict(counters,
+                    qmatmul_f32_grouped=m["qmm"].qmatmul_f32_grouped)
+    cfg = cut(get_config(MOE_ARCH), BF16_MOE["layers"]).replace(
+        dtype="bfloat16")
+    tree = frozen_tree(torch, m, cfg, dev)
+
+    def moe32(_wire):
+        t32 = widen_bf16(torch, tree)
+        return t32, None, tree, t32, None
+    out = bf16_serve_leg(torch, m, cfg, tree, dev, counters, max_len=512,
+                         long_prompt=False, make_tree32=moe32,
+                         requests=BF16_MOE["requests"])
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same store with its experts wire-served (phase 14's leg at bf16):
+    # every grouped B3 launch on its bf16 x route
+    calls = {}
+    out["wire"] = wire_moe_leg(torch, m, dev, calls, dtype="bfloat16",
+                               layers=BF16_MOE["wire_layers"])
+    by = out["wire"]["launches_by_dtype"]["qmatmul_f32_blockscale_grouped"]
+    n = out["wire"]["launches"]["qmatmul_f32_blockscale_grouped"]
+    if not n or by.get("bfloat16", 0) != n:
+        raise AssertionError(f"bf16 wire-served MoE: the grouped B3 launched "
+                             f"{by} by dtype, {n} in all")
+    out["wire"]["path_check"] = check_path(
+        torch, m["ops"], m["ref"], m["qmm"], m["fa"], m["ssm"], dev,
+        f"{MOE_ARCH} wire-served bf16", calls, dtype=torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def bf16_phase(torch, m, dev, get_config):
-    """(a) hymba-1.5b at full width and depth, 8 bits, dtype, attn_dtype
+    """(a) hymba-1.5b at full width, BF16_HYMBA_LAYERS deep, 8 bits,
+    dtype, attn_dtype
     and scan_dtype bf16 (B1 at bf16 x, B2's bf16 route at D = 64 with the
     window, B7's bf16 chunked and step routes); (b) qwen3-0.6b's phase-6
     store (4 bits, the cold half wire-served as int8 pages) at a bf16
-    dtype (B3 at bf16 x, B2 at D = 128); each served beside the f32 config
-    of the same weights.  Then the bf16 routes at the shapes no serve
-    reaches, and each timed."""
+    dtype (B3 at bf16 x, B2 at D = 128); (c) the bf16 MoE serve
+    (:func:`bf16_moe_leg`: the grouped B1 at bf16 x); each served beside
+    the f32 config of the same weights.  Then the bf16 routes at the shapes
+    no serve reaches, and each timed (the grouped B1 at bf16 x too)."""
     tfm, pl = m["tfm"], m["placement"]
     counters = {"qmatmul_f32": m["qmm"].qmatmul_f32,
                 "qmatmul_f32_blockscale": m["qmm"].qmatmul_f32_blockscale,
                 "flash_attention": m["fa"].flash_attention,
                 "selective_scan": m["ssm"].selective_scan}
     out = {}
-    cfg = get_config(BF16_ARCH).replace(**BF16_HYBRID)
+    cfg = cut(get_config(BF16_ARCH), BF16_HYMBA_LAYERS).replace(
+        **BF16_HYBRID)
     t0 = time.perf_counter()
     tree = frozen_tree(torch, m, cfg, dev)
     print(f"[bf16] {cfg.name}: {cfg.n_layers} layers, d_model "
@@ -5255,7 +5471,8 @@ def bf16_phase(torch, m, dev, get_config):
     gc.collect()
     torch.cuda.empty_cache()
 
-    cfg = get_config(BF16_PAGED_ARCH).replace(dtype="bfloat16")
+    cfg = cut(get_config(BF16_PAGED_ARCH), PAGED_LAYERS).replace(
+        dtype="bfloat16")
     tree = frozen_tree(torch, m, cfg, dev, bits=4)
     sizes = pl.packed_sizes(tree)
     plan = pl.plan_for_budget(
@@ -5278,6 +5495,7 @@ def bf16_phase(torch, m, dev, get_config):
     gc.collect()
     torch.cuda.empty_cache()
 
+    out[MOE_ARCH] = bf16_moe_leg(torch, m, dev, get_config, counters)
     out["activations"] = time_bf16_activations(
         torch, m["F"], get_config(BF16_ARCH), dev)
     out["extra_check"] = check_bf16_extra(torch, m["ops"], m["ref"],
@@ -5298,6 +5516,8 @@ def bf16_phase(torch, m, dev, get_config):
         torch, m["ops"], m["ref"], m["qmm"], dev, 8, copies=1, dtype=bf)
     times["qmatmul_decode"] = time_qmatmul(
         torch, m["packing"], m["ops"], m["ref"], m["qmm"], dev, 4, dtype=bf)
+    times["grouped_decode"] = time_grouped(
+        torch, m["packing"], m["ops"], m["ref"], m["qmm"], dev, 8, dtype=bf)
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -5620,6 +5840,20 @@ DIST_ELASTIC = ((4, 1), (1, 4))
 DIST_TRAINER = dict(layers=2, steps=4, every=2, fail_at=2, opt="adafactor")
 DIST_TIMEOUT_S = 900
 DIST_CKPT = ROOT / "build" / "dist_ckpt"
+# (f) the reference's train cell with a MoE (launch/steps.py:204-225: bf16
+# weights, Adafactor for a large model, dp axes on a mesh, moe_groups 0,
+# so each MoE layer routes the whole batch's tokens, gathered over "data"):
+# qwen2-moe-a2.7b at full width, 1 of its 24 layers, on a (2, 1) mesh of 2
+# ranks, each step against rank 0's single-rank step from the same state;
+# 1 step (the leg took 48.6-59.9 s at 2 steps, most of it the collectives)
+DIST_MOE = dict(arch="qwen2-moe-a2.7b", world=2, mesh=(2, 1), layers=1,
+                batch=4, seq=128, steps=1, opt="adafactor", lr=3e-4)
+# bf16 against one rank: a rank rounds its bf16 gradient before the dp sum
+# adds the other's, where one rank rounds the whole batch's sum once (the
+# CPU tests: 1.3e-4 in the global norm), and the two ranks' rows go
+# through the card's matmuls in other shapes than one rank's
+DIST_BF16_LOSS_RTOL = 1e-3
+DIST_BF16_GNORM_RTOL = 5e-3
 
 
 def dist_modules():
@@ -5632,6 +5866,7 @@ def dist_modules():
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.launch import dist_steps, steps
     from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.models import moe
     from repro_torch.models import transformer as tfm
     from repro_torch.optim import adafactor, adamw
     from repro_torch.parallel import compress, distributed, pipeline
@@ -5641,7 +5876,7 @@ def dist_modules():
     return dict(dist=dist, CheckpointManager=CheckpointManager,
                 get_config=get_config, tree=tree,
                 SyntheticLMDataset=SyntheticLMDataset, steps=steps,
-                make_rank_mesh=make_rank_mesh, tfm=tfm,
+                make_rank_mesh=make_rank_mesh, moe=moe, tfm=tfm,
                 opts=dict(adamw=adamw, adafactor=adafactor),
                 compress=compress, D=distributed, DS=dist_steps,
                 pipeline=pipeline,
@@ -5994,6 +6229,163 @@ def dist_rank(ckpt: str, layers: int, device: str = "cuda"):
     return out
 
 
+def expert_dup_cost(torch, m, cfg, params, dev):
+    """ROADMAP C22's cost: one MoE layer's routed experts, forward and
+    backward on the card, over the whole batch's tokens (what each rank
+    of the gathered route runs) and over one rank's half of them; the
+    medians of 3 on the host clock, synchronised."""
+    moe = m["moe"]
+    p = {k: params["layers"]["moe"][k][0]
+         for k in ("router", "w_gate", "w_up", "w_down")}
+    kw = dict(n_experts=cfg.n_experts, k=cfg.n_experts_active,
+              capacity_factor=cfg.capacity_factor, act=cfg.mlp_act,
+              groups=1, engine=dict(dp_axes=("data",)))
+    tokens = DIST_MOE["batch"] * DIST_MOE["seq"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for name, t in (("gathered", tokens),
+                    ("own", tokens // DIST_MOE["mesh"][0])):
+        x = torch.randn((t, cfg.d_model), generator=gen, device=dev).to(
+            torch.bfloat16).requires_grad_()
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            moe._routed(x, p, **kw).float().sum().backward()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[f"{name}_ms"] = sorted(times[1:])[1] * 1e3
+        out[f"{name}_tokens"] = t
+        del x
+    return out
+
+
+def dist_moe_rank(device: str = "cuda"):
+    """One rank of phase 17 (f): DIST_MOE's sharded steps, every rank's
+    router top-k noted; then rank 0 takes one rank's step from each step's
+    starting state (gathered) and holds the sharded step to it: the loss,
+    the global gradient norm, every leaf (DIST_LEAF_TOL) and each route
+    call's top-k indices, equal, else the phase fails with the count of
+    tokens whose experts differ.  Returns the rank's readings."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    m = dist_modules()
+    dist, D, T = m["dist"], m["D"], m["tree"]
+    dev = torch.device(device)
+    f = DIST_MOE
+    rank = dist.get_rank()
+    t_leg = time.perf_counter()
+    cfg = m["get_config"](f["arch"]).replace(
+        n_layers=f["layers"], dtype="bfloat16", moe_groups=0)
+    mesh = m["make_rank_mesh"](f["mesh"], ("data", "model"), dev)
+    opt = m["opts"][f["opt"]]()
+    whole, specs, (sp, so) = dist_sharded_state(torch, m, cfg, opt, mesh,
+                                                dev)
+    n_params = sum(x.numel() for x in T.leaves(whole[0]))
+    want = (D.spec_bytes(whole[0], specs[0], mesh)
+            + D.spec_bytes(whole[1], specs[1], mesh))
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    ds = m["SyntheticLMDataset"](cfg.vocab_size, f["seq"], f["batch"],
+                                 seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                ds.batch(i).items()} for i in range(f["steps"])]
+    step = m["DS"].make_distributed_train_step(cfg, opt, mesh, lr=f["lr"])
+    starts, routes = [], []
+    sharded = dict(losses=[], grad_norms=[], step_s=[], comm=[])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for b in batches:
+        st = (D.gather_tree(sp), D.gather_tree(so))
+        if rank == 0:
+            starts.append(st)
+        del st
+        D.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recorded_routes(m) as r:
+            sp, so, met = step(sp, so, b)
+            sharded["losses"].append(float(met["loss"]))
+        torch.cuda.synchronize()
+        sharded["step_s"].append(time.perf_counter() - t0)
+        sharded["grad_norms"].append(float(met["grad_norm"]))
+        sharded["comm"].append(met["comm"])
+        routes.append(r)
+    sharded["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    held = D.held_bytes(sp) + D.held_bytes(so)
+    if held != want:
+        raise AssertionError(f"rank {rank} holds {held} B of the MoE's "
+                             f"params and state; the specs give {want}")
+    final = D.gather_tree(sp)
+    out = dict(rank=rank, sharded=sharded, held_bytes=held, params=n_params,
+               layers=cfg.n_layers)
+    if rank == 0:
+        step1 = m["steps"].make_train_step(cfg, opt, lr=f["lr"])
+        ends = [s[0] for s in starts[1:]] + [final]
+        single = dict(losses=[], grad_norms=[], step_s=[])
+        worst, worst_delta, flips, calls, tokens = 0.0, 0.0, 0, 0, 0
+        for k, b in enumerate(batches):
+            p0, s0 = starts[k]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with recorded_routes(m) as r1:
+                p1, _, met = step1(p0, s0, b)
+                single["losses"].append(float(met["loss"]))
+            torch.cuda.synchronize()
+            single["step_s"].append(time.perf_counter() - t0)
+            single["grad_norms"].append(float(met["grad_norm"]))
+            if len(r1) != len(routes[k]):
+                raise AssertionError(f"step {k}: {len(routes[k])} route calls "
+                                     f"on the ranks, {len(r1)} on one")
+            for a, c in zip(routes[k], r1):
+                flips += int((a != c).any(-1).sum())
+                calls += 1
+                tokens += int(c.shape[0])
+            for i, (a, c, a0) in enumerate(zip(
+                    T.leaves(ends[k]), T.leaves(p1), T.leaves(p0))):
+                a, c, a0 = a.float(), c.float(), a0.float()
+                err = (a - c).abs().max().item()
+                if not torch.allclose(a, c, **DIST_LEAF_TOL):
+                    raise AssertionError(f"(f) step {k} leaf {i}: max abs "
+                                         f"err {err} against one rank")
+                worst = max(worst, err)
+                worst_delta = max(worst_delta, (
+                    torch.linalg.vector_norm(a - c)
+                    / torch.linalg.vector_norm(c - a0).clamp(min=1e-30)
+                ).item())
+            del p1
+        if flips:
+            raise AssertionError(
+                f"(f): {flips} gathered tokens' top-{cfg.n_experts_active} "
+                f"experts differ between the ranks and one rank over "
+                f"{calls} route calls")
+        errs = [abs(a - c) / abs(c) for a, c in zip(sharded["losses"],
+                                                     single["losses"])]
+        gerrs = [abs(a - c) / c for a, c in zip(sharded["grad_norms"],
+                                                 single["grad_norms"])]
+        if not max(errs) <= DIST_BF16_LOSS_RTOL:
+            raise AssertionError(f"(f) losses {sharded['losses']} on the "
+                                 f"ranks vs {single['losses']} on one")
+        if not max(gerrs) <= DIST_BF16_GNORM_RTOL:
+            raise AssertionError(f"(f) gradient norms "
+                                 f"{sharded['grad_norms']} vs "
+                                 f"{single['grad_norms']}")
+        single.update(loss_rel_err=max(errs), gnorm_rel_err=max(gerrs),
+                      leaf_max_abs_err=worst, delta_rel=worst_delta,
+                      route_calls=calls, tokens_routed=tokens)
+        out["single"] = single
+        del starts, ends
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["expert_dup"] = expert_dup_cost(torch, m, cfg, final, dev)
+    del final
+    out["wall_s"] = time.perf_counter() - t_leg
+    return out
+
+
 def dist_train_phase(torch, card: str, layers: int = DIST_TRAIN["layers"]):
     """Phase 17: :func:`dist_rank` on DIST_WORLD ranks of the one card.
     A rank that fails or outlives DIST_TIMEOUT_S fails the phase."""
@@ -6002,6 +6394,9 @@ def dist_train_phase(torch, card: str, layers: int = DIST_TRAIN["layers"]):
     t0 = time.perf_counter()
     ranks = run_ranks(dist_rank, DIST_WORLD, str(DIST_CKPT), layers,
                       timeout_s=DIST_TIMEOUT_S)
+    wall_4 = time.perf_counter() - t0
+    moe_ranks = run_ranks(dist_moe_rank, DIST_MOE["world"],
+                          timeout_s=DIST_TIMEOUT_S)
     wall = time.perf_counter() - t0
     r0 = ranks[0]
     for name in ("adamw", "adafactor"):
@@ -6022,9 +6417,10 @@ def dist_train_phase(torch, card: str, layers: int = DIST_TRAIN["layers"]):
               f"(worst {s['delta_rel_err']:.2e}); step {d['step_s'][-1]:.3f} s "
               f"on {DIST_WORLD} ranks, {s['step_s'][-1]:.3f} s on one; the "
               f"last step's gathers {c['gather_bytes'] / 1e9:.3f} GB in "
-              f"{c['gather_s']:.3f} s, all-reduce "
-              f"{c['reduce_bytes'] / 1e9:.3f} GB in {c['reduce_s']:.3f} s "
-              f"(a rank, host clock); held bytes "
+              f"{c['gather_s']:.3f} s ({c['layer_gathers']} layer gathers, "
+              f"at most {c['layers_alive_max']} layers' whole leaves alive "
+              f"at once), reduces {c['reduce_bytes'] / 1e9:.3f} GB in "
+              f"{c['reduce_s']:.3f} s (a rank, host clock); held bytes "
               f"{[r[name]['held_bytes'] for r in ranks]} = the specs'; peak "
               f"device memory a rank "
               f"{[round(r[name]['sharded']['peak_gib'], 2) for r in ranks]}"
@@ -6049,8 +6445,38 @@ def dist_train_phase(torch, card: str, layers: int = DIST_TRAIN["layers"]):
           f"{t['fail_at']}: restarts {t['restarts']}, steps run "
           f"{t['steps_run']}, {t['leaves_equal']} leaves bit-equal to the "
           f"uninterrupted run's; staged through the host "
-          f"{ranks[0]['staged']}; phase {wall:.1f} s; {card}")
-    return dict(ranks=ranks, wall_s=wall, card=card)
+          f"{ranks[0]['staged']}; 4 ranks {wall_4:.1f} s; {card}")
+    f, r0 = DIST_MOE, moe_ranks[0]
+    s, d = r0["single"], r0["sharded"]
+    c = d["comm"][-1]
+    x = r0["expert_dup"]
+    print(f"[dist] (f) {f['arch']} {r0['layers']} layer at full width "
+          f"({r0['params'] / 1e9:.3f} B parameters), dtype bfloat16, "
+          f"moe_groups 0 (the gathered route), {f['opt']}, batch "
+          f"{f['batch']} x {f['seq']}, on a {f['mesh']} mesh of "
+          f"{f['world']} gloo ranks, each step vs one rank's from the same "
+          f"state: losses {[round(v, 6) for v in d['losses']]} vs "
+          f"{[round(v, 6) for v in s['losses']]} (relative "
+          f"{s['loss_rel_err']:.2e}, tolerance {DIST_BF16_LOSS_RTOL}); "
+          f"gradient norms {[round(v, 5) for v in d['grad_norms']]} vs "
+          f"{[round(v, 5) for v in s['grad_norms']]} (relative "
+          f"{s['gnorm_rel_err']:.2e}, tolerance {DIST_BF16_GNORM_RTOL}); "
+          f"leaves within {DIST_LEAF_TOL} (worst {s['leaf_max_abs_err']:.2e}"
+          f"; a step's change apart by at most {s['delta_rel']:.3f} of it "
+          f"in norm); top-k equal in all {s['route_calls']} route calls "
+          f"({s['tokens_routed']} gathered tokens); step "
+          f"{[round(v, 3) for v in d['step_s']]} s on {f['world']} ranks, "
+          f"{[round(v, 3) for v in s['step_s']]} s on one; the last step's "
+          f"gathers {c['gather_bytes'] / 1e9:.3f} GB in {c['gather_s']:.3f} "
+          f"s, reduces {c['reduce_bytes'] / 1e9:.3f} GB in "
+          f"{c['reduce_s']:.3f} s; peak device memory a rank "
+          f"{[round(r['sharded']['peak_gib'], 2) for r in moe_ranks]} GiB; "
+          f"C22, one MoE layer's routed experts forward and backward over "
+          f"the {x['gathered_tokens']} gathered tokens {x['gathered_ms']:.2f}"
+          f" ms against {x['own_ms']:.2f} ms over a rank's "
+          f"{x['own_tokens']}; (f) {wall - wall_4:.1f} s, phase "
+          f"{wall:.1f} s; {card}")
+    return dict(ranks=ranks, moe_ranks=moe_ranks, wall_s=wall, card=card)
 
 
 def phase_clock(phase_s):
@@ -6169,7 +6595,9 @@ def main() -> int:
                 "selective_scan": ssm.selective_scan}
     served = {}
     for arch, max_len, long_prompt, depth in SERVE_PATHS:
-        served[arch], tree = serve_lm(torch, mods, get_config(arch), max_len,
+        served[arch], tree = serve_lm(torch, mods,
+                                      cut(get_config(arch),
+                                          SERVE_LAYERS.get(arch)), max_len,
                                       long_prompt, counters, depth, dev)
         if arch == XR_ARCH:
             xr_tree = tree               # phases 7 and 8 serve it again
@@ -6199,8 +6627,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     mods.update(placement=placement, paging=paging, packing=packing,
                 PackedParam=PackedParam, FaultPlan=FaultPlan)
-    paged, bs_err, t_bs, paged_store = serve_paged(
-        torch, mods, get_config(PAGED_ARCH), dev)
+    paged_cfg = cut(get_config(PAGED_ARCH), PAGED_LAYERS)
+    paged, bs_err, t_bs, paged_store = serve_paged(torch, mods, paged_cfg,
+                                                   dev)
     served[f"{PAGED_ARCH} paged"] = paged
     for name in ("qmatmul_f32", "flash_attention"):
         launches[name] += paged["launches"][name]
@@ -6373,7 +6802,8 @@ def main() -> int:
     # attn_dtype and scan_dtype bf16, qwen3-0.6b paged at a bf16 dtype
     gc.collect()
     torch.cuda.empty_cache()
-    mods.update(F=F, paging=paging, PackedParam=PackedParam)
+    from repro_torch.models import moe as moe_mod
+    mods.update(F=F, paging=paging, PackedParam=PackedParam, moe=moe_mod)
     p15 = bf16_phase(torch, mods, dev, get_config)
 
     mark("16")
@@ -6383,7 +6813,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     from repro_torch.launch import mesh as mesh_mod
     mods.update(mesh=mesh_mod)
-    p16 = mesh_phase(torch, mods, dev, get_config(PAGED_ARCH), mesh_store)
+    p16 = mesh_phase(torch, mods, dev, paged_cfg, mesh_store)
     del mesh_store
     for leg in ("launcher", "wire"):
         served[f"{MESH_ARCH} mesh {leg}"] = p16[leg]
@@ -6532,7 +6962,7 @@ def main() -> int:
         bound_f32_ms=t["bound_f32_ms"], prefill_C24=t_gbs[24]))
     # the bf16 routes (phase 15): launches of its two serves, errors at
     # every distinct call and beyond, times
-    legs = (BF16_ARCH, BF16_PAGED_ARCH)
+    legs = (BF16_ARCH, BF16_PAGED_ARCH, MOE_ARCH)
     t15 = p15["times"]
     for name, source, replaces, t, more in (
             ("flash_attention", "flash_attention.cu", "flash_attention.py:71",
@@ -6545,8 +6975,13 @@ def main() -> int:
             ("qmatmul_f32_blockscale", "qmatmul_blockscale.cu",
              "qmatmul.py:170", t15["blockscale_decode"],
              dict(grouped_E60_C8=t15["blockscale_grouped"],
-                  grouped_max_abs_err=p15["extra_check"][
-                      "qmatmul_f32_blockscale_grouped"])),
+                  grouped_max_abs_err=max(
+                      p15["extra_check"]["qmatmul_f32_blockscale_grouped"],
+                      p15[MOE_ARCH]["wire"]["path_check"]["max_abs_err"][
+                          "qmatmul_f32_blockscale_grouped"]),
+                  grouped_launches_by_path={
+                      f"{MOE_ARCH} wire-served bf16": p15[MOE_ARCH]["wire"][
+                          "launches"]["qmatmul_f32_blockscale_grouped"]})),
             ("qmatmul_f32", "qmatmul_f32.cu", "qmatmul.py:132",
              t15["qmatmul_decode"], {})):
         by_leg = {f"{a} bf16": p15[a]["launches_by_dtype"].get(
@@ -6564,6 +6999,21 @@ def main() -> int:
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], eager_ms=t["eager_ms"],
             work=t["work"], bytes_ms=t["bytes_ms"], **more))
+    t = t15["grouped_decode"]
+    by_leg = {f"{MOE_ARCH} bf16": p15[MOE_ARCH]["launches_by_dtype"][
+        "qmatmul_f32_grouped"].get("bfloat16", 0)}
+    kernels.append(dict(
+        name="qmatmul_f32_grouped[bf16]", route="cuda", dtype="bfloat16",
+        source="src/repro_torch/csrc/qmatmul_f32.cu",
+        replaces="src/repro/kernels/qmatmul.py:132",
+        replaces_note="qmatmul_f32 vmapped over the experts by "
+        "src/repro/models/moe.py:97-106, at a bf16 dtype",
+        launches=sum(by_leg.values()), launches_by_path=by_leg,
+        max_abs_err=p15[MOE_ARCH]["path_check"]["max_abs_err"][
+            "qmatmul_f32_grouped"],
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=t["library_ms"],
+        eager_ms=t["eager_ms"], work=t["work"], bytes_ms=t["bytes_ms"]))
     print(f"[phases] wall seconds by phase (host clock): "
           f"{json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     print(json.dumps({"serve": served}))

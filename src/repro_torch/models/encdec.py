@@ -156,6 +156,18 @@ def dec_train_layer_apply(x: torch.Tensor, enc_out: torch.Tensor, p: Params,
                      path="dec_layers/mlp")
 
 
+def _layers(params: Params, key: str, n: int, engine: Optional[Any]):
+    """The stacked ``params[key]``'s layers in order: views, or on a rank
+    mesh each fetched whole just before its use
+    (``transformer.layer_fetch``)."""
+    fetch = tfm.layer_fetch(engine)
+    if fetch is None:
+        yield from tfm.unstack(params[key], n)
+    else:
+        for i in range(n):
+            yield fetch(key, i)
+
+
 def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig, *,
            engine: Optional[Any] = None, train: bool = False
            ) -> torch.Tensor:
@@ -165,7 +177,7 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig, *,
     dt = tfm._dtype(cfg)
     x = frames.to(dt) + _sinusoid(frames.shape[1], cfg.d_model,
                                   frames.device).to(dt)[None]
-    for p in tfm.unstack(params["enc_layers"], cfg.n_encoder_layers):
+    for p in _layers(params, "enc_layers", cfg.n_encoder_layers, engine):
         x = enc_layer_apply(x, p, cfg, engine=engine, train=train)
     return L.apply_norm(x, params.get("enc_final_norm"), cfg.norm_type)
 
@@ -180,7 +192,7 @@ def decode(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
     s = tokens.shape[1]
     x = L.embed(tokens, params["embed"]).to(dt) + params["dec_pos"][
         None, :s].to(dt)
-    for p in tfm.unstack(params["dec_layers"], cfg.n_layers):
+    for p in _layers(params, "dec_layers", cfg.n_layers, engine):
         x = dec_train_layer_apply(x, enc_out, p, cfg, engine=engine,
                                   train=train)
     x = L.apply_norm(x, params.get("final_norm"), cfg.norm_type)

@@ -127,11 +127,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # F.gelu / logaddexp round once; these follow XLA's ops in x's dtype (each
 # bit-equal to the reference's on the CPU).  f32 keeps PyTorch's fused ops.
 
+class _Logistic(torch.autograd.Function):
+    """``lax.logistic`` below f32: 1 / (1 + exp(-x)) op by op, and its
+    VJP as ``lax.py``'s ``logistic_p`` rule, g * (ans * (1 - ans)), each
+    op rounded to x's dtype (autograd's own rule for the forward's ops
+    rounds in another order, ROADMAP C20)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ans = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(ans)
+        return ans
+
+    @staticmethod
+    def backward(ctx, g):
+        ans, = ctx.saved_tensors
+        return g * (ans * (1 - ans))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu``: x * logistic(x), logistic as 1 / (1 + exp(-x))."""
     if x.dtype == torch.float32:
         return F.silu(x)
-    return x * (1 / (1 + torch.exp(-x)))
+    return x * _Logistic.apply(x)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -139,9 +157,32 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     (x + 0.044715 x^3))), the constants rounded to x's dtype as JAX does."""
     if x.dtype == torch.float32:
         return F.gelu(x, approximate="tanh")
-    c0, c1 = (torch.tensor(v, dtype=x.dtype, device=x.device)
-              for v in ((2 / math.pi) ** 0.5, 0.044715))
-    return x * (0.5 * (1 + torch.tanh(c0 * (x + c1 * (x * x * x)))))
+    return _GeluTanh.apply(x)
+
+
+class _GeluTanh(torch.autograd.Function):
+    """``jax.nn.gelu(approximate=True)`` below f32, op by op, and its VJP
+    as JAX transposes the forward's ops: ``x ** 3`` through
+    ``integer_pow``'s rule, g * (3 * x^2), ``tanh`` through ``tanh_p``'s,
+    (ct * (1 - t)) + (ct * (1 - t)) * t, and x's three cotangents added
+    in the order the backward pass meets them (ROADMAP C20)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        c0, c1 = (torch.tensor(v, dtype=x.dtype, device=x.device)
+                  for v in ((2 / math.pi) ** 0.5, 0.044715))
+        t = torch.tanh(c0 * (x + c1 * (x * x * x)))
+        cdf = 0.5 * (1 + t)
+        ctx.save_for_backward(x, t, cdf, c0, c1)
+        return x * cdf
+
+    @staticmethod
+    def backward(ctx, g):
+        x, t, cdf, c0, c1 = ctx.saved_tensors
+        ct = 0.5 * (x * g)
+        ct = ct * (1 - t)
+        inner = c0 * (ct + ct * t)
+        return (g * cdf + inner) + (c1 * inner) * (3 * (x * x))
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,7 @@ reference's numbers anyway:
 
 from __future__ import annotations
 
+from collections.abc import Mapping
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -141,27 +142,13 @@ def expert_ffn(buf: torch.Tensor, p: Dict[str, Any], act: str = "swiglu",
     return torch.matmul(h, p["w_down"].transpose(-1, -2))
 
 
-def moe_apply(x: torch.Tensor, p: Dict[str, Any], *, n_experts: int, k: int,
-              capacity_factor: float = 1.25, act: str = "swiglu",
-              groups: int = 1, engine: Optional[Any] = None) -> torch.Tensor:
-    """The MoE layer: x (..., D) -> (..., D).
-
-    p: router (E, D), w_gate / w_up (E, F, D), w_down (E, D, F), optional
-    shared-expert MLP under p["shared"] and arctic's dense-residual MLP
-    under p["dense"].  ``groups > 1`` (when it divides the tokens) routes
-    and dispatches each group of T / groups tokens on its own, with its own
-    capacity, one group after another.  With ``engine["dp_axes"]`` set
-    (the training path, ``moe.py:133-166``) the dense experts of all the
-    groups run as the reference's two einsums, ``gecd,efd->gecf`` and
-    ``gecf,edf->gecd``; the reference's sharding constraints there are
-    layout hints with no value.  The sharded train step gives each rank
-    its own ``groups / dp`` groups
-    (``launch/dist_steps.make_distributed_train_step``)."""
-    lead = x.shape[:-1]
-    d = x.shape[-1]
-    xf = x.reshape(-1, d)
-    t = xf.shape[0]
-
+def _routed(xf: torch.Tensor, p: Dict[str, Any], n_experts: int, k: int,
+            capacity_factor: float, act: str, groups: int,
+            engine: Optional[Any]) -> torch.Tensor:
+    """The routed experts' output for the tokens ``xf`` (T, D): route,
+    capacity, dispatch, experts and combine, over ``groups`` groups of the
+    tokens where it divides them, else over all of them."""
+    t, d = xf.shape
     if groups > 1 and t % groups == 0:
         tg = t // groups
         cap = capacity(tg, n_experts, k, capacity_factor)
@@ -182,14 +169,49 @@ def moe_apply(x: torch.Tensor, p: Dict[str, Any], *, n_experts: int, k: int,
         else:
             outs = [expert_ffn(b, p, act=act, engine=engine)
                     for b, _ in routed]
-        y = torch.cat([combine(eo, aux, tg) for eo, (_, aux) in
-                       zip(outs, routed)]).to(x.dtype)
+        return torch.cat([combine(eo, aux, tg) for eo, (_, aux) in
+                          zip(outs, routed)])
+    gates, idx = route(xf, p["router"], k)
+    cap = capacity(t, n_experts, k, capacity_factor)
+    buf, aux = dispatch(xf, gates, idx, n_experts, cap)
+    return combine(expert_ffn(buf, p, act=act, engine=engine), aux, t)
+
+
+def moe_apply(x: torch.Tensor, p: Dict[str, Any], *, n_experts: int, k: int,
+              capacity_factor: float = 1.25, act: str = "swiglu",
+              groups: int = 1, engine: Optional[Any] = None) -> torch.Tensor:
+    """The MoE layer: x (..., D) -> (..., D).
+
+    p: router (E, D), w_gate / w_up (E, F, D), w_down (E, D, F), optional
+    shared-expert MLP under p["shared"] and arctic's dense-residual MLP
+    under p["dense"].  ``groups > 1`` (when it divides the tokens) routes
+    and dispatches each group of T / groups tokens on its own, with its own
+    capacity, one group after another.  With ``engine["dp_axes"]`` set
+    (the training path, ``moe.py:133-166``) the dense experts of all the
+    groups run as the reference's two einsums, ``gecd,efd->gecf`` and
+    ``gecf,edf->gecd``; the reference's sharding constraints there are
+    layout hints with no value.
+
+    On a rank mesh (``launch/dist_steps.make_distributed_train_step``) a
+    rank holds its own rows of the batch.  Where ``groups`` is a multiple
+    of the dp size the step gives each rank its own ``groups / dp`` groups;
+    otherwise it sets ``engine["dp_rows"]`` (``parallel/distributed.
+    DPRows``), and the routed experts run over the whole batch's tokens,
+    gathered in the batch's row order, so that capacity and drops are the
+    single device's, and the rank keeps its own rows (every rank runs all
+    the tokens' expert slots: ROADMAP C22).  The shared expert and the
+    dense residual run on the rank's own rows."""
+    lead = x.shape[:-1]
+    d = x.shape[-1]
+    xf = x.reshape(-1, d)
+    rows = engine.get("dp_rows") if isinstance(engine, Mapping) else None
+    kw = dict(n_experts=n_experts, k=k, capacity_factor=capacity_factor,
+              act=act, groups=groups, engine=engine)
+    if rows is None:
+        y = _routed(xf, p, **kw)
     else:
-        gates, idx = route(xf, p["router"], k)
-        cap = capacity(t, n_experts, k, capacity_factor)
-        buf, aux = dispatch(xf, gates, idx, n_experts, cap)
-        y = combine(expert_ffn(buf, p, act=act, engine=engine), aux,
-                    t).to(x.dtype)
+        y = rows.own(_routed(rows.gather(xf), p, **kw), xf.shape[0])
+    y = y.to(x.dtype)
 
     if "shared" in p:
         y = y + layers.mlp(xf, p["shared"], act, engine=engine,

@@ -463,14 +463,35 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
         attends = [attend if w != cfg.window else win_attend
                    for w in windows]
         windows = [w if w == cfg.window else None for w in windows]
-    for p, w, att in zip(layer_params(params, cfg), windows, attends):
-        layer = functools.partial(_layer_apply, p=p, cfg=cfg, window=w,
+    fetch = layer_fetch(engine)
+    if fetch is None:
+        plist, apply = layer_params(params, cfg), _layer_apply
+    else:
+        plist = [functools.partial(fetch, "layers", i)
+                 for i in range(cfg.n_layers)]
+        apply = _fetched_layer_apply
+    for p, w, att in zip(plist, windows, attends):
+        layer = functools.partial(apply, p=p, cfg=cfg, window=w,
                                   engine=engine, attend=att, scan=scan)
         if train and cfg.remat:
             x = checkpoint(layer, x, use_reentrant=False)
         else:
             x = layer(x)
     return _head(params, x, cfg)
+
+
+def layer_fetch(engine: Optional[Any]) -> Optional[Callable]:
+    """``engine["layer_fetch"]``: the sharded train step's source of whole
+    layer leaves, ``fetch(key, i)`` -> layer ``i`` of the stacked
+    ``params[key]``, read in place of :func:`layer_params` (inside the
+    layer's ``remat`` region, so a remat layer fetches again in the
+    backward; ``launch/dist_steps.make_distributed_train_step``).  None on
+    one device."""
+    return engine.get("layer_fetch") if isinstance(engine, dict) else None
+
+
+def _fetched_layer_apply(x: torch.Tensor, p: Callable, **kw) -> torch.Tensor:
+    return _layer_apply(x, p(), **kw)
 
 
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor],

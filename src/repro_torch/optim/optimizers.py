@@ -59,9 +59,17 @@ def clip_by_global_norm(grads: Any, max_norm: float
     returns (clipped grads, the norm before clipping)."""
     flat = T.leaves(grads)
     gn = torch.sqrt(sum(torch.sum(torch.square(g.to(F32))) for g in flat))
+    return scale_to_norm(grads, gn, max_norm), gn
+
+
+@torch.no_grad()
+def scale_to_norm(grads: Any, gn: torch.Tensor, max_norm: float) -> Any:
+    """``grads`` (whole leaves or their blocks) scaled as
+    :func:`clip_by_global_norm` scales them when their global norm is
+    ``gn``."""
     scale = torch.clamp(_f32(max_norm, gn) / torch.clamp(gn, min=1e-9),
                         max=1.0)
-    return T.tree_map(lambda g: (g.to(F32) * scale).to(g.dtype), grads), gn
+    return T.tree_map(lambda g: (g.to(F32) * scale).to(g.dtype), grads)
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,12 @@ it.  The port's counterpart of a device is a rank, one process of a
   checkpoint's.
 * :func:`placements`, :func:`shard_tree`, :func:`gather_tree` and
   :func:`local_rows` are ``device_put``, its inverse and the batch's
-  ``batch_pspec`` rows.  A placed leaf is a DTensor that holds this rank's
-  block only.  DTensors are storage and placement here, never compute:
+  ``batch_pspec`` rows; :func:`gather_blocks` is the one all-gather of
+  many leaves' blocks (a tree's, or one layer's in the train step), and
+  :class:`DPRows` a rank's rows of the batch gathered and scattered back
+  (the MoE layer's routed tokens).  A placed leaf is a DTensor that holds
+  this rank's block only.  DTensors are storage and placement here, never
+  compute:
   plain model code run on DTensors fails inside DTensor's sharding
   propagation (an embedding placed as ``P("model", "data")`` under a
   batch-sharded token DTensor), so the train step on these trees
@@ -333,27 +337,38 @@ def gather(leaf: Any) -> torch.Tensor:
     return whole_of(leaf.to_local(), leaf.device_mesh, leaf.placements)
 
 
-def _gather_many(leaves: List[DTensor]) -> List[torch.Tensor]:
-    """The whole values of DTensors of one mesh and dtype through ONE
-    all-gather of every rank's blocks, laid end to end: each rank receives
-    what a gather leaf by leaf would, in one call, not two a leaf."""
-    dmesh = leaves[0].device_mesh
-    if dmesh.size() != dist.get_world_size():
-        return [gather(leaf) for leaf in leaves]
-    local = [leaf.to_local() for leaf in leaves]
-    parts = all_gather(torch.cat([x.reshape(-1) for x in local]))
-    wholes = [torch.empty(leaf.shape, dtype=leaf.dtype, device=x.device)
-              for leaf, x in zip(leaves, local)]
+def gather_blocks(local: Sequence[torch.Tensor], shapes: Sequence[Any],
+                  places: Sequence[Sequence[Any]], dmesh
+                  ) -> List[torch.Tensor]:
+    """The whole tensors of ``shapes`` whose blocks under ``places`` this
+    rank holds as ``local`` (contiguous, any dtypes), through ONE
+    all-gather over the world of every rank's blocks laid end to end as
+    bytes: each rank receives what a gather leaf by leaf would, in one
+    call.  ``dmesh`` spans the world."""
+    raw = [x.contiguous().reshape(-1).view(torch.uint8) for x in local]
+    parts = all_gather(torch.cat(raw))
+    wholes = [torch.empty(tuple(s), dtype=x.dtype, device=x.device)
+              for s, x in zip(shapes, local)]
     ranks = dmesh.mesh
     for r, part in enumerate(parts):
         coord = [int(c) for c in (ranks == r).nonzero()[0]]
         off = 0
-        for leaf, x, whole in zip(leaves, local, wholes):
-            block = part[off:off + x.numel()].view(x.shape)
-            whole[_index(whole.shape, dmesh, leaf.placements,
-                         coord)] = block
-            off += x.numel()
+        for x, b, p, whole in zip(local, raw, places, wholes):
+            block = part[off:off + b.numel()].view(x.dtype).view(x.shape)
+            whole[_index(whole.shape, dmesh, p, coord)] = block
+            off += b.numel()
     return wholes
+
+
+def _gather_many(leaves: List[DTensor]) -> List[torch.Tensor]:
+    """The whole values of DTensors of one mesh through ONE all-gather of
+    every rank's blocks (:func:`gather_blocks`)."""
+    dmesh = leaves[0].device_mesh
+    if dmesh.size() != dist.get_world_size():
+        return [gather(leaf) for leaf in leaves]
+    return gather_blocks([leaf.to_local() for leaf in leaves],
+                         [leaf.shape for leaf in leaves],
+                         [leaf.placements for leaf in leaves], dmesh)
 
 
 def gather_tree(tree: Any) -> Any:
@@ -418,3 +433,54 @@ def local_rows(batch: Dict[str, torch.Tensor], mesh: Any
     idx, n = block
     rows = b // n
     return {k: v[idx * rows:(idx + 1) * rows] for k, v in batch.items()}
+
+
+class _RowGather(torch.autograd.Function):
+    """Forward: every dp rank's rows, in the batch's row order.  Backward:
+    the gradient of all of them summed over the dp groups, this rank's rows
+    kept (reduce-scatter; gloo has none, so an all-reduce)."""
+
+    @staticmethod
+    def forward(ctx, x, rows):
+        out = x
+        for g in reversed(rows.groups):          # the innermost axis first
+            out = torch.cat(all_gather(out, g))
+        ctx.rows, ctx.n = rows, x.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        for grp in ctx.rows.groups:
+            all_reduce(g, group=grp)
+        i, n = ctx.rows.index, ctx.n
+        return g[i * n:(i + 1) * n], None
+
+
+@dataclasses.dataclass(frozen=True)
+class DPRows:
+    """A rank's place among the row blocks of the dp axes: ``groups`` the
+    process groups of the dp axes that split the rows ("pod" before
+    "data"), ``index`` this rank's block (``_row_block``).  The MoE layer's
+    gathered route (``models/moe.moe_apply`` with ``engine["dp_rows"]``)
+    routes the whole batch's tokens through :meth:`gather` and keeps its
+    own rows through :meth:`own`."""
+    groups: Tuple[Any, ...]
+    index: int
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return _RowGather.apply(x, self)
+
+    def own(self, y: torch.Tensor, n: int) -> torch.Tensor:
+        return y[self.index * n:(self.index + 1) * n]
+
+
+def dp_rows(batch: int, mesh: Any) -> Optional[DPRows]:
+    """:class:`DPRows` of this rank where ``batch`` rows split over the dp
+    axes (``local_rows``), else None."""
+    block = _row_block(batch, mesh)
+    if block is None:
+        return None
+    axes = shd.batch_pspec(batch, mesh)[0]
+    return DPRows(tuple(mesh.group(a) for a in axes if mesh.shape[a] > 1),
+                  block[0])

@@ -45,13 +45,12 @@ from repro import optim as jopt  # noqa: E402
 from repro_torch import interop, optim  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.core import tree as T  # noqa: E402
-from repro_torch.launch import mesh as tmesh  # noqa: E402
-from repro_torch.launch import dist_steps as DS  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.parallel import distributed as D  # noqa: E402
 
-from torch_dist_ranks import (ARCH, CKPT_ARCH, MOE_ARCH, MOE_GROUPS,  # noqa: E402,E501
+from torch_dist_ranks import (ARCH, CKPT_ARCH, LAYER_MESHES,  # noqa: E402,E501
+                              LAYERED_DEPTH, MOE_ARCH, MOE_GROUPS,
                               N_STEPS, _batch, _cfg, _fail_on_rank_1,
                               _moe_cfg, _ranks_4, _ranks_moe, _sleep,
                               _tbatch)
@@ -105,12 +104,30 @@ def runs():
         gnorms.append(float(met["grad_norm"]))
     ref["adafactor"] = (interop.params_to_numpy(p), losses, gnorms)
 
+    # the layer-at-a-time cases: JAX's one device and the port's one rank
+    lcfg = _cfg(jget).replace(n_layers=LAYERED_DEPTH)
+    lparams = jtfm.init_params(lcfg, jax.random.PRNGKey(0))
+    layered_np = jax.tree_util.tree_map(np.asarray, lparams)
+    ref["layered"] = _jax_step(lcfg, jopt.adamw(), lparams, _batch(),
+                               N_STEPS["adamw"])
+    tlcfg = _cfg(tget).replace(n_layers=LAYERED_DEPTH)
+    p = interop.params_from_numpy(layered_np, tlcfg, device="cpu")
+    opt = optim.adamw()
+    step1 = steps.make_train_step(tlcfg, opt)
+    o, losses, gnorms = opt.init(p), [], []
+    for _ in range(N_STEPS["adamw"]):
+        p, o, met = step1(p, o, _tbatch(_batch()))
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+    ref["layered_port"] = (interop.params_to_numpy(p), losses, gnorms)
+
     ocfg = jget(CKPT_ARCH).smoke()
     ckpt_params = jtfm.init_params(ocfg, jax.random.PRNGKey(1))
     with tempfile.TemporaryDirectory() as tmp:
         JCheckpointManager(Path(tmp) / "jax", async_save=False).save(
             3, dict(params=ckpt_params))
-        out = D.run_ranks(_ranks_4, 4, params_np, str(Path(tmp) / "jax"),
+        out = D.run_ranks(_ranks_4, 4, params_np, layered_np,
+                          str(Path(tmp) / "jax"),
                           tmp, device="cpu", timeout_s=TIMEOUT_S)
         # the port's (2, 2) checkpoint restores in the JAX package
         back = jrestore(dict(params=ckpt_params), out[0]["restore"][
@@ -132,7 +149,8 @@ def runs():
     moe = D.run_ranks(_ranks_moe, 2, moe_np[2], device="cpu",
                       timeout_s=TIMEOUT_S)
     return dict(ref=ref, out=out, moe=moe, moe_ref=moe_ref,
-                params0=_np(params_np), moe0={g: _np(t) for g, t in
+                params0=_np(params_np), layered0=_np(layered_np),
+                moe0={g: _np(t) for g, t in
                                               moe_np.items()},
                 ckpt=_np(ckpt_params), restored_in_jax=restored_in_jax)
 
@@ -170,6 +188,34 @@ def test_sharded_step_matches_one_device(runs, case):
     come through the ``mean`` hook) and a loss_mask that differs between
     the two data shards (JAX: a mean of the shards' means would miss)."""
     _check_step(runs["out"][0][case], runs["ref"][case], runs["params0"])
+
+
+@pytest.mark.parametrize("remat", [True, False])
+@pytest.mark.parametrize("shape", LAYER_MESHES)
+@pytest.mark.parametrize("against", ["jax", "port"])
+def test_layer_at_a_time_step_matches_one_device(runs, shape, remat,
+                                                 against):
+    """A layer's leaves gathered just before its use, its gradient reduced
+    as its backward ends, the leaves outside the layers once: 3 AdamW
+    steps at 4 layers on (2, 2) and (4, 1), remat on and off, against
+    JAX's one device and the port's one rank."""
+    res = runs["out"][0]["layered"][shape, remat]
+    _check_step(res, runs["ref"]["layered" if against == "jax"
+                                 else "layered_port"], runs["layered0"])
+
+
+def test_layer_leaves_alive_at_once(runs):
+    """Counted through the gather, on every rank: with remat at most two
+    layers' whole leaves are alive at once, each layer gathered twice a
+    step (the forward, then again in the backward); without it autograd
+    keeps every gathered layer for its backward, which the count shows."""
+    for r in runs["out"]:
+        for shape in LAYER_MESHES:
+            on, off = r["layered"][shape, True], r["layered"][shape, False]
+            assert on["alive"] <= 2, (shape, on["alive"])
+            assert off["alive"] == LAYERED_DEPTH, (shape, off["alive"])
+            assert on["gathers"] == [2 * LAYERED_DEPTH] * N_STEPS["adamw"]
+            assert off["gathers"] == [LAYERED_DEPTH] * N_STEPS["adamw"]
 
 
 def test_masked_step_is_not_a_mean_of_means(runs):
@@ -215,17 +261,6 @@ def test_moe_step_matches_jax_dp_dispatch(runs, groups):
     ``moe_groups`` and ``dp_axes``."""
     _check_step(runs["moe"][0][groups], runs["moe_ref"][groups],
                 runs["moe0"][groups])
-
-
-@pytest.mark.parametrize("groups", [0, 1, 3])
-def test_moe_groups_not_a_multiple_of_dp_refused(groups):
-    """Rows that route over other tokens than one rank's run would drop
-    others: refused, naming moe_groups and the dp size (the mesh's rules
-    read only its axes, so a link mesh will do)."""
-    mesh = tmesh.make_test_mesh((2, 1), ("data", "model"), device="cpu")
-    with pytest.raises(ValueError, match=r"moe_groups=\d.*dp size 2"):
-        DS.make_distributed_train_step(_moe_cfg(tget, groups),
-                                      optim.adamw(), mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,10 @@ from repro_torch.parallel import distributed as D
 
 ARCH, MOE_ARCH, CKPT_ARCH = "qwen3-0.6b", "qwen2-moe-a2.7b", "olmo-1b"
 MOE_GROUPS = (2, 4)
+# the dense step a layer at a time on these meshes, remat on and off, at
+# LAYERED_DEPTH layers (so that "two layers alive" is a bound)
+LAYER_MESHES = ((2, 2), (4, 1))
+LAYERED_DEPTH = 4
 # steps a case runs: after the first, the losses see the updates
 N_STEPS = dict(adamw=3, adafactor=2, masked=3, moe=3)
 
@@ -52,10 +56,11 @@ def _tbatch(b):
     return {k: torch.from_numpy(np.asarray(v)) for k, v in b.items()}
 
 
-def _sharded_run(cfg, opt, params, batch, mesh, n_steps):
+def _sharded_run(cfg, opt, params, batch, mesh, n_steps, starts=False):
     """``n_steps`` of the sharded step from ``params`` (whole): losses,
     the global gradient norms, the bytes this rank holds against the
-    specs', and the params gathered (numpy, rank 0)."""
+    specs', and the params gathered (numpy, rank 0); with ``starts`` also
+    each step's starting params and optimizer state, gathered."""
     from repro_torch.parallel import sharding as shd
 
     state = opt.init(params)
@@ -66,20 +71,28 @@ def _sharded_run(cfg, opt, params, batch, mesh, n_steps):
     want = D.spec_bytes(params, pspec, mesh) + D.spec_bytes(state, ospec,
                                                             mesh)
     step = DS.make_distributed_train_step(cfg, opt, mesh)
-    losses, gnorms = [], []
+    losses, gnorms, comms, begun = [], [], [], []
     for _ in range(n_steps):
+        if starts:
+            begun.append(tuple(T.tree_map(
+                lambda t: (t.float() if t.is_floating_point() else t).numpy(),
+                D.gather_tree(x)) for x in (sp, so)))
         sp, so, met = step(sp, so, batch)
         losses.append(float(met["loss"]))
         gnorms.append(float(met["grad_norm"]))
+        comms.append(met["comm"])
     held = D.held_bytes(sp) + D.held_bytes(so)
     whole = D.gather_tree(sp)
     return dict(losses=losses, grad_norms=gnorms, held=held, want=want,
+                alive=max(m["layers_alive_max"] for m in comms),
+                starts=begun,
+                gathers=[m["layer_gathers"] for m in comms],
                 local=[leaf.to_local().shape for leaf in T.leaves(sp)],
                 params=(interop.params_to_numpy(whole)
                         if torch.distributed.get_rank() == 0 else None))
 
 
-def _ranks_4(params_np, jax_ckpt, tmp):
+def _ranks_4(params_np, layered_np, jax_ckpt, tmp):
     """Every 4-rank case: the steps on (2, 2), the restores, the Trainer
     restart."""
     from repro_torch.checkpoint import CheckpointManager
@@ -92,7 +105,19 @@ def _ranks_4(params_np, jax_ckpt, tmp):
     cfg = _cfg(tget)
     mesh = tmesh.make_rank_mesh((2, 2), ("data", "model"), device="cpu")
     params = interop.params_from_numpy(params_np, cfg, device="cpu")
+    # a layer at a time, with remat and without, on both meshes
+    layered = {}
+    lcfg = cfg.replace(n_layers=LAYERED_DEPTH)
+    lparams = interop.params_from_numpy(layered_np, lcfg, device="cpu")
+    for shape in LAYER_MESHES:
+        m = mesh if shape == (2, 2) else tmesh.make_rank_mesh(
+            shape, ("data", "model"), device="cpu")
+        for remat in (True, False):
+            layered[shape, remat] = _sharded_run(
+                lcfg.replace(remat=remat), optim.adamw(), lparams,
+                _tbatch(_batch()), m, N_STEPS["adamw"])
     out = dict(
+        layered=layered,
         adamw=_sharded_run(cfg, optim.adamw(), params,
                            _tbatch(_batch()), mesh, N_STEPS["adamw"]),
         adafactor=_sharded_run(cfg, optim.adafactor(), params,
@@ -173,6 +198,53 @@ def _ranks_moe(params_np):
         params = interop.params_from_numpy(params_np, cfg, device="cpu")
         out[groups] = _sharded_run(cfg, optim.adamw(), params,
                                    _tbatch(_batch()), mesh, N_STEPS["moe"])
+    return out
+
+
+# -- test_torch_dist_moe.py -------------------------------------------------
+
+# name: (arch, moe_groups, config overrides, optimizer); the cases of a
+# MoE on a (2, 1) mesh, "groups0" also on (2, 2).  The bf16 case keeps
+# each step's starting state (a step of one rank is compared from it)
+DIST_MOE = {
+    "groups0": (MOE_ARCH, 0, {}, "adamw"),
+    "groups1": (MOE_ARCH, 1, {}, "adamw"),
+    "groups3": (MOE_ARCH, 3, {}, "adamw"),
+    # capacity 16 of the batch's 128 tokens: drops fall where the other
+    # data half's tokens filled an expert first
+    "drops": (MOE_ARCH, 0, dict(capacity_factor=0.5), "adamw"),
+    "arctic": ("arctic-480b", 0, {}, "adamw"),
+    # the reference's train cell: bf16 weights, Adafactor, moe_groups 0
+    "bf16": (MOE_ARCH, 0, dict(dtype="bfloat16"), "adafactor"),
+}
+DIST_MOE_22 = ("groups0",)
+
+
+def dist_moe_cfg(get, name):
+    arch, groups, over, _ = DIST_MOE[name]
+    return get(arch).smoke().replace(moe_groups=groups, **over)
+
+
+def dist_moe_params(params_np, cfg):
+    """The case's weights (f32 numpy, a bf16 draw widened exactly) in
+    ``cfg.dtype``."""
+    p = interop.params_from_numpy(params_np, cfg, device="cpu")
+    dt = getattr(torch, cfg.dtype)
+    return T.tree_map(lambda t: t.to(dt) if t.is_floating_point() else t, p)
+
+
+def _ranks_dist_moe(params_np, shape, names):
+    """Each of ``names``' steps of DIST_MOE on a ``shape`` mesh."""
+    mesh = tmesh.make_rank_mesh(shape, ("data", "model"), device="cpu")
+    out = {}
+    for name in names:
+        cfg = dist_moe_cfg(tget, name)
+        opt = getattr(optim, DIST_MOE[name][3])()
+        out[name] = _sharded_run(cfg, opt,
+                                 dist_moe_params(params_np[name], cfg),
+                                 _tbatch(_batch()), mesh,
+                                 N_STEPS[DIST_MOE[name][3]],
+                                 starts=cfg.dtype == "bfloat16")
     return out
 
 
