@@ -404,16 +404,22 @@ cell (bf16, Adafactor, ``moe_groups`` 0) of qwen2-moe-a2.7b on two ranks
    the script ends within 1,200 s: at 28 the phase took 222-272 s, the
    host's collectives binding), on a (2, 2)
    ("data", "model") rank mesh, AdamW at 3e-4, batch 4 x 256, 3 steps of
-   ``make_distributed_train_step`` (each layer's leaves gathered by one
-   all-gather just before its use and again in its remat backward, its
-   gradient reduced as its backward ends) against rank 0's 3 steps of the
+   ``make_distributed_train_step`` (each layer's blocks gathered over
+   "data" by one all-gather just before its use and again in its remat
+   backward, each matmul weight kept as the rank's "model" block, so that
+   a rank computes its share of every layer matmul, the attention by
+   heads and the logits by vocab rows; its gradient reduced over "data"
+   as its backward ends) against rank 0's 3 steps of the
    single-rank ``make_train_step`` from the same weights and batches:
    every loss within 1e-4, every step's global gradient norm within a
    relative 1e-4, every gathered leaf within rtol = atol = 2e-3 and its
    change from the start within 5 % of one rank's change in norm (a first
    AdamW step moves an element by about lr whatever its gradient, below
    the leaf tolerance), each rank's bytes held between steps equal to the specs' (each
-   leaf over its shard count), every shard on the card; (b) the same with
+   leaf over its shard count), every shard on the card, every layer
+   linear computed on its block, the attention by heads, the rank's
+   layer multiply-adds a quarter of one device's and its logits (2, 256,
+   V / 2); (b) the same with
    Adafactor, 2 steps; (c) ``int8_allreduce`` / ``compressed_allreduce_
    mean`` of (4, 1 << 20) f32 rows, one a rank: the int32 totals and the
    scale equal the CPU's arithmetic on the same rows, the mean within
@@ -425,18 +431,24 @@ cell (bf16, Adafactor, ``moe_groups`` 0) of qwen2-moe-a2.7b on two ranks
    Adafactor, 4 steps with a failure injected at step 2, ending on the
    uninterrupted run's bits.  (f) the reference's train cell with a MoE:
    qwen2-moe-a2.7b at full width and 1 of its 24 layers, ``moe_groups``
-   0, ``dtype="bfloat16"``, Adafactor, batch 4 x 128, 1 step on a (2, 1)
-   mesh of 2 ranks, each step against rank 0's single-rank step from the
+   0, ``dtype="bfloat16"``, Adafactor, batch 4 x 128, 1 step on a (2, 2)
+   mesh of 4 ranks (the 60 experts expert-parallel over "model", each
+   model row's 30 split again over "data": a rank runs a quarter of one
+   device's expert slots, else the phase fails), each step against rank
+   0's single-rank step from the
    same (gathered) state: the router's top-k indices of the gathered
    tokens equal in every ``route`` call (else the phase fails with the
    count), the loss and global gradient norm within
    ``DIST_BF16_LOSS_RTOL`` / ``DIST_BF16_GNORM_RTOL``, every leaf within
-   ``DIST_LEAF_TOL``; the routed experts' duplicated work (ROADMAP C22)
-   timed.  A rank that fails or outlives ``DIST_TIMEOUT_S`` fails the
-   phase.  Printed with the card line: step times on the ranks and on
-   one, the gathers' and the reduces' bytes and seconds a step, the most
-   layers alive at once, each rank's peak device memory and the single
-   rank's, the staged collectives;
+   ``DIST_LEAF_TOL``; the routed experts' time a rank (its 15 of the 60
+   experts' slots) against all 60's, what every rank ran before ROADMAP
+   C22 closed.  A rank that fails or outlives ``DIST_TIMEOUT_S`` fails
+   the phase.  Printed with the card line: step times on the ranks and
+   on one, the comm split a step (the dp weight gathers', the dp
+   gradient reduces' and the model-axis activation collectives' bytes
+   and seconds), the rank's layer multiply-adds against one device's,
+   the most layers alive at once, each rank's peak device memory and the
+   single rank's, the staged collectives;
 18. the ``{"serve": ...}``, ``{"train": ...}``, ``{"phase12": ...}``,
    ``{"train_families": ...}``, ``{"phase14": ...}``, ``{"bf16": ...}``,
    ``{"mesh": ...}``, ``{"dist_train": ...}`` and ``{"kernels": [...]}``
@@ -5805,7 +5817,8 @@ def mesh_phase(torch, m, dev, cfg, store):
 
 
 # ---------------------------------------------------------------------------
-# phase 17: multi-rank training (ROADMAP A11 (b)).  DIST_WORLD ranks, the
+# phase 17: multi-rank training (ROADMAP A11 (b)), the compute split over
+# "model" as the reference's GSPMD splits it.  DIST_WORLD ranks, the
 # processes of one gloo process group (parallel/distributed.run_ranks), all
 # on the one card: the collectives go through the host.  Training runs no
 # Hopper kernel, as in phases 10 and 13.
@@ -5843,11 +5856,17 @@ DIST_CKPT = ROOT / "build" / "dist_ckpt"
 # (f) the reference's train cell with a MoE (launch/steps.py:204-225: bf16
 # weights, Adafactor for a large model, dp axes on a mesh, moe_groups 0,
 # so each MoE layer routes the whole batch's tokens, gathered over "data"):
-# qwen2-moe-a2.7b at full width, 1 of its 24 layers, on a (2, 1) mesh of 2
-# ranks, each step against rank 0's single-rank step from the same state;
-# 1 step (the leg took 48.6-59.9 s at 2 steps, most of it the collectives)
-DIST_MOE = dict(arch="qwen2-moe-a2.7b", world=2, mesh=(2, 1), layers=1,
+# qwen2-moe-a2.7b at full width, 1 of its 24 layers, on a (2, 2) mesh of 4
+# ranks (its 60 experts expert-parallel over "model", each model row's 30
+# split again over "data": 15 a rank), each step against rank 0's
+# single-rank step from the same state; 1 step (the leg took 48.6-59.9 s
+# at 2 steps on (2, 1), most of it the collectives)
+DIST_MOE = dict(arch="qwen2-moe-a2.7b", world=4, mesh=(2, 2), layers=1,
                 batch=4, seq=128, steps=1, opt="adafactor", lr=3e-4)
+# (f)'s routed experts, forward and backward, as every rank of the gathered
+# route ran them before its dp ranks split the experts (all 60 experts'
+# slots of the batch; measured on an NVIDIA H100 80GB HBM3 at 700 W)
+GATHERED_EXPERTS_MS = 6.46
 # bf16 against one rank: a rank rounds its bf16 gradient before the dp sum
 # adds the other's, where one rank rounds the whole batch's sum once (the
 # CPU tests: 1.3e-4 in the global norm), and the two ranks' rows go
@@ -5960,6 +5979,16 @@ def dist_train_leg(torch, m, cfg, name, dev):
     if held != want:
         raise AssertionError(f"rank {rank} holds {held} B of {name}'s "
                              f"params and state; the specs give {want}")
+    # the compute split over "model": every layer linear on its block, the
+    # rank's multiply-adds one device's over dp * M, the logits its vocab
+    # block, attention by heads
+    c, (dp, mm) = sharded["comm"][-1], f["mesh"]
+    logits = (f["batch"] // dp, f["seq"], cfg.vocab_size // mm)
+    if (c["linears_whole"] or c["attention_whole"]
+            or c["layer_macs"] * dp * mm != c["layer_macs_one_device"]
+            or tuple(c["logits"]) != logits):
+        raise AssertionError(f"rank {rank}: {name}'s step is not split over "
+                             f"\"model\" ({c}; logits {logits} expected)")
     off = [leaf.to_local().device.type for leaf in T.leaves(dict(p=sp,
                                                                  o=so))
            if leaf.to_local().device.type != dev.type]
@@ -6229,34 +6258,41 @@ def dist_rank(ckpt: str, layers: int, device: str = "cuda"):
     return out
 
 
-def expert_dup_cost(torch, m, cfg, params, dev):
-    """ROADMAP C22's cost: one MoE layer's routed experts, forward and
-    backward on the card, over the whole batch's tokens (what each rank
-    of the gathered route runs) and over one rank's half of them; the
-    medians of 3 on the host clock, synchronised."""
-    moe = m["moe"]
+def expert_share_cost(torch, m, cfg, params, dev, mesh):
+    """ROADMAP C22, closed: one MoE layer's routed experts, forward and
+    backward on the card over the whole batch's gathered tokens, as a rank
+    runs them now (its share, E / (dp * M) experts' slots, through
+    ``moe._routed_blocks``) and as every rank ran them before the split
+    (all E experts' slots, ``moe._routed``); the medians of 3 on the host
+    clock, synchronised, no collective inside."""
+    moe, D = m["moe"], m["D"]
     p = {k: params["layers"]["moe"][k][0]
          for k in ("router", "w_gate", "w_up", "w_down")}
+    parts = mesh[0] * mesh[1]
+    n = cfg.n_experts // parts
+    axis = D.ModelAxis(None, dev)
+    share = dict(p, **{k: D.ModelBlock(p[k][:n], 0, axis)
+                       for k in ("w_gate", "w_up", "w_down")})
     kw = dict(n_experts=cfg.n_experts, k=cfg.n_experts_active,
               capacity_factor=cfg.capacity_factor, act=cfg.mlp_act,
               groups=1, engine=dict(dp_axes=("data",)))
     tokens = DIST_MOE["batch"] * DIST_MOE["seq"]
     gen = torch.Generator(device=dev).manual_seed(5)
-    out = {}
-    for name, t in (("gathered", tokens),
-                    ("own", tokens // DIST_MOE["mesh"][0])):
-        x = torch.randn((t, cfg.d_model), generator=gen, device=dev).to(
-            torch.bfloat16).requires_grad_()
+    x = torch.randn((tokens, cfg.d_model), generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_()
+    out = dict(tokens=tokens, share_experts=n, experts=cfg.n_experts)
+    for name, fn in (("share", lambda: moe._routed_blocks(
+            x, share, rows=None, **kw)), ("all", lambda: moe._routed(
+                x, p, **kw))):
         times = []
         for _ in range(4):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            moe._routed(x, p, **kw).float().sum().backward()
+            fn().float().sum().backward()
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         out[f"{name}_ms"] = sorted(times[1:])[1] * 1e3
-        out[f"{name}_tokens"] = t
-        del x
+    out["share_slots"] = axis.stats["expert_slots"] // 4
     return out
 
 
@@ -6319,6 +6355,12 @@ def dist_moe_rank(device: str = "cuda"):
     if held != want:
         raise AssertionError(f"rank {rank} holds {held} B of the MoE's "
                              f"params and state; the specs give {want}")
+    # C22 closed: the rank runs 1 / (dp * M) of one device's expert slots
+    c = sharded["comm"][-1]
+    if (c["expert_slots"] * f["world"] != c["expert_slots_one_device"]
+            or c["linears_whole"]):
+        raise AssertionError(f"rank {rank}: (f)'s experts are not split "
+                             f"over the ranks ({c})")
     final = D.gather_tree(sp)
     out = dict(rank=rank, sharded=sharded, held_bytes=held, params=n_params,
                layers=cfg.n_layers)
@@ -6380,10 +6422,34 @@ def dist_moe_rank(device: str = "cuda"):
         del starts, ends
         gc.collect()
         torch.cuda.empty_cache()
-        out["expert_dup"] = expert_dup_cost(torch, m, cfg, final, dev)
+        out["expert_share"] = expert_share_cost(torch, m, cfg, final, dev,
+                                                f["mesh"])
     del final
     out["wall_s"] = time.perf_counter() - t_leg
     return out
+
+
+def comm_split(c) -> str:
+    """A rank's ``metrics["comm"]`` of one step: the dp weight gathers, the
+    dp gradient reduces, the model-axis activation collectives (host
+    clock) and the rank's share of the layer compute."""
+    return (f"dp weight gathers {c['gather_bytes'] / 1e9:.3f} GB in "
+            f"{c['gather_s']:.3f} s ({c['layer_gathers']} layer gathers, at "
+            f"most {c['layers_alive_max']} layers' gathered leaves alive at "
+            f"once), dp gradient reduces {c['reduce_bytes'] / 1e9:.3f} GB "
+            f"in "
+            f"{c['reduce_s']:.3f} s, model-axis activation collectives "
+            f"{c['act_calls']} calls, {c['act_bytes'] / 1e9:.3f} GB in "
+            f"{c['act_s']:.3f} s (a rank, host clock); layer linears on a "
+            f"block {c['linears_block']}, whole {c['linears_whole']}; "
+            f"attention by heads {c['attention_split']}, whole "
+            f"{c['attention_whole']}; the rank's layer multiply-adds "
+            f"{c['layer_macs'] / 1e9:.3f} G against one device's "
+            f"{c['layer_macs_one_device'] / 1e9:.3f} G (x"
+            f"{c['layer_macs'] / max(c['layer_macs_one_device'], 1):.4f}); "
+            f"expert slots {c['expert_slots']} of one device's "
+            f"{c['expert_slots_one_device']}; logits a rank {c['logits']}; "
+            f"gathered whole over \"model\": {c['over_model']}")
 
 
 def dist_train_phase(torch, card: str, layers: int = DIST_TRAIN["layers"]):
@@ -6416,11 +6482,7 @@ def dist_train_phase(torch, card: str, layers: int = DIST_TRAIN["layers"]):
               f"leaf's change within {DIST_DELTA_RTOL} of one rank's in norm "
               f"(worst {s['delta_rel_err']:.2e}); step {d['step_s'][-1]:.3f} s "
               f"on {DIST_WORLD} ranks, {s['step_s'][-1]:.3f} s on one; the "
-              f"last step's gathers {c['gather_bytes'] / 1e9:.3f} GB in "
-              f"{c['gather_s']:.3f} s ({c['layer_gathers']} layer gathers, "
-              f"at most {c['layers_alive_max']} layers' whole leaves alive "
-              f"at once), reduces {c['reduce_bytes'] / 1e9:.3f} GB in "
-              f"{c['reduce_s']:.3f} s (a rank, host clock); held bytes "
+              f"last step's {comm_split(c)}; held bytes "
               f"{[r[name]['held_bytes'] for r in ranks]} = the specs'; peak "
               f"device memory a rank "
               f"{[round(r[name]['sharded']['peak_gib'], 2) for r in ranks]}"
@@ -6449,7 +6511,7 @@ def dist_train_phase(torch, card: str, layers: int = DIST_TRAIN["layers"]):
     f, r0 = DIST_MOE, moe_ranks[0]
     s, d = r0["single"], r0["sharded"]
     c = d["comm"][-1]
-    x = r0["expert_dup"]
+    x = r0["expert_share"]
     print(f"[dist] (f) {f['arch']} {r0['layers']} layer at full width "
           f"({r0['params'] / 1e9:.3f} B parameters), dtype bfloat16, "
           f"moe_groups 0 (the gathered route), {f['opt']}, batch "
@@ -6467,14 +6529,15 @@ def dist_train_phase(torch, card: str, layers: int = DIST_TRAIN["layers"]):
           f"({s['tokens_routed']} gathered tokens); step "
           f"{[round(v, 3) for v in d['step_s']]} s on {f['world']} ranks, "
           f"{[round(v, 3) for v in s['step_s']]} s on one; the last step's "
-          f"gathers {c['gather_bytes'] / 1e9:.3f} GB in {c['gather_s']:.3f} "
-          f"s, reduces {c['reduce_bytes'] / 1e9:.3f} GB in "
-          f"{c['reduce_s']:.3f} s; peak device memory a rank "
+          f"{comm_split(c)}; peak device memory a rank "
           f"{[round(r['sharded']['peak_gib'], 2) for r in moe_ranks]} GiB; "
-          f"C22, one MoE layer's routed experts forward and backward over "
-          f"the {x['gathered_tokens']} gathered tokens {x['gathered_ms']:.2f}"
-          f" ms against {x['own_ms']:.2f} ms over a rank's "
-          f"{x['own_tokens']}; (f) {wall - wall_4:.1f} s, phase "
+          f"C22 closed: one MoE layer's "
+          f"routed experts forward and backward over the {x['tokens']} "
+          f"gathered tokens, a rank's share ({x['share_experts']} of "
+          f"{x['experts']} experts, {x['share_slots']} slots) "
+          f"{x['share_ms']:.2f} ms against all {x['experts']} experts' "
+          f"{x['all_ms']:.2f} ms (what every rank ran before the split: "
+          f"{GATHERED_EXPERTS_MS} ms then); (f) {wall - wall_4:.1f} s, phase "
           f"{wall:.1f} s; {card}")
     return dict(ranks=ranks, moe_ranks=moe_ranks, wall_s=wall, card=card)
 

@@ -110,14 +110,25 @@ def _mha(x: torch.Tensor, kv_src: torch.Tensor, p: Params, cfg: ModelConfig,
          path: Optional[str] = None, train: bool = False) -> torch.Tensor:
     """Attention of ``x``'s queries over ``kv_src``'s keys and values
     (``encdec.py:66-85``), through the flash kernel, or with ``train``
-    through ``chunked_attention`` in differentiable torch ops."""
+    through ``chunked_attention`` in differentiable torch ops.  In the
+    train step on a rank mesh, where "model" splits the heads
+    (``layers.head_split``), the rank attends with its heads and ``o`` is
+    gathered over "model" before ``wo``."""
     sub = L._subpath
-    q = _heads(L.linear(x, p["wq"], engine=engine, path=sub(path, "wq")),
-               cfg.n_heads, cfg.hd)
-    k = _heads(L.linear(kv_src, p["wk"], engine=engine, path=sub(path, "wk")),
-               cfg.n_kv_heads, cfg.hd)
-    v = _heads(L.linear(kv_src, p["wv"], engine=engine, path=sub(path, "wv")),
-               cfg.n_kv_heads, cfg.hd)
+    axis = L.head_split(p, cfg.n_heads, cfg.n_kv_heads)
+    if axis is None:
+        n_q, n_kv = cfg.n_heads, cfg.n_kv_heads
+        q = L.linear(x, p["wq"], engine=engine, path=sub(path, "wq"))
+        k = L.linear(kv_src, p["wk"], engine=engine, path=sub(path, "wk"))
+        v = L.linear(kv_src, p["wv"], engine=engine, path=sub(path, "wv"))
+    else:
+        n_q, n_kv = cfg.n_heads // axis.size, cfg.n_kv_heads // axis.size
+        xc = axis.copy(x)
+        kc = xc if kv_src is x else axis.copy(kv_src)
+        q = L.column(xc, p["wq"])
+        k, v = L.column(kc, p["wk"]), L.column(kc, p["wv"])
+    q, k, v = _heads(q, n_q, cfg.hd), _heads(k, n_kv, cfg.hd), _heads(
+        v, n_kv, cfg.hd)
     q_offset = k.shape[2] - q.shape[2] if causal else 0
     if train:
         o = attn_lib.chunked_attention(q, k, v, causal=causal,
@@ -125,8 +136,11 @@ def _mha(x: torch.Tensor, kv_src: torch.Tensor, p: Params, cfg: ModelConfig,
                                        block=cfg.attn_block)
     else:
         o = kops.attention(q, k, v, causal=causal, q_offset=q_offset)
-    return L.linear(_merge(o, cfg), p["wo"], engine=engine,
-                    path=sub(path, "wo"))
+    b, _, s, _ = o.shape
+    o = o.transpose(1, 2).reshape(b, s, n_q * cfg.hd)
+    if axis is not None:
+        o = axis.gather(o, -1)
+    return L.linear(o, p["wo"], engine=engine, path=sub(path, "wo"))
 
 
 def enc_layer_apply(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
@@ -208,7 +222,8 @@ def seq2seq_loss(params: Params, batch: Dict[str, torch.Tensor],
     ``transformer.token_nll``."""
     enc_out = encode(params, batch["frames"], cfg, engine=engine, train=True)
     return tfm.token_nll(decode(params, batch["tokens"], enc_out, cfg,
-                                engine=engine, train=True), batch, denom)
+                                engine=engine, train=True), batch, denom,
+                         vocab=L.vocab_split(params["embed"]))
 
 
 # -- serving: decoder KV cache + precomputed cross-attention KV -------------

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from repro_torch.core import placement, scenarios
 from repro_torch.core.weight_store import PackedParam
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel.distributed import ModelAxis, ModelBlock
 
 
 def _subpath(prefix: Optional[str], leaf: str) -> str:
@@ -37,7 +38,22 @@ def linear(x: torch.Tensor, w, *, engine: Optional[Any] = None,
     over): W dense (E, N, K) or packed (E, N, Kp) with scale (E, N), x
     (E, C, K) -> (E, C, N), expert e's rows times expert e's weight, with
     the same dispatch; packed l1mram weights take the grouped kernel.
+
+    A :class:`ModelBlock` W (the train step on a rank mesh): the rank's
+    columns of a weight split over its out-features, gathered over
+    "model" (forward an all-gather, backward the rank's slice), from x
+    entered through ``axis.copy``; a whole one, x @ W^T.
     """
+    if isinstance(w, ModelBlock):
+        if not w.split:
+            w.axis.count_linear(x, w)
+            out = torch.matmul(x, w.w.transpose(-1, -2))
+        elif w.dim == 0 and w.w.ndim == 2:
+            out = w.axis.gather(column(w.axis.copy(x), w), -1)
+        else:
+            raise ValueError(f"a linear of a weight split along dim {w.dim}"
+                             f" of {w.w.ndim}")
+        return out if bias is None else out + bias
     if isinstance(w, dict) and "packed" in w:
         scenario, _mode, bits = placement.linear_dispatch(engine, path)
         k_orig = x.shape[-1]
@@ -60,6 +76,40 @@ def linear(x: torch.Tensor, w, *, engine: Optional[Any] = None,
     if bias is not None:
         out = out + bias
     return out
+
+
+def column(x: torch.Tensor, w: ModelBlock,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ W_blk^T: the rank's output columns of a weight split over
+    "model" along its out-features, ``x`` whole on every model rank (the
+    caller enters it through ``w.axis.copy``).  ``bias`` (whole) is sliced
+    to the columns (``axis.split``)."""
+    w.axis.count_linear(x, w)
+    out = torch.matmul(x, w.w.transpose(-1, -2))
+    return out if bias is None else out + w.axis.split(bias, -1)
+
+
+def _columns(w: Any) -> bool:
+    return isinstance(w, ModelBlock) and w.dim == 0 and w.w.ndim == 2
+
+
+def head_split(p: Dict[str, Any], n_heads: int, n_kv_heads: int
+               ) -> Optional[ModelAxis]:
+    """The model axis over which an attention block splits by heads, or
+    None: wq, wk and wv split over their out-features and both head counts
+    divide by the axis, so that a rank holds n_heads / M query heads and
+    the n_kv_heads / M kv heads of their GQA groups.  Elsewhere q, k and v
+    are gathered (:func:`linear`) and attention runs whole.  On a rank
+    mesh the axis counts which of the two it was."""
+    if not isinstance(p["wq"], ModelBlock):
+        return None
+    axis = p["wq"].axis
+    if (not all(_columns(p[k]) for k in ("wq", "wk", "wv"))
+            or n_heads % axis.size or n_kv_heads % axis.size):
+        axis.stats["attention_whole"] += 1
+        return None
+    axis.stats["attention_split"] += 1
+    return axis
 
 
 def rmsnorm(x: torch.Tensor, scale: Optional[torch.Tensor],
@@ -198,7 +248,23 @@ def mlp(x: torch.Tensor, p: Dict[str, Any], act: str,
         engine: Optional[Any] = None,
         path: Optional[str] = None) -> torch.Tensor:
     """Gated (swiglu/geglu) or plain (gelu) MLP; ``path`` prefixes the
-    weights' placement paths (e.g. "layers/mlp" -> "layers/mlp/w_down")."""
+    weights' placement paths (e.g. "layers/mlp" -> "layers/mlp/w_down").
+
+    Where "model" splits w_up (and w_gate) over F, the rank computes its
+    F / M of the hidden units, gathers them over "model" before w_down,
+    and w_down's output is gathered for the residual (:func:`linear`)."""
+    if _columns(p["w_up"]) and (act == "gelu" or _columns(p["w_gate"])):
+        axis = p["w_up"].axis
+        xc = axis.copy(x)
+        if act in ("swiglu", "geglu"):
+            g = column(xc, p["w_gate"])
+            h = (silu(g) if act == "swiglu" else gelu_tanh(g)) * column(
+                xc, p["w_up"])
+        elif act == "gelu":
+            h = gelu_tanh(column(xc, p["w_up"], bias=p.get("b_up")))
+        else:
+            raise ValueError(f"unknown mlp act {act!r}")
+        return linear(axis.gather(h, -1), p["w_down"], bias=p.get("b_down"))
     if act in ("swiglu", "geglu"):
         g = linear(x, p["w_gate"], engine=engine,
                    path=_subpath(path, "w_gate"))
@@ -213,10 +279,37 @@ def mlp(x: torch.Tensor, p: Dict[str, Any], act: str,
                   path=_subpath(path, "w_down"), bias=p.get("b_down"))
 
 
-def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+def embed(tokens: torch.Tensor, table: Any) -> torch.Tensor:
+    """table[tokens].  A table split over "model" by vocab rows: each rank
+    looks up the tokens its rows hold, zeros for the rest, and the rows
+    are summed over "model"."""
+    if not isinstance(table, ModelBlock):
+        return table[tokens]
+    if not table.split:
+        return table.w[tokens]
+    local = tokens - table.start
+    ours = (local >= 0) & (local < table.w.shape[0])
+    rows = table.w[torch.where(ours, local, torch.zeros_like(local))]
+    return table.axis.sum(rows.masked_fill(~ours[..., None], 0))
 
 
-def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """logits = x @ table^T (tied or dedicated head)."""
+def unembed(x: torch.Tensor, table: Any) -> torch.Tensor:
+    """logits = x @ table^T (tied or dedicated head).  A table split over
+    "model" by vocab rows gives the rank's (tokens, V / M) logits, from x
+    entered through ``axis.copy``; :func:`vocab_split` names the split for
+    ``transformer.token_nll``."""
+    if isinstance(table, ModelBlock):
+        if not table.split:
+            table = table.w
+        else:
+            axis = table.axis
+            logits = torch.matmul(axis.copy(x), table.w.T.to(x.dtype))
+            axis.logits = tuple(logits.shape)
+            return logits
     return torch.matmul(x, table.T.to(x.dtype))
+
+
+def vocab_split(table: Any) -> Optional[ModelBlock]:
+    """The head's table where :func:`unembed` gives the rank's vocab
+    block of the logits, else None."""
+    return table if isinstance(table, ModelBlock) and table.split else None

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.placement import dp_axes_of
 from repro_torch.models import layers
+from repro_torch.parallel.distributed import ModelBlock, share
 
 Aux = Dict[str, torch.Tensor]
 
@@ -96,16 +97,28 @@ def dispatch(x: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor,
     return buf, aux
 
 
-def combine(expert_out: torch.Tensor, aux: Aux, t: int) -> torch.Tensor:
+def combine(expert_out: torch.Tensor, aux: Aux, t: int,
+            first: Optional[int] = None) -> torch.Tensor:
     """expert_out (E, cap, Dout) -> (T, Dout): each token's kept expert rows
-    times their gates, added in the reference's sorted order."""
+    times their gates, added in the reference's sorted order.
+
+    ``first``: ``expert_out`` holds only experts [first, first + E) of the
+    dispatch (a rank's share in the train step on a rank mesh); the
+    assignments to the other experts add zeros, and the ranks' outputs sum
+    to the whole combine."""
     e, cap, dout = expert_out.shape
     n = aux["e_sorted"].shape[0]
     k = n // t
+    keep, e_sorted, slot = aux["keep"], aux["e_sorted"], aux["slot"]
+    if first is not None:
+        e_sorted = e_sorted - first
+        keep = keep & (e_sorted >= 0) & (e_sorted < e)
+        e_sorted = torch.where(keep, e_sorted, torch.zeros_like(e_sorted))
+        slot = torch.where(keep, slot, torch.full_like(slot, cap))
     padded = torch.cat([expert_out, expert_out.new_zeros((e, 1, dout))],
                        dim=1)
-    y_sorted = padded[aux["e_sorted"], aux["slot"]]           # (T*k, Dout)
-    w = torch.where(aux["keep"], aux["g_sorted"],
+    y_sorted = padded[e_sorted, slot]                          # (T*k, Dout)
+    w = torch.where(keep, aux["g_sorted"],
                     torch.zeros_like(aux["g_sorted"]))[:, None]
     y_sorted = y_sorted * w.to(y_sorted.dtype)
     # each token's k positions in the sort, ascending: the order in which
@@ -177,6 +190,65 @@ def _routed(xf: torch.Tensor, p: Dict[str, Any], n_experts: int, k: int,
     return combine(expert_ffn(buf, p, act=act, engine=engine), aux, t)
 
 
+def _routed_blocks(xf: torch.Tensor, p: Dict[str, Any], n_experts: int,
+                   k: int, capacity_factor: float, act: str, groups: int,
+                   engine: Optional[Any], rows: Optional[Any]
+                   ) -> torch.Tensor:
+    """The routed experts' output for the tokens ``xf`` in the train step
+    on a rank mesh, where the experts' weights are the rank's
+    ``ModelBlock`` s: expert-parallel (``dim`` 0, the rank's E / M
+    experts) or TP-in-expert (w_gate / w_up split over F, w_down's rows
+    over F: each expert's output a partial sum).
+
+    Routing, capacity and drops run on the whole router, as on one device.
+    On the gathered route (``rows``, a ``DPRows``) the dp ranks of a model
+    row split its experts again, each a contiguous share (1 / (dp * M) of
+    the experts where that divides E).  The rank runs only its experts'
+    slots and combines their rows; the partials sum over "model" (and over
+    the dp groups on the gathered route, whose rows the rank then keeps).
+    Experts that "model" does not split (neither E nor F divides) are
+    shared out over the model ranks the same way.  The tokens and the
+    gates enter the split through ``axis.copy``: each rank's experts give
+    a partial gradient of them."""
+    wg = p["w_gate"]
+    axis = wg.axis
+    x_all = xf if rows is None else rows.gather(xf)
+    t, d = x_all.shape
+    held = wg.w.shape[0]                    # the experts of the rank's block
+    first = wg.start if wg.dim == 0 else 0
+    parts, part = (1, 0) if rows is None else (rows.count, rows.index)
+    if not wg.split:            # every model rank holds every expert whole
+        parts, part = parts * axis.size, part * axis.size + axis.index
+    lo, hi = share(held, parts, part)
+    n_groups = groups if groups > 1 and t % groups == 0 else 1
+    tg = t // n_groups
+    cap = capacity(tg, n_experts, k, capacity_factor)
+    xg = x_all.reshape(n_groups, tg, d)
+    routes = [route(g, p["router"], k) for g in xg]
+    gates = axis.copy(torch.stack([g for g, _ in routes]))
+    xc = axis.copy(xg)
+    routed = [dispatch(xc[i], gates[i], idx, n_experts, cap)
+              for i, (_, idx) in enumerate(routes)]
+    buf = torch.stack([b for b, _ in routed])[:, first + lo:first + hi]
+    w_gate, w_up, w_down = (p[n].w[lo:hi] for n in ("w_gate", "w_up",
+                                                    "w_down"))
+    g_ = torch.matmul(buf, w_gate.transpose(-1, -2))
+    u_ = torch.matmul(buf, w_up.transpose(-1, -2))
+    h_ = (layers.silu(g_) if act == "swiglu" else layers.gelu_tanh(g_)) * u_
+    outs = torch.matmul(h_, w_down.transpose(-1, -2))      # (G, share, C, D)
+    f_held = w_gate.shape[1]
+    f_all = f_held * (axis.size if wg.dim == 1 else 1)
+    axis.count_experts(
+        n_groups * (hi - lo) * cap,
+        n_groups * n_experts * cap * (axis.rows_scale if rows is None else 1),
+        3 * d * f_held, 3 * d * f_all)
+    y = axis.sum(torch.cat([combine(eo, aux, tg, first=first + lo)
+                            for eo, (_, aux) in zip(outs, routed)]))
+    if rows is None:
+        return y
+    return rows.own(rows.sum(y, axis), xf.shape[0])
+
+
 def moe_apply(x: torch.Tensor, p: Dict[str, Any], *, n_experts: int, k: int,
               capacity_factor: float = 1.25, act: str = "swiglu",
               groups: int = 1, engine: Optional[Any] = None) -> torch.Tensor:
@@ -198,19 +270,22 @@ def moe_apply(x: torch.Tensor, p: Dict[str, Any], *, n_experts: int, k: int,
     otherwise it sets ``engine["dp_rows"]`` (``parallel/distributed.
     DPRows``), and the routed experts run over the whole batch's tokens,
     gathered in the batch's row order, so that capacity and drops are the
-    single device's, and the rank keeps its own rows (every rank runs all
-    the tokens' expert slots: ROADMAP C22).  The shared expert and the
-    dense residual run on the rank's own rows."""
+    single device's, and the rank keeps its own rows.  The experts' weights
+    are then the rank's ``ModelBlock`` s, and :func:`_routed_blocks` runs
+    only the rank's share of the expert slots: its experts over "model",
+    split again over the dp ranks on the gathered route (ROADMAP C22,
+    closed).  The shared expert and the dense residual run on the rank's
+    own rows, split over "model" by ``layers.mlp``."""
     lead = x.shape[:-1]
     d = x.shape[-1]
     xf = x.reshape(-1, d)
-    rows = engine.get("dp_rows") if isinstance(engine, Mapping) else None
     kw = dict(n_experts=n_experts, k=k, capacity_factor=capacity_factor,
               act=act, groups=groups, engine=engine)
-    if rows is None:
-        y = _routed(xf, p, **kw)
+    if isinstance(p["w_gate"], ModelBlock):
+        rows = engine.get("dp_rows") if isinstance(engine, Mapping) else None
+        y = _routed_blocks(xf, p, rows=rows, **kw)
     else:
-        y = rows.own(_routed(rows.gather(xf), p, **kw), xf.shape[0])
+        y = _routed(xf, p, **kw)
     y = y.to(x.dtype)
 
     if "shared" in p:

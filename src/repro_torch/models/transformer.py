@@ -282,22 +282,41 @@ def _attn_apply(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
                 attend: Optional[Callable] = None) -> torch.Tensor:
     """``attend`` replaces the flash kernel where no cache is given (the
     training path's ``chunked_attention``).  Every branch computes in
-    ``cfg.attn_dtype``, as the reference's ``_attn_apply`` does."""
+    ``cfg.attn_dtype``, as the reference's ``_attn_apply`` does.
+
+    In the train step on a rank mesh, where "model" splits the heads
+    (``layers.head_split``), q, k and v stay the rank's heads through the
+    qk-norm, RoPE and attention, and ``o`` is gathered over "model" before
+    ``wo``."""
     b, s, _ = x.shape
     adt = compute_dtypes(cfg)[0]
     hd = cfg.hd
-    q = L.linear(x, p["wq"], engine=engine, path="layers/attn/wq",
-                 bias=p.get("bq"))
-    k = L.linear(x, p["wk"], engine=engine, path="layers/attn/wk",
-                 bias=p.get("bk"))
-    v = L.linear(x, p["wv"], engine=engine, path="layers/attn/wv",
-                 bias=p.get("bv"))
-    q = q.reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-    if cfg.qk_norm:
-        q = L.rmsnorm(q, p["q_norm"])
-        k = L.rmsnorm(k, p["k_norm"])
+    axis = (L.head_split(p, cfg.n_heads, cfg.n_kv_heads) if cache is None
+            else None)
+    n_q, n_kv = cfg.n_heads, cfg.n_kv_heads
+    if axis is None:
+        q = L.linear(x, p["wq"], engine=engine, path="layers/attn/wq",
+                     bias=p.get("bq"))
+        k = L.linear(x, p["wk"], engine=engine, path="layers/attn/wk",
+                     bias=p.get("bk"))
+        v = L.linear(x, p["wv"], engine=engine, path="layers/attn/wv",
+                     bias=p.get("bv"))
+        norms = (p["q_norm"], p["k_norm"]) if cfg.qk_norm else None
+    else:
+        n_q, n_kv = n_q // axis.size, n_kv // axis.size
+        xc = axis.copy(x)
+        q, k, v = (L.column(xc, p[w], bias=p.get(bias)) for w, bias in
+                   (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
+        # the norms' scales act on the rank's heads only: their gradient
+        # is summed over "model"
+        norms = (axis.copy(torch.stack([p["q_norm"], p["k_norm"]]))
+                 if cfg.qk_norm else None)
+    q = q.reshape(b, s, n_q, hd).transpose(1, 2)
+    k = k.reshape(b, s, n_kv, hd).transpose(1, 2)
+    v = v.reshape(b, s, n_kv, hd).transpose(1, 2)
+    if norms is not None:
+        q = L.rmsnorm(q, norms[0])
+        k = L.rmsnorm(k, norms[1])
     ar = torch.arange(s, device=x.device)
     start = 0 if cache_pos is None else cache_pos
     if isinstance(start, torch.Tensor) and start.ndim == 1:   # per-batch
@@ -323,7 +342,9 @@ def _attn_apply(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
     else:
         o = (attend or kops.attention)(q, k, v, causal=True, window=window,
                                        q_offset=start, compute_dtype=adt)
-    o = o.transpose(1, 2).reshape(b, s, cfg.q_dim)
+    o = o.transpose(1, 2).reshape(b, s, n_q * hd)
+    if axis is not None:
+        o = axis.gather(o, -1)
     return L.linear(o, p["wo"], engine=engine, path="layers/attn/wo")
 
 
@@ -503,24 +524,55 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
     :func:`token_nll`."""
     logits = forward(params, batch["tokens"], cfg, engine=engine, train=True,
                      extra_embeds=batch.get("patches"))
-    return token_nll(logits[:, -batch["labels"].shape[1]:], batch, denom)
+    return token_nll(logits[:, -batch["labels"].shape[1]:], batch, denom,
+                     vocab=L.vocab_split(params.get("lm_head",
+                                                    params["embed"])))
 
 
 def token_nll(logits: torch.Tensor, batch: Dict[str, torch.Tensor],
-              denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+              denom: Optional[torch.Tensor] = None,
+              vocab: Optional[Any] = None) -> torch.Tensor:
     """Mean negative log-likelihood of ``batch["labels"]`` (B, S) under
     ``logits`` (B, S, V), over ``batch["loss_mask"]`` where there is one.
     ``denom`` replaces the count of those tokens: a rank of the sharded
     train step divides its rows' sum by the whole batch's count, so that
     the ranks' losses add up to the batch's mean
-    (``launch/dist_steps.make_distributed_train_step``)."""
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    ll = torch.gather(logp, -1, batch["labels"][..., None].long())[..., 0]
+    (``launch/dist_steps.make_distributed_train_step``).
+
+    ``vocab`` (``layers.vocab_split``): ``logits`` are the rank's vocab
+    block (B, S, V / M) of the head split over "model"; the log-softmax
+    is vocab-parallel (the max and the sum of exponentials reduced over
+    "model", the label's logit from the rank that holds it), and no rank
+    forms whole logits."""
+    labels = batch["labels"].long()
+    if vocab is None:
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    else:
+        ll = _vocab_ll(logits.to(torch.float32), labels, vocab)
     mask = batch.get("loss_mask")
     mask = torch.ones_like(ll) if mask is None else mask.to(ll.dtype)
     if denom is None:
         denom = torch.clamp(torch.sum(mask), min=1.0)
     return -torch.sum(ll * mask) / denom
+
+
+def _vocab_ll(logits: torch.Tensor, labels: torch.Tensor,
+              vocab: Any) -> torch.Tensor:
+    """log softmax(logits)[labels] from each model rank's vocab block of
+    the f32 logits: the row max over "model" (no gradient; it cancels),
+    then the sum of exp(logit - max) and the label's logit (zero on the
+    ranks that do not hold it) summed over "model" in one all-reduce."""
+    axis, n = vocab.axis, logits.shape[-1]
+    top = axis.max(torch.amax(logits.detach(), dim=-1, keepdim=True))
+    local = labels - vocab.start
+    ours = (local >= 0) & (local < n)
+    picked = torch.gather(logits, -1, torch.where(
+        ours, local, torch.zeros_like(local))[..., None])[..., 0]
+    both = axis.sum(torch.stack([
+        torch.sum(torch.exp(logits - top), dim=-1),
+        torch.where(ours, picked, torch.zeros_like(picked))], dim=-1))
+    return both[..., 1] - (top[..., 0] + torch.log(both[..., 0]))
 
 
 # ---------------------------------------------------------------------------

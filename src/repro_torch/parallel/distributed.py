@@ -16,15 +16,25 @@ it.  The port's counterpart of a device is a rank, one process of a
 * :func:`placements`, :func:`shard_tree`, :func:`gather_tree` and
   :func:`local_rows` are ``device_put``, its inverse and the batch's
   ``batch_pspec`` rows; :func:`gather_blocks` is the one all-gather of
-  many leaves' blocks (a tree's, or one layer's in the train step), and
-  :class:`DPRows` a rank's rows of the batch gathered and scattered back
-  (the MoE layer's routed tokens).  A placed leaf is a DTensor that holds
-  this rank's block only.  DTensors are storage and placement here, never
-  compute:
-  plain model code run on DTensors fails inside DTensor's sharding
-  propagation (an embedding placed as ``P("model", "data")`` under a
-  batch-sharded token DTensor), so the train step on these trees
-  (``launch/dist_steps.py``) computes on plain tensors.
+  many leaves' blocks over the world, :func:`gather_over` its
+  counterpart over some mesh dims only (a layer's blocks over the dp
+  axes in the train step), and :class:`DPRows` a rank's rows of the
+  batch gathered and scattered back (the MoE layer's routed tokens).  A
+  placed leaf is a DTensor that holds this rank's block only.  DTensors
+  are storage and placement here, never compute: plain model code run on
+  DTensors fails inside DTensor's sharding propagation (an embedding
+  placed as ``P("model", "data")`` under a batch-sharded token DTensor),
+  so the train step on these trees (``launch/dist_steps.py``) computes
+  on plain tensors.
+* :class:`ModelAxis` and :class:`ModelBlock` split the train step's
+  compute over "model", as the reference's GSPMD does: a layer weight
+  that "model" shards reaches the model code as the rank's block
+  (``models/layers.linear`` dispatches on it), and the activations cross
+  the axis through Megatron's operators, each an autograd Function:
+  ``gather`` (forward an all-gather, backward the rank's slice),
+  ``copy`` (forward the identity, backward an all-reduce), ``sum``
+  (forward an all-reduce, backward the identity) and ``split`` (forward
+  the rank's slice, backward an all-gather).
 
 Ranks on several cards under NCCL are ROADMAP A11 (b) item 6.
 """
@@ -360,6 +370,34 @@ def gather_blocks(local: Sequence[torch.Tensor], shapes: Sequence[Any],
     return wholes
 
 
+def gather_over(local: Sequence[torch.Tensor],
+                places: Sequence[Sequence[Any]], dmesh, dims: Sequence[int]
+                ) -> Tuple[List[torch.Tensor], int]:
+    """This rank's blocks ``local`` (under ``places``) gathered over the
+    mesh dims ``dims`` only, the blocks of the other mesh dims kept: one
+    all-gather a dim, of every block that dim shards laid end to end as
+    bytes, the innermost dim first (:func:`whole_of`'s order).  A block no
+    dim of ``dims`` shards comes back as it is.  Returns the blocks and the
+    bytes this rank received."""
+    out = list(local)
+    received = 0
+    for i in sorted(dims, reverse=True):
+        idx = [j for j, p in enumerate(places) if isinstance(p[i], Shard)]
+        if not idx or dmesh.size(i) == 1:
+            continue
+        raw = [out[j].contiguous().reshape(-1).view(torch.uint8) for j in idx]
+        parts = all_gather(torch.cat(raw), dmesh.get_group(i))
+        off = 0
+        for j, b in zip(idx, raw):
+            x = out[j]
+            out[j] = torch.cat([part[off:off + b.numel()].view(x.dtype)
+                                .view(x.shape) for part in parts],
+                               dim=places[j][i].dim)
+            off += b.numel()
+        received += (dmesh.size(i) - 1) * sum(b.numel() for b in raw)
+    return out, received
+
+
 def _gather_many(leaves: List[DTensor]) -> List[torch.Tensor]:
     """The whole values of DTensors of one mesh through ONE all-gather of
     every rank's blocks (:func:`gather_blocks`)."""
@@ -457,19 +495,49 @@ class _RowGather(torch.autograd.Function):
         return g[i * n:(i + 1) * n], None
 
 
+class _RowSum(torch.autograd.Function):
+    """Forward: the partials of the gathered rows summed over the dp
+    groups.  Backward: the gradient summed over them too: each dp rank
+    keeps only its own rows of the sum, so each holds the gradient of its
+    own rows, and every partial feeds all of them."""
+
+    @staticmethod
+    def forward(ctx, x, rows, axis):
+        ctx.rows, ctx.axis = rows, axis
+        return rows._sum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.rows._sum(g, ctx.axis), None, None
+
+
 @dataclasses.dataclass(frozen=True)
 class DPRows:
     """A rank's place among the row blocks of the dp axes: ``groups`` the
     process groups of the dp axes that split the rows ("pod" before
-    "data"), ``index`` this rank's block (``_row_block``).  The MoE layer's
-    gathered route (``models/moe.moe_apply`` with ``engine["dp_rows"]``)
-    routes the whole batch's tokens through :meth:`gather` and keeps its
-    own rows through :meth:`own`."""
+    "data"), ``index`` this rank's block (``_row_block``) of ``count``.
+    The MoE layer's gathered route (``models/moe.moe_apply`` with
+    ``engine["dp_rows"]``) routes the whole batch's tokens through
+    :meth:`gather`, sums the ranks' partial outputs through :meth:`sum`
+    (each rank runs its share of the experts) and keeps its own rows
+    through :meth:`own`."""
     groups: Tuple[Any, ...]
     index: int
 
+    @property
+    def count(self) -> int:
+        return math.prod(dist.get_world_size(g) for g in self.groups)
+
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         return _RowGather.apply(x, self)
+
+    def sum(self, x: torch.Tensor, axis: "ModelAxis") -> torch.Tensor:
+        return _RowSum.apply(x, self, axis)
+
+    def _sum(self, x: torch.Tensor, axis: "ModelAxis") -> torch.Tensor:
+        for g in self.groups:
+            x = axis.all_reduce(x, g)
+        return x
 
     def own(self, y: torch.Tensor, n: int) -> torch.Tensor:
         return y[self.index * n:(self.index + 1) * n]
@@ -484,3 +552,197 @@ def dp_rows(batch: int, mesh: Any) -> Optional[DPRows]:
     axes = shd.batch_pspec(batch, mesh)[0]
     return DPRows(tuple(mesh.group(a) for a in axes if mesh.shape[a] > 1),
                   block[0])
+
+
+# ---------------------------------------------------------------------------
+# the "model" axis of the train step: the rank's block of each layer matmul
+# ---------------------------------------------------------------------------
+
+def sync(dev: torch.device) -> None:
+    """Wait for ``dev``'s queued work (a no-op off the card): the host clock
+    around a collective then times the collective."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class ModelAxis:
+    """This rank's place on the "model" axis of one train step, and the
+    activation collectives over it with their cost.
+
+    ``group`` is the process group of the rank's "model" row (None where
+    the mesh has no "model" axis), ``size`` its ranks, ``index`` this
+    rank's place in it.  ``rows_scale`` is how many times the rank's rows
+    one device's batch holds (the dp size where the rows split, else 1).
+
+    ``stats`` counts, for ``metrics["comm"]``: ``act_calls`` /
+    ``act_bytes`` / ``act_s``, the activation collectives (an all-reduce
+    counts its buffer's bytes, an all-gather the bytes the rank receives;
+    host seconds, the card synchronised around each); ``linears_block`` /
+    ``linears_whole``, the layer linears computed on a block of their
+    weight and on a whole one; ``layer_macs``, the rank's multiply-adds in
+    them and in the routed experts, from the shapes, and
+    ``layer_macs_one_device``, one device's for the same calls over the
+    whole batch; ``expert_slots`` / ``expert_slots_one_device``, the
+    routed experts' (expert, capacity row) slots likewise;
+    ``attention_split`` / ``attention_whole``, the attention blocks run on
+    the rank's heads and whole (``layers.head_split``).  ``logits`` is
+    the shape of the last vocab-split logits (the rank's (tokens, V / M))."""
+
+    def __init__(self, group: Any, dev: torch.device, rows_scale: int = 1):
+        self.group = group
+        self.size = dist.get_world_size(group) if group is not None else 1
+        self.index = dist.get_rank(group) if group is not None else 0
+        self.dev = dev
+        self.rows_scale = rows_scale
+        self.stats: collections.Counter = collections.Counter(dict.fromkeys(
+            ("act_calls", "act_bytes", "act_s", "linears_block",
+             "linears_whole", "layer_macs", "layer_macs_one_device",
+             "expert_slots", "expert_slots_one_device", "attention_split",
+             "attention_whole"), 0))
+        self.logits: Optional[Tuple[int, ...]] = None
+
+    def _timed(self, nbytes: int, fn: Callable) -> Any:
+        sync(self.dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(self.dev)
+        self.stats["act_s"] += time.perf_counter() - t0
+        self.stats["act_bytes"] += nbytes
+        self.stats["act_calls"] += 1
+        return out
+
+    def all_reduce(self, x: torch.Tensor, group: Any = None, op=None
+                   ) -> torch.Tensor:
+        """A new tensor: ``x`` reduced over ``group`` (default the model
+        group), in f32 where ``x`` is narrower, then in ``x``'s dtype."""
+        group = self.group if group is None else group
+        if group is None or dist.get_world_size(group) == 1:
+            return x
+        buf = x.to(torch.float32) if x.element_size() < 4 else x.clone()
+        buf = buf.contiguous()
+        self._timed(buf.numel() * buf.element_size(), lambda: all_reduce(
+            buf, op=op or dist.ReduceOp.SUM, group=group))
+        return buf.to(x.dtype)
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every model rank's ``x`` laid end to end along ``dim``."""
+        parts = self._timed((self.size - 1) * x.numel() * x.element_size(),
+                            lambda: all_gather(x, self.group))
+        return torch.cat(parts, dim=dim)
+
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """Megatron's g after a column split: forward, every model rank's
+        ``x`` laid end to end along ``dim``; backward, this rank's slice."""
+        return x if self.size == 1 else _ModelGather.apply(x, self, dim)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's f before a split region: forward, ``x`` as it is;
+        backward, the gradient summed over "model" (each rank's share of
+        the region gives a partial gradient of ``x``)."""
+        return x if self.size == 1 else _ModelCopy.apply(x, self)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The partials of a row split (or a share of the experts) added
+        over "model"; backward, the gradient as it is."""
+        return x if self.size == 1 else _ModelSum.apply(x, self)
+
+    def split(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's slice of ``x`` (whole on every model rank) along
+        ``dim``: a bias of a column-split weight.  Backward, every rank's
+        slice of the gradient laid end to end."""
+        return x if self.size == 1 else _ModelSplit.apply(x, self, dim)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``'s elementwise maximum over "model", no gradient."""
+        return self.all_reduce(x.detach(), op=dist.ReduceOp.MAX)
+
+    def count_linear(self, x: torch.Tensor, w: "ModelBlock") -> None:
+        k = x.shape[-1]
+        macs = x.numel() // k * w.w.shape[-2] * k
+        self.stats["linears_block" if w.split else "linears_whole"] += 1
+        self.stats["layer_macs"] += macs
+        self.stats["layer_macs_one_device"] += (
+            macs * self.rows_scale * (self.size if w.split else 1))
+
+    def count_experts(self, slots: int, slots_one: int, macs_a_slot: int,
+                      macs_a_slot_one: int) -> None:
+        self.stats["expert_slots"] += slots
+        self.stats["expert_slots_one_device"] += slots_one
+        self.stats["layer_macs"] += slots * macs_a_slot
+        self.stats["layer_macs_one_device"] += slots_one * macs_a_slot_one
+
+
+class _ModelGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.n = axis, dim, x.shape[dim]
+        return axis.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.axis.index * ctx.n, ctx.n)
+                .contiguous(), None, None)
+
+
+class _ModelCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_reduce(g), None
+
+
+class _ModelSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ModelSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        n = x.shape[dim] // axis.size
+        ctx.axis, ctx.dim = axis, dim
+        return x.narrow(dim, axis.index * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_gather(g.contiguous(), ctx.dim), None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelBlock:
+    """A layer weight of the train step on a rank mesh: ``w`` this rank's
+    block of it, split over "model" along ``dim`` (None: the whole weight,
+    which "model" does not split), and ``axis`` the rank's
+    :class:`ModelAxis`.  ``models/layers.linear`` dispatches on it; the
+    attention, the MLP, the MoE experts, the embedding and the head
+    compute on the block where it is split."""
+    w: torch.Tensor
+    dim: Optional[int]
+    axis: ModelAxis
+
+    @property
+    def split(self) -> bool:
+        return self.dim is not None
+
+    @property
+    def start(self) -> int:
+        """The index along ``dim`` of the block's first row in the whole
+        weight."""
+        return self.axis.index * self.w.shape[self.dim]
+
+
+def share(n: int, parts: int, index: int) -> Tuple[int, int]:
+    """[lo, hi): part ``index`` of ``n`` items split into ``parts``
+    contiguous parts, the first ``n % parts`` one longer."""
+    q, r = divmod(n, parts)
+    lo = index * q + min(index, r)
+    return lo, lo + q + (index < r)

@@ -89,7 +89,8 @@ def test_moe_on_a_dp_pair_matches_one_device(runs, name):
 @pytest.mark.parametrize("name", DIST_MOE_22)
 def test_moe_on_2x2_matches_one_device(runs, name):
     """(2, 2): the rows split over "data", the experts' weights sharded
-    over "model" as well; the router's rows gathered over "data" only."""
+    over "model" as well; the router's rows gathered over "data" only,
+    each rank running its 2 of the 8 experts' slots."""
     _check_step(runs["out"][2, 2][name], runs["refs"][name],
                 runs["params0"][name])
 

@@ -206,9 +206,11 @@ def test_layer_at_a_time_step_matches_one_device(runs, shape, remat,
 
 def test_layer_leaves_alive_at_once(runs):
     """Counted through the gather, on every rank: with remat at most two
-    layers' whole leaves are alive at once, each layer gathered twice a
-    step (the forward, then again in the backward); without it autograd
-    keeps every gathered layer for its backward, which the count shows."""
+    layers' gathered leaves (on (2, 2) the rank's "model" blocks of the
+    matmul weights, gathered over "data"; on (4, 1) whole leaves) are
+    alive at once, each layer gathered twice a step (the forward, then
+    again in the backward); without it autograd keeps every gathered
+    layer for its backward, which the count shows."""
     for r in runs["out"]:
         for shape in LAYER_MESHES:
             on, off = r["layered"][shape, True], r["layered"][shape, False]

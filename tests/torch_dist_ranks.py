@@ -1,5 +1,6 @@
 """Rank bodies of the port's multi-rank tests
-(``test_torch_dist_train.py``, ``test_torch_dist_parallel.py``).
+(``test_torch_dist_train.py``, ``test_torch_dist_moe.py``,
+``test_torch_dist_tp.py``, ``test_torch_dist_parallel.py``).
 
 ``parallel/distributed.run_ranks`` pickles a rank's function by module
 and name, and each rank imports its module: these import no JAX, so a
@@ -85,6 +86,7 @@ def _sharded_run(cfg, opt, params, batch, mesh, n_steps, starts=False):
     whole = D.gather_tree(sp)
     return dict(losses=losses, grad_norms=gnorms, held=held, want=want,
                 alive=max(m["layers_alive_max"] for m in comms),
+                comm=comms[-1],
                 starts=begun,
                 gathers=[m["layer_gathers"] for m in comms],
                 local=[leaf.to_local().shape for leaf in T.leaves(sp)],
@@ -245,6 +247,61 @@ def _ranks_dist_moe(params_np, shape, names):
                                  _tbatch(_batch()), mesh,
                                  N_STEPS[DIST_MOE[name][3]],
                                  starts=cfg.dtype == "bfloat16")
+    return out
+
+
+# -- test_torch_dist_tp.py ---------------------------------------------------
+
+# name: (arch, mesh, config overrides, optimizer): the compute split over
+# "model".  The dense smoke config splits by heads on (2, 2) and (1, 2)
+# (2 kv heads) and attends whole on (1, 4); the MoE's 8 experts split
+# expert-parallel over "model", 5 split over F (TP-in-expert); moe_groups
+# 2 routes a rank's own group, 0 the gathered batch (C22)
+DIST_TP = {
+    "dense": (ARCH, (2, 2), {}, "adamw"),
+    "dense_remat": (ARCH, (2, 2), dict(remat=True), "adamw"),
+    "dense_adafactor": (ARCH, (2, 2), {}, "adafactor"),
+    "dense_untied": (ARCH, (2, 2), dict(tie_embeddings=False), "adamw"),
+    "dense_1x4": (ARCH, (1, 4), {}, "adamw"),
+    "moe_ep": (MOE_ARCH, (2, 2), dict(moe_groups=2), "adamw"),
+    "moe_tp": (MOE_ARCH, (2, 2), dict(moe_groups=2, n_experts=5), "adamw"),
+    "moe_c22": (MOE_ARCH, (2, 2), dict(moe_groups=0), "adamw"),
+    "moe_tp_c22": (MOE_ARCH, (2, 2), dict(moe_groups=0, n_experts=5),
+                   "adamw"),
+    "ssm": ("falcon-mamba-7b", (2, 2), {}, "adamw"),
+    "hybrid": ("hymba-1.5b", (2, 2), {}, "adamw"),
+    "encdec": ("whisper-tiny", (2, 2), {}, "adamw"),
+    "dense_1x2": (ARCH, (1, 2), {}, "adamw"),
+}
+TP_STEPS = 2
+
+
+def tp_cfg(get, name):
+    arch, _, over, _ = DIST_TP[name]
+    base = _cfg(get) if arch == ARCH else get(arch).smoke()
+    return base.replace(**over)
+
+
+def tp_batch(cfg):
+    """:func:`_batch`, with the encoder-decoder's (4, frames, D) stub
+    frame embeddings from seed 1."""
+    b = _batch()
+    if cfg.family == "encdec":
+        b["frames"] = np.random.default_rng(1).normal(
+            size=(4, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+    return b
+
+
+def _ranks_tp(params_np, names):
+    """Each of ``names``' steps of DIST_TP on its mesh."""
+    out = {}
+    for name in names:
+        _, shape, _, opt = DIST_TP[name]
+        cfg = tp_cfg(tget, name)
+        mesh = tmesh.make_rank_mesh(shape, ("data", "model"), device="cpu")
+        params = interop.params_from_numpy(params_np[name], cfg, device="cpu")
+        out[name] = _sharded_run(cfg, getattr(optim, opt)(), params,
+                                 _tbatch(tp_batch(cfg)), mesh, TP_STEPS)
     return out
 
 
