@@ -22,8 +22,10 @@ sharded over four links of one mesh, through the launcher's ``--mesh 4``
 and ``attach_paging(mesh=)``, the MoE store in bfloat16, and last
 full-width qwen3-0.6b trained on a mesh of four ``torch.distributed``
 ranks of the one card a layer at a time, and the reference's own train
-cell (bf16, Adafactor, ``moe_groups`` 0) of qwen2-moe-a2.7b on two ranks
--- and fails (non-zero exit, no result line) if any phase fails:
+cell (bf16, Adafactor, ``moe_groups`` 0) of qwen2-moe-a2.7b on four ranks,
+and four cells of the dry-run counted as one rank of the production mesh
+and timed on the card -- and fails (non-zero exit, no result line) if any
+phase fails:
 
 1. set-up: requires a CUDA device, turns TF32 off, prints the card's name
    and power limit, builds every ``csrc/*.cu`` with nvcc for sm_90a (one
@@ -305,9 +307,9 @@ cell (bf16, Adafactor, ``moe_groups`` 0) of qwen2-moe-a2.7b on two ranks
    Hopper kernel, as in phase 10), at full width with random weights.
    (a) One ``loss_and_grads`` and one ``make_train_step`` step on the card
    against the CPU from the same weights (drawn on the card, copied to
-   the CPU) and batch, as phase 10 (a): hymba-1.5b 2 layers at 1 x 128
-   (+ 128 meta tokens), falcon-mamba-7b 1 layer at 1 x 128,
-   qwen2-moe-a2.7b 1 layer at 1 x 128 (its top-k indices card vs CPU
+   the CPU) and batch, as phase 10 (a): hymba-1.5b 2 layers at 1 x 64
+   (+ 128 meta tokens), falcon-mamba-7b 1 layer at 1 x 64,
+   qwen2-moe-a2.7b 1 layer at 1 x 64 (its top-k indices card vs CPU
    equal in every ``route`` call first, else the phase fails with the
    count), whisper-tiny whole at 1 x 64 tokens over 1,500 frames (one
    row each: at two the CPU side took 115 s): the loss within 1e-5
@@ -449,11 +451,30 @@ cell (bf16, Adafactor, ``moe_groups`` 0) of qwen2-moe-a2.7b on two ranks
    and seconds), the rank's layer multiply-adds against one device's,
    the most layers alive at once, each rank's peak device memory and the
    single rank's, the staged collectives;
-18. the ``{"serve": ...}``, ``{"train": ...}``, ``{"phase12": ...}``,
+18. the dry-run (``repro_torch.launch.dryrun.main`` with ``--measure``,
+   ROADMAP A12 (d)) of four cells of the single-pod production mesh:
+   qwen3-0.6b ``train_4k`` and ``prefill_32k``, falcon-mamba-7b
+   ``prefill_32k`` and hymba-1.5b ``long_500k``.  Each is counted on
+   ``meta`` as rank 0 of a fake process group of 256 ranks (FLOPs, bytes,
+   collectives, the rank's argument bytes, the roofline on H100 rates),
+   then run on the card at depth 1 and 2 of its config, full width, at the
+   rank's shapes (the train cell as rank 0 of the fake group, whose
+   collectives move nothing; a serve cell on the rank's dp rows with
+   whole 8-bit weights, at the reference's bf16 ``dtype``) and
+   extrapolated to its depth.  The phase fails unless the serve cells
+   launch their kernels (B1 and B2; B1 and the chunked B7; B1 and the step
+   B7), each distinct kernel call holds against its plain version (B2 at
+   the first and last ``DRYRUN_ROWS`` query rows of a call too long for
+   the plain one), each extrapolated step is at or above the count's
+   compute and memory bound, and each extrapolated peak at or above the
+   rank's argument bytes.  Printed with the card line: one line a cell,
+   then ``launch/report.py``'s two tables;
+19. the ``{"serve": ...}``, ``{"train": ...}``, ``{"phase12": ...}``,
    ``{"train_families": ...}``, ``{"phase14": ...}``, ``{"bf16": ...}``,
-   ``{"mesh": ...}``, ``{"dist_train": ...}`` and ``{"kernels": [...]}``
-   lines (a ``[bf16]`` entry for each bf16 route, the grouped B1's
-   among them), the card line, and as
+   ``{"mesh": ...}``, ``{"dist_train": ...}``, ``{"dryrun": ...}`` and
+   ``{"kernels": [...]}`` lines (a ``[bf16]`` entry for each bf16 route,
+   the grouped B1's among them; phase 18's launches under ``dryrun``
+   paths), the card line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -841,10 +862,9 @@ def time_qmatmul(torch, packing, ops, ref, qmm, dev, m: int,
             torch.matmul(x, deq.T)
 
     res = time_versions(torch, kernel, plain, library, copies, 40)
-    nbytes = sum(m * k * elem + p.numel() + s.numel() * 4 + m * n * 4
-                 for (x, p, s, k, _), (_, n) in zip(layers[0],
-                                                    linears.values()))
-    flops = sum(2 * m * n * k for k, n in linears.values())
+    flops, nbytes = (sum(w) for w in zip(*(
+        qmm.qmm_work(1, m, n, k, p.shape[1], elem)
+        for (_, p, _, k, _), (_, n) in zip(layers[0], linears.values()))))
     route_bound(res, nbytes, flops, 2, bf16)
     x_dt = " bf16 x" if bf16 else ""
     res["work"] = f"{what} {list(linears)}, M={m}{x_dt}, {bits}-bit"
@@ -935,26 +955,6 @@ def time_blockscale(torch, packing, ref, qmm, dev, m: int, linears,
     return res
 
 
-def flash_work(case, elem: int = 4):
-    """(bytes, flops) that one call needs with this case's data: q read and
-    the output written once, each kv head's keys that its batch row's
-    queries can see read once (``elem`` bytes an element: 4 f32, 2 bf16),
-    4 D flops a visible (query, key) pair."""
-    b, hq, hkv, sq, sk, d, window, offs, causal = case
-    offs = offs if offs is not None else (sk - sq,) * b
-    nbytes, pairs = 2 * b * hq * sq * d * elem + b * 4, 0
-    for o in offs:
-        lo_all, hi_all = sk, 0
-        for i in range(sq):
-            hi = min(sk, o + i + 1) if causal else sk
-            lo = max(0, o + i - window + 1) if window else 0
-            if hi > lo:
-                pairs += hq * (hi - lo)
-                lo_all, hi_all = min(lo_all, lo), max(hi_all, hi)
-        nbytes += 2 * hkv * max(0, hi_all - lo_all) * d * elem
-    return nbytes, 4 * d * pairs
-
-
 def time_flash(torch, F, ref, fa, dev, which: str = "qwen3",
                copies: int = 4, dtype=None, p_dtype=None):
     """A timed FLASH_CASES row (qwen3-0.6b's prefill chunk: 4 rows x 16/8
@@ -1008,7 +1008,10 @@ def time_flash(torch, F, ref, fa, dev, which: str = "qwen3",
         F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask[:, None])
 
     res = time_versions(torch, kernel, plain, library, copies, 20)
-    nbytes, flops = flash_work(case, dtype.itemsize)
+    flops, nbytes = fa.flash_work(
+        b, hq, hkv, sq, sk, d, causal=causal, window=window,
+        offsets=offs if offs is not None else (sk - sq,) * b,
+        q_bytes=dtype.itemsize, out_bytes=dtype.itemsize)
     route_bound(res, nbytes, flops, 3, bf16)
     route = f" bf16, P in {p_dtype or torch.float32}" if bf16 else ""
     res["work"] = (f"{which}: B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} D={d} "
@@ -1120,8 +1123,8 @@ def time_scan(torch, ref, ssm, dev, which: str, n: int = 16, dtype=None):
     dtype = dtype or torch.float32
     bsz, s, di = SCAN_TIMED[which]
     gen = torch.Generator(device=dev).manual_seed(9)
-    nbytes = (dtype.itemsize * (3 * bsz * s * di + 2 * bsz * s * n)
-              + 4 * (di * n + di + 2 * bsz * di * n))
+    nbytes = ssm.scan_work(bsz, s, di, n, in_bytes=dtype.itemsize,
+                           y_bytes=dtype.itemsize, h0=True)[1]
     copies = int(max(2, -(-L2_COLD_BYTES // nbytes)))
     sets = []
     for _ in range(copies):
@@ -3863,9 +3866,10 @@ def train_phase(torch, cfg, dev):
 FAMILY_ARCH = "hymba-1.5b"
 # (a) card vs CPU: (arch, layers (None: all), batch, text positions); one
 # row each (at two rows the CPU side took 115 s of the phase; the check
-# holds at any row count)
-FAMILY_CHECKS = (("hymba-1.5b", 2, 1, 128), ("falcon-mamba-7b", 1, 1, 128),
-                 ("qwen2-moe-a2.7b", 1, 1, 128), ("whisper-tiny", None, 1, 64))
+# holds at any row count) of 64 positions (128 until phase 18 came: the
+# CPU side of these rows takes most of their time)
+FAMILY_CHECKS = (("hymba-1.5b", 2, 1, 64), ("falcon-mamba-7b", 1, 1, 64),
+                 ("qwen2-moe-a2.7b", 1, 1, 64), ("whisper-tiny", None, 1, 64))
 # (b) hymba-1.5b at full width through Trainer, 8 of its 32 layers (16
 # before (b') came; full depth took ~40 s more than 16 of the time the
 # whole script must finish in; PERF.md sections 6-7)
@@ -6542,6 +6546,265 @@ def dist_train_phase(torch, card: str, layers: int = DIST_TRAIN["layers"]):
     return dict(ranks=ranks, moe_ranks=moe_ranks, wall_s=wall, card=card)
 
 
+# ---------------------------------------------------------------------------
+# 18. the dry-run (ROADMAP A12 (d)): cells counted on meta, timed on the card
+# ---------------------------------------------------------------------------
+
+# (arch, shape, the kernels its measured run launches) of phase 18: the
+# train cell launches none (training runs no Hopper kernel)
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", ()),
+                ("qwen3-0.6b", "prefill_32k",
+                 ("qmatmul_f32", "flash_attention")),
+                ("falcon-mamba-7b", "prefill_32k",
+                 ("qmatmul_f32", "selective_scan")),
+                ("hymba-1.5b", "long_500k", ("qmatmul_f32", "selective_scan")))
+DRYRUN_DIR = ROOT / "build" / "dryrun_results"
+# query rows at each end of a flash call too long for the plain version
+# (qwen3's 2 x 16 heads x 32,768^2 f32 scores would be 137 GB) held
+# against it, the rows' keys all read
+DRYRUN_ROWS = 256
+DRYRUN_KERNELS = ("qmatmul_f32", "qmatmul_f32_grouped", "flash_attention",
+                  "selective_scan")
+
+
+def _signature(torch, v):
+    if isinstance(v, torch.Tensor):
+        return ("tensor", tuple(v.shape), str(v.dtype).removeprefix("torch."))
+    return v
+
+
+@contextlib.contextmanager
+def recording_signatures(torch, ops):
+    """Each distinct call that the model code makes to B1 (plain and
+    grouped), B2 and B7 while the block runs: ((each argument's (shape,
+    dtype), or itself), sorted keywords), by wrapper; the wrapper runs
+    unchanged (``recording``'s stand-ins)."""
+    calls = {name: [] for name in DRYRUN_KERNELS}
+    saved = {attr: getattr(ops, attr) for attr in ("_qmm", "_fa", "_ssm")}
+
+    def wrap(name, fn):
+        def rec(*args, **kw):
+            calls[name].append((
+                tuple(_signature(torch, a) for a in args),
+                tuple(sorted((k, _signature(torch, v))
+                             for k, v in kw.items()))))
+            return fn(*args, **kw)
+        return rec
+
+    for attr, names in (("_qmm", DRYRUN_KERNELS[:2]),
+                        ("_fa", DRYRUN_KERNELS[2:3]),
+                        ("_ssm", DRYRUN_KERNELS[3:])):
+        setattr(ops, attr, _Recorder(saved[attr], {
+            n: wrap(n, getattr(saved[attr], n)) for n in names}))
+    try:
+        yield calls
+    finally:
+        for attr, mod in saved.items():
+            setattr(ops, attr, mod)
+    for name in calls:
+        calls[name] = list(dict.fromkeys(calls[name]))
+
+
+def check_dryrun_calls(torch, ops, ref, qmm, fa, ssm, dev, what, calls):
+    """Each kernel against its plain version at every distinct call of a
+    dry-run cell's measured run, on random inputs of the call's shapes and
+    dtypes: B1 whole (QMM_TOL), B7 whole (y to SCAN_TOL, or SCAN_BF16_TOL
+    for bf16 inputs; h_last to SCAN_TOL), B2's output at the first and
+    last DRYRUN_ROWS query rows, the plain version over those rows and
+    every key (FLASH_TOL, or ``flash_bf16_bound`` at bf16)."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    worst = dict.fromkeys(calls, 0.0)
+
+    def dt(name):
+        return getattr(torch, name)
+
+    def hold(name, got, expect, tol, case):
+        torch.cuda.synchronize()
+        got, expect = got.float(), expect.float()
+        err = (got - expect).abs().max().item() if got.numel() else 0.0
+        worst[name] = max(worst[name], err)
+        ok = (((got - expect).abs() / tol(expect)).max().item() <= 1
+              if callable(tol) else torch.allclose(got, expect, **tol))
+        if not ok:
+            raise AssertionError(f"[dryrun] {what} {name} {case}: max abs "
+                                 f"err {err}")
+
+    for name in ("qmatmul_f32", "qmatmul_f32_grouped"):
+        for args, kw in calls[name]:
+            kw = dict(kw)
+            x_shape, x_dtype = args[0][1:]
+            k, n, bits = x_shape[-1], args[1][1][-2], kw["bits"]
+            if name == "qmatmul_f32":
+                w = torch.randn((n, k), generator=gen, device=dev) * k ** -0.5
+                packed, scale = ops.prep_linear(w, bits)
+                del w
+            else:
+                packed, scale = expert_weights(torch, ops, gen, dev,
+                                               x_shape[0], k, n, bits)
+            x = torch.randn(x_shape, generator=gen, device=dev).to(
+                dt(x_dtype))
+            hold(name, getattr(qmm, name)(x, packed, scale, bits=bits,
+                                          k_orig=k),
+                 getattr(ref, name)(x, packed, scale, bits=bits, k_orig=k),
+                 QMM_TOL, f"x {x_shape} {x_dtype} N={n} bits={bits}")
+            del packed, scale, x
+    for args, kw in calls["flash_attention"]:
+        kw = dict(kw)
+        q, k, v = (torch.randn(a[1], generator=gen, device=dev).to(
+            dt(a[2])) for a in args)
+        bf16 = q.dtype == torch.bfloat16
+        p_round = kw.get("p_dtype") == torch.bfloat16
+        tol = (FLASH_TOL if not bf16 else
+               (lambda e, pr=p_round: flash_bf16_bound(e, pr)))
+        out = fa.flash_attention(q, k, v, **kw)
+        sq, sk = q.shape[2], k.shape[2]
+        off = kw.get("q_offset")
+        off = sk - sq if off is None else int(off)
+        for lo in sorted({0, max(0, sq - DRYRUN_ROWS)}):
+            hi = min(sq, lo + DRYRUN_ROWS)
+            hold("flash_attention", out[:, :, lo:hi],
+                 ref.flash_attention(q[:, :, lo:hi], k, v,
+                                     **dict(kw, q_offset=off + lo)),
+                 tol, f"q {tuple(q.shape)} {q.dtype} rows {lo}-{hi}")
+        del q, k, v, out
+    for args, kw in calls["selective_scan"]:
+        kw = dict(kw)
+        (bsz, s, di), n = args[0][1], args[2][1][1]
+        h0 = len(args) > 6 and args[6] is not None
+        x, dtv, A, B, C, D, h = scan_inputs(torch, gen, dev, bsz, s, di, n,
+                                            h0)
+        x, dtv, B, C = (t.to(dt(a[2])) for t, a in zip(
+            (x, dtv, B, C), (args[0], args[1], args[3], args[4])))
+        y_dtype = kw.get("y_dtype")
+        h_in = None if h is None else h.clone()
+        y, h_last = ssm.selective_scan(
+            x, dtv, A, B, C, D, h_in,
+            h_out=h_in if kw.get("h_out") is not None else None,
+            y_dtype=y_dtype)
+        y_ref, h_ref = ref.selective_scan(x, dtv, A, B, C, D, h,
+                                          y_dtype=y_dtype)
+        case = f"({bsz}, {s}, {di}) N={n} {x.dtype}"
+        hold("selective_scan", y, y_ref,
+             SCAN_BF16_TOL if x.dtype == torch.bfloat16 else SCAN_TOL,
+             case + " y")
+        hold("selective_scan", h_last, h_ref, SCAN_TOL, case + " h_last")
+        del x, dtv, B, C, y, y_ref
+    torch.cuda.empty_cache()
+    return dict(cases={k: len(v) for k, v in calls.items()},
+                max_abs_err={k: v for k, v in worst.items() if calls[k]})
+
+
+def dryrun_phase(torch, m, dev, card: str):
+    """Phase 18: ``repro_torch.launch.dryrun.main`` with ``--measure`` on
+    each DRYRUN_CELLS cell of the single-pod production mesh: the cell
+    counted on ``meta`` as rank 0 of a fake group of 256 ranks, then timed
+    on the card at depth 1 and 2.  Fails unless its kernels launched in
+    that run, each distinct kernel call holds against its plain version,
+    the extrapolated step is at or above the count's roofline bound (its
+    compute and memory terms: the fake group's collectives move nothing)
+    and the extrapolated peak at or above the rank's argument bytes."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun, report
+
+    ops, ref, qmm, fa, ssm = (m[k] for k in ("ops", "ref", "qmm", "fa",
+                                             "ssm"))
+    counters = {"qmatmul_f32": qmm.qmatmul_f32,
+                "qmatmul_f32_grouped": qmm.qmatmul_f32_grouped,
+                "flash_attention": fa.flash_attention,
+                "selective_scan": ssm.selective_scan}
+    cells = {}
+    t_phase = time.perf_counter()
+    try:
+        for arch, shape, kernels in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            by_dtype = {k: dict(f.launches_by_dtype)
+                        for k, f in counters.items()}
+            zero_launches(counters)
+            with recording_signatures(torch, ops) as calls:
+                rc = dryrun.main(["--arch", arch, "--shape", shape,
+                                  "--measure", "--force", "--dir",
+                                  str(DRYRUN_DIR)])
+            launches, _ = read_launches(counters)
+            if rc:
+                raise AssertionError(f"[dryrun] {arch} {shape}: dryrun.main "
+                                     f"exited {rc}")
+            expect_launched(launches, kernels, f"[dryrun] {arch} {shape}")
+            launched_by_dtype = {
+                k: {d: n - by_dtype[k].get(d, 0)
+                    for d, n in f.launches_by_dtype.items()
+                    if n > by_dtype[k].get(d, 0)}
+                for k, f in counters.items()}
+            t_run = time.perf_counter() - t0
+            check = check_dryrun_calls(torch, ops, ref, qmm, fa, ssm, dev,
+                                       f"{arch} {shape}", calls)
+            name = dryrun.cell_name(arch, shape, False, 8)
+            rec = json.loads((DRYRUN_DIR / f"{name}.json").read_text())
+            rf, mem, meas = rec["roofline"], rec["memory"], rec["measured"]
+            bound = max(rf["compute_s"], rf["memory_s"])
+            if rec["measured_step_s"] < bound:
+                raise AssertionError(
+                    f"[dryrun] {name}: measured step "
+                    f"{rec['measured_step_s']:.4e} s below the count's "
+                    f"bound {bound:.4e} s")
+            if mem["peak_memory_in_bytes"] < mem["argument_size_in_bytes"]:
+                raise AssertionError(
+                    f"[dryrun] {name}: peak {mem['peak_memory_in_bytes']} B "
+                    f"below the rank's argument bytes "
+                    f"{mem['argument_size_in_bytes']}")
+            d1, d2 = meas["depths"]["1"], meas["depths"]["2"]
+
+            def spread(d, key):
+                sp = d["spread"][key]
+                return (f"{sp['median']:.4f} [{sp['min']:.4f}-"
+                        f"{sp['max']:.4f}]")
+            print(f"[dryrun] {arch} {shape} as rank 0 of the "
+                  f"{rec['mesh']} production mesh: count "
+                  f"{rec['compile_s']:.2f} s ({rec['aten_ops']} aten ops, "
+                  f"kernels {json.dumps(rec['kernels'])}), FLOPs "
+                  f"{rf['flops_per_chip']:.4e}, bytes "
+                  f"{rf['hbm_bytes_per_chip']:.4e}, collective bytes "
+                  f"{rf['collective_bytes_per_chip']:.4e} "
+                  f"{json.dumps(rec['collectives']['counts'])}; roofline "
+                  f"compute {rf['compute_s']:.4e} s, memory "
+                  f"{rf['memory_s']:.4e} s, collective "
+                  f"{rf['collective_s']:.4e} s ({rf['bound']}); measured at "
+                  f"depth 1 / 2, median [least-most] of "
+                  f"{len(d1['profiled'])} calls each, "
+                  f"{spread(d1, 'step_s')} / {spread(d2, 'step_s')} s "
+                  f"(device busy {spread(d1, 'device_busy_s')} / "
+                  f"{spread(d2, 'device_busy_s')} s over "
+                  f"{[p['events'] for p in d1['profiled']]} / "
+                  f"{[p['events'] for p in d2['profiled']]} device events, "
+                  f"in profiled calls of {spread(d1, 'profiled_step_s')} / "
+                  f"{spread(d2, 'profiled_step_s')} s), a layer "
+                  f"{meas['layer_s']:.4f} s, the step at "
+                  f"{meas['layers']} layers {rec['measured_step_s']:.4f} s "
+                  f"(range {meas['measured_step_range_s'][0]:.4f}-"
+                  f"{meas['measured_step_range_s'][1]:.4f} s) "
+                  f">= the bound {bound:.4e} s ({meas['timed']}); peak "
+                  f"{mem['peak_memory_in_bytes'] / 1e9:.3f} GB >= the "
+                  f"rank's arguments "
+                  f"{mem['argument_size_in_bytes'] / 1e9:.4f} GB, fits "
+                  f"{meas['fits']}; useful FLOPs "
+                  f"{rec['useful_flops_frac']:.4f}; launches "
+                  f"{json.dumps(launched_by_dtype)}; kernels vs plain at "
+                  f"{json.dumps(check['cases'])} distinct calls, max abs "
+                  f"err {json.dumps(check['max_abs_err'])}; "
+                  f"{t_run:.1f} s; {card}")
+            cells[name] = dict(record=rec, launches=launched_by_dtype,
+                               path_check=check, wall_s=t_run)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    recs = {name: c["record"] for name, c in cells.items()}
+    print(report.dryrun_table(recs))
+    print(report.roofline_table(recs))
+    wall = time.perf_counter() - t_phase
+    print(f"[dryrun] phase 18 {wall:.1f} s; {card}")
+    return dict(cells=cells, wall_s=wall, card=card)
+
+
 def phase_clock(phase_s):
     """``mark(name)`` closes the running phase (its wall seconds into
     ``phase_s``) and starts ``name``'s."""
@@ -6897,7 +7160,13 @@ def main() -> int:
     p17 = dist_train_phase(torch, card)
 
     mark("18")
-    # 18. result lines
+    # 18. the dry-run: four cells counted on meta and timed on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    p18 = dryrun_phase(torch, mods, dev, card)
+
+    mark("19")
+    # 19. result lines
     by_path = {name: {arch: s["launches"][name] for arch, s in served.items()
                       if name in s["launches"]}
                for name in counters}
@@ -7077,6 +7346,15 @@ def main() -> int:
         ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         bound_by=t["bound_by"], library_ms=t["library_ms"],
         eager_ms=t["eager_ms"], work=t["work"], bytes_ms=t["bytes_ms"]))
+    # the dry-run cells' launches (phase 18), on the route of x's dtype
+    by_entry = {k["name"]: k for k in kernels}
+    for cell, c in p18["cells"].items():
+        for name, by in c["launches"].items():
+            for dtype, n in by.items():
+                entry = by_entry[name if dtype == "float32"
+                                 else f"{name}[bf16]"]
+                entry["launches"] += n
+                entry["launches_by_path"][f"dryrun {cell}"] = n
     print(f"[phases] wall seconds by phase (host clock): "
           f"{json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     print(json.dumps({"serve": served}))
@@ -7094,6 +7372,13 @@ def main() -> int:
                                if k != "path_check"},
                       "mesh_path_check": p16["path_check"]}))
     print(json.dumps({"dist_train": p17}))
+    print(json.dumps({"dryrun": {k: v for k, v in p18.items()
+                                 if k != "cells"},
+                      "dryrun_cells": {
+                          name: dict(c, record={
+                              k: v for k, v in c["record"].items()
+                              if k not in ("cost", "collectives")})
+                          for name, c in p18["cells"].items()}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,9 @@ to bf16 before PV where the caller asks (``p_dtype=torch.bfloat16``, the
 reference's bf16 ``attn_dtype``), and else keeps it to f32 accuracy as a
 bf16 hi and lo part, as the Pallas kernel keeps p in f32.
 For CPU tensors it computes the plain PyTorch version (``kernels/ref.py``).
+For ``meta`` ones (all three) it gives a ``meta`` output and reports the
+kernel's work, :func:`flash_work`, to the cost counters
+(``kernels/launch.on_meta``).
 ``flash_attention.launches`` counts kernel launches,
 ``flash_attention.launches_by_shape`` the same launches by (Sq, Sk) and
 ``flash_attention.launches_by_dtype`` by q's dtype.
@@ -34,12 +37,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.launch import (count_dtype, forward_only, sm_count,
+from repro_torch.kernels.launch import (count_dtype, count_meta,
+                                        forward_only, on_meta, sm_count,
                                         tile_counters)
 
 # head dims the kernel is instantiated for, each with its keys a kv tile
@@ -148,6 +153,30 @@ def slice_tiles(plan: FlashPlan, lo: int, hi: int, split: int) -> range:
                  min(hi, (split + 1) * plan.split_tiles))
 
 
+def flash_work(b: int, hq: int, hkv: int, sq: int, sk: int, d: int, *,
+               causal: bool, window: Optional[int], offsets: Sequence[int],
+               q_bytes: int, out_bytes: int) -> Tuple[int, int]:
+    """(FLOPs, bytes) that one call needs with these query offsets (one a
+    batch row): 4 D FLOPs a visible (query, key) pair; q read and the
+    output written once, the offsets, and each kv head's keys and values
+    that its batch row's queries can see read once (PERF.md section 6's
+    bound)."""
+    i = np.arange(sq, dtype=np.int64)
+    pairs = 0
+    nbytes = b * hq * sq * d * (q_bytes + out_bytes) + b * 4
+    for o in offsets:
+        hi = (np.minimum(sk, o + i + 1) if causal
+              else np.full(sq, sk, np.int64))
+        lo = (np.maximum(0, o + i - window + 1) if window
+              else np.zeros(sq, np.int64))
+        seen = hi > lo
+        if seen.any():
+            pairs += hq * int((hi - lo)[seen].sum())
+            nbytes += 2 * hkv * int(hi[seen].max() - lo[seen].min()) * d \
+                * q_bytes
+    return 4 * d * pairs, nbytes
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = build.library("flash_attention").flash_attention_launch
@@ -193,7 +222,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    window=window, q_offset=q_offset,
                                    out_dtype=out_dtype, p_dtype=p_dtype)
     forward_only("flash_attention", q, k, v)
-    if devices != {"cuda"} or len({q.device, k.device, v.device}) != 1:
+    meta = on_meta("flash_attention", q, k, v)
+    if not meta and (devices != {"cuda"}
+                     or len({q.device, k.device, v.device}) != 1):
         raise ValueError("flash_attention needs q, k and v on one CUDA "
                          f"device (or all on the CPU), got {q.device}, "
                          f"{k.device}, {v.device}")
@@ -221,6 +252,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window must be >= 1, got {window}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention needs contiguous q, k and v")
+    if meta:
+        if isinstance(q_offset, torch.Tensor):
+            raise ValueError("flash_attention on meta counts the keys each "
+                             "query sees: q_offset must be an int or None")
+        off = sk - sq if q_offset is None else int(q_offset)
+        count_meta("flash_attention", *flash_work(
+            b, hq, hkv, sq, sk, d, causal=causal, window=window,
+            offsets=[off] * b, q_bytes=q.element_size(),
+            out_bytes=out_dtype.itemsize))
+        return torch.empty_like(q, dtype=out_dtype)
     if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
         raise ValueError("flash_attention copies q, k and v in 16 B chunks: "
                          "their storage must be 16-byte aligned")

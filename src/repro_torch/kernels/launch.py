@@ -1,16 +1,49 @@
 """What several kernel wrappers share: the card's SM count, which the
 launch plans read; the zeroed counters of the kernels whose last block of a
 tile adds the split slices (the f32 decode loop, ``qmatmul_int8`` and
-``flash_attention``); and ``forward_only``, the check every wrapper makes
-before it launches.  Nothing here touches a card when the module is
-imported.
+``flash_attention``); ``forward_only``, the check every wrapper makes
+before it launches; and the ``meta`` route of the serve kernels (B1, B2,
+B7): ``on_meta`` tells a wrapper that its inputs hold shapes only, and
+``count_meta`` hands the kernel's work to the active cost counters
+(``launch/hlo_analysis.CostCounter``).  Nothing here touches a card when
+the module is imported.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Any, List
 
 import torch
+
+# the cost counters a kernel's meta route reports to, innermost last
+# (``launch/hlo_analysis.CostCounter`` adds itself while it counts)
+META_COUNTERS: List[Any] = []
+
+
+def on_meta(name: str, *tensors: torch.Tensor) -> bool:
+    """Whether ``name``'s inputs lie on ``meta``: every one of them (the
+    wrapper then gives ``meta`` outputs of the kernel's shapes and dtypes
+    and reports its work through :func:`count_meta`), or none.  A ``meta``
+    tensor beside one on another device raises: it holds no data, so no
+    card or CPU input may take this route."""
+    devices = [t.device for t in tensors if t is not None]
+    types = {d.type for d in devices}
+    if "meta" not in types:
+        return False
+    if types != {"meta"}:
+        raise ValueError(f"{name} needs its inputs on one CUDA device, all "
+                         f"on the CPU or all on meta, got "
+                         f"{[str(d) for d in devices]}")
+    return True
+
+
+def count_meta(name: str, flops: float, nbytes: float) -> None:
+    """One call of kernel ``name`` on ``meta`` inputs: its ``flops`` and
+    the bytes it moves (each input read once, each output written once)
+    to every active cost counter."""
+    for counter in META_COUNTERS:
+        counter.kernel(name, flops, nbytes)
 
 
 def forward_only(name: str, *tensors: torch.Tensor) -> None:

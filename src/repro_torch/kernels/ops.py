@@ -8,7 +8,13 @@ there, since the reference models call the jnp scan directly).
 The reference picks a path by ``mode`` (pallas | interpret | xla).  The port
 has one rule instead, applied by each kernel wrapper: a CUDA tensor launches
 the Hopper kernel or raises, a CPU tensor takes the plain PyTorch version.
-Nothing falls back from one to the other.
+Nothing falls back from one to the other.  The serve kernels an LM reaches
+(``quant_matmul`` and its grouped form, ``attention``, ``selective_scan``)
+also take inputs that all lie on ``meta``, which hold shapes and no data:
+they give ``meta`` outputs of the kernel's shapes and dtypes and report the
+kernel's FLOPs and bytes to the dry-run's cost counter
+(``launch/hlo_analysis.py``).  A ``meta`` input beside a CUDA or CPU one
+raises.
 """
 
 from __future__ import annotations

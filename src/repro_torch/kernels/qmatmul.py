@@ -28,6 +28,9 @@ them (how far to split K, which copy width the rows allow) are made here, by
 built library reports (``tc_geometry``).  Each wrapper launches
 its kernel for CUDA tensors and raises on anything it does not take.  For
 CPU tensors it computes the plain PyTorch version (``kernels/ref.py``).
+``qmatmul_f32`` and ``qmatmul_f32_grouped`` take ``meta`` inputs too (all of
+them): they then give a ``meta`` output and report the kernel's work,
+:func:`qmm_work`, to the cost counters (``kernels/launch.on_meta``).
 Each wrapper's ``launches`` attribute counts its kernel launches, and the
 float wrappers' ``launches_by_dtype`` the same launches by x's dtype.
 """
@@ -36,12 +39,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.launch import (count_dtype, forward_only, sm_count,
+from repro_torch.kernels.launch import (count_dtype, count_meta,
+                                        forward_only, on_meta, sm_count,
                                         tile_counters)
 
 _c_ptr = ctypes.c_void_p
@@ -216,17 +220,28 @@ def _launcher_int8():
     return fn
 
 
+def qmm_work(e: int, m: int, n: int, k: int, kp: int, x_bytes: int
+             ) -> Tuple[int, int]:
+    """(FLOPs, bytes) of B1 for E stacked (M, K) x (N, K) problems: a
+    multiply-add two FLOPs; x, the packed levels and the scales read once,
+    the f32 output written once (PERF.md section 6's bound)."""
+    return 2 * e * m * n * k, e * (m * k * x_bytes + n * kp + n * 4
+                                   + m * n * 4)
+
+
 def _qmm_f32(wrapper, x: torch.Tensor, packed: torch.Tensor,
              scale: torch.Tensor, bits: int, k_orig: int) -> torch.Tensor:
     """Check and launch B1 on the card for E stacked problems: x (E, M, K),
     packed (E, N, Kp), scale (E, N) -> (E, M, N); the 2-D call is E = 1.
     ``wrapper.launches`` counts the launch; an empty problem launches
-    nothing and counts nothing."""
+    nothing and counts nothing.  On ``meta`` inputs it launches nothing and
+    reports :func:`qmm_work` instead."""
     name = wrapper.__name__
     tensors = (x, packed, scale)
     forward_only(name, *tensors)
-    if ({t.device.type for t in tensors} != {"cuda"}
-            or len({t.device for t in tensors}) != 1):
+    meta = on_meta(name, *tensors)
+    if not meta and ({t.device.type for t in tensors} != {"cuda"}
+                     or len({t.device for t in tensors}) != 1):
         raise ValueError(f"{name} needs x, packed and scale on one CUDA "
                          f"device (or all on the CPU), got {x.device}, "
                          f"{packed.device}, {scale.device}")
@@ -249,6 +264,9 @@ def _qmm_f32(wrapper, x: torch.Tensor, packed: torch.Tensor,
     if e > 65535:
         raise ValueError(f"{name} takes at most 65535 experts, got {e}")
     out = torch.empty((e, m, n), dtype=torch.float32, device=x.device)
+    if meta:
+        count_meta(name, *qmm_work(e, m, n, k, kp, x.element_size()))
+        return out
     if e == 0 or m == 0 or n == 0 or k == 0:
         return out.zero_()
     aligned, splits, part, counters = _tc_scratch("qmatmul_f32", x, packed,

@@ -13,7 +13,9 @@ anything it does not take.  x, dt, B and C are float32, or all four
 bfloat16 (the TPU kernel's bf16 contract: the kernel reads them as bf16,
 computes in f32 and writes y in x's dtype); A, D, h0 and h_out are float32.
 For CPU tensors it computes the plain PyTorch version
-(``kernels/ref.py::selective_scan``).  ``selective_scan.launches`` counts
+(``kernels/ref.py::selective_scan``), for ``meta`` ones (all of them) ``meta``
+outputs, reporting the kernel's work, :func:`scan_work`, to the cost
+counters (``kernels/launch.on_meta``).  ``selective_scan.launches`` counts
 kernel launches, ``selective_scan.launches_by_route`` the same launches by
 route and ``selective_scan.launches_by_dtype`` by x's dtype.
 
@@ -33,7 +35,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.launch import count_dtype, forward_only
+from repro_torch.kernels.launch import (count_dtype, count_meta,
+                                        forward_only, on_meta)
 
 # state sizes the kernel is instantiated for
 N_STATES = (4, 8, 16, 32)
@@ -79,6 +82,22 @@ def scan_plan(s: int, n: int, *, lanes: Optional[int] = None,
     return ScanPlan("chunked", lanes, block or min(64, MAX_THREADS // lanes),
                     chunk or (32 if s >= 256 else 16))
 
+
+def scan_work(bsz: int, s: int, di: int, n: int, *, in_bytes: int,
+              y_bytes: int, h0: bool) -> Tuple[int, int]:
+    """(operations, bytes) of one scan: a state step's exponential,
+    ``dt * A``, ``dt x * B`` and the two multiply-adds of ``h`` and
+    ``h * C`` (7), and ``dt * x`` and ``y + D x`` a channel step (3);
+    x, dt, B, C, A, D and h0 read once, y and h_last written once
+    (PERF.md section 6's bound counts the exponentials, one a state
+    step)."""
+    ops = 7 * bsz * s * di * n + 3 * bsz * s * di
+    nbytes = (in_bytes * (2 * bsz * s * di + 2 * bsz * s * n)
+              + y_bytes * bsz * s * di
+              + 4 * (di * n + di + (2 if h0 else 1) * bsz * di * n))
+    return ops, nbytes
+
+
 _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
 
@@ -120,8 +139,9 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                                        y_dtype=y_dtype)
         return y, (h_last if h_out is None else h_out.copy_(h_last))
     forward_only("selective_scan", *tensors)
-    if ({t.device.type for t in tensors} != {"cuda"}
-            or len({t.device for t in tensors}) != 1):
+    meta = on_meta("selective_scan", *tensors)
+    if not meta and ({t.device.type for t in tensors} != {"cuda"}
+                     or len({t.device for t in tensors}) != 1):
         raise ValueError("selective_scan needs every input on one CUDA "
                          "device (or all on the CPU), got "
                          f"{[str(t.device) for t in tensors]}")
@@ -150,6 +170,13 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if not all(t.is_contiguous() for t in [x, dt, A, D] + tensors[6:]):
         raise ValueError("selective_scan needs contiguous x, dt, A, D, h0 "
                          "and h_out")
+    if meta:
+        count_meta("selective_scan", *scan_work(
+            bsz, s, di, n, in_bytes=x.element_size(),
+            y_bytes=y_dtype.itemsize, h0=h0 is not None))
+        return (torch.empty((bsz, s, di), dtype=y_dtype, device="meta"),
+                torch.empty((bsz, di, n), dtype=torch.float32, device="meta")
+                if h_out is None else h_out)
     if h_out is not None and h_out.data_ptr() % 16:
         raise ValueError("selective_scan stores h_out in 16 B pieces: its "
                          "storage must be 16-byte aligned")

@@ -197,8 +197,9 @@ class _LayerSchedule:
                              for _ in range(es[0].leaf.shape[0])]
                        for key, es in self.stacks.items()}
         self.world = dist.get_world_size()
-        self.stats = dict(gather_s=0.0, gather_bytes=0, reduce_s=0.0,
-                          reduce_bytes=0, layer_gathers=0)
+        self.stats = dict(gather_s=0.0, gather_bytes=0, gather_calls=0,
+                          reduce_s=0.0, reduce_bytes=0, reduce_calls=0,
+                          layer_gathers=0)
         self.over_model: set = set()
         self.alive = self.alive_max = 0
 
@@ -215,18 +216,20 @@ class _LayerSchedule:
         split = [(e, x) for e, x in pairs if e.split is not None]
         whole = [(e, x) for e, x in pairs if e.split is None and e.sharded]
         if split:
-            blocks, nbytes = D.gather_over([x for _, x in split],
-                                           [e.places for e, _ in split],
-                                           self.dmesh, self.dp_dims)
+            blocks, nbytes, calls = D.gather_over(
+                [x for _, x in split], [e.places for e, _ in split],
+                self.dmesh, self.dp_dims)
             got.update({e.j: b for (e, x), b in zip(split, blocks)
                         if b is not x})
             self.stats["gather_bytes"] += nbytes
+            self.stats["gather_calls"] += calls
         if whole:
             wholes = D.gather_blocks([x for _, x in whole],
                                      [e.shape for e, _ in whole],
                                      [e.places for e, _ in whole],
                                      self.dmesh)
             got.update({e.j: w for (e, _), w in zip(whole, wholes)})
+            self.stats["gather_calls"] += 1
             self.stats["gather_bytes"] += (self.world - 1) * sum(
                 x.numel() * x.element_size() for _, x in whole)
             self.over_model.update(e.name for e, _ in whole
@@ -269,6 +272,7 @@ class _LayerSchedule:
             for g in self.groups:
                 D.all_reduce(flat, group=g)
             self.stats["reduce_bytes"] += flat.numel() * flat.element_size()
+            self.stats["reduce_calls"] += len(self.groups)
         return [p.view(g.shape) for p, g in zip(
             torch.split(flat, [g.numel() for g in grads]), grads)]
 
@@ -339,14 +343,15 @@ def make_distributed_train_step(cfg: ModelConfig, optimizer: Optimizer,
     rows over the dp groups and routes the whole batch's tokens
     (``moe_apply``'s ``engine["dp_rows"]``), and the dp ranks of a model
     row then split its experts' slots again.  ``metrics["comm"]`` holds
-    the weight gathers (``gather_bytes`` / ``gather_s``,
-    ``layer_gathers``: over the dp axes, and over the world for the leaves
-    gathered whole), the dp gradient reduces (``reduce_bytes`` /
-    ``reduce_s``), the model-axis activation collectives and the rank's
-    share of the compute (``ModelAxis.stats``: ``act_*``, ``linears_*``,
-    ``layer_macs*``, ``expert_slots*``, ``logits``), the leaves gathered
-    whole over "model" (``over_model``), and the most layers whose
-    gathered leaves were alive at once (``layers_alive_max``)."""
+    the weight gathers (``gather_bytes`` / ``gather_s`` /
+    ``gather_calls``, ``layer_gathers``: over the dp axes, and over the
+    world for the leaves gathered whole), the dp gradient reduces
+    (``reduce_bytes`` / ``reduce_s`` / ``reduce_calls``), the model-axis
+    activation collectives and the rank's share of the compute
+    (``ModelAxis.stats``: ``act_*``, ``linears_*``, ``layer_macs*``,
+    ``expert_slots*``, ``logits``), the leaves gathered whole over "model"
+    (``over_model``), and the most layers whose gathered leaves were alive
+    at once (``layers_alive_max``)."""
     loss_fn = steps._loss_fn(cfg)       # refuse an unknown family now
     engine = dict(engine or {})
     engine.setdefault("dp_axes", shd.dp_axes(mesh))

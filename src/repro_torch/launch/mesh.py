@@ -24,8 +24,22 @@ and ``shape``, whichever the positions are.
 Unlike the reference's ``make_test_mesh``, which clamps the shape to
 ``jax.device_count()``, the port never clamps: the shape asked for is the
 shape built, whatever number of cards is present (ROADMAP C, the
-differences kept on purpose).  Ranks on several cards under NCCL, and a
-production mesh, are not here (ROADMAP A11 (b) item 6, A12 (d)).
+differences kept on purpose).  Ranks on several cards under NCCL are not
+here (ROADMAP A11 (b) item 6).
+
+``make_production_mesh`` gives the reference's production meshes, (16, 16)
+("data", "model") or (2, 16, 16) ("pod", "data", "model"), as rank 0 of a
+process group of 256 or 512 ranks (``fake_rank_mesh``, any shape) of
+PyTorch's ``"fake"`` backend
+(``torch.testing._internal.distributed.fake_pg``, a private module): a
+process group object of any size that runs in this one process, whose
+collectives return at once and move nothing.  The dry-run
+(``launch/dryrun.py``) needs the rank's program and nothing else: the
+``DeviceMesh`` and its subgroups, DTensor placement and every collective
+call of the train step run unchanged, and the step counts its own traffic
+(``metrics["comm"]``).  A counting transport inside
+``parallel/distributed``'s wrappers would not reach the collectives that
+``DeviceMesh`` and DTensor make themselves.
 """
 
 from __future__ import annotations
@@ -127,8 +141,10 @@ def make_rank_mesh(shape: Sequence[int], axes: Sequence[str],
     """A mesh of ``shape`` over the ranks of the initialised default
     process group, which must hold ``prod(shape)`` of them: rank ``i`` sits
     at row-major position ``i``, every rank on ``device`` (default
-    ``cuda``; raises without a card).  Every rank calls it, with the same
-    arguments, as it builds the process group of each axis."""
+    ``cuda``; raises without a card).  Ranks on ``meta`` (a fake group's,
+    shapes only) keep their torch ``DeviceMesh`` on the CPU: DTensor
+    takes no ``meta`` mesh.  Every rank calls it, with the same arguments,
+    as it builds the process group of each axis."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -143,8 +159,56 @@ def make_rank_mesh(shape: Sequence[int], axes: Sequence[str],
         raise ValueError(f"a {shape} mesh needs {math.prod(shape)} ranks; "
                          f"the process group has {dist.get_world_size()}")
     dev = resolve_device(device)
-    dmesh = init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+    dmesh = init_device_mesh("cpu" if dev.type == "meta" else dev.type,
+                             shape, mesh_dim_names=axes)
     grid = np.empty(math.prod(shape), dtype=object)
     for i in range(grid.size):
         grid[i] = Rank(i, dev)
     return Mesh(grid.reshape(shape), axes, device_mesh=dmesh)
+
+
+# PyTorch's in-process process-group backend whose collectives move nothing
+FAKE_BACKEND = "fake"
+
+
+def fake_process_group(world: int) -> None:
+    """Make the default process group one of ``world`` ranks of the
+    ``"fake"`` backend, this process rank 0: kept if it is one already, a
+    fake group of another size replaced.  A real group raises."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        if dist.get_backend() != FAKE_BACKEND:
+            raise RuntimeError(
+                f"a {dist.get_backend()!r} process group is up; the "
+                "production mesh runs on a fake one in its own process")
+        if dist.get_world_size() == world:
+            return
+        dist.destroy_process_group()
+    # registers the "fake" backend with torch.distributed
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group(FAKE_BACKEND, store=FakeStore(), rank=0,
+                            world_size=world)
+
+
+def fake_rank_mesh(shape: Sequence[int], axes: Sequence[str],
+                   device: DeviceLike = None) -> Mesh:
+    """A rank mesh of ``shape`` over a fake process group of its size
+    (:func:`fake_process_group`), this process rank 0.  On
+    ``device="meta"`` the positions lie on ``meta`` and the torch
+    ``DeviceMesh`` on the CPU (:func:`make_rank_mesh`); otherwise both on
+    ``device`` (default ``cuda``; raises without a card).  The collectives
+    of a program on it return at once and move nothing: gathered buffers
+    hold no data."""
+    fake_process_group(math.prod(int(s) for s in shape))
+    return make_rank_mesh(shape, axes, device)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: DeviceLike = None) -> Mesh:
+    """The reference's production mesh, 16x16 = one pod of 256 ranks
+    ("data", "model"); ``multi_pod`` adds a 2-pod axis, 512 ranks ("pod",
+    "data", "model"): a :func:`fake_rank_mesh` (``device`` as there)."""
+    if multi_pod:
+        return fake_rank_mesh((2, 16, 16), ("pod", "data", "model"), device)
+    return fake_rank_mesh((16, 16), ("data", "model"), device)

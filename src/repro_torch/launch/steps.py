@@ -14,27 +14,44 @@ They run under ``torch.no_grad``.
 (``:52-60, 143-157``) give a config's parameter, packed-store and cache
 trees as ``meta`` tensors, PyTorch's counterpart of ``jax.eval_shape``:
 every shape of a full-width config (arctic-480b's ~484 B parameters
-among them) without allocating it, for the sharding rules.  The other
-spec functions (``*_input_specs``, ``build_cell``) serve the XLA dry-run
-tooling (ROADMAP A12 (d)) and are not ported.
+among them) without allocating it, for the sharding rules.
+
+The dry-run's cells (``:25-30, 79-97, 167-250``; ``launch/dryrun.py``):
+``train_batch_specs``, ``train_input_specs`` and ``serve_input_specs``
+give each cell's inputs as trees of ``sharding.ShapeSpec`` (a ``meta``
+tensor with its spec, the reference's ``ShapeDtypeStruct`` with a
+``NamedSharding``), and ``cell_specs`` the cell's trees at the
+reference's bf16 ``dtype``.  ``build_cell`` returns ``(fn, args, {})``,
+the one-rank program of a cell: a train cell is
+``dist_steps.make_distributed_train_step`` on the mesh with the params
+and optimizer state ``shard_tree`` 'd and the whole batch, as rank 0 runs
+it; a serve cell is the one-device prefill or decode step on the rank's
+dp rows (``rank_rows``) with the whole packed weights, since the port has
+no model-split serve.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core import packing
+from repro_torch.configs.shapes import ShapeCell
 from repro_torch.core import tree as T
 from repro_torch.core.placement import PlacementPlan
 from repro_torch.models import encdec
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
-from repro_torch.optim import Optimizer, clip_by_global_norm
+from repro_torch.optim import (Optimizer, clip_by_global_norm,
+                               pick_optimizer)
 from repro_torch.parallel import sharding
 
 
+# the reference's engine dict of a serve cell, kept by name: nothing reads
+# it (a serve cell takes ``PlacementPlan.uniform(bits=serve_bits)``, and
+# ``placement.as_plan`` of this dict is DEFAULT_SERVE_PLAN)
+DEFAULT_SERVE_ENGINE = dict(scenario="l1mram", mode="xla", bits=8)
 # the serve steps' placement when the caller gives none (the reference's
 # DEFAULT_SERVE_PLAN)
 DEFAULT_SERVE_PLAN = PlacementPlan.uniform()
@@ -148,20 +165,9 @@ def serve_param_specs(cfg: ModelConfig, bits: int = 8,
                       plan: Optional[PlacementPlan] = None) -> Any:
     """The packed At-MRAM store as ``meta`` tensors: each packable leaf a
     {"packed" uint8, "scale" f32} dict, as ``freeze_for_serving`` gives
-    it; ``plan`` sets the bits per parameter path."""
-    def walk(tree: Any, keys: Tuple[str, ...]) -> Any:
-        if isinstance(tree, dict):
-            return {k: walk(v, keys + (str(k),)) for k, v in tree.items()}
-        if not sharding.packable(keys[-1], tree):
-            return tree
-        b = plan.bits_for("/".join(keys)) if plan is not None else bits
-        lead, k = tuple(tree.shape[:-1]), int(tree.shape[-1])
-        return dict(
-            packed=torch.empty(lead + (packing.packed_last_dim(k, b),),
-                               dtype=torch.uint8, device="meta"),
-            scale=torch.empty(lead, dtype=torch.float32, device="meta"))
-
-    return walk(param_specs(cfg), ())
+    it; ``plan`` sets the bits per parameter path
+    (``sharding.serve_spec_like``)."""
+    return sharding.serve_spec_like(param_specs(cfg), bits, plan)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Any:
@@ -171,3 +177,160 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Any:
     init = (encdec.init_serve_cache if cfg.family == "encdec"
             else tfm.init_serve_cache)
     return init(cfg, batch, max_len, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# the dry-run's cells
+# ---------------------------------------------------------------------------
+
+def train_batch_specs(cfg: ModelConfig, cell: ShapeCell, mesh: Any
+                      ) -> Dict[str, sharding.ShapeSpec]:
+    """The global batch of a train cell, rows over the dp axes."""
+    b, s = cell.global_batch, cell.seq_len
+    rows, rows3 = (sharding.batch_pspec(b, mesh, extra_dims=n)
+                   for n in (1, 2))
+    batch: Dict[str, Any] = {}
+    if cfg.family == "encdec":
+        batch["frames"] = sharding.sds(
+            (b, cfg.n_audio_frames, cfg.d_model), tfm._dtype(cfg), rows3)
+    elif cfg.family == "vlm":
+        batch["patches"] = sharding.sds((b, cfg.n_patches, cfg.d_model),
+                                        tfm._dtype(cfg), rows3)
+        s = s - cfg.n_patches
+    batch["tokens"] = sharding.sds((b, s), torch.int32, rows)
+    batch["labels"] = sharding.sds((b, s), torch.int32, rows)
+    return batch
+
+
+def cell_optimizer(params: Any, mesh: Any) -> Optimizer:
+    """The reference's choice for a train cell on ``mesh``: AdamW where
+    its state fits a chip's budget, else Adafactor (``pick_optimizer``).
+    ``params``' leaves need only a ``shape``."""
+    return pick_optimizer(sum(math.prod(leaf.shape)
+                              for leaf in T.leaves(params)),
+                          n_chips=mesh.devices.size)
+
+
+def train_input_specs(cfg: ModelConfig, cell: ShapeCell, mesh: Any
+                      ) -> Dict[str, Any]:
+    """A train cell's inputs: ``params``, ``opt_state`` (of
+    :func:`cell_optimizer`) and ``batch``, trees of ``ShapeSpec``."""
+    params = param_specs(cfg)
+    opt_state = cell_optimizer(params, mesh).init(params)
+    return dict(
+        params=sharding.with_shardings(
+            params, sharding.param_shardings(params, mesh)),
+        opt_state=sharding.with_shardings(
+            opt_state, sharding.opt_state_shardings(opt_state, mesh,
+                                                    params)),
+        batch=train_batch_specs(cfg, cell, mesh))
+
+
+def serve_input_specs(cfg: ModelConfig, cell: ShapeCell, mesh: Any,
+                      bits: int = 8, plan: Optional[PlacementPlan] = None
+                      ) -> Dict[str, Any]:
+    """Specs for prefill / decode cells: params (packed), inputs, cache,
+    trees of ``ShapeSpec``."""
+    b, s = cell.global_batch, cell.seq_len
+    dt = tfm._dtype(cfg)
+    rows, rows3 = (sharding.batch_pspec(b, mesh, extra_dims=n)
+                   for n in (1, 2))
+    pspecs = serve_param_specs(cfg, bits, plan=plan)
+    cspecs = cache_specs(cfg, b, s)
+    out: Dict[str, Any] = dict(
+        params=sharding.with_shardings(
+            pspecs, sharding.param_shardings(pspecs, mesh)),
+        cache=sharding.with_shardings(
+            cspecs, sharding.cache_shardings(cspecs, mesh, b)))
+    if cell.kind == "prefill":
+        out["tokens"] = sharding.sds((b, prompt_len(cfg, s)), torch.int32,
+                                     rows)
+        if cfg.family == "encdec":
+            out["frames"] = sharding.sds(
+                (b, cfg.n_audio_frames, cfg.d_model), dt, rows3)
+        if cfg.family == "vlm":
+            out["patches"] = sharding.sds((b, cfg.n_patches, cfg.d_model),
+                                          dt, rows3)
+    else:  # decode: one token against a seq_len-deep cache
+        out["tokens"] = sharding.sds((b, 1), torch.int32, rows)
+        out["pos"] = sharding.sds((), torch.int32, sharding.P())
+    return out
+
+
+def prompt_len(cfg: ModelConfig, seq_len: int) -> int:
+    """A prefill cell's tokens: the sequence less the VLM's patches and
+    hymba's meta tokens, which the step prepends."""
+    return (seq_len - (cfg.n_patches if cfg.family == "vlm" else 0)
+            - cfg.n_meta_tokens)
+
+
+def cell_specs(cfg: ModelConfig, cell: ShapeCell, mesh: Any,
+               serve_bits: int = 8) -> Dict[str, Any]:
+    """The trees of :func:`build_cell`'s inputs, at the reference's bf16
+    ``dtype``: what a rank holds of them is ``sharding.rank_bytes``."""
+    cfg = cfg.replace(dtype="bfloat16")
+    if cell.kind == "train":
+        return train_input_specs(cfg, cell, mesh)
+    return serve_input_specs(cfg, cell, mesh, bits=serve_bits)
+
+
+def rank_rows(batch: int, mesh: Any) -> int:
+    """The rows of a ``batch`` one rank serves: its block over the dp axes
+    where they divide the batch, else every row (``batch_pspec``)."""
+    if sharding.batch_pspec(batch, mesh)[0] is None:
+        return batch
+    return batch // sharding.dp_size(mesh)
+
+
+def build_cell(cfg: ModelConfig, cell: ShapeCell, mesh: Any,
+               serve_bits: int = 8
+               ) -> Tuple[Callable, Tuple, Dict[str, Any]]:
+    """Returns (fn, args, {}): the program that rank 0 of ``mesh`` (ranks
+    on ``meta``, ``launch/mesh.make_production_mesh(device="meta")``) runs
+    for the cell, and its ``meta`` arguments.
+
+    A train cell is ``dist_steps.make_distributed_train_step`` with the
+    reference's optimizer (:func:`cell_optimizer`), its args the params
+    and optimizer state placed by their specs (``distributed.shard_tree``)
+    and the whole batch.  A serve cell is the one-device prefill or decode
+    step on the rank's :func:`rank_rows` with the whole packed weights
+    (the port splits no serve step over ranks) at ``serve_bits`` for every
+    leaf; a decode step reads the cache's last row, ``seq_len - 1``."""
+    cfg = cfg.replace(dtype="bfloat16")
+    if cell.kind == "train":
+        from repro_torch.launch import dist_steps
+        from repro_torch.parallel import distributed
+        specs = train_input_specs(cfg, cell, mesh)
+
+        def placed(tree):
+            return distributed.shard_tree(T.tree_map(lambda x: x.value, tree),
+                                          T.tree_map(lambda x: x.spec, tree),
+                                          mesh)
+
+        opt = cell_optimizer(specs["params"], mesh)
+        fn = dist_steps.make_distributed_train_step(cfg, opt, mesh)
+        batch = {k: v.value for k, v in specs["batch"].items()}
+        return fn, (placed(specs["params"]), placed(specs["opt_state"]),
+                    batch), {}
+
+    plan = PlacementPlan.uniform(bits=serve_bits)
+    rows, s = rank_rows(cell.global_batch, mesh), cell.seq_len
+    params = serve_param_specs(cfg, serve_bits, plan=plan)
+    cache = cache_specs(cfg, rows, s)
+
+    def meta(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if cell.kind == "decode":
+        fn = make_decode_step(cfg, engine=plan)
+        return fn, (params, meta(rows, 1), cache, s - 1), {}
+    fn = make_prefill_step(cfg, engine=plan)
+    tokens = meta(rows, prompt_len(cfg, s))
+    dt = tfm._dtype(cfg)
+    if cfg.family == "encdec":
+        frames = meta(rows, cfg.n_audio_frames, cfg.d_model, dtype=dt)
+        return fn, (params, frames, tokens, cache), {}
+    if cfg.family == "vlm":
+        patches = meta(rows, cfg.n_patches, cfg.d_model, dtype=dt)
+        return fn, (params, patches, tokens, cache), {}
+    return fn, (params, tokens, cache), {}

@@ -52,6 +52,7 @@ import time
 import traceback
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
@@ -236,21 +237,7 @@ class NamedSharding:
 def named_shardings(spec_tree: Any, tree_like: Any, mesh: Any) -> Any:
     """``tree_like``'s structure with each leaf's spec on ``mesh``."""
     return T.unflatten(tree_like, [NamedSharding(mesh, s) for s in
-                                   spec_leaves(tree_like, spec_tree)])
-
-
-def spec_leaves(tree_like: Any, spec_tree: Any) -> List[shd.PartitionSpec]:
-    """The specs of ``spec_tree`` in ``tree_like``'s leaf order (a spec is
-    a tuple, which ``core/tree`` would walk into)."""
-    if tree_like is None:
-        return []
-    if isinstance(tree_like, dict):
-        return [s for k in sorted(tree_like)
-                for s in spec_leaves(tree_like[k], spec_tree[k])]
-    if isinstance(tree_like, (list, tuple)):
-        return [s for v, sv in zip(tree_like, spec_tree)
-                for s in spec_leaves(v, sv)]
-    return [spec_tree]
+                                   shd.spec_leaves(tree_like, spec_tree)])
 
 
 def placements(spec: Sequence[Any], mesh: Any) -> Tuple[Any, ...]:
@@ -336,7 +323,7 @@ def shard_tree(tree: Any, spec_tree: Any, mesh: Any) -> Any:
     """``jax.device_put(tree, shardings)``: every leaf a DTensor of its
     spec's block."""
     return T.unflatten(tree, [shard(leaf, spec, mesh) for leaf, spec in zip(
-        T.leaves(tree), spec_leaves(tree, spec_tree))])
+        T.leaves(tree), shd.spec_leaves(tree, spec_tree))])
 
 
 def gather(leaf: Any) -> torch.Tensor:
@@ -354,39 +341,44 @@ def gather_blocks(local: Sequence[torch.Tensor], shapes: Sequence[Any],
     rank holds as ``local`` (contiguous, any dtypes), through ONE
     all-gather over the world of every rank's blocks laid end to end as
     bytes: each rank receives what a gather leaf by leaf would, in one
-    call.  ``dmesh`` spans the world."""
+    call.  ``dmesh`` spans the world.  Each distinct block is copied into
+    its whole once, from the rank at coordinate 0 of every mesh dim that
+    replicates it."""
     raw = [x.contiguous().reshape(-1).view(torch.uint8) for x in local]
     parts = all_gather(torch.cat(raw))
     wholes = [torch.empty(tuple(s), dtype=x.dtype, device=x.device)
               for s, x in zip(shapes, local)]
-    ranks = dmesh.mesh
+    coords = {int(r): c for c, r in np.ndenumerate(dmesh.mesh.numpy())}
     for r, part in enumerate(parts):
-        coord = [int(c) for c in (ranks == r).nonzero()[0]]
+        coord = coords[r]
         off = 0
         for x, b, p, whole in zip(local, raw, places, wholes):
-            block = part[off:off + b.numel()].view(x.dtype).view(x.shape)
-            whole[_index(whole.shape, dmesh, p, coord)] = block
+            if not any(c and not isinstance(q, Shard)
+                       for c, q in zip(coord, p)):
+                block = part[off:off + b.numel()].view(x.dtype).view(x.shape)
+                whole[_index(whole.shape, dmesh, p, coord)] = block
             off += b.numel()
     return wholes
 
 
 def gather_over(local: Sequence[torch.Tensor],
                 places: Sequence[Sequence[Any]], dmesh, dims: Sequence[int]
-                ) -> Tuple[List[torch.Tensor], int]:
+                ) -> Tuple[List[torch.Tensor], int, int]:
     """This rank's blocks ``local`` (under ``places``) gathered over the
     mesh dims ``dims`` only, the blocks of the other mesh dims kept: one
     all-gather a dim, of every block that dim shards laid end to end as
     bytes, the innermost dim first (:func:`whole_of`'s order).  A block no
-    dim of ``dims`` shards comes back as it is.  Returns the blocks and the
-    bytes this rank received."""
+    dim of ``dims`` shards comes back as it is.  Returns the blocks, the
+    bytes this rank received and the all-gathers it made."""
     out = list(local)
-    received = 0
+    received = calls = 0
     for i in sorted(dims, reverse=True):
         idx = [j for j, p in enumerate(places) if isinstance(p[i], Shard)]
         if not idx or dmesh.size(i) == 1:
             continue
         raw = [out[j].contiguous().reshape(-1).view(torch.uint8) for j in idx]
         parts = all_gather(torch.cat(raw), dmesh.get_group(i))
+        calls += 1
         off = 0
         for j, b in zip(idx, raw):
             x = out[j]
@@ -395,7 +387,7 @@ def gather_over(local: Sequence[torch.Tensor],
                                dim=places[j][i].dim)
             off += b.numel()
         received += (dmesh.size(i) - 1) * sum(b.numel() for b in raw)
-    return out, received
+    return out, received, calls
 
 
 def _gather_many(leaves: List[DTensor]) -> List[torch.Tensor]:
@@ -438,7 +430,7 @@ def spec_bytes(tree: Any, spec_tree: Any, mesh: Any) -> int:
     """What a rank should hold of ``tree`` placed by ``spec_tree``: each
     leaf's bytes over its shard count, rounded up."""
     total = 0
-    for leaf, spec in zip(T.leaves(tree), spec_leaves(tree, spec_tree)):
+    for leaf, spec in zip(T.leaves(tree), shd.spec_leaves(tree, spec_tree)):
         n = math.prod(mesh.device_mesh.size(i) for i, p in
                       enumerate(placements(spec, mesh))
                       if isinstance(p, Shard))

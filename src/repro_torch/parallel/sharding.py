@@ -18,9 +18,12 @@ The rules (``:36-228``: ``dp_axes``, ``dp_size``, ``_param_pspec``,
 ``batch_pspec``, ``cache_shardings``) read only a mesh's ``axis_names``
 and ``shape`` (``launch/mesh.Mesh``).  The port has no ``NamedSharding``:
 the tree functions return trees of :class:`PartitionSpec`, entry for
-entry the reference's ``NamedSharding.spec``.  The ``ShapeDtypeStruct``
-helpers (``sds``, ``with_shardings``, ``serve_spec_like``) are not
-ported; ``launch/steps.serve_param_specs`` builds the packed specs.
+entry the reference's ``NamedSharding.spec``.  Its counterpart of a
+``ShapeDtypeStruct`` with a sharding (``:231-243``: ``sds``,
+``with_shardings``) is a :class:`ShapeSpec`, a ``meta`` tensor with its
+spec; :func:`shard_shape` and :func:`rank_bytes` give what one rank holds
+of it.  ``serve_spec_like`` (``:273-297``) gives the packed store of a
+parameter tree as ``meta`` tensors (``launch/steps.serve_param_specs``).
 
 ``PACKABLE`` and ``freeze_for_serving`` (with its per-leaf rule,
 ``freeze_leaf``; ``:32-33``, ``:246-270``) freeze a tree for serving.
@@ -28,6 +31,7 @@ ported; ``launch/steps.serve_param_specs`` builds the packed specs.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -56,6 +60,23 @@ class PartitionSpec(tuple):
 
 
 P = PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """``jax.ShapeDtypeStruct`` with a sharding: ``value``, a ``meta``
+    tensor of the leaf's shape and dtype, placed by ``spec`` (a tree walk
+    takes the pair as one leaf)."""
+    value: torch.Tensor
+    spec: PartitionSpec
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self.value.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.value.dtype
 
 
 def _axis_size(mesh: Any, axis: str) -> int:
@@ -232,6 +253,56 @@ def cache_shardings(cache_tree: Any, mesh: Any, batch: int) -> Any:
         for keys, leaf in T.flatten_with_paths(cache_tree)])
 
 
+def spec_leaves(tree_like: Any, spec_tree: Any) -> List[PartitionSpec]:
+    """The specs of ``spec_tree`` in ``tree_like``'s leaf order (a spec is
+    a tuple, which ``core/tree`` would walk into)."""
+    if tree_like is None:
+        return []
+    if isinstance(tree_like, dict):
+        return [s for k in sorted(tree_like)
+                for s in spec_leaves(tree_like[k], spec_tree[k])]
+    if isinstance(tree_like, (list, tuple)):
+        return [s for v, sv in zip(tree_like, spec_tree)
+                for s in spec_leaves(v, sv)]
+    return [spec_tree]
+
+
+def sds(shape: Sequence[int], dtype: torch.dtype, spec: PartitionSpec
+        ) -> ShapeSpec:
+    return ShapeSpec(torch.empty(tuple(shape), dtype=dtype, device="meta"),
+                     spec)
+
+
+def with_shardings(spec_tree: Any, shard_tree: Any) -> Any:
+    """Attach the specs of ``shard_tree`` to the ``meta`` leaves of
+    ``spec_tree``: a tree of :class:`ShapeSpec`."""
+    return T.unflatten(spec_tree, [
+        ShapeSpec(leaf, spec) for leaf, spec in
+        zip(T.leaves(spec_tree), spec_leaves(spec_tree, shard_tree))])
+
+
+def shard_shape(shape: Sequence[int], spec: PartitionSpec, mesh: Any
+                ) -> Tuple[int, ...]:
+    """One rank's block of a ``shape`` leaf placed by ``spec`` (the
+    reference's ``NamedSharding.shard_shape``): each dim over the sizes of
+    the mesh axes its entry names."""
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        if entry is not None:
+            names = entry if isinstance(entry, tuple) else (entry,)
+            out[d] = -(-out[d] // math.prod(_axis_size(mesh, a)
+                                            for a in names))
+    return tuple(out)
+
+
+def rank_bytes(tree: Any, mesh: Any) -> int:
+    """The bytes one rank holds of a tree of :class:`ShapeSpec` (other
+    leaves, such as a Python int, hold none)."""
+    return sum(math.prod(shard_shape(leaf.shape, leaf.spec, mesh))
+               * leaf.dtype.itemsize for leaf in T.leaves(tree)
+               if isinstance(leaf, ShapeSpec))
+
+
 # rows quantized at once: the f32 temporaries of one block stay near 256 MB
 # whatever the leaf (falcon-mamba's stacked in_proj is 17.2 GB of f32)
 FREEZE_BLOCK_ELEMS = 1 << 26
@@ -301,3 +372,23 @@ def freeze_for_serving(params: Any, bits: int = 8, plan: Any = None,
         return freeze_leaf(name, tree, b, dev)
 
     return walk(params, ())
+
+
+def serve_spec_like(params_spec: Any, bits: int = 8, plan: Any = None) -> Any:
+    """The packed store of a parameter tree as ``meta`` tensors, as
+    :func:`freeze_for_serving` would give it: each :func:`packable` leaf a
+    {"packed" uint8, "scale" f32} dict; ``plan`` (PlacementPlan) sets the
+    bits per parameter path."""
+    def walk(tree: Any, keys: Tuple[str, ...]) -> Any:
+        if isinstance(tree, dict):
+            return {k: walk(v, keys + (str(k),)) for k, v in tree.items()}
+        if not packable(keys[-1], tree):
+            return tree
+        b = plan.bits_for("/".join(keys)) if plan is not None else bits
+        lead, k = tuple(tree.shape[:-1]), int(tree.shape[-1])
+        return dict(
+            packed=torch.empty(lead + (packing.packed_last_dim(k, b),),
+                               dtype=torch.uint8, device="meta"),
+            scale=torch.empty(lead, dtype=torch.float32, device="meta"))
+
+    return walk(params_spec, ())

@@ -141,7 +141,7 @@ def test_param_blocks_follow_the_specs(runs, arch, mesh_shape, axes):
     mesh = tmesh.make_test_mesh(mesh_shape, axes, device="cpu")
     specs = steps.param_specs(ARCHS[arch])
     want = [_expected_block(tuple(leaf.shape), s, mesh) for leaf, s in zip(
-        T.leaves(specs), D.spec_leaves(specs, shd.param_shardings(specs,
+        T.leaves(specs), shd.spec_leaves(specs, shd.param_shardings(specs,
                                                                   mesh)))]
     assert any(w != tuple(leaf.shape) for w, leaf in zip(
         want, T.leaves(specs)))

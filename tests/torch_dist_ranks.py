@@ -338,7 +338,7 @@ def _ranks_parallel(archs, g, ws, x, n_micro):
         mesh = tmesh.make_rank_mesh(shape, axes, device="cpu")
         for arch in archs:
             specs = steps.param_specs(tget(arch))
-            places = [D.placements(s, mesh) for s in D.spec_leaves(
+            places = [D.placements(s, mesh) for s in shd.spec_leaves(
                 specs, shd.param_shardings(specs, mesh))]
             out["blocks"][(shape, arch)] = [
                 tuple(D.block_of(leaf, mesh.device_mesh, p).shape)
@@ -377,3 +377,40 @@ def _ranks_parallel(archs, g, ws, x, n_micro):
     out["pipe_dtensor"] = fn(torch.from_numpy(x),
                              D.shard(wt, shd.P("stage"), mesh)).numpy()
     return out
+
+
+# the dry-run's train cell on a (2, 2) mesh (test_torch_dryrun.py): the
+# smoke config of ARCH at the cell's bf16 dtype, 4 rows of 32 tokens
+DRYRUN_CELL = dict(name="t", kind="train", seq_len=32, global_batch=4)
+
+
+def _ranks_dryrun():
+    """One train step of the dry-run's cell (``steps.build_cell``'s program:
+    the cell's optimizer, params and state placed by their specs) on this
+    rank's real tensors of a (2, 2) ``gloo`` mesh: the step's
+    ``metrics["comm"]`` without its host seconds, and its FLOPs under
+    ``FlopCounterMode``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.parallel import sharding as shd
+
+    cfg = tget(ARCH).smoke().replace(dtype="bfloat16")
+    cell = ShapeCell(**DRYRUN_CELL)
+    mesh = tmesh.make_rank_mesh((2, 2), ("data", "model"), device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    params = steps._init_fn(cfg)(cfg, generator=gen, device="cpu")
+    opt = steps.cell_optimizer(params, mesh)
+    state = opt.init(params)
+    sp = D.shard_tree(params, shd.param_shardings(params, mesh), mesh)
+    so = D.shard_tree(state, shd.opt_state_shardings(state, mesh, params),
+                      mesh)
+    batch = {k: torch.randint(0, cfg.vocab_size, v.shape, generator=gen,
+                              dtype=torch.int32)
+             for k, v in steps.train_batch_specs(cfg, cell, mesh).items()}
+    fn = DS.make_distributed_train_step(cfg, opt, mesh)
+    with FlopCounterMode(display=False) as fc:
+        out = fn(sp, so, batch)
+    comm = {k: (list(v) if isinstance(v, tuple) else v)
+            for k, v in out[2]["comm"].items() if not k.endswith("_s")}
+    return comm, fc.get_total_flops()
